@@ -10,11 +10,17 @@ setup(
     name="unionml-tpu",
     version="0.1.0",
     description="TPU-native ML microservice framework: train, serve, and deploy compiled models",
-    packages=find_packages(include=["unionml_tpu", "unionml_tpu.*"]),
+    packages=find_packages(
+        include=["unionml_tpu", "unionml_tpu.*", "unionml_tpu_torch", "unionml_tpu_torch.*"]
+    ),
     include_package_data=True,
     # glob semantics skip dotfiles: the scaffold .gitignore files need their own
-    # explicit pattern or wheels ship templates without them
-    package_data={"unionml_tpu": ["templates/**/*", "templates/*/.gitignore"]},
+    # explicit pattern or wheels ship templates without them. The PyTorch
+    # port's CUDA sources build on first use, so they ship as package data.
+    package_data={
+        "unionml_tpu": ["templates/**/*", "templates/*/.gitignore"],
+        "unionml_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",

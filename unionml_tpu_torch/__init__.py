@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of unionml-tpu's GPT paged decode-serving path.
+
+The JAX package (``unionml_tpu``) stays the reference; this package mirrors its
+module names so each counterpart is easy to find:
+
+- :mod:`unionml_tpu_torch.ops` — attention (flash forward), paged attention,
+  blockwise int8 quantization and token sampling. The two attention ops run
+  hand-written CUDA kernels (``csrc/``) on CUDA tensors and their plain
+  PyTorch versions on CPU tensors.
+- :mod:`unionml_tpu_torch.models.gpt` — the GPT-2-style decoder as
+  ``nn.Module``s with dense and paged KV caches.
+- :mod:`unionml_tpu_torch.serving.continuous` — ``DecodeEngine`` (paged int8
+  KV pool, bucket and chunked prefill) and the asyncio ``ContinuousBatcher``.
+
+Importing the package imports nothing heavy: ``torch`` loads with the
+submodules that need it, and the CUDA kernels build on first launch.
+"""
+
+__all__ = ["ops", "models", "serving"]
