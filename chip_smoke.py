@@ -1,17 +1,24 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, time.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train, time.
 
     python3 chip_smoke.py [--details PATH]
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every kernel in ``unionml_tpu_torch/csrc/`` (one ``nvcc`` each, in
-   parallel) and print the build seconds and the ptxas register report;
+   parallel) and print the build seconds and each kernel's ptxas registers
+   and spills;
 2. K1 (flash forward) against its plain PyTorch version at the engine's
    prefill shapes, causal and with ``kv_lens``, bf16 and f32;
 3. K4 (paged attention) against its plain version: int8 and bf16 pools, S=1
    with B=8, S=32 and S=256 (the chunk) with B=1, table width 65 (max_len
    1024, block 16), ragged bases and scratch tail columns;
-4. the slice end to end: GPT-2 small at full width with seeded random
+4. K2/K3 (flash backward: dQ, and dK/dV) against their plain version, bf16
+   and f32: BERT shapes (B 8 and 64, H 12, S 128, D 64, ragged ``kv_lens``
+   including 1 and 128), ragged S 100 and 77, causal S 256, D 128 at S 77;
+   keys past ``kv_len`` must get exact zeros; and ``torch.autograd.grad``
+   through ``flash_attention`` against the same through
+   ``reference_attention`` (on f32 copies of bf16 inputs);
+5. serving end to end: GPT-2 small at full width with seeded random
    weights, bf16, an int8 paged pool with 8 slots and max_len 1024, serving
    10 concurrent requests through ``ContinuousBatcher`` (prompts 7..400
    tokens across several buckets, one chunked prefill, one top-k/top-p
@@ -20,11 +27,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``impl="reference"``): a split only counts as agreement where the plain
    path's top-2 logit gap at the split is below 1e-2. An f32 run of the same
    comparison must give identical streams;
-5. timings on the card: each kernel at a main-path shape (and one more)
+6. training end to end: BERT-base at full width (vocab 30522, d 768, 12
+   layers, 12 heads) with seeded random weights, bf16, seq 128, batch 64,
+   ``bench.py``'s recipe (lr 2e-5, warmup 10, total 1000), right-padded
+   inputs with lengths 16..128, 20 steps through ``fit`` and one
+   ``make_classifier_eval_step`` call. K1, K2 and K3 must each launch 12
+   times per step; every loss must be finite; the first 3 steps on the plain
+   path (``attention_impl="reference"``, same weights and dropout) must give
+   losses within 1e-2 relative and ``grad_norm`` within 2 %; in f32 at batch
+   8, one step's gradients must agree, kernel vs plain, within 1e-4 of each
+   leaf's largest magnitude;
+7. timings on the card: each kernel at a main-path shape (and one more)
    beside its bound, its plain version and one PyTorch library call, as device
    time from torch.profiler with the CUDA-event time per call beside it;
    engine tokens/s, time to first token, and one decode step's wall time
-   against its kernels' device time.
+   against its kernels' device time; the train step's wall time, device
+   time, idle share, examples/s, tokens/s and achieved TFLOP/s.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -36,6 +54,7 @@ import argparse
 import asyncio
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +66,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # atol (and rtol for bf16); see check_close
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # the same for K2/K3 and whole autograd
 GAP_LIMIT_BF16 = 1e-2
 
 # the served requests: (prompt_len, sampling); max_new_tokens 32 each
@@ -64,18 +84,45 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Max abs error; raises past the dtype's tolerance (f32: atol 2e-5;
-    bf16: atol 2e-2 + rtol 2e-2, a few bf16 ulps, since the plain version
-    rounds the softmax weights to bf16 before the value product)."""
-    tol = TOL[got.dtype]
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tols=TOL, scaled: bool = False) -> float:
+    """Max abs error; raises past the tolerance of ``got``'s dtype (f32: atol
+    2e-5; bf16: atol 2e-2 + rtol 2e-2, a few bf16 ulps, since the plain version
+    rounds the softmax weights to bf16 before the value product). K2/K3
+    (``BWD_TOL``): f32 atol 1e-4, gradients summing up to 256 terms of
+    size ~1; bf16 the same as K1. ``scaled``: the bf16 atol is taken
+    relative to the largest magnitude of ``want`` where that exceeds 1 (see
+    ``check_k2_k3``)."""
+    tol = tols[got.dtype]
     err = (got.float() - want.float()).abs()
-    limit = tol + (tol * want.float().abs() if got.dtype == torch.bfloat16 else 0.0)
+    atol = tol
+    if scaled and got.dtype == torch.bfloat16:
+        atol = tol * max(1.0, float(want.float().abs().max()))
+    limit = atol + (tol * want.float().abs() if got.dtype == torch.bfloat16 else 0.0)
     bad = (err > limit) | ~torch.isfinite(got.float())
     max_err = float(err.max())
     if bool(bad.any()):
-        raise AssertionError(f"{name}: max |err| {max_err:.3e} beyond tolerance {tol}")
+        raise AssertionError(f"{name}: max |err| {max_err:.3e} beyond tolerance atol {atol:.3e} (rtol {tol})")
     return max_err
+
+
+def ptxas_report(log: str):
+    """(kernel, "registers ...; spills ...") per compiled entry function of a
+    ``-Xptxas=-v`` log."""
+    kernel, spills = None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
+            types = re.findall(r"uml\d(F32|BF16)|(I8)E", mangled)
+            dims = re.search(r"Li(\d+)E", mangled)
+            kernel = "{}<{}, D{}>".format(
+                name.group(1) if name else mangled, ", ".join(a or b for a, b in types),
+                dims.group(1) if dims else "?")
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "registers" in line and kernel is not None:
+            yield kernel, f"{line.split(':', 1)[1].strip()}; {spills}"
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -104,10 +151,10 @@ def _kernel_us(prof) -> dict:
     return out
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Per-call device time: the CUDA kernels' own durations (torch.profiler /
-    CUPTI, which also sees kernels launched through ctypes) summed over
-    ``iters`` calls. None when the profiler records no device time."""
+def kernel_ms_by_name(fn, iters: int = 20) -> dict:
+    """Per-call device ms of each kernel ``fn`` launches, by kernel name: the
+    CUDA kernels' own durations (torch.profiler / CUPTI, which also sees
+    kernels launched through ctypes) over ``iters`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -116,8 +163,33 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(_kernel_us(prof).values())
-    return total / 1e3 / iters if total > 0 else None
+    return {name: us / 1e3 / iters for name, us in _kernel_us(prof).items()}
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Per-call device time of all of ``fn``'s kernels; None when the
+    profiler records no device time."""
+    total = sum(kernel_ms_by_name(fn, iters).values())
+    return total if total > 0 else None
+
+
+def step_profile(fn, steps: int, top: int) -> dict:
+    """Where a step's time goes: host wall time per step (``steps`` steps,
+    synchronized) against the device time of its kernels (a CUDA profile of
+    as many steps), and the ``top`` kernels by device time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name = kernel_ms_by_name(fn, steps)
+    dev_ms = sum(by_name.values())
+    return {
+        "wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+        "device_idle_share": 1.0 - dev_ms / wall_ms if wall_ms else None,
+        "top_kernels_ms_per_step": [(name[:80], ms) for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]],
+    }
 
 
 def timed(fn) -> dict:
@@ -216,6 +288,69 @@ def check_k4(device) -> dict:
     return {"max_abs_err": worst}
 
 
+# --------------------------------------------------------------- K2/K3
+
+
+def ragged_lens(B: int, S: int, rng) -> list:
+    """Right-padding lengths in 1..S with both S and 1 present."""
+    lens = rng.integers(1, S + 1, B)
+    lens[0], lens[-1] = S, 1
+    return [int(n) for n in lens]
+
+
+def bwd_inputs(B, H, S, D, dtype, device, lens, seed=0):
+    """q, k, v and d_out (non-contiguous, as the head transpose leaves it)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((B, H, S, D), generator=g).to(device=device, dtype=dtype) for _ in range(3))
+    d_out = torch.randn((B, S, H, D), generator=g).to(device=device, dtype=dtype).transpose(1, 2)
+    kv_lens = torch.tensor(lens, device=device) if lens is not None else None
+    return q, k, v, d_out, kv_lens
+
+
+def check_k2_k3(device) -> dict:
+    """K2/K3 against their plain version on the same out/lse/d_out, then
+    whole autograd against autograd of the plain forward. In bf16 the plain
+    forward runs on f32 copies of the same bf16 inputs, so the check measures
+    the kernel path's whole error: K2/K3 keep f32 to the end and round once,
+    but take delta = rowsum(dO * O) from K1's bf16 output, as the JAX kernels
+    do. Where a short row's 128 queries all attend its one key, dK there is
+    ~0 and sums 128 such delta roundings (measured up to 0.045, with
+    gradients of magnitude 10-40 elsewhere); so the bf16 atol 2e-2 is taken
+    relative to the gradient's largest magnitude (``scaled``)."""
+    from unionml_tpu_torch.ops.attention import (
+        _kv_lens_to_mask, flash_attention, flash_attention_backward, reference_attention,
+        reference_attention_backward,
+    )
+
+    rng = np.random.default_rng(0)
+    cases = [(8, 12, 128, 64, False, ragged_lens(8, 128, rng)), (64, 12, 128, 64, False, ragged_lens(64, 128, rng)),
+             (4, 12, 100, 64, False, [100, 57, 1, 99]), (4, 12, 77, 64, False, [77, 1, 40, 76]),
+             (2, 12, 256, 64, True, None), (2, 4, 77, 128, False, [77, 30]), (2, 4, 77, 128, True, None)]
+    worst = {"kernels": 0.0, "autograd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, S, D, causal, lens in cases:
+            q, k, v, d_out, kv_lens = bwd_inputs(B, H, S, D, dtype, device, lens, seed=B + S)
+            name = f"{dtype} B{B} H{H} S{S} D{D} causal={causal} kv_lens={'ragged' if lens else None}"
+            out, lse = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, return_lse=True)
+            got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal)
+            want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal)
+            for label, a, b in zip(("dq", "dk", "dv"), got, want):
+                worst["kernels"] = max(worst["kernels"], check_close(f"K2/K3 {name} {label}", a, b, BWD_TOL))
+            for row, n in enumerate(lens or []):
+                if bool(got[1][row, :, n:].any()) or bool(got[2][row, :, n:].any()):
+                    raise AssertionError(f"K3 {name}: keys past kv_len {n} of row {row} must get zeros")
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            grads = torch.autograd.grad(flash_attention(*leaves, kv_lens=kv_lens, causal=causal), leaves, d_out)
+            mask = _kv_lens_to_mask(kv_lens, S) if kv_lens is not None else None
+            f32_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+            plain = torch.autograd.grad(reference_attention(*f32_leaves, mask=mask, causal=causal), f32_leaves,
+                                        d_out.float())
+            for label, a, b in zip(("dq", "dk", "dv"), grads, plain):
+                err = check_close(f"autograd {name} {label}", a, b, BWD_TOL, scaled=True)
+                worst["autograd"] = max(worst["autograd"], err)
+    return worst
+
+
 # ---------------------------------------------------------- end to end
 
 
@@ -295,33 +430,14 @@ def compare_streams(kernel_streams, plain_streams, plain_engine, prompt_list, ex
 
 
 def profile_decode(engine, prompt_list, steps: int = 8) -> dict:
-    """Where a decode step's time goes: host wall time per step (synchronized)
-    against the device time of its kernels (CUDA profile of as many steps),
-    with all 8 slots decoding and no prefill in the window."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``step_profile`` of a decode step with all 8 slots decoding and no
+    prefill in the window."""
     short = [p for p in prompt_list if len(p) <= PREFILL_CHUNK][: engine.num_slots]
     engine.admit_many([(p, MAX_NEW) for p in short])
     engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        engine.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
+    result = step_profile(engine.step, steps, top=8)
     engine.abort_all()
-    kernel_us = _kernel_us(prof)
-    device_ms = sum(kernel_us.values()) / 1e3 / steps
-    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "slots": len(short), "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
-        "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
-        "top_kernels_ms_per_step": [(name[:80], us / 1e3 / steps) for name, us in top],
-    }
+    return {"slots": len(short), **result}
 
 
 def end_to_end(device, config=None) -> dict:
@@ -358,6 +474,152 @@ def end_to_end(device, config=None) -> dict:
         }
         del engine, plain_engine
     return result
+
+
+# ------------------------------------------------------------- training
+
+BERT_SIG = ("input_ids", "attention_mask")
+BERT_SEQ, BERT_BATCH, BERT_STEPS = 128, 64, 20
+
+
+def bert_data(config, rows: int, seed: int = 0) -> dict:
+    """Seeded token ids, right padding with lengths 16..128 (both ends
+    present), pad id 0, seeded labels."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, BERT_SEQ + 1, rows)
+    lens[0], lens[1] = BERT_SEQ, 16
+    mask = (np.arange(BERT_SEQ)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.integers(1, config.vocab_size, (rows, BERT_SEQ)).astype(np.int32) * mask
+    labels = rng.integers(0, config.num_labels, rows).astype(np.int32)
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels}
+
+
+def bert_state(config, params, device, impl: str = "auto"):
+    """A fresh train state with ``bench.py``'s recipe (lr 2e-5, warmup 10,
+    total 1000) from the same weights and dropout seed."""
+    from unionml_tpu_torch.models import create_train_state, init_bert
+
+    model = init_bert(dataclasses.replace(config, attention_impl=impl), params=params, device=device)
+    return create_train_state(model, learning_rate=2e-5, warmup_steps=10, total_steps=1000, seed=0)
+
+
+def first_steps(config, params, device, impl: str, batches) -> list:
+    from unionml_tpu_torch.models import make_classifier_train_step
+
+    state, step = bert_state(config, params, device, impl), make_classifier_train_step(input_signature=BERT_SIG)
+    history = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return history
+
+
+def compare_first_steps(kernel: list, plain: list) -> list:
+    """Loss within 1e-2 relative and grad_norm within 2 % at every step."""
+    for i, (a, b) in enumerate(zip(kernel, plain)):
+        if abs(a["loss"] - b["loss"]) > 1e-2 * abs(b["loss"]):
+            raise AssertionError(f"train step {i}: loss {a['loss']} (kernels) vs {b['loss']} (plain)")
+        if abs(a["grad_norm"] - b["grad_norm"]) > 0.02 * abs(b["grad_norm"]):
+            raise AssertionError(f"train step {i}: grad_norm {a['grad_norm']} (kernels) vs {b['grad_norm']} (plain)")
+    return [{"step": i, "kernels": a, "plain": b} for i, (a, b) in enumerate(zip(kernel, plain))]
+
+
+def f32_grads_agree(config, params, device, batch) -> dict:
+    """One f32 step's gradients, kernel path vs plain path (same weights,
+    same dropout masks): each leaf within 1e-4 of its largest magnitude. The
+    attention key biases' true gradient is 0 (softmax is shift-invariant per
+    row), so both hold rounding noise there, held to 1e-4 of the largest
+    gradient of the model instead."""
+    from unionml_tpu_torch.models.training import classifier_grads
+
+    cfg = dataclasses.replace(config, dtype=torch.float32)
+    runs = {}
+    for impl in ("auto", "reference"):
+        state = bert_state(cfg, params, device, impl)
+        grads, loss, _ = classifier_grads(state, batch, BERT_SIG)
+        runs[impl] = (state.names, grads, float(loss))
+        del state
+    names, kernel, _ = runs["auto"]
+    plain = runs["reference"][1]
+    top = max(float(g.abs().max()) for g in plain)
+    worst = 0.0
+    for name, a, b in zip(names, kernel, plain):
+        scale = top if name.endswith("attention.key.bias") else float(b.abs().max())
+        err = float((a - b).abs().max())
+        if err > 1e-4 * scale:
+            raise AssertionError(f"f32 gradient {name}: max |err| {err:.3e} beyond 1e-4 x {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return {"worst_relative_err": worst, "loss": {k: v[2] for k, v in runs.items()}}
+
+
+def profile_train(state, batch, steps: int = 3) -> dict:
+    """``step_profile`` of a train step (the step updates ``state`` in place),
+    and one step's host operators."""
+    from torch.profiler import ProfilerActivity, profile
+    from unionml_tpu_torch.models import make_classifier_train_step
+
+    step = make_classifier_train_step(input_signature=BERT_SIG)
+    step(state, batch)
+    result = step_profile(lambda: step(state, batch), steps, top=10)
+    # where the host's time goes: one step's operators by self CPU time (the
+    # CPU profiler's own cost inflates these; they rank, they do not time)
+    with profile(activities=[ProfilerActivity.CPU]) as host:
+        step(state, batch)
+        torch.cuda.synchronize()
+    events = host.key_averages()
+    host_ops = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events), key=lambda t: -t[1])
+    return {
+        **result,
+        "host_ops_per_step": sum(count for _, _, count in host_ops),
+        "top_host_ops_self_ms": [(name[:60], ms, count) for name, ms, count in host_ops[:10]],
+    }
+
+
+def train_bert(device) -> dict:
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import (
+        BertConfig, bert_flops_per_token, bert_random_params, dict_batches, fit, make_classifier_eval_step,
+    )
+
+    config = BertConfig.base()  # vocab 30522, d 768, 12 layers, 12 heads, 512 positions; bf16
+    params = bert_random_params(config, seed=0)
+    data = bert_data(config, rows=4 * BERT_BATCH)
+    state = bert_state(config, params, device)
+    kernels.reset_launches()
+    result = fit(state, data, batch_size=BERT_BATCH, num_steps=BERT_STEPS, log_every=5,
+                 input_signature=BERT_SIG, seed=0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if device.type == "cuda" and launches[name] != config.num_layers * BERT_STEPS:
+            raise AssertionError(f"training launched {name} {launches[name]} times, expected "
+                                 f"{config.num_layers} per step over {BERT_STEPS} steps")
+    history = result.metrics_history
+    if result.steps != BERT_STEPS or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"training: {result.steps} steps, history {history}")
+    batches = list(dict_batches(data, BERT_BATCH, rng=np.random.default_rng(1), device=device))
+    evaluation = {k: float(v) for k, v in make_classifier_eval_step(BERT_SIG)(state, batches[0]).items()}
+    if not all(np.isfinite(v) for v in evaluation.values()):
+        raise AssertionError(f"eval step: {evaluation}")
+    step_profile = profile_train(state, batches[0])
+    del state
+    torch.cuda.empty_cache()
+
+    agreement = compare_first_steps(first_steps(config, params, device, "auto", batches[:3]),
+                                     first_steps(config, params, device, "reference", batches[:3]))
+    small = {k: v[:8] for k, v in batches[1].items()}
+    grads = f32_grads_agree(config, params, device, small)
+    torch.cuda.empty_cache()
+
+    tokens_per_s = result.examples_per_s * BERT_SEQ
+    tflops = tokens_per_s * bert_flops_per_token(config) / 1e12
+    return {
+        "launches": launches, "steps": result.steps, "history": history, "eval": evaluation,
+        "step_ms": 1e3 / result.steps_per_s, "examples_per_s": result.examples_per_s,
+        "tokens_per_s": tokens_per_s, "achieved_tflops": tflops, "share_of_bf16_peak": tflops * 1e12 / BF16_FLOPS,
+        "step_profile": step_profile, "first_steps_vs_plain": agreement, "f32_grads_vs_plain": grads,
+        "lens": data["attention_mask"][:BERT_BATCH].sum(-1).tolist(),
+    }
 
 
 # -------------------------------------------------------------- timings
@@ -436,6 +698,74 @@ def time_k4(device, S, bases, launches, H=12, D=64, bs=16) -> dict:
     }
 
 
+def time_bert_kernels(device, lens, launches, H=12, D=64) -> list:
+    """K1, K2 and K3 at the BERT fine-tune shape (bf16, B = len(lens), H 12,
+    S 128, D 64, non-causal, the training data's kv_lens). Bounds count the
+    visible (query, key) pairs of these lengths: K1 4*D flops per pair over
+    q, k, v, o and lse; K2 6*D over q, k, v and 2 dO; K3 8*D over 2 q, k, v
+    and 2 dO (the JAX kernels' cost estimates). K2 and K3 are timed from one
+    profile of ``flash_attention_backward`` by kernel name; their plain time
+    is the whole ``reference_attention_backward`` and their library time is
+    SDPA forward + backward with the same key-padding mask."""
+    from unionml_tpu_torch.ops.attention import (
+        _kv_lens_to_mask, flash_attention, flash_attention_backward, reference_attention,
+        reference_attention_backward,
+    )
+
+    B, S = len(lens), BERT_SEQ
+    q, k, v, d_out, kv_lens = bwd_inputs(B, H, S, D, torch.bfloat16, device, lens)
+    d_out = d_out.contiguous()
+    mask = _kv_lens_to_mask(kv_lens, S)
+    visible = H * S * sum(lens)
+    numel, size = q.numel(), q.element_size()
+    shape = f"bf16 B{B} H{H} S{S} D{D} kv_lens {min(lens)}..{max(lens)} (mean {np.mean(lens):.1f})"
+
+    out, lse = flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True)
+    k1_err = check_close("K1 BERT timing inputs", out, reference_attention(q, k, v, mask=mask))
+    bound, by = _bound(4 * numel * size + lse.numel() * 4, 4 * D * visible)
+    k1 = {
+        "name": "flash_fwd", "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "unionml_tpu/ops/attention.py:83", "launches": launches["flash_fwd"], "max_abs_err": k1_err,
+        "bound_ms": bound, "bound_by": by, "shape": shape,
+        **_times(
+            lambda: flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True),
+            lambda: reference_attention(q, k, v, mask=mask),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        ),
+    }
+
+    got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
+    want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
+    errs = [check_close(f"K2/K3 BERT timing inputs d{n}", a, b, BWD_TOL) for n, a, b in zip("qkv", got, want)]
+    by_name = kernel_ms_by_name(lambda: flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens))
+    backward = timed(lambda: flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens))
+    plain = timed(lambda: reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        return torch.autograd.grad(o, leaves, d_out)
+
+    library = timed(sdpa_fwd_bwd)
+    records = []
+    for name, kernel, flops, byts, err in (
+        ("flash_bwd_dq", "flash_bwd_dq_kernel", 6 * D * visible, 5 * numel * size, errs[0]),
+        ("flash_bwd_dkv", "flash_bwd_dkv_kernel", 8 * D * visible, 6 * numel * size, max(errs[1:])),
+    ):
+        bound, by = _bound(byts, flops)
+        records.append({
+            "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "unionml_tpu/ops/attention.py:" + ("353" if name == "flash_bwd_dq" else "421"),
+            "launches": launches[name], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "shape": shape,
+            "ms": sum(ms for n, ms in by_name.items() if kernel in n), "plain_ms": plain["ms"],
+            "library_ms": library["ms"], "method": "profiler device time, by kernel name",
+            "event_ms": {"whole backward": backward["event_ms"], "plain": plain["event_ms"],
+                         "library": library["event_ms"]},
+            "backward_kernels_ms": by_name,
+        })
+    return [k1, *records]
+
+
 def time_kernels(device, e2e: dict):
     """(main-path records for the kernels line, records at further shapes)."""
     launches = e2e[str(torch.bfloat16)]["launches"]
@@ -474,9 +804,8 @@ def main() -> int:
     print(f"build: {times['total']:.1f}s in all; per source (0.0 = already built): "
           f"{ {k: round(v, 1) for k, v in times.items() if k != 'total'} }")
     for name, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        for kernel, report in ptxas_report(log):
+            print(f"ptxas {name}: {kernel}: {report}")
     details["build_s"] = times["total"]
 
     details["k1"] = check_k1(device)
@@ -485,6 +814,11 @@ def main() -> int:
     details["k4"] = check_k4(device)
     print(f"K4 vs plain: ok, max |err| {details['k4']['max_abs_err']:.3e} "
           "(tolerance f32 atol 2e-5; bf16 atol 2e-2 + rtol 2e-2)")
+
+    details["k2k3"] = check_k2_k3(device)
+    print(f"K2/K3 vs plain: ok, max |err| {details['k2k3']['kernels']:.3e}; whole autograd vs plain autograd: "
+          f"ok, max |err| {details['k2k3']['autograd']:.3e} (tolerance f32 atol 1e-4; bf16 atol 2e-2 + rtol 2e-2, "
+          "the autograd atol times the gradient's largest magnitude; bf16 autograd against f32 plain autograd)")
 
     details["e2e"] = end_to_end(device)
     for dtype, r in details["e2e"].items():
@@ -498,7 +832,26 @@ def main() -> int:
               f"{step['wall_ms_per_step']:.2f} ms wall, {step['device_ms_per_step']:.2f} ms device kernels, "
               f"device idle share {step['device_idle_share']:.3f}; top kernels {step['top_kernels_ms_per_step']}")
 
-    records, extra = time_kernels(device, details["e2e"])
+    torch.cuda.empty_cache()
+    details["train"] = train = train_bert(device)
+    prof = train["step_profile"]
+    print(f"[{name_limit}] BERT-base fine-tune bf16 B{BERT_BATCH} S{BERT_SEQ}: {train['steps']} steps through fit, "
+          f"launches {train['launches']} ({ {k: v / train['steps'] for k, v in train['launches'].items()} } per step), "
+          f"loss by step {[(h['step'], round(h['loss'], 4)) for h in train['history']]}, "
+          f"eval {train['eval']}")
+    print(f"[{name_limit}] train step: {train['step_ms']:.2f} ms wall in fit, {train['examples_per_s']:.1f} examples/s, "
+          f"{train['tokens_per_s']:.0f} tokens/s, {train['achieved_tflops']:.2f} TFLOP/s achieved "
+          f"({train['share_of_bf16_peak']:.4f} of 989 bf16); profiled: {prof['wall_ms_per_step']:.2f} ms wall, "
+          f"{prof['device_ms_per_step']:.2f} ms device kernels, device idle share {prof['device_idle_share']:.3f}; "
+          f"top kernels {prof['top_kernels_ms_per_step']}; host: {prof['host_ops_per_step']} operator calls "
+          f"per step, top by self CPU ms (profiled) {prof['top_host_ops_self_ms']}")
+    print(f"first 3 steps, kernels vs plain path: {train['first_steps_vs_plain']}")
+    print(f"f32 B8 gradients, kernels vs plain path: ok, worst error {train['f32_grads_vs_plain']['worst_relative_err']:.3e} "
+          "of each leaf's largest magnitude (limit 1e-4)")
+
+    bert = time_bert_kernels(device, train["lens"], train["launches"])
+    serving, extra = time_kernels(device, details["e2e"])
+    records, extra = bert + serving[1:], serving[:1] + extra
     for r in records + extra:
         print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "

@@ -8,8 +8,12 @@ and skip elsewhere. Run them on the GPU machine with
 The file imports nothing of JAX, so it runs where JAX is not installed.
 Tolerances: float32 atol 2e-5 (summation order only); bfloat16 atol 2e-2 +
 rtol 2e-2 (the plain versions round the softmax weights to bf16 before the
-value product, the kernels keep them in f32). Each test also checks that the
-kernel's launch count moved.
+value product, the kernels keep them in f32). The backward kernels K2/K3
+against ``reference_attention_backward`` (same lse, f32 arithmetic in both,
+summation order only): float32 atol 1e-4 (gradients sum up to 256 terms of
+size ~1), bfloat16 atol 2e-2 + rtol 2e-2 (both round to bf16 once, at the
+end); whole-autograd agreement with ``reference_attention`` uses the same
+two tolerances. Each test also checks that the kernel's launch count moved.
 """
 
 import numpy as np
@@ -17,12 +21,19 @@ import pytest
 import torch
 
 from unionml_tpu_torch import kernels
-from unionml_tpu_torch.ops.attention import _kv_lens_to_mask, flash_attention, reference_attention
+from unionml_tpu_torch.ops.attention import (
+    _kv_lens_to_mask,
+    flash_attention,
+    flash_attention_backward,
+    reference_attention,
+    reference_attention_backward,
+)
 from unionml_tpu_torch.ops.paged_attention import paged_attention, reference_paged_attention
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
+BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -32,8 +43,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want):
-    atol, rtol = TOL[got.dtype]
+def _close(got, want, tol=TOL):
+    atol, rtol = tol[got.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
@@ -91,3 +102,60 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.randn((1, 2, 16, 64), device=cuda)[:, :, ::2]  # non-contiguous
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+BWD_CASES = [  # B, H, Sq, Sk, D, causal, kv_lens
+    (2, 3, 128, 128, 64, False, [128, 1]), (3, 2, 100, 100, 64, False, [100, 37, 64]),
+    (2, 3, 77, 77, 64, True, None), (1, 2, 256, 256, 64, True, None), (2, 3, 77, 77, 128, False, [77, 5]),
+    (2, 2, 77, 77, 128, True, [77, 40]), (2, 2, 40, 9, 64, True, None), (2, 2, 5, 77, 64, False, [70, 77]),
+    (2, 2, 130, 130, 64, False, [0, 130]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,H,Sq,S,D,causal,lens", BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, dtype, B, H, Sq, S, D, causal, lens):
+    g = torch.Generator().manual_seed(Sq * 7 + S)
+    q = torch.randn((B, H, Sq, D), generator=g).to(cuda, dtype)
+    k, v = (torch.randn((B, H, S, D), generator=g).to(cuda, dtype) for _ in range(2))
+    # d_out as the head transpose leaves it: non-contiguous
+    d_out = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype).transpose(1, 2)
+    kv_lens = torch.tensor(lens, device=cuda) if lens else None
+    out, lse = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, return_lse=True)
+    before = dict(kernels.launches)
+    got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert kernels.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a, b, BWD_TOL)
+    for b, n in enumerate(lens or []):  # keys past kv_len: exact zeros, though outputs start empty
+        assert torch.all(got[1][b, :, n:] == 0) and torch.all(got[2][b, :, n:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,H,Sq,S,D,causal,lens", [BWD_CASES[0], BWD_CASES[2], BWD_CASES[4]])
+def test_flash_autograd_matches_plain_autograd(cuda, dtype, B, H, Sq, S, D, causal, lens):
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn((B, H, n, D), generator=g).to(cuda, dtype).requires_grad_()
+               for n in (Sq, S, S))
+    d_out = torch.randn((B, H, Sq, D), generator=g).to(cuda, dtype)
+    kv_lens = torch.tensor(lens, device=cuda) if lens else None
+    before = kernels.launches["flash_bwd_dkv"]
+    got = torch.autograd.grad(flash_attention(q, k, v, kv_lens=kv_lens, causal=causal), (q, k, v), d_out)
+    assert kernels.launches["flash_bwd_dkv"] == before + 1
+    mask = _kv_lens_to_mask(kv_lens, S) if kv_lens is not None else None
+    want = torch.autograd.grad(reference_attention(q, k, v, mask=mask, causal=causal), (q, k, v), d_out)
+    for a, b in zip(got, want):
+        _close(a, b, BWD_TOL)
+
+
+def test_backward_wrapper_raises_instead_of_falling_back(cuda):
+    q = torch.randn((1, 2, 8, 64), device=cuda)
+    out, lse = flash_attention(q, q, q, return_lse=True)
+    with pytest.raises(ValueError):  # lse of the wrong dtype
+        flash_attention_backward(q, q, q, out, lse.double(), out)
+    with pytest.raises(ValueError):  # d_out on the CPU
+        flash_attention_backward(q, q, q, out, lse, out.cpu())

@@ -98,9 +98,11 @@ def test_engine_rejects_unported_modes():
 
 
 def test_kernel_sources_ship_with_the_package_and_nothing_launched_on_cpu():
-    for name in ("flash_fwd", "paged_attention"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention"):
         assert (_build.CSRC_DIR / f"{name}.cu").is_file()
-        assert name in kernels.launches
+        assert name in _build._ENTRY_POINTS
+    assert set(kernels.launches) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention"}
+    assert set(kernels.launches) == {s for symbols in _build._ENTRY_POINTS.values() for s in symbols}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
     before = dict(kernels.launches)

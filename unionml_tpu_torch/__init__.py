@@ -1,14 +1,20 @@
-"""PyTorch/CUDA port of unionml-tpu's GPT paged decode-serving path.
+"""PyTorch/CUDA port of unionml-tpu: GPT paged decode serving and BERT
+fine-tuning.
 
 The JAX package (``unionml_tpu``) stays the reference; this package mirrors its
 module names so each counterpart is easy to find:
 
-- :mod:`unionml_tpu_torch.ops` — attention (flash forward), paged attention,
-  blockwise int8 quantization and token sampling. The two attention ops run
-  hand-written CUDA kernels (``csrc/``) on CUDA tensors and their plain
-  PyTorch versions on CPU tensors.
+- :mod:`unionml_tpu_torch.ops` — attention (flash forward and backward), paged
+  attention, classification losses, blockwise int8 quantization and token
+  sampling. The attention ops run hand-written CUDA kernels (``csrc/``) on
+  CUDA tensors and their plain PyTorch versions on CPU tensors.
 - :mod:`unionml_tpu_torch.models.gpt` — the GPT-2-style decoder as
   ``nn.Module``s with dense and paged KV caches.
+- :mod:`unionml_tpu_torch.models.bert` and
+  :mod:`unionml_tpu_torch.models.training` — the BERT classifier and its
+  training loop (``create_train_state`` → ``make_classifier_train_step`` →
+  ``fit``, ``make_classifier_eval_step``); attention's gradient runs the
+  flash-backward kernels through a ``torch.autograd.Function``.
 - :mod:`unionml_tpu_torch.serving.continuous` — ``DecodeEngine`` (paged int8
   KV pool, bucket and chunked prefill) and the asyncio ``ContinuousBatcher``.
 

@@ -10,7 +10,7 @@ from typing import Dict
 __all__ = ["launches", "reset_launches"]
 
 #: launches per kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"flash_fwd": 0, "paged_attention": 0}
+launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "paged_attention": 0}
 
 
 def reset_launches() -> None:

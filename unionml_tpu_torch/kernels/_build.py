@@ -42,20 +42,24 @@ NVCC_FLAGS = [
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: argument types of each library's entry point (pointers and the stream as
+#: argument types of each library's entry points (pointers and the stream as
 #: c_void_p: a bare Python int would be passed as a 32-bit int and cut)
+_BWD_ARGS = [_P] * 7  # q, k, v, d_out, lse, delta, kv_lens
+_BWD_SHAPE = [_I, _I, _I, _I, _I, _I, _I, _F, _P]  # B, H, Sq, Sk, D, dtype, causal, sm_scale, stream
 _ENTRY_POINTS = {
-    "flash_fwd": (
-        "flash_fwd",
+    "flash_fwd": {
         # q, k, v, kv_lens, o, lse, B, H, Sq, Sk, D, dtype, causal, sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    ),
-    "paged_attention": (
-        "paged_attention",
+        "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_bwd": {
+        "flash_bwd_dq": _BWD_ARGS + [_P] + _BWD_SHAPE,  # ..., dq, ...
+        "flash_bwd_dkv": _BWD_ARGS + [_P, _P] + _BWD_SHAPE,  # ..., dk, dv, ...
+    },
+    "paged_attention": {
         # q, k, v, k_scale, v_scale, table, base, o,
         # B, H, S, D, bs, W, dtype, kv_int8, sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    ),
+        "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -139,10 +143,10 @@ def library(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_target(name)))
-            symbol, argtypes = _ENTRY_POINTS[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in _ENTRY_POINTS[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib
 

@@ -1,0 +1,387 @@
+"""Training loops for the port's classifiers: AdamW with optax's arithmetic.
+
+Port of ``unionml_tpu/models/training.py`` for one device, run eagerly (no
+``torch.compile``):
+
+- :func:`create_train_state` — AdamW (b1 0.9, b2 0.999, eps 1e-8 added after
+  the square root, decoupled weight decay on every parameter), global-norm
+  clipping and a linear-warmup / cosine-decay schedule, written as plain
+  torch (``torch._foreach_*``) with the arithmetic of ``optax.chain(
+  clip_by_global_norm, adamw)`` (``training.py:56-75``). ``torch.optim.AdamW``
+  is not used: it has no ``mu_dtype`` and ``clip_grad_norm_`` adds 1e-6.
+- :func:`make_classifier_train_step` / :func:`make_classifier_eval_step` —
+  the step functions ``(state, batch) -> (state, metrics)`` and ``(state,
+  batch) -> metrics``. Metrics stay device tensors: a step never syncs with
+  the host.
+- :func:`fit` — the loop of ``training.py:363-521``: the first step runs
+  outside the timed window, the barrier is a host fetch of the loss.
+
+Unlike the JAX package, the train step updates the state IN PLACE (the
+model's parameters and the moments) and returns the same object.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
+meshes and parameter specs (M12), step checkpoints (M2), the native
+prefetcher, and the LM steps (slice 3).
+"""
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from unionml_tpu_torch._device import resolve_device
+from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.ops.losses import cross_entropy_and_accuracy
+
+__all__ = [
+    "FitResult",
+    "TrainState",
+    "bert_flops_per_token",
+    "classifier_grads",
+    "create_train_state",
+    "dict_batches",
+    "dropout_generator",
+    "fit",
+    "make_classifier_eval_step",
+    "make_classifier_train_step",
+]
+
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in float32, as optax computes it: the float32
+    0.999 is 1.3e-5 away from 0.999 in relative terms after ``1 - b2``."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+def _not_ported(option: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{option} is not ported yet (ROADMAP: {item})")
+
+
+@dataclass(eq=False)
+class TrainState:
+    """A model, its AdamW moments and the step count.
+
+    ``params`` are the model's parameters in ``model.named_parameters()``
+    order (``names``); ``mu`` (in ``mu_dtype`` when given) and ``nu`` follow
+    the same order. ``step`` counts applied updates, as optax's count does.
+    """
+
+    model: nn.Module = field(repr=False)
+    names: List[str] = field(repr=False)
+    params: List[torch.Tensor] = field(repr=False)
+    mu: List[torch.Tensor] = field(repr=False)
+    nu: List[torch.Tensor] = field(repr=False)
+    learning_rate: float
+    weight_decay: float
+    warmup_steps: int
+    total_steps: int
+    max_grad_norm: float
+    seed: int
+    mu_dtype: Optional[torch.dtype] = None
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.params[0].device
+
+    def learning_rate_at(self, count: int) -> float:
+        """optax's ``warmup_cosine_decay_schedule(0, lr, warmup, max(total,
+        warmup + 1))`` (end value 0) at ``count``, in float32 as optax
+        evaluates it; the constant ``lr`` without warmup."""
+        if self.warmup_steps <= 0:
+            return self.learning_rate
+        f32 = np.float32
+        peak, warmup = f32(self.learning_rate), self.warmup_steps
+        if count < warmup:
+            frac = f32(1.0) - f32(min(max(count, 0), warmup)) / f32(warmup)
+            return float((f32(0.0) - peak) * frac + peak)
+        decay = f32(max(self.total_steps, warmup + 1) - warmup)
+        t = min(f32(count - warmup), decay)
+        return float(peak * (f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * t / decay))))
+
+    @torch.no_grad()
+    def apply_gradients(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """One optimizer update in place; returns the global norm of ``grads``
+        (before clipping) as a device tensor.
+
+        optax's arithmetic: ``g if norm < max else g / norm * max`` (here
+        ``g / denom * max`` with ``denom = max`` below the threshold: exact for
+        the default max 1.0, within an ulp otherwise); adam moments
+        ``(1-b)*g^k + b*m``, bias correction (in float32) at the incremented count,
+        ``mu_hat / (sqrt(nu_hat) + eps)``, plus ``weight_decay * p``, times
+        ``-lr`` at the pre-increment count, added to the parameters.
+        """
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        denom = torch.where(norm < self.max_grad_norm, torch.full_like(norm, self.max_grad_norm), norm)
+        clipped = torch._foreach_div(grads, denom)
+        torch._foreach_mul_(clipped, self.max_grad_norm)
+
+        if self.mu_dtype is not None:
+            # optax's weak-typed ``b1 * mu`` runs in mu_dtype, b1 rounded to
+            # it first (0.8984375 in bf16); the sum with the f32 gradient term is f32
+            b1 = float(torch.tensor(_B1, dtype=self.mu_dtype))
+            mu = [m.float() for m in torch._foreach_mul(self.mu, b1)]
+        else:
+            mu = self.mu
+            torch._foreach_mul_(mu, _B1)
+        torch._foreach_add_(mu, clipped, alpha=1.0 - _B1)
+        torch._foreach_mul_(self.nu, _B2)
+        torch._foreach_addcmul_(self.nu, clipped, clipped, value=1.0 - _B2)
+        count = self.step + 1
+        updates = torch._foreach_div(mu, _bias_correction(_B1, count))
+        denoms = torch._foreach_div(self.nu, _bias_correction(_B2, count))
+        torch._foreach_sqrt_(denoms)
+        torch._foreach_add_(denoms, _EPS)
+        torch._foreach_div_(updates, denoms)
+        torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
+        torch._foreach_mul_(updates, -self.learning_rate_at(self.step))
+        torch._foreach_add_(self.params, updates)
+        if self.mu_dtype is not None:
+            for stored, value in zip(self.mu, mu):
+                stored.copy_(value)
+        self.step = count
+        return norm
+
+
+def create_train_state(
+    model: nn.Module,
+    learning_rate: float = 2e-5,
+    weight_decay: float = 0.01,
+    warmup_steps: int = 0,
+    total_steps: int = 10_000,
+    max_grad_norm: float = 1.0,
+    seed: int = 0,
+    mu_dtype: Optional[torch.dtype] = None,
+) -> TrainState:
+    """AdamW + linear warmup / cosine decay + global-norm clipping (the BERT
+    fine-tune recipe) over ``model``'s parameters.
+
+    ``mu_dtype`` (e.g. ``torch.bfloat16``) stores adam's first moment in
+    reduced precision; the second moment stays in the parameters' dtype.
+    ``seed`` seeds the per-step dropout generators.
+    """
+    names, params = zip(*model.named_parameters())
+    return TrainState(
+        model=model,
+        names=list(names),
+        params=list(params),
+        mu=[torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in params],
+        nu=[torch.zeros_like(p) for p in params],
+        learning_rate=learning_rate,
+        weight_decay=weight_decay,
+        warmup_steps=warmup_steps,
+        total_steps=total_steps,
+        max_grad_norm=max_grad_norm,
+        seed=seed,
+        mu_dtype=mu_dtype,
+    )
+
+
+def dropout_generator(seed: int, step: int, device: torch.device, index: Optional[int] = None) -> torch.Generator:
+    """The dropout generator of one step (and microbatch ``index``): seeded
+    from ``(seed, step[, index])``, the counterpart of the JAX step's
+    ``fold_in(dropout_rng, step)`` (``training.py:136``)."""
+    words = [seed, step] if index is None else [seed, step, index]
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    return generator
+
+
+def classifier_grads(
+    state: TrainState, batch: Dict[str, torch.Tensor], input_signature: Tuple[str, ...], grad_accum: int = 1
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """``(grads, loss, accuracy)`` of one train step, dropout on.
+
+    With ``grad_accum > 1`` the batch splits into equal sequential
+    microbatches (each with its own dropout generator), whose gradients,
+    losses and accuracies are summed and divided by ``grad_accum``: the
+    mean of means of ``_accumulated_value_and_grad`` (``training.py:78-109``).
+    """
+    rows = len(batch["labels"])
+    if rows % grad_accum:
+        raise ValueError(f"grad_accum={grad_accum} must divide the batch size ({rows})")
+    size = rows // grad_accum
+    total = loss_sum = acc_sum = None
+    for index in range(grad_accum):
+        micro = batch if grad_accum == 1 else {k: v[index * size:(index + 1) * size] for k, v in batch.items()}
+        generator = dropout_generator(state.seed, state.step, state.device, None if grad_accum == 1 else index)
+        logits = state.model(*[micro[k] for k in input_signature], deterministic=False, generator=generator)
+        loss, acc = cross_entropy_and_accuracy(logits, micro["labels"])
+        grads = list(torch.autograd.grad(loss, state.params))
+        if total is None:
+            total, loss_sum, acc_sum = grads, loss.detach(), acc
+        else:
+            torch._foreach_add_(total, grads)
+            loss_sum, acc_sum = loss_sum + loss.detach(), acc_sum + acc
+    if grad_accum > 1:
+        torch._foreach_div_(total, grad_accum)
+        loss_sum, acc_sum = loss_sum / grad_accum, acc_sum / grad_accum
+    return total, loss_sum, acc_sum
+
+
+def make_classifier_train_step(
+    mesh: Any = None,
+    param_spec: Any = None,
+    input_signature: Tuple[str, ...] = ("inputs",),
+    light_metrics: bool = False,
+    grad_accum: int = 1,
+) -> Callable:
+    """The train step ``(state, batch) -> (state, metrics)``.
+
+    ``batch`` is a dict of device tensors with the ``input_signature`` keys
+    and ``"labels"``. Metrics: ``loss``, ``accuracy`` and, unless
+    ``light_metrics``, ``grad_norm`` (before clipping), all device tensors.
+    ``grad_accum=N`` splits each batch into N sequential microbatches whose
+    gradients average before the one optimizer step.
+    """
+    if mesh is not None or param_spec is not None:
+        raise _not_ported("mesh / param_spec (sharded training)", "M12")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        grads, loss, acc = classifier_grads(state, batch, input_signature, grad_accum)
+        norm = state.apply_gradients(grads)
+        metrics = {"loss": loss, "accuracy": acc}
+        if not light_metrics:
+            metrics["grad_norm"] = norm
+        return state, metrics
+
+    return train_step
+
+
+def make_classifier_eval_step(input_signature: Tuple[str, ...] = ("inputs",)) -> Callable:
+    """The eval step ``(state, batch) -> {"loss", "accuracy"}``, dropout off."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        logits = state.model(*[batch[k] for k in input_signature], deterministic=True)
+        loss, acc = cross_entropy_and_accuracy(logits, batch["labels"])
+        return {"loss": loss, "accuracy": acc}
+
+    return eval_step
+
+
+@dataclass
+class FitResult:
+    state: TrainState
+    metrics_history: list = field(default_factory=list)
+    steps: int = 0
+    wall_time_s: float = 0.0
+    steps_per_s: float = 0.0
+    examples_per_s: float = 0.0
+
+
+def dict_batches(
+    data: Dict[str, np.ndarray],
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    device: Any = "cuda",
+    drop_remainder: bool = True,
+    mesh: Any = None,
+) -> Iterable[Dict[str, torch.Tensor]]:
+    """Static-shape dict batches of host ``data``, each copied to ``device``."""
+    if mesh is not None:
+        raise _not_ported("mesh (sharded batches)", "M12")
+    device = resolve_device(device)
+    host = {k: np.asarray(v) for k, v in data.items()}
+    n_rows = len(next(iter(host.values())))
+    indices = np.arange(n_rows) if rng is None else rng.permutation(n_rows)
+    end = (n_rows // batch_size) * batch_size if drop_remainder else n_rows
+    if end == 0:
+        end = n_rows
+    for start in range(0, end, batch_size):
+        idx = indices[start:start + batch_size]
+        yield {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(device) for k, v in host.items()}
+
+
+def fit(
+    state: TrainState,
+    data: Dict[str, np.ndarray],
+    *,
+    batch_size: int,
+    num_epochs: int = 1,
+    num_steps: Optional[int] = None,
+    mesh: Any = None,
+    param_spec: Any = None,
+    input_signature: Tuple[str, ...] = ("inputs",),
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 100,
+    log_every: int = 50,
+    seed: int = 0,
+    prefetch: bool = False,
+    prefetch_convert: Optional[Dict[str, str]] = None,
+    step_fn: Optional[Callable] = None,
+    grad_accum: int = 1,
+) -> FitResult:
+    """Run the train loop over host ``data`` on the state's device.
+
+    The first step runs outside the timed window; ``num_steps`` (counting
+    that first step) overrides ``num_epochs``. Every ``log_every`` steps the
+    metrics are fetched to the host into ``metrics_history``.
+    ``checkpoint_every`` is accepted for the JAX signature and unused.
+    """
+    if mesh is not None or param_spec is not None:
+        raise _not_ported("mesh / param_spec (sharded training)", "M12")
+    if checkpoint_dir is not None:
+        raise _not_ported("checkpoint_dir (step checkpoints with the SIGTERM flush)", "M2, slice 2b")
+    if prefetch or prefetch_convert:
+        raise _not_ported("prefetch / prefetch_convert", "the native prefetcher, slice 2b")
+    if step_fn is not None and grad_accum != 1:
+        raise ValueError("grad_accum applies to the built-in step; pass it to your step builder")
+    if step_fn is None:
+        step_fn = make_classifier_train_step(input_signature=input_signature, grad_accum=grad_accum)
+    device = state.device
+
+    def batches(epoch_rng):
+        return dict_batches(data, batch_size, rng=epoch_rng, device=device)
+
+    rng = np.random.default_rng(seed)
+    history = []
+    step = start_step = state.step
+    # the first step (allocator and library warm-up) runs outside the timed window
+    state, metrics = step_fn(state, next(iter(batches(rng))))
+    float(metrics["loss"])  # host fetch = barrier
+    step += 1
+
+    t0 = time.perf_counter()
+    done = False
+    epochs = num_epochs if num_steps is None else max(num_epochs, 10**9)
+    for _ in range(epochs):
+        for batch in batches(rng):
+            state, metrics = step_fn(state, batch)
+            step += 1
+            if step % log_every == 0:
+                metrics_host = {k: float(v) for k, v in metrics.items()}
+                history.append({"step": step, **metrics_host})
+                logger.info("step %d: %s", step, metrics_host)
+            if num_steps is not None and step - start_step >= num_steps:
+                done = True
+                break
+        if done:
+            break
+    float(metrics["loss"])  # host fetch = barrier for the timed window
+    wall = time.perf_counter() - t0
+
+    executed = step - start_step - 1  # the first step is excluded from the timing
+    return FitResult(
+        state=state,
+        metrics_history=history,
+        steps=step,
+        wall_time_s=wall,
+        steps_per_s=executed / wall if wall > 0 else 0.0,
+        examples_per_s=executed * batch_size / wall if wall > 0 else 0.0,
+    )
+
+
+def bert_flops_per_token(config: Any) -> float:
+    """Approximate training FLOPs per token for MFU accounting (6 * params-ish),
+    as ``training.py:606-612`` counts them."""
+    hidden, layers, inter = config.hidden_size, config.num_layers, config.intermediate_size
+    per_layer = 4 * hidden * hidden + 2 * hidden * inter  # attn projections + mlp
+    fwd = layers * 2 * per_layer  # 2 flops per MAC; embedding lookups are negligible
+    return 3.0 * fwd  # fwd + bwd ~ 3x forward

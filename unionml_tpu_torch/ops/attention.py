@@ -1,4 +1,5 @@
-"""Attention ops: the K1 flash-forward CUDA kernel and its plain PyTorch version.
+"""Attention ops: the K1 flash-forward and K2/K3 flash-backward CUDA kernels,
+and their plain PyTorch versions.
 
 Port of ``unionml_tpu/ops/attention.py``. Shapes follow the (batch, heads,
 seq, head_dim) convention of the JAX package.
@@ -12,11 +13,19 @@ seq, head_dim) convention of the JAX package.
   ``_flash_kernel``). On CUDA tensors it launches the kernel or raises; on CPU
   tensors it runs :func:`reference_attention`. Causal and ``kv_lens``
   (right-padding) masks, any ``Sq``/``Sk``, bf16 or f32, head_dim 64 or 128.
-  Packed ``segment_ids`` and the backward kernels are not ported yet.
+  When grad mode is on and q, k or v requires grad it runs through
+  :class:`_FlashAttention`, whose backward is :func:`flash_attention_backward`.
+- :func:`flash_attention_backward` — K2 (dQ) then K3 (dK/dV)
+  (``csrc/flash_bwd.cu``, replacing the Pallas ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``) on CUDA tensors, :func:`reference_attention_backward`
+  on CPU tensors. Unlike the JAX package, which differentiates ``xla_attention``
+  for shapes that are not tile-aligned, the kernels mask ragged tiles.
 - :func:`attention` — the dispatcher the model calls: ``impl="auto"`` runs the
   kernel for CUDA tensors without a dense mask and the plain version
   otherwise; ``"kernel"`` and ``"reference"`` force one side. The port keeps
   no measured dispatch table yet.
+
+Packed ``segment_ids`` are not ported yet (ROADMAP: K5).
 """
 
 from typing import Optional, Tuple, Union
@@ -26,9 +35,21 @@ import torch
 from unionml_tpu_torch import kernels
 from unionml_tpu_torch.kernels import _build
 
-__all__ = ["attention", "flash_attention", "reference_attention"]
+__all__ = [
+    "attention",
+    "flash_attention",
+    "flash_attention_backward",
+    "reference_attention",
+    "reference_attention_backward",
+]
 
 _NEG_INF = -1e30
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the plain versions' compute dtype: float32 (float64 inputs
+    stay float64, so ``torch.autograd.gradcheck`` can run in double)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _kv_lens_to_mask(kv_lens: torch.Tensor, seq_k: int) -> torch.Tensor:
@@ -37,13 +58,17 @@ def _kv_lens_to_mask(kv_lens: torch.Tensor, seq_k: int) -> torch.Tensor:
     return (positions < kv_lens[:, None])[:, None, None, :]
 
 
-def _masked_logits(q, k, mask, causal, scale):
-    """f32 scaled scores with masked keys at -1e30, and the keep mask."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    valid = torch.ones(logits.shape[-2:], dtype=torch.bool, device=q.device)
+def _valid(mask, causal, seq_q, seq_k, device) -> torch.Tensor:
+    """Boolean keep mask broadcastable to (batch, heads, Sq, Sk)."""
+    valid = torch.ones((seq_q, seq_k), dtype=torch.bool, device=device)
     valid = (torch.tril(valid) if causal else valid)[None, None]
-    if mask is not None:
-        valid = valid & mask
+    return valid & mask if mask is not None else valid
+
+
+def _masked_logits(q, k, mask, causal, scale):
+    """Scaled scores in the compute dtype with masked keys at -1e30, and the keep mask."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(k)) * scale
+    valid = _valid(mask, causal, logits.shape[-2], logits.shape[-1], q.device)
     return torch.where(valid, logits, torch.full_like(logits, _NEG_INF)), valid
 
 
@@ -68,48 +93,72 @@ def reference_attention(
     return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
 
 
-def _check_flash_inputs(q, k, v, kv_lens) -> None:
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention: q, k and v must all lie on the same device")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention: q, k, v must be (batch, heads, seq, head_dim)")
-    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention kernel takes float32 or bfloat16 q/k/v of one dtype, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    batch, heads, _, head_dim = q.shape
-    if head_dim not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, got {head_dim}")
-    if k.shape[:2] != (batch, heads) or v.shape != k.shape or k.shape[-1] != head_dim:
-        raise ValueError(f"flash_attention: incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
-    if kv_lens is not None and (kv_lens.shape != (batch,) or kv_lens.device != q.device):
-        raise ValueError("flash_attention: kv_lens must be a (batch,) tensor on q's device")
-
-
-def flash_attention(
+def reference_attention_backward(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
     kv_lens: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
-    return_lse: bool = False,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Blocked flash attention forward (K1).
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2 and K3: ``(dq, dk, dv)`` of attention given the
+    forward's output ``out`` and f32 logsumexp ``lse`` (batch, heads, Sq).
 
-    :param kv_lens: optional ``(batch,)`` int valid KV lengths: keys at
-        positions ``>= kv_lens[b]`` are masked for every head and query of row b.
-    :param return_lse: also return the f32 ``(batch, heads, Sq)`` logsumexp of
-        the scaled, masked scores (the residual a backward pass reuses).
+    The arithmetic of the JAX kernels (``attention.py:353-504``), in f32,
+    outputs in q/k/v's dtype: ``delta = rowsum(dO * O)``, ``P = exp(q*scale
+    k^T - lse)`` where a key is visible and exactly 0 elsewhere (whatever lse
+    holds), ``dV = P^T dO``, ``dS = P * (dO V^T - delta)``, ``dQ = scale dS K``,
+    ``dK = dS^T (q*scale)``.
     """
-    scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    seq_q, seq_k = q.shape[-2], k.shape[-2]
+    mask = _kv_lens_to_mask(kv_lens, seq_k) if kv_lens is not None else None
+    qs, kf, vf, do = _acc(q) * scale, _acc(k), _acc(v), _acc(d_out)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    valid = _valid(mask, causal, seq_q, seq_k, q.device)
+    probs = torch.where(valid, torch.exp(scores - _acc(lse)[..., None]), torch.zeros_like(scores))
+    delta = torch.sum(do * _acc(out), dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs, do)
+    dscores = probs * (torch.einsum("bhqd,bhkd->bhqk", do, vf) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dscores, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dscores, qs)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_flash_inputs(q, k, v, kv_lens, name: str = "flash_attention") -> None:
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(f"{name}: the kernel needs CUDA tensors; got q on {q.device}, k on {k.device}, "
+                         f"v on {v.device}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k and v must lie on one CUDA device; got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q, k, v must be (batch, heads, seq, head_dim)")
+    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name} kernel takes float32 or bfloat16 q/k/v of one dtype, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    batch, heads, _, head_dim = q.shape
+    if head_dim not in (64, 128):
+        raise ValueError(f"{name} kernel takes head_dim 64 or 128, got {head_dim}")
+    if k.shape[:2] != (batch, heads) or v.shape != k.shape or k.shape[-1] != head_dim:
+        raise ValueError(f"{name}: incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name} kernel needs contiguous q, k, v")
+    if kv_lens is not None and (kv_lens.shape != (batch,) or kv_lens.device != q.device):
+        raise ValueError(f"{name}: kv_lens must be a (batch,) tensor on q's device")
+
+
+def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: bool):
+    """(out, lse or None): K1 on CUDA tensors, the plain version on CPU ones."""
     if q.device.type == "cpu":
         mask = _kv_lens_to_mask(kv_lens, k.shape[-2]) if kv_lens is not None else None
         out = reference_attention(q, k, v, mask=mask, causal=causal, sm_scale=scale)
         if not return_lse:
-            return out
+            return out, None
         return out, torch.logsumexp(_masked_logits(q, k, mask, causal, scale)[0], dim=-1)
     _check_flash_inputs(q, k, v, kv_lens)
     batch, heads, seq_q, head_dim = q.shape
@@ -128,7 +177,103 @@ def flash_attention(
         )
         _build.check(status, "flash_fwd")
         kernels.launches["flash_fwd"] += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward (with its logsumexp residual), K2 + K3 backward: the port's
+    counterpart of the JAX ``custom_vjp`` (``attention.py:658``/``:756``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal: bool, sm_scale: float):
+        out, lse = _flash_forward(q, k, v, kv_lens, causal, sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, d_out, _d_lse):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=ctx.causal, sm_scale=ctx.sm_scale
+        )
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Blocked flash attention forward (K1), differentiable through K2/K3.
+
+    :param kv_lens: optional ``(batch,)`` int valid KV lengths: keys at
+        positions ``>= kv_lens[b]`` are masked for every head and query of row b.
+    :param return_lse: also return the f32 ``(batch, heads, Sq)`` logsumexp of
+        the scaled, masked scores (the residual the backward pass reuses).
+    """
+    scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, kv_lens, bool(causal), scale)
+    else:
+        out, lse = _flash_forward(q, k, v, kv_lens, causal, scale, return_lse)
     return (out, lse) if return_lse else out
+
+
+def _check_backward_inputs(q, k, v, out, lse, d_out, kv_lens) -> None:
+    _check_flash_inputs(q, k, v, kv_lens, name="flash_attention_backward")
+    if out.shape != q.shape or d_out.shape != q.shape or out.dtype != q.dtype or d_out.dtype != q.dtype:
+        raise ValueError(f"flash_attention_backward: out {tuple(out.shape)} {out.dtype} and d_out "
+                         f"{tuple(d_out.shape)} {d_out.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_backward: lse must be float32 {tuple(q.shape[:3])}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if any(t.device != q.device for t in (out, lse, d_out)):
+        raise ValueError("flash_attention_backward: out, lse and d_out must lie on q's device")
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: K2 then K3 on CUDA tensors (``csrc/flash_bwd.cu``),
+    :func:`reference_attention_backward` on CPU tensors. ``out`` and ``lse``
+    are K1's outputs for the same inputs; ``d_out`` may be non-contiguous."""
+    if q.device.type == "cpu":
+        return reference_attention_backward(q, k, v, out, lse, d_out, kv_lens, causal, sm_scale)
+    scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
+    d_out, out, lse = d_out.contiguous(), out.contiguous(), lse.contiguous()
+    _check_backward_inputs(q, k, v, out, lse, d_out, kv_lens)
+    batch, heads, seq_q, head_dim = q.shape
+    seq_k = k.shape[-2]
+    if not (seq_q and seq_k and batch * heads):
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    # delta_i = rowsum(dO * O), outside the kernels as in the JAX package (:532)
+    delta = torch.sum(d_out.float() * out.float(), dim=-1).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous() if kv_lens is not None else None
+    lens_ptr = lens.data_ptr() if lens is not None else None
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _build.library("flash_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (batch, heads, seq_q, seq_k, head_dim, _build.DTYPE_CODES[q.dtype], int(bool(causal)), scale, stream)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), lens_ptr)
+    _build.check(lib.flash_bwd_dq(*inputs, dq.data_ptr(), *common), "flash_bwd_dq")
+    kernels.launches["flash_bwd_dq"] += 1
+    _build.check(lib.flash_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *common), "flash_bwd_dkv")
+    kernels.launches["flash_bwd_dkv"] += 1
+    return dq, dk, dv
 
 
 def attention(
