@@ -37,12 +37,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    losses within 1e-2 relative and ``grad_norm`` within 2 %; in f32 at batch
    8, one step's gradients must agree, kernel vs plain, within 1e-4 of each
    leaf's largest magnitude;
-7. timings on the card: each kernel at a main-path shape (and one more)
+7. the segment-id (packed) mode of K1, K2 and K3 against their plain
+   versions, bf16 and f32: B8 H12 S1024 D64 causal with ids from
+   ``pack_sequences`` over the seeded corpus, S 77 (three segments and a
+   padding tail), S 128 (ids that recur non-contiguously, interior zeros),
+   Sq 96 / Sk 160 and Sq 160 / Sk 96 from one id array, non-causal S 128,
+   D 128 at S 77; padding queries must write zeros and padding keys get exact
+   zero dK/dV; and whole autograd through ``flash_attention(segment_ids=...)``
+   against plain autograd (on f32 copies of bf16 inputs);
+8. packed forward equals per-sequence forward: one packed row of GPT-2-small
+   width in f32, each segment's logits against the same sequence run alone,
+   within 1e-4;
+9. packed LM training end to end: GPT-2 small at full width (f32 parameters,
+   bf16 compute, dropout 0.1), 512 seeded sequences (``bench_packing.py``'s
+   length model at seq_len 1024), ``create_train_state(lr 3e-4, warmup 10,
+   total 1000)`` then ``fit_lm(pack=True, seq_len=1024, batch_size=8,
+   num_steps=20, log_every=5)`` and one ``make_lm_eval_step(packed=True)``
+   call. K1, K2 and K3 must each launch 12 times per step; every loss must
+   be finite; the first 3 steps on the plain path (``attention_impl=
+   "reference"``, same weights and dropout) must give losses within 1e-2
+   relative and ``grad_norm`` within 2 %; in f32 at batch 2, one step's
+   gradients must agree, kernel vs plain, within 1e-4 of each leaf's largest
+   magnitude;
+10. timings on the card: each kernel at a main-path shape (and one more)
    beside its bound, its plain version and one PyTorch library call, as device
    time from torch.profiler with the CUDA-event time per call beside it;
    engine tokens/s, time to first token, and one decode step's wall time
-   against its kernels' device time; the train step's wall time, device
-   time, idle share, examples/s, tokens/s and achieved TFLOP/s.
+   against its kernels' device time; each train step's wall time, device
+   time, idle share, examples/s, tokens/s and achieved TFLOP/s; for the LM
+   step also real (nonzero-id) tokens/s and the packing efficiency; K1 at the
+   packed shape beside K1 causal without ids.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -166,11 +190,6 @@ def kernel_ms_by_name(fn, iters: int = 20) -> dict:
     return {name: us / 1e3 / iters for name, us in _kernel_us(prof).items()}
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Per-call device time of all of ``fn``'s kernels; None when the
-    profiler records no device time."""
-    total = sum(kernel_ms_by_name(fn, iters).values())
-    return total if total > 0 else None
 
 
 def step_profile(fn, steps: int, top: int) -> dict:
@@ -193,11 +212,13 @@ def step_profile(fn, steps: int, top: int) -> dict:
 
 
 def timed(fn) -> dict:
-    """Device ms (profiler) where available, else the CUDA-event ms; both kept."""
+    """Device ms (profiler) where available, else the CUDA-event ms; both
+    kept, with the names of the kernels that ran."""
     wall = cuda_ms(fn)
-    dev = device_ms(fn)
-    return {"ms": dev if dev is not None else wall, "event_ms": wall,
-            "method": "profiler device time" if dev is not None else "cuda events"}
+    by_name = kernel_ms_by_name(fn)
+    dev = sum(by_name.values())
+    return {"ms": dev if dev > 0 else wall, "event_ms": wall,
+            "method": "profiler device time" if dev > 0 else "cuda events", "kernels": sorted(n[:60] for n in by_name)}
 
 
 # ------------------------------------------------------------------ K1
@@ -349,6 +370,118 @@ def check_k2_k3(device) -> dict:
                 err = check_close(f"autograd {name} {label}", a, b, BWD_TOL, scaled=True)
                 worst["autograd"] = max(worst["autograd"], err)
     return worst
+
+
+# ------------------------------------------------- packed (segment ids)
+
+LM_SEQ, LM_BATCH, LM_STEPS, LM_SEQS = 1024, 8, 20, 512
+
+
+def lm_corpus(n_seqs: int, seq_len: int, seed: int = 0) -> list:
+    """Seeded token sequences, the length model of ``bench_packing.py:25-32``:
+    lognormal lengths with median seq_len / 4 and sigma 0.8, clipped to
+    [1, 2 * seq_len]."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.lognormal(mean=np.log(seq_len / 4), sigma=0.8, size=n_seqs).astype(np.int64),
+                      1, 2 * seq_len)
+    return [rng.integers(1, 50_000, size=int(n)).astype(np.int32) for n in lengths]
+
+
+def lm_packed(seed: int = 0) -> dict:
+    from unionml_tpu_torch.ops.packing import pack_sequences
+
+    return pack_sequences(lm_corpus(LM_SEQS, LM_SEQ, seed), LM_SEQ)
+
+
+def id_rows(rows) -> torch.Tensor:
+    """An int32 id array from (id, run length) runs per row."""
+    return torch.tensor([sum(([seg] * n for seg, n in row), []) for row in rows], dtype=torch.int32)
+
+
+def packed_cases():
+    """(name, B, H, Sq, Sk, D, causal, ids) of the packed-mode checks."""
+    train_ids = torch.from_numpy(lm_packed()["segment_ids"][:LM_BATCH])
+    three = [[(1, 20), (2, 33), (3, 14), (0, 10)], [(1, 77)], [(2, 40), (0, 37)], [(4, 77)]]
+    mixed = [[(1, 30), (0, 6), (2, 40), (1, 20), (3, 32)], [(0, 5), (4, 60), (0, 3), (4, 50), (5, 10)]]
+    cross = [[(1, 50), (2, 70), (0, 40)], [(1, 100), (2, 60)]]
+    return [
+        ("train rows", LM_BATCH, 12, LM_SEQ, LM_SEQ, 64, True, train_ids),
+        ("three segments, padding tail", 4, 12, 77, 77, 64, True, id_rows(three)),
+        ("non-contiguous ids, interior zeros", 2, 12, 128, 128, 64, True, id_rows(mixed)),
+        ("cross-length Sq96 Sk160", 2, 12, 96, 160, 64, True, id_rows(cross)),
+        ("cross-length Sq160 Sk96", 2, 12, 160, 96, 64, True, id_rows(cross)),
+        ("non-causal", 2, 12, 128, 128, 64, False, id_rows(mixed)),
+        ("D128", 4, 4, 77, 77, 128, True, id_rows(three)),
+    ]
+
+
+def check_packed(device) -> dict:
+    """K1, K2 and K3 in segment-id mode against their plain versions (same
+    out/lse for the backward), then whole autograd against plain autograd on
+    f32 copies (bf16 atol relative to the gradient's largest magnitude, as in
+    ``check_k2_k3``)."""
+    from unionml_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_backward, reference_attention, reference_attention_backward,
+    )
+
+    worst = {"k1": 0.0, "k2k3": 0.0, "autograd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, H, Sq, Sk, D, causal, ids in packed_cases():
+            ids = ids.to(device)
+            g = torch.Generator(device="cpu").manual_seed(Sq * 3 + Sk)
+            q = torch.randn((B, H, Sq, D), generator=g).to(device=device, dtype=dtype)
+            k, v = (torch.randn((B, H, Sk, D), generator=g).to(device=device, dtype=dtype) for _ in range(2))
+            d_out = torch.randn((B, Sq, H, D), generator=g).to(device=device, dtype=dtype).transpose(1, 2)
+            label = f"{dtype} {name} B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal}"
+            out, lse = flash_attention(q, k, v, causal=causal, return_lse=True, segment_ids=ids)
+            want = reference_attention(q, k, v, causal=causal, segment_ids=ids)
+            worst["k1"] = max(worst["k1"], check_close(f"K1 packed {label}", out, want))
+            if bool(out.transpose(1, 2)[ids[:, :Sq] == 0].any()):
+                raise AssertionError(f"K1 packed {label}: padding queries must write zeros")
+            got = flash_attention_backward(q, k, v, out, lse, d_out, causal=causal, segment_ids=ids)
+            plain = reference_attention_backward(q, k, v, out, lse, d_out, causal=causal, segment_ids=ids)
+            for grad, a, b in zip(("dq", "dk", "dv"), got, plain):
+                worst["k2k3"] = max(worst["k2k3"], check_close(f"K2/K3 packed {label} {grad}", a, b, BWD_TOL))
+            pad_keys = ids[:, :Sk] == 0
+            if bool(got[1].transpose(1, 2)[pad_keys].any()) or bool(got[2].transpose(1, 2)[pad_keys].any()):
+                raise AssertionError(f"K3 packed {label}: padding keys must get exact zeros")
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            grads = torch.autograd.grad(flash_attention(*leaves, causal=causal, segment_ids=ids), leaves, d_out)
+            f32_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+            plain = torch.autograd.grad(reference_attention(*f32_leaves, causal=causal, segment_ids=ids),
+                                        f32_leaves, d_out.float())
+            for grad, a, b in zip(("dq", "dk", "dv"), grads, plain):
+                err = check_close(f"autograd packed {label} {grad}", a, b, BWD_TOL, scaled=True)
+                worst["autograd"] = max(worst["autograd"], err)
+            del out, lse, got, grads, plain, leaves, f32_leaves
+    torch.cuda.empty_cache()
+    return worst
+
+
+def packed_equals_per_sequence(device) -> dict:
+    """One packed row of GPT-2-small width in f32: each segment's logits
+    against the same sequence run alone, within 1e-4 (the JAX invariant of
+    ``tests/unit/test_packing.py::test_gpt_packed_forward_equals_per_sequence``)."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+
+    model = init_gpt(GPTConfig(dtype=torch.float32), seed=1, device=device).requires_grad_(False)
+    packed = lm_packed()
+    ids, segs = (torch.from_numpy(packed[k][:1]).to(device) for k in ("input_ids", "segment_ids"))
+    logits = model(ids, segment_ids=segs)
+    worst = 0.0
+    for seg in range(1, int(segs.max()) + 1):
+        where = torch.nonzero(segs[0] == seg)[:, 0]
+        alone = model(ids[:, where])
+        err = float((logits[:, where] - alone).abs().max())
+        if err > 1e-4:
+            raise AssertionError(f"packed segment {seg} ({where.numel()} tokens): logits differ by {err:.3e} from "
+                                 "the sequence run alone")
+        worst = max(worst, err)
+    result = {"segments": int(segs.max()), "lengths": [int((segs == s).sum()) for s in range(1, int(segs.max()) + 1)],
+              "max_abs_err": worst}
+    del model, logits
+    torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------- end to end
@@ -622,6 +755,121 @@ def train_bert(device) -> dict:
     }
 
 
+def lm_state(config, params, device, impl: str = "auto"):
+    """A fresh LM train state (lr 3e-4, warmup 10, total 1000) from the same
+    weights and dropout seed."""
+    from unionml_tpu_torch.models import create_train_state, init_gpt
+
+    model = init_gpt(dataclasses.replace(config, attention_impl=impl), params=params, device=device)
+    return create_train_state(model, learning_rate=3e-4, warmup_steps=10, total_steps=1000, seed=0)
+
+
+def lm_first_steps(config, params, device, impl: str, batches) -> list:
+    from unionml_tpu_torch.models import make_lm_train_step
+
+    state, step = lm_state(config, params, device, impl), make_lm_train_step(packed=True)
+    history = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    del state
+    torch.cuda.empty_cache()
+    return history
+
+
+def lm_f32_grads_agree(config, params, device, batch) -> dict:
+    """One f32 LM step's gradients, kernel path vs plain path (same weights,
+    same dropout masks): each leaf within 1e-4 of its largest magnitude."""
+    from unionml_tpu_torch.models.training import lm_grads
+
+    cfg = dataclasses.replace(config, dtype=torch.float32)
+    runs = {}
+    for impl in ("auto", "reference"):
+        state = lm_state(cfg, params, device, impl)
+        grads, loss = lm_grads(state, batch, packed=True)
+        runs[impl] = (state.names, grads, float(loss))
+        del state
+    names, kernel, _ = runs["auto"]
+    plain = runs["reference"][1]
+    worst = 0.0
+    for name, a, b in zip(names, kernel, plain):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if err > 1e-4 * scale:
+            raise AssertionError(f"f32 LM gradient {name}: max |err| {err:.3e} beyond 1e-4 x {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    del runs, kernel, plain
+    torch.cuda.empty_cache()
+    return {"worst_relative_err": worst}
+
+
+def lm_flops_per_step(config, segment_ids: np.ndarray) -> dict:
+    """The count behind the LM step's achieved TFLOP/s: 6 x the matmul
+    parameters (QKV, attention out, MLP up and down per layer, and the tied
+    head's vocab x d) x the row slots (padding is computed too), plus the
+    attention: per layer, head and visible (q, k) pair, 4*D (K1) + 6*D (K2) +
+    8*D (K3) flops; visible pairs are s(s+1)/2 per segment of length s."""
+    d, layers = config.hidden_size, config.num_layers
+    matmul_params = layers * 12 * d * d + config.vocab_size * d
+    slots = segment_ids.size
+    pairs = visible_pairs(segment_ids)
+    attention = layers * config.num_heads * 18 * config.head_dim * pairs
+    return {"matmul": 6.0 * matmul_params * slots, "attention": float(attention), "pairs_per_head": pairs}
+
+
+def train_gpt(device) -> dict:
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import GPTConfig, dict_batches, fit_lm, make_lm_eval_step, make_lm_train_step, \
+        random_params
+    from unionml_tpu_torch.ops.packing import packing_efficiency
+
+    config = GPTConfig()  # GPT-2 small: vocab 50257, d 768, 12 layers, 12 heads, 1024 positions; bf16, dropout 0.1
+    params = random_params(config, seed=0)
+    corpus = lm_corpus(LM_SEQS, LM_SEQ)
+    packed = lm_packed()
+    state = lm_state(config, params, device)
+    kernels.reset_launches()
+    result = fit_lm(state, corpus, seq_len=LM_SEQ, batch_size=LM_BATCH, pack=True, num_steps=LM_STEPS,
+                    log_every=5, seed=0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != config.num_layers * LM_STEPS:
+            raise AssertionError(f"LM training launched {name} {launches[name]} times, expected "
+                                 f"{config.num_layers} per step over {LM_STEPS} steps")
+    history = result.metrics_history
+    if result.steps != LM_STEPS or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"LM training: {result.steps} steps, history {history}")
+    data = {k: packed[k] for k in ("input_ids", "segment_ids")}
+    batches = list(dict_batches(data, LM_BATCH, rng=np.random.default_rng(1), device=device))
+    evaluation = {k: float(v) for k, v in make_lm_eval_step(packed=True)(state, batches[0]).items()}
+    if not all(np.isfinite(v) for v in evaluation.values()):
+        raise AssertionError(f"LM eval step: {evaluation}")
+    step = make_lm_train_step(packed=True)
+    step(state, batches[0])
+    profile = step_profile(lambda: step(state, batches[0]), 3, top=10)
+    del state
+    torch.cuda.empty_cache()
+
+    agreement = compare_first_steps(lm_first_steps(config, params, device, "auto", batches[:3]),
+                                    lm_first_steps(config, params, device, "reference", batches[:3]))
+    grads = lm_f32_grads_agree(config, params, device, {k: v[:2] for k, v in batches[1].items()})
+
+    efficiency = packing_efficiency(packed["segment_ids"])
+    slots_per_s = result.examples_per_s * LM_SEQ
+    flops = lm_flops_per_step(config, packed["segment_ids"][:LM_BATCH])
+    step_s = 1.0 / result.steps_per_s
+    tflops = (flops["matmul"] + flops["attention"]) / step_s / 1e12
+    return {
+        "launches": launches, "steps": result.steps, "history": history, "eval": evaluation,
+        "rows": int(packed["input_ids"].shape[0]), "truncated": packed["truncated"],
+        "packing_efficiency": efficiency, "step_ms": step_s * 1e3, "rows_per_s": result.examples_per_s,
+        "slot_tokens_per_s": slots_per_s, "real_tokens_per_s": slots_per_s * efficiency,
+        "flops_per_step": flops, "achieved_tflops": tflops, "share_of_bf16_peak": tflops * 1e12 / BF16_FLOPS,
+        "step_profile": profile, "first_steps_vs_plain": agreement, "f32_grads_vs_plain": grads,
+    }
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -629,7 +877,8 @@ def _times(kernel, plain, library) -> dict:
     """ms / plain_ms / library_ms, each by the same method (see ``timed``)."""
     k, p, lib = timed(kernel), timed(plain), timed(library)
     return {"ms": k["ms"], "plain_ms": p["ms"], "library_ms": lib["ms"], "method": k["method"],
-            "event_ms": {"kernel": k["event_ms"], "plain": p["event_ms"], "library": lib["event_ms"]}}
+            "event_ms": {"kernel": k["event_ms"], "plain": p["event_ms"], "library": lib["event_ms"]},
+            "library_kernels": lib["kernels"]}
 
 
 def _bound(byts: float, flops: float):
@@ -637,12 +886,13 @@ def _bound(byts: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_k1(device, B, S, launches, H=12, D=64) -> dict:
-    """K1 on bf16 causal inputs: kernel, plain version, SDPA, and the bound
-    (q, k, v read once, o written once; 4*D flops per visible (q, k) pair)."""
+def time_k1(device, B, S, launches, H=12, D=64, inputs=None) -> dict:
+    """K1 on bf16 causal inputs (seeded, or ``inputs``): kernel, plain
+    version, SDPA, and the bound (q, k, v read once, o written once; 4*D
+    flops per visible (q, k) pair)."""
     from unionml_tpu_torch.ops.attention import flash_attention, reference_attention
 
-    q, k, v = k1_inputs(B, H, S, D, torch.bfloat16, device)
+    q, k, v = inputs if inputs is not None else k1_inputs(B, H, S, D, torch.bfloat16, device)
     err = check_close("K1 timing inputs", flash_attention(q, k, v, causal=True),
                       reference_attention(q, k, v, causal=True))
     bound, by = _bound(4 * q.numel() * q.element_size(), 4 * B * H * D * S * (S + 1) / 2)
@@ -759,11 +1009,94 @@ def time_bert_kernels(device, lens, launches, H=12, D=64) -> list:
             "launches": launches[name], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "shape": shape,
             "ms": sum(ms for n, ms in by_name.items() if kernel in n), "plain_ms": plain["ms"],
             "library_ms": library["ms"], "method": "profiler device time, by kernel name",
+            "library_kernels": library["kernels"],
             "event_ms": {"whole backward": backward["event_ms"], "plain": plain["event_ms"],
                          "library": library["event_ms"]},
             "backward_kernels_ms": by_name,
         })
     return [k1, *records]
+
+
+def time_packed_kernels(device, launches, H=12, D=64) -> list:
+    """K1, K2 and K3 in segment-id mode at the LM training shape (bf16, B8,
+    H12, S1024, D64, causal, the first training batch's ids), and K1 causal
+    without ids on the same inputs. Bounds count the visible (q, k) pairs
+    (s(s+1)/2 per segment) with the flops and bytes of ``time_bert_kernels``;
+    the library yardsticks are SDPA forward, and forward + backward, with the
+    dense block-diagonal causal mask (padding rows see no key and read NaN
+    there: timing only)."""
+    from unionml_tpu_torch.ops.attention import (
+        _segment_mask, flash_attention, flash_attention_backward, reference_attention, reference_attention_backward,
+    )
+
+    ids = torch.from_numpy(lm_packed()["segment_ids"][:LM_BATCH]).to(device)
+    B, S = ids.shape
+    q, k, v, d_out, _ = bwd_inputs(B, H, S, D, torch.bfloat16, device, None, seed=7)
+    d_out = d_out.contiguous()
+    mask = _segment_mask(ids, S, S) & torch.ones((S, S), dtype=torch.bool, device=device).tril()
+    pairs = visible_pairs(ids.cpu().numpy())
+    visible = H * pairs
+    numel, size = q.numel(), q.element_size()
+    shape = f"bf16 B{B} H{H} S{S} D{D} causal, packed ids ({int((ids > 0).sum())} real tokens, {pairs} pairs per head)"
+
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True, segment_ids=ids)
+    k1_err = check_close("K1 packed timing inputs", out, reference_attention(q, k, v, causal=True, segment_ids=ids))
+    bound, by = _bound(4 * numel * size + lse.numel() * 4, 4 * D * visible)
+    k1 = {
+        "name": "flash_fwd", "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "unionml_tpu/ops/attention.py:83", "launches": launches["flash_fwd"], "max_abs_err": k1_err,
+        "bound_ms": bound, "bound_by": by, "shape": shape,
+        **_times(
+            lambda: flash_attention(q, k, v, causal=True, return_lse=True, segment_ids=ids),
+            lambda: reference_attention(q, k, v, causal=True, segment_ids=ids),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        ),
+    }
+    causal_only = time_k1(device, B, S, None, H=H, D=D, inputs=(q, k, v))
+    causal_only["shape"] += ", no ids (the same inputs without the skip map)"
+
+    got = flash_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids)
+    want = reference_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids)
+    errs = [check_close(f"K2/K3 packed timing inputs d{n}", a, b, BWD_TOL) for n, a, b in zip("qkv", got, want)]
+    del got, want
+
+    def backward():
+        return flash_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids)
+
+    by_name = kernel_ms_by_name(backward)
+    whole = timed(backward)
+    plain = timed(lambda: reference_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        return torch.autograd.grad(o, leaves, d_out)
+
+    library = timed(sdpa_fwd_bwd)
+    records = [k1]
+    for name, kernel, flops, byts, err in (
+        ("flash_bwd_dq", "flash_bwd_dq_kernel", 6 * D * visible, 5 * numel * size, errs[0]),
+        ("flash_bwd_dkv", "flash_bwd_dkv_kernel", 8 * D * visible, 6 * numel * size, max(errs[1:])),
+    ):
+        bound, by = _bound(byts, flops)
+        records.append({
+            "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "unionml_tpu/ops/attention.py:" + ("353" if name == "flash_bwd_dq" else "421"),
+            "launches": launches[name], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "shape": shape,
+            "ms": sum(ms for n, ms in by_name.items() if kernel in n), "plain_ms": plain["ms"],
+            "library_ms": library["ms"], "method": "profiler device time, by kernel name",
+            "library_kernels": library["kernels"],
+            "event_ms": {"whole backward": whole["event_ms"], "plain": plain["event_ms"],
+                         "library": library["event_ms"]},
+            "backward_kernels_ms": by_name,
+        })
+    return records, causal_only
+
+
+def visible_pairs(segment_ids: np.ndarray) -> int:
+    """Visible (q, k) pairs per head under causal packing: s(s+1)/2 per segment."""
+    return sum(int((row == s).sum()) * (int((row == s).sum()) + 1) // 2
+               for row in segment_ids for s in range(1, int(row.max()) + 1))
 
 
 def time_kernels(device, e2e: dict):
@@ -820,6 +1153,11 @@ def main() -> int:
           f"ok, max |err| {details['k2k3']['autograd']:.3e} (tolerance f32 atol 1e-4; bf16 atol 2e-2 + rtol 2e-2, "
           "the autograd atol times the gradient's largest magnitude; bf16 autograd against f32 plain autograd)")
 
+    details["packed"] = check_packed(device)
+    print(f"K1/K2/K3 packed (segment ids) vs plain: ok, max |err| K1 {details['packed']['k1']:.3e}, K2/K3 "
+          f"{details['packed']['k2k3']:.3e}, whole autograd {details['packed']['autograd']:.3e} (tolerance as for "
+          "K1 and K2/K3 above; padding queries zero, padding keys exact-zero dK/dV)")
+
     details["e2e"] = end_to_end(device)
     for dtype, r in details["e2e"].items():
         print(f"[{name_limit}] engine {dtype}: {r['tokens']} tokens in {r['wall_s']:.3f}s = "
@@ -849,13 +1187,35 @@ def main() -> int:
     print(f"f32 B8 gradients, kernels vs plain path: ok, worst error {train['f32_grads_vs_plain']['worst_relative_err']:.3e} "
           "of each leaf's largest magnitude (limit 1e-4)")
 
+    details["packed_vs_alone"] = alone = packed_equals_per_sequence(device)
+    print(f"GPT-2-small f32 packed row ({alone['segments']} segments of {alone['lengths']} tokens) vs each "
+          f"sequence alone: ok, max |err| {alone['max_abs_err']:.3e} (limit 1e-4)")
+
+    details["train_lm"] = lm = train_gpt(device)
+    prof = lm["step_profile"]
+    print(f"[{name_limit}] GPT-2-small packed LM training bf16 B{LM_BATCH} S{LM_SEQ} ({LM_SEQS} sequences in "
+          f"{lm['rows']} rows, packing efficiency {lm['packing_efficiency']:.4f}, {lm['truncated']} truncated): "
+          f"{lm['steps']} steps through fit_lm, launches {lm['launches']} "
+          f"({ {k: v / lm['steps'] for k, v in lm['launches'].items()} } per step), "
+          f"loss by step {[(h['step'], round(h['loss'], 4)) for h in lm['history']]}, eval {lm['eval']}")
+    print(f"[{name_limit}] LM train step: {lm['step_ms']:.2f} ms wall in fit, {lm['rows_per_s']:.2f} rows/s, "
+          f"{lm['slot_tokens_per_s']:.0f} token slots/s, {lm['real_tokens_per_s']:.0f} real tokens/s, "
+          f"{lm['achieved_tflops']:.2f} TFLOP/s achieved ({lm['share_of_bf16_peak']:.4f} of 989; count "
+          f"{lm['flops_per_step']}); profiled: {prof['wall_ms_per_step']:.2f} ms wall, "
+          f"{prof['device_ms_per_step']:.2f} ms device kernels, device idle share {prof['device_idle_share']:.3f}; "
+          f"top kernels {prof['top_kernels_ms_per_step']}")
+    print(f"LM first 3 steps, kernels vs plain path: {lm['first_steps_vs_plain']}")
+    print(f"LM f32 B2 gradients, kernels vs plain path: ok, worst error "
+          f"{lm['f32_grads_vs_plain']['worst_relative_err']:.3e} of each leaf's largest magnitude (limit 1e-4)")
+
     bert = time_bert_kernels(device, train["lens"], train["launches"])
     serving, extra = time_kernels(device, details["e2e"])
-    records, extra = bert + serving[1:], serving[:1] + extra
+    packed_rows, causal_only = time_packed_kernels(device, lm["launches"])
+    records, extra = bert + serving[1:] + packed_rows, serving[:1] + extra + [causal_only]
     for r in records + extra:
         print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-              f"[{r['method']}; per-call CUDA-event ms {r['event_ms']}]")
+              f"[{r['method']}; per-call CUDA-event ms {r['event_ms']}; library kernels {r.get('library_kernels')}]")
     details["kernels"], details["extra_timings"] = records, extra
     details["total_s"] = time.perf_counter() - t0
     if args.details is not None:

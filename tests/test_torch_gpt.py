@@ -31,7 +31,8 @@ def pair():
     jmodel = jgpt.GPTLMHeadModel(jcfg)
     variables = jgpt.init_params(jcfg, seq_len=16)
     params = jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
-    tmodel = init_gpt(GPTConfig.tiny(dtype=torch.float32), params=params, device="cpu")
+    # inference only: the port's forward also trains, so freeze the weights
+    tmodel = init_gpt(GPTConfig.tiny(dtype=torch.float32), params=params, device="cpu").requires_grad_(False)
     return jmodel, variables, params, tmodel
 
 
@@ -137,19 +138,39 @@ def test_config_defaults_and_unported_paths():
                   "layer_norm_eps", "dropout", "remat"):
         assert getattr(cfg, field) == getattr(jcfg, field), field
     assert cfg.head_dim == 64 and cfg.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="M12"):
         dataclasses.replace(cfg, attention_impl="ring")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="GPT remat"):
         dataclasses.replace(cfg, remat=True)
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, paged_attn_impl="pallas")
-    for fn in (tgpt.lm_loss, tgpt.param_shardings, tgpt.paged_commit_chunk):
+    for fn in (tgpt.param_shardings, tgpt.paged_commit_chunk):
         with pytest.raises(NotImplementedError):
             fn()
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError):  # packed training
-        model(torch.zeros((1, 4), dtype=torch.long), segment_ids=torch.ones((1, 4), dtype=torch.long))
+    ids, segs = torch.zeros((1, 4), dtype=torch.long), torch.ones((1, 4), dtype=torch.long)
+    # packed training runs now (and lm_loss with it); packing composes with no cache and no pad_offsets
+    assert torch.isfinite(tgpt.lm_loss(model(ids, segment_ids=segs), ids, segment_ids=segs))
+    with pytest.raises(ValueError, match="packed-TRAINING"):
+        model(ids, cache=tgpt.init_cache(model.config, 1, 8, device="cpu"), position=0, segment_ids=segs)
+    with pytest.raises(ValueError, match="pad_offsets"):
+        model(ids, segment_ids=segs, pad_offsets=torch.zeros(1, dtype=torch.long))
+    with pytest.raises(ValueError, match="generator"):
+        model(ids, deterministic=False)
     with pytest.raises(NotImplementedError):  # speculative verify: multi-token per-row paged step
         pool = tgpt.init_block_pool(model.config, 3, 4, device="cpu")
         model(torch.zeros((1, 2), dtype=torch.long),
               cache={"table": torch.zeros((1, 2), dtype=torch.int32), **pool}, position=torch.tensor([0]))
+
+
+def test_bf16_config_keeps_f32_parameters_equal_to_the_jax_tree(pair):
+    """Mixed precision as flax does it: the bf16 config computes in bf16 but
+    stores float32 parameters, loaded from the JAX tree without rounding."""
+    _, _, params, _ = pair
+    model = init_gpt(GPTConfig.tiny(), params=params, device="cpu")
+    state = convert.params_from_jax(params)
+    for name, value in model.state_dict().items():
+        assert value.dtype == torch.float32 and torch.equal(value, state[name]), name
+    with torch.no_grad():
+        logits = model(torch.from_numpy(_ids(2, 2, 7)).long())
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()

@@ -14,6 +14,10 @@ summation order only): float32 atol 1e-4 (gradients sum up to 256 terms of
 size ~1), bfloat16 atol 2e-2 + rtol 2e-2 (both round to bf16 once, at the
 end); whole-autograd agreement with ``reference_attention`` uses the same
 two tolerances. Each test also checks that the kernel's launch count moved.
+The packed (segment-id) cases hold K1, K2 and K3 to the same tolerances, with
+three segments and a padding tail, ids that recur non-contiguously with
+interior zeros, and cross-length calls from one id array; padding queries get
+zero outputs and padding keys exact-zero dK/dV.
 """
 
 import numpy as np
@@ -148,6 +152,58 @@ def test_flash_autograd_matches_plain_autograd(cuda, dtype, B, H, Sq, S, D, caus
     assert kernels.launches["flash_bwd_dkv"] == before + 1
     mask = _kv_lens_to_mask(kv_lens, S) if kv_lens is not None else None
     want = torch.autograd.grad(reference_attention(q, k, v, mask=mask, causal=causal), (q, k, v), d_out)
+    for a, b in zip(got, want):
+        _close(a, b, BWD_TOL)
+
+
+def _ids(rows):
+    return torch.tensor([sum(([seg] * n for seg, n in row), []) for row in rows], dtype=torch.int32)
+
+
+PACKED_CASES = {  # Sq, Sk, D, causal, (seg, length) runs per row of the id array
+    "three-segments-tail": (77, 77, 64, True, [[(1, 20), (2, 33), (3, 14), (0, 10)], [(1, 77)]]),
+    "non-contiguous-zeros": (128, 128, 64, True, [[(1, 30), (0, 6), (2, 40), (1, 20), (3, 32)],
+                                                  [(0, 5), (4, 60), (0, 3), (4, 50), (5, 10)]]),
+    "Sq96-Sk160": (96, 160, 64, True, [[(1, 50), (2, 70), (0, 40)], [(1, 100), (2, 60)]]),
+    "Sq160-Sk96": (160, 96, 64, True, [[(1, 50), (2, 70), (0, 40)], [(1, 100), (2, 60)]]),
+    "non-causal": (128, 128, 64, False, [[(1, 40), (2, 60), (0, 28)], [(3, 128)]]),
+    "D128": (77, 77, 128, True, [[(1, 20), (2, 33), (3, 14), (0, 10)], [(2, 77)]]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(PACKED_CASES))
+def test_packed_kernels_match_plain(cuda, dtype, case):
+    Sq, S, D, causal, rows = PACKED_CASES[case]
+    ids = _ids(rows).to(cuda)
+    g = torch.Generator().manual_seed(Sq + S + D)
+    q = torch.randn((2, 3, Sq, D), generator=g).to(cuda, dtype)
+    k, v = (torch.randn((2, 3, S, D), generator=g).to(cuda, dtype) for _ in range(2))
+    d_out = torch.randn((2, Sq, 3, D), generator=g).to(cuda, dtype).transpose(1, 2)
+    before = dict(kernels.launches)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True, segment_ids=ids)
+    got = flash_attention_backward(q, k, v, out, lse, d_out, causal=causal, segment_ids=ids)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.launches[name] == before[name] + 1, name
+    _close(out, reference_attention(q, k, v, causal=causal, segment_ids=ids))
+    assert torch.all(out.transpose(1, 2)[ids[:, :Sq] == 0] == 0)
+    want = reference_attention_backward(q, k, v, out, lse, d_out, causal=causal, segment_ids=ids)
+    for a, b in zip(got, want):
+        _close(a, b, BWD_TOL)
+    pad_keys = ids[:, :S] == 0
+    assert torch.all(got[1].transpose(1, 2)[pad_keys] == 0) and torch.all(got[2].transpose(1, 2)[pad_keys] == 0)
+
+
+def test_packed_autograd_matches_plain_autograd(cuda):
+    dtype = torch.float32
+    Sq, S, D, causal, rows = PACKED_CASES["non-contiguous-zeros"]
+    ids = _ids(rows).to(cuda)
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((2, 3, S, D), generator=g).to(cuda, dtype).requires_grad_() for _ in range(3))
+    d_out = torch.randn((2, 3, S, D), generator=g).to(cuda, dtype)
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=True, segment_ids=ids), (q, k, v), d_out)
+    want = torch.autograd.grad(reference_attention(q, k, v, causal=True, segment_ids=ids), (q, k, v), d_out)
     for a, b in zip(got, want):
         _close(a, b, BWD_TOL)
 

@@ -1,20 +1,24 @@
-"""PyTorch/CUDA port of unionml-tpu: GPT paged decode serving and BERT
-fine-tuning.
+"""PyTorch/CUDA port of unionml-tpu: GPT paged decode serving, BERT
+fine-tuning and packed causal-LM training.
 
 The JAX package (``unionml_tpu``) stays the reference; this package mirrors its
 module names so each counterpart is easy to find:
 
-- :mod:`unionml_tpu_torch.ops` — attention (flash forward and backward), paged
-  attention, classification losses, blockwise int8 quantization and token
-  sampling. The attention ops run hand-written CUDA kernels (``csrc/``) on
-  CUDA tensors and their plain PyTorch versions on CPU tensors.
+- :mod:`unionml_tpu_torch.ops` — attention (flash forward and backward, with
+  packed segment ids), paged attention, classification losses, sequence
+  packing, blockwise int8 quantization and token sampling. The attention ops
+  run hand-written CUDA kernels (``csrc/``) on CUDA tensors and their plain
+  PyTorch versions on CPU tensors.
 - :mod:`unionml_tpu_torch.models.gpt` — the GPT-2-style decoder as
   ``nn.Module``s with dense and paged KV caches.
 - :mod:`unionml_tpu_torch.models.bert` and
   :mod:`unionml_tpu_torch.models.training` — the BERT classifier and its
   training loop (``create_train_state`` → ``make_classifier_train_step`` →
   ``fit``, ``make_classifier_eval_step``); attention's gradient runs the
-  flash-backward kernels through a ``torch.autograd.Function``.
+  flash-backward kernels through a ``torch.autograd.Function``. Packed
+  causal-LM training of the GPT decoder runs through the same module
+  (``pack_sequences`` → ``create_train_state`` → ``fit_lm(pack=True)``,
+  ``make_lm_eval_step``), with the kernels in their segment-id mode.
 - :mod:`unionml_tpu_torch.serving.continuous` — ``DecodeEngine`` (paged int8
   KV pool, bucket and chunked prefill) and the asyncio ``ContinuousBatcher``.
 

@@ -38,4 +38,32 @@ struct I8 {
   static __device__ __forceinline__ float load(int8_t x) { return static_cast<float>(x); }
 };
 
+// The scan range of a tile of 32 rows in packed (segment-id) mode: the
+// [min first, max end) over rows r0 .. r0 + 31 (those < n_rows) of a
+// (n_rows, 2) int32 array of per-row [first, end) ranges on the other axis,
+// written to out[0], out[1] in shared memory. Rows past n_rows count as the
+// empty range [n_other, 0). The first warp reduces by shuffles; every thread
+// of the block must call this (it ends in __syncthreads).
+__device__ __forceinline__ void reduce_tile_range(const int* ranges, int r0, int n_rows, int n_other,
+                                                  int* out) {
+  if (threadIdx.x < 32) {
+    const int row = r0 + static_cast<int>(threadIdx.x);
+    int lo = n_other, hi = 0;
+    if (row < n_rows) {
+      lo = ranges[2 * static_cast<size_t>(row)];
+      hi = ranges[2 * static_cast<size_t>(row) + 1];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if (threadIdx.x == 0) {
+      out[0] = lo;
+      out[1] = hi;
+    }
+  }
+  __syncthreads();
+}
+
 }  // namespace uml

@@ -41,6 +41,27 @@
 //   rows at or past kv_len, and skipped tiles, get exact zeros.
 // Any Sq and Sk (ragged tiles masked, no fallback), bf16 or f32, head_dim 64
 // or 128. Later work: mma.sync / wgmma tiles and cp.async/TMA staging.
+//
+// Segment-id (packed) mode, replacing the `packed=True` branches of
+// `_bwd_dq_kernel` (attention.py:371-417) and `_bwd_dkv_kernel` (:439-502)
+// with the block-skip maps `_flash_backward` builds from
+// `_segment_block_bounds`: seg_ids is (B, seg_stride) int32, query ids its
+// first Sq columns and key ids its first Sk; a key is visible to a query when
+// j < kv_len, id_q[i] == id_k[j], id_q[i] > 0 and, under causal, j <= i (row
+// positions, as in JAX); kv_len (the last nonzero key id's index + 1) comes
+// through kv_lens. seg_ranges holds per position of the kernel's own axis the
+// [first, end) that its id occupies on the other axis: (B, Sq, 2) key ranges
+// for K2, (B, Sk, 2) query ranges for K3. Each CTA reduces them over its 32
+// rows (a tile that straddles segments scans the union; the in-tile id test
+// keeps unions and the supersets of ids that recur non-contiguously exact).
+// - K2 scans only the key tiles inside [min first, max end) ∩ [0, kv_len) ∩
+//   the causal limit. Padding query rows (id 0) get exact zeros.
+// - K3 starts at max(the causal diagonal, min first) and stops at
+//   min(Sq, max end); a key tile at or past kv_len scans nothing. The query
+//   scan is never bounded by kv_len, which counts keys: the JAX kernel had
+//   that bug and dropped dK/dV rows when Sq > Sk (:494-500). Keys no query
+//   sees (padding, or a tile outside every range) get exact zeros.
+// The work drops from O(S^2) to O(sum of seg_len^2) per row, as in K1.
 
 #include "common.cuh"
 
@@ -105,12 +126,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const typename E::T* __restrict__ q, const typename E::T* __restrict__ k,
     const typename E::T* __restrict__ v, const typename E::T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ kv_lens,
-    typename E::T* __restrict__ dq, int H, int Sq, int Sk, int causal, float sm_scale) {
+    const int* __restrict__ seg_ids, const int* __restrict__ seg_ranges, typename E::T* __restrict__ dq,
+    int H, int Sq, int Sk, int seg_stride, int causal, float sm_scale) {
   constexpr int BK = D == 64 ? 64 : 32;  // keys per shared-memory tile (16 KB each of K and V)
   constexpr int NV = D / 16;             // float4 columns per thread
   constexpr int DT = NV * 4;             // dims per thread
   __shared__ float4 k_tile[BK * D / 4];
   __shared__ float4 v_tile[BK * D / 4];
+  __shared__ int k_ids[BK];
+  __shared__ int scan_range[2];
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -119,11 +143,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int q0 = static_cast<int>(blockIdx.x) * kRows;
   const int qi = q0 + (tid >> 2);
   const bool q_live = qi < Sq;
+  const bool packed = seg_ids != nullptr;
 
   int kv_len = Sk;
   if (kv_lens != nullptr) kv_len = min(Sk, max(kv_lens[b], 0));
   int n_keys = kv_len;
   if (causal) n_keys = min(n_keys, min(q0 + kRows, Sq));
+  int k_begin = 0;
+  int qid = 0;
+  const int* ids_b = packed ? seg_ids + static_cast<size_t>(b) * seg_stride : nullptr;
+  if (packed) {
+    uml::reduce_tile_range(seg_ranges + static_cast<size_t>(b) * Sq * 2, q0, Sq, Sk, scan_range);
+    k_begin = scan_range[0];
+    n_keys = min(n_keys, scan_range[1]);
+    qid = q_live ? ids_b[qi] : 0;
+  }
 
   const size_t row = static_cast<size_t>(bh) * Sq + (q_live ? qi : 0);
   float qr[DT], dor[DT], acc[DT];
@@ -140,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   float* v_flat = reinterpret_cast<float*>(v_tile);
   const int n_tiles = (n_keys + BK - 1) / BK;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = k_begin / BK; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile is fully consumed
     for (int idx = tid; idx < BK * D; idx += kThreads) {
@@ -150,10 +184,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       k_flat[idx] = in ? E::load(k_bh[src]) : 0.f;
       v_flat[idx] = in ? E::load(v_bh[src]) : 0.f;
     }
+    if (packed && tid < BK) k_ids[tid] = k0 + tid < Sk ? ids_b[k0 + tid] : 0;
     __syncthreads();
 
+    // the first step that can hold a key at or past k_begin (CTA-uniform)
+    const int c_begin = k0 < k_begin ? ((k_begin - k0) / kChunk) * kChunk : 0;
 #pragma unroll 1
-    for (int c = 0; c < BK; c += kChunk) {
+    for (int c = c_begin; c < BK; c += kChunk) {
       if (k0 + c >= n_keys) break;  // CTA-uniform: the rest of the tile is masked
       float ds[kChunk];
 #pragma unroll
@@ -161,7 +198,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         const float s = quad_dot<NV>(qr, k_tile + (c + u) * (D / 4), quad);
         const float dp = quad_dot<NV>(dor, v_tile + (c + u) * (D / 4), quad);
         const int key = k0 + c + u;
-        const bool ok = q_live && key < kv_len && (!causal || key <= qi);
+        const bool ok = q_live && key < kv_len && (!causal || key <= qi) &&
+                        (!packed || (qid > 0 && k_ids[c + u] == qid));
         const float p = ok ? expf(s - row_lse) : 0.f;
         ds[u] = ok ? p * (dp - row_delta) : 0.f;
       }
@@ -179,8 +217,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const typename E::T* __restrict__ q, const typename E::T* __restrict__ k,
     const typename E::T* __restrict__ v, const typename E::T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ kv_lens,
-    typename E::T* __restrict__ dk, typename E::T* __restrict__ dv, int H, int Sq, int Sk, int causal,
-    float sm_scale) {
+    const int* __restrict__ seg_ids, const int* __restrict__ seg_ranges, typename E::T* __restrict__ dk,
+    typename E::T* __restrict__ dv, int H, int Sq, int Sk, int seg_stride, int causal, float sm_scale) {
   constexpr int BQ = D == 64 ? 64 : 32;  // queries per shared-memory tile (16 KB each of qs and dO)
   constexpr int NV = D / 16;
   constexpr int DT = NV * 4;
@@ -188,6 +226,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   __shared__ float4 do_tile[BQ * D / 4];
   __shared__ float lse_tile[BQ];
   __shared__ float delta_tile[BQ];
+  __shared__ int q_ids[BQ];
+  __shared__ int scan_range[2];
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -196,13 +236,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int k0 = static_cast<int>(blockIdx.x) * kRows;
   const int kj = k0 + (tid >> 2);
   const bool k_live = kj < Sk;
+  const bool packed = seg_ids != nullptr;
 
   int kv_len = Sk;
   if (kv_lens != nullptr) kv_len = min(Sk, max(kv_lens[b], 0));
   // query i sees key j only if i >= j under causal; a tile wholly at or past
   // kv_len sees no query at all
-  const int q_begin = causal ? min(k0, Sq) : 0;
-  const int q_end = k0 < kv_len ? Sq : 0;
+  int q_begin = causal ? min(k0, Sq) : 0;
+  int q_end = k0 < kv_len ? Sq : 0;
+  int kid = 0;
+  const int* ids_b = packed ? seg_ids + static_cast<size_t>(b) * seg_stride : nullptr;
+  if (packed) {
+    // the transposed map: the query range of the tile's key ids, in query units
+    uml::reduce_tile_range(seg_ranges + static_cast<size_t>(b) * Sk * 2, k0, Sk, Sq, scan_range);
+    q_begin = max(q_begin, scan_range[0]);
+    q_end = min(q_end, scan_range[1]);
+    kid = k_live ? ids_b[kj] : 0;
+  }
 
   const size_t row = static_cast<size_t>(bh) * Sk + (k_live ? kj : 0);
   float kr[DT], vr[DT], dk_acc[DT], dv_acc[DT];
@@ -234,11 +284,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       const bool in = t0 + tid < Sq;
       lse_tile[tid] = in ? lse_bh[t0 + tid] : 0.f;
       delta_tile[tid] = in ? delta_bh[t0 + tid] : 0.f;
+      if (packed) q_ids[tid] = in ? ids_b[t0 + tid] : 0;
     }
     __syncthreads();
 
+    // the first step that can hold a query at or past q_begin (CTA-uniform)
+    const int c_begin = t0 < q_begin ? ((q_begin - t0) / kChunk) * kChunk : 0;
 #pragma unroll 1
-    for (int c = 0; c < BQ; c += kChunk) {
+    for (int c = c_begin; c < BQ; c += kChunk) {
       if (t0 + c >= q_end) break;  // CTA-uniform: the rest of the tile is past Sq
       float p[kChunk], ds[kChunk];
 #pragma unroll
@@ -246,7 +299,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         const float s = quad_dot<NV>(kr, q_tile + (c + u) * (D / 4), quad);
         const float dp = quad_dot<NV>(vr, do_tile + (c + u) * (D / 4), quad);
         const int qi = t0 + c + u;
-        const bool ok = qi < Sq && kj < kv_len && (!causal || qi >= kj);
+        const bool ok = qi < Sq && kj < kv_len && (!causal || qi >= kj) &&
+                        (!packed || (kid > 0 && q_ids[c + u] == kid));
         p[u] = ok ? expf(s - lse_tile[c + u]) : 0.f;
         ds[u] = ok ? p[u] * (dp - delta_tile[c + u]) : 0.f;
       }
@@ -265,74 +319,69 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 template <typename E, int D>
 void launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, const int* kv_lens, void* dq, int B, int H, int Sq, int Sk,
-               int causal, float sm_scale, cudaStream_t stream) {
+               const float* delta, const int* kv_lens, const int* seg_ids, const int* seg_ranges, void* dq,
+               int B, int H, int Sq, int Sk, int seg_stride, int causal, float sm_scale, cudaStream_t stream) {
   using T = typename E::T;
   const dim3 grid((Sq + kRows - 1) / kRows, B * H);
   flash_bwd_dq_kernel<E, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, kv_lens, static_cast<T*>(dq), H, Sq, Sk, causal,
-      sm_scale);
+      static_cast<const T*>(dout), lse, delta, kv_lens, seg_ids, seg_ranges, static_cast<T*>(dq), H, Sq, Sk,
+      seg_stride, causal, sm_scale);
 }
 
 template <typename E, int D>
 void launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                const float* delta, const int* kv_lens, void* dk, void* dv, int B, int H, int Sq,
-                int Sk, int causal, float sm_scale, cudaStream_t stream) {
+                const float* delta, const int* kv_lens, const int* seg_ids, const int* seg_ranges, void* dk,
+                void* dv, int B, int H, int Sq, int Sk, int seg_stride, int causal, float sm_scale,
+                cudaStream_t stream) {
   using T = typename E::T;
   const dim3 grid((Sk + kRows - 1) / kRows, B * H);
   flash_bwd_dkv_kernel<E, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, kv_lens, static_cast<T*>(dk), static_cast<T*>(dv),
-      H, Sq, Sk, causal, sm_scale);
+      static_cast<const T*>(dout), lse, delta, kv_lens, seg_ids, seg_ranges, static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, seg_stride, causal, sm_scale);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; lse and delta are float32 (B, H, Sq);
-// kv_lens (int32, (B,)) may be null. Sq, Sk and B*H must be positive.
+// kv_lens (int32, (B,)) may be null; seg_ids ((B, seg_stride) int32) may be
+// null, and with it kv_lens and seg_ranges must be given ((B, Sq, 2) for
+// flash_bwd_dq, (B, Sk, 2) for flash_bwd_dkv). Sq, Sk and B*H must be positive.
 // Each returns cudaGetLastError() after its launch (cudaErrorInvalidValue for
 // an unsupported dtype/head_dim, which the Python wrapper rejects first).
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, const void* kv_lens, void* dq,
-                            int B, int H, int Sq, int Sk, int D, int dtype, int causal,
-                            float sm_scale, void* stream) {
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const int* lens = static_cast<const int*>(kv_lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) {
-    launch_dq<uml::F32, 64>(q, k, v, dout, l, dl, lens, dq, B, H, Sq, Sk, causal, sm_scale, s);
-  } else if (dtype == 0 && D == 128) {
-    launch_dq<uml::F32, 128>(q, k, v, dout, l, dl, lens, dq, B, H, Sq, Sk, causal, sm_scale, s);
-  } else if (dtype == 1 && D == 64) {
-    launch_dq<uml::BF16, 64>(q, k, v, dout, l, dl, lens, dq, B, H, Sq, Sk, causal, sm_scale, s);
-  } else if (dtype == 1 && D == 128) {
-    launch_dq<uml::BF16, 128>(q, k, v, dout, l, dl, lens, dq, B, H, Sq, Sk, causal, sm_scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define UML_BWD_DISPATCH(LAUNCH, ...)                                  \
+  if (seg_ids != nullptr && (seg_ranges == nullptr || kv_lens == nullptr)) \
+    return static_cast<int>(cudaErrorInvalidValue);                    \
+  if (dtype == 0 && D == 64) {                                         \
+    LAUNCH<uml::F32, 64>(__VA_ARGS__);                                 \
+  } else if (dtype == 0 && D == 128) {                                 \
+    LAUNCH<uml::F32, 128>(__VA_ARGS__);                                \
+  } else if (dtype == 1 && D == 64) {                                  \
+    LAUNCH<uml::BF16, 64>(__VA_ARGS__);                                \
+  } else if (dtype == 1 && D == 128) {                                 \
+    LAUNCH<uml::BF16, 128>(__VA_ARGS__);                               \
+  } else {                                                             \
+    return static_cast<int>(cudaErrorInvalidValue);                    \
+  }                                                                    \
   return static_cast<int>(cudaGetLastError());
+
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, const void* kv_lens, const void* seg_ids,
+                            const void* seg_ranges, void* dq, int B, int H, int Sq, int Sk, int D,
+                            int seg_stride, int dtype, int causal, float sm_scale, void* stream) {
+  UML_BWD_DISPATCH(launch_dq, q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+                   static_cast<const int*>(kv_lens), static_cast<const int*>(seg_ids),
+                   static_cast<const int*>(seg_ranges), dq, B, H, Sq, Sk, seg_stride, causal, sm_scale,
+                   static_cast<cudaStream_t>(stream))
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* kv_lens, void* dk,
-                             void* dv, int B, int H, int Sq, int Sk, int D, int dtype, int causal,
-                             float sm_scale, void* stream) {
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const int* lens = static_cast<const int*>(kv_lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) {
-    launch_dkv<uml::F32, 64>(q, k, v, dout, l, dl, lens, dk, dv, B, H, Sq, Sk, causal, sm_scale, s);
-  } else if (dtype == 0 && D == 128) {
-    launch_dkv<uml::F32, 128>(q, k, v, dout, l, dl, lens, dk, dv, B, H, Sq, Sk, causal, sm_scale, s);
-  } else if (dtype == 1 && D == 64) {
-    launch_dkv<uml::BF16, 64>(q, k, v, dout, l, dl, lens, dk, dv, B, H, Sq, Sk, causal, sm_scale, s);
-  } else if (dtype == 1 && D == 128) {
-    launch_dkv<uml::BF16, 128>(q, k, v, dout, l, dl, lens, dk, dv, B, H, Sq, Sk, causal, sm_scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                             const void* lse, const void* delta, const void* kv_lens, const void* seg_ids,
+                             const void* seg_ranges, void* dk, void* dv, int B, int H, int Sq, int Sk,
+                             int D, int seg_stride, int dtype, int causal, float sm_scale, void* stream) {
+  UML_BWD_DISPATCH(launch_dkv, q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+                   static_cast<const int*>(kv_lens), static_cast<const int*>(seg_ids),
+                   static_cast<const int*>(seg_ranges), dk, dv, B, H, Sq, Sk, seg_stride, causal, sm_scale,
+                   static_cast<cudaStream_t>(stream))
 }

@@ -4,26 +4,43 @@
 // in unionml_tpu/ops/attention.py (the `pl.pallas_call` of the forward). Same
 // function: softmax(q k^T * sm_scale) v per (batch, head), with optional causal
 // masking (query i sees keys j <= i), optional right-padding lengths kv_lens[b]
-// (keys j >= kv_len are masked), f32 accumulation, output in q's dtype, zeros
-// for a row that sees no key, and an optional f32 logsumexp per row (the
-// residual a backward pass reuses).
+// (keys j >= kv_len are masked), optional packed segment ids, f32
+// accumulation, output in q's dtype, zeros for a row that sees no key, and an
+// optional f32 logsumexp per row (the residual a backward pass reuses).
+//
+// Segment-id (packed) mode, replacing the `packed=True` branch of
+// `_flash_kernel` (attention.py:113-176) and its block-skip map
+// `_segment_block_bounds` (:212-254): seg_ids is (B, seg_stride) int32, the
+// query ids are its first Sq columns and the key ids its first Sk; key j is
+// visible to query i when j < kv_len, id_q[i] == id_k[j] and id_q[i] > 0 (and
+// j <= i under causal, row positions as in JAX). kv_len comes through kv_lens:
+// the wrapper sets it to the last nonzero key id's index + 1. seg_ranges is
+// (B, Sq, 2) int32: for each query, [first, end) of the key positions that
+// carry its id (empty for padding). The CTA reduces them over its 32 rows and
+// scans only the key tiles inside [min first, max end) ∩ [0, kv_len) ∩ the
+// causal limit, so a packed row costs O(sum of seg_len^2), not O(S^2); a
+// 32-row tile that straddles segments scans the union, and the in-tile id test
+// keeps the union exact (as it keeps the superset ranges of ids that recur
+// non-contiguously exact). Padding rows (id 0) see no key: they write zeros
+// and an lse of -1e30, from which K2/K3 take exactly nothing (they select).
 //
 // What bounds it on the H100: at the engine's prefill shapes (B <= 4, H 12,
-// D 64, S <= 512) the work is 4*B*H*Sq*Sk*D flops (half that under causal)
-// against ~(q + k + v + o) bytes, about Sk/2 flops per byte: above the card's
-// bf16 ridge only through the tensor cores, so a kernel that does its products
-// on the CUDA cores is bounded by their f32 FMA rate, not by memory.
+// D 64, S <= 512) the work is 4*B*H*Sq*Sk*D flops (half that under causal;
+// in packed mode 4*D per visible pair, sum of s(s+1)/2 per segment) against
+// ~(q + k + v + o) bytes, about Sk/2 flops per byte: above the card's bf16
+// ridge only through the tensor cores, so a kernel that does its products on
+// the CUDA cores is bounded by their f32 FMA rate, not by memory.
 //
 // Design, simple and right first: one CTA of 128 threads per (batch*head,
 // tile of 32 query rows); four threads share a query row, each holding a
 // quarter of the head dim of the scaled query and of the accumulator in
 // registers (interleaved float4 columns, so the four threads hit distinct
 // shared-memory banks). The CTA walks K/V tiles staged once in shared memory
-// as f32 and read by all 32 rows; scores of 8 keys at a time are reduced
-// across the four threads by warp shuffles and folded into the running
-// (max, sum, acc) state. Tiles beyond kv_len, and under causal beyond the
-// tile's last query, are never loaded. Any Sq and Sk: the ragged query tile
-// and the ragged key tile are masked, there is no fallback. head_dim 64 or 128.
+// as f32 (with their key ids in packed mode) and read by all 32 rows; scores
+// of 8 keys at a time are reduced across the four threads by warp shuffles and
+// folded into the running (max, sum, acc) state. Tiles outside the scan range
+// are never loaded. Any Sq and Sk: the ragged query tile and the ragged key
+// tile are masked, there is no fallback. head_dim 64 or 128.
 // Later work: mma.sync / wgmma tiles and cp.async/TMA staging.
 
 #include "common.cuh"
@@ -38,13 +55,16 @@ template <typename E, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const typename E::T* __restrict__ q, const typename E::T* __restrict__ k,
     const typename E::T* __restrict__ v, const int* __restrict__ kv_lens,
-    typename E::T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
+    const int* __restrict__ seg_ids, const int* __restrict__ seg_ranges,
+    typename E::T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk, int seg_stride,
     int causal, float sm_scale) {
   constexpr int BK = D == 64 ? 64 : 32;  // keys per shared-memory tile (16 KB each of K and V)
   constexpr int NV = D / 16;             // float4 columns per thread
   constexpr int DT = NV * 4;             // dims per thread
   __shared__ float4 k_tile[BK * D / 4];
   __shared__ float4 v_tile[BK * D / 4];
+  __shared__ int k_ids[BK];
+  __shared__ int scan_range[2];
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -53,11 +73,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int q0 = static_cast<int>(blockIdx.x) * kBlockQ;
   const int qi = q0 + (tid >> 2);
   const bool q_live = qi < Sq;
+  const bool packed = seg_ids != nullptr;
 
   int kv_len = Sk;
   if (kv_lens != nullptr) kv_len = min(Sk, max(kv_lens[b], 0));
   int n_keys = kv_len;
   if (causal) n_keys = min(n_keys, min(q0 + kBlockQ, Sq));
+  int k_begin = 0;
+  int qid = 0;
+  const int* ids_b = packed ? seg_ids + static_cast<size_t>(b) * seg_stride : nullptr;
+  if (packed) {
+    uml::reduce_tile_range(seg_ranges + static_cast<size_t>(b) * Sq * 2, q0, Sq, Sk, scan_range);
+    k_begin = scan_range[0];
+    n_keys = min(n_keys, scan_range[1]);
+    qid = q_live ? ids_b[qi] : 0;
+  }
 
   // this thread's dims: float4 column j*4 + quad, i.e. dims (j*4+quad)*4 .. +3
   float qr[DT], acc[DT];
@@ -78,7 +108,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float* v_flat = reinterpret_cast<float*>(v_tile);
   const int n_tiles = (n_keys + BK - 1) / BK;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = k_begin / BK; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile is fully consumed
     for (int idx = tid; idx < BK * D; idx += kThreads) {
@@ -88,10 +118,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       k_flat[idx] = in ? E::load(k_bh[src]) : 0.f;
       v_flat[idx] = in ? E::load(v_bh[src]) : 0.f;
     }
+    if (packed && tid < BK) k_ids[tid] = k0 + tid < Sk ? ids_b[k0 + tid] : 0;
     __syncthreads();
 
+    // the first chunk that can hold a key at or past k_begin (CTA-uniform)
+    const int c_begin = k0 < k_begin ? ((k_begin - k0) / kChunk) * kChunk : 0;
 #pragma unroll 1
-    for (int c = 0; c < BK; c += kChunk) {
+    for (int c = c_begin; c < BK; c += kChunk) {
       if (k0 + c >= n_keys) break;  // CTA-uniform: the rest of the tile is masked
       float s[kChunk];
       unsigned valid = 0;
@@ -108,7 +141,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         part += __shfl_xor_sync(0xffffffffu, part, 1);
         part += __shfl_xor_sync(0xffffffffu, part, 2);
         const int key = k0 + c + u;
-        const bool ok = key < kv_len && (!causal || key <= qi);
+        const bool ok = key < kv_len && (!causal || key <= qi) &&
+                        (!packed || (qid > 0 && k_ids[c + u] == qid));
         valid |= ok ? (1u << u) : 0u;
         s[u] = ok ? part : uml::kNegInf;
       }
@@ -156,34 +190,40 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 template <typename E, int D>
-void launch(const void* q, const void* k, const void* v, const int* kv_lens, void* o, float* lse,
-            int B, int H, int Sq, int Sk, int causal, float sm_scale, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, const int* kv_lens, const int* seg_ids,
+            const int* seg_ranges, void* o, float* lse, int B, int H, int Sq, int Sk, int seg_stride,
+            int causal, float sm_scale, cudaStream_t stream) {
   using T = typename E::T;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
   flash_fwd_kernel<E, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_lens,
-      static_cast<T*>(o), lse, H, Sq, Sk, causal, sm_scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_lens, seg_ids,
+      seg_ranges, static_cast<T*>(o), lse, H, Sq, Sk, seg_stride, causal, sm_scale);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kv_lens and lse may be null.
+// dtype: 0 = float32, 1 = bfloat16. kv_lens, seg_ids (with seg_ranges and
+// seg_stride) and lse may be null; with seg_ids, kv_lens must be given.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // unsupported dtype/head_dim, which the Python wrapper rejects first).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kv_lens, void* o,
-                         void* lse, int B, int H, int Sq, int Sk, int D, int dtype, int causal,
-                         float sm_scale, void* stream) {
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
+                         const void* seg_ids, const void* seg_ranges, void* o, void* lse, int B, int H,
+                         int Sq, int Sk, int D, int seg_stride, int dtype, int causal, float sm_scale,
+                         void* stream) {
   const int* lens = static_cast<const int*>(kv_lens);
+  const int* ids = static_cast<const int*>(seg_ids);
+  const int* ranges = static_cast<const int*>(seg_ranges);
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ids != nullptr && (ranges == nullptr || lens == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 64) {
-    launch<uml::F32, 64>(q, k, v, lens, o, lse_f, B, H, Sq, Sk, causal, sm_scale, s);
+    launch<uml::F32, 64>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
   } else if (dtype == 0 && D == 128) {
-    launch<uml::F32, 128>(q, k, v, lens, o, lse_f, B, H, Sq, Sk, causal, sm_scale, s);
+    launch<uml::F32, 128>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
   } else if (dtype == 1 && D == 64) {
-    launch<uml::BF16, 64>(q, k, v, lens, o, lse_f, B, H, Sq, Sk, causal, sm_scale, s);
+    launch<uml::BF16, 64>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
   } else if (dtype == 1 && D == 128) {
-    launch<uml::BF16, 128>(q, k, v, lens, o, lse_f, B, H, Sq, Sk, causal, sm_scale, s);
+    launch<uml::BF16, 128>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -44,12 +44,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argument types of each library's entry points (pointers and the stream as
 #: c_void_p: a bare Python int would be passed as a 32-bit int and cut)
-_BWD_ARGS = [_P] * 7  # q, k, v, d_out, lse, delta, kv_lens
-_BWD_SHAPE = [_I, _I, _I, _I, _I, _I, _I, _F, _P]  # B, H, Sq, Sk, D, dtype, causal, sm_scale, stream
+_BWD_ARGS = [_P] * 9  # q, k, v, d_out, lse, delta, kv_lens, seg_ids, seg_ranges
+# B, H, Sq, Sk, D, seg_stride, dtype, causal, sm_scale, stream
+_BWD_SHAPE = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 _ENTRY_POINTS = {
     "flash_fwd": {
-        # q, k, v, kv_lens, o, lse, B, H, Sq, Sk, D, dtype, causal, sm_scale, stream
-        "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, kv_lens, seg_ids, seg_ranges, o, lse,
+        # B, H, Sq, Sk, D, seg_stride, dtype, causal, sm_scale, stream
+        "flash_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
     },
     "flash_bwd": {
         "flash_bwd_dq": _BWD_ARGS + [_P] + _BWD_SHAPE,  # ..., dq, ...

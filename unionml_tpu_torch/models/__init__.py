@@ -1,16 +1,18 @@
 """The port's model zoo: the GPT decoder, the BERT classifier, their weight
-conversion, and the classifier training loop."""
+conversion, and the training loops (classifier fine-tuning and packed
+causal-LM training)."""
 
 from unionml_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, import_hf_weights, init_bert
 from unionml_tpu_torch.models.convert import (
     bert_grads_to_jax,
     bert_params_from_jax,
     bert_random_params,
+    gpt_grads_to_jax,
     init_gpt,
     params_from_jax,
     random_params,
 )
-from unionml_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate
+from unionml_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate, lm_loss
 from unionml_tpu_torch.models.training import (
     FitResult,
     TrainState,
@@ -18,8 +20,11 @@ from unionml_tpu_torch.models.training import (
     create_train_state,
     dict_batches,
     fit,
+    fit_lm,
     make_classifier_eval_step,
     make_classifier_train_step,
+    make_lm_eval_step,
+    make_lm_train_step,
 )
 
 __all__ = [
@@ -36,12 +41,17 @@ __all__ = [
     "create_train_state",
     "dict_batches",
     "fit",
+    "fit_lm",
     "generate",
+    "gpt_grads_to_jax",
     "import_hf_weights",
     "init_bert",
     "init_gpt",
+    "lm_loss",
     "make_classifier_eval_step",
     "make_classifier_train_step",
+    "make_lm_eval_step",
+    "make_lm_train_step",
     "params_from_jax",
     "random_params",
 ]

@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import resolve_device
+from unionml_tpu_torch.models._layers import _dense, _dropout, _layer_norm
 from unionml_tpu_torch.models.convert import bert_params_from_jax, bert_random_params
 from unionml_tpu_torch.ops.attention import attention
 
@@ -109,28 +110,6 @@ class BertConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
-
-
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``nn.Dense(dtype=...)``: input, kernel and bias cast to the compute dtype."""
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
-
-
-def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """f32 statistics and affine, output in the compute dtype."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps).to(dtype)
-
-
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale kept
-    values by ``1 / (1 - rate)``; ``generator=None`` is deterministic."""
-    if generator is None or rate == 0.0:
-        return x
-    if rate == 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class BertSelfAttention(nn.Module):

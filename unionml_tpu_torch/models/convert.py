@@ -9,9 +9,10 @@ LayerNorm ``scale`` becomes ``weight`` and Embed ``embedding`` becomes
 ``weight``. BERT's tree (``{"bert": {"word_embeddings", ..., "encoder":
 {"layer_i": {"attention": {...}, "mlp": {...}}}, "pooler"}, "classifier"}``)
 maps the same way onto :class:`~unionml_tpu_torch.models.bert.
-BertForSequenceClassification`; :func:`bert_grads_to_jax` maps the port's
-named gradients back onto the tree, so the two packages' gradients compare
-leaf by leaf.
+BertForSequenceClassification`; :func:`gpt_grads_to_jax` and
+:func:`bert_grads_to_jax` map the port's named gradients back onto the trees,
+so the two packages' gradients compare leaf by leaf. Both models keep float32
+parameters, so weights load without rounding.
 """
 
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -25,6 +26,7 @@ __all__ = [
     "bert_grads_to_jax",
     "bert_params_from_jax",
     "bert_random_params",
+    "gpt_grads_to_jax",
     "init_gpt",
     "params_from_jax",
     "random_params",
@@ -60,6 +62,36 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             state[f"layers.{layer}.{name}.bias"] = t(src[name]["bias"])
         layer += 1
     return state
+
+
+def _np32(value) -> np.ndarray:
+    if torch.is_tensor(value):
+        value = value.detach().float().cpu().numpy()
+    return np.asarray(value, dtype=np.float32)
+
+
+def gpt_grads_to_jax(named_grads: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax` for gradients: port parameter
+    names to tensors (e.g. ``zip(state.names, grads)``) become the JAX GPT
+    tree layout (without the ``"params"`` wrapper) of numpy float32 arrays,
+    dense kernels transposed back to ``(in, out)``."""
+    tree: Dict[str, Any] = {
+        "wte": {"embedding": _np32(named_grads["wte.weight"])},
+        "wpe": {"embedding": _np32(named_grads["wpe.weight"])},
+        "final_norm": {"scale": _np32(named_grads["final_norm.weight"]),
+                       "bias": _np32(named_grads["final_norm.bias"])},
+    }
+    layer = 0
+    while f"layers.{layer}.qkv.weight" in named_grads:
+        node = tree[f"layer_{layer}"] = {}
+        for name in _NORMS:
+            node[name] = {"scale": _np32(named_grads[f"layers.{layer}.{name}.weight"]),
+                          "bias": _np32(named_grads[f"layers.{layer}.{name}.bias"])}
+        for name in _DENSE:
+            node[name] = {"kernel": _np32(named_grads[f"layers.{layer}.{name}.weight"]).T.copy(),
+                          "bias": _np32(named_grads[f"layers.{layer}.{name}.bias"])}
+        layer += 1
+    return tree
 
 
 def random_params(config: GPTConfig, seed: int = 0, std: float = 0.02) -> Dict[str, Any]:
@@ -167,9 +199,7 @@ def bert_grads_to_jax(named_grads: Mapping[str, Any]) -> Dict[str, Any]:
         for key in path:
             node = node.setdefault(key, {})
         for suffix, leaf in _BERT_LEAVES[kind]:
-            value = named_grads[f"{module}.{suffix}"]
-            value = np.asarray(value.detach().float().cpu().numpy() if torch.is_tensor(value) else value,
-                               dtype=np.float32)
+            value = _np32(named_grads[f"{module}.{suffix}"])
             node[leaf] = value.T.copy() if leaf == "kernel" else value
     return tree
 

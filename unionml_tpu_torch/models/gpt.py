@@ -10,17 +10,27 @@ cache paths the serving engine drives:
   tail block, then K4 over the block table (``gpt.py:386-466``);
 - paged batch-1 chunk prefill: :func:`_paged_chunk_quantized`, then K4.
 
+Training (``cache=None``, ``deterministic=False`` with a ``generator``):
+dropout at the JAX model's three sites (embeddings, after ``attn_out``, after
+``mlp_down``), and packed rows through ``segment_ids``: attention confined to
+same-segment keys (K1 forward, K2/K3 backward in their segment-id mode) and
+positions restarting at every id change (``gpt.py:586-595``). :func:`lm_loss`
+is the next-token cross-entropy with cross-segment transitions weighted 0.
+
 Caches are dicts of tensors as in the JAX package (``{"layer_i": {"k", "v"
 [, "k_scale", "v_scale"]}}``, plus ``"table"`` for paged caches). Unlike the
 JAX package, the port updates cache and pool tensors IN PLACE (PyTorch tensors
 are mutable; an in-place scatter saves a pool-sized copy per step); the
 returned cache dict holds the same tensors.
 
-Parameters live in the config's compute dtype. Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): the MoE and ring/ulysses
-layers, packed ``segment_ids``, the speculative-verify chunk
-(``_paged_verify_chunk`` / ``paged_commit_chunk``), ``param_shardings`` and
-``lm_loss``.
+Mixed precision as flax does it: parameters are float32, each layer casts
+its weight and input to ``config.dtype`` (``models/_layers.py``), the
+embedding lookups return ``config.dtype`` and the tied head multiplies
+float32 hidden states by the float32 embedding. KV caches and pools keep
+``config.dtype``. Not ported yet (each raises ``NotImplementedError`` naming
+its ROADMAP item): the MoE and ring/ulysses layers, ``remat``, the
+speculative-verify chunk (``_paged_verify_chunk`` / ``paged_commit_chunk``)
+and ``param_shardings``.
 """
 
 import dataclasses
@@ -31,7 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
+from unionml_tpu_torch.models._layers import _dense, _dropout, _layer_norm
 from unionml_tpu_torch.ops.attention import attention, reference_attention
+from unionml_tpu_torch.ops.losses import cross_entropy_with_integer_labels
 from unionml_tpu_torch.ops.paged_attention import paged_attention
 
 Device = Union[str, torch.device, None]
@@ -50,26 +62,25 @@ class GPTConfig:
     num_heads: int = 12
     max_position_embeddings: int = 1024
     layer_norm_eps: float = 1e-5
-    #: kept for parity with the JAX config; unused until training is ported
+    #: dropout rate at the embeddings and after each block's two residual branches
     dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
     #: dense attention: "auto" (K1 kernel on CUDA), "kernel", or "reference"
     attention_impl: str = "auto"
     #: paged attention: "auto" (K4 kernel on CUDA), "kernel", or "reference"
     paged_attn_impl: str = "auto"
-    #: activation recompute for training forwards; training is not ported yet
+    #: activation recompute for training forwards; not ported yet for GPT
     remat: bool = False
 
     def __post_init__(self) -> None:
         if self.remat:
-            raise NotImplementedError("remat is a training option; training is not ported yet "
-                                      "(ROADMAP: BERT train/serve slice)")
+            raise NotImplementedError("remat for GPT is not ported yet (ROADMAP: GPT remat, Queue 1)")
         for name in ("attention_impl", "paged_attn_impl"):
             value = getattr(self, name)
             if value in ("ring", "ulysses"):
                 raise NotImplementedError(
                     f"{name}={value!r}: sequence-parallel attention is not ported yet "
-                    "(ROADMAP: packed LM training slice)"
+                    "(ROADMAP: M12)"
                 )
             if value not in _IMPLS:
                 raise ValueError(f"{name} must be one of {_IMPLS}, got {value!r}")
@@ -172,7 +183,7 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, config: GPTConfig, device: torch.device) -> None:
         super().__init__()
-        d, kw = config.hidden_size, dict(device=device, dtype=config.dtype)
+        d, kw = config.hidden_size, dict(device=device, dtype=torch.float32)
         self.config = config
         self.attn_norm = nn.LayerNorm(d, eps=config.layer_norm_eps, **kw)
         self.qkv = nn.Linear(d, 3 * d, **kw)
@@ -188,8 +199,12 @@ class DecoderBlock(nn.Module):
         position: Union[int, torch.Tensor, None],
         pad_offsets: Optional[torch.Tensor] = None,
         block_table: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-        """Full sequence (``cache=None``), dense-cache or paged step.
+        """Full sequence (``cache=None``, optionally packed by
+        ``segment_ids``), dense-cache or paged step. ``generator`` turns
+        dropout on and draws its masks.
 
         Dense cache: ``{"k","v"}`` of shape (batch, heads, max_len, head_dim)
         and a scalar ``position``. Paged: pool leaves (num_blocks, heads,
@@ -199,7 +214,7 @@ class DecoderBlock(nn.Module):
         """
         cfg = self.config
         batch, seq, _ = hidden.shape
-        qkv = self.qkv(self.attn_norm(hidden))
+        qkv = _dense(self.qkv, _layer_norm(self.attn_norm, hidden, cfg.dtype), cfg.dtype)
 
         def heads(x):
             return x.reshape(batch, seq, cfg.num_heads, cfg.head_dim).transpose(1, 2).contiguous()
@@ -212,7 +227,12 @@ class DecoderBlock(nn.Module):
 
         new_cache = cache
         if cache is None:
-            if pad_offsets is None:
+            if segment_ids is not None:
+                if pad_offsets is not None:
+                    raise ValueError("segment_ids (packed training) does not compose with pad_offsets "
+                                     "(left-padded ragged batches)")
+                context = attention(q, k, v, causal=True, impl=cfg.attention_impl, segment_ids=segment_ids)
+            elif pad_offsets is None:
                 context = attention(q, k, v, causal=True, impl=cfg.attention_impl)
             else:
                 context = reference_attention(
@@ -224,9 +244,10 @@ class DecoderBlock(nn.Module):
             context = self._dense(q, k, v, cache, position, pad_offsets, pad_mask)
 
         context = context.transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
-        hidden = hidden + self.attn_out(context)
-        up = F.gelu(self.mlp_up(self.mlp_norm(hidden)), approximate="tanh")
-        return hidden + self.mlp_down(up), new_cache
+        hidden = hidden + _dropout(_dense(self.attn_out, context, cfg.dtype), cfg.dropout, generator)
+        normed = _layer_norm(self.mlp_norm, hidden, cfg.dtype)
+        up = F.gelu(_dense(self.mlp_up, normed, cfg.dtype), approximate="tanh")
+        return hidden + _dropout(_dense(self.mlp_down, up, cfg.dtype), cfg.dropout, generator), new_cache
 
     def _dense(self, q, k, v, cache, position, pad_offsets, pad_mask):
         cfg = self.config
@@ -313,7 +334,7 @@ class GPTLMHeadModel(nn.Module):
     def __init__(self, config: GPTConfig, device: Device = "cuda") -> None:
         super().__init__()
         device = resolve_device(device)
-        kw = dict(device=device, dtype=config.dtype)
+        kw = dict(device=device, dtype=torch.float32)
         self.config = config
         self.wte = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = nn.Embedding(config.max_position_embeddings, config.hidden_size, **kw)
@@ -324,7 +345,6 @@ class GPTLMHeadModel(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
-    @torch.no_grad()
     def forward(
         self,
         input_ids: torch.Tensor,
@@ -332,20 +352,36 @@ class GPTLMHeadModel(nn.Module):
         position: Union[int, torch.Tensor, None] = None,
         pad_offsets: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ):
         """Logits ``(batch, seq, vocab)`` f32, and the updated cache when one
         is given. ``pad_offsets`` (batch,) batches LEFT-padded ragged rows: each
         row's positions start at its first real token and its pad region is
         masked. A ``cache`` carrying a ``"table"`` key selects paged decoding
-        (see :func:`init_block_pool`)."""
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "packed segment_ids are not ported yet (ROADMAP: packed LM training slice)"
-            )
+        (see :func:`init_block_pool`). ``segment_ids`` (batch, seq) packs
+        several sequences per row (0 = padding; training only, no cache):
+        attention stays inside each segment and positions restart at every id
+        change. With ``deterministic=False`` dropout is on and draws its masks
+        from ``generator``. Inference callers run this under ``torch.no_grad()``."""
+        if deterministic:
+            generator = None
+        elif generator is None:
+            raise ValueError("deterministic=False draws dropout masks from `generator`; pass one")
+        if segment_ids is not None and cache is not None:
+            raise ValueError("segment_ids is a packed-TRAINING feature; decode caches are unpacked")
         cfg = self.config
         batch, seq = input_ids.shape
         steps = torch.arange(seq, device=input_ids.device)
-        if cache is None:
+        if segment_ids is not None:
+            # positions restart at each id change: subtract the running index
+            # of the latest change (cummax of change positions), gpt.py:586-595
+            ids = segment_ids.to(torch.int32)
+            change = torch.ones((batch, seq), dtype=torch.bool, device=ids.device)
+            change[:, 1:] = ids[:, 1:] != ids[:, :-1]
+            starts = torch.where(change, steps[None, :], torch.zeros_like(steps)[None, :])
+            positions = steps[None, :] - torch.cummax(starts, dim=1).values
+        elif cache is None:
             positions = steps[None, :]
         elif _per_row(position):
             positions = torch.clamp(position.long()[:, None] + steps[None, :], 0, cfg.max_position_embeddings - 1)
@@ -353,20 +389,22 @@ class GPTLMHeadModel(nn.Module):
             positions = (int(position) + steps)[None, :]
         if pad_offsets is not None:
             positions = torch.clamp(positions - pad_offsets.long()[:, None], min=0)
-        hidden = self.wte(input_ids) + self.wpe(positions)
+        word = F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
+        hidden = _dropout(word + F.embedding(positions, self.wpe.weight).to(cfg.dtype), cfg.dropout, generator)
 
         new_cache: Dict[str, Any] = {}
         block_table = cache.get("table") if cache is not None else None
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else cache[f"layer_{i}"]
-            hidden, layer_cache = layer(hidden, layer_cache, position, pad_offsets, block_table)
+            hidden, layer_cache = layer(hidden, layer_cache, position, pad_offsets, block_table, segment_ids,
+                                        generator)
             if layer_cache is not None:
                 new_cache[f"layer_{i}"] = layer_cache
         if block_table is not None:
             new_cache["table"] = block_table
-        hidden = self.final_norm(hidden)
-        # tied head with genuinely-f32 logits
-        logits = hidden.float() @ self.wte.weight.float().t()
+        hidden = _layer_norm(self.final_norm, hidden, cfg.dtype)
+        # tied head with genuinely-f32 logits: f32 hidden states times the f32 embedding
+        logits = hidden.float() @ self.wte.weight.t()
         return (logits, new_cache) if cache is not None else logits
 
 
@@ -536,4 +574,23 @@ def _not_ported(name: str, item: str):
 
 paged_commit_chunk = _not_ported("paged_commit_chunk", "speculation slice")
 param_shardings = _not_ported("param_shardings", "mesh-sharded serving")
-lm_loss = _not_ported("lm_loss", "BERT train/serve slice, then packed LM training")
+
+
+def lm_loss(
+    logits: torch.Tensor,
+    input_ids: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Next-token cross-entropy (``gpt.py:957-978``): logits at t predict
+    ``input_ids`` at t+1, weighted by ``mask`` (1 = real token) at t+1. With
+    ``segment_ids`` (packed rows) a transition counts only inside one
+    segment: the last token of a packed sequence is not trained to predict
+    the first token of the next, and padding is weighted 0."""
+    shifted = logits[:, :-1, :]
+    targets = input_ids[:, 1:]
+    weights = None if mask is None else mask[:, 1:].float()
+    if segment_ids is not None:
+        same = (segment_ids[:, 1:] == segment_ids[:, :-1]) & (segment_ids[:, 1:] > 0)
+        weights = same.float() if weights is None else weights * same.float()
+    return cross_entropy_with_integer_labels(shifted, targets, weights)

@@ -1,4 +1,4 @@
-"""Training loops for the port's classifiers: AdamW with optax's arithmetic.
+"""Training loops for the port's classifiers and causal LMs: AdamW with optax's arithmetic.
 
 Port of ``unionml_tpu/models/training.py`` for one device, run eagerly (no
 ``torch.compile``):
@@ -13,6 +13,10 @@ Port of ``unionml_tpu/models/training.py`` for one device, run eagerly (no
   the step functions ``(state, batch) -> (state, metrics)`` and ``(state,
   batch) -> metrics``. Metrics stay device tensors: a step never syncs with
   the host.
+- :func:`make_lm_train_step` / :func:`make_lm_eval_step` — the causal-LM
+  steps of ``training.py:217-311`` (packed rows carry ``segment_ids``);
+  :func:`fit_lm` packs ragged sequences (or right-pads them one per row) and
+  runs them through :func:`fit` (``training.py:524-603``).
 - :func:`fit` — the loop of ``training.py:363-521``: the first step runs
   outside the timed window, the barrier is a host fetch of the loss.
 
@@ -20,12 +24,12 @@ Unlike the JAX package, the train step updates the state IN PLACE (the
 model's parameters and the moments) and returns the same object.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
 meshes and parameter specs (M12), step checkpoints (M2), the native
-prefetcher, and the LM steps (slice 3).
+prefetcher, and the MoE auxiliary losses (M13).
 """
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +37,9 @@ from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.models.gpt import lm_loss
 from unionml_tpu_torch.ops.losses import cross_entropy_and_accuracy
+from unionml_tpu_torch.ops.packing import pack_sequences, packing_efficiency
 
 __all__ = [
     "FitResult",
@@ -44,8 +50,12 @@ __all__ = [
     "dict_batches",
     "dropout_generator",
     "fit",
+    "fit_lm",
+    "lm_grads",
     "make_classifier_eval_step",
     "make_classifier_train_step",
+    "make_lm_eval_step",
+    "make_lm_train_step",
 ]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -191,36 +201,74 @@ def dropout_generator(seed: int, step: int, device: torch.device, index: Optiona
     return generator
 
 
-def classifier_grads(
-    state: TrainState, batch: Dict[str, torch.Tensor], input_signature: Tuple[str, ...], grad_accum: int = 1
-) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    """``(grads, loss, accuracy)`` of one train step, dropout on.
+def _microbatch_grads(
+    state: TrainState, batch: Dict[str, torch.Tensor], grad_accum: int, loss_fn: Callable
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """``(grads, values)`` of one step, dropout on: ``loss_fn(microbatch,
+    generator)`` returns the loss to differentiate first, then any metrics.
 
     With ``grad_accum > 1`` the batch splits into equal sequential
-    microbatches (each with its own dropout generator), whose gradients,
-    losses and accuracies are summed and divided by ``grad_accum``: the
-    mean of means of ``_accumulated_value_and_grad`` (``training.py:78-109``).
+    microbatches (each with its own dropout generator), whose gradients and
+    values are summed and divided by ``grad_accum``: the mean of means of
+    ``_accumulated_value_and_grad`` (``training.py:78-109``).
     """
-    rows = len(batch["labels"])
+    rows = len(next(iter(batch.values())))
     if rows % grad_accum:
         raise ValueError(f"grad_accum={grad_accum} must divide the batch size ({rows})")
     size = rows // grad_accum
-    total = loss_sum = acc_sum = None
+    total = sums = None
     for index in range(grad_accum):
         micro = batch if grad_accum == 1 else {k: v[index * size:(index + 1) * size] for k, v in batch.items()}
         generator = dropout_generator(state.seed, state.step, state.device, None if grad_accum == 1 else index)
-        logits = state.model(*[micro[k] for k in input_signature], deterministic=False, generator=generator)
-        loss, acc = cross_entropy_and_accuracy(logits, micro["labels"])
+        loss, *extras = loss_fn(micro, generator)
         grads = list(torch.autograd.grad(loss, state.params))
+        values = [loss.detach(), *extras]
         if total is None:
-            total, loss_sum, acc_sum = grads, loss.detach(), acc
+            total, sums = grads, values
         else:
             torch._foreach_add_(total, grads)
-            loss_sum, acc_sum = loss_sum + loss.detach(), acc_sum + acc
+            sums = [a + b for a, b in zip(sums, values)]
     if grad_accum > 1:
         torch._foreach_div_(total, grad_accum)
-        loss_sum, acc_sum = loss_sum / grad_accum, acc_sum / grad_accum
-    return total, loss_sum, acc_sum
+        sums = [v / grad_accum for v in sums]
+    return total, sums
+
+
+def classifier_grads(
+    state: TrainState, batch: Dict[str, torch.Tensor], input_signature: Tuple[str, ...], grad_accum: int = 1
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """``(grads, loss, accuracy)`` of one classifier train step, dropout on,
+    over ``grad_accum`` microbatches (see :func:`_microbatch_grads`)."""
+
+    def loss_fn(micro, generator):
+        logits = state.model(*[micro[k] for k in input_signature], deterministic=False, generator=generator)
+        return cross_entropy_and_accuracy(logits, micro["labels"])
+
+    grads, (loss, acc) = _microbatch_grads(state, batch, grad_accum, loss_fn)
+    return grads, loss, acc
+
+
+def _lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool, **kwargs) -> torch.Tensor:
+    """``lm_loss`` of ``model`` on an LM batch: ``input_ids``, ``segment_ids``
+    (looked up strictly) when packed, and an optional ``mask``."""
+    # strict lookup: a packed step fed a batch without segment ids must fail,
+    # not silently train across packed-sequence boundaries (training.py:250-252)
+    segment_ids = batch["segment_ids"] if packed else None
+    logits = model(batch["input_ids"], segment_ids=segment_ids, **kwargs)
+    return lm_loss(logits, batch["input_ids"], mask=batch.get("mask"), segment_ids=segment_ids)
+
+
+def lm_grads(
+    state: TrainState, batch: Dict[str, torch.Tensor], packed: bool = False, grad_accum: int = 1
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``(grads, loss)`` of one causal-LM train step, dropout on, over
+    ``grad_accum`` microbatches (each weighted equally, as in JAX)."""
+
+    def loss_fn(micro, generator):
+        return (_lm_loss(state.model, micro, packed, deterministic=False, generator=generator),)
+
+    grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn)
+    return grads, loss
 
 
 def make_classifier_train_step(
@@ -262,6 +310,58 @@ def make_classifier_eval_step(input_signature: Tuple[str, ...] = ("inputs",)) ->
         logits = state.model(*[batch[k] for k in input_signature], deterministic=True)
         loss, acc = cross_entropy_and_accuracy(logits, batch["labels"])
         return {"loss": loss, "accuracy": acc}
+
+    return eval_step
+
+
+def _check_lm_options(mesh, param_spec, grad_accum: int, moe_aux: bool) -> None:
+    if mesh is not None or param_spec is not None:
+        raise _not_ported("mesh / param_spec (sharded training)", "M12")
+    if moe_aux:
+        raise _not_ported("moe_aux (the MoE router's auxiliary losses)", "M13")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+
+def make_lm_train_step(
+    packed: bool = False,
+    light_metrics: bool = False,
+    grad_accum: int = 1,
+    moe_aux: bool = False,
+    mesh: Any = None,
+    param_spec: Any = None,
+) -> Callable:
+    """The causal-LM train step ``(state, batch) -> (state, metrics)``
+    (``training.py:217-288``).
+
+    ``batch`` carries ``"input_ids"`` plus, with ``packed=True``, the
+    ``"segment_ids"`` of :func:`~unionml_tpu_torch.ops.packing.pack_sequences`;
+    unpacked batches may carry a ``"mask"`` (1 = real token). Metrics:
+    ``loss`` and, unless ``light_metrics``, ``grad_norm`` (before clipping),
+    device tensors. ``grad_accum=N`` averages N sequential microbatches.
+    """
+    _check_lm_options(mesh, param_spec, grad_accum, moe_aux)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        grads, loss = lm_grads(state, batch, packed, grad_accum)
+        norm = state.apply_gradients(grads)
+        metrics = {"loss": loss}
+        if not light_metrics:
+            metrics["grad_norm"] = norm
+        return state, metrics
+
+    return train_step
+
+
+def make_lm_eval_step(packed: bool = False) -> Callable:
+    """The causal-LM eval step ``(state, batch) -> {"loss", "perplexity"}``,
+    dropout off (``training.py:291-311``): the masked mean next-token
+    cross-entropy over the batch's real transitions and its exp."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        loss = _lm_loss(state.model, batch, packed, deterministic=True)
+        return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return eval_step
 
@@ -375,6 +475,66 @@ def fit(
         wall_time_s=wall,
         steps_per_s=executed / wall if wall > 0 else 0.0,
         examples_per_s=executed * batch_size / wall if wall > 0 else 0.0,
+    )
+
+
+def fit_lm(
+    state: TrainState,
+    sequences: Sequence[np.ndarray],
+    *,
+    seq_len: int,
+    batch_size: int,
+    pack: bool = True,
+    max_segments_per_row: int = 0,
+    num_epochs: int = 1,
+    num_steps: Optional[int] = None,
+    mesh: Any = None,
+    param_spec: Any = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 100,
+    log_every: int = 50,
+    seed: int = 0,
+    prefetch: bool = False,
+    prefetch_convert: Optional[Dict[str, str]] = None,
+    grad_accum: int = 1,
+    moe_aux: bool = False,
+) -> FitResult:
+    """Causal-LM training over ragged token sequences through :func:`fit`
+    (``training.py:524-603``).
+
+    ``pack=True`` (the default) runs :func:`pack_sequences`: several short
+    sequences share each ``seq_len`` row, segment ids confine attention and
+    restart positions per segment, and cross-segment transitions are masked
+    out of the loss. ``pack=False`` right-pads one sequence per row with a
+    loss mask. ``FitResult.examples_per_s`` counts rows.
+    """
+    if pack:
+        packed = pack_sequences(sequences, seq_len, max_segments_per_row=max_segments_per_row)
+        data = {"input_ids": packed["input_ids"], "segment_ids": packed["segment_ids"]}
+        logger.info(
+            "packed %d sequences into %d rows of %d (efficiency %.1f%%, %d truncated)",
+            len(sequences), packed["input_ids"].shape[0], seq_len,
+            100.0 * packing_efficiency(packed["segment_ids"]), packed["truncated"],
+        )
+    else:
+        input_ids = np.zeros((len(sequences), seq_len), dtype=np.int32)
+        mask = np.zeros((len(sequences), seq_len), dtype=np.float32)
+        truncated = 0
+        for i, seq in enumerate(sequences):
+            arr = np.asarray(seq).reshape(-1)[:seq_len]
+            truncated += int(np.asarray(seq).size > seq_len)
+            input_ids[i, : arr.size] = arr
+            mask[i, : arr.size] = 1.0
+        if truncated:
+            logger.info("truncated %d sequences to seq_len=%d", truncated, seq_len)
+        data = {"input_ids": input_ids, "mask": mask}
+
+    step_fn = make_lm_train_step(packed=pack, grad_accum=grad_accum, moe_aux=moe_aux, mesh=mesh,
+                                 param_spec=param_spec)
+    return fit(
+        state, data, batch_size=batch_size, num_epochs=num_epochs, num_steps=num_steps,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, log_every=log_every, seed=seed,
+        prefetch=prefetch, prefetch_convert=prefetch_convert, step_fn=step_fn,
     )
 
 

@@ -1,5 +1,6 @@
-"""Attention (forward and backward), paged attention, classification losses,
-blockwise int8 quantization and token sampling."""
+"""Attention (forward and backward, with packed segment ids), paged attention,
+classification losses, sequence packing, blockwise int8 quantization and
+token sampling."""
 
 from unionml_tpu_torch.ops.attention import (
     attention,
@@ -9,6 +10,7 @@ from unionml_tpu_torch.ops.attention import (
     reference_attention_backward,
 )
 from unionml_tpu_torch.ops.losses import accuracy, cross_entropy_and_accuracy, cross_entropy_with_integer_labels
+from unionml_tpu_torch.ops.packing import pack_sequences, packing_efficiency
 from unionml_tpu_torch.ops.paged_attention import (
     fused_hbm_bytes,
     paged_attention,
@@ -28,6 +30,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_backward",
     "fused_hbm_bytes",
+    "pack_sequences",
+    "packing_efficiency",
     "paged_attention",
     "quantize_blockwise",
     "reference_attention",

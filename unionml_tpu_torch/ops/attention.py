@@ -6,15 +6,16 @@ seq, head_dim) convention of the JAX package.
 
 - :func:`reference_attention` — the plain version, with the semantics of the
   JAX ``xla_attention`` (``attention.py:45-80``): f32 scores, optional dense
-  boolean mask and causal (top-left aligned) masking, f32 softmax, weights cast
-  to ``v``'s dtype for the value product. A row that sees no key at all writes
-  zeros, as the flash kernels do.
+  boolean mask, causal (top-left aligned) masking and packed ``segment_ids``,
+  f32 softmax, weights cast to ``v``'s dtype for the value product. A row that
+  sees no key at all writes zeros, as the flash kernels do.
 - :func:`flash_attention` — K1 (``csrc/flash_fwd.cu``, replacing the Pallas
   ``_flash_kernel``). On CUDA tensors it launches the kernel or raises; on CPU
-  tensors it runs :func:`reference_attention`. Causal and ``kv_lens``
-  (right-padding) masks, any ``Sq``/``Sk``, bf16 or f32, head_dim 64 or 128.
-  When grad mode is on and q, k or v requires grad it runs through
-  :class:`_FlashAttention`, whose backward is :func:`flash_attention_backward`.
+  tensors it runs :func:`reference_attention`. Causal, ``kv_lens``
+  (right-padding) and ``segment_ids`` (packing) masks, any ``Sq``/``Sk``, bf16
+  or f32, head_dim 64 or 128. When grad mode is on and q, k or v requires grad
+  it runs through :class:`_FlashAttention`, whose backward is
+  :func:`flash_attention_backward`.
 - :func:`flash_attention_backward` — K2 (dQ) then K3 (dK/dV)
   (``csrc/flash_bwd.cu``, replacing the Pallas ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``) on CUDA tensors, :func:`reference_attention_backward`
@@ -25,7 +26,14 @@ seq, head_dim) convention of the JAX package.
   otherwise; ``"kernel"`` and ``"reference"`` force one side. The port keeps
   no measured dispatch table yet.
 
-Packed ``segment_ids`` are not ported yet (ROADMAP: K5).
+Packed ``segment_ids`` (batch, S_ids) follow the t5x convention: 0 is
+padding, and a query attends a key iff both carry the same positive id. Ids
+are sliced per axis (``ids[:, :Sq]`` for queries, ``ids[:, :Sk]`` for keys),
+so cross-length calls take one array. The kernels get the per-row
+``kv_len`` (last nonzero key id + 1) and :func:`_segment_ranges`, the skip
+map: for each position, the range on the other axis that its id occupies.
+Each kernel reduces the ranges over its own tile, so the map does not depend
+on tile sizes.
 """
 
 from typing import Optional, Tuple, Union
@@ -58,6 +66,28 @@ def _kv_lens_to_mask(kv_lens: torch.Tensor, seq_k: int) -> torch.Tensor:
     return (positions < kv_lens[:, None])[:, None, None, :]
 
 
+def _segment_mask(segment_ids: torch.Tensor, seq_q: int, seq_k: int) -> torch.Tensor:
+    """(batch, S_ids) packed ids -> (batch, 1, Sq, Sk) mask: same positive id."""
+    ids_q, ids_k = segment_ids[:, :seq_q], segment_ids[:, :seq_k]
+    same = ids_q[:, :, None] == ids_k[:, None, :]
+    return (same & (ids_q > 0)[:, :, None] & (ids_k > 0)[:, None, :])[:, None]
+
+
+def _combined_mask(mask, kv_lens, segment_ids, seq_q: int, seq_k: int):
+    """The dense mask, the ``kv_lens`` mask and the segment mask, and-ed (or None)."""
+    parts = [m for m in (
+        mask,
+        _kv_lens_to_mask(kv_lens, seq_k) if kv_lens is not None else None,
+        _segment_mask(segment_ids, seq_q, seq_k) if segment_ids is not None else None,
+    ) if m is not None]
+    if not parts:
+        return None
+    out = parts[0]
+    for part in parts[1:]:
+        out = out & part
+    return out
+
+
 def _valid(mask, causal, seq_q, seq_k, device) -> torch.Tensor:
     """Boolean keep mask broadcastable to (batch, heads, Sq, Sk)."""
     valid = torch.ones((seq_q, seq_k), dtype=torch.bool, device=device)
@@ -72,6 +102,11 @@ def _masked_logits(q, k, mask, causal, scale):
     return torch.where(valid, logits, torch.full_like(logits, _NEG_INF)), valid
 
 
+def _check_no_kv_lens(kv_lens, segment_ids) -> None:
+    if segment_ids is not None and kv_lens is not None:
+        raise ValueError("segment_ids already encodes padding; pass kv_lens=None")
+
+
 def reference_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -79,12 +114,15 @@ def reference_attention(
     mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain softmax(q k^T) v with the JAX ``xla_attention`` arithmetic.
 
     ``mask`` broadcasts against ``(batch, heads, Sq, Sk)``; True keeps a key.
+    ``segment_ids`` (batch, S_ids >= max(Sq, Sk)) adds the packed-sequence mask.
     """
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    mask = _combined_mask(mask, None, segment_ids, q.shape[-2], k.shape[-2])
     logits, valid = _masked_logits(q, k, mask, causal, scale)
     weights = torch.softmax(logits, dim=-1)
     # a row that sees no key softmaxes to a uniform average: zero it, as the
@@ -103,6 +141,7 @@ def reference_attention_backward(
     kv_lens: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K2 and K3: ``(dq, dk, dv)`` of attention given the
     forward's output ``out`` and f32 logsumexp ``lse`` (batch, heads, Sq).
@@ -113,9 +152,10 @@ def reference_attention_backward(
     holds), ``dV = P^T dO``, ``dS = P * (dO V^T - delta)``, ``dQ = scale dS K``,
     ``dK = dS^T (q*scale)``.
     """
+    _check_no_kv_lens(kv_lens, segment_ids)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     seq_q, seq_k = q.shape[-2], k.shape[-2]
-    mask = _kv_lens_to_mask(kv_lens, seq_k) if kv_lens is not None else None
+    mask = _combined_mask(None, kv_lens, segment_ids, seq_q, seq_k)
     qs, kf, vf, do = _acc(q) * scale, _acc(k), _acc(v), _acc(d_out)
     scores = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
     valid = _valid(mask, causal, seq_q, seq_k, q.device)
@@ -128,7 +168,45 @@ def reference_attention_backward(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_flash_inputs(q, k, v, kv_lens, name: str = "flash_attention") -> None:
+def _segment_kv_lens(ids: torch.Tensor, seq_k: int) -> torch.Tensor:
+    """(batch,) int32: the last nonzero key id's index + 1 (``attention.py:
+    198-208``), not the count of nonzero ids, so interior zeros never cut
+    off live keys behind them."""
+    if seq_k == 0:
+        return torch.zeros(ids.shape[0], dtype=torch.int32, device=ids.device)
+    positions = torch.arange(1, seq_k + 1, device=ids.device, dtype=torch.int32)[None, :]
+    return torch.where(ids[:, :seq_k] > 0, positions, torch.zeros_like(positions)).amax(dim=-1)
+
+
+def _segment_ranges(own_ids: torch.Tensor, other_ids: torch.Tensor) -> torch.Tensor:
+    """The skip map: ``(batch, S_own, 2)`` int32 ``[start, end)`` per position
+    of the own axis, the positions on the other axis that carry its id.
+
+    The first and end positions of every id on the other axis come from a
+    scatter-min/max over the ids (``attention.py:234-245``), so an id that
+    recurs non-contiguously gets its whole extent (a superset: the kernels'
+    in-tile id test keeps it exact). Ids outside ``[0, max(S_own, S_other)]``
+    clip into one shared bucket, supersets again. Padding positions (id <= 0)
+    get the empty range ``[S_other, 0)``. Torch ops on the ids' device, no
+    host sync.
+    """
+    batch, s_other = other_ids.shape
+    cap = max(own_ids.shape[1], s_other)
+    device = other_ids.device
+    pos = torch.arange(s_other, device=device, dtype=torch.int64)[None, :].expand(batch, s_other)
+    safe_o = other_ids.long().clamp(0, cap)
+    first = torch.full((batch, cap + 1), s_other, dtype=torch.int64, device=device)
+    first = first.scatter_reduce(1, safe_o, pos, reduce="amin")
+    end = torch.zeros((batch, cap + 1), dtype=torch.int64, device=device)
+    end = end.scatter_reduce(1, safe_o, pos + 1, reduce="amax")
+    safe_b = own_ids.long().clamp(0, cap)
+    live = own_ids > 0
+    start = torch.where(live, torch.gather(first, 1, safe_b), torch.full_like(safe_b, s_other))
+    stop = torch.where(live, torch.gather(end, 1, safe_b), torch.zeros_like(safe_b))
+    return torch.stack([start, stop], dim=-1).to(torch.int32).contiguous()
+
+
+def _check_flash_inputs(q, k, v, kv_lens, name: str = "flash_attention", segment_ids=None) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{name}: the kernel needs CUDA tensors; got q on {q.device}, k on {k.device}, "
                          f"v on {v.device}")
@@ -140,7 +218,7 @@ def _check_flash_inputs(q, k, v, kv_lens, name: str = "flash_attention") -> None
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} kernel takes float32 or bfloat16 q/k/v of one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    batch, heads, _, head_dim = q.shape
+    batch, heads, seq_q, head_dim = q.shape
     if head_dim not in (64, 128):
         raise ValueError(f"{name} kernel takes head_dim 64 or 128, got {head_dim}")
     if k.shape[:2] != (batch, heads) or v.shape != k.shape or k.shape[-1] != head_dim:
@@ -150,29 +228,49 @@ def _check_flash_inputs(q, k, v, kv_lens, name: str = "flash_attention") -> None
         raise ValueError(f"{name} kernel needs contiguous q, k, v")
     if kv_lens is not None and (kv_lens.shape != (batch,) or kv_lens.device != q.device):
         raise ValueError(f"{name}: kv_lens must be a (batch,) tensor on q's device")
+    if segment_ids is not None:
+        seq_k = k.shape[-2]
+        if (segment_ids.dim() != 2 or segment_ids.shape[0] != batch or segment_ids.shape[1] < max(seq_q, seq_k)
+                or segment_ids.device != q.device or segment_ids.is_floating_point()):
+            raise ValueError(f"{name}: segment_ids must be an integer (batch, S >= max(Sq, Sk)) tensor on q's "
+                             f"device; got {segment_ids.dtype} {tuple(segment_ids.shape)} on {segment_ids.device}")
 
 
-def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: bool):
+def _kernel_masks(kv_lens, segment_ids, seq_k: int):
+    """``(ids, kv_lens)`` as the kernels take them, int32 and contiguous (or
+    None): with segment ids, kv_len is the last nonzero key id's index + 1."""
+    if segment_ids is None:
+        return None, kv_lens.to(torch.int32).contiguous() if kv_lens is not None else None
+    ids = segment_ids.to(torch.int32).contiguous()
+    return ids, _segment_kv_lens(ids, seq_k)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: bool, segment_ids=None):
     """(out, lse or None): K1 on CUDA tensors, the plain version on CPU ones."""
     if q.device.type == "cpu":
-        mask = _kv_lens_to_mask(kv_lens, k.shape[-2]) if kv_lens is not None else None
+        mask = _combined_mask(None, kv_lens, segment_ids, q.shape[-2], k.shape[-2])
         out = reference_attention(q, k, v, mask=mask, causal=causal, sm_scale=scale)
         if not return_lse:
             return out, None
         return out, torch.logsumexp(_masked_logits(q, k, mask, causal, scale)[0], dim=-1)
-    _check_flash_inputs(q, k, v, kv_lens)
+    _check_flash_inputs(q, k, v, kv_lens, segment_ids=segment_ids)
     batch, heads, seq_q, head_dim = q.shape
     seq_k = k.shape[-2]
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device) if return_lse else None
-    lens = kv_lens.to(torch.int32).contiguous() if kv_lens is not None else None
+    ids, lens = _kernel_masks(kv_lens, segment_ids, seq_k)
+    ranges = _segment_ranges(ids[:, :seq_q], ids[:, :seq_k]) if ids is not None else None
     if seq_q and batch * heads:
         fn = _build.library("flash_fwd").flash_fwd
         status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lens.data_ptr() if lens is not None else None,
-            out.data_ptr(), lse.data_ptr() if lse is not None else None,
-            batch, heads, seq_q, seq_k, head_dim, _build.DTYPE_CODES[q.dtype], int(bool(causal)), scale,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens), _ptr(ids), _ptr(ranges),
+            out.data_ptr(), _ptr(lse),
+            batch, heads, seq_q, seq_k, head_dim, ids.shape[1] if ids is not None else 0,
+            _build.DTYPE_CODES[q.dtype], int(bool(causal)), scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         _build.check(status, "flash_fwd")
@@ -185,20 +283,21 @@ class _FlashAttention(torch.autograd.Function):
     counterpart of the JAX ``custom_vjp`` (``attention.py:658``/``:756``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_lens, causal: bool, sm_scale: float):
-        out, lse = _flash_forward(q, k, v, kv_lens, causal, sm_scale, return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+    def forward(ctx, q, k, v, kv_lens, segment_ids, causal: bool, sm_scale: float):
+        out, lse = _flash_forward(q, k, v, kv_lens, causal, sm_scale, return_lse=True, segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens, segment_ids)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, d_out, _d_lse):
-        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        q, k, v, out, lse, kv_lens, segment_ids = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=ctx.causal, sm_scale=ctx.sm_scale
+            q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=ctx.causal, sm_scale=ctx.sm_scale,
+            segment_ids=segment_ids,
         )
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -209,24 +308,29 @@ def flash_attention(
     causal: bool = False,
     sm_scale: Optional[float] = None,
     return_lse: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Blocked flash attention forward (K1), differentiable through K2/K3.
 
     :param kv_lens: optional ``(batch,)`` int valid KV lengths: keys at
         positions ``>= kv_lens[b]`` are masked for every head and query of row b.
+    :param segment_ids: optional ``(batch, S_ids)`` int packed segment ids
+        (0 = padding); queries attend only keys of their own segment. Mutually
+        exclusive with ``kv_lens``.
     :param return_lse: also return the f32 ``(batch, heads, Sq)`` logsumexp of
         the scaled, masked scores (the residual the backward pass reuses).
     """
+    _check_no_kv_lens(kv_lens, segment_ids)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out, lse = _FlashAttention.apply(q, k, v, kv_lens, bool(causal), scale)
+        out, lse = _FlashAttention.apply(q, k, v, kv_lens, segment_ids, bool(causal), scale)
     else:
-        out, lse = _flash_forward(q, k, v, kv_lens, causal, scale, return_lse)
+        out, lse = _flash_forward(q, k, v, kv_lens, causal, scale, return_lse, segment_ids=segment_ids)
     return (out, lse) if return_lse else out
 
 
-def _check_backward_inputs(q, k, v, out, lse, d_out, kv_lens) -> None:
-    _check_flash_inputs(q, k, v, kv_lens, name="flash_attention_backward")
+def _check_backward_inputs(q, k, v, out, lse, d_out, kv_lens, segment_ids) -> None:
+    _check_flash_inputs(q, k, v, kv_lens, name="flash_attention_backward", segment_ids=segment_ids)
     if out.shape != q.shape or d_out.shape != q.shape or out.dtype != q.dtype or d_out.dtype != q.dtype:
         raise ValueError(f"flash_attention_backward: out {tuple(out.shape)} {out.dtype} and d_out "
                          f"{tuple(d_out.shape)} {d_out.dtype} must match q {tuple(q.shape)} {q.dtype}")
@@ -247,31 +351,40 @@ def flash_attention_backward(
     kv_lens: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``: K2 then K3 on CUDA tensors (``csrc/flash_bwd.cu``),
     :func:`reference_attention_backward` on CPU tensors. ``out`` and ``lse``
     are K1's outputs for the same inputs; ``d_out`` may be non-contiguous."""
+    _check_no_kv_lens(kv_lens, segment_ids)
     if q.device.type == "cpu":
-        return reference_attention_backward(q, k, v, out, lse, d_out, kv_lens, causal, sm_scale)
+        return reference_attention_backward(q, k, v, out, lse, d_out, kv_lens, causal, sm_scale, segment_ids)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
     d_out, out, lse = d_out.contiguous(), out.contiguous(), lse.contiguous()
-    _check_backward_inputs(q, k, v, out, lse, d_out, kv_lens)
+    _check_backward_inputs(q, k, v, out, lse, d_out, kv_lens, segment_ids)
     batch, heads, seq_q, head_dim = q.shape
     seq_k = k.shape[-2]
     if not (seq_q and seq_k and batch * heads):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     # delta_i = rowsum(dO * O), outside the kernels as in the JAX package (:532)
     delta = torch.sum(d_out.float() * out.float(), dim=-1).contiguous()
-    lens = kv_lens.to(torch.int32).contiguous() if kv_lens is not None else None
-    lens_ptr = lens.data_ptr() if lens is not None else None
+    ids, lens = _kernel_masks(kv_lens, segment_ids, seq_k)
+    # the skip ranges of each kernel's own axis: key ranges per query (K2),
+    # query ranges per key (K3)
+    q_ranges = k_ranges = None
+    if ids is not None:
+        q_ranges = _segment_ranges(ids[:, :seq_q], ids[:, :seq_k])
+        k_ranges = _segment_ranges(ids[:, :seq_k], ids[:, :seq_q])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (batch, heads, seq_q, seq_k, head_dim, _build.DTYPE_CODES[q.dtype], int(bool(causal)), scale, stream)
-    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), lens_ptr)
-    _build.check(lib.flash_bwd_dq(*inputs, dq.data_ptr(), *common), "flash_bwd_dq")
+    common = (batch, heads, seq_q, seq_k, head_dim, ids.shape[1] if ids is not None else 0,
+              _build.DTYPE_CODES[q.dtype], int(bool(causal)), scale, stream)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              _ptr(lens), _ptr(ids))
+    _build.check(lib.flash_bwd_dq(*inputs, _ptr(q_ranges), dq.data_ptr(), *common), "flash_bwd_dq")
     kernels.launches["flash_bwd_dq"] += 1
-    _build.check(lib.flash_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *common), "flash_bwd_dkv")
+    _build.check(lib.flash_bwd_dkv(*inputs, _ptr(k_ranges), dk.data_ptr(), dv.data_ptr(), *common), "flash_bwd_dkv")
     kernels.launches["flash_bwd_dkv"] += 1
     return dq, dk, dv
 
@@ -285,25 +398,28 @@ def attention(
     causal: bool = False,
     sm_scale: Optional[float] = None,
     impl: str = "auto",
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Dispatching attention entry point used by the model.
+    """Dispatching attention entry point used by the models.
 
-    ``impl="auto"``: the K1 kernel for CUDA tensors without a dense ``mask``,
+    ``impl="auto"``: the kernels for CUDA tensors without a dense ``mask``,
     the plain version otherwise. ``"kernel"`` forces :func:`flash_attention`
     (which runs the plain version for CPU tensors); ``"reference"`` forces
-    :func:`reference_attention`.
+    :func:`reference_attention`. ``segment_ids`` and ``kv_lens`` together
+    raise, on either side (``attention.py:794-797``).
     """
+    _check_no_kv_lens(kv_lens, segment_ids)
     if impl == "auto":
         impl = "kernel" if q.is_cuda and mask is None else "reference"
     if impl == "kernel":
         if mask is not None:
             raise ValueError(
-                "attention(impl='kernel') does not take dense masks; pass kv_lens / causal, "
+                "attention(impl='kernel') does not take dense masks; pass kv_lens / segment_ids / causal, "
                 "or use impl='reference' for arbitrary masks"
             )
-        return flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, sm_scale=sm_scale)
+        return flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, sm_scale=sm_scale, segment_ids=segment_ids)
     if impl == "reference":
         if mask is None and kv_lens is not None:
             mask = _kv_lens_to_mask(kv_lens, k.shape[-2])
-        return reference_attention(q, k, v, mask=mask, causal=causal, sm_scale=sm_scale)
+        return reference_attention(q, k, v, mask=mask, causal=causal, sm_scale=sm_scale, segment_ids=segment_ids)
     raise ValueError(f"Unknown attention impl {impl!r}; expected 'auto', 'kernel', or 'reference'")

@@ -388,7 +388,8 @@ class DecodeEngine:
         each row's logits at its last REAL token."""
         rows, bucket = prompt_ids.shape
         local_cache = init_cache(self._config, rows, bucket, device=self.device)
-        logits, local_cache = self._model(prompt_ids, cache=local_cache, position=0)
+        with torch.no_grad():  # the model's forward also trains; serving keeps no graph
+            logits, local_cache = self._model(prompt_ids, cache=local_cache, position=0)
         idx = torch.clamp(lengths - 1, 0, bucket - 1)
         return local_cache, logits[torch.arange(rows, device=self.device), idx]
 
@@ -447,7 +448,8 @@ class DecodeEngine:
             ids = np.zeros((1, chunk), dtype=np.int64)
             ids[0, :take] = prompt[consumed : consumed + take]
             cache = {"table": self._tables[slot : slot + 1], **self._pool}
-            logits, _ = self._model(torch.from_numpy(ids).to(self.device), cache=cache, position=int(consumed))
+            with torch.no_grad():
+                logits, _ = self._model(torch.from_numpy(ids).to(self.device), cache=cache, position=int(consumed))
             state["consumed"] = consumed + take
             if state["consumed"] < prompt.size:
                 continue
@@ -472,7 +474,8 @@ class DecodeEngine:
         # position maps that write to the trailing scratch column
         sentinel = (self._table_width - 1) * self.block_size
         pos = torch.where(active, self._lens, torch.full_like(self._lens, sentinel))
-        logits, _ = self._model(tokens[:, None], cache={"table": self._tables, **self._pool}, position=pos)
+        with torch.no_grad():
+            logits, _ = self._model(tokens[:, None], cache={"table": self._tables, **self._pool}, position=pos)
         new_lens = torch.where(active, torch.clamp(self._lens + 1, max=self.max_len - 1), self._lens)
         self._last_logits = torch.where(active[:, None], logits[:, -1, :], last)
         self._lens = new_lens
