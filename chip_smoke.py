@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train, time.
 
     python3 chip_smoke.py [--details PATH]
+    python3 chip_smoke.py --k1-ab PARENT_TREE [--details PATH]
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -8,7 +9,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    parallel) and print the build seconds and each kernel's ptxas registers
    and spills;
 2. K1 (flash forward) against its plain PyTorch version at the engine's
-   prefill shapes, causal and with ``kv_lens``, bf16 and f32;
+   prefill shapes, causal and with ``kv_lens``, bf16 and f32; in bf16 also
+   at the tensor-core body's tile edges (Sq, Sk of 1, 63-65, 127-129, Sq !=
+   Sk, kv_len 0 and 1, D 128) and in packed mode (the training rows, phase
+   7's shapes, segment boundaries on and inside 64-row tiles); every lse
+   against ``torch.logsumexp`` of the plain masked scores (1e-4 on rows that
+   see a key, -1e30 on rows that see none);
 3. K4 (paged attention) against its plain version: int8 and bf16 pools, S=1
    with B=8, S=32 and S=256 (the chunk) with B=1, table width 65 (max_len
    1024, block 16), ragged bases and scratch tail columns;
@@ -66,7 +72,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against its kernels' device time; each train step's wall time, device
    time, idle share, examples/s, tokens/s and achieved TFLOP/s; for the LM
    step also real (nonzero-id) tokens/s and the packing efficiency; K1 at the
-   packed shape beside K1 causal without ids.
+   packed shape beside K1 causal without ids, K1's achieved TFLOP/s, share
+   of its bound and the kernel's own ms beside the whole call's, and the
+   packed K1 with its tiles in index order vs heaviest first. In one bf16
+   BERT and one LM step the profiler's kernel names must show K1's
+   tensor-core body and not the CUDA-core body's bf16 instantiation.
+
+``--k1-ab PARENT_TREE`` runs only ``k1_times`` (bf16 K1 at the LM packed,
+B8 S1024 causal, BERT and serving shapes) from an unpacked parent tree and
+from this tree in turns (parent, this, this, parent), one process each.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -140,9 +154,8 @@ def ptxas_report(log: str):
             name = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
             types = re.findall(r"uml\d(F32|BF16)|(I8)E", mangled)
             dims = re.search(r"Li(\d+)E", mangled)
-            kernel = "{}<{}, D{}>".format(
-                name.group(1) if name else mangled, ", ".join(a or b for a, b in types),
-                dims.group(1) if dims else "?")
+            params = [a or b for a, b in types] + [f"D{dims.group(1) if dims else '?'}"]
+            kernel = "{}<{}>".format(name.group(1) if name else mangled, ", ".join(params))
         elif "spill stores" in line:
             spills = line.strip()
         elif "registers" in line and kernel is not None:
@@ -217,8 +230,14 @@ def timed(fn) -> dict:
     wall = cuda_ms(fn)
     by_name = kernel_ms_by_name(fn)
     dev = sum(by_name.values())
-    return {"ms": dev if dev > 0 else wall, "event_ms": wall,
+    return {"ms": dev if dev > 0 else wall, "event_ms": wall, "by_name_ms": by_name,
             "method": "profiler device time" if dev > 0 else "cuda events", "kernels": sorted(n[:60] for n in by_name)}
+
+
+def own_kernel_ms(by_name: dict, name: str) -> float:
+    """Device ms of the kernels whose names carry ``name`` (a wrapper's own
+    kernel, without the torch ops around it)."""
+    return sum(ms for n, ms in by_name.items() if name in n)
 
 
 # ------------------------------------------------------------------ K1
@@ -230,31 +249,71 @@ def k1_inputs(B, H, S, D, dtype, device, seed=0):
     return q, k, v
 
 
+def check_k1_lse(name, lse, q, k, mask, causal) -> float:
+    """K1's lse against torch.logsumexp of the plain masked f32 scores (the
+    same inputs): within 1e-4 on rows that see a key, exactly -1e30 on rows
+    that see none (K2/K3 select on it)."""
+    from unionml_tpu_torch.ops.attention import _masked_logits
+
+    logits, valid = _masked_logits(q, k, mask, causal, q.shape[-1] ** -0.5)
+    live = valid.expand(logits.shape).any(dim=-1)
+    err = float((lse - torch.logsumexp(logits, dim=-1))[live].abs().max()) if bool(live.any()) else 0.0
+    if err > 1e-4:
+        raise AssertionError(f"{name}: lse max |err| {err:.3e} on rows that see a key (limit 1e-4)")
+    if not bool((lse[~live] == -1e30).all()):
+        raise AssertionError(f"{name}: rows that see no key must get lse -1e30")
+    return err
+
+
+# bf16 cases at the tensor-core body's tile edges (128-row query tiles of two
+# 64-row warpgroups, 64-key tiles): B, H, Sq, Sk, D, causal, kv_lens
+K1_EDGE_CASES = [
+    (2, 12, 63, 63, 64, True, None), (2, 12, 64, 64, 64, True, None), (2, 12, 65, 65, 64, True, None),
+    (2, 12, 127, 127, 64, False, [127, 64]), (2, 12, 128, 128, 64, True, None), (2, 12, 129, 129, 64, False, [1, 0]),
+    (2, 12, 1, 1, 64, True, None), (2, 12, 1, 129, 64, False, [129, 65]), (2, 12, 65, 129, 64, True, None),
+    (2, 12, 129, 65, 64, True, None), (2, 4, 129, 129, 128, True, None), (2, 4, 127, 65, 128, False, [0, 1]),
+    (2, 4, 200, 300, 128, True, [300, 129]),
+]
+# packed ids whose boundaries fall on 64-row tile edges and inside tiles
+K1_EDGE_IDS = [[(1, 64), (2, 64), (3, 70), (0, 58)], [(1, 30), (2, 100), (3, 126)]]
+
+
 def check_k1(device) -> dict:
     from unionml_tpu_torch.ops.attention import (
-        _kv_lens_to_mask, _masked_logits, flash_attention, reference_attention,
+        _combined_mask, _kv_lens_to_mask, flash_attention, reference_attention,
     )
 
-    worst = 0.0
+    worst, worst_lse = 0.0, 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        cases = [(B, 12, S, 64, True, None) for B in (1, 4) for S in (16, 100, 256, 512)]
-        cases += [(4, 12, S, 64, False, [S, S // 2, 1, 0]) for S in (100, 512)]
-        cases += [(2, 4, 77, 128, True, None), (2, 4, 77, 128, False, [77, 30])]
-        for B, H, S, D, causal, lens in cases:
-            q, k, v = k1_inputs(B, H, S, D, dtype, device, seed=S + B)
+        cases = [(B, 12, S, S, 64, True, None) for B in (1, 4) for S in (16, 100, 256, 512)]
+        cases += [(4, 12, S, S, 64, False, [S, S // 2, 1, 0]) for S in (100, 512)]
+        cases += [(2, 4, 77, 77, 128, True, None), (2, 4, 77, 77, 128, False, [77, 30])]
+        if dtype == torch.bfloat16:
+            cases += K1_EDGE_CASES
+        for B, H, Sq, S, D, causal, lens in cases:
+            q, k, v = k1_inputs(B, H, max(Sq, S), D, dtype, device, seed=S + B)
+            q, k, v = q[:, :, :Sq].contiguous(), k[:, :, :S].contiguous(), v[:, :, :S].contiguous()
             kv_lens = torch.tensor(lens, device=device) if lens is not None else None
             out, lse = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, return_lse=True)
             mask = _kv_lens_to_mask(kv_lens, S) if kv_lens is not None else None
             want = reference_attention(q, k, v, mask=mask, causal=causal)
-            name = f"K1 {dtype} B{B} H{H} S{S} D{D} causal={causal} kv_lens={lens}"
+            name = f"K1 {dtype} B{B} H{H} Sq{Sq} Sk{S} D{D} causal={causal} kv_lens={lens}"
             worst = max(worst, check_close(name, out, want))
-            if dtype == torch.float32:
-                logits, valid = _masked_logits(q, k, mask, causal, D ** -0.5)
-                live = valid.expand(logits.shape).any(dim=-1)  # rows that see a key
-                lse_err = float((lse - torch.logsumexp(logits, dim=-1))[live].abs().max())
-                if lse_err > 1e-4:
-                    raise AssertionError(f"{name}: lse max |err| {lse_err:.3e}")
-    return {"max_abs_err": worst}
+            worst_lse = max(worst_lse, check_k1_lse(name, lse, q, k, mask, causal))
+    # bf16 packed: the training rows and the other packed shapes of phase 7, and the tile-edge ids
+    packed = [(name, B, H, Sq, Sk, D, causal, ids) for name, B, H, Sq, Sk, D, causal, ids in packed_cases()]
+    packed += [(f"tile-edge ids D{D} causal={c}", 2, 4, 256, 256, D, c, id_rows(K1_EDGE_IDS))
+               for D in (64, 128) for c in (True, False)]
+    for name, B, H, Sq, Sk, D, causal, ids in packed:
+        ids = ids.to(device)
+        g = torch.Generator(device="cpu").manual_seed(Sq + Sk + D)
+        q = torch.randn((B, H, Sq, D), generator=g).to(device=device, dtype=torch.bfloat16)
+        k, v = (torch.randn((B, H, Sk, D), generator=g).to(device=device, dtype=torch.bfloat16) for _ in range(2))
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True, segment_ids=ids)
+        label = f"K1 bf16 packed {name} B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal}"
+        worst = max(worst, check_close(label, out, reference_attention(q, k, v, causal=causal, segment_ids=ids)))
+        worst_lse = max(worst_lse, check_k1_lse(label, lse, q, k, _combined_mask(None, None, ids, Sq, Sk), causal))
+    return {"max_abs_err": worst, "lse_max_abs_err": worst_lse}
 
 
 # ------------------------------------------------------------------ K4
@@ -712,6 +771,7 @@ def train_bert(device) -> dict:
     from unionml_tpu_torch import kernels
     from unionml_tpu_torch.models import (
         BertConfig, bert_flops_per_token, bert_random_params, dict_batches, fit, make_classifier_eval_step,
+        make_classifier_train_step,
     )
 
     config = BertConfig.base()  # vocab 30522, d 768, 12 layers, 12 heads, 512 positions; bf16
@@ -735,6 +795,8 @@ def train_bert(device) -> dict:
     if not all(np.isfinite(v) for v in evaluation.values()):
         raise AssertionError(f"eval step: {evaluation}")
     step_profile = profile_train(state, batches[0])
+    bert_step = make_classifier_train_step(input_signature=BERT_SIG)
+    k1_names = check_k1_kernel_names(lambda: bert_step(state, batches[0]), "BERT bf16 train step")
     del state
     torch.cuda.empty_cache()
 
@@ -751,7 +813,7 @@ def train_bert(device) -> dict:
         "step_ms": 1e3 / result.steps_per_s, "examples_per_s": result.examples_per_s,
         "tokens_per_s": tokens_per_s, "achieved_tflops": tflops, "share_of_bf16_peak": tflops * 1e12 / BF16_FLOPS,
         "step_profile": step_profile, "first_steps_vs_plain": agreement, "f32_grads_vs_plain": grads,
-        "lens": data["attention_mask"][:BERT_BATCH].sum(-1).tolist(),
+        "lens": data["attention_mask"][:BERT_BATCH].sum(-1).tolist(), "k1_kernel_names": k1_names,
     }
 
 
@@ -848,6 +910,7 @@ def train_gpt(device) -> dict:
     step = make_lm_train_step(packed=True)
     step(state, batches[0])
     profile = step_profile(lambda: step(state, batches[0]), 3, top=10)
+    k1_names = check_k1_kernel_names(lambda: step(state, batches[0]), "LM bf16 train step")
     del state
     torch.cuda.empty_cache()
 
@@ -867,6 +930,7 @@ def train_gpt(device) -> dict:
         "slot_tokens_per_s": slots_per_s, "real_tokens_per_s": slots_per_s * efficiency,
         "flops_per_step": flops, "achieved_tflops": tflops, "share_of_bf16_peak": tflops * 1e12 / BF16_FLOPS,
         "step_profile": profile, "first_steps_vs_plain": agreement, "f32_grads_vs_plain": grads,
+        "k1_kernel_names": k1_names,
     }
 
 
@@ -877,6 +941,7 @@ def _times(kernel, plain, library) -> dict:
     """ms / plain_ms / library_ms, each by the same method (see ``timed``)."""
     k, p, lib = timed(kernel), timed(plain), timed(library)
     return {"ms": k["ms"], "plain_ms": p["ms"], "library_ms": lib["ms"], "method": k["method"],
+            "kernel_by_name_ms": k["by_name_ms"],
             "event_ms": {"kernel": k["event_ms"], "plain": p["event_ms"], "library": lib["event_ms"]},
             "library_kernels": lib["kernels"]}
 
@@ -895,17 +960,29 @@ def time_k1(device, B, S, launches, H=12, D=64, inputs=None) -> dict:
     q, k, v = inputs if inputs is not None else k1_inputs(B, H, S, D, torch.bfloat16, device)
     err = check_close("K1 timing inputs", flash_attention(q, k, v, causal=True),
                       reference_attention(q, k, v, causal=True))
-    bound, by = _bound(4 * q.numel() * q.element_size(), 4 * B * H * D * S * (S + 1) / 2)
-    return {
+    flops = 4 * B * H * D * S * (S + 1) / 2
+    bound, by = _bound(4 * q.numel() * q.element_size(), flops)
+    return k1_rates({
         "name": "flash_fwd", "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "unionml_tpu/ops/attention.py:83", "launches": launches, "max_abs_err": err,
-        "bound_ms": bound, "bound_by": by, "shape": f"bf16 B{B} H{H} S{S} D{D} causal",
+        "bound_ms": bound, "bound_by": by, "shape": f"bf16 B{B} H{H} S{S} D{D} causal", "flops": flops,
         **_times(
             lambda: flash_attention(q, k, v, causal=True),
             lambda: reference_attention(q, k, v, causal=True),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True),
         ),
-    }
+    })
+
+
+def k1_rates(record: dict) -> dict:
+    """A K1 record with its achieved TFLOP/s (visible pairs' flops over its
+    ms) and the share of its bound it reaches (bound_ms / ms)."""
+    record["tflops"] = record["flops"] / record["ms"] / 1e9
+    record["bound_share"] = record["bound_ms"] / record["ms"]
+    # the kernel alone: ms counts every kernel of the call (the skip map's
+    # torch ops in packed mode too)
+    record["kernel_only_ms"] = own_kernel_ms(record["kernel_by_name_ms"], "flash_fwd")
+    return record
 
 
 def time_k4(device, S, bases, launches, H=12, D=64, bs=16) -> dict:
@@ -973,16 +1050,16 @@ def time_bert_kernels(device, lens, launches, H=12, D=64) -> list:
     out, lse = flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True)
     k1_err = check_close("K1 BERT timing inputs", out, reference_attention(q, k, v, mask=mask))
     bound, by = _bound(4 * numel * size + lse.numel() * 4, 4 * D * visible)
-    k1 = {
+    k1 = k1_rates({
         "name": "flash_fwd", "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "unionml_tpu/ops/attention.py:83", "launches": launches["flash_fwd"], "max_abs_err": k1_err,
-        "bound_ms": bound, "bound_by": by, "shape": shape,
+        "bound_ms": bound, "bound_by": by, "shape": shape, "flops": 4 * D * visible,
         **_times(
             lambda: flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True),
             lambda: reference_attention(q, k, v, mask=mask),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         ),
-    }
+    })
 
     got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
     want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
@@ -1042,16 +1119,18 @@ def time_packed_kernels(device, launches, H=12, D=64) -> list:
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True, segment_ids=ids)
     k1_err = check_close("K1 packed timing inputs", out, reference_attention(q, k, v, causal=True, segment_ids=ids))
     bound, by = _bound(4 * numel * size + lse.numel() * 4, 4 * D * visible)
-    k1 = {
+    k1 = k1_rates({
         "name": "flash_fwd", "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "unionml_tpu/ops/attention.py:83", "launches": launches["flash_fwd"], "max_abs_err": k1_err,
-        "bound_ms": bound, "bound_by": by, "shape": shape,
+        "bound_ms": bound, "bound_by": by, "shape": shape, "flops": 4 * D * visible,
         **_times(
             lambda: flash_attention(q, k, v, causal=True, return_lse=True, segment_ids=ids),
             lambda: reference_attention(q, k, v, causal=True, segment_ids=ids),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         ),
-    }
+    })
+    k1["heaviest_first_ab_ms"] = heaviest_first_ab(
+        lambda: flash_attention(q, k, v, causal=True, return_lse=True, segment_ids=ids))
     causal_only = time_k1(device, B, S, None, H=H, D=D, inputs=(q, k, v))
     causal_only["shape"] += ", no ids (the same inputs without the skip map)"
 
@@ -1093,6 +1172,38 @@ def time_packed_kernels(device, launches, H=12, D=64) -> list:
     return records, causal_only
 
 
+def heaviest_first_ab(fn) -> dict:
+    """K1's packed device ms with its tiles launched in index order and by
+    descending scan length (the default), in turns: off, on, on, off."""
+    import importlib
+
+    # the module: the package's ``attention`` name is the dispatcher function
+    attention = importlib.import_module("unionml_tpu_torch.ops.attention")
+
+    times = {"index order": [], "heaviest first": []}
+    try:
+        for flag in (False, True, True, False):
+            attention._HEAVIEST_FIRST = flag
+            t = timed(fn)
+            times["heaviest first" if flag else "index order"].append(
+                {"call_ms": t["ms"], "kernel_ms": own_kernel_ms(t["by_name_ms"], "flash_fwd")})
+    finally:
+        attention._HEAVIEST_FIRST = True
+    return times
+
+
+def check_k1_kernel_names(fn, label: str) -> list:
+    """The K1 kernels one call of ``fn`` (a bf16 train step) launches, by the
+    profiler's names: the tensor-core body must be there and the CUDA-core
+    body's bf16 instantiation must not."""
+    names = [n for n in kernel_ms_by_name(fn, 1) if "flash_fwd" in n]
+    if not any("flash_fwd_wgmma_kernel" in n for n in names) or any(
+            "flash_fwd_kernel" in n and "BF16" in n for n in names):
+        raise AssertionError(f"{label}: K1 kernels by profiler name {names}; expected flash_fwd_wgmma_kernel "
+                             "and no bf16 flash_fwd_kernel")
+    return names
+
+
 def visible_pairs(segment_ids: np.ndarray) -> int:
     """Visible (q, k) pairs per head under causal packing: s(s+1)/2 per segment."""
     return sum(int((row == s).sum()) * (int((row == s).sum()) + 1) // 2
@@ -1117,13 +1228,82 @@ def time_kernels(device, e2e: dict):
     return main, extra
 
 
+def k1_times(device) -> dict:
+    """bf16 K1 device ms (``timed``) at the four shapes of PERF.md's K1 rows,
+    on the inputs ``time_packed_kernels``, ``time_bert_kernels`` and
+    ``time_kernels`` use, each output checked against the plain version
+    first: the LM packed shape, the same inputs causal without ids, the BERT
+    shape with its kv_lens, and serving's B2 S256 causal prefill."""
+    from unionml_tpu_torch.models import BertConfig
+    from unionml_tpu_torch.ops.attention import _kv_lens_to_mask, flash_attention, reference_attention
+
+    ids = torch.from_numpy(lm_packed()["segment_ids"][:LM_BATCH]).to(device)
+    q, k, v, _, _ = bwd_inputs(LM_BATCH, 12, LM_SEQ, 64, torch.bfloat16, device, None, seed=7)
+    lens = bert_data(BertConfig.base(), rows=4 * BERT_BATCH)["attention_mask"][:BERT_BATCH].sum(-1).tolist()
+    qb, kb, vb, _, kv_lens = bwd_inputs(BERT_BATCH, 12, BERT_SEQ, 64, torch.bfloat16, device, lens)
+    qs, ks, vs = k1_inputs(2, 12, 256, 64, torch.bfloat16, device)
+    cases = {
+        "LM packed B8 H12 S1024 causal": (lambda: flash_attention(q, k, v, causal=True, segment_ids=ids),
+                                          lambda: reference_attention(q, k, v, causal=True, segment_ids=ids)),
+        "B8 H12 S1024 causal, no ids": (lambda: flash_attention(q, k, v, causal=True),
+                                        lambda: reference_attention(q, k, v, causal=True)),
+        "BERT B64 H12 S128 kv_lens": (lambda: flash_attention(qb, kb, vb, kv_lens=kv_lens),
+                                      lambda: reference_attention(qb, kb, vb, mask=_kv_lens_to_mask(kv_lens, 128))),
+        "serving B2 H12 S256 causal": (lambda: flash_attention(qs, ks, vs, causal=True),
+                                       lambda: reference_attention(qs, ks, vs, causal=True)),
+    }
+    out = {}
+    for name, (kernel, plain) in cases.items():
+        check_close(f"K1 {name}", kernel(), plain())
+        t = timed(kernel)
+        out[name] = {"call_ms": t["ms"], "kernel_ms": own_kernel_ms(t["by_name_ms"], "flash_fwd")}
+    return out
+
+
+def k1_ab(parent: Path) -> dict:
+    """bf16 K1 at ``k1_times``' shapes from the tree at ``parent`` and from
+    this tree, in turns (parent, this, this, parent), one process each: each
+    tree builds and loads its own kernels."""
+    here = Path(__file__).resolve().parent
+    result = {"parent": [], "change": []}
+    for label, root in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
+        proc = subprocess.run([sys.executable, str(here / "chip_smoke.py"), "--k1-times", str(root)],
+                              capture_output=True, text=True, check=True)
+        line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("K1_TIMES "))
+        result[label].append(json.loads(line[len("K1_TIMES "):]))
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", type=Path, help="write every measurement to this JSON file")
+    parser.add_argument("--k1-ab", type=Path, metavar="PARENT",
+                        help="only time bf16 K1 (k1_times) from the tree at PARENT and this tree in turns")
+    parser.add_argument("--k1-times", type=Path, metavar="ROOT", help="only time bf16 K1 from the tree at ROOT")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.k1_times is not None:
+        sys.path.insert(0, str(args.k1_times.resolve()))
+        from unionml_tpu_torch._device import set_precision_flags
+
+        set_precision_flags()
+        print("K1_TIMES " + json.dumps(k1_times(torch.device("cuda"))))
+        return 0
+    if args.k1_ab is not None:
+        print(card())
+        result = k1_ab(args.k1_ab)
+        for name in result["change"][0]:
+            for key in ("kernel_ms", "call_ms"):
+                parent = [r[name][key] for r in result["parent"]]
+                change = [r[name][key] for r in result["change"]]
+                print(f"K1 bf16 {name}, {key}: parent {parent}, change {change}, "
+                      f"parent / change {np.mean(parent) / np.mean(change):.2f}x")
+        if args.details is not None:
+            args.details.parent.mkdir(parents=True, exist_ok=True)
+            args.details.write_text(json.dumps(result, indent=1))
+        return 0
     from unionml_tpu_torch._device import set_precision_flags
     from unionml_tpu_torch.kernels import _build
 
@@ -1143,7 +1323,9 @@ def main() -> int:
 
     details["k1"] = check_k1(device)
     print(f"K1 vs plain: ok, max |err| {details['k1']['max_abs_err']:.3e} "
-          "(tolerance f32 atol 2e-5; bf16 atol 2e-2 + rtol 2e-2)")
+          "(tolerance f32 atol 2e-5; bf16 atol 2e-2 + rtol 2e-2, tile-edge and packed bf16 cases included); lse vs "
+          f"logsumexp of the plain masked scores: ok, max |err| {details['k1']['lse_max_abs_err']:.3e} on rows that "
+          "see a key (limit 1e-4), -1e30 on rows that see none")
     details["k4"] = check_k4(device)
     print(f"K4 vs plain: ok, max |err| {details['k4']['max_abs_err']:.3e} "
           "(tolerance f32 atol 2e-5; bf16 atol 2e-2 + rtol 2e-2)")
@@ -1213,9 +1395,15 @@ def main() -> int:
     packed_rows, causal_only = time_packed_kernels(device, lm["launches"])
     records, extra = bert + serving[1:] + packed_rows, serving[:1] + extra + [causal_only]
     for r in records + extra:
+        rates = (f", {r['tflops']:.2f} TFLOP/s, {r['bound_share']:.4f} of its bound; the kernel alone "
+                 f"{r['kernel_only_ms']:.4f} ms" if "tflops" in r else "")
         print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+              f"{r['bound_by']}{rates}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
               f"[{r['method']}; per-call CUDA-event ms {r['event_ms']}; library kernels {r.get('library_kernels')}]")
+    print(f"[{name_limit}] K1 packed, tiles in index order vs heaviest first (device ms, in turns): "
+          f"{packed_rows[0]['heaviest_first_ab_ms']}")
+    print(f"K1 kernels by profiler name in one bf16 train step: BERT {train['k1_kernel_names']}, "
+          f"LM {lm['k1_kernel_names']}")
     details["kernels"], details["extra_timings"] = records, extra
     details["total_s"] = time.perf_counter() - t0
     if args.details is not None:

@@ -8,7 +8,8 @@ and skip elsewhere. Run them on the GPU machine with
 The file imports nothing of JAX, so it runs where JAX is not installed.
 Tolerances: float32 atol 2e-5 (summation order only); bfloat16 atol 2e-2 +
 rtol 2e-2 (the plain versions round the softmax weights to bf16 before the
-value product, the kernels keep them in f32). The backward kernels K2/K3
+value product, the kernels keep them in f32 or, in K1's bf16 body, as two bf16
+parts). The backward kernels K2/K3
 against ``reference_attention_backward`` (same lse, f32 arithmetic in both,
 summation order only): float32 atol 1e-4 (gradients sum up to 256 terms of
 size ~1), bfloat16 atol 2e-2 + rtol 2e-2 (both round to bf16 once, at the
@@ -17,7 +18,11 @@ two tolerances. Each test also checks that the kernel's launch count moved.
 The packed (segment-id) cases hold K1, K2 and K3 to the same tolerances, with
 three segments and a padding tail, ids that recur non-contiguously with
 interior zeros, and cross-length calls from one id array; padding queries get
-zero outputs and padding keys exact-zero dK/dV.
+zero outputs and padding keys exact-zero dK/dV. K1's bf16 body (128-row
+query tiles of two 64-row warpgroups, 64-key tiles) is held at those tile
+edges, with segment boundaries on and inside tiles, and its lse against
+``torch.logsumexp`` of the plain masked scores (1e-4; -1e30 on rows that see
+no key).
 """
 
 import numpy as np
@@ -26,7 +31,9 @@ import torch
 
 from unionml_tpu_torch import kernels
 from unionml_tpu_torch.ops.attention import (
+    _combined_mask,
     _kv_lens_to_mask,
+    _masked_logits,
     flash_attention,
     flash_attention_backward,
     reference_attention,
@@ -106,6 +113,90 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.randn((1, 2, 16, 64), device=cuda)[:, :, ::2]  # non-contiguous
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    # bf16 contiguous but not 16-byte aligned: the tensor-core body refuses it
+    q = torch.randn(2 * 16 * 64 + 1, device=cuda).to(torch.bfloat16)[1:].view(1, 2, 16, 64)
+    before = kernels.launches["flash_fwd"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, q, q)
+    assert kernels.launches["flash_fwd"] == before
+
+
+# the bf16 body's 128-row query tiles (two warpgroups of 64) and 64-key tiles: Sq, Sk, D, causal, kv_lens
+BF16_EDGE_CASES = [
+    (63, 63, 64, True, None), (64, 64, 64, True, None), (65, 65, 64, True, None),
+    (127, 127, 64, False, [127, 64]), (128, 128, 64, True, None), (129, 129, 64, False, [1, 0]),
+    (1, 1, 64, True, None), (1, 129, 64, False, [129, 65]), (65, 129, 64, True, None),
+    (129, 65, 64, True, None), (129, 129, 128, True, None), (127, 65, 128, False, [0, 1]),
+    (200, 300, 128, True, [300, 129]),
+]
+
+
+@pytest.mark.parametrize("Sq,S,D,causal,lens", BF16_EDGE_CASES)
+def test_flash_bf16_tile_edges_match_plain(cuda, Sq, S, D, causal, lens):
+    g = torch.Generator().manual_seed(Sq * 3 + S)
+    q = torch.randn((2, 3, Sq, D), generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((2, 3, S, D), generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    kv_lens = torch.tensor(lens, device=cuda) if lens else None
+    before = kernels.launches["flash_fwd"]
+    got = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_fwd"] == before + 1
+    mask = _kv_lens_to_mask(kv_lens, S) if kv_lens is not None else None
+    _close(got, reference_attention(q, k, v, mask=mask, causal=causal))
+    for b, n in enumerate(lens or []):
+        if n == 0:  # a row that sees no key writes zeros
+            assert torch.all(got[b] == 0)
+
+
+# packed ids whose segment boundaries fall on 64-row tile edges (64, 128) and inside tiles
+EDGE_IDS = {
+    "on-tile-edges": (256, [[(1, 64), (2, 64), (3, 70), (0, 58)], [(4, 128), (5, 128)]]),
+    "inside-tiles": (256, [[(1, 30), (2, 100), (3, 126)], [(1, 1), (2, 190), (0, 3), (3, 62)]]),
+    "ragged-200": (200, [[(1, 65), (2, 63), (3, 72)], [(6, 129), (0, 71)]]),
+}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", list(EDGE_IDS))
+def test_flash_bf16_packed_tile_edges_match_plain(cuda, case, causal, D):
+    S, rows = EDGE_IDS[case]
+    ids = _ids(rows).to(cuda)
+    g = torch.Generator().manual_seed(S + D + causal)
+    q, k, v = (torch.randn((2, 3, S, D), generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    before = kernels.launches["flash_fwd"]
+    out = flash_attention(q, k, v, causal=causal, segment_ids=ids)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_fwd"] == before + 1
+    _close(out, reference_attention(q, k, v, causal=causal, segment_ids=ids))
+    assert torch.all(out.transpose(1, 2)[ids == 0] == 0)
+
+
+LSE_CASES = {  # Sq, Sk, D, causal, kv_lens, (seg, length) runs or None
+    "kv_lens": (129, 129, 64, False, [129, 0], None),
+    "causal-Sq-ne-Sk": (65, 200, 128, True, [200, 0], None),
+    "packed": (256, 256, 64, True, None, [[(1, 64), (2, 100), (0, 92)], [(0, 10), (3, 246)]]),
+}
+
+
+@pytest.mark.parametrize("case", list(LSE_CASES))
+def test_flash_bf16_lse_matches_logsumexp(cuda, case):
+    """K1's bf16 lse against torch.logsumexp of the plain masked f32 scores
+    (the same bf16 inputs): within 1e-4 on rows that see a key, exactly -1e30
+    on rows that see none (K2/K3 read it)."""
+    Sq, S, D, causal, lens, rows = LSE_CASES[case]
+    g = torch.Generator().manual_seed(Sq + S)
+    q = torch.randn((2, 3, Sq, D), generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((2, 3, S, D), generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    kv_lens = torch.tensor(lens, device=cuda) if lens else None
+    ids = _ids(rows).to(cuda) if rows else None
+    _, lse = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, return_lse=True, segment_ids=ids)
+    mask = _combined_mask(None, kv_lens, ids, Sq, S)
+    logits, valid = _masked_logits(q, k, mask, causal, D ** -0.5)
+    live = valid.expand(logits.shape).any(dim=-1)
+    assert lse.dtype == torch.float32 and bool((~live).any())  # every case has a row that sees no key
+    torch.testing.assert_close(lse[live], torch.logsumexp(logits, dim=-1)[live], atol=1e-4, rtol=0)
+    assert torch.all(lse[~live] == -1e30)
 
 
 BWD_CASES = [  # B, H, Sq, Sk, D, causal, kv_lens

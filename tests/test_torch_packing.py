@@ -168,22 +168,63 @@ def test_cross_length_backward_matches_pallas_kernels(sq, sk):
     _backward_case(np.asarray(CROSS_IDS, np.int32), sq, sk, True, seed=sq * 3 + sk)
 
 
-@pytest.mark.parametrize("block,other", [(16, 16), (32, 16), (16, 64)])
+@pytest.mark.parametrize("block,other", [(16, 16), (32, 16), (16, 64), (64, 64), (128, 64)])
 def test_skip_ranges_reduce_to_jax_block_bounds(block, other):
+    """The skip map reduced over tiles of ``block`` rows (``_tile_ranges``, as
+    the kernels reduce it: 32-row tiles in K2/K3 and K1's f32 body, 64- and
+    128-row tiles in K1's bf16 body) equals ``_segment_block_bounds``."""
     rng = np.random.default_rng(block + other)
     ids = np.concatenate([np.asarray(LAYOUTS[name], np.int32) for name in LAYOUTS])
     ids = np.concatenate([ids, ids[:, ::-1]], axis=1)  # 64 positions; ids recur in reverse
     ids[0, 5:9] = [100, 200, -3, 100]  # out-of-range and negative ids share the clip buckets
     ids[1] = rng.integers(0, 4, 64)
-    for own, other_ids in ((ids[:, :64], ids[:, :64]), (ids[:, :32], ids[:, :64]), (ids[:, :64], ids[:, :32])):
-        ranges = tattn._segment_ranges(torch.from_numpy(own), torch.from_numpy(other_ids)).numpy()
-        chunks = ranges.reshape(own.shape[0], own.shape[1] // block, block, 2)
-        start = chunks[..., 0].min(axis=2) // other
-        stop = -(-chunks[..., 1].max(axis=2) // other)
+    width = max(64, 2 * block)
+    ids = np.tile(ids, (1, width // 64))
+    half = width // 2
+    for own, other_ids in ((ids, ids), (ids[:, :half], ids), (ids, ids[:, :half])):
+        ranges = tattn._segment_ranges(torch.from_numpy(own), torch.from_numpy(other_ids))
+        lo, hi = (x.numpy() for x in tattn._tile_ranges(ranges, block))
         want_start, want_stop = jattn._segment_block_bounds((jnp.asarray(own), jnp.asarray(other_ids)), block,
                                                             other)
-        np.testing.assert_array_equal(start.reshape(-1), np.asarray(want_start))
-        np.testing.assert_array_equal(stop.reshape(-1), np.asarray(want_stop))
+        np.testing.assert_array_equal((lo // other).reshape(-1), np.asarray(want_start))
+        np.testing.assert_array_equal((-(-hi // other)).reshape(-1), np.asarray(want_stop))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq", [77, 256, 1024])
+def test_k1_work_order_is_a_stable_descending_permutation(seq, causal):
+    """K1's bf16 launch order in packed mode: every 128-row query tile once,
+    by descending count of 64-key tiles its scan visits (counted here from
+    the plain per-row mask), ties in index order, the same on every call."""
+    rng = np.random.default_rng(seq)
+    rows = []
+    for _ in range(3):
+        lengths = np.clip(rng.lognormal(np.log(seq / 4), 0.8, 64).astype(np.int64), 1, seq)
+        row = np.concatenate([np.full(n, i + 1) for i, n in enumerate(lengths)])[:seq]
+        row[len(row) - int(rng.integers(0, seq // 8)):] = 0  # a padding tail
+        rows.append(row)
+    ids = torch.from_numpy(np.stack(rows).astype(np.int32))
+    ranges = tattn._segment_ranges(ids, ids)
+    lens = tattn._segment_kv_lens(ids, seq)
+    order = tattn._k1_work_order(ranges, lens, seq, causal)
+    n_tiles = -(-seq // tattn._K1_BLOCK_Q)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(3 * n_tiles))
+    assert torch.equal(order, tattn._k1_work_order(ranges, lens, seq, causal))
+    # the scan of each tile from the ids alone: key tiles from the first to the
+    # last key any of its rows may see
+    visible = tattn._combined_mask(None, None, ids, seq, seq)[:, 0]
+    if causal:
+        visible = visible & torch.ones((seq, seq), dtype=torch.bool).tril()
+    work = []
+    for b in range(3):
+        for m in range(n_tiles):
+            keys = torch.nonzero(visible[b, m * 128:(m + 1) * 128].any(dim=0))[:, 0]
+            work.append(0 if keys.numel() == 0 else int(keys[-1]) // 64 + 1 - int(keys[0]) // 64)
+    got = [work[i] for i in order.tolist()]
+    assert got == sorted(work, reverse=True)
+    for a, b in zip(order.tolist(), order.tolist()[1:]):
+        assert work[a] > work[b] or a < b  # ties keep index order
 
 
 def test_kernel_kv_lens_are_the_last_nonzero_index_plus_one():

@@ -13,7 +13,8 @@ seq, head_dim) convention of the JAX package.
   ``_flash_kernel``). On CUDA tensors it launches the kernel or raises; on CPU
   tensors it runs :func:`reference_attention`. Causal, ``kv_lens``
   (right-padding) and ``segment_ids`` (packing) masks, any ``Sq``/``Sk``, bf16
-  or f32, head_dim 64 or 128. When grad mode is on and q, k or v requires grad
+  (the tensor-core body; q, k, v 16-byte aligned) or f32 (the CUDA-core body),
+  head_dim 64 or 128. When grad mode is on and q, k or v requires grad
   it runs through :class:`_FlashAttention`, whose backward is
   :func:`flash_attention_backward`.
 - :func:`flash_attention_backward` — K2 (dQ) then K3 (dK/dV)
@@ -182,28 +183,70 @@ def _segment_ranges(own_ids: torch.Tensor, other_ids: torch.Tensor) -> torch.Ten
     """The skip map: ``(batch, S_own, 2)`` int32 ``[start, end)`` per position
     of the own axis, the positions on the other axis that carry its id.
 
-    The first and end positions of every id on the other axis come from a
-    scatter-min/max over the ids (``attention.py:234-245``), so an id that
+    An id's first and end positions on the other axis are those of ``JAX``'s
+    scatter-min/max (``attention.py:234-245``), found here by a stable sort of
+    the other axis's ids and a binary search for each own id (a scatter-min
+    whose positions pile onto a few ids serialises on the card), so an id that
     recurs non-contiguously gets its whole extent (a superset: the kernels'
     in-tile id test keeps it exact). Ids outside ``[0, max(S_own, S_other)]``
     clip into one shared bucket, supersets again. Padding positions (id <= 0)
-    get the empty range ``[S_other, 0)``. Torch ops on the ids' device, no
-    host sync.
+    and ids absent from the other axis get the empty range ``[S_other, 0)``.
+    Torch ops on the ids' device, no host sync.
     """
-    batch, s_other = other_ids.shape
-    cap = max(own_ids.shape[1], s_other)
-    device = other_ids.device
-    pos = torch.arange(s_other, device=device, dtype=torch.int64)[None, :].expand(batch, s_other)
-    safe_o = other_ids.long().clamp(0, cap)
-    first = torch.full((batch, cap + 1), s_other, dtype=torch.int64, device=device)
-    first = first.scatter_reduce(1, safe_o, pos, reduce="amin")
-    end = torch.zeros((batch, cap + 1), dtype=torch.int64, device=device)
-    end = end.scatter_reduce(1, safe_o, pos + 1, reduce="amax")
-    safe_b = own_ids.long().clamp(0, cap)
-    live = own_ids > 0
-    start = torch.where(live, torch.gather(first, 1, safe_b), torch.full_like(safe_b, s_other))
-    stop = torch.where(live, torch.gather(end, 1, safe_b), torch.zeros_like(safe_b))
-    return torch.stack([start, stop], dim=-1).to(torch.int32).contiguous()
+    batch, s_own = own_ids.shape
+    s_other = other_ids.shape[1]
+    if s_other == 0:
+        return torch.zeros((batch, s_own, 2), dtype=torch.int32, device=own_ids.device)
+    cap = max(s_own, s_other)
+    own = own_ids.long().clamp(0, cap).contiguous()
+    values, order = torch.sort(other_ids.long().clamp(0, cap), dim=1, stable=True)
+    lo = torch.searchsorted(values, own, side="left")
+    hi = torch.searchsorted(values, own, side="right")
+    found = (hi > lo) & (own_ids > 0)
+    # the sort is stable, so positions ascend inside each id's run of slots
+    first = torch.gather(order, 1, lo.clamp(max=s_other - 1))
+    last = torch.gather(order, 1, (hi - 1).clamp(min=0))
+    start = torch.where(found, first, s_other)
+    stop = torch.where(found, last + 1, 0)
+    return torch.stack([start, stop], dim=-1).to(torch.int32)
+
+
+#: query rows and keys per tile of K1's bf16 (tensor-core) body
+_K1_BLOCK_Q, _K1_BLOCK_K = 128, 64
+#: launch K1's bf16 packed tiles by descending scan length (False: in index
+#: order; kept switchable so one chip run can time both)
+_HEAVIEST_FIRST = True
+
+
+def _tile_ranges(ranges: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lo, hi)``, each ``(batch, ceil(S_own / block))``: the skip map
+    ``ranges`` (:func:`_segment_ranges`) reduced over tiles of ``block``
+    positions of the own axis, as a kernel reduces it over its rows (rows past
+    the end count as empty)."""
+    batch, s_own, _ = ranges.shape
+    n_tiles = -(-s_own // block)
+    pad = n_tiles * block - s_own
+    lo = torch.nn.functional.pad(ranges[..., 0], (0, pad), value=torch.iinfo(torch.int32).max)
+    hi = torch.nn.functional.pad(ranges[..., 1], (0, pad), value=0)
+    return lo.view(batch, n_tiles, block).amin(-1), hi.view(batch, n_tiles, block).amax(-1)
+
+
+def _k1_work_order(ranges: torch.Tensor, kv_lens: torch.Tensor, seq_q: int, causal: bool) -> torch.Tensor:
+    """K1's bf16 work order in packed mode: ``(batch * n_tiles,)`` int32
+    ``b * n_tiles + m`` of every 128-row query tile, by descending count of the
+    64-key tiles its scan visits ([lo, hi) of its rows ∩ [0, kv_len) ∩ the
+    causal limit, as the kernel scans), ties in index order. Torch ops on the
+    ranges' device, no host sync."""
+    lo, hi = _tile_ranges(ranges, _K1_BLOCK_Q)
+    end = torch.minimum(hi, kv_lens.to(hi.dtype)[:, None])
+    if causal:
+        limit = torch.arange(1, lo.shape[1] + 1, device=lo.device, dtype=hi.dtype) * _K1_BLOCK_Q
+        end = torch.minimum(end, limit.clamp(max=seq_q)[None, :])
+    first = lo // _K1_BLOCK_K
+    work = torch.where(end > lo, (end + _K1_BLOCK_K - 1) // _K1_BLOCK_K - first, torch.zeros_like(end))
+    if not _HEAVIEST_FIRST:
+        return torch.arange(work.numel(), device=work.device, dtype=torch.int32)
+    return torch.sort(work.flatten(), descending=True, stable=True).indices.to(torch.int32)
 
 
 def _check_flash_inputs(q, k, v, kv_lens, name: str = "flash_attention", segment_ids=None) -> None:
@@ -262,8 +305,14 @@ def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: boo
     seq_k = k.shape[-2]
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device) if return_lse else None
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        # the bf16 body reads q, k, v through TMA, which takes 16-byte aligned tensors
+        raise ValueError("flash_attention: the bf16 kernel needs 16-byte aligned q, k, v (e.g. .clone() a view)")
     ids, lens = _kernel_masks(kv_lens, segment_ids, seq_k)
     ranges = _segment_ranges(ids[:, :seq_q], ids[:, :seq_k]) if ids is not None else None
+    if ranges is not None and q.dtype == torch.bfloat16:
+        # the bf16 body reads its work order after the ranges
+        ranges = torch.cat([ranges.flatten(), _k1_work_order(ranges, lens, seq_q, causal)])
     if seq_q and batch * heads:
         fn = _build.library("flash_fwd").flash_fwd
         status = fn(
