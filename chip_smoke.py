@@ -1,7 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train, time.
 
     python3 chip_smoke.py [--details PATH]
-    python3 chip_smoke.py --k1-ab PARENT_TREE [--details PATH]
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -73,14 +72,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    time, idle share, examples/s, tokens/s and achieved TFLOP/s; for the LM
    step also real (nonzero-id) tokens/s and the packing efficiency; K1 at the
    packed shape beside K1 causal without ids, K1's achieved TFLOP/s, share
-   of its bound and the kernel's own ms beside the whole call's, and the
-   packed K1 with its tiles in index order vs heaviest first. In one bf16
-   BERT and one LM step the profiler's kernel names must show K1's
-   tensor-core body and not the CUDA-core body's bf16 instantiation.
-
-``--k1-ab PARENT_TREE`` runs only ``k1_times`` (bf16 K1 at the LM packed,
-B8 S1024 causal, BERT and serving shapes) from an unpacked parent tree and
-from this tree in turns (parent, this, this, parent), one process each.
+   of its bound and the kernel's own ms beside the whole call's. In one
+   bf16 BERT and one LM step the profiler's kernel names must show K1's
+   tensor-core body and not its CUDA-core (f32) body.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -605,16 +599,25 @@ def top2_gap_at(engine, prompt, split: int) -> float:
     return float(top[0] - top[1])
 
 
-def compare_streams(kernel_streams, plain_streams, plain_engine, prompt_list, exact: bool):
-    """Greedy streams must agree; where they split, the plain path's top-2
-    gap there must be below the bf16 limit (``exact``: no split allowed)."""
+def stream_splits(kernel_streams, plain_streams, plain_engine, prompt_list) -> list:
+    """Where each greedy stream leaves the plain path's, with the plain
+    path's top-2 logit gap there."""
     splits = []
     for i, (a, b) in enumerate(zip(kernel_streams, plain_streams)):
         if REQUESTS[i][1] is not None or a == b:
             continue
         split = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-        gap = top2_gap_at(plain_engine, prompt_list[i], split)
-        splits.append({"request": i, "split": split, "plain_top2_gap": gap})
+        splits.append({"request": i, "split": split,
+                       "plain_top2_gap": top2_gap_at(plain_engine, prompt_list[i], split)})
+    return splits
+
+
+def compare_streams(kernel_streams, plain_streams, plain_engine, prompt_list, exact: bool):
+    """Greedy streams must agree; where they split, the plain path's top-2
+    gap there must be below the bf16 limit (``exact``: no split allowed)."""
+    splits = stream_splits(kernel_streams, plain_streams, plain_engine, prompt_list)
+    for s in splits:
+        i, split, gap = s["request"], s["split"], s["plain_top2_gap"]
         print(f"stream {i} splits at token {split}: plain top-2 gap {gap:.3e}")
         if exact or gap >= GAP_LIMIT_BF16:
             raise AssertionError(f"stream {i} disagrees with the plain path at token {split} (gap {gap:.3e})")
@@ -1129,8 +1132,6 @@ def time_packed_kernels(device, launches, H=12, D=64) -> list:
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         ),
     })
-    k1["heaviest_first_ab_ms"] = heaviest_first_ab(
-        lambda: flash_attention(q, k, v, causal=True, return_lse=True, segment_ids=ids))
     causal_only = time_k1(device, B, S, None, H=H, D=D, inputs=(q, k, v))
     causal_only["shape"] += ", no ids (the same inputs without the skip map)"
 
@@ -1172,35 +1173,14 @@ def time_packed_kernels(device, launches, H=12, D=64) -> list:
     return records, causal_only
 
 
-def heaviest_first_ab(fn) -> dict:
-    """K1's packed device ms with its tiles launched in index order and by
-    descending scan length (the default), in turns: off, on, on, off."""
-    import importlib
-
-    # the module: the package's ``attention`` name is the dispatcher function
-    attention = importlib.import_module("unionml_tpu_torch.ops.attention")
-
-    times = {"index order": [], "heaviest first": []}
-    try:
-        for flag in (False, True, True, False):
-            attention._HEAVIEST_FIRST = flag
-            t = timed(fn)
-            times["heaviest first" if flag else "index order"].append(
-                {"call_ms": t["ms"], "kernel_ms": own_kernel_ms(t["by_name_ms"], "flash_fwd")})
-    finally:
-        attention._HEAVIEST_FIRST = True
-    return times
-
-
 def check_k1_kernel_names(fn, label: str) -> list:
     """The K1 kernels one call of ``fn`` (a bf16 train step) launches, by the
     profiler's names: the tensor-core body must be there and the CUDA-core
-    body's bf16 instantiation must not."""
+    body (f32 only) must not."""
     names = [n for n in kernel_ms_by_name(fn, 1) if "flash_fwd" in n]
-    if not any("flash_fwd_wgmma_kernel" in n for n in names) or any(
-            "flash_fwd_kernel" in n and "BF16" in n for n in names):
+    if not any("flash_fwd_wgmma_kernel" in n for n in names) or any("flash_fwd_kernel" in n for n in names):
         raise AssertionError(f"{label}: K1 kernels by profiler name {names}; expected flash_fwd_wgmma_kernel "
-                             "and no bf16 flash_fwd_kernel")
+                             "and no flash_fwd_kernel")
     return names
 
 
@@ -1229,11 +1209,12 @@ def time_kernels(device, e2e: dict):
 
 
 def k1_times(device) -> dict:
-    """bf16 K1 device ms (``timed``) at the four shapes of PERF.md's K1 rows,
-    on the inputs ``time_packed_kernels``, ``time_bert_kernels`` and
-    ``time_kernels`` use, each output checked against the plain version
-    first: the LM packed shape, the same inputs causal without ids, the BERT
-    shape with its kv_lens, and serving's B2 S256 causal prefill."""
+    """bf16 K1 device ms (``timed``) and max |err| against the plain version
+    at the four shapes of PERF.md's K1 rows, on the inputs
+    ``time_packed_kernels``, ``time_bert_kernels`` and ``time_kernels`` use:
+    the LM packed shape, the same inputs causal without ids, the BERT shape
+    with its kv_lens, and serving's B2 S256 causal prefill. Not a phase of
+    the smoke run: an A/B of two trees calls it from each tree in turns."""
     from unionml_tpu_torch.models import BertConfig
     from unionml_tpu_torch.ops.attention import _kv_lens_to_mask, flash_attention, reference_attention
 
@@ -1254,56 +1235,19 @@ def k1_times(device) -> dict:
     }
     out = {}
     for name, (kernel, plain) in cases.items():
-        check_close(f"K1 {name}", kernel(), plain())
+        err = check_close(f"K1 {name}", kernel(), plain())
         t = timed(kernel)
-        out[name] = {"call_ms": t["ms"], "kernel_ms": own_kernel_ms(t["by_name_ms"], "flash_fwd")}
+        out[name] = {"call_ms": t["ms"], "kernel_ms": own_kernel_ms(t["by_name_ms"], "flash_fwd"), "max_abs_err": err}
     return out
-
-
-def k1_ab(parent: Path) -> dict:
-    """bf16 K1 at ``k1_times``' shapes from the tree at ``parent`` and from
-    this tree, in turns (parent, this, this, parent), one process each: each
-    tree builds and loads its own kernels."""
-    here = Path(__file__).resolve().parent
-    result = {"parent": [], "change": []}
-    for label, root in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
-        proc = subprocess.run([sys.executable, str(here / "chip_smoke.py"), "--k1-times", str(root)],
-                              capture_output=True, text=True, check=True)
-        line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("K1_TIMES "))
-        result[label].append(json.loads(line[len("K1_TIMES "):]))
-    return result
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", type=Path, help="write every measurement to this JSON file")
-    parser.add_argument("--k1-ab", type=Path, metavar="PARENT",
-                        help="only time bf16 K1 (k1_times) from the tree at PARENT and this tree in turns")
-    parser.add_argument("--k1-times", type=Path, metavar="ROOT", help="only time bf16 K1 from the tree at ROOT")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if args.k1_times is not None:
-        sys.path.insert(0, str(args.k1_times.resolve()))
-        from unionml_tpu_torch._device import set_precision_flags
-
-        set_precision_flags()
-        print("K1_TIMES " + json.dumps(k1_times(torch.device("cuda"))))
-        return 0
-    if args.k1_ab is not None:
-        print(card())
-        result = k1_ab(args.k1_ab)
-        for name in result["change"][0]:
-            for key in ("kernel_ms", "call_ms"):
-                parent = [r[name][key] for r in result["parent"]]
-                change = [r[name][key] for r in result["change"]]
-                print(f"K1 bf16 {name}, {key}: parent {parent}, change {change}, "
-                      f"parent / change {np.mean(parent) / np.mean(change):.2f}x")
-        if args.details is not None:
-            args.details.parent.mkdir(parents=True, exist_ok=True)
-            args.details.write_text(json.dumps(result, indent=1))
-        return 0
     from unionml_tpu_torch._device import set_precision_flags
     from unionml_tpu_torch.kernels import _build
 
@@ -1400,8 +1344,6 @@ def main() -> int:
         print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}{rates}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
               f"[{r['method']}; per-call CUDA-event ms {r['event_ms']}; library kernels {r.get('library_kernels')}]")
-    print(f"[{name_limit}] K1 packed, tiles in index order vs heaviest first (device ms, in turns): "
-          f"{packed_rows[0]['heaviest_first_ab_ms']}")
     print(f"K1 kernels by profiler name in one bf16 train step: BERT {train['k1_kernel_names']}, "
           f"LM {lm['k1_kernel_names']}")
     details["kernels"], details["extra_timings"] = records, extra

@@ -54,9 +54,10 @@
 //     shared memory, MN-major through the transpose bit. P goes in as two
 //     bf16 parts, hi = bf16(p) and lo = bf16(p - hi), two products: one bf16
 //     rounding of the unnormalised P, at another point than the plain
-//     version's rounding of the normalised weights, moved a bf16 greedy
-//     serving stream off the plain path's at a top-2 logit gap of 1.36e-2
-//     (chip_smoke's gate is 1e-2), and the second product costs 20-35 %;
+//     version's rounding of the normalised weights, failed chip_smoke's bf16
+//     greedy gate (a split at a top-2 logit gap >= 1e-2) for 8 of 10 weight
+//     and prompt seeds of GPT-2 small, the two parts for 3 of 10; the second
+//     product costs 12-33 % of the kernel's time (H100 80GB HBM3, 700 W);
 //   - masks only on tiles that need them: a warp applies the kv_len, causal
 //     and segment-id masks to its fragments only when the tile straddles
 //     kv_len or the diagonal for its 16 rows, or its rows and the tile's keys
@@ -93,12 +94,11 @@ constexpr int kThreads = 128;
 constexpr int kBlockQ = 32;  // query rows per CTA, four threads per row
 constexpr int kChunk = 8;    // keys scored per online-softmax update
 
-template <typename E, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const typename E::T* __restrict__ q, const typename E::T* __restrict__ k,
-    const typename E::T* __restrict__ v, const int* __restrict__ kv_lens,
-    const int* __restrict__ seg_ids, const int* __restrict__ seg_ranges,
-    typename E::T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk, int seg_stride,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ kv_lens, const int* __restrict__ seg_ids, const int* __restrict__ seg_ranges,
+    float* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk, int seg_stride,
     int causal, float sm_scale) {
   constexpr int BK = D == 64 ? 64 : 32;  // keys per shared-memory tile (16 KB each of K and V)
   constexpr int NV = D / 16;             // float4 columns per thread
@@ -133,19 +133,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
   // this thread's dims: float4 column j*4 + quad, i.e. dims (j*4+quad)*4 .. +3
   float qr[DT], acc[DT];
-  const typename E::T* q_row = q + (static_cast<size_t>(bh) * Sq + (q_live ? qi : 0)) * D;
+  const float* q_row = q + (static_cast<size_t>(bh) * Sq + (q_live ? qi : 0)) * D;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qr[j * 4 + e] = E::load(q_row[(j * 4 + quad) * 4 + e]) * sm_scale;
+      qr[j * 4 + e] = q_row[(j * 4 + quad) * 4 + e] * sm_scale;
       acc[j * 4 + e] = 0.f;
     }
   }
   float m = uml::kNegInf, l = 0.f;
 
-  const typename E::T* k_bh = k + static_cast<size_t>(bh) * Sk * D;
-  const typename E::T* v_bh = v + static_cast<size_t>(bh) * Sk * D;
+  const float* k_bh = k + static_cast<size_t>(bh) * Sk * D;
+  const float* v_bh = v + static_cast<size_t>(bh) * Sk * D;
   float* k_flat = reinterpret_cast<float*>(k_tile);
   float* v_flat = reinterpret_cast<float*>(v_tile);
   const int n_tiles = (n_keys + BK - 1) / BK;
@@ -157,8 +157,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const int key = k0 + idx / D;
       const bool in = key < Sk;
       const size_t src = static_cast<size_t>(key) * D + (idx % D);
-      k_flat[idx] = in ? E::load(k_bh[src]) : 0.f;
-      v_flat[idx] = in ? E::load(v_bh[src]) : 0.f;
+      k_flat[idx] = in ? k_bh[src] : 0.f;
+      v_flat[idx] = in ? v_bh[src] : 0.f;
     }
     if (packed && tid < BK) k_ids[tid] = k0 + tid < Sk ? ids_b[k0 + tid] : 0;
     __syncthreads();
@@ -222,24 +222,23 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
   if (!q_live) return;
   const float denom = fmaxf(l, 1e-30f);  // a row that saw no key writes zeros
-  typename E::T* o_row = o + (static_cast<size_t>(bh) * Sq + qi) * D;
+  float* o_row = o + (static_cast<size_t>(bh) * Sq + qi) * D;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o_row[(j * 4 + quad) * 4 + e] = E::store(acc[j * 4 + e] / denom);
+    for (int e = 0; e < 4; ++e) o_row[(j * 4 + quad) * 4 + e] = acc[j * 4 + e] / denom;
   }
   if (lse != nullptr && quad == 0) lse[static_cast<size_t>(bh) * Sq + qi] = m + logf(denom);
 }
 
-template <typename E, int D>
+template <int D>
 void launch(const void* q, const void* k, const void* v, const int* kv_lens, const int* seg_ids,
             const int* seg_ranges, void* o, float* lse, int B, int H, int Sq, int Sk, int seg_stride,
             int causal, float sm_scale, cudaStream_t stream) {
-  using T = typename E::T;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<E, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_lens, seg_ids,
-      seg_ranges, static_cast<T*>(o), lse, H, Sq, Sk, seg_stride, causal, sm_scale);
+  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), kv_lens, seg_ids,
+      seg_ranges, static_cast<float*>(o), lse, H, Sq, Sk, seg_stride, causal, sm_scale);
 }
 
 
@@ -605,9 +604,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ids != nullptr && (ranges == nullptr || lens == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 64) {
-    launch<uml::F32, 64>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
+    launch<64>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
   } else if (dtype == 0 && D == 128) {
-    launch<uml::F32, 128>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
+    launch<128>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
   } else if (dtype == 1 && D == 64) {
     return launch_wgmma<64>(q, k, v, lens, ids, ranges, o, lse_f, B, H, Sq, Sk, seg_stride, causal, sm_scale, s);
   } else if (dtype == 1 && D == 128) {

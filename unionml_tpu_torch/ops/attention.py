@@ -213,9 +213,6 @@ def _segment_ranges(own_ids: torch.Tensor, other_ids: torch.Tensor) -> torch.Ten
 
 #: query rows and keys per tile of K1's bf16 (tensor-core) body
 _K1_BLOCK_Q, _K1_BLOCK_K = 128, 64
-#: launch K1's bf16 packed tiles by descending scan length (False: in index
-#: order; kept switchable so one chip run can time both)
-_HEAVIEST_FIRST = True
 
 
 def _tile_ranges(ranges: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -244,8 +241,6 @@ def _k1_work_order(ranges: torch.Tensor, kv_lens: torch.Tensor, seq_q: int, caus
         end = torch.minimum(end, limit.clamp(max=seq_q)[None, :])
     first = lo // _K1_BLOCK_K
     work = torch.where(end > lo, (end + _K1_BLOCK_K - 1) // _K1_BLOCK_K - first, torch.zeros_like(end))
-    if not _HEAVIEST_FIRST:
-        return torch.arange(work.numel(), device=work.device, dtype=torch.int32)
     return torch.sort(work.flatten(), descending=True, stable=True).indices.to(torch.int32)
 
 
