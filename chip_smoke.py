@@ -18,8 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with B=8, S=32 and S=256 (the chunk) with B=1, table width 65 (max_len
    1024, block 16), ragged bases and scratch tail columns;
 4. K2/K3 (flash backward: dQ, and dK/dV) against their plain version, bf16
-   and f32: BERT shapes (B 8 and 64, H 12, S 128, D 64, ragged ``kv_lens``
-   including 1 and 128), ragged S 100 and 77, causal S 256, D 128 at S 77;
+   (the tensor-core bodies) and f32 (the CUDA-core bodies): BERT shapes (B 8
+   and 64, H 12, S 128, D 64, ragged ``kv_lens`` including 1 and 128),
+   ragged S 100 and 77, causal S 256, D 128 at S 77, and in bf16 the
+   tensor-core bodies' tile edges (K1's edge cases: Sq, Sk of 1, 63-65,
+   127-129, Sq != Sk, kv_len 0 and 1, D 128);
    keys past ``kv_len`` must get exact zeros; and ``torch.autograd.grad``
    through ``flash_attention`` against the same through
    ``reference_attention`` (on f32 copies of bf16 inputs);
@@ -72,9 +75,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    time, idle share, examples/s, tokens/s and achieved TFLOP/s; for the LM
    step also real (nonzero-id) tokens/s and the packing efficiency; K1 at the
    packed shape beside K1 causal without ids, K1's achieved TFLOP/s, share
-   of its bound and the kernel's own ms beside the whole call's. In one
-   bf16 BERT and one LM step the profiler's kernel names must show K1's
-   tensor-core body and not its CUDA-core (f32) body.
+   of its bound and the kernel's own ms beside the whole call's; K2's and
+   K3's achieved TFLOP/s and share of their bound, beside SDPA's backward
+   alone and SDPA forward + backward, and the torch ops around them (delta).
+   In one bf16 BERT and one LM step the profiler's kernel names must show
+   the tensor-core bodies of K1, K2 and K3 and none of their CUDA-core (f32)
+   bodies.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -190,11 +196,15 @@ def kernel_ms_by_name(fn, iters: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {name: us / 1e3 / iters for name, us in _kernel_us(prof).items()}
+    for _ in range(2):  # a window in which the profiler recorded no device event at all is taken again, once
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = _kernel_us(prof)
+        if by_name:
+            break
+    return {name: us / 1e3 / iters for name, us in by_name.items()}
 
 
 
@@ -401,6 +411,20 @@ def check_k2_k3(device) -> dict:
              (4, 12, 100, 64, False, [100, 57, 1, 99]), (4, 12, 77, 64, False, [77, 1, 40, 76]),
              (2, 12, 256, 64, True, None), (2, 4, 77, 128, False, [77, 30]), (2, 4, 77, 128, True, None)]
     worst = {"kernels": 0.0, "autograd": 0.0}
+    for B, H, Sq, S, D, causal, lens in K1_EDGE_CASES:  # the bf16 bodies' tile edges, kernels vs plain
+        q, k, v, d_out, kv_lens = bwd_inputs(B, H, max(Sq, S), D, torch.bfloat16, device, lens, seed=Sq * 5 + S)
+        q, d_out = q[:, :, :Sq].contiguous(), d_out[:, :, :Sq]
+        k, v = k[:, :, :S].contiguous(), v[:, :, :S].contiguous()
+        name = f"bf16 tile edge B{B} H{H} Sq{Sq} Sk{S} D{D} causal={causal} kv_lens={lens}"
+        out, lse = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, return_lse=True)
+        got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal)
+        want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal)
+        for label, a, b in zip(("dq", "dk", "dv"), got, want):
+            worst["kernels"] = max(worst["kernels"], check_close(f"K2/K3 {name} {label}", a, b, BWD_TOL))
+        for row, n in enumerate(lens or []):
+            if bool(got[1][row, :, n:].any()) or bool(got[2][row, :, n:].any()) or (n == 0 and bool(got[0][row].any())):
+                raise AssertionError(f"K2/K3 {name}: keys past kv_len {n} of row {row} (and dQ of a row that sees "
+                                     "no key) must get zeros")
     for dtype in (torch.bfloat16, torch.float32):
         for B, H, S, D, causal, lens in cases:
             q, k, v, d_out, kv_lens = bwd_inputs(B, H, S, D, dtype, device, lens, seed=B + S)
@@ -799,7 +823,7 @@ def train_bert(device) -> dict:
         raise AssertionError(f"eval step: {evaluation}")
     step_profile = profile_train(state, batches[0])
     bert_step = make_classifier_train_step(input_signature=BERT_SIG)
-    k1_names = check_k1_kernel_names(lambda: bert_step(state, batches[0]), "BERT bf16 train step")
+    tc_names = check_tc_kernel_names(lambda: bert_step(state, batches[0]), "BERT bf16 train step")
     del state
     torch.cuda.empty_cache()
 
@@ -816,7 +840,7 @@ def train_bert(device) -> dict:
         "step_ms": 1e3 / result.steps_per_s, "examples_per_s": result.examples_per_s,
         "tokens_per_s": tokens_per_s, "achieved_tflops": tflops, "share_of_bf16_peak": tflops * 1e12 / BF16_FLOPS,
         "step_profile": step_profile, "first_steps_vs_plain": agreement, "f32_grads_vs_plain": grads,
-        "lens": data["attention_mask"][:BERT_BATCH].sum(-1).tolist(), "k1_kernel_names": k1_names,
+        "lens": data["attention_mask"][:BERT_BATCH].sum(-1).tolist(), "kernel_names": tc_names,
     }
 
 
@@ -913,7 +937,7 @@ def train_gpt(device) -> dict:
     step = make_lm_train_step(packed=True)
     step(state, batches[0])
     profile = step_profile(lambda: step(state, batches[0]), 3, top=10)
-    k1_names = check_k1_kernel_names(lambda: step(state, batches[0]), "LM bf16 train step")
+    tc_names = check_tc_kernel_names(lambda: step(state, batches[0]), "LM bf16 train step")
     del state
     torch.cuda.empty_cache()
 
@@ -933,7 +957,7 @@ def train_gpt(device) -> dict:
         "slot_tokens_per_s": slots_per_s, "real_tokens_per_s": slots_per_s * efficiency,
         "flops_per_step": flops, "achieved_tflops": tflops, "share_of_bf16_peak": tflops * 1e12 / BF16_FLOPS,
         "step_profile": profile, "first_steps_vs_plain": agreement, "f32_grads_vs_plain": grads,
-        "k1_kernel_names": k1_names,
+        "kernel_names": tc_names,
     }
 
 
@@ -986,6 +1010,52 @@ def k1_rates(record: dict) -> dict:
     # torch ops in packed mode too)
     record["kernel_only_ms"] = own_kernel_ms(record["kernel_by_name_ms"], "flash_fwd")
     return record
+
+
+def bwd_records(launches, shape, errs, D, visible, numel, size, backward, plain, sdpa, leaves, d_out, out) -> list:
+    """The K2 and K3 records of one backward call: each kernel's own device
+    ms from one profile of ``backward`` by kernel name, with its bound (K2:
+    6*D flops per visible pair over q, k, v, dO read and dQ written; K3: 8*D
+    over q, k, v, dO read and dK, dV written), achieved TFLOP/s and share of
+    the bound. plain = the whole ``reference_attention_backward``; library =
+    SDPA's backward alone (the device time of ``torch.autograd.grad`` through
+    ``sdpa(leaves)``, same mask), with SDPA forward + backward beside it; the
+    torch ops around the kernels (delta = rowsum(dO * O), and the skip maps
+    in a packed call on its own) are timed too."""
+    by_name = kernel_ms_by_name(backward)
+    whole = timed(backward)
+    plain_t = timed(plain)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(*leaves), leaves, d_out)
+
+    fwd_bwd = timed(sdpa_fwd_bwd)
+    o = sdpa(*leaves)
+    bwd_only = timed(lambda: torch.autograd.grad(o, leaves, d_out, retain_graph=True))
+    delta = timed(lambda: torch.sum(d_out.float() * out.float(), dim=-1))
+    records = []
+    for name, per_pair, byts, err in (
+        ("flash_bwd_dq", 6 * D, 5 * numel * size, errs[0]),
+        ("flash_bwd_dkv", 8 * D, 6 * numel * size, max(errs[1:])),
+    ):
+        flops = per_pair * visible
+        bound, by = _bound(byts, flops)
+        ms, method = sum(t for n, t in by_name.items() if name in n), "profiler device time, by kernel name"
+        if ms <= 0:  # the profiler saw no device time: the whole call's CUDA-event time, an upper bound
+            ms, method = whole["event_ms"], "cuda events, whole backward call"
+        records.append({
+            "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "unionml_tpu/ops/attention.py:" + ("353" if name == "flash_bwd_dq" else "421"),
+            "launches": launches[name], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "shape": shape,
+            "ms": ms, "plain_ms": plain_t["ms"], "library_ms": bwd_only["ms"],
+            "library_fwd_bwd_ms": fwd_bwd["ms"], "flops": flops, "tflops": flops / ms / 1e9,
+            "bound_share": bound / ms, "kernel_only_ms": ms, "method": method,
+            "library_kernels": bwd_only["kernels"],
+            "event_ms": {"whole backward": whole["event_ms"], "plain": plain_t["event_ms"],
+                         "library backward": bwd_only["event_ms"], "library fwd+bwd": fwd_bwd["event_ms"]},
+            "backward_kernels_ms": by_name, "whole_backward_ms": whole["ms"], "delta_ms": delta["ms"],
+        })
+    return records
 
 
 def time_k4(device, S, bases, launches, H=12, D=64, bs=16) -> dict:
@@ -1067,33 +1137,13 @@ def time_bert_kernels(device, lens, launches, H=12, D=64) -> list:
     got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
     want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
     errs = [check_close(f"K2/K3 BERT timing inputs d{n}", a, b, BWD_TOL) for n, a, b in zip("qkv", got, want)]
-    by_name = kernel_ms_by_name(lambda: flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens))
-    backward = timed(lambda: flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens))
-    plain = timed(lambda: reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens))
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-
-    def sdpa_fwd_bwd():
-        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
-        return torch.autograd.grad(o, leaves, d_out)
-
-    library = timed(sdpa_fwd_bwd)
-    records = []
-    for name, kernel, flops, byts, err in (
-        ("flash_bwd_dq", "flash_bwd_dq_kernel", 6 * D * visible, 5 * numel * size, errs[0]),
-        ("flash_bwd_dkv", "flash_bwd_dkv_kernel", 8 * D * visible, 6 * numel * size, max(errs[1:])),
-    ):
-        bound, by = _bound(byts, flops)
-        records.append({
-            "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": "unionml_tpu/ops/attention.py:" + ("353" if name == "flash_bwd_dq" else "421"),
-            "launches": launches[name], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "shape": shape,
-            "ms": sum(ms for n, ms in by_name.items() if kernel in n), "plain_ms": plain["ms"],
-            "library_ms": library["ms"], "method": "profiler device time, by kernel name",
-            "library_kernels": library["kernels"],
-            "event_ms": {"whole backward": backward["event_ms"], "plain": plain["event_ms"],
-                         "library": library["event_ms"]},
-            "backward_kernels_ms": by_name,
-        })
+    records = bwd_records(
+        launches, shape, errs, D, visible, numel, size,
+        lambda: flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens),
+        lambda: reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens),
+        lambda *x: torch.nn.functional.scaled_dot_product_attention(*x, attn_mask=mask), leaves, d_out, out,
+    )
     return [k1, *records]
 
 
@@ -1102,9 +1152,9 @@ def time_packed_kernels(device, launches, H=12, D=64) -> list:
     H12, S1024, D64, causal, the first training batch's ids), and K1 causal
     without ids on the same inputs. Bounds count the visible (q, k) pairs
     (s(s+1)/2 per segment) with the flops and bytes of ``time_bert_kernels``;
-    the library yardsticks are SDPA forward, and forward + backward, with the
-    dense block-diagonal causal mask (padding rows see no key and read NaN
-    there: timing only)."""
+    the library yardsticks are SDPA forward, and SDPA's backward
+    (``bwd_records``), with the dense block-diagonal causal mask (padding
+    rows see no key and read NaN there: timing only)."""
     from unionml_tpu_torch.ops.attention import (
         _segment_mask, flash_attention, flash_attention_backward, reference_attention, reference_attention_backward,
     )
@@ -1140,47 +1190,25 @@ def time_packed_kernels(device, launches, H=12, D=64) -> list:
     errs = [check_close(f"K2/K3 packed timing inputs d{n}", a, b, BWD_TOL) for n, a, b in zip("qkv", got, want)]
     del got, want
 
-    def backward():
-        return flash_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids)
-
-    by_name = kernel_ms_by_name(backward)
-    whole = timed(backward)
-    plain = timed(lambda: reference_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids))
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-
-    def sdpa_fwd_bwd():
-        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
-        return torch.autograd.grad(o, leaves, d_out)
-
-    library = timed(sdpa_fwd_bwd)
-    records = [k1]
-    for name, kernel, flops, byts, err in (
-        ("flash_bwd_dq", "flash_bwd_dq_kernel", 6 * D * visible, 5 * numel * size, errs[0]),
-        ("flash_bwd_dkv", "flash_bwd_dkv_kernel", 8 * D * visible, 6 * numel * size, max(errs[1:])),
-    ):
-        bound, by = _bound(byts, flops)
-        records.append({
-            "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": "unionml_tpu/ops/attention.py:" + ("353" if name == "flash_bwd_dq" else "421"),
-            "launches": launches[name], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "shape": shape,
-            "ms": sum(ms for n, ms in by_name.items() if kernel in n), "plain_ms": plain["ms"],
-            "library_ms": library["ms"], "method": "profiler device time, by kernel name",
-            "library_kernels": library["kernels"],
-            "event_ms": {"whole backward": whole["event_ms"], "plain": plain["event_ms"],
-                         "library": library["event_ms"]},
-            "backward_kernels_ms": by_name,
-        })
+    records = [k1, *bwd_records(
+        launches, shape, errs, D, visible, numel, size,
+        lambda: flash_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids),
+        lambda: reference_attention_backward(q, k, v, out, lse, d_out, causal=True, segment_ids=ids),
+        lambda *x: torch.nn.functional.scaled_dot_product_attention(*x, attn_mask=mask), leaves, d_out, out,
+    )]
     return records, causal_only
 
 
-def check_k1_kernel_names(fn, label: str) -> list:
-    """The K1 kernels one call of ``fn`` (a bf16 train step) launches, by the
-    profiler's names: the tensor-core body must be there and the CUDA-core
-    body (f32 only) must not."""
-    names = [n for n in kernel_ms_by_name(fn, 1) if "flash_fwd" in n]
-    if not any("flash_fwd_wgmma_kernel" in n for n in names) or any("flash_fwd_kernel" in n for n in names):
-        raise AssertionError(f"{label}: K1 kernels by profiler name {names}; expected flash_fwd_wgmma_kernel "
-                             "and no flash_fwd_kernel")
+def check_tc_kernel_names(fn, label: str) -> list:
+    """The K1, K2 and K3 kernels one call of ``fn`` (a bf16 train step)
+    launches, by the profiler's names: each kernel's tensor-core body must be
+    there and its CUDA-core body (f32 only) must not."""
+    names = [n for n in kernel_ms_by_name(fn, 1) if "flash_" in n]
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if not any(f"{kernel}_wgmma_kernel" in n for n in names) or any(f"{kernel}_kernel" in n for n in names):
+            raise AssertionError(f"{label}: kernels by profiler name {names}; expected {kernel}_wgmma_kernel "
+                                 f"and no {kernel}_kernel")
     return names
 
 
@@ -1206,39 +1234,6 @@ def time_kernels(device, e2e: dict):
         time_k4(device, PREFILL_CHUNK, [PREFILL_CHUNK], launches["paged_attention"]),
     ]
     return main, extra
-
-
-def k1_times(device) -> dict:
-    """bf16 K1 device ms (``timed``) and max |err| against the plain version
-    at the four shapes of PERF.md's K1 rows, on the inputs
-    ``time_packed_kernels``, ``time_bert_kernels`` and ``time_kernels`` use:
-    the LM packed shape, the same inputs causal without ids, the BERT shape
-    with its kv_lens, and serving's B2 S256 causal prefill. Not a phase of
-    the smoke run: an A/B of two trees calls it from each tree in turns."""
-    from unionml_tpu_torch.models import BertConfig
-    from unionml_tpu_torch.ops.attention import _kv_lens_to_mask, flash_attention, reference_attention
-
-    ids = torch.from_numpy(lm_packed()["segment_ids"][:LM_BATCH]).to(device)
-    q, k, v, _, _ = bwd_inputs(LM_BATCH, 12, LM_SEQ, 64, torch.bfloat16, device, None, seed=7)
-    lens = bert_data(BertConfig.base(), rows=4 * BERT_BATCH)["attention_mask"][:BERT_BATCH].sum(-1).tolist()
-    qb, kb, vb, _, kv_lens = bwd_inputs(BERT_BATCH, 12, BERT_SEQ, 64, torch.bfloat16, device, lens)
-    qs, ks, vs = k1_inputs(2, 12, 256, 64, torch.bfloat16, device)
-    cases = {
-        "LM packed B8 H12 S1024 causal": (lambda: flash_attention(q, k, v, causal=True, segment_ids=ids),
-                                          lambda: reference_attention(q, k, v, causal=True, segment_ids=ids)),
-        "B8 H12 S1024 causal, no ids": (lambda: flash_attention(q, k, v, causal=True),
-                                        lambda: reference_attention(q, k, v, causal=True)),
-        "BERT B64 H12 S128 kv_lens": (lambda: flash_attention(qb, kb, vb, kv_lens=kv_lens),
-                                      lambda: reference_attention(qb, kb, vb, mask=_kv_lens_to_mask(kv_lens, 128))),
-        "serving B2 H12 S256 causal": (lambda: flash_attention(qs, ks, vs, causal=True),
-                                       lambda: reference_attention(qs, ks, vs, causal=True)),
-    }
-    out = {}
-    for name, (kernel, plain) in cases.items():
-        err = check_close(f"K1 {name}", kernel(), plain())
-        t = timed(kernel)
-        out[name] = {"call_ms": t["ms"], "kernel_ms": own_kernel_ms(t["by_name_ms"], "flash_fwd"), "max_abs_err": err}
-    return out
 
 
 def main() -> int:
@@ -1344,8 +1339,8 @@ def main() -> int:
         print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}{rates}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
               f"[{r['method']}; per-call CUDA-event ms {r['event_ms']}; library kernels {r.get('library_kernels')}]")
-    print(f"K1 kernels by profiler name in one bf16 train step: BERT {train['k1_kernel_names']}, "
-          f"LM {lm['k1_kernel_names']}")
+    print(f"K1/K2/K3 kernels by profiler name in one bf16 train step (tensor-core bodies only): BERT "
+          f"{train['kernel_names']}, LM {lm['kernel_names']}")
     details["kernels"], details["extra_timings"] = records, extra
     details["total_s"] = time.perf_counter() - t0
     if args.details is not None:

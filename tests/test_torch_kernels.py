@@ -10,11 +10,12 @@ Tolerances: float32 atol 2e-5 (summation order only); bfloat16 atol 2e-2 +
 rtol 2e-2 (the plain versions round the softmax weights to bf16 before the
 value product, the kernels keep them in f32 or, in K1's bf16 body, as two bf16
 parts). The backward kernels K2/K3
-against ``reference_attention_backward`` (same lse, f32 arithmetic in both,
-summation order only): float32 atol 1e-4 (gradients sum up to 256 terms of
-size ~1), bfloat16 atol 2e-2 + rtol 2e-2 (both round to bf16 once, at the
-end); whole-autograd agreement with ``reference_attention`` uses the same
-two tolerances. Each test also checks that the kernel's launch count moved.
+against ``reference_attention_backward`` (same lse, f32 arithmetic in the
+plain version): float32 atol 1e-4 (gradients sum up to 256 terms of size ~1),
+bfloat16 atol 2e-2 + rtol 2e-2 (the plain version rounds once, at the end;
+the bf16 bodies also round dS once and P into two bf16 parts);
+whole-autograd agreement with ``reference_attention`` uses the same two
+tolerances. Each test also checks that the kernel's launch count moved.
 The packed (segment-id) cases hold K1, K2 and K3 to the same tolerances, with
 three segments and a padding tail, ids that recur non-contiguously with
 interior zeros, and cross-length calls from one id array; padding queries get
@@ -22,8 +23,14 @@ zero outputs and padding keys exact-zero dK/dV. K1's bf16 body (128-row
 query tiles of two 64-row warpgroups, 64-key tiles) is held at those tile
 edges, with segment boundaries on and inside tiles, and its lse against
 ``torch.logsumexp`` of the plain masked scores (1e-4; -1e30 on rows that see
-no key).
+no key). K2's and K3's bf16 bodies (128-row tiles of queries or keys, 64 keys
+at head_dim 128 in K3) are held at the same tile edges, packed tile edges and
+rows that see no key, routed by dtype (by the profiler's kernel names), and
+refuse a misaligned bf16 d_out; a packed forward + backward computes the skip
+map once for self-attention.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -306,3 +313,115 @@ def test_backward_wrapper_raises_instead_of_falling_back(cuda):
         flash_attention_backward(q, q, q, out, lse.double(), out)
     with pytest.raises(ValueError):  # d_out on the CPU
         flash_attention_backward(q, q, q, out, lse, out.cpu())
+
+
+# ---------------------------------------------- K2/K3's bf16 tensor-core bodies
+
+def _backward_case(cuda, dtype, Sq, S, D, causal, lens=None, ids=None, seed=0, heads=3):
+    """K1's out and lse, then K2/K3 against the plain backward on the same
+    out, lse and a non-contiguous d_out; returns the kernels' (dq, dk, dv)."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((2, heads, Sq, D), generator=g).to(cuda, dtype)
+    k, v = (torch.randn((2, heads, S, D), generator=g).to(cuda, dtype) for _ in range(2))
+    d_out = torch.randn((2, Sq, heads, D), generator=g).to(cuda, dtype).transpose(1, 2)
+    kv_lens = torch.tensor(lens, device=cuda) if lens else None
+    out, lse = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal, return_lse=True, segment_ids=ids)
+    before = dict(kernels.launches)
+    got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal, segment_ids=ids)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert kernels.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=causal, segment_ids=ids)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a, b, BWD_TOL)
+    for b, n in enumerate(lens or []):  # keys past kv_len: exact zeros, though outputs start empty
+        assert torch.all(got[1][b, :, n:] == 0) and torch.all(got[2][b, :, n:] == 0)
+        if n == 0:  # queries that see no key: exact zeros
+            assert torch.all(got[0][b] == 0)
+    if ids is not None:  # padding queries and keys: exact zeros
+        assert torch.all(got[0].transpose(1, 2)[ids[:, :Sq] == 0] == 0)
+        pad_keys = ids[:, :S] == 0
+        assert torch.all(got[1].transpose(1, 2)[pad_keys] == 0) and torch.all(got[2].transpose(1, 2)[pad_keys] == 0)
+    return got
+
+
+@pytest.mark.parametrize("Sq,S,D,causal,lens", BF16_EDGE_CASES + [(128, 128, 64, False, [128, 64])])
+def test_flash_backward_bf16_tile_edges_match_plain(cuda, Sq, S, D, causal, lens):
+    """K2 (128 query rows per CTA) and K3 (128 keys, 64 at D 128) at their
+    tile edges: Sq and Sk off multiples of 64 and 128, kv_len 0, 1, at tile
+    edges and S, Sq != Sk both ways, D 128."""
+    _backward_case(cuda, torch.bfloat16, Sq, S, D, causal, lens, seed=Sq * 5 + S)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", list(EDGE_IDS))
+def test_flash_backward_bf16_packed_tile_edges_match_plain(cuda, case, causal, D):
+    S, rows = EDGE_IDS[case]
+    _backward_case(cuda, torch.bfloat16, S, S, D, causal, ids=_ids(rows).to(cuda), seed=S + D + causal)
+
+
+@pytest.mark.parametrize("case", list(LSE_CASES))
+def test_flash_backward_bf16_takes_nothing_from_dead_rows(cuda, case):
+    """Rows that see no key carry lse -1e30: K2/K3 select them away (zero dQ
+    there, nothing leaks into dK/dV)."""
+    Sq, S, D, causal, lens, rows = LSE_CASES[case]
+    ids = _ids(rows).to(cuda) if rows else None
+    _backward_case(cuda, torch.bfloat16, Sq, S, D, causal, lens, ids=ids, seed=Sq + S)
+
+
+def _kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "flash_bwd" in e.key}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_backward_bodies_are_chosen_by_dtype(cuda, dtype):
+    """bf16 runs the tensor-core bodies, f32 the CUDA-core ones, by the
+    profiler's kernel names."""
+    q, k, v = (torch.randn((2, 3, 100, 64), device=cuda).to(dtype) for _ in range(3))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    names = " ".join(_kernel_names(lambda: flash_attention_backward(q, k, v, out, lse, out, causal=True)))
+    tensor_core = dtype == torch.bfloat16
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert (f"{kernel}_wgmma_kernel" in names) == tensor_core, names
+        assert (f"{kernel}_kernel" in names) == (not tensor_core), names
+
+
+def test_backward_bf16_misaligned_d_out_raises(cuda):
+    q = torch.randn((1, 2, 16, 64), device=cuda).to(torch.bfloat16)
+    out, lse = flash_attention(q, q, q, return_lse=True)
+    # contiguous but not 16-byte aligned: TMA cannot read it, and no fallback takes it
+    d_out = torch.randn(2 * 16 * 64 + 1, device=cuda).to(torch.bfloat16)[1:].view(1, 2, 16, 64)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_backward(q, q, q, out, lse, d_out)
+    assert kernels.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("Sq,S", [(128, 128), (96, 160)], ids=["self", "cross"])
+def test_packed_forward_backward_builds_the_skip_map_once(cuda, monkeypatch, Sq, S, dtype):
+    """One packed forward + backward through autograd computes the ranges
+    once for self-attention (K1's map serves K2 and K3) and once more for a
+    cross-length call (K3's transposed map)."""
+    attention_ops = importlib.import_module("unionml_tpu_torch.ops.attention")
+    calls = []
+    real = attention_ops._segment_ranges
+    monkeypatch.setattr(attention_ops, "_segment_ranges", lambda *a: calls.append(1) or real(*a))
+    ids = _ids(PACKED_CASES["Sq96-Sk160"][4]).to(cuda)
+    g = torch.Generator().manual_seed(Sq)
+    q = torch.randn((2, 3, Sq, 64), generator=g).to(cuda, dtype).requires_grad_()
+    k, v = (torch.randn((2, 3, S, 64), generator=g).to(cuda, dtype).requires_grad_() for _ in range(2))
+    out = flash_attention(q, k, v, causal=True, segment_ids=ids)
+    got = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert len(calls) == (1 if Sq == S else 2)
+    want = torch.autograd.grad(reference_attention(q, k, v, causal=True, segment_ids=ids), (q, k, v),
+                               torch.ones_like(out))
+    for a, b in zip(got, want):
+        _close(a, b, BWD_TOL)

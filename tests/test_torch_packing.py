@@ -15,7 +15,11 @@
   array).
 - The skip ranges (``_segment_ranges``), reduced over tiles, equal the JAX
   ``_segment_block_bounds`` exactly, and the kernels' ``kv_len`` equals the
-  JAX ``_segment_arrays`` one.
+  JAX ``_segment_arrays`` one. The bf16 bodies' work orders (K1, and K2/K3
+  over query or key tiles) are stable descending permutations of the tiles
+  by scan length, with the scan lengths of the plain mask and of
+  ``_segment_block_bounds``; the backward's skip maps built from K1's equal
+  fresh ones, with no ranges recomputed for self-attention.
 - The port's autograd through ``flash_attention(segment_ids=...)`` equals
   autograd of the plain version (atol 1e-5) and passes ``gradcheck`` in
   float64 (its default tolerances).
@@ -206,11 +210,11 @@ def test_k1_work_order_is_a_stable_descending_permutation(seq, causal):
     ids = torch.from_numpy(np.stack(rows).astype(np.int32))
     ranges = tattn._segment_ranges(ids, ids)
     lens = tattn._segment_kv_lens(ids, seq)
-    order = tattn._k1_work_order(ranges, lens, seq, causal)
+    order = tattn._work_order(ranges, lens, causal, tattn._K1_BLOCK_Q)
     n_tiles = -(-seq // tattn._K1_BLOCK_Q)
     assert order.dtype == torch.int32
     assert sorted(order.tolist()) == list(range(3 * n_tiles))
-    assert torch.equal(order, tattn._k1_work_order(ranges, lens, seq, causal))
+    assert torch.equal(order, tattn._work_order(ranges, lens, causal, tattn._K1_BLOCK_Q))
     # the scan of each tile from the ids alone: key tiles from the first to the
     # last key any of its rows may see
     visible = tattn._combined_mask(None, None, ids, seq, seq)[:, 0]
@@ -271,3 +275,116 @@ def test_packed_gradcheck_double():
     assert torch.autograd.gradcheck(
         lambda a, b, c: tattn.flash_attention(a, b, c, causal=True, segment_ids=ids), (q, k, v)
     )
+
+
+def _random_packed_rows(seed, batch, seq):
+    """Packed rows with interior zeros and ids that recur non-contiguously."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(batch):
+        row = np.zeros(seq, np.int64)
+        pos = 0
+        while pos < seq:
+            n = int(rng.integers(1, seq // 3 + 2))
+            row[pos:pos + n] = rng.integers(0, 6)  # 0: an interior run of padding; ids 1..5 recur
+            pos += n
+        rows.append(row)
+    return torch.from_numpy(np.stack(rows).astype(np.int32))
+
+
+@pytest.mark.parametrize("seq", [48, 200])
+def test_self_attention_skip_map_is_its_own_transpose(seq):
+    """For self-attention both axes read one id slice, so K3's map (query
+    ranges per key) is K2's (key ranges per query): one tensor serves both.
+    Each position's range is its id's extent on the other axis (the dense
+    mask's first and last hit), empty for padding."""
+    ids = _random_packed_rows(seq, 4, seq)
+    q_map = tattn._segment_ranges(ids[:, :seq], ids[:, :seq])
+    k_map = tattn._segment_ranges(ids[:, :seq].clone(), ids[:, :seq].clone())
+    assert torch.equal(q_map, k_map)
+    same = tattn._segment_mask(ids, seq, seq)[:, 0]
+    pos = torch.arange(seq)
+    first = torch.where(same, pos, seq).amin(-1)
+    end = torch.where(same, pos + 1, 0).amax(-1)
+    assert torch.equal(q_map, torch.stack([first, end], -1).to(torch.int32))
+
+
+@pytest.mark.parametrize("bf16,head_dim", [(True, 64), (True, 128), (False, 64)], ids=["bf16-D64", "bf16-D128", "f32"])
+@pytest.mark.parametrize("seq_q,seq_k", [(200, 200), (96, 160), (160, 96)], ids=["self", "Sq<Sk", "Sq>Sk"])
+def test_backward_maps_equal_a_fresh_computation(monkeypatch, seq_q, seq_k, bf16, head_dim):
+    """K2 and K3 built from K1's map equal maps built from the ids alone;
+    given K1's map, self-attention computes no ranges, cross-length one set."""
+    ids = _random_packed_rows(seq_q + seq_k, 3, max(seq_q, seq_k))
+    lens = tattn._segment_kv_lens(ids, seq_k)
+    fresh_q = tattn._skip_map(ids, lens, seq_q, seq_k, True, bf16, tattn._K1_BLOCK_Q)  # K2's tiles are K1's
+    fresh_k = tattn._skip_map(ids, lens, seq_k, seq_q, True, bf16, tattn._DKV_BLOCKS[head_dim], keys=True)
+    fwd_map = fresh_q.clone()
+    calls = []
+    real = tattn._segment_ranges
+    monkeypatch.setattr(tattn, "_segment_ranges", lambda *a: calls.append(1) or real(*a))
+    q_map, k_map = tattn._backward_maps(ids, lens, seq_q, seq_k, True, head_dim, bf16, fwd_map)
+    assert len(calls) == (0 if seq_q == seq_k else 1)
+    assert torch.equal(q_map, fresh_q) and torch.equal(k_map, fresh_k)
+    assert [t.dtype for t in (q_map, k_map)] == [torch.int32] * 2
+    alone = tattn._backward_maps(ids, lens, seq_q, seq_k, True, head_dim, bf16)
+    assert torch.equal(alone[0], fresh_q) and torch.equal(alone[1], fresh_k)
+
+
+def _contiguous_segment_rows(seed, batch, seq):
+    """Rows of contiguous segments (lognormal lengths) and a padding tail."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(batch):
+        lengths = np.clip(rng.lognormal(np.log(seq / 4), 0.8, 64).astype(np.int64), 1, seq)
+        row = np.concatenate([np.full(n, i + 1) for i, n in enumerate(lengths)])[:seq]
+        row[len(row) - int(rng.integers(0, seq // 8)):] = 0
+        rows.append(row)
+    return np.stack(rows).astype(np.int32)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq", [256, 1024])
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+def test_backward_work_orders_follow_the_scan_lengths(kernel, seq, causal):
+    """K2's and K3's bf16 work orders (128-row tiles of queries or keys, 64-row
+    tiles scanned): a permutation of the tiles, scan lengths not increasing
+    along it, ties in index order; the scan lengths equal those from the plain
+    mask (K3: from the tile's first key on under causal) and those from JAX's
+    ``_segment_block_bounds`` at 128-row tiles."""
+    ids_np = _contiguous_segment_rows(seq + causal, 3, seq)
+    ids = torch.from_numpy(ids_np)
+    keys = kernel == "k3"
+    ranges = tattn._segment_ranges(ids, ids)
+    lens = tattn._segment_kv_lens(ids, seq)
+    work = tattn._tile_work(ranges, lens, causal, 128, keys=keys)
+    order = tattn._work_order(ranges, lens, causal, 128, keys=keys)
+    flat = work.flatten().tolist()
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(len(flat)))
+    along = [flat[i] for i in order.tolist()]
+    assert along == sorted(flat, reverse=True)
+    for a, b in zip(order.tolist(), order.tolist()[1:]):
+        assert flat[a] > flat[b] or a < b
+    # from the plain mask: the other axis's 64-row tiles from the first to the last visible row
+    visible = tattn._combined_mask(None, None, ids, seq, seq)[:, 0]
+    if causal:
+        visible = visible & torch.ones((seq, seq), dtype=torch.bool).tril()
+    if keys:
+        visible = visible.transpose(1, 2)  # (batch, key, query)
+    plain = []
+    for b in range(3):
+        for m in range(seq // 128):
+            hit = torch.nonzero(visible[b, m * 128:(m + 1) * 128].any(dim=0))[:, 0]
+            plain.append(0 if hit.numel() == 0 else int(hit[-1]) // 64 + 1 - int(hit[0]) // 64)
+    assert flat == plain
+    # from JAX's block bounds (units of 64 rows), with the kernels' kv_len and causal rules
+    start, stop = (np.asarray(x).reshape(3, -1) for x in jattn._segment_block_bounds(
+        (jnp.asarray(ids_np), jnp.asarray(ids_np)), 128, 64))
+    tiles = np.arange(seq // 128)[None, :]
+    kv = lens.numpy()[:, None]
+    if keys:
+        begin = np.maximum(start, 2 * tiles) if causal else start
+        want = np.where((stop > begin) & (tiles * 128 < kv), stop - begin, 0)
+    else:
+        cap = -(-np.minimum(kv, (tiles + 1) * 128 if causal else seq) // 64)
+        want = np.where(stop > start, np.maximum(np.minimum(stop, cap) - start, 0), 0)
+    np.testing.assert_array_equal(work.numpy(), want)

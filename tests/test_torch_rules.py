@@ -1,7 +1,7 @@
 """Ground rules of the PyTorch port.
 
 - The port stands alone: no file in ``unionml_tpu_torch/``, and not
-  ``chip_smoke.py``, imports ``jax``, ``flax`` or anything of ``unionml_tpu``
+  ``chip_smoke.py`` or ``chip_ab.py``, imports ``jax``, ``flax`` or anything of ``unionml_tpu``
   (checked on the source with ``ast``, and by importing the whole package in
   a fresh interpreter).
 - Entry points default to ``device="cuda"`` and raise where there is no CUDA
@@ -26,7 +26,7 @@ from unionml_tpu_torch.models import gpt as tgpt
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "unionml_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "unionml_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "unionml_tpu"}
 
 

@@ -1,4 +1,6 @@
-// Element types shared by the port's kernels.
+// What the port's kernels share: element types, the packed skip map's tile
+// reduction, and the Hopper building blocks (mbarriers, TMA loads, wgmma and
+// its descriptors, and the host-side tensor maps).
 //
 // Tensors cross the C interface as raw bytes; each kernel is templated on a
 // storage struct that says how one stored element becomes a float and back.
@@ -6,6 +8,7 @@
 // (bf16 -> f32 is a shift) plus round-to-nearest-even on the way out.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -242,6 +245,49 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TnspB));
+}
+
+// ------------------------------------------------------ Hopper, host side
+// The tensor maps the TMA loads read, built on the host and passed to the
+// kernels as __grid_constant__ parameters (K1, K2 and K3 share these).
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (D, rows, BH) bf16 tensor map with boxes of 64 columns x box_rows rows,
+// 128-byte swizzle, zeros past the edges; an empty tensor gets a map that is
+// never read
+inline bool bf16_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows, int BH, int D, int box_rows) {
+  if (rows == 0) {
+    *map = CUtensorMap{};
+    return true;
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace uml

@@ -84,8 +84,6 @@
 // Both bodies take any Sq and Sk (the ragged query and key tiles are masked),
 // head_dim 64 or 128.
 
-#include <cuda.h>
-
 #include "common.cuh"
 
 namespace {
@@ -513,45 +511,6 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 2 : 1) flash_fwd_wgmma_k
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                                             &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (D, rows, BH) bf16 tensor map with boxes of 64 columns x box_rows rows,
-// 128-byte swizzle, zeros past the edges; an empty tensor gets a map that is
-// never read
-bool bf16_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows, int BH, int D, int box_rows) {
-  if (rows == 0) {
-    *map = CUtensorMap{};
-    return true;
-  }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_lens, const int* seg_ids,
                  const int* seg_ranges, void* o, float* lse, int B, int H, int Sq, int Sk, int seg_stride, int causal,
@@ -561,12 +520,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_lens
        reinterpret_cast<uintptr_t>(o)) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);  // TMA reads 16-byte aligned tensors
   }
-  const EncodeTiled encode = encode_tiled();
+  const uml::EncodeTiled encode = uml::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int BH = B * H;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!bf16_map(encode, &tm_q, q, Sq, BH, D, kBM) || !bf16_map(encode, &tm_k, k, Sk, BH, D, kBN) ||
-      !bf16_map(encode, &tm_v, v, Sk, BH, D, kBN)) {
+  if (!uml::bf16_map(encode, &tm_q, q, Sq, BH, D, kBM) || !uml::bf16_map(encode, &tm_k, k, Sk, BH, D, kBN) ||
+      !uml::bf16_map(encode, &tm_v, v, Sk, BH, D, kBN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_mt = (Sq + kBM - 1) / kBM;

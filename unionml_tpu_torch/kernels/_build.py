@@ -66,7 +66,8 @@ _ENTRY_POINTS = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-#: ptxas report (registers, shared memory, spills) of each build in this process
+#: ptxas report (registers, shared memory, spills) of each source built or
+#: found built by this process (kept beside the library as ``<target>.log``)
 build_log: Dict[str, str] = {}
 
 
@@ -102,6 +103,7 @@ def _finish(name: str, target: Path, proc: subprocess.Popen) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{out}")
+    target.with_suffix(".log").write_text(out)
     os.replace(tmp, target)
 
 
@@ -120,6 +122,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             target = _target(name)
             if target.exists():
                 times[name] = 0.0
+                log = target.with_suffix(".log")
+                build_log[name] = log.read_text() if log.exists() else ""
                 continue
             pending.append((name, target, _start(name, target)))
         errors = []

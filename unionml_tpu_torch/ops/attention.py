@@ -19,9 +19,11 @@ seq, head_dim) convention of the JAX package.
   :func:`flash_attention_backward`.
 - :func:`flash_attention_backward` — K2 (dQ) then K3 (dK/dV)
   (``csrc/flash_bwd.cu``, replacing the Pallas ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``) on CUDA tensors, :func:`reference_attention_backward`
-  on CPU tensors. Unlike the JAX package, which differentiates ``xla_attention``
-  for shapes that are not tile-aligned, the kernels mask ragged tiles.
+  ``_bwd_dkv_kernel``; bf16 runs the tensor-core bodies, with q, k, v and
+  d_out 16-byte aligned, f32 the CUDA-core ones) on CUDA tensors,
+  :func:`reference_attention_backward` on CPU tensors. Unlike the JAX
+  package, which differentiates ``xla_attention`` for shapes that are not
+  tile-aligned, the kernels mask ragged tiles.
 - :func:`attention` — the dispatcher the model calls: ``impl="auto"`` runs the
   kernel for CUDA tensors without a dense mask and the plain version
   otherwise; ``"kernel"`` and ``"reference"`` force one side. The port keeps
@@ -34,7 +36,9 @@ so cross-length calls take one array. The kernels get the per-row
 ``kv_len`` (last nonzero key id + 1) and :func:`_segment_ranges`, the skip
 map: for each position, the range on the other axis that its id occupies.
 Each kernel reduces the ranges over its own tile, so the map does not depend
-on tile sizes.
+on tile sizes; the bf16 bodies also take a work order after it
+(:func:`_work_order`). A differentiable call builds the map once: the
+backward reuses K1's (:func:`_backward_maps`).
 """
 
 from typing import Optional, Tuple, Union
@@ -211,8 +215,11 @@ def _segment_ranges(own_ids: torch.Tensor, other_ids: torch.Tensor) -> torch.Ten
     return torch.stack([start, stop], dim=-1).to(torch.int32)
 
 
-#: query rows and keys per tile of K1's bf16 (tensor-core) body
+#: rows per tile of the bf16 (tensor-core) bodies: K1 and K2 own 128 query
+#: rows per CTA, K3 128 keys (64 at head_dim 128, one warpgroup); each
+#: streams the other axis in tiles of 64
 _K1_BLOCK_Q, _K1_BLOCK_K = 128, 64
+_DKV_BLOCKS = {64: 128, 128: 64}
 
 
 def _tile_ranges(ranges: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -228,20 +235,67 @@ def _tile_ranges(ranges: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.
     return lo.view(batch, n_tiles, block).amin(-1), hi.view(batch, n_tiles, block).amax(-1)
 
 
-def _k1_work_order(ranges: torch.Tensor, kv_lens: torch.Tensor, seq_q: int, causal: bool) -> torch.Tensor:
-    """K1's bf16 work order in packed mode: ``(batch * n_tiles,)`` int32
-    ``b * n_tiles + m`` of every 128-row query tile, by descending count of the
-    64-key tiles its scan visits ([lo, hi) of its rows ∩ [0, kv_len) ∩ the
-    causal limit, as the kernel scans), ties in index order. Torch ops on the
-    ranges' device, no host sync."""
-    lo, hi = _tile_ranges(ranges, _K1_BLOCK_Q)
-    end = torch.minimum(hi, kv_lens.to(hi.dtype)[:, None])
-    if causal:
-        limit = torch.arange(1, lo.shape[1] + 1, device=lo.device, dtype=hi.dtype) * _K1_BLOCK_Q
-        end = torch.minimum(end, limit.clamp(max=seq_q)[None, :])
-    first = lo // _K1_BLOCK_K
-    work = torch.where(end > lo, (end + _K1_BLOCK_K - 1) // _K1_BLOCK_K - first, torch.zeros_like(end))
+def _tile_work(ranges: torch.Tensor, kv_lens: torch.Tensor, causal: bool, block: int,
+               keys: bool = False) -> torch.Tensor:
+    """``(batch, n_tiles)``: how many 64-row tiles of the other axis a bf16
+    body's CTA scans for each tile of ``block`` own rows in packed mode.
+
+    Query tiles (K1, K2; ``keys=False``) scan the keys in [lo, hi) of their
+    rows ∩ [0, kv_len) ∩ the causal limit (the tile's last row + 1). Key
+    tiles (K3; ``keys=True``) scan the queries in [lo, hi) from the tile's
+    first key on under causal, and none if the tile starts at or past kv_len.
+    """
+    lo, hi = _tile_ranges(ranges, block)
+    lens = kv_lens.to(hi.dtype)[:, None]
+    starts = torch.arange(lo.shape[1], device=lo.device, dtype=hi.dtype)[None, :] * block
+    if keys:
+        begin = torch.maximum(lo, starts) if causal else lo
+        end = torch.where(starts < lens, hi, torch.zeros_like(hi))
+    else:
+        begin = lo
+        end = torch.minimum(hi, lens)
+        if causal:
+            end = torch.minimum(end, (starts + block).clamp(max=ranges.shape[1]))
+    tile = _K1_BLOCK_K
+    return torch.where(end > begin, (end + tile - 1) // tile - begin // tile, torch.zeros_like(end))
+
+
+def _work_order(ranges: torch.Tensor, kv_lens: torch.Tensor, causal: bool, block: int,
+                keys: bool = False) -> torch.Tensor:
+    """A bf16 body's work order in packed mode: ``(batch * n_tiles,)`` int32
+    ``b * n_tiles + m`` of every tile, by descending :func:`_tile_work`, ties
+    in index order. Torch ops on the ranges' device, no host sync."""
+    work = _tile_work(ranges, kv_lens, causal, block, keys)
     return torch.sort(work.flatten(), descending=True, stable=True).indices.to(torch.int32)
+
+
+def _skip_map(ids: torch.Tensor, lens: torch.Tensor, seq_own: int, seq_other: int, causal: bool, bf16: bool,
+              block: int, keys: bool = False, ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A kernel's flat int32 skip map: the ``(batch, seq_own, 2)`` ranges of
+    the own axis (``ranges``, or :func:`_segment_ranges` of the id slices),
+    followed for the bf16 bodies by their :func:`_work_order`. ``keys``: the
+    own axis is the keys (K3), the ranges are of queries."""
+    if ranges is None:
+        ranges = _segment_ranges(ids[:, :seq_own], ids[:, :seq_other])
+    if not bf16:
+        return ranges.flatten()
+    return torch.cat([ranges.flatten(), _work_order(ranges, lens, causal, block, keys=keys)])
+
+
+def _backward_maps(ids, lens, seq_q: int, seq_k: int, causal: bool, head_dim: int, bf16: bool,
+                   fwd_map: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat skip maps of K2 and K3 (:func:`_skip_map`). ``fwd_map`` is
+    K1's map for the same call (its ranges, then its work order for bf16):
+    K2 owns query tiles of K1's size and scans keys by K1's rule, so it takes
+    that map as it is, and for self-attention (Sq == Sk, both axes read one
+    id slice) K3's ranges are the same tensor; only K3's work order, and the
+    transposed ranges of a cross-length call, are computed here."""
+    if fwd_map is None:
+        fwd_map = _skip_map(ids, lens, seq_q, seq_k, causal, bf16, _K1_BLOCK_Q)
+    ranges = fwd_map[: ids.shape[0] * seq_q * 2].view(ids.shape[0], seq_q, 2)
+    k_ranges = ranges if seq_q == seq_k else None
+    k_map = _skip_map(ids, lens, seq_k, seq_q, causal, bf16, _DKV_BLOCKS[head_dim], keys=True, ranges=k_ranges)
+    return fwd_map, k_map
 
 
 def _check_flash_inputs(q, k, v, kv_lens, name: str = "flash_attention", segment_ids=None) -> None:
@@ -288,13 +342,15 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: bool, segment_ids=None):
-    """(out, lse or None): K1 on CUDA tensors, the plain version on CPU ones."""
+    """(out, lse or None, skip map or None): K1 on CUDA tensors, the plain
+    version on CPU ones. The skip map is the flat one K1 took in packed mode
+    (:func:`_skip_map`), which the backward reuses."""
     if q.device.type == "cpu":
         mask = _combined_mask(None, kv_lens, segment_ids, q.shape[-2], k.shape[-2])
         out = reference_attention(q, k, v, mask=mask, causal=causal, sm_scale=scale)
         if not return_lse:
-            return out, None
-        return out, torch.logsumexp(_masked_logits(q, k, mask, causal, scale)[0], dim=-1)
+            return out, None, None
+        return out, torch.logsumexp(_masked_logits(q, k, mask, causal, scale)[0], dim=-1), None
     _check_flash_inputs(q, k, v, kv_lens, segment_ids=segment_ids)
     batch, heads, seq_q, head_dim = q.shape
     seq_k = k.shape[-2]
@@ -304,10 +360,9 @@ def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: boo
         # the bf16 body reads q, k, v through TMA, which takes 16-byte aligned tensors
         raise ValueError("flash_attention: the bf16 kernel needs 16-byte aligned q, k, v (e.g. .clone() a view)")
     ids, lens = _kernel_masks(kv_lens, segment_ids, seq_k)
-    ranges = _segment_ranges(ids[:, :seq_q], ids[:, :seq_k]) if ids is not None else None
-    if ranges is not None and q.dtype == torch.bfloat16:
-        # the bf16 body reads its work order after the ranges
-        ranges = torch.cat([ranges.flatten(), _k1_work_order(ranges, lens, seq_q, causal)])
+    ranges = None
+    if ids is not None:  # the bf16 body reads its work order after the ranges
+        ranges = _skip_map(ids, lens, seq_q, seq_k, causal, q.dtype == torch.bfloat16, _K1_BLOCK_Q)
     if seq_q and batch * heads:
         fn = _build.library("flash_fwd").flash_fwd
         status = fn(
@@ -319,7 +374,7 @@ def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: boo
         )
         _build.check(status, "flash_fwd")
         kernels.launches["flash_fwd"] += 1
-    return out, lse
+    return out, lse, ranges
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -328,19 +383,20 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, segment_ids, causal: bool, sm_scale: float):
-        out, lse = _flash_forward(q, k, v, kv_lens, causal, sm_scale, return_lse=True, segment_ids=segment_ids)
-        ctx.save_for_backward(q, k, v, out, lse, kv_lens, segment_ids)
+        out, lse, skip_map = _flash_forward(q, k, v, kv_lens, causal, sm_scale, return_lse=True,
+                                            segment_ids=segment_ids)
+        # K1's skip map goes to the backward, which builds no map of its own
+        # for self-attention (see _backward_maps)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens, segment_ids, skip_map)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, d_out, _d_lse):
-        q, k, v, out, lse, kv_lens, segment_ids = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, d_out, kv_lens=kv_lens, causal=ctx.causal, sm_scale=ctx.sm_scale,
-            segment_ids=segment_ids,
-        )
+        q, k, v, out, lse, kv_lens, segment_ids, skip_map = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, d_out, kv_lens, ctx.causal, ctx.sm_scale, segment_ids,
+                                     fwd_map=skip_map)
         return dq, dk, dv, None, None, None, None
 
 
@@ -369,7 +425,7 @@ def flash_attention(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         out, lse = _FlashAttention.apply(q, k, v, kv_lens, segment_ids, bool(causal), scale)
     else:
-        out, lse = _flash_forward(q, k, v, kv_lens, causal, scale, return_lse, segment_ids=segment_ids)
+        out, lse, _ = _flash_forward(q, k, v, kv_lens, causal, scale, return_lse, segment_ids=segment_ids)
     return (out, lse) if return_lse else out
 
 
@@ -399,26 +455,39 @@ def flash_attention_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``: K2 then K3 on CUDA tensors (``csrc/flash_bwd.cu``),
     :func:`reference_attention_backward` on CPU tensors. ``out`` and ``lse``
-    are K1's outputs for the same inputs; ``d_out`` may be non-contiguous."""
+    are K1's outputs for the same inputs; ``d_out`` may be non-contiguous (a
+    bf16 ``d_out`` must still lie 16-byte aligned: the bf16 bodies read it
+    through TMA)."""
+    scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
+    return _flash_backward(q, k, v, out, lse, d_out, kv_lens, causal, scale, segment_ids)
+
+
+def _flash_backward(q, k, v, out, lse, d_out, kv_lens, causal: bool, scale: float, segment_ids,
+                    fwd_map: Optional[torch.Tensor] = None):
+    """:func:`flash_attention_backward` with K1's skip map of the same call
+    (``fwd_map``, from :func:`_flash_forward`) where the caller has it."""
     _check_no_kv_lens(kv_lens, segment_ids)
     if q.device.type == "cpu":
-        return reference_attention_backward(q, k, v, out, lse, d_out, kv_lens, causal, sm_scale, segment_ids)
-    scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
+        return reference_attention_backward(q, k, v, out, lse, d_out, kv_lens, causal, scale, segment_ids)
     d_out, out, lse = d_out.contiguous(), out.contiguous(), lse.contiguous()
     _check_backward_inputs(q, k, v, out, lse, d_out, kv_lens, segment_ids)
     batch, heads, seq_q, head_dim = q.shape
     seq_k = k.shape[-2]
     if not (seq_q and seq_k and batch * heads):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v, d_out)):
+        # the bf16 bodies read q, k, v and d_out through TMA, which takes 16-byte aligned tensors
+        raise ValueError("flash_attention_backward: the bf16 kernels need 16-byte aligned q, k, v and d_out "
+                         "(e.g. .clone() a view)")
     # delta_i = rowsum(dO * O), outside the kernels as in the JAX package (:532)
     delta = torch.sum(d_out.float() * out.float(), dim=-1).contiguous()
     ids, lens = _kernel_masks(kv_lens, segment_ids, seq_k)
-    # the skip ranges of each kernel's own axis: key ranges per query (K2),
-    # query ranges per key (K3)
-    q_ranges = k_ranges = None
+    # the skip maps of each kernel's own axis: key ranges per query (K2),
+    # query ranges per key (K3), each followed by its work order in bf16
+    q_map = k_map = None
     if ids is not None:
-        q_ranges = _segment_ranges(ids[:, :seq_q], ids[:, :seq_k])
-        k_ranges = _segment_ranges(ids[:, :seq_k], ids[:, :seq_q])
+        q_map, k_map = _backward_maps(ids, lens, seq_q, seq_k, causal, head_dim, bf16, fwd_map)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -426,9 +495,9 @@ def flash_attention_backward(
               _build.DTYPE_CODES[q.dtype], int(bool(causal)), scale, stream)
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               _ptr(lens), _ptr(ids))
-    _build.check(lib.flash_bwd_dq(*inputs, _ptr(q_ranges), dq.data_ptr(), *common), "flash_bwd_dq")
+    _build.check(lib.flash_bwd_dq(*inputs, _ptr(q_map), dq.data_ptr(), *common), "flash_bwd_dq")
     kernels.launches["flash_bwd_dq"] += 1
-    _build.check(lib.flash_bwd_dkv(*inputs, _ptr(k_ranges), dk.data_ptr(), dv.data_ptr(), *common), "flash_bwd_dkv")
+    _build.check(lib.flash_bwd_dkv(*inputs, _ptr(k_map), dk.data_ptr(), dv.data_ptr(), *common), "flash_bwd_dkv")
     kernels.launches["flash_bwd_dkv"] += 1
     return dq, dk, dv
 
