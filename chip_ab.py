@@ -1,6 +1,6 @@
-"""A/B of two trees of the port on one GPU: attention kernels and training steps, in turns.
+"""A/B of two trees of the port on one GPU: attention kernels, training and serving steps, in turns.
 
-    python3 chip_ab.py OTHER_TREE [--seeds N] [--out PATH]
+    python3 chip_ab.py OTHER_TREE [--serving | --seeds N | --serve-seeds N] [--out PATH]
 
 ``OTHER_TREE`` holds another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -18,7 +18,28 @@ kernels with that tree's own ``chip_smoke.py`` helpers:
 - device ms per train step (the kernels' device time summed over a profile of
   5 steps), wall ms per step and the device's idle share, for BERT-base
   fine-tuning (bf16, B64 S128) and packed GPT-2-small LM training (B8 S1024)
-  on a device-resident batch.
+  on a device-resident batch;
+- the serving measurements below.
+
+With ``--serving`` each turn takes only the serving measurements: K4 (paged
+attention, bf16 queries over an int8 pool) through ``chip_smoke.time_k4``
+(device ms by the profiler, its bound, plain and gather + SDPA ms) at the
+chunk (B1 H12 S256, bases 256 and 768), the decode step's short bases (B8,
+``chip_smoke``'s mid-generation rows) and a long context (B8, bases
+1000-1022), all at width 65; then on GPT-2 small (bf16, seeded random
+weights, ``chip_smoke``'s engine: int8 pool, 8 slots, max_len 1024, chunk
+256) the decode step's device ms, wall ms and idle share
+(``chip_smoke.profile_decode``) and the time to first token of the
+400-token prompt on an idle engine (two prefill chunks, median of 5 after
+one warm-up).
+
+With ``--serve-seeds N`` each turn runs ``chip_smoke``'s 10 serving requests
+over weight and prompt seeds 0..N-1 and counts the greedy streams that split
+beyond the 1e-2 gate (a split where the compared-to path's top-2 logit gap is
+at least 1e-2) for (a) plain bf16 against plain f32, (b) the kernel path
+bf16 against plain f32 and (c) the kernel path bf16 against plain bf16:
+whether the kernels add error beyond bf16 noise, and the sweep that decides
+a rounding choice in a serving kernel.
 
 With ``--seeds N`` each turn instead holds its tree's bf16 K2/K3 to the plain
 backward (``chip_smoke``'s tolerance) over input seeds 0..N-1 at the BERT
@@ -115,6 +136,91 @@ def worker(label: str) -> dict:
     return result
 
 
+K4_SHAPES = {  # (S, bases) at width 65
+    "chunk base 256": (256, [256]),
+    "chunk base 768": (256, [768]),
+    "decode short bases": (1, None),
+    "decode long context": (1, [1000, 1003, 1007, 1008, 1011, 1015, 1016, 1022]),
+}
+
+
+def serving(label: str) -> dict:
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import unionml_tpu_torch
+    from unionml_tpu_torch._device import set_precision_flags
+    from unionml_tpu_torch.models import GPTConfig, random_params
+
+    set_precision_flags()
+    device = torch.device("cuda")
+    result = {"tree": label, "package": unionml_tpu_torch.__file__, "k4": {}}
+    short = [n + cs.MAX_NEW // 2 for n, _ in cs.REQUESTS[:8]]
+    for name, (S, bases) in K4_SHAPES.items():
+        r = cs.time_k4(device, S, bases or short, None)
+        result["k4"][name] = {key: r[key] for key in ("shape", "ms", "bound_ms", "plain_ms", "library_ms",
+                                                      "kernel_by_name_ms")}
+    config = dataclasses.replace(GPTConfig(), dtype=torch.bfloat16)
+    engine = cs.build_engine(config, random_params(config, seed=0), device, impl="auto")
+    prompt_list = cs.prompts(config.vocab_size)
+    cs.serve(engine, [prompt_list[0]], device)  # warm-up
+    result["decode_step"] = cs.profile_decode(engine, prompt_list)
+    long = next(p for p in prompt_list if len(p) > cs.PREFILL_CHUNK)
+    ttft = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = engine.add_request(long, cs.MAX_NEW)
+        while not any(ev.slot == slot and ev.emit for ev in engine.step()):
+            pass
+        ttft.append((time.perf_counter() - t0) * 1e3)
+        engine.abort_all()
+    result["ttft_400_ms"] = {"median": float(np.median(ttft[1:])), "runs": ttft[1:]}
+    return result
+
+
+def serve_sweep(label: str, n_seeds: int) -> dict:
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    import unionml_tpu_torch
+    from unionml_tpu_torch._device import set_precision_flags
+    from unionml_tpu_torch.models import GPTConfig, random_params
+
+    set_precision_flags()
+    device = torch.device("cuda")
+    result = {"tree": label, "package": unionml_tpu_torch.__file__, "seeds": []}
+    base = GPTConfig()
+    for seed in range(n_seeds):
+        params = random_params(base, seed=seed)
+        prompt_list = cs.prompts(base.vocab_size, seed=seed)
+        runs = {}
+        for key, dtype, impl in (("kernel_bf16", torch.bfloat16, "auto"), ("plain_bf16", torch.bfloat16, "reference"),
+                                 ("plain_f32", torch.float32, "reference")):
+            engine = cs.build_engine(dataclasses.replace(base, dtype=dtype), params, device, impl=impl)
+            runs[key] = (cs.serve(engine, prompt_list, device)[0], engine)
+        row = {"seed": seed}
+        for pair, (a, b) in {"a_plain_bf16_vs_plain_f32": ("plain_bf16", "plain_f32"),
+                             "b_kernel_bf16_vs_plain_f32": ("kernel_bf16", "plain_f32"),
+                             "c_kernel_bf16_vs_plain_bf16": ("kernel_bf16", "plain_bf16")}.items():
+            splits = cs.stream_splits(runs[a][0], runs[b][0], runs[b][1], prompt_list)
+            row[pair] = {"splits": splits,
+                         "beyond_gate": sum(s["plain_top2_gap"] >= cs.GAP_LIMIT_BF16 for s in splits)}
+        result["seeds"].append(row)
+        del runs
+        torch.cuda.empty_cache()
+    result["streams_beyond_gate"] = {
+        pair: sum(row[pair]["beyond_gate"] for row in result["seeds"])
+        for pair in ("a_plain_bf16_vs_plain_f32", "b_kernel_bf16_vs_plain_f32", "c_kernel_bf16_vs_plain_bf16")}
+    return result
+
+
 def _excess(got, want, tol) -> dict:
     """``chip_smoke.check_close``'s rule without raising: the worst margin
     past atol + rtol |want| (positive = beyond) and the elements beyond."""
@@ -174,12 +280,21 @@ def seed_sweep(label: str, n_seeds: int) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", type=Path, help="the other tree (e.g. the parent commit unpacked under build/)")
-    parser.add_argument("--seeds", type=int, help="run the seed sweep (see above) instead of the timings")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--seeds", type=int, help="run the seed sweep (see above) instead of the timings")
+    mode.add_argument("--serving", action="store_true", help="time K4 and the serving step only (see above)")
+    mode.add_argument("--serve-seeds", type=int, help="run the serving seed sweep (see above)")
     parser.add_argument("--out", type=Path, help="write every turn's measurements to this JSON file")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker is not None:  # one turn: args.other is this turn's tree
-        print(json.dumps(seed_sweep(args.worker, args.seeds) if args.seeds else worker(args.worker)))
+        if args.seeds:
+            turn = seed_sweep(args.worker, args.seeds)
+        elif args.serve_seeds:
+            turn = serve_sweep(args.worker, args.serve_seeds)
+        else:
+            turn = serving(args.worker) if args.serving else {**worker(args.worker), **serving(args.worker)}
+        print(json.dumps(turn, default=str))
         return 0
     import torch
 
@@ -193,7 +308,10 @@ def main() -> int:
     turns = []
     for label, tree in (("other", args.other), ("this", here), ("this", here), ("other", args.other)):
         tree = tree.resolve()
-        argv = ["chip_ab.py", str(tree), "--worker", label] + (["--seeds", str(args.seeds)] if args.seeds else [])
+        argv = ["chip_ab.py", str(tree), "--worker", label]
+        argv += ["--seeds", str(args.seeds)] if args.seeds else []
+        argv += ["--serve-seeds", str(args.serve_seeds)] if args.serve_seeds else []
+        argv += ["--serving"] if args.serving else []
         code = ("import sys; sys.path[0] = {!r}; sys.argv = {!r}; "
                 "import runpy; runpy.run_path({!r}, run_name='__main__')").format(
                     str(tree), argv, str(here / "chip_ab.py"))

@@ -14,9 +14,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    7's shapes, segment boundaries on and inside 64-row tiles); every lse
    against ``torch.logsumexp`` of the plain masked scores (1e-4 on rows that
    see a key, -1e30 on rows that see none);
-3. K4 (paged attention) against its plain version: int8 and bf16 pools, S=1
-   with B=8, S=32 and S=256 (the chunk) with B=1, table width 65 (max_len
-   1024, block 16), ragged bases and scratch tail columns;
+3. K4 (paged attention) against its plain version, both bodies (the
+   split-key decode body for S <= 8, the query-tile bodies above): bf16
+   queries over int8 and bf16 pools, f32 over int8 and f32 pools; S = 1, 2,
+   5, 15-17, 63-65, 127-129, 144, 256 at D 64 with block sizes 8, 16, 32 and
+   at D 128 with 16; bases at block edges, across a 16-column split and a
+   64-key tile; one mapped block of scale 0; the serving shapes (B8 S1 and
+   B1 S256 at width 65, ragged bases, scratch tail columns); the long-context
+   decode (B8, bases 1000-1022, widths 65 and 129); a retired row at the
+   sentinel position (finite, and the other rows bitwise unchanged); and the
+   decode body's bitwise invariance: one row's output equal alone, in a
+   batch of 8 and under a 129-column table mapping the same blocks;
 4. K2/K3 (flash backward: dQ, and dK/dV) against their plain version, bf16
    (the tensor-core bodies) and f32 (the CUDA-core bodies): BERT shapes (B 8
    and 64, H 12, S 128, D 64, ragged ``kv_lens`` including 1 and 128),
@@ -34,7 +42,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    streams must agree with the same engine on the plain PyTorch path
    (``impl="reference"``): a split only counts as agreement where the plain
    path's top-2 logit gap at the split is below 1e-2. An f32 run of the same
-   comparison must give identical streams;
+   comparison must give identical streams. In one bf16 decode step and one
+   chunked-prefill chunk the profiler's kernel names must show K4's decode
+   body (with its merge kernel) and its tensor-core query tile, and no other
+   K4 body;
 6. training end to end: BERT-base at full width (vocab 30522, d 768, 12
    layers, 12 heads) with seeded random weights, bf16, seq 128, batch 64,
    ``bench.py``'s recipe (lr 2e-5, warmup 10, total 1000), right-padded
@@ -151,10 +162,12 @@ def ptxas_report(log: str):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            name = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
+            name = re.search(r"(?:^|\D)\d+?((?:flash|paged)_[a-z0-9_]*?_kernel)I", mangled)
             types = re.findall(r"uml\d(F32|BF16)|(I8)E", mangled)
             dims = re.search(r"Li(\d+)E", mangled)
-            params = [a or b for a, b in types] + [f"D{dims.group(1) if dims else '?'}"]
+            quant = re.search(r"ILb([01])E", mangled)  # the bf16 query tile's int8 / bf16 pool
+            params = [a or b for a, b in types] + (["int8 pool" if quant.group(1) == "1" else "bf16 pool"]
+                                                   if quant else []) + [f"D{dims.group(1) if dims else '?'}"]
             kernel = "{}<{}>".format(name.group(1) if name else mangled, ", ".join(params))
         elif "spill stores" in line:
             spills = line.strip()
@@ -323,11 +336,13 @@ def check_k1(device) -> dict:
 # ------------------------------------------------------------------ K4
 
 
-def k4_inputs(B, S, dtype, quantized, device, seed=0, H=12, D=64, bs=16, max_len=1024, bases=None):
+def k4_inputs(B, S, dtype, quantized, device, seed=0, H=12, D=64, bs=16, max_len=1024, bases=None, width=None,
+              empty_block=False):
     """A filled pool (blocks for every row plus one scratch block), tables
-    mapping exactly the blocks each row's last query needs, scratch tails."""
+    mapping exactly the blocks each row's last query needs, scratch tails;
+    ``empty_block``: one mapped int8 block has scale 0."""
     rng = np.random.default_rng(seed)
-    width = -(-max_len // bs) + 1
+    width = width or -(-max_len // bs) + 1
     if bases is None:
         bases = rng.integers(0, max_len - S, B)
     bases = np.asarray(bases, dtype=np.int64)
@@ -346,13 +361,30 @@ def k4_inputs(B, S, dtype, quantized, device, seed=0, H=12, D=64, bs=16, max_len
         v = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
         ks = torch.from_numpy(rng.uniform(0.005, 0.05, (num_blocks, H, 1, 1)).astype(np.float32))
         vs = torch.from_numpy(rng.uniform(0.005, 0.05, (num_blocks, H, 1, 1)).astype(np.float32))
+        if empty_block:
+            ks[int(perm[0])] = vs[int(perm[0])] = 0.0
         pool = [t.to(device) for t in (k, v, ks, vs)]
     else:
         k = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device=device, dtype=dtype)
         v = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device=device, dtype=dtype)
         pool = [k, v, None, None]
     q = torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32)).to(device=device, dtype=dtype)
-    return q, pool, torch.from_numpy(table).to(device), torch.from_numpy(bases).to(device)
+    # int32 bases, as the engine passes them
+    return q, pool, torch.from_numpy(table).to(device), torch.from_numpy(bases.astype(np.int32)).to(device)
+
+
+K4_S = [1, 2, 5, 15, 16, 17, 63, 64, 65, 127, 128, 129, 144, 256]
+K4_LONG_BASES = [1000, 1003, 1007, 1008, 1011, 1015, 1016, 1022]  # the long-context decode rows
+
+
+def k4_bases(S: int, bs: int) -> list:
+    """Decode rows at block edges (pos % bs of 0 and bs - 1) and across a
+    16-column split; chunks at base 0 and at a base whose queries cross a
+    split and a 64-key tile boundary."""
+    split = 16 * bs
+    if S <= 8:
+        return [0, bs - 1, bs, 3 * bs - 1, split - 1, split, 2 * split - S // 2]
+    return [0, max(bs - 1, split - S // 2 - 3)]
 
 
 def check_k4(device) -> dict:
@@ -361,15 +393,49 @@ def check_k4(device) -> dict:
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for quantized in (True, False):
-            for B, S, D in ((8, 1, 64), (1, 32, 64), (1, 256, 64), (3, 4, 128)):
+            cases = [(k4_bases(S, bs), S, D, bs, 4, None)
+                     for S in K4_S for D, bs in ((64, 8), (64, 16), (64, 32), (128, 16))]
+            cases += [(None, 1, 64, 16, 12, None), (None, 256, 64, 16, 12, None)]  # the serving shapes
+            cases += [(K4_LONG_BASES, 1, 64, 16, 12, w) for w in (65, 129)]
+            for i, (bases, S, D, bs, H, width) in enumerate(cases):
+                B = len(bases) if bases is not None else (8 if S == 1 else 1)
                 q, (k, v, ks, vs), table, base = k4_inputs(
-                    B, S, dtype, quantized, device, seed=B * 10 + S, D=D
-                )
+                    B, S, dtype, quantized, device, seed=i, H=H, D=D, bs=bs, bases=bases, width=width,
+                    empty_block=True)
                 got = paged_attention(q, k, v, table, base, ks, vs)
                 want = reference_paged_attention(q, k, v, table, base, ks, vs)
-                name = f"K4 {dtype} int8={quantized} B{B} S{S} D{D}"
+                name = f"K4 {dtype} int8={quantized} B{B} H{H} S{S} D{D} bs{bs} width {table.shape[1]} bases {bases}"
                 worst = max(worst, check_close(name, got, want))
+            worst = max(worst, k4_decode_rows(device, dtype, quantized))
     return {"max_abs_err": worst}
+
+
+def k4_decode_rows(device, dtype, quantized) -> float:
+    """The decode body's row independence: one row's output is bitwise the
+    same alone, in a batch of 8 and under a 129-column table mapping the same
+    blocks; a retired row at the sentinel position stays finite and leaves
+    the other rows bitwise unchanged (and within tolerance of the plain
+    version)."""
+    from unionml_tpu_torch.ops.paged_attention import paged_attention, reference_paged_attention
+
+    bases = [5, 1000, 250, 16, 1022, 511, 64, 777]
+    q, (k, v, ks, vs), table, base = k4_inputs(8, 1, dtype, quantized, device, seed=3, bases=bases)
+    batch = paged_attention(q, k, v, table, base, ks, vs)
+    wide = torch.cat([table, table[:, -1:].expand(-1, 64)], dim=1).contiguous()
+    if not torch.equal(paged_attention(q, k, v, wide, base, ks, vs), batch):
+        raise AssertionError(f"K4 {dtype} int8={quantized}: decode rows differ under a 129-column table")
+    for r in range(len(bases)):
+        alone = paged_attention(q[r:r + 1].contiguous(), k, v, table[r:r + 1].contiguous(), base[r:r + 1], ks, vs)
+        if not torch.equal(alone[0], batch[r]):
+            raise AssertionError(f"K4 {dtype} int8={quantized}: decode row {r} alone differs from the batch")
+    table[1] = table[1, -1]  # row 1 retired: every column on the scratch block, at the sentinel position
+    base[1] = (table.shape[1] - 1) * k.shape[2]
+    got = paged_attention(q, k, v, table, base, ks, vs)
+    live = [0, *range(2, len(bases))]
+    if not bool(torch.isfinite(got[1].float()).all()) or not torch.equal(got[live], batch[live]):
+        raise AssertionError(f"K4 {dtype} int8={quantized}: a retired row disturbed the others")
+    return check_close(f"K4 {dtype} int8={quantized} with a retired row", got[live],
+                       reference_paged_attention(q, k, v, table, base, ks, vs)[live])
 
 
 # --------------------------------------------------------------- K2/K3
@@ -659,6 +725,30 @@ def profile_decode(engine, prompt_list, steps: int = 8) -> dict:
     return {"slots": len(short), **result}
 
 
+def check_k4_kernel_names(engine, prompt_list) -> dict:
+    """K4's kernels by the profiler's names in one bf16 decode step (7 slots)
+    and in the second chunk of the 400-token prompt's chunked prefill (base
+    256): the decode body and its merge kernel, then the tensor-core query
+    tile, and no other K4 body (``launch_plan`` names them)."""
+    from unionml_tpu_torch.ops.paged_attention import launch_plan
+
+    short = [p for p in prompt_list if len(p) <= PREFILL_CHUNK][: engine.num_slots - 1]
+    engine.admit_many([(p, MAX_NEW) for p in short])
+    engine.step()
+    names = {"decode step": [n for n in kernel_ms_by_name(engine.step, 1) if "paged_" in n]}
+    engine.add_request(next(p for p in prompt_list if len(p) > PREFILL_CHUNK), MAX_NEW)
+    names["prefill chunk"] = [n for n in kernel_ms_by_name(engine._advance_partials, 1) if "paged_" in n]
+    engine.abort_all()
+    bodies = ("paged_decode_kernel", "paged_merge_kernel", "paged_tile_wgmma_kernel", "paged_tile_f32_kernel",
+              "paged_attention_kernel")
+    for label, S in (("decode step", 1), ("prefill chunk", PREFILL_CHUNK)):
+        want = launch_plan(1, 12, S, 64, torch.bfloat16, torch.int8, 65, 16).kernels
+        found = " ".join(names[label])
+        if not all(k in found for k in want) or any(k in found for k in bodies if k not in want):
+            raise AssertionError(f"bf16 {label}: K4 kernels by profiler name {names[label]}; expected {want} only")
+    return names
+
+
 def end_to_end(device, config=None) -> dict:
     from unionml_tpu_torch import kernels
     from unionml_tpu_torch.models import GPTConfig, random_params
@@ -686,9 +776,12 @@ def end_to_end(device, config=None) -> dict:
                                  exact=dtype == torch.float32)
         tokens = sum(len(s) for s in streams)
         step_profile = profile_decode(engine, prompt_list) if device.type == "cuda" else None
+        k4_names = (check_k4_kernel_names(engine, prompt_list)
+                    if device.type == "cuda" and dtype == torch.bfloat16 else None)
         result[str(dtype)] = {
             "launches": launches, "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
-            "ttft_s": ttft, "splits": splits, "decode_step": step_profile, "greedy_equal": sum(
+            "ttft_s": ttft, "splits": splits, "decode_step": step_profile, "k4_kernel_names": k4_names,
+            "greedy_equal": sum(
                 streams[i] == plain_streams[i] for i in range(len(streams)) if REQUESTS[i][1] is None),
         }
         del engine, plain_engine
@@ -1230,8 +1323,12 @@ def time_kernels(device, e2e: dict):
     ]
     extra = [
         time_k1(device, 4, 512, launches["flash_fwd"]),
-        # the second chunk of the 400-token prompt's chunked prefill
+        # the second chunk of the 400-token prompt's chunked prefill, and the
+        # last chunk of a 1024-token prompt
         time_k4(device, PREFILL_CHUNK, [PREFILL_CHUNK], launches["paged_attention"]),
+        time_k4(device, PREFILL_CHUNK, [1024 - PREFILL_CHUNK], launches["paged_attention"]),
+        # decode at a long context: 8 rows near the end of max_len 1024
+        time_k4(device, 1, K4_LONG_BASES, launches["paged_attention"]),
     ]
     return main, extra
 
@@ -1341,6 +1438,8 @@ def main() -> int:
               f"[{r['method']}; per-call CUDA-event ms {r['event_ms']}; library kernels {r.get('library_kernels')}]")
     print(f"K1/K2/K3 kernels by profiler name in one bf16 train step (tensor-core bodies only): BERT "
           f"{train['kernel_names']}, LM {lm['kernel_names']}")
+    print(f"K4 kernels by profiler name in the bf16 engine (decode body + merge, tensor-core query tile): "
+          f"{details['e2e'][str(torch.bfloat16)]['k4_kernel_names']}")
     details["kernels"], details["extra_timings"] = records, extra
     details["total_s"] = time.perf_counter() - t0
     if args.details is not None:

@@ -425,3 +425,146 @@ def test_packed_forward_backward_builds_the_skip_map_once(cuda, monkeypatch, Sq,
                                torch.ones_like(out))
     for a, b in zip(got, want):
         _close(a, b, BWD_TOL)
+
+
+# ------------------------------------------------------------------ K4 bodies
+
+PAGED_POOLS = [(torch.bfloat16, "int8"), (torch.bfloat16, "full"), (torch.float32, "int8"), (torch.float32, "full")]
+PAGED_S = [1, 2, 5, 15, 16, 17, 63, 64, 65, 127, 128, 129, 144, 256]
+
+
+def _paged_inputs(device, dtype, pool, bases, S, D=64, bs=16, width=None, heads=4, seed=0):
+    """Pools holding every block the rows' last queries need plus one scratch
+    block, tables mapping exactly those (the tail on the scratch block), and
+    one mapped block of scale 0 (an empty block dequantizes to zeros)."""
+    rng = np.random.default_rng(seed)
+    bases = np.asarray(bases, dtype=np.int64)
+    need = (bases + S - 1) // bs + 1
+    width = width or int(need.max()) + 1
+    blocks = int(need.sum()) + 1
+    table = np.full((len(bases), width), blocks - 1, dtype=np.int32)
+    perm, start = rng.permutation(blocks - 1), 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[start:start + n]
+        start += n
+    shape = (blocks, heads, bs, D)
+    if pool == "int8":
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(device) for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.05, (blocks, heads, 1, 1)).astype(np.float32)).to(device)
+                  for _ in range(2))
+        ks[int(perm[0])] = 0.0
+        vs[int(perm[0])] = 0.0
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype) for _ in range(2))
+        ks = vs = None
+    q = torch.from_numpy(rng.standard_normal((len(bases), heads, S, D), dtype=np.float32)).to(device, dtype)
+    return q, kp, vp, torch.from_numpy(table).to(device), torch.from_numpy(bases).to(device), ks, vs
+
+
+def _paged_bases(S, bs):
+    """Decode rows at block edges (pos % bs of 0 and bs - 1) and across a
+    16-column split; chunks at base 0 and at a base whose queries cross a
+    split and a 64-key tile boundary."""
+    split = 16 * bs
+    if S <= 8:
+        return [0, bs - 1, bs, 3 * bs - 1, split - 1, split, 2 * split - S // 2]
+    return [0, max(bs - 1, split - S // 2 - 3)]
+
+
+@pytest.mark.parametrize("dtype,pool", PAGED_POOLS, ids=["bf16-int8", "bf16-bf16", "f32-int8", "f32-f32"])
+@pytest.mark.parametrize("S,D,bs", [(S, 64, bs) for S in PAGED_S for bs in (8, 16, 32)] +
+                         [(S, 128, 16) for S in PAGED_S])
+def test_paged_bodies_match_plain(cuda, dtype, pool, S, D, bs):
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, dtype, pool, _paged_bases(S, bs), S, D=D, bs=bs, seed=S + bs)
+    before = kernels.launches["paged_attention"]
+    got = paged_attention(q, kp, vp, table, base, ks, vs)
+    torch.cuda.synchronize()
+    assert kernels.launches["paged_attention"] == before + 1
+    _close(got, reference_paged_attention(q, kp, vp, table, base, ks, vs))
+
+
+@pytest.mark.parametrize("dtype,pool", PAGED_POOLS, ids=["bf16-int8", "bf16-bf16", "f32-int8", "f32-f32"])
+@pytest.mark.parametrize("width", [65, 129])
+def test_paged_long_context_decode_matches_plain(cuda, dtype, pool, width):
+    bases = [1000, 1003, 1007, 1008, 1011, 1015, 1016, 1022]
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, dtype, pool, bases, 1, width=width, heads=12, seed=width)
+    _close(paged_attention(q, kp, vp, table, base, ks, vs), reference_paged_attention(q, kp, vp, table, base, ks, vs))
+
+
+@pytest.mark.parametrize("dtype,pool", PAGED_POOLS, ids=["bf16-int8", "bf16-bf16", "f32-int8", "f32-f32"])
+def test_paged_decode_is_bitwise_invariant_to_batch_and_width(cuda, dtype, pool):
+    """One row's decode output is bitwise the same alone, in a batch of 8 and
+    under a 129-column table that maps the same blocks."""
+    bases = [5, 1000, 250, 16, 1022, 511, 64, 777]
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, dtype, pool, bases, 1, width=65, heads=12, seed=3)
+    batch = paged_attention(q, kp, vp, table, base, ks, vs)
+    wide = torch.cat([table, table[:, -1:].expand(-1, 64)], dim=1).contiguous()
+    batch_wide = paged_attention(q, kp, vp, wide, base, ks, vs)
+    for r in range(len(bases)):
+        alone = paged_attention(q[r:r + 1].contiguous(), kp, vp, table[r:r + 1].contiguous(), base[r:r + 1], ks, vs)
+        assert torch.equal(alone[0], batch[r]) and torch.equal(batch_wide[r], batch[r]), r
+
+
+@pytest.mark.parametrize("dtype,pool", PAGED_POOLS, ids=["bf16-int8", "bf16-bf16", "f32-int8", "f32-f32"])
+def test_paged_retired_row_at_the_sentinel_leaves_other_rows_alone(cuda, dtype, pool):
+    bases = [40, 300, 1000]
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, dtype, pool, bases, 1, width=65, heads=12, seed=9)
+    want = paged_attention(q, kp, vp, table, base, ks, vs)
+    table[1] = table[1, -1]  # row 1 retired: every column on the scratch block, at the sentinel position
+    base[1] = (table.shape[1] - 1) * kp.shape[2]
+    got = paged_attention(q, kp, vp, table, base, ks, vs)
+    assert torch.isfinite(got[1].float()).all()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    live = [0, 2]
+    _close(got[live], reference_paged_attention(q, kp, vp, table, base, ks, vs)[live])
+
+
+@pytest.mark.parametrize("dtype,pool", PAGED_POOLS, ids=["bf16-int8", "bf16-bf16", "f32-int8", "f32-f32"])
+@pytest.mark.parametrize("S", [1, 64])
+def test_paged_query_that_sees_one_key_returns_its_value_exactly(cuda, dtype, pool, S):
+    """Base 0: query 0 sees key 0 alone, so its output is key 0's value as
+    the plain version dequantizes it, bit for bit (both bodies' value
+    rounding, without the softmax's)."""
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, dtype, pool, [0], S, heads=12)
+    blk = int(table[0, 0])
+    if ks is not None:  # key 0's block is the one of scale 0: give it a scale
+        ks[blk] = 0.0371
+        vs[blk] = 0.0293
+    got = paged_attention(q, kp, vp, table, base, ks, vs)[0, :, 0]
+    want = vp[blk, :, 0].float() * vs[blk, :, 0] if ks is not None else vp[blk, :, 0]
+    assert torch.equal(got, want.to(dtype))
+
+
+def _paged_kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages() if "paged_" in e.key)
+
+
+@pytest.mark.parametrize("dtype,pool", PAGED_POOLS, ids=["bf16-int8", "bf16-bf16", "f32-int8", "f32-f32"])
+@pytest.mark.parametrize("S", [1, 256])
+def test_paged_bodies_are_chosen_by_the_launch_plan(cuda, dtype, pool, S):
+    from unionml_tpu_torch.ops.paged_attention import launch_plan
+
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, dtype, pool, [300], S, heads=12)
+    names = _paged_kernel_names(lambda: paged_attention(q, kp, vp, table, base, ks, vs))
+    plan = launch_plan(1, 12, S, 64, dtype, kp.dtype, table.shape[1], kp.shape[2])
+    assert all(k in names for k in plan.kernels), names
+    others = {"paged_decode_kernel", "paged_merge_kernel", "paged_tile_wgmma_kernel", "paged_tile_f32_kernel",
+              "paged_attention_kernel"} - set(plan.kernels)
+    assert not any(k in names for k in others), names
+
+
+def test_paged_wrapper_raises_instead_of_falling_back(cuda):
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, torch.bfloat16, "int8", [0], 64, bs=48)
+    before = kernels.launches["paged_attention"]
+    with pytest.raises(ValueError):  # the bf16 query tile takes block sizes that divide 64
+        paged_attention(q, kp, vp, table, base, ks, vs)
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, torch.bfloat16, "int8", [0], 64)
+    q = torch.randn(q.numel() + 1, device=cuda).to(torch.bfloat16)[1:].view(q.shape)  # not 16-byte aligned
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_attention(q, kp, vp, table, base, ks, vs)
+    assert kernels.launches["paged_attention"] == before

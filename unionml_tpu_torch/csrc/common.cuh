@@ -1,6 +1,6 @@
 // What the port's kernels share: element types, the packed skip map's tile
-// reduction, and the Hopper building blocks (mbarriers, TMA loads, wgmma and
-// its descriptors, and the host-side tensor maps).
+// reduction, and the Hopper building blocks (mbarriers, TMA and cp.async loads,
+// wgmma and its descriptors, and the host-side tensor maps).
 //
 // Tensors cross the C interface as raw bytes; each kernel is templated on a
 // storage struct that says how one stored element becomes a float and back.
@@ -33,13 +33,26 @@ struct BF16 {
   static __device__ __forceinline__ uint16_t store(float x) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(x));
   }
-  static __device__ __forceinline__ float round(float x) { return load(store(x)); }
+  // round to nearest even in integer operations (the same value as
+  // load(store(x)) for finite x, without the conversion unit)
+  static __device__ __forceinline__ float round(float x) {
+    const uint32_t u = __float_as_uint(x);
+    return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+  }
 };
 
 struct I8 {
   using T = int8_t;
   static __device__ __forceinline__ float load(int8_t x) { return static_cast<float>(x); }
 };
+
+// four int8 codes packed in a word -> exact floats, without the conversion
+// unit: byte e, biased by 128, becomes the low mantissa bits of 2^23 + 128 + x
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* out) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + e)) - 8388736.f;
+}
 
 // The scan range of a tile of 32 rows in packed (segment-id) mode: the
 // [min first, max end) over rows r0 .. r0 + 31 (those < n_rows) of a
@@ -150,6 +163,27 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* tensor_map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async: one 16-byte copy from device memory into shared memory that does
+// not pass through registers; with valid == false the 16 bytes are zero-filled
+// and nothing is read. Copies are grouped by commit; wait_group<N> returns when
+// at most N of this thread's groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's earlier shared-memory writes (plain stores, cp.async)
+// before later reads by the async proxy (wgmma operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma ordering: fence before the first wgmma that reads registers written

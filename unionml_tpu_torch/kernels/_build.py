@@ -58,9 +58,9 @@ _ENTRY_POINTS = {
         "flash_bwd_dkv": _BWD_ARGS + [_P, _P] + _BWD_SHAPE,  # ..., dk, dv, ...
     },
     "paged_attention": {
-        # q, k, v, k_scale, v_scale, table, base, o,
-        # B, H, S, D, bs, W, dtype, kv_int8, sm_scale, stream
-        "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, k_scale, v_scale, table, base, o, workspace,
+        # B, H, S, D, bs, W, dtype, kv_int8, body, n_split, sm_scale, stream
+        "paged_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
     },
 }
 

@@ -104,6 +104,15 @@ def _per_row(position) -> bool:
     return torch.is_tensor(position) and position.dim() == 1
 
 
+def _decode_slots(position: torch.Tensor, block_table: torch.Tensor, block_size: int):
+    """``(pool block, offset)`` int64 of each row's decode write at its
+    ``position``, clamped into the table's capacity (the same for every
+    layer, so the model computes it once per step)."""
+    pos = torch.clamp(position.long(), 0, block_table.shape[1] * block_size - 1)
+    blk, off = pos // block_size, pos % block_size
+    return torch.gather(block_table.long(), 1, blk[:, None])[:, 0], off
+
+
 def _paged_append_quantized(pool_q, pool_scale, dst, off, vals):
     """Single-token decode append into an int8 pool tail block, in place.
 
@@ -201,6 +210,7 @@ class DecoderBlock(nn.Module):
         block_table: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        decode_slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Full sequence (``cache=None``, optionally packed by
         ``segment_ids``), dense-cache or paged step. ``generator`` turns
@@ -210,7 +220,9 @@ class DecoderBlock(nn.Module):
         and a scalar ``position``. Paged: pool leaves (num_blocks, heads,
         block_size, head_dim) shared by every row, ``block_table`` (batch,
         width), and either a (batch,) ``position`` tensor (single-token
-        decode, each row at its own position) or an int (batch-1 chunk).
+        decode, each row at its own position) or an int (batch-1 chunk);
+        ``decode_slots`` (from :func:`_decode_slots`) saves each layer of a
+        decode step from computing the rows' write slots again.
         """
         cfg = self.config
         batch, seq, _ = hidden.shape
@@ -239,7 +251,7 @@ class DecoderBlock(nn.Module):
                     q, k, v, causal=True, mask=pad_mask(torch.arange(seq, device=q.device))
                 )
         elif block_table is not None:
-            context = self._paged(q, k, v, cache, position, block_table, pad_offsets)
+            context = self._paged(q, k, v, cache, position, block_table, pad_offsets, decode_slots)
         else:
             context = self._dense(q, k, v, cache, position, pad_offsets, pad_mask)
 
@@ -275,7 +287,7 @@ class DecoderBlock(nn.Module):
             mask = mask & pad_mask(k_pos)
         return reference_attention(q, cache["k"], cache["v"], mask=mask)
 
-    def _paged(self, q, k, v, cache, position, block_table, pad_offsets):
+    def _paged(self, q, k, v, cache, position, block_table, pad_offsets, decode_slots=None):
         cfg = self.config
         batch, _, seq, _ = q.shape
         if pad_offsets is not None:
@@ -287,13 +299,10 @@ class DecoderBlock(nn.Module):
                 "(ROADMAP: speculation slice)"
             )
         block_size = cache["k"].shape[2]
-        capacity = block_table.shape[1] * block_size
         quantized = "k_scale" in cache
         if per_row:
             # decode: each row appends one token into its own tail block
-            pos = torch.clamp(position.long(), 0, capacity - 1)
-            blk, off = pos // block_size, pos % block_size
-            dst = torch.gather(block_table.long(), 1, blk[:, None])[:, 0]
+            dst, off = decode_slots if decode_slots is not None else _decode_slots(position, block_table, block_size)
             if quantized:
                 _paged_append_quantized(cache["k"], cache["k_scale"], dst, off, k[:, :, 0, :])
                 _paged_append_quantized(cache["v"], cache["v_scale"], dst, off, v[:, :, 0, :])
@@ -311,6 +320,7 @@ class DecoderBlock(nn.Module):
                 _paged_chunk_quantized(cache["k"], cache["k_scale"], block_table[0], position, k[0])
                 _paged_chunk_quantized(cache["v"], cache["v_scale"], block_table[0], position, v[0])
             else:
+                capacity = block_table.shape[1] * block_size
                 pos = torch.clamp(position + torch.arange(seq, device=q.device), 0, capacity - 1)
                 dst = block_table[0].long()[pos // block_size]
                 cache["k"][dst, :, pos % block_size, :] = k[0].transpose(0, 1).to(cache["k"].dtype)
@@ -394,10 +404,16 @@ class GPTLMHeadModel(nn.Module):
 
         new_cache: Dict[str, Any] = {}
         block_table = cache.get("table") if cache is not None else None
+        decode_slots = None
+        if block_table is not None and _per_row(position):
+            # once per step, not per layer: K4 takes int32 positions, the
+            # append its write slots
+            position = position.to(torch.int32)
+            decode_slots = _decode_slots(position, block_table, cache["layer_0"]["k"].shape[2])
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else cache[f"layer_{i}"]
             hidden, layer_cache = layer(hidden, layer_cache, position, pad_offsets, block_table, segment_ids,
-                                        generator)
+                                        generator, decode_slots)
             if layer_cache is not None:
                 new_cache[f"layer_{i}"] = layer_cache
         if block_table is not None:

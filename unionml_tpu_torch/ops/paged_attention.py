@@ -16,14 +16,20 @@ at the engine's scratch block; the positional mask discards them.
 - :func:`paged_attention` — K4 (``csrc/paged_attention.cu``, replacing the
   Pallas ``_paged_kernel``). On CUDA tensors it launches the kernel or
   raises; on CPU tensors (or with ``impl="reference"``) it runs the plain
-  version. The kernel reads the int8
-  codes and scales straight from the pool and walks only the table columns the
-  row's last query can see.
+  version. The kernels read the int8 codes and scales straight from the pool
+  and walk only the table columns a query can see.
+- :func:`launch_plan` — which of K4's bodies a call takes, from host-known
+  facts only (shapes, dtypes, table width, block size; never the bases): the
+  split-key decode body for ``S <= DECODE_MAX_S`` (fixed runs of
+  ``SPLIT_COLUMNS`` table columns, merged by a second kernel), else a
+  query-tile body (tensor cores for bf16, CUDA cores for f32).
 - :func:`fused_hbm_bytes` — the device-memory bytes the fused kernel must move
   for one call's KV, the kernel's byte bound.
 """
 
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,7 +37,76 @@ from unionml_tpu_torch import kernels
 from unionml_tpu_torch.kernels import _build
 from unionml_tpu_torch.ops.attention import reference_attention
 
-__all__ = ["fused_hbm_bytes", "paged_attention", "reference_paged_attention"]
+__all__ = [
+    "DECODE_MAX_S", "SPLIT_COLUMNS", "PagedPlan", "fused_hbm_bytes", "launch_plan", "paged_attention",
+    "reference_paged_attention",
+]
+
+#: table columns per split of the decode body (``kSplitCols`` in the source)
+SPLIT_COLUMNS = 16
+#: the longest query chunk the decode body takes; longer ones take a query tile
+DECODE_MAX_S = 8
+_BODIES = {"decode": 0, "tile": 1}
+_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+_SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
+_DECODE_STAGES, _DECODE_STAGE_BYTES = 4, 8192  # the decode body's cp.async ring (see the source)
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """One K4 launch: the body, its grid ``(x, y, z)``, the kernels it runs
+    (by the names the profiler shows), and for the decode body the number of
+    key splits and the f32 workspace its partials need."""
+
+    body: str
+    grid: Tuple[int, int, int]
+    kernels: Tuple[str, ...]
+    width: int
+    splits: int = 1
+    workspace_floats: int = 0
+
+    def split_columns(self, i: int) -> range:
+        """The table columns split ``i`` covers: a fixed run of
+        ``SPLIT_COLUMNS`` for the decode body (whatever the width, batch or
+        S; the last run is cut at the table's end), the whole table for a
+        query tile."""
+        if self.body != "decode":
+            return range(self.width)
+        return range(i * SPLIT_COLUMNS, min((i + 1) * SPLIT_COLUMNS, self.width))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(
+    batch: int, heads: int, S: int, head_dim: int, dtype: torch.dtype, kv_dtype: torch.dtype,
+    width: int, block_size: int,
+) -> PagedPlan:
+    """The K4 body for these host-known facts. Raises ``ValueError`` for a
+    combination no body takes (before any launch; nothing falls back)."""
+    if dtype not in _TILE_ROWS or head_dim not in (64, 128) or min(batch, heads, S, width, block_size) < 1:
+        raise ValueError(f"paged_attention: no K4 body for {dtype}, head_dim {head_dim}, batch {batch}, "
+                         f"heads {heads}, S {S}, width {width}, block size {block_size}")
+    kv_size = kv_dtype.itemsize
+    if S <= DECODE_MAX_S:
+        col_bytes = 2 * block_size * head_dim * kv_size
+        ring = _DECODE_STAGES * min(SPLIT_COLUMNS, max(1, _DECODE_STAGE_BYTES // col_bytes)) * col_bytes
+        if ring + (3 * SPLIT_COLUMNS + 16 + 8 * head_dim) * 4 > _SMEM_LIMIT:
+            raise ValueError(f"paged_attention: block size {block_size} is too large for the decode body")
+        splits = -(-width // SPLIT_COLUMNS)
+        return PagedPlan(
+            "decode", (splits, S * heads, batch), ("paged_decode_kernel", "paged_merge_kernel"), width,
+            splits, batch * heads * S * splits * (head_dim + 2),
+        )
+    rows = _TILE_ROWS[dtype]
+    grid = (-(-S // rows), heads, batch)
+    if dtype == torch.float32:
+        return PagedPlan("tile", grid, ("paged_tile_f32_kernel",), width)
+    quant = kv_dtype == torch.int8
+    raw = 64 * head_dim * (1 if quant else 2)
+    smem = 64 * head_dim * 2 + 3 * 2 * raw + (2 * 64 * head_dim * 2 if quant else 0) + 1024 + width * (12 if quant else 4)
+    if 64 % block_size or smem > _SMEM_LIMIT:
+        raise ValueError(f"paged_attention: the bf16 query-tile body takes block sizes that divide 64 and tables "
+                         f"of at most a few thousand columns, got block size {block_size}, width {width}")
+    return PagedPlan("tile", grid, ("paged_tile_wgmma_kernel",), width)
 
 
 def reference_paged_attention(
@@ -131,15 +206,19 @@ def paged_attention(
     batch, heads, S, head_dim = q.shape
     out = torch.empty_like(q)
     if S and batch * heads:
+        plan = launch_plan(batch, heads, S, head_dim, q.dtype, k.dtype, table.shape[1], k.shape[2])
+        if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+            raise ValueError("paged_attention kernel copies 16-byte chunks: q and the pools must be 16-byte aligned")
+        ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=q.device) if plan.workspace_floats else None
         fn = _build.library("paged_attention").paged_attention
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            table.data_ptr(), base.data_ptr(), out.data_ptr(),
+            table.data_ptr(), base.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
             batch, heads, S, head_dim, k.shape[2], table.shape[1],
-            _build.DTYPE_CODES[q.dtype], int(k_scale is not None), head_dim ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _build.DTYPE_CODES[q.dtype], int(k_scale is not None), _BODIES[plan.body], plan.splits,
+            head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )
         _build.check(status, "paged_attention")
         kernels.launches["paged_attention"] += 1

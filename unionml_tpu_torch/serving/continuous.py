@@ -213,7 +213,7 @@ class DecodeEngine:
             kv_quantize_skip_layers=self.kv_quantize_skip_layers, device=dev,
         )
         self._tables = init_block_tables(num_slots, self.max_len, self.block_size, self._scratch_block, device=dev)
-        self._lens = torch.zeros((num_slots,), dtype=torch.int64, device=dev)
+        self._lens = torch.zeros((num_slots,), dtype=torch.int32, device=dev)  # K4 takes int32 positions
         self._last_logits = torch.zeros((num_slots, config.vocab_size), dtype=torch.float32, device=dev)
         self._active_dev, self._remaining_dev = init_slot_state(num_slots, device=dev)
         self._temp_dev = torch.full((num_slots,), self.temperature, dtype=torch.float32, device=dev)
@@ -422,7 +422,7 @@ class DecodeEngine:
                     layer[key + "_scale"][dst_blocks] = scale
                 else:
                     layer[key][dst, :, off, :] = local.transpose(1, 2).to(layer[key].dtype)
-        self._lens[slots] = lengths
+        self._lens[slots] = lengths.to(self._lens.dtype)
         self._last_logits[slots] = local_logits.float()
 
     # -------------------------------------------------------- chunked prefill
