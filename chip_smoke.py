@@ -93,6 +93,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the tensor-core bodies of K1, K2 and K3 and none of their CUDA-core (f32)
    bodies.
 
+11. the BERT app end to end through the port's ``Dataset`` and ``Model``
+   (``build_bert_app``: the flagship template's shape at BERT-base width,
+   bf16 compute on f32 parameters, S 128): ``Model.train`` trains 20 steps
+   at B64 with ``fit(checkpoint_dir=..., checkpoint_every=10)`` (K2/K3 must
+   launch 12 times per step); the latest checkpoint (step 20) must restore
+   bitwise and ``fit`` resume from it; ``Model.save``, then a fresh
+   ``Model.load`` through ``UNIONML_MODEL_PATH``, bitwise; a
+   ``ResidentPredictor`` (batch buckets 1..64, sequence buckets 32/64/128,
+   ``example_features``) answers 32 requests of 1-8 rows of 5-128 tokens,
+   half through ``RequestBatcher``, half directly, by CUDA-graph replay: the
+   labels must equal the plain path's (``attention_impl="reference"``, eager)
+   wherever its top-2 logit gap is >= 1e-2, an f32 app's logits must agree
+   with the plain f32 logits within 1e-4, the bf16 logits of every request
+   replayed must agree with the same padded inputs run eagerly through the
+   same kernels within one bf16 rounding step (the graph holds the tensor-core
+   K1 body to the launches it recorded), no request may fall back to eager,
+   and a bf16 replay's profile must show ``flash_fwd_wgmma_kernel``. Prints
+   each graph's capture ms, p50/p90 ms per request (replay against eager) at
+   buckets (1, 32) and (64, 128), rows/s at (64, 128), a replay's device ms
+   against its wall ms, and ``fit`` ms per step with checkpoints against
+   without.
+
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
 measurement as JSON. Without a CUDA device the script exits 2 and prints no
@@ -1054,6 +1076,332 @@ def train_gpt(device) -> dict:
     }
 
 
+# ------------------------------------------------------------ BERT app
+
+APP_BUCKETS, APP_SEQ_BUCKETS = (1, 2, 4, 8, 16, 32, 64), (32, 64, 128)
+APP_ROWS, APP_STEPS, APP_CKPT_EVERY, APP_REQUESTS = 320, 20, 10, 32
+APP_F32_REQUESTS = 8
+APP_DIR = Path(__file__).resolve().parent / "build" / "bert_app"
+
+
+def build_bert_app(config, params, device, logits: bool = False):
+    """The flagship BERT app (``unionml_tpu/templates/bert-finetune/app.py``)
+    through the port's ``Dataset`` and ``Model``: a seeded reader (right
+    padding, lengths 16..128), a feature loader that right-pads request rows
+    of token ids, ``fit`` with step checkpoints, argmax labels (or, with
+    ``logits``, the float32 logits) from the predictor, accuracy from the
+    evaluator. The app's ``init`` rebuilds the model from ``params``."""
+    from typing import Any, Dict
+
+    from unionml_tpu_torch import Dataset, Model
+    from unionml_tpu_torch.models import TrainState, create_train_state, fit, init_bert, make_classifier_eval_step
+
+    dataset = Dataset(name="bert_app_dataset", test_size=0.2, targets=["labels"], device_format="torch",
+                      device=device)
+
+    def init(learning_rate: float = 2e-5, warmup_steps: int = 10) -> TrainState:
+        return create_train_state(init_bert(config, params=params, device=device), learning_rate=learning_rate,
+                                  warmup_steps=warmup_steps, total_steps=1000, seed=0)
+
+    model = Model(name="bert_app", init=init, dataset=dataset)
+
+    @dataset.reader
+    def reader(n: int = APP_ROWS, seed: int = 0) -> Dict[str, np.ndarray]:
+        return bert_data(config, n, seed)
+
+    @dataset.feature_loader
+    def feature_loader(rows: Any) -> Dict[str, np.ndarray]:
+        if isinstance(rows, dict):
+            return rows
+        width = max(len(r["input_ids"]) for r in rows)
+        ids = np.zeros((len(rows), width), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, : len(r["input_ids"])] = r["input_ids"]
+        return {"input_ids": ids, "attention_mask": (ids != 0).astype(np.int32)}
+
+    @model.trainer
+    def trainer(state: TrainState, features: torch.Tensor, targets: torch.Tensor, *, num_steps: int = APP_STEPS,
+                batch_size: int = BERT_BATCH, checkpoint_dir: str = "", checkpoint_every: int = 100) -> TrainState:
+        data = {k: v.cpu().numpy() for k, v in {**features, **targets}.items()}
+        return fit(state, data, batch_size=batch_size, num_steps=num_steps, input_signature=BERT_SIG,
+                   checkpoint_dir=checkpoint_dir or None, checkpoint_every=checkpoint_every, log_every=5).state
+
+    @model.predictor
+    def predictor(state: TrainState, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with torch.no_grad():
+            out = state.model(features["input_ids"], features["attention_mask"])
+        return out if logits else out.argmax(-1)
+
+    @model.evaluator
+    def evaluator(state: TrainState, features: torch.Tensor, targets: torch.Tensor) -> float:
+        metrics = make_classifier_eval_step(BERT_SIG)(state, {**features, **targets})
+        return float(metrics["accuracy"])
+
+    return dataset, model
+
+
+def app_requests(vocab: int, seed: int = 0) -> list:
+    """32 requests of 1-8 rows each, every row 5-128 seeded token ids."""
+    rng = np.random.default_rng(seed)
+    return [[{"input_ids": rng.integers(1, vocab, int(rng.integers(5, BERT_SEQ + 1))).tolist()}
+             for _ in range(int(rng.integers(1, 9)))] for _ in range(APP_REQUESTS)]
+
+
+def plain_logits(model, rows) -> torch.Tensor:
+    """f32 logits of ``rows`` alone (unpadded batch) through ``model``."""
+    width = max(len(r["input_ids"]) for r in rows)
+    ids = torch.zeros((len(rows), width), dtype=torch.int32)
+    for i, r in enumerate(rows):
+        ids[i, : len(r["input_ids"])] = torch.tensor(r["input_ids"])
+    ids = ids.to(model.device)
+    with torch.no_grad():
+        return model(ids, (ids != 0).to(torch.int32)).float().cpu()
+
+
+def states_equal(a, b) -> bool:
+    """Bitwise equality of two TrainStates' parameters, moments and step."""
+    return a.step == b.step and all(
+        torch.equal(x, y) for group in ("params", "mu", "nu") for x, y in zip(getattr(a, group), getattr(b, group)))
+
+
+def serve_requests(predictor, requests) -> list:
+    """Half the requests through ``RequestBatcher`` (submitted together, so
+    they coalesce), half straight to ``ResidentPredictor.predict``: the two
+    calls the ``/predict`` handler makes."""
+    from unionml_tpu_torch.serving import RequestBatcher
+
+    half = len(requests) // 2
+
+    async def coalesced():
+        batcher = RequestBatcher(lambda rows: predictor.predict(features=rows), max_batch=BERT_BATCH)
+        try:
+            return await asyncio.gather(*(batcher.submit(rows) for rows in requests[:half])), dict(batcher.stats)
+        finally:
+            batcher.close()
+
+    batched, stats = asyncio.run(coalesced())
+    direct = [predictor.predict(features=rows) for rows in requests[half:]]
+    return [np.asarray(p) for p in list(batched) + direct], stats
+
+
+def percentiles(fn, reps: int) -> dict:
+    """p50 / p90 host ms of ``fn`` (which ends in a host fetch) over ``reps`` calls, after two warm calls."""
+    fn(), fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return {"p50_ms": times[len(times) // 2], "p90_ms": times[min(int(len(times) * 0.9), len(times) - 1)]}
+
+
+def replay_vs_eager(predictor, model, rows, reps: int = 50) -> dict:
+    """Per-request ms of one bucket, resident replay against the same
+    request eager: the feature pipeline (host to device), the predictor and
+    the fetch of the labels, without graphs."""
+    state = model.artifact.model_object
+    predict_fn = model._predictor.fn
+
+    def eager():
+        return predict_fn(state, model.dataset.get_features(rows)).cpu().numpy()
+
+    return {"replay": percentiles(lambda: predictor.predict(features=rows), reps),
+            "eager": percentiles(eager, reps)}
+
+
+def fit_ms(app_model, data, checkpoint_dir) -> dict:
+    """``fit`` ms per step (its timed window) and the whole call's ms, with
+    step checkpoints every APP_CKPT_EVERY steps or without."""
+    from unionml_tpu_torch.models import fit
+
+    state = app_model._init_model_object({})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fit(state, data, batch_size=BERT_BATCH, num_steps=APP_STEPS, input_signature=BERT_SIG,
+                 checkpoint_dir=checkpoint_dir, checkpoint_every=APP_CKPT_EVERY, log_every=APP_STEPS)
+    torch.cuda.synchronize()
+    return {"step_ms": 1e3 / result.steps_per_s, "call_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def checkpoint_ms(state, directory) -> dict:
+    """One ``Checkpointer.save`` of ``state`` alone: the snapshot to host
+    memory (before ``save`` returns) and the background write (until
+    ``flush`` returns), with the bytes saved."""
+    from unionml_tpu_torch.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(directory)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(1, state)
+    t1 = time.perf_counter()
+    ckpt.flush()
+    t2 = time.perf_counter()
+    ckpt.close()
+    tensors = state.params + state.mu + state.nu
+    return {"snapshot_ms": (t1 - t0) * 1e3, "write_ms": (t2 - t1) * 1e3,
+            "bytes": sum(t.numel() * t.element_size() for t in tensors)}
+
+
+def bf16_replay_vs_eager(config, params, device, saved, requests) -> dict:
+    """The bf16 resident logits of every request against the same padded
+    inputs run eagerly through the same kernels (no graph): one bf16 rounding
+    step of the eager value at most (2^-7 relative; a graph replays the
+    launches it recorded, so the two are expected to agree bit for bit)."""
+    from unionml_tpu_torch.serving import ResidentPredictor
+    from unionml_tpu_torch.serving.resident import to_host
+
+    _, model = build_bert_app(config, params, device, logits=True)
+    state = model.load(saved)
+    predictor = ResidentPredictor(model, buckets=APP_BUCKETS, seq_buckets=APP_SEQ_BUCKETS, warmup=False,
+                                  device=device)
+    worst = 0.0
+    rows_total = rows_bitwise = 0
+    for rows in requests:
+        replayed = predictor.predict(features=rows)
+        padded, n, _ = predictor._pad_to_buckets(model.dataset.get_features(rows))
+        eager = to_host(predictor._eager(state, padded))[:n]
+        diff = np.abs(replayed - eager)
+        if not np.all(diff <= 2.0 ** -7 * np.abs(eager)):
+            raise AssertionError(f"bf16 replay vs eager on the same inputs: max |diff| {float(diff.max()):.3e} "
+                                 "beyond one bf16 rounding step")
+        worst = max(worst, float(diff.max()))
+        rows_total += n
+        rows_bitwise += int(np.all(diff == 0, axis=-1).sum())
+    if predictor.eager_fallbacks:
+        raise AssertionError(f"bf16 logits predictor fell back to eager {predictor.eager_fallbacks} times")
+    del predictor, model, state
+    return {"max_abs_diff": worst, "rows": rows_total, "rows_bitwise": rows_bitwise}
+
+
+def bert_app(device) -> dict:
+    """The BERT app end to end (see the module docstring, phase 11)."""
+    import os
+    import shutil
+
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.checkpoint import Checkpointer
+    from unionml_tpu_torch.models import BertConfig, BertForSequenceClassification, bert_random_params, fit
+    from unionml_tpu_torch.serving import ResidentPredictor
+
+    config = BertConfig.base(num_labels=2)  # bf16 compute on f32 parameters
+    params = bert_random_params(config, seed=0)
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    APP_DIR.mkdir(parents=True)
+    ckpt_dir = APP_DIR / "checkpoints"
+
+    _, model = build_bert_app(config, params, device)
+    kernels.reset_launches()
+    trained, metrics = model.train(trainer_kwargs={"checkpoint_dir": str(ckpt_dir),
+                                                   "checkpoint_every": APP_CKPT_EVERY})
+    torch.cuda.synchronize()
+    train_launches = dict(kernels.launches)
+    per_run = config.num_layers * APP_STEPS
+    # the evaluator (jit="auto") adds forwards: its capture fails at float(), so it runs eagerly
+    if device.type == "cuda" and (train_launches["flash_bwd_dq"] != per_run
+                                  or train_launches["flash_bwd_dkv"] != per_run
+                                  or train_launches["flash_fwd"] < per_run):
+        raise AssertionError(f"Model.train launched {train_launches}; expected K2/K3 {per_run} times, K1 at least")
+    probe = Checkpointer(ckpt_dir)
+    latest = probe.latest_step()
+    restored = probe.restore(model._init_model_object({}))
+    probe.close()
+    if latest != APP_STEPS or not states_equal(restored, trained):
+        raise AssertionError(f"checkpoint: latest step {latest}, restored state bitwise equal to the trained one: "
+                             f"{states_equal(restored, trained)}")
+    data = bert_data(config, APP_ROWS, 0)
+    resumed = fit(model._init_model_object({}), data, batch_size=BERT_BATCH, num_steps=2, input_signature=BERT_SIG,
+                  checkpoint_dir=str(ckpt_dir), checkpoint_every=APP_CKPT_EVERY, log_every=100)
+    if resumed.steps != APP_STEPS + 2 or resumed.state.step != APP_STEPS + 2:
+        raise AssertionError(f"resume: fit ended at step {resumed.steps} (state {resumed.state.step}), "
+                             f"expected {APP_STEPS + 2}")
+    del resumed, restored
+
+    saved = APP_DIR / "bert_app.pt"
+    model.save(saved)
+    os.environ["UNIONML_MODEL_PATH"] = str(saved)
+    _, served = build_bert_app(config, params, device)
+    loaded = served.load_from_env()
+    if not states_equal(loaded, trained):
+        raise AssertionError("Model.load: the loaded state differs from the saved one")
+
+    requests = app_requests(config.vocab_size)
+    predictor = ResidentPredictor(served, buckets=APP_BUCKETS, seq_buckets=APP_SEQ_BUCKETS,
+                                  example_features=requests[0][:1], device=device)
+    kernels.reset_launches()
+    predictor.setup()
+    answers, coalescing = serve_requests(predictor, requests)
+    serve_launches = dict(kernels.launches)  # K1 launches into each captured graph; replays bypass the wrapper
+    if device.type == "cuda" and not serve_launches["flash_fwd"]:
+        raise AssertionError(f"serving launched {serve_launches}; K1 never ran")
+
+    plain = BertForSequenceClassification(dataclasses.replace(config, attention_impl="reference"), device=device)
+    plain.load_state_dict(loaded.model.state_dict())
+    compared = split = 0
+    gaps = []
+    for rows, labels in zip(requests, answers):
+        logits = plain_logits(plain, rows)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).numpy()
+        want = logits.argmax(-1).numpy()
+        if labels.shape != want.shape:
+            raise AssertionError(f"resident labels {labels.shape} for {len(rows)} rows")
+        for g, a, b in zip(gap, labels, want):
+            if g >= GAP_LIMIT_BF16:
+                compared += 1
+                if a != b:
+                    raise AssertionError(f"resident label {a} vs plain {b} at top-2 gap {g:.3e}")
+            elif a != b:
+                split += 1
+                gaps.append(float(g))
+    if predictor.eager_fallbacks:
+        raise AssertionError(f"resident predictor fell back to eager {predictor.eager_fallbacks} times")
+    names = [n for n in kernel_ms_by_name(lambda: predictor.predict(features=requests[1]), 1) if "flash_" in n]
+    if not any("flash_fwd_wgmma_kernel" in n for n in names):
+        raise AssertionError(f"resident bf16 replay: kernels by profiler name {names}; no flash_fwd_wgmma_kernel")
+
+    replay_vs_eager_bf16 = bf16_replay_vs_eager(config, params, device, saved, requests)
+
+    # the same weights in f32: resident logits against plain logits
+    cfg32 = dataclasses.replace(config, dtype=torch.float32)
+    _, model32 = build_bert_app(cfg32, params, device, logits=True)
+    model32.load(saved)
+    predictor32 = ResidentPredictor(model32, buckets=APP_BUCKETS, seq_buckets=APP_SEQ_BUCKETS, warmup=False,
+                                    device=device)
+    plain32 = BertForSequenceClassification(dataclasses.replace(cfg32, attention_impl="reference"), device=device)
+    plain32.load_state_dict(loaded.model.state_dict())
+    f32_err = max(float(np.abs(predictor32.predict(features=rows) - plain_logits(plain32, rows).numpy()).max())
+                  for rows in requests[:APP_F32_REQUESTS])
+    if not f32_err <= 1e-4 or predictor32.eager_fallbacks:
+        raise AssertionError(f"f32 resident logits vs plain: max |err| {f32_err:.3e} (limit 1e-4), "
+                             f"eager fallbacks {predictor32.eager_fallbacks}")
+    del model32, predictor32, plain32, plain
+    torch.cuda.empty_cache()
+
+    # timings: replay against eager at two buckets, a replay's device time, fit with and without checkpoints
+    rng = np.random.default_rng(1)
+    small = [{"input_ids": rng.integers(1, config.vocab_size, 32).tolist()}]
+    large = [{"input_ids": rng.integers(1, config.vocab_size, BERT_SEQ).tolist()} for _ in range(BERT_BATCH)]
+    latency = {"1x32": replay_vs_eager(predictor, served, small), "64x128": replay_vs_eager(predictor, served, large)}
+    replay_profile = step_profile(lambda: predictor.predict(features=large), steps=10, top=5)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fit_off = fit_ms(model, data, None)
+    fit_on = fit_ms(model, data, str(ckpt_dir))
+    one_save = checkpoint_ms(loaded, APP_DIR / "one_save")
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    return {
+        "metrics": metrics, "latest_step": latest, "launches": {"train": train_launches, "serve": serve_launches},
+        "graphs": predictor.graph_stats(), "coalescing": coalescing, "compared_rows": compared,
+        "rows": int(sum(len(r) for r in requests)), "split_below_gate": split, "split_gaps": gaps,
+        "eager_fallbacks": predictor.eager_fallbacks, "f32_max_abs_err": f32_err, "kernel_names": names,
+        "bf16_replay_vs_eager": replay_vs_eager_bf16,
+        "label_counts": np.bincount(np.concatenate(answers), minlength=config.num_labels).tolist(),
+        "latency": latency, "rows_per_s_64x128": BERT_BATCH / latency["64x128"]["replay"]["p50_ms"] * 1e3,
+        "replay_profile": replay_profile, "fit_ms": {"checkpoints_off": fit_off, "checkpoints_on": fit_on},
+        "one_save": one_save,
+    }
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -1441,6 +1789,40 @@ def main() -> int:
     print(f"K4 kernels by profiler name in the bf16 engine (decode body + merge, tensor-core query tile): "
           f"{details['e2e'][str(torch.bfloat16)]['k4_kernel_names']}")
     details["kernels"], details["extra_timings"] = records, extra
+
+    torch.cuda.empty_cache()
+    details["bert_app"] = app = bert_app(device)
+    print(f"[{name_limit}] BERT app (BERT-base bf16 S{BERT_SEQ}, the port's Dataset/Model): Model.train "
+          f"{APP_STEPS} steps at B{BERT_BATCH} with checkpoints every {APP_CKPT_EVERY} (launches "
+          f"{app['launches']['train']}), metrics {app['metrics']}; latest checkpoint step {app['latest_step']} "
+          f"restored bitwise, fit resumed from it; Model.save, Model.load via UNIONML_MODEL_PATH bitwise")
+    print(f"[{name_limit}] BERT app serving: {APP_REQUESTS} requests ({app['rows']} rows), half through "
+          f"RequestBatcher {app['coalescing']}: labels equal to the plain path on all {app['compared_rows']} rows "
+          f"whose plain top-2 gap is >= {GAP_LIMIT_BF16} ({app['split_below_gate']} splits below it, gaps "
+          f"{app['split_gaps']}); f32 logits vs plain: max |err| {app['f32_max_abs_err']:.3e} (limit 1e-4); eager "
+          f"fallbacks {app['eager_fallbacks']}; K1 by profiler name in a replay: {app['kernel_names']}")
+    same = app["bf16_replay_vs_eager"]
+    print(f"BERT app bf16 logits, resident replay vs the same padded inputs eager through the same kernels: max "
+          f"|diff| {same['max_abs_diff']:.3e} (limit one bf16 step, 2^-7 relative), {same['rows_bitwise']} of "
+          f"{same['rows']} rows bitwise; served labels by class {app['label_counts']}")
+    for graph in app["graphs"]:
+        print(f"[{name_limit}] resident graph {graph['shapes']}: captured in {graph['capture_ms']:.1f} ms "
+              f"(two eager warm-up runs and the recording), {graph['replays']} replays")
+    for bucket, lat in app["latency"].items():
+        print(f"[{name_limit}] resident request {bucket}: replay p50 {lat['replay']['p50_ms']:.3f} ms, p90 "
+              f"{lat['replay']['p90_ms']:.3f} ms; eager p50 {lat['eager']['p50_ms']:.3f} ms, p90 "
+              f"{lat['eager']['p90_ms']:.3f} ms")
+    rp = app["replay_profile"]
+    print(f"[{name_limit}] resident 64x128: {app['rows_per_s_64x128']:.1f} rows/s at replay p50; one request "
+          f"{rp['wall_ms_per_step']:.3f} ms wall, {rp['device_ms_per_step']:.3f} ms device kernels, idle share "
+          f"{rp['device_idle_share']:.3f}; top kernels {rp['top_kernels_ms_per_step']}")
+    fo, fn = app["fit_ms"]["checkpoints_off"], app["fit_ms"]["checkpoints_on"]
+    print(f"[{name_limit}] fit B{BERT_BATCH} {APP_STEPS} steps: {fo['step_ms']:.2f} ms per step without "
+          f"checkpoints, {fn['step_ms']:.2f} with a checkpoint every {APP_CKPT_EVERY} steps; whole call "
+          f"{fo['call_ms']:.0f} vs {fn['call_ms']:.0f} ms (the latter with the final flush)")
+    save = app["one_save"]
+    print(f"[{name_limit}] one Checkpointer.save of the BERT-base TrainState ({save['bytes'] / 1e9:.2f} GB): "
+          f"snapshot to host {save['snapshot_ms']:.0f} ms, background write {save['write_ms']:.0f} ms")
     details["total_s"] = time.perf_counter() - t0
     if args.details is not None:
         args.details.parent.mkdir(parents=True, exist_ok=True)

@@ -205,9 +205,24 @@ def test_fit_lm_trains_with_the_jax_step_count(pair, pack, num_steps, num_epochs
 
 
 @pytest.mark.parametrize("option", [
-    dict(moe_aux=True), dict(mesh=object()), dict(checkpoint_dir="ckpt"), dict(prefetch=True),
-], ids=["moe_aux", "mesh", "checkpoint_dir", "prefetch"])
+    dict(moe_aux=True), dict(mesh=object()), dict(prefetch=True),
+], ids=["moe_aux", "mesh", "prefetch"])
 def test_fit_lm_rejects_unported_options(pair, option):
     _, params = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fit_lm(create_train_state(_port_model(params)), _corpus(9, 8), seq_len=SEQ, batch_size=2, **option)
+
+
+def test_fit_lm_checkpoints_and_resumes(pair, tmp_path):
+    """fit_lm passes checkpoint_dir to fit: step checkpoints land every
+    checkpoint_every steps, and a fresh state resumes from the latest one."""
+    from unionml_tpu_torch.checkpoint import Checkpointer
+
+    _, params = pair
+    kwargs = dict(seq_len=SEQ, batch_size=2, num_steps=4, checkpoint_dir=str(tmp_path / "lm"), checkpoint_every=2)
+    first = fit_lm(create_train_state(_port_model(params)), _corpus(9, 8), **kwargs)
+    probe = Checkpointer(tmp_path / "lm")
+    assert first.steps == 4 and probe.latest_step() == 4
+    probe.close()
+    resumed = fit_lm(create_train_state(_port_model(params)), _corpus(9, 8), **kwargs)
+    assert resumed.steps == 8 and resumed.state.step == 8

@@ -236,9 +236,8 @@ def test_train_step_metrics_stay_tensors(jax_bert):
 
 
 @pytest.mark.parametrize("option", [
-    dict(checkpoint_dir="ckpt"), dict(prefetch=True), dict(prefetch_convert={"labels": "int32"}),
-    dict(mesh=object()), dict(param_spec=object()),
-], ids=["checkpoint_dir", "prefetch", "prefetch_convert", "mesh", "param_spec"])
+    dict(prefetch=True), dict(prefetch_convert={"labels": "int32"}), dict(mesh=object()), dict(param_spec=object()),
+], ids=["prefetch", "prefetch_convert", "mesh", "param_spec"])
 def test_fit_rejects_unported_options(jax_bert, option):
     _, params = jax_bert
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,8 +1,14 @@
-"""PyTorch/CUDA port of unionml-tpu: GPT paged decode serving, BERT
-fine-tuning and packed causal-LM training.
+"""PyTorch/CUDA port of unionml-tpu: the ``Dataset``/``Model`` app API with
+resident serving, GPT paged decode serving, BERT fine-tuning and packed
+causal-LM training.
 
 The JAX package (``unionml_tpu``) stays the reference; this package mirrors its
 module names so each counterpart is easy to find:
+
+- :class:`Dataset` and :class:`Model` (``dataset``, ``model``, ``stage``,
+  ``workflow``, ``checkpoint``): the decorator API. Stages run eagerly or as
+  CUDA graphs (``_graphs``); ``Model.serve()`` builds the aiohttp app whose
+  ``/predict`` goes through :mod:`unionml_tpu_torch.serving.resident`.
 
 - :mod:`unionml_tpu_torch.ops` — attention (flash forward and backward, with
   packed segment ids), paged attention, classification losses, sequence
@@ -22,8 +28,12 @@ module names so each counterpart is easy to find:
 - :mod:`unionml_tpu_torch.serving.continuous` — ``DecodeEngine`` (paged int8
   KV pool, bucket and chunked prefill) and the asyncio ``ContinuousBatcher``.
 
-Importing the package imports nothing heavy: ``torch`` loads with the
-submodules that need it, and the CUDA kernels build on first launch.
+Importing the package loads ``torch`` and ``numpy`` and nothing else heavy:
+the models and serving load with their submodules, and the CUDA kernels
+build on first launch.
 """
 
-__all__ = ["ops", "models", "serving"]
+from unionml_tpu_torch.dataset import Dataset
+from unionml_tpu_torch.model import BaseHyperparameters, Model, ModelArtifact
+
+__all__ = ["BaseHyperparameters", "Dataset", "Model", "ModelArtifact", "ops", "models", "serving"]

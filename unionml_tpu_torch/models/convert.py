@@ -26,6 +26,8 @@ __all__ = [
     "bert_grads_to_jax",
     "bert_params_from_jax",
     "bert_random_params",
+    "cnn_params_from_jax",
+    "mlp_params_from_jax",
     "gpt_grads_to_jax",
     "init_gpt",
     "params_from_jax",
@@ -238,3 +240,36 @@ def bert_random_params(config: Any, seed: int = 0, std: float = 0.02) -> Dict[st
             "mlp": {"intermediate": dense(d, inter), "output": dense(inter, d), "output_norm": norm()},
         }
     return {"params": {"bert": bert, "classifier": dense(d, config.num_labels)}}
+
+
+def _t32(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def mlp_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``MLPClassifier`` tree (``dense_i``, ``head``; with or
+    without the ``"params"`` wrapper) onto the port's ``MLPClassifier``
+    state dict (``hidden.i``, ``head``), kernels transposed."""
+    tree = params.get("params", params)
+    state: Dict[str, torch.Tensor] = {}
+    names = [f"dense_{i}" for i in range(sum(1 for k in tree if k.startswith("dense_")))] + ["head"]
+    for name in names:
+        prefix = "head" if name == "head" else f"hidden.{name.split('_')[1]}"
+        state[f"{prefix}.weight"] = _t32(tree[name]["kernel"]).t().contiguous()
+        state[f"{prefix}.bias"] = _t32(tree[name]["bias"])
+    return state
+
+
+def cnn_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``CNNClassifier`` tree onto the port's state dict: conv
+    kernels ``(kh, kw, in, out)`` become ``(out, in, kh, kw)``, dense kernels
+    transpose."""
+    tree = params.get("params", params)
+    state: Dict[str, torch.Tensor] = {}
+    for name in ("conv_0", "conv_1"):
+        state[f"{name}.weight"] = _t32(tree[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        state[f"{name}.bias"] = _t32(tree[name]["bias"])
+    for name in ("dense", "head"):
+        state[f"{name}.weight"] = _t32(tree[name]["kernel"]).t().contiguous()
+        state[f"{name}.bias"] = _t32(tree[name]["bias"])
+    return state

@@ -18,13 +18,15 @@ Port of ``unionml_tpu/models/training.py`` for one device, run eagerly (no
   :func:`fit_lm` packs ragged sequences (or right-pads them one per row) and
   runs them through :func:`fit` (``training.py:524-603``).
 - :func:`fit` — the loop of ``training.py:363-521``: the first step runs
-  outside the timed window, the barrier is a host fetch of the loss.
+  outside the timed window, the barrier is a host fetch of the loss; with
+  ``checkpoint_dir`` it resumes from the latest step checkpoint, saves every
+  step the interval admits and flushes at the end (``training.py:465-508``).
 
 Unlike the JAX package, the train step updates the state IN PLACE (the
 model's parameters and the moments) and returns the same object.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-meshes and parameter specs (M12), step checkpoints (M2), the native
-prefetcher, and the MoE auxiliary losses (M13).
+meshes and parameter specs (M12), the native prefetcher, and the MoE
+auxiliary losses (M13).
 """
 
 import time
@@ -423,12 +425,15 @@ def fit(
     The first step runs outside the timed window; ``num_steps`` (counting
     that first step) overrides ``num_epochs``. Every ``log_every`` steps the
     metrics are fetched to the host into ``metrics_history``.
-    ``checkpoint_every`` is accepted for the JAX signature and unused.
+
+    ``checkpoint_dir`` turns on step checkpoints
+    (:class:`~unionml_tpu_torch.checkpoint.Checkpointer`, every
+    ``checkpoint_every`` steps, with the SIGTERM flush): a directory that
+    already holds one resumes from its latest step, restored in place into
+    ``state``.
     """
     if mesh is not None or param_spec is not None:
         raise _not_ported("mesh / param_spec (sharded training)", "M12")
-    if checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir (step checkpoints with the SIGTERM flush)", "M2, slice 2b")
     if prefetch or prefetch_convert:
         raise _not_ported("prefetch / prefetch_convert", "the native prefetcher, slice 2b")
     if step_fn is not None and grad_accum != 1:
@@ -440,32 +445,49 @@ def fit(
     def batches(epoch_rng):
         return dict_batches(data, batch_size, rng=epoch_rng, device=device)
 
-    rng = np.random.default_rng(seed)
-    history = []
-    step = start_step = state.step
-    # the first step (allocator and library warm-up) runs outside the timed window
-    state, metrics = step_fn(state, next(iter(batches(rng))))
-    float(metrics["loss"])  # host fetch = barrier
-    step += 1
+    checkpointer = None
+    if checkpoint_dir is not None:
+        from unionml_tpu_torch.checkpoint import Checkpointer, install_preemption_handler
 
-    t0 = time.perf_counter()
-    done = False
-    epochs = num_epochs if num_steps is None else max(num_epochs, 10**9)
-    for _ in range(epochs):
-        for batch in batches(rng):
-            state, metrics = step_fn(state, batch)
-            step += 1
-            if step % log_every == 0:
-                metrics_host = {k: float(v) for k, v in metrics.items()}
-                history.append({"step": step, **metrics_host})
-                logger.info("step %d: %s", step, metrics_host)
-            if num_steps is not None and step - start_step >= num_steps:
-                done = True
+        checkpointer = Checkpointer(checkpoint_dir, save_interval_steps=checkpoint_every)
+        install_preemption_handler(checkpointer)
+        latest = checkpointer.latest_step()
+        if latest is not None:
+            logger.info("Resuming from checkpoint step %d", latest)
+            state = checkpointer.restore(state)
+
+    try:
+        rng = np.random.default_rng(seed)
+        history = []
+        step = start_step = state.step
+        # the first step (allocator and library warm-up) runs outside the timed window
+        state, metrics = step_fn(state, next(iter(batches(rng))))
+        float(metrics["loss"])  # host fetch = barrier
+        step += 1
+
+        t0 = time.perf_counter()
+        done = False
+        epochs = num_epochs if num_steps is None else max(num_epochs, 10**9)
+        for _ in range(epochs):
+            for batch in batches(rng):
+                state, metrics = step_fn(state, batch)
+                step += 1
+                if step % log_every == 0:
+                    metrics_host = {k: float(v) for k, v in metrics.items()}
+                    history.append({"step": step, **metrics_host})
+                    logger.info("step %d: %s", step, metrics_host)
+                if checkpointer is not None:
+                    checkpointer.save(step, state)
+                if num_steps is not None and step - start_step >= num_steps:
+                    done = True
+                    break
+            if done:
                 break
-        if done:
-            break
-    float(metrics["loss"])  # host fetch = barrier for the timed window
-    wall = time.perf_counter() - t0
+        float(metrics["loss"])  # host fetch = barrier for the timed window
+        wall = time.perf_counter() - t0
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()  # flushes the pending writes
 
     executed = step - start_step - 1  # the first step is excluded from the timing
     return FitResult(
