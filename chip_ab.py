@@ -1,6 +1,6 @@
 """A/B of two trees of the port on one GPU: attention kernels, training and serving steps, in turns.
 
-    python3 chip_ab.py OTHER_TREE [--serving | --seeds N | --serve-seeds N] [--out PATH]
+    python3 chip_ab.py OTHER_TREE [--serving | --seeds N | --serve-seeds N] [--one-turn] [--out PATH]
 
 ``OTHER_TREE`` holds another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -34,12 +34,20 @@ weights, ``chip_smoke``'s engine: int8 pool, 8 slots, max_len 1024, chunk
 one warm-up).
 
 With ``--serve-seeds N`` each turn runs ``chip_smoke``'s 10 serving requests
-over weight and prompt seeds 0..N-1 and counts the greedy streams that split
-beyond the 1e-2 gate (a split where the compared-to path's top-2 logit gap is
-at least 1e-2) for (a) plain bf16 against plain f32, (b) the kernel path
-bf16 against plain f32 and (c) the kernel path bf16 against plain bf16:
-whether the kernels add error beyond bf16 noise, and the sweep that decides
-a rounding choice in a serving kernel.
+over weight and prompt seeds 0..N-1 on five paths (``SWEEP_PATHS``: the
+kernels bf16, K1 alone with K4's plain version, K4 alone with K1's plain
+version, plain bf16, plain f32), each an unpipelined engine stepped with the
+requests admitted in arrival order, and records the f32 logits that picked
+every greedy token. Per pair of paths (``SWEEP_PAIRS``: (a) plain bf16 against
+plain f32, (b) the kernels against plain f32, (b1) and (b4) one kernel against
+plain f32, (c) the kernels against plain bf16) it counts the greedy streams
+that split beyond the 1e-2 gate (a split where the compared-to path's top-2
+logit gap is at least 1e-2) and each stream's largest logit error over the
+tokens both paths chose in the same context: whether a kernel adds error
+beyond bf16 noise, and which one.
+
+With ``--one-turn`` only one turn runs, on this tree (for a sweep of one
+tree's code).
 
 With ``--seeds N`` each turn instead holds its tree's bf16 K2/K3 to the plain
 backward (``chip_smoke``'s tolerance) over input seeds 0..N-1 at the BERT
@@ -183,41 +191,118 @@ def serving(label: str) -> dict:
     return result
 
 
-def serve_sweep(label: str, n_seeds: int) -> dict:
+#: the sweep's paths: (attention_impl, paged_attn_impl, dtype); K1 and K4 swapped for their plain versions one at a time
+SWEEP_PATHS = {
+    "kernel_bf16": ("auto", "auto", "bfloat16"),
+    "k1_only_bf16": ("auto", "reference", "bfloat16"),
+    "k4_only_bf16": ("reference", "auto", "bfloat16"),
+    "plain_bf16": ("reference", "reference", "bfloat16"),
+    "plain_f32": ("reference", "reference", "float32"),
+}
+#: (path, compared-to path) pairs the sweep counts
+SWEEP_PAIRS = {
+    "a_plain_bf16_vs_plain_f32": ("plain_bf16", "plain_f32"),
+    "b_kernel_bf16_vs_plain_f32": ("kernel_bf16", "plain_f32"),
+    "b1_k1_only_vs_plain_f32": ("k1_only_bf16", "plain_f32"),
+    "b4_k4_only_vs_plain_f32": ("k4_only_bf16", "plain_f32"),
+    "c_kernel_bf16_vs_plain_bf16": ("kernel_bf16", "plain_bf16"),
+}
+
+
+def logged_serve(engine, prompt_list, requests, max_new):
+    """Serve ``requests`` on ``engine`` step by step, unpipelined, admitting in
+    arrival order as slots free (a chunked prefill runs all its chunks at
+    admission); returns each request's stream and, for the
+    greedy ones, the f32 logits (host) that picked each of its tokens."""
+    import numpy as np
+
+    engine.pipeline = False
+    pending = list(range(len(prompt_list)))
+    streams = {i: [] for i in pending}
+    logits = {i: [] for i in pending}
+    slot_of = {}
+    while pending or slot_of:
+        take, pending = pending[:len(engine.free_slots)], pending[len(engine.free_slots):]
+        if take:
+            slots = engine.admit_many([(prompt_list[i], max_new, requests[i][1] or {}) for i in take])
+            slot_of.update(zip(slots, take))
+            while engine._partials:  # finish a chunked prefill before the next decode step
+                engine._advance_partials()
+        active = [int(s) for s in np.flatnonzero(engine._active)]
+        before = dict(zip(active, engine._last_logits[active].float().cpu())) if active else {}
+        for ev in engine.step():
+            i = slot_of[ev.slot]
+            if ev.emit:
+                streams[i].append(ev.token)
+                if requests[i][1] is None:
+                    logits[i].append(before[ev.slot])
+            if ev.finished:
+                del slot_of[ev.slot]
+    return [streams[i] for i in range(len(prompt_list))], [logits[i] for i in range(len(prompt_list))]
+
+
+def compare_logged(got, want, requests, gate) -> dict:
+    """Per greedy stream of ``got`` against ``want`` (each a ``logged_serve``
+    result): where it splits, ``want``'s top-2 logit gap there, and the largest
+    logit error over the tokens both streams chose in the same context."""
+    import torch
+
+    streams, errs, splits = [], [], []
+    for i, (a, b) in enumerate(zip(got[0], want[0])):
+        if requests[i][1] is not None:
+            continue
+        split = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        same_context = len(a) if split is None else split + 1
+        err = max(float((x - y).abs().max()) for x, y in zip(got[1][i][:same_context], want[1][i][:same_context]))
+        errs.append(err)
+        if split is not None:
+            top = torch.topk(want[1][i][split], 2).values
+            splits.append({"request": i, "split": split, "gap": float(top[0] - top[1]), "logit_err": err})
+    return {"splits": splits, "beyond_gate": sum(s["gap"] >= gate for s in splits), "streams": len(errs),
+            "max_logit_err_per_stream": errs}
+
+
+def serve_sweep(label: str, n_seeds: int, config=None, device=None) -> dict:
     import dataclasses
 
+    import numpy as np
     import torch
 
     import chip_smoke as cs
     import unionml_tpu_torch
     from unionml_tpu_torch._device import set_precision_flags
-    from unionml_tpu_torch.models import GPTConfig, random_params
+    from unionml_tpu_torch.models import GPTConfig, init_gpt, random_params
+    from unionml_tpu_torch.serving.continuous import DecodeEngine
 
     set_precision_flags()
-    device = torch.device("cuda")
+    device = device or torch.device("cuda")
+    base = config or GPTConfig()
     result = {"tree": label, "package": unionml_tpu_torch.__file__, "seeds": []}
-    base = GPTConfig()
     for seed in range(n_seeds):
         params = random_params(base, seed=seed)
         prompt_list = cs.prompts(base.vocab_size, seed=seed)
         runs = {}
-        for key, dtype, impl in (("kernel_bf16", torch.bfloat16, "auto"), ("plain_bf16", torch.bfloat16, "reference"),
-                                 ("plain_f32", torch.float32, "reference")):
-            engine = cs.build_engine(dataclasses.replace(base, dtype=dtype), params, device, impl=impl)
-            runs[key] = (cs.serve(engine, prompt_list, device)[0], engine)
+        for key, (attn, paged, dtype) in SWEEP_PATHS.items():
+            cfg = dataclasses.replace(base, dtype=getattr(torch, dtype), attention_impl=attn, paged_attn_impl=paged)
+            engine = DecodeEngine(init_gpt(cfg, params=params, device=device), num_slots=8,
+                                  max_len=min(1024, cfg.max_position_embeddings), kv_quantize="int8",
+                                  prefill_chunk=cs.PREFILL_CHUNK, seed=0, device=device)
+            runs[key] = logged_serve(engine, prompt_list, cs.REQUESTS, cs.MAX_NEW)
+            del engine
         row = {"seed": seed}
-        for pair, (a, b) in {"a_plain_bf16_vs_plain_f32": ("plain_bf16", "plain_f32"),
-                             "b_kernel_bf16_vs_plain_f32": ("kernel_bf16", "plain_f32"),
-                             "c_kernel_bf16_vs_plain_bf16": ("kernel_bf16", "plain_bf16")}.items():
-            splits = cs.stream_splits(runs[a][0], runs[b][0], runs[b][1], prompt_list)
-            row[pair] = {"splits": splits,
-                         "beyond_gate": sum(s["plain_top2_gap"] >= cs.GAP_LIMIT_BF16 for s in splits)}
+        for pair, (a, b) in SWEEP_PAIRS.items():
+            row[pair] = compare_logged(runs[a], runs[b], cs.REQUESTS, cs.GAP_LIMIT_BF16)
         result["seeds"].append(row)
         del runs
-        torch.cuda.empty_cache()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     result["streams_beyond_gate"] = {
-        pair: sum(row[pair]["beyond_gate"] for row in result["seeds"])
-        for pair in ("a_plain_bf16_vs_plain_f32", "b_kernel_bf16_vs_plain_f32", "c_kernel_bf16_vs_plain_bf16")}
+        pair: sum(row[pair]["beyond_gate"] for row in result["seeds"]) for pair in SWEEP_PAIRS}
+    result["streams"] = sum(row["b_kernel_bf16_vs_plain_f32"]["streams"] for row in result["seeds"])
+    result["max_logit_err_quantiles"] = {
+        pair: [float(q) for q in np.quantile(
+            [e for row in result["seeds"] for e in row[pair]["max_logit_err_per_stream"]], [0.5, 0.9, 1.0])]
+        for pair in SWEEP_PAIRS}
     return result
 
 
@@ -284,6 +369,7 @@ def main() -> int:
     mode.add_argument("--seeds", type=int, help="run the seed sweep (see above) instead of the timings")
     mode.add_argument("--serving", action="store_true", help="time K4 and the serving step only (see above)")
     mode.add_argument("--serve-seeds", type=int, help="run the serving seed sweep (see above)")
+    parser.add_argument("--one-turn", action="store_true", help="run one turn, on this tree only")
     parser.add_argument("--out", type=Path, help="write every turn's measurements to this JSON file")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -306,7 +392,9 @@ def main() -> int:
     print(card)
     here = Path(__file__).resolve().parent
     turns = []
-    for label, tree in (("other", args.other), ("this", here), ("this", here), ("other", args.other)):
+    order = (("this", here),) if args.one_turn else (
+        ("other", args.other), ("this", here), ("this", here), ("other", args.other))
+    for label, tree in order:
         tree = tree.resolve()
         argv = ["chip_ab.py", str(tree), "--worker", label]
         argv += ["--seeds", str(args.seeds)] if args.seeds else []

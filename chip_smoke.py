@@ -115,6 +115,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against its wall ms, and ``fit`` ms per step with checkpoints against
    without.
 
+12. speculative decoding end to end (``unionml_tpu_torch/serving/speculative.py``):
+   GPT-2 small at full width as the target (seeded random weights, bf16,
+   int8 paged pool, 8 slots, max_len 1024, block 16, ``gamma_max`` 4), 9
+   greedy requests (prompts 7..256 tokens across the buckets, and one of 400
+   that prefills in chunks and so decodes vanilla) through
+   ``ContinuousBatcher`` with ``{"speculative": True}``, two drafts: the
+   target itself (accepted tokens per target step must exceed 2.5) and a
+   2-layer GPT-2-small draft of its own seeded weights (gamma must fall to 0).
+   Streams must equal the vanilla engine's (same kernels) except where the
+   vanilla top-2 gap at the split is below 1e-2; in f32 (self-draft) below
+   1e-5, each split printed with its gap. Two sampled requests (temperature
+   0.8, seeds) must be bitwise equal with speculation on and off (gamma 0);
+   vanilla streams pipelined must equal unpipelined, bf16 and f32, on one
+   fixed schedule. Every round must replay its CUDA graph; in one steady
+   round the profiler must show K4's decode body and merge and no other K4
+   body, the draft prefill ``flash_fwd_wgmma_kernel``, and 5 steady rounds
+   and 5 steady decode bursts no ``Memcpy HtoD``. One round run eagerly holds
+   every layer's verify chunk to its plain version (K4's tolerance); on a live
+   pool, a verify of 8 rows x 5 tokens must score bitwise what decoding the
+   tokens one at a time scores (each position's products at the decode
+   step's 8 rows), and its commit must leave every layer's codes and scales
+   bitwise where the 5 decode appends leave them. Prints tokens/s and
+   tokens per round against vanilla, a round's and a vanilla decode step's
+   (pipelined and not) wall and device ms and idle share, and K4 at the
+   verify shape beside its bound with the local gather + append ms, and the
+   verify's device ms and largest logit difference with its products
+   batched over the chunk instead (the cost and the reason of exactness).
+
+Decode bursts and speculative rounds replay CUDA graphs, whose kernels do not
+move the wrappers' launch counts: a count is the eager launches plus the
+captures' warm-up and recording.
+
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
 measurement as JSON. Without a CUDA device the script exits 2 and prints no
@@ -699,7 +731,9 @@ def serve(engine, prompt_list, device):
 
 def top2_gap_at(engine, prompt, split: int) -> float:
     """The plain engine's top-2 logit gap where it picks token ``split`` of
-    ``prompt``'s greedy stream (replayed alone: rows are independent)."""
+    ``prompt``'s greedy stream (replayed alone, unpipelined, so the device
+    state is the host's: rows are independent)."""
+    pipeline, engine.pipeline = engine.pipeline, False
     slot = engine.add_request(prompt, MAX_NEW)
     while slot in engine._partials:  # finish a chunked prefill without decoding
         engine._advance_partials()
@@ -708,6 +742,7 @@ def top2_gap_at(engine, prompt, split: int) -> float:
         emitted += sum(1 for ev in engine.step() if ev.slot == slot and ev.emit)
     top = torch.topk(engine._last_logits[slot], 2).values
     engine.cancel(slot)
+    engine.pipeline = pipeline
     return float(top[0] - top[1])
 
 
@@ -1402,6 +1437,360 @@ def bert_app(device) -> dict:
     }
 
 
+# ---------------------------------------------------------- speculation
+
+SPEC_LENS = [7, 13, 30, 60, 100, 150, 200, 256, 400]  # the 400-token prompt prefills in chunks: not armed
+SPEC_GAMMA_MAX = 4
+GAP_LIMIT_F32 = 1e-5
+K4_BODIES = ("paged_decode_kernel", "paged_merge_kernel", "paged_tile_wgmma_kernel", "paged_tile_f32_kernel")
+
+
+def spec_prompts(vocab: int, seed: int = 0) -> list:
+    rng = np.random.default_rng(100 + seed)
+    return [rng.integers(0, vocab, n).tolist() for n in SPEC_LENS]
+
+
+# phase 12's engines prefill one prompt per dispatch: a bucket prefill's
+# products round by their row count, so a prompt prefilled beside whichever
+# requests the batcher's worker happened to find queued could score
+# differently from run to run; decode rows do not interact
+SPEC_ENGINE_KW = dict(num_slots=8, max_len=1024, kv_quantize="int8", prefill_chunk=PREFILL_CHUNK, prefill_batch=1,
+                      seed=0)
+
+
+def vanilla_engine(model, device, **kw):
+    from unionml_tpu_torch.serving.continuous import DecodeEngine
+
+    return DecodeEngine(model, device=device, **SPEC_ENGINE_KW, **kw)
+
+
+def spec_engine(model, draft, device):
+    from unionml_tpu_torch.serving.speculative import SpeculativeEngine
+
+    return SpeculativeEngine(model, draft, gamma_max=SPEC_GAMMA_MAX, device=device, **SPEC_ENGINE_KW)
+
+
+def batch_serve(engine, prompt_list, sampling, device):
+    """Every prompt through ``ContinuousBatcher`` at once with ``sampling``;
+    returns (streams, wall s)."""
+    from unionml_tpu_torch.serving.continuous import ContinuousBatcher
+
+    async def run(batcher):
+        t0 = time.perf_counter()
+        streams = await asyncio.gather(*(batcher.generate(p, MAX_NEW, **sampling) for p in prompt_list))
+        return list(streams), time.perf_counter() - t0
+
+    batcher = ContinuousBatcher(engine, device=device)
+    try:
+        return asyncio.run(run(batcher))
+    finally:
+        batcher.close()
+
+
+def drive(engine, requests) -> list:
+    """Admit ``(prompt, budget, sampling)`` requests in order as slots free
+    and step the engine dry, with no thread: one fixed schedule."""
+    streams, owner, pending = [[] for _ in requests], {}, list(range(len(requests)))
+
+    def pump(events):
+        for ev in events:
+            if ev.emit:
+                streams[owner[ev.slot]].append(ev.token)
+
+    while pending or engine.num_active or engine.has_pending_prefill or engine.has_pending_events:
+        take, pending = pending[:len(engine.free_slots)], pending[len(engine.free_slots):]
+        if take:
+            slots = engine.admit_many([requests[i] for i in take])
+            pump(engine.take_pending_events())
+            owner.update(zip(slots, take))
+        pump(engine.step())
+    return streams
+
+
+def gated_splits(label, got, want, plain_engine, prompt_list, limit) -> list:
+    """Where each greedy stream of ``got`` leaves ``want``, with the plain
+    engine's top-2 gap there; raises where that gap is at least ``limit``."""
+    splits = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        split = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        gap = top2_gap_at(plain_engine, prompt_list[i], split)
+        print(f"{label}: stream {i} splits at token {split}: vanilla top-2 gap {gap:.3e}")
+        if gap >= limit:
+            raise AssertionError(f"{label}: stream {i} disagrees with vanilla at token {split} (gap {gap:.3e})")
+        splits.append({"request": i, "split": split, "vanilla_top2_gap": gap})
+    return splits
+
+
+def graph_replays(engine) -> dict:
+    return {str(key): graph.replays for key, graph in engine._step_fns.items()}
+
+
+def count_htod(fn, calls: int) -> int:
+    """``Memcpy HtoD`` records in a CUDA profile of ``calls`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "Memcpy HtoD" in e.key)
+
+
+def steady(engine, prompt_list, sampling, budget=400):
+    """Fill every slot with a bucket-prefilled request of ``budget`` tokens and
+    step until its graphs are captured and the chunk-free steady state runs."""
+    short = [p for p in prompt_list if len(p) <= PREFILL_CHUNK][: engine.num_slots]
+    short += short[: engine.num_slots - len(short)]
+    engine.admit_many([(p, budget, sampling) for p in short])
+    for _ in range(3):
+        engine.step()
+
+
+def verify_vs_plain(engine) -> dict:
+    """One round run eagerly through the normal step, every layer's verify
+    chunk recorded: each layer's contexts (K4 on the card) against the plain
+    version on the same inputs (phase 3's K4 tolerance), the pool untouched by
+    both."""
+    from unionml_tpu_torch.models import gpt as tgpt
+
+    real, calls = tgpt._paged_verify_chunk, []
+
+    def record(cache, table, position, q, k, v, out_dtype, impl="auto"):
+        before = {n: x.clone() for n, x in cache.items()}
+        out = real(cache, table, position, q, k, v, out_dtype, impl=impl)
+        calls.append((before, table.clone(), position.clone(), q, k, v, out_dtype, out))
+        return out
+
+    run_program = engine._run_program
+    tgpt._paged_verify_chunk = record
+    engine._run_program = lambda key, fn, generators=(): fn()
+    try:
+        engine.step()
+    finally:
+        tgpt._paged_verify_chunk, engine._run_program = real, run_program
+    worst = 0.0
+    for layer, (cache, table, position, q, k, v, out_dtype, out) in enumerate(calls):
+        probe = {n: x.clone() for n, x in cache.items()}
+        want = real(probe, table, position, q, k, v, out_dtype, impl="reference")
+        worst = max(worst, check_close(f"verify chunk, layer {layer}", out, want))
+        if not all(torch.equal(probe[n], cache[n]) for n in cache):
+            raise AssertionError(f"verify chunk, layer {layer}: the plain verify wrote the pool")
+    return {"layers": len(calls), "max_abs_err": worst, "bases": calls[0][2].tolist()}
+
+
+def time_k4_verify(device, bases, launches_per_round, H=12, D=64, bs=16, width=65) -> dict:
+    """K4 at the verify shape: B = len(bases), S 1, over a local copy of each
+    row's ``width`` blocks (int8, bf16 queries) and an identity table, as
+    ``_paged_verify_chunk`` calls it once per chunk position and layer; and the
+    local gather + one append per leaf, the torch ops around it per layer."""
+    from unionml_tpu_torch.models.gpt import _paged_append_quantized
+    from unionml_tpu_torch.ops.paged_attention import fused_hbm_bytes, paged_attention, reference_paged_attention
+    from unionml_tpu_torch.ops.quant import dequantize_blockwise
+
+    B = len(bases)
+    q, (kp, vp, ks, vs), table, base = k4_inputs(B, 1, torch.bfloat16, True, device, bases=bases, width=width)
+    t = table.long()
+    local = [x[t].reshape((B * width,) + tuple(x.shape[1:])).contiguous() for x in (kp, vp, ks, vs)]
+    ident = (torch.arange(B, device=device)[:, None] * width + torch.arange(width, device=device)).to(torch.int32)
+    err = check_close("K4 at the verify shape", paged_attention(q, *local[:2], ident, base, *local[2:]),
+                      reference_paged_attention(q, *local[:2], ident, base, *local[2:]))
+    cols = [b // bs + 1 for b in bases]
+    byts = sum(fused_hbm_bytes(c, bs, H, D, True) + c * 4 for c in cols) + 2 * q.numel() * 2 + B * 4
+    bound, by = _bound(byts, sum(4 * H * D * (b + 1) for b in bases))
+
+    def gather_sdpa():
+        kd = dequantize_blockwise(local[0][ident.long()], local[2][ident.long()], torch.bfloat16)
+        vd = dequantize_blockwise(local[1][ident.long()], local[3][ident.long()], torch.bfloat16)
+        kd, vd = (x.transpose(1, 2).reshape(B, H, -1, D) for x in (kd, vd))
+        mask = torch.arange(kd.shape[2], device=device)[None, None, :] <= base[:, None, None]
+        return torch.nn.functional.scaled_dot_product_attention(q, kd, vd, attn_mask=mask[:, None])
+
+    vals = torch.randn(B, H, D, device=device, dtype=torch.bfloat16)
+    blk, off = (base.long() // bs), (base.long() % bs)
+    dst = torch.arange(B, device=device) * width + blk
+
+    def gather_append():
+        kc, vc, kss, vss = (x[t].reshape((B * width,) + tuple(x.shape[1:])) for x in (kp, vp, ks, vs))
+        _paged_append_quantized(kc, kss, dst, off, vals)
+        _paged_append_quantized(vc, vss, dst, off, vals)
+
+    return {
+        "name": "paged_attention", "route": "cuda", "source": "unionml_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "unionml_tpu/ops/paged_attention.py:92", "launches": launches_per_round, "max_abs_err": err,
+        "bound_ms": bound, "bound_by": by,
+        "shape": f"verify: bf16 int8 local pool B{B} H{H} S1 D{D} bs{bs} width {width} (identity table), "
+                 f"bases {list(bases)}; launches per round of the target",
+        "gather_append_ms_per_layer": cuda_ms(gather_append),
+        **_times(lambda: paged_attention(q, *local[:2], ident, base, *local[2:]),
+                 lambda: reference_paged_attention(q, *local[:2], ident, base, *local[2:]), gather_sdpa),
+    }
+
+
+def speculation(device) -> dict:
+    """Speculative decoding end to end (phase 12, see the module docstring)."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import GPTConfig, init_gpt, random_params
+
+    config = GPTConfig()
+    params = random_params(config, seed=0)
+    draft_config = dataclasses.replace(config, num_layers=2)
+    draft_params = random_params(draft_config, seed=1)
+    prompt_list = spec_prompts(config.vocab_size)
+    greedy = [(p, MAX_NEW, {}) for p in prompt_list]
+    spec = {"speculative": True}
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        r = out[str(dtype)] = {}
+        model = init_gpt(dataclasses.replace(config, dtype=dtype), params=params, device=device)
+        vanilla = vanilla_engine(model, device)
+        batch_serve(vanilla, prompt_list[:1], {}, device)  # warm-up: the burst graphs, cuBLAS
+        van_streams, van_wall = batch_serve(vanilla, prompt_list, {}, device)
+        r["vanilla_tokens_per_s"] = sum(map(len, van_streams)) / van_wall
+        # dispatch-ahead: the same fixed schedule pipelined and not
+        unpiped = vanilla_engine(model, device, pipeline=False)
+        if drive(vanilla, greedy) != drive(unpiped, greedy):
+            raise AssertionError(f"{dtype}: pipelined vanilla streams differ from unpipelined ones")
+        drafts = {"self": model}
+        if dtype == torch.bfloat16:
+            drafts["2-layer"] = init_gpt(dataclasses.replace(draft_config, dtype=dtype), params=draft_params,
+                                         device=device)
+        for label, draft in drafts.items():
+            engine = spec_engine(model, draft, device)
+            batch_serve(engine, prompt_list[:1], spec, device)  # warm-up: the round graph
+            before = engine.speculation_stats()
+            kernels.reset_launches()
+            streams, wall = batch_serve(engine, prompt_list, spec, device)
+            launches = dict(kernels.launches)
+            stats = engine.speculation_stats()
+            ran = (stats["rounds"] - before["rounds"], stats["accepted"] - before["accepted"])
+            limit = GAP_LIMIT_BF16 if dtype == torch.bfloat16 else GAP_LIMIT_F32
+            splits = gated_splits(f"{dtype} {label}-draft", streams, van_streams, vanilla, prompt_list, limit)
+            for name in ("flash_fwd", "paged_attention"):
+                if launches[name] == 0:
+                    raise AssertionError(f"{dtype} {label}-draft: the speculative path never launched {name}")
+            rounds = [k for k in engine._step_fns if k[0] == "round"]
+            if not rounds or engine.spec_round_dispatches != sum(engine._step_fns[k].replays for k in rounds):
+                raise AssertionError(f"{dtype} {label}-draft: a round ran outside its CUDA graph "
+                                     f"({graph_replays(engine)}, {engine.spec_round_dispatches} dispatches)")
+            rec = r[label] = {"tokens_per_s": sum(map(len, streams)) / wall, "launches": launches,
+                              "stats": stats, "splits": splits, "graph_replays": graph_replays(engine),
+                              "tokens_per_round": sum(map(len, streams)) / max(1, ran[0])}
+            if label == "self" and stats["accepted_per_target_step"] <= 2.5:
+                raise AssertionError(f"{dtype} self-draft: accepted per target step {stats}")
+            if label == "2-layer" and stats["fallback_rounds"] == 0:
+                raise AssertionError(f"{dtype} 2-layer draft: gamma never fell to 0: {stats}")
+            if label == "self" and dtype == torch.bfloat16:
+                sampled = [(prompt_list[i], MAX_NEW, {"speculative": True, "temperature": 0.8, "seed": i})
+                           for i in (1, 3)]
+                on, off = drive(engine, sampled), drive(engine, [(p, n, dict(s, gamma=0)) for p, n, s in sampled])
+                if on != off:
+                    raise AssertionError("sampled streams differ between speculation on and off")
+                rec["sampled_on_equals_off"] = True
+                rec["verify_vs_plain"] = verify_vs_plain_phase(engine, prompt_list, device)
+            del engine
+            torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            r["timings"] = spec_timings(model, vanilla, unpiped, prompt_list, device)
+        del model, vanilla, unpiped, drafts
+        torch.cuda.empty_cache()
+    return out
+
+
+def verify_vs_plain_phase(engine, prompt_list, device) -> dict:
+    """The round's graph checks and ``verify_vs_plain`` in a steady state of
+    8 speculative slots."""
+    steady(engine, prompt_list, {"speculative": True})
+    names = [n for n in kernel_ms_by_name(engine.step, 1) if "paged_" in n]
+    found = " ".join(names)
+    if not all(k in found for k in K4_BODIES[:2]) or any(k in found for k in K4_BODIES[2:]):
+        raise AssertionError(f"one round: K4 kernels by profiler name {names}; expected the decode body and merge")
+    htod = count_htod(engine.step, 5)
+    if htod:
+        raise AssertionError(f"5 steady-state rounds made {htod} host-to-device copies")
+    result = {"k4_kernel_names": names, "memcpy_htod_5_rounds": htod, **verify_vs_plain(engine)}
+    ids = torch.tensor([prompt_list[5] + [0] * (256 - len(prompt_list[5]))], device=device)
+    k1 = [n for n in kernel_ms_by_name(lambda: engine._prefill(ids, torch.tensor([len(prompt_list[5])],
+                                                                                  device=device),
+                                                               engine._draft_model), 1) if "flash_fwd" in n]
+    if not any("flash_fwd_wgmma_kernel" in n for n in k1):
+        raise AssertionError(f"the draft prefill's kernels {k1}: no flash_fwd_wgmma_kernel")
+    result["draft_prefill_k1"] = k1
+    engine.abort_all()
+    return result
+
+
+def verify_products(model, engine, device) -> dict:
+    """The verify's logits for 8 rows x 5 chunk tokens on a live pool against
+    the same tokens fed one at a time through decode: bitwise with each
+    position's products at the decode step's row count (what the engine
+    runs), and the commit of all 5 tokens leaves every layer's codes and
+    scales bitwise where the 5 decode appends leave them; with the products
+    batched over the chunk (40 rows), the largest logit difference. Device ms
+    of one verify forward each way."""
+    from unionml_tpu_torch.models import _layers
+    from unionml_tpu_torch.models import gpt as tgpt
+
+    def copy():
+        return {"table": engine._tables, **{n: {k: x.clone() for k, x in layer.items()}
+                                             for n, layer in engine._pool.items()}}
+
+    chunk = torch.randint(0, model.config.vocab_size, (engine.num_slots, SPEC_GAMMA_MAX + 1), device=device,
+                          generator=torch.Generator(device=device).manual_seed(0))
+    lens, cache, fed = engine._lens.clone(), copy(), copy()
+
+    def verify():  # leaves ``cache`` as it found it
+        with torch.no_grad():
+            return model(chunk, cache=cache, position=lens)
+
+    with torch.no_grad():
+        seq = torch.stack([model(chunk[:, j:j + 1], cache=fed, position=lens + j)[0][:, 0]
+                           for j in range(chunk.shape[1])], dim=1)
+    exact, verified = verify()
+    if not torch.equal(exact, seq):
+        raise AssertionError(f"verify logits differ from decode's by {float((exact - seq).abs().max()):.3e}")
+    counts = torch.full_like(lens, chunk.shape[1])
+    for name in engine._pool:
+        layer = {k: x for k, x in cache[name].items()}
+        tgpt.paged_commit_chunk(layer, engine._tables, lens, counts, verified[name]["ck"], verified[name]["cv"])
+        if not all(torch.equal(layer[k], fed[name][k]) for k in layer):
+            raise AssertionError(f"{name}: the commit of the verified chunk differs from the decode appends")
+    cache = copy()
+    out = {"per_position_ms": sum(kernel_ms_by_name(verify, 5).values())}
+    by_position, tgpt._dense_by_position = tgpt._dense_by_position, _layers._dense
+    try:
+        out["batched_max_logit_diff"] = float((verify()[0] - seq).abs().max())
+        out["batched_ms"] = sum(kernel_ms_by_name(verify, 5).values())
+    finally:
+        tgpt._dense_by_position = by_position
+    return out
+
+
+def spec_timings(model, vanilla, unpiped, prompt_list, device) -> dict:
+    """A round's wall vs device ms (self-draft, 8 speculative slots), a vanilla
+    decode step's with ``pipeline`` on and off, zero host-to-device copies
+    over 5 steady bursts, and K4 at the verify shape."""
+    out = {}
+    for label, engine in (("pipelined", vanilla), ("unpipelined", unpiped)):
+        steady(engine, prompt_list, {})
+        out[f"decode_step_{label}"] = step_profile(engine.step, 5, top=6)
+        if label == "pipelined":
+            out["memcpy_htod_5_bursts"] = htod = count_htod(engine.step, 5)
+            if htod:
+                raise AssertionError(f"5 steady-state decode bursts made {htod} host-to-device copies")
+            out["verify_products"] = verify_products(model, engine, device)
+        engine.abort_all()
+    engine = spec_engine(model, model, device)
+    steady(engine, prompt_list, {"speculative": True})
+    out["round"] = step_profile(engine.step, 5, top=6)
+    bases = [int(b) for b in engine._lens.tolist()]
+    engine.abort_all()
+    out["k4_verify"] = time_k4_verify(device, bases, 12 * (SPEC_GAMMA_MAX + 1))
+    return out
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -1823,6 +2212,45 @@ def main() -> int:
     save = app["one_save"]
     print(f"[{name_limit}] one Checkpointer.save of the BERT-base TrainState ({save['bytes'] / 1e9:.2f} GB): "
           f"snapshot to host {save['snapshot_ms']:.0f} ms, background write {save['write_ms']:.0f} ms")
+    torch.cuda.empty_cache()
+    details["speculation"] = spec = speculation(device)
+    for dtype, r in spec.items():
+        for label in ("self", "2-layer"):
+            if label not in r:
+                continue
+            rec = r[label]
+            print(f"[{name_limit}] speculation {dtype} {label}-draft (gamma_max {SPEC_GAMMA_MAX}): "
+                  f"{rec['tokens_per_s']:.1f} tok/s against vanilla {r['vanilla_tokens_per_s']:.1f}, "
+                  f"{rec['tokens_per_round']:.2f} tokens per round, stats {rec['stats']}, launches {rec['launches']}, "
+                  f"graph replays {rec['graph_replays']}, splits from vanilla {rec['splits']} "
+                  f"(gate {GAP_LIMIT_BF16 if dtype == str(torch.bfloat16) else GAP_LIMIT_F32})")
+        print(f"speculation {dtype}: pipelined vanilla streams equal unpipelined ones")
+    bf = spec[str(torch.bfloat16)]
+    check = bf["self"]["verify_vs_plain"]
+    print(f"speculation: sampled streams (temperature 0.8, seeds 1 and 3) equal with speculation on and off; "
+          f"verify chunk vs plain in one eager round: {check['layers']} layers, max |err| {check['max_abs_err']:.3e} "
+          "(K4 tolerance); one round's K4 kernels "
+          f"{check['k4_kernel_names']}; Memcpy HtoD over 5 steady rounds {check['memcpy_htod_5_rounds']}; the draft "
+          f"prefill's K1 {check['draft_prefill_k1']}")
+    tm = bf["timings"]
+    for label in ("round", "decode_step_pipelined", "decode_step_unpipelined"):
+        st = tm[label]
+        print(f"[{name_limit}] bf16 {label.replace('_', ' ')} (8 slots): {st['wall_ms_per_step']:.3f} ms wall, "
+              f"{st['device_ms_per_step']:.3f} ms device kernels, idle share {st['device_idle_share']:.3f}; "
+              f"top kernels {st['top_kernels_ms_per_step']}")
+    print(f"Memcpy HtoD over 5 steady decode bursts: {tm['memcpy_htod_5_bursts']}")
+    vp = tm["verify_products"]
+    print(f"[{name_limit}] verify of 8 rows x {SPEC_GAMMA_MAX + 1} tokens: logits bitwise equal to decoding the tokens "
+          f"one at a time with each position's products at the decode step's 8 rows ({vp['per_position_ms']:.3f} ms "
+          f"device per verify forward), the commit's codes and scales bitwise those of the decode appends; "
+          f"batched over the chunk (40 rows) the logits would differ by up to "
+          f"{vp['batched_max_logit_diff']:.3e} ({vp['batched_ms']:.3f} ms)")
+    kv = tm["k4_verify"]
+    print(f"[{name_limit}] {kv['name']} {kv['shape']}: {kv['ms']:.4f} ms per call (bound {kv['bound_ms']:.5f} ms by "
+          f"{kv['bound_by']}), plain {kv['plain_ms']:.4f} ms, gather + SDPA {kv['library_ms']:.4f} ms, "
+          f"{kv['launches']} launches per round; the local gather + append {kv['gather_append_ms_per_layer']:.4f} "
+          f"ms per layer and chunk position [{kv['method']}]")
+    details["extra_timings"].append(kv)
     details["total_s"] = time.perf_counter() - t0
     if args.details is not None:
         args.details.parent.mkdir(parents=True, exist_ok=True)

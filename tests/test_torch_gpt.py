@@ -144,9 +144,8 @@ def test_config_defaults_and_unported_paths():
         dataclasses.replace(cfg, remat=True)
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, paged_attn_impl="pallas")
-    for fn in (tgpt.param_shardings, tgpt.paged_commit_chunk):
-        with pytest.raises(NotImplementedError):
-            fn()
+    with pytest.raises(NotImplementedError):
+        tgpt.param_shardings()
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
     ids, segs = torch.zeros((1, 4), dtype=torch.long), torch.ones((1, 4), dtype=torch.long)
     # packed training runs now (and lm_loss with it); packing composes with no cache and no pad_offsets
@@ -157,10 +156,15 @@ def test_config_defaults_and_unported_paths():
         model(ids, segment_ids=segs, pad_offsets=torch.zeros(1, dtype=torch.long))
     with pytest.raises(ValueError, match="generator"):
         model(ids, deterministic=False)
-    with pytest.raises(NotImplementedError):  # speculative verify: multi-token per-row paged step
-        pool = tgpt.init_block_pool(model.config, 3, 4, device="cpu")
-        model(torch.zeros((1, 2), dtype=torch.long),
-              cache={"table": torch.zeros((1, 2), dtype=torch.int32), **pool}, position=torch.tensor([0]))
+    # a multi-token per-row paged step is the speculative verify: it leaves the
+    # pool untouched and hands back the chunk's K/V for paged_commit_chunk
+    pool = tgpt.init_block_pool(model.config, 3, 4, device="cpu")
+    with torch.no_grad():
+        _, verified = model(torch.zeros((1, 2), dtype=torch.long),
+                            cache={"table": torch.zeros((1, 2), dtype=torch.int32), **pool},
+                            position=torch.tensor([0]))
+    assert verified["layer_0"]["ck"].shape == (1, 4, 2, 16)
+    assert all(not leaf.any() for layer in pool.values() for leaf in layer.values())
 
 
 def test_bf16_config_keeps_f32_parameters_equal_to_the_jax_tree(pair):

@@ -568,3 +568,59 @@ def test_paged_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         paged_attention(q, kp, vp, table, base, ks, vs)
     assert kernels.launches["paged_attention"] == before
+
+
+@pytest.mark.parametrize("dtype,pool", PAGED_POOLS, ids=["bf16-int8", "bf16-bf16", "f32-int8", "f32-f32"])
+def test_verify_chunk_on_the_kernel_matches_plain(cuda, dtype, pool):
+    """The speculative verify (``models/gpt.py::_paged_verify_chunk``) at the
+    engine's shape: 8 rows, 5 chunk positions each, ragged bases and a row at
+    the sentinel, K4 over the local copy against the plain version; the pool
+    untouched and K4 launched once per chunk position."""
+    from unionml_tpu_torch.models.gpt import _paged_verify_chunk
+
+    bases = [5, 1000 - 5, 250, 16, 511, 64, 777, 1024]
+    q, kp, vp, table, base, ks, vs = _paged_inputs(cuda, dtype, pool, [min(b, 1018) for b in bases], 5, heads=12,
+                                                   width=65)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    k, v = (torch.randn(q.shape, device=cuda).to(dtype) for _ in range(2))
+    cache = {"k": kp, "v": vp, **({"k_scale": ks, "v_scale": vs} if ks is not None else {})}
+    before = {n: x.clone() for n, x in cache.items()}
+    launches = kernels.launches["paged_attention"]
+    got = _paged_verify_chunk(cache, table, base, q, k, v, dtype)
+    assert kernels.launches["paged_attention"] == launches + 5
+    want = _paged_verify_chunk(cache, table, base, q, k, v, dtype, impl="reference")
+    _close(got[:7], want[:7])
+    assert all(torch.equal(cache[n], before[n]) for n in cache)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["decode-burst", "speculative-round"])
+def test_graph_replay_matches_the_eager_program(cuda, spec):
+    """A decode burst's and a speculative round's CUDA graphs (f32, a small GPT
+    at head_dim 64) against the same programs run eagerly: identical streams,
+    every dispatch a replay."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import DecodeEngine, SpeculativeEngine
+
+    model = init_gpt(GPTConfig.tiny(hidden_size=128, num_heads=2, max_position_embeddings=256, dtype=torch.float32),
+                     std=0.3, device=cuda)
+    kw = dict(num_slots=4, max_len=256, prefill_buckets=(16, 32), kv_quantize="int8", device=cuda)
+    requests = [([3, 1, 4, 1, 5], 20, {"speculative": True} if spec else {}),
+                ([2, 7, 1, 8, 2, 8], 14, {"speculative": True, "temperature": 0.8, "seed": 3} if spec else {}),
+                ([9] * 20, 9, {})]
+
+    def run(eager):
+        engine = SpeculativeEngine(model, model, **kw) if spec else DecodeEngine(model, **kw)
+        if eager:
+            engine._run_program = lambda key, fn, generators=(): fn()
+        slots = engine.admit_many(requests)
+        streams = {s: [] for s in slots}
+        while engine.num_active:
+            for ev in engine.step():
+                if ev.emit:
+                    streams[ev.slot].append(ev.token)
+        return [streams[s] for s in slots], engine
+
+    graphs, engine = run(eager=False)
+    assert graphs == run(eager=True)[0]
+    assert engine._step_fns and engine.pipeline_stats()["step_dispatches"] == sum(
+        g.replays for g in engine._step_fns.values())

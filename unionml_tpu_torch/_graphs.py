@@ -135,8 +135,9 @@ class CapturedGraph:
     """
 
     def __init__(self, graph: "torch.cuda.CUDAGraph", spec: Any, n_leaves: int, slots: List[int],
-                 static: List[torch.Tensor], output: Any, capture_ms: float):
+                 static: List[torch.Tensor], output: Any, capture_ms: float, device: torch.device):
         self._graph = graph
+        self._device = device
         self._spec = spec
         self._n_leaves = n_leaves
         self._slots = slots
@@ -158,7 +159,7 @@ class CapturedGraph:
         if str(spec) != str(self._spec) or len(leaves) != self._n_leaves:
             raise ValueError("CapturedGraph called with a tree of another structure than it was captured with")
         with self._lock:
-            stream = torch.cuda.current_stream(self._static[0].device)
+            stream = torch.cuda.current_stream(self._device)
             if self._done is not None:
                 stream.wait_event(self._done)
             with torch.no_grad():
@@ -172,18 +173,30 @@ class CapturedGraph:
         return out
 
 
-def capture(fn: Callable, args: Tuple, kwargs: dict) -> CapturedGraph:
+def capture(fn: Callable, args: Tuple, kwargs: dict, *, device: Optional[torch.device] = None,
+            generators: Tuple[torch.Generator, ...] = ()) -> CapturedGraph:
     """Record ``fn(*args, **kwargs)`` as a CUDA graph (see the module's
     docstring). The returned graph has not run yet: call it to replay.
+
+    ``device`` names the CUDA device of a function with no tensor arguments
+    (one that reads and writes tensors it holds, such as a decode step over
+    an engine's static buffers). ``generators`` are the ``torch.Generator``
+    objects the function draws from besides the default one: each is
+    registered with the graph, so every replay draws fresh numbers from it.
 
     :raises CaptureError: the call cannot be recorded (see the module's
         docstring); nothing of the graph is kept.
     """
     leaves, spec = _pytree.tree_flatten((args, kwargs))
     slots = [i for i, leaf in enumerate(leaves) if isinstance(leaf, torch.Tensor)]
-    if not slots or not capturable((args, kwargs)):
-        raise CaptureError("a CUDA graph needs CUDA tensor inputs and no host arrays")
-    device = leaves[slots[0]].device
+    if slots:
+        if not capturable((args, kwargs)):
+            raise CaptureError("a CUDA graph needs CUDA tensor inputs and no host arrays")
+        device = leaves[slots[0]].device
+    elif device is None or torch.device(device).type != "cuda" or any(
+            isinstance(leaf, np.ndarray) for leaf in leaves):
+        raise CaptureError("a CUDA graph needs CUDA tensor inputs (or a CUDA device) and no host arrays")
+    device = torch.device(device)
     t0 = time.perf_counter()
     with _CAPTURE_LOCK, torch.cuda.device(device):
         static = [leaves[i].detach().clone() for i in slots]
@@ -205,13 +218,15 @@ def capture(fn: Callable, args: Tuple, kwargs: dict) -> CapturedGraph:
                 run()
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        for generator in generators:
+            graph.register_generator_state(generator)
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 output = run()
         except Exception as exc:
             raise CaptureError(f"capturing {getattr(fn, '__name__', fn)} failed: {type(exc).__name__}: {exc}") from exc
         capture_ms = (time.perf_counter() - t0) * 1e3
-    return CapturedGraph(graph, spec, len(leaves), slots, static, output, capture_ms)
+    return CapturedGraph(graph, spec, len(leaves), slots, static, output, capture_ms, device)
 
 
 class GraphCache:

@@ -1,6 +1,6 @@
 """The port's model zoo: the GPT decoder, the BERT classifier, the MLP and
 CNN classifiers, their weight conversion, and the training loops (classifier
-fine-tuning and packed causal-LM training)."""
+fine-tuning and packed causal-LM training), and speculative generation."""
 
 from unionml_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, import_hf_weights, init_bert
 from unionml_tpu_torch.models.convert import (
@@ -16,6 +16,7 @@ from unionml_tpu_torch.models.convert import (
 )
 from unionml_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate, lm_loss
 from unionml_tpu_torch.models.mlp import CNNClassifier, MLPClassifier
+from unionml_tpu_torch.models.speculative import speculative_generate
 from unionml_tpu_torch.models.training import (
     FitResult,
     TrainState,
@@ -61,4 +62,5 @@ __all__ = [
     "mlp_params_from_jax",
     "params_from_jax",
     "random_params",
+    "speculative_generate",
 ]

@@ -8,7 +8,10 @@ cache paths the serving engine drives:
   flash kernel on the card (``gpt.py:485-492``);
 - paged per-row decode: the int8 (or full-precision) append into each row's
   tail block, then K4 over the block table (``gpt.py:386-466``);
-- paged batch-1 chunk prefill: :func:`_paged_chunk_quantized`, then K4.
+- paged batch-1 chunk prefill: :func:`_paged_chunk_quantized`, then K4;
+- paged per-row chunks (speculative verify, ``gpt.py:157-251``):
+  :func:`_paged_verify_chunk` scores S tokens per row without writing the
+  pool, and :func:`paged_commit_chunk` appends the accepted ones afterwards.
 
 Training (``cache=None``, ``deterministic=False`` with a ``generator``):
 dropout at the JAX model's three sites (embeddings, after ``attn_out``, after
@@ -28,9 +31,8 @@ its weight and input to ``config.dtype`` (``models/_layers.py``), the
 embedding lookups return ``config.dtype`` and the tied head multiplies
 float32 hidden states by the float32 embedding. KV caches and pools keep
 ``config.dtype``. Not ported yet (each raises ``NotImplementedError`` naming
-its ROADMAP item): the MoE and ring/ulysses layers, ``remat``, the
-speculative-verify chunk (``_paged_verify_chunk`` / ``paged_commit_chunk``)
-and ``param_shardings``.
+its ROADMAP item): the MoE and ring/ulysses layers, ``remat`` and
+``param_shardings``.
 """
 
 import dataclasses
@@ -187,6 +189,93 @@ def _paged_chunk_quantized(pool_q, pool_scale, table_row, position: int, vals):
     return pool_q, pool_scale
 
 
+def _dense_by_position(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`~unionml_tpu_torch.models._layers._dense` of ``x`` (batch, S, in)
+    one position at a time: each product has the decode step's shape
+    (``batch`` rows), so a row's result is bit for bit the decode step's (a
+    GEMM's rounding depends on its row count on the card and on the CPU)."""
+    weight = layer.weight.to(dtype)
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    x = x.to(dtype)
+    return torch.cat([F.linear(x[:, j:j + 1].contiguous(), weight, bias) for j in range(x.shape[1])], dim=1)
+
+
+def _paged_verify_chunk(cache, block_table, position, q, k, v, out_dtype, impl="auto"):
+    """Speculative verify (``gpt.py:157-251``): attention context for ``S``
+    chunk tokens per row over the row's paged prefix, WITHOUT writing the pool.
+
+    ``q``/``k``/``v`` are ``(batch, heads, S, head_dim)`` for chunk tokens at
+    per-row positions ``[position, position + S)``. Each row's blocks are
+    gathered into a local copy in the pool's own layout (int8 codes stay int8,
+    scales f32); chunk position ``j`` then runs the decode append
+    (:func:`_paged_append_quantized`, or the full-precision scatter) into that
+    copy and :func:`paged_attention` at S = 1 over an identity table, so an
+    accepted token scores bit for bit as plain decoding would have scored it,
+    and a rejected one never touches the pool or its monotone int8 scales.
+    Returns ``(batch, heads, S, head_dim)`` in ``out_dtype``.
+    """
+    batch, heads, S, head_dim = q.shape
+    block_size = cache["k"].shape[2]
+    width = block_table.shape[1]
+    capacity = width * block_size
+    device = q.device
+    table = block_table.long()
+    rows = torch.arange(batch, device=device)
+    # row b's logical block w is local block b * width + w of the flattened copy
+    local_table = (rows[:, None] * width + torch.arange(width, device=device)[None, :]).to(torch.int32)
+
+    def local(leaf):
+        return leaf[table].reshape((batch * width,) + tuple(leaf.shape[1:]))
+
+    quantized = "k_scale" in cache
+    kc, vc = local(cache["k"]), local(cache["v"])
+    ks, vs = (local(cache["k_scale"]), local(cache["v_scale"])) if quantized else (None, None)
+    pos0 = position.to(torch.int32)
+    out = []
+    for j in range(S):
+        pos = torch.clamp(pos0 + j, 0, capacity - 1)
+        blk, off = pos.long() // block_size, pos.long() % block_size
+        dst = rows * width + blk
+        if quantized:
+            _paged_append_quantized(kc, ks, dst, off, k[:, :, j, :])
+            _paged_append_quantized(vc, vs, dst, off, v[:, :, j, :])
+        else:
+            kc[dst, :, off, :] = k[:, :, j, :].to(kc.dtype)
+            vc[dst, :, off, :] = v[:, :, j, :].to(vc.dtype)
+        ctx = paged_attention(q[:, :, j:j + 1, :].contiguous(), kc, vc, local_table, pos, k_scale=ks, v_scale=vs,
+                              out_dtype=out_dtype, impl=impl)
+        out.append(ctx)
+    return torch.cat(out, dim=2)
+
+
+def paged_commit_chunk(layer_cache, block_table, position, counts, ck, cv):
+    """Commit the first ``counts[row]`` verified chunk tokens of one layer into
+    the paged pool as SEQUENTIAL single-token appends, in place
+    (``gpt.py:254-303``).
+
+    ``ck``/``cv`` are the ``(batch, heads, S, head_dim)`` K/V a verify pass
+    stashed; row positions start at ``position`` (the row's length before the
+    round). Chunk index ``j >= counts[row]`` (rejected proposals, tokens past a
+    retirement, rows with count 0) writes at the sentinel position, the
+    trailing scratch column, so the pool and its int8 scales follow exactly
+    the trajectory plain decoding of the accepted prefix gives. Returns
+    ``layer_cache``.
+    """
+    block_size = layer_cache["k"].shape[2]
+    sentinel = (block_table.shape[1] - 1) * block_size
+    pos0 = position.long()
+    for j in range(ck.shape[2]):
+        pos = torch.where(j < counts, pos0 + j, torch.full_like(pos0, sentinel))
+        dst, off = _decode_slots(pos, block_table, block_size)
+        if "k_scale" in layer_cache:
+            _paged_append_quantized(layer_cache["k"], layer_cache["k_scale"], dst, off, ck[:, :, j, :])
+            _paged_append_quantized(layer_cache["v"], layer_cache["v_scale"], dst, off, cv[:, :, j, :])
+        else:
+            layer_cache["k"][dst, :, off, :] = ck[:, :, j, :].to(layer_cache["k"].dtype)
+            layer_cache["v"][dst, :, off, :] = cv[:, :, j, :].to(layer_cache["v"].dtype)
+    return layer_cache
+
+
 class DecoderBlock(nn.Module):
     """Pre-LN block: attention then a tanh-GELU MLP, each with a residual."""
 
@@ -219,14 +308,19 @@ class DecoderBlock(nn.Module):
         Dense cache: ``{"k","v"}`` of shape (batch, heads, max_len, head_dim)
         and a scalar ``position``. Paged: pool leaves (num_blocks, heads,
         block_size, head_dim) shared by every row, ``block_table`` (batch,
-        width), and either a (batch,) ``position`` tensor (single-token
-        decode, each row at its own position) or an int (batch-1 chunk);
+        width), and either a (batch,) ``position`` tensor (each row at its own
+        position: single-token decode, or a speculative verify chunk that
+        leaves the pool untouched and returns its K/V as ``"ck"``/``"cv"``)
+        or an int (batch-1 chunk);
         ``decode_slots`` (from :func:`_decode_slots`) saves each layer of a
         decode step from computing the rows' write slots again.
         """
         cfg = self.config
         batch, seq, _ = hidden.shape
-        qkv = _dense(self.qkv, _layer_norm(self.attn_norm, hidden, cfg.dtype), cfg.dtype)
+        # a speculative verify chunk takes each position's products at the
+        # decode step's shape, so its tokens score as plain decoding scores them
+        dense = _dense_by_position if block_table is not None and _per_row(position) and seq > 1 else _dense
+        qkv = dense(self.qkv, _layer_norm(self.attn_norm, hidden, cfg.dtype), cfg.dtype)
 
         def heads(x):
             return x.reshape(batch, seq, cfg.num_heads, cfg.head_dim).transpose(1, 2).contiguous()
@@ -251,15 +345,24 @@ class DecoderBlock(nn.Module):
                     q, k, v, causal=True, mask=pad_mask(torch.arange(seq, device=q.device))
                 )
         elif block_table is not None:
-            context = self._paged(q, k, v, cache, position, block_table, pad_offsets, decode_slots)
+            if pad_offsets is not None:
+                raise ValueError("paged decode does not support pad_offsets (left-padded rows)")
+            if _per_row(position) and seq != 1:
+                # speculative verify: score the chunk without writing the pool;
+                # the fresh K/V ride along for paged_commit_chunk
+                context = _paged_verify_chunk(cache, block_table, position, q, k, v, cfg.dtype,
+                                              impl=cfg.paged_attn_impl)
+                new_cache = {**cache, "ck": k, "cv": v}
+            else:
+                context = self._paged(q, k, v, cache, position, block_table, decode_slots)
         else:
             context = self._dense(q, k, v, cache, position, pad_offsets, pad_mask)
 
         context = context.transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
-        hidden = hidden + _dropout(_dense(self.attn_out, context, cfg.dtype), cfg.dropout, generator)
+        hidden = hidden + _dropout(dense(self.attn_out, context, cfg.dtype), cfg.dropout, generator)
         normed = _layer_norm(self.mlp_norm, hidden, cfg.dtype)
-        up = F.gelu(_dense(self.mlp_up, normed, cfg.dtype), approximate="tanh")
-        return hidden + _dropout(_dense(self.mlp_down, up, cfg.dtype), cfg.dropout, generator), new_cache
+        up = F.gelu(dense(self.mlp_up, normed, cfg.dtype), approximate="tanh")
+        return hidden + _dropout(dense(self.mlp_down, up, cfg.dtype), cfg.dropout, generator), new_cache
 
     def _dense(self, q, k, v, cache, position, pad_offsets, pad_mask):
         cfg = self.config
@@ -287,17 +390,10 @@ class DecoderBlock(nn.Module):
             mask = mask & pad_mask(k_pos)
         return reference_attention(q, cache["k"], cache["v"], mask=mask)
 
-    def _paged(self, q, k, v, cache, position, block_table, pad_offsets, decode_slots=None):
+    def _paged(self, q, k, v, cache, position, block_table, decode_slots=None):
         cfg = self.config
         batch, _, seq, _ = q.shape
-        if pad_offsets is not None:
-            raise ValueError("paged decode does not support pad_offsets (left-padded rows)")
         per_row = _per_row(position)
-        if per_row and seq != 1:
-            raise NotImplementedError(
-                "multi-token per-row paged steps (speculative verify) are not ported yet "
-                "(ROADMAP: speculation slice)"
-            )
         block_size = cache["k"].shape[2]
         quantized = "k_scale" in cache
         if per_row:
@@ -409,7 +505,8 @@ class GPTLMHeadModel(nn.Module):
             # once per step, not per layer: K4 takes int32 positions, the
             # append its write slots
             position = position.to(torch.int32)
-            decode_slots = _decode_slots(position, block_table, cache["layer_0"]["k"].shape[2])
+            if seq == 1:
+                decode_slots = _decode_slots(position, block_table, cache["layer_0"]["k"].shape[2])
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else cache[f"layer_{i}"]
             hidden, layer_cache = layer(hidden, layer_cache, position, pad_offsets, block_table, segment_ids,
@@ -418,9 +515,13 @@ class GPTLMHeadModel(nn.Module):
                 new_cache[f"layer_{i}"] = layer_cache
         if block_table is not None:
             new_cache["table"] = block_table
-        hidden = _layer_norm(self.final_norm, hidden, cfg.dtype)
-        # tied head with genuinely-f32 logits: f32 hidden states times the f32 embedding
-        logits = hidden.float() @ self.wte.weight.t()
+        hidden = _layer_norm(self.final_norm, hidden, cfg.dtype).float()
+        # tied head with genuinely-f32 logits: f32 hidden states times the f32
+        # embedding (a verify chunk's position by position, as its blocks)
+        if block_table is not None and _per_row(position) and seq > 1:
+            logits = torch.cat([hidden[:, j:j + 1].contiguous() @ self.wte.weight.t() for j in range(seq)], dim=1)
+        else:
+            logits = hidden @ self.wte.weight.t()
         return (logits, new_cache) if cache is not None else logits
 
 
@@ -476,6 +577,19 @@ def init_block_pool(
                 "v": torch.zeros(shape, dtype=dtype, device=device),
             }
     return pool
+
+
+def kv_pool_bytes(pool: Dict[str, Any], dense_dtype: torch.dtype) -> Tuple[int, int]:
+    """``(bytes as stored, bytes at dense_dtype)`` of a block pool, from shapes
+    only (``gpt.py:748-759``): the second prices the same K/V positions at
+    ``dense_dtype`` without the scale leaves."""
+    stored = full = 0
+    for layer in pool.values():
+        for name, leaf in layer.items():
+            stored += leaf.numel() * leaf.element_size()
+            if not name.endswith("_scale"):
+                full += leaf.numel() * dense_dtype.itemsize
+    return stored, full
 
 
 def block_table_width(max_len: int, block_size: int) -> int:
@@ -588,7 +702,6 @@ def _not_ported(name: str, item: str):
     return fail
 
 
-paged_commit_chunk = _not_ported("paged_commit_chunk", "speculation slice")
 param_shardings = _not_ported("param_shardings", "mesh-sharded serving")
 
 

@@ -10,13 +10,28 @@ takes a key. Sampling is Gumbel-argmax, as ``jax.random.categorical`` is, but
 the two generators give different bits from the same seed: sampled streams
 match the JAX package in distribution and in their support set, never
 bitwise.
+
+Keyed selection is the exception (:func:`keyed_select`, the selection rule of
+``unionml_tpu/serving/speculative.py:241-253``): a token is a pure function of
+(slot key, position). It ports JAX's threefry2x32 (``jax_threefry_partitionable``
+on, the JAX default) in int64 torch ops, so :func:`fold_in` and
+:func:`random_bits` give JAX's bits exactly and :func:`keyed_categorical` draws
+what ``jax.random.categorical`` draws (up to the last bit of ``log``). A
+``torch.Generator`` cannot give a per-(row, position) stream inside one CUDA
+graph; a function of its inputs can.
 """
 
 from typing import Optional
 
 import torch
 
-__all__ = ["apply_top_k", "apply_top_p", "sample_logits", "validate_sampling"]
+__all__ = [
+    "apply_top_k", "apply_top_p", "fold_in", "keyed_categorical", "keyed_select", "random_bits", "sample_logits",
+    "threefry2x32", "validate_sampling",
+]
+
+_MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 def validate_sampling(temperature=None, top_k=0, top_p=1.0):
@@ -111,3 +126,75 @@ def sample_logits(
     gumbel = -torch.log(-torch.log(torch.clamp(uniform, min=tiny)))
     sampled = torch.argmax(scaled + gumbel, dim=-1)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK32
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor):
+    """The Threefry-2x32 hash (20 rounds) as ``jax._src.prng`` computes it.
+
+    Every argument holds uint32 values in an int64 tensor (broadcastable
+    shapes); returns the two uint32 output words, int64 as well.
+    """
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x1 + ks[0]) & _MASK32, (x2 + ks[1]) & _MASK32]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _MASK32
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK32
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x[0], x[1]
+
+
+def fold_in(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.random.fold_in`` of raw threefry keys, row by row.
+
+    :param keys: ``(..., 2)`` int64 holding uint32 key words.
+    :param data: ``(...)`` integers below 2**32 (the JAX engine folds in int32
+        positions cast to uint32).
+    :returns: ``(..., 2)`` int64, the folded keys.
+    """
+    k1, k2 = keys[..., 0], keys[..., 1]
+    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(k1), data.long() & _MASK32)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` for each row of ``keys``
+    ``(rows, 2)`` under the partitionable threefry layout: element ``i`` is
+    the XOR of the two words of ``threefry2x32(key, (0, i))``. Returns
+    ``(rows, n)`` int64."""
+    counts = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(counts), counts)
+    return b1 ^ b2
+
+
+def keyed_categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(jax.random.categorical)(keys, logits)``: Gumbel-argmax with
+    the uniforms built from :func:`random_bits` as ``jax.random.uniform``
+    builds them (23 mantissa bits, then ``[tiny, 1)``). ``logits`` is
+    ``(rows, vocab)`` float32; returns ``(rows,)`` int64."""
+    bits = random_bits(keys, logits.shape[-1])
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.finfo(torch.float32).tiny
+    uniform = torch.clamp_min(floats + tiny, tiny)
+    return torch.argmax(-torch.log(-torch.log(uniform)) + logits, dim=-1)
+
+
+def keyed_select(logits: torch.Tensor, keys: torch.Tensor, positions: torch.Tensor,
+                 temperature: torch.Tensor) -> torch.Tensor:
+    """THE selection rule of the speculative round: greedy argmax where a
+    row's temperature is 0, else a categorical at that temperature keyed by
+    ``fold_in(slot key, position)``, so one position always draws one token
+    whichever program or round evaluates it.
+
+    :param logits: ``(rows, vocab)``; ``keys`` ``(rows, 2)``; ``positions``
+        ``(rows,)``; ``temperature`` ``(rows,)``. Returns ``(rows,)`` int64.
+    """
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits.float() / torch.clamp_min(temperature, 1e-6)[:, None]
+    drawn = keyed_categorical(fold_in(keys, positions), scaled)
+    return torch.where(temperature > 0, drawn, greedy)

@@ -1,7 +1,8 @@
 """The port's serving: the resident predictor behind ``/predict`` (a CUDA graph
 per padded request shape, :mod:`unionml_tpu_torch.serving.resident`), its
 request coalescing and aiohttp app, and the GPT path's paged ``DecodeEngine``
-and asyncio ``ContinuousBatcher`` (:mod:`unionml_tpu_torch.serving.continuous`)."""
+and asyncio ``ContinuousBatcher`` (:mod:`unionml_tpu_torch.serving.continuous`),
+and speculative decoding on that engine (:mod:`unionml_tpu_torch.serving.speculative`)."""
 
 from typing import Any, Optional
 
@@ -11,6 +12,7 @@ from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
 from unionml_tpu_torch.serving.faults import EngineFailure
 from unionml_tpu_torch.serving.resident import ResidentPredictor
 from unionml_tpu_torch.serving.scheduler import QueueFullError
+from unionml_tpu_torch.serving.speculative import SpeculativeBatcher, SpeculativeEngine
 
 
 def serving_app(
@@ -51,6 +53,8 @@ __all__ = [
     "QueueFullError",
     "RequestBatcher",
     "ResidentPredictor",
+    "SpeculativeBatcher",
+    "SpeculativeEngine",
     "StepEvent",
     "build_aiohttp_app",
     "jsonable",

@@ -24,22 +24,33 @@ free slots between steps and evicted when they finish.
 - Slot lifecycle (``active``/``remaining``) lives on the device and retires
   inside the step (``advance_slot_state``); the host replays the fetched
   tokens into its mirrors, one device-to-host copy per step burst.
+- Each (lookahead, sampling) burst is one CUDA graph on the card (the
+  counterpart of JAX's compiled step programs), over static device buffers
+  that admission updates in place by index; the bucket and chunk prefills run
+  eagerly between bursts. A steady-state step copies nothing from the host.
+- Depth-1 dispatch-ahead (``pipeline=True``, the default): :meth:`DecodeEngine.step`
+  enqueues burst N+1 (its graph, then asynchronous copies of its tokens into
+  pinned host memory and an event) before it waits for burst N's event.
+  :meth:`DecodeEngine._dispatch_step` and :meth:`DecodeEngine._replay_burst`
+  are the seam the speculative engine overrides.
 - A slot whose logits went NaN/Inf is quarantined alone (its request fails
   with ``nan_logits``); its neighbours keep decoding.
 
-Not ported yet: the prefix cache, depth-1 dispatch-ahead pipelining,
-preemption, salvage and rebuild, fault plans, telemetry, mesh sharding,
-weight-int8 ``quantize`` and the dense ``paged=False`` engine.
+Not ported yet: the prefix cache, preemption, salvage and rebuild, fault
+plans, telemetry, mesh sharding, weight-int8 ``quantize`` and the dense
+``paged=False`` engine.
 """
 
 import asyncio
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from unionml_tpu_torch import _graphs
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.models.gpt import (
@@ -49,6 +60,7 @@ from unionml_tpu_torch.models.gpt import (
     init_block_tables,
     init_cache,
     init_slot_state,
+    kv_pool_bytes,
 )
 from unionml_tpu_torch.ops.quant import quantize_blockwise
 from unionml_tpu_torch.ops.sampling import sample_logits, validate_sampling
@@ -103,6 +115,22 @@ class _BlockAllocator:
         self._free.extend(int(i) for i in ids)
 
 
+@dataclasses.dataclass
+class _Burst:
+    """One dispatched device program: its ``(steps, num_slots)`` tokens,
+    start-of-step activity masks and non-finite-logits flags. On the card they
+    are pinned host buffers filled by asynchronous copies that ``ready``
+    marks; on the CPU, the tensors themselves. ``round`` marks a speculative
+    round's burst."""
+
+    tokens: torch.Tensor
+    masks: torch.Tensor
+    bads: torch.Tensor
+    steps: int
+    ready: Any = None
+    round: bool = False
+
+
 class DecodeEngine:
     """Slot-based continuous-batching decode engine over a paged KV pool.
 
@@ -126,7 +154,13 @@ class DecodeEngine:
     :param kv_quantize: ``"int8"`` stores the pool as int8 codes with
         per-(block, head) f32 scales; ``None`` keeps the compute dtype.
     :param kv_quantize_skip_layers: layers whose pool stays full precision.
+    :param pipeline: depth-1 dispatch-ahead (default on): each :meth:`step`
+        enqueues the next burst before it fetches the previous one, so the
+        card decodes while the host applies tokens; events then arrive one
+        call later. Streams equal ``pipeline=False``'s under the same calls.
     :param paged: must be True (the dense engine is not ported yet).
+    :param prefix_cache_blocks / faults / telemetry / mesh: not ported yet;
+        anything but the default raises ``NotImplementedError``.
     :param device: ``"cuda"`` (default; raises without a CUDA device) or
         ``"cpu"`` for the plain PyTorch path.
     """
@@ -147,14 +181,25 @@ class DecodeEngine:
         pool_blocks: Optional[int] = None,
         kv_quantize: Optional[str] = None,
         kv_quantize_skip_layers: Sequence[int] = (),
+        pipeline: bool = True,
         paged: bool = True,
+        prefix_cache_blocks: int = 0,
+        faults: Any = None,
+        telemetry: Any = None,
+        mesh: Any = None,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
+        for value, what, item in ((prefix_cache_blocks, "prefix_cache_blocks", "DecodeEngine prefix cache, slice 5"),
+                                  (faults, "faults (FaultPlan)", "DecodeEngine fault plans, slice 5"),
+                                  (telemetry, "telemetry", "DecodeEngine telemetry, slice 5"),
+                                  (mesh, "mesh", "M12")):
+            if value:
+                raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
         if not paged:
             raise NotImplementedError(
                 "the dense (paged=False) engine is not ported yet (ROADMAP: DecodeEngine "
-                "prefix cache / pipelining slice)"
+                "prefix cache / preemption slice)"
             )
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
@@ -172,6 +217,7 @@ class DecodeEngine:
         self.max_len = int(max_len)
         self.eos_token_id = eos_token_id
         self.temperature = float(temperature)
+        self._seed = int(seed)
         self.prefill_batch = max(1, int(prefill_batch))
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
@@ -207,20 +253,45 @@ class DecodeEngine:
         #: requests terminated by the NaN/Inf-logits quarantine
         self.quarantined_requests = 0
 
-        dev = self.device
+        #: depth-1 dispatch-ahead: enqueue burst N+1 before fetching burst N
+        self.pipeline = bool(pipeline)
+        #: the dispatched-but-unfetched burst, or None
+        self._inflight: Optional[_Burst] = None
+        #: slots quarantined while ``_inflight`` was already dispatched: its
+        #: replay skips them (the slot may hold a new occupant by then)
+        self._inflight_skip: set = set()
+        #: events replayed by an out-of-band flush (cancel, admission), handed
+        #: out by the next :meth:`step` or :meth:`take_pending_events`
+        self._pending_events: List[StepEvent] = []
+        #: device programs by key: CUDA graphs on the card (the counterpart of
+        #: JAX's compiled step programs), empty on the CPU
+        self._step_fns: Dict[Any, Any] = {}
+        self.step_dispatches = 0
+        self.idle_dispatches = 0
+        self.ema_host_gap_ms: Optional[float] = None
+        self.ema_fetch_block_ms: Optional[float] = None
+        self._last_fetch_done: Optional[float] = None
+        self._init_device_state()
+
+    def _init_device_state(self) -> None:
+        """Allocate the device state: the pool, the tables and every buffer a
+        decode burst reads or writes. They are static: every later write is
+        in place, so a captured burst keeps reading the live values."""
+        dev, config = self.device, self._config
         self._pool = init_block_pool(
-            config, self.pool_blocks, self.block_size, kv_quantize=kv_quantize,
+            config, self.pool_blocks, self.block_size, kv_quantize=self.kv_quantize,
             kv_quantize_skip_layers=self.kv_quantize_skip_layers, device=dev,
         )
-        self._tables = init_block_tables(num_slots, self.max_len, self.block_size, self._scratch_block, device=dev)
-        self._lens = torch.zeros((num_slots,), dtype=torch.int32, device=dev)  # K4 takes int32 positions
-        self._last_logits = torch.zeros((num_slots, config.vocab_size), dtype=torch.float32, device=dev)
-        self._active_dev, self._remaining_dev = init_slot_state(num_slots, device=dev)
-        self._temp_dev = torch.full((num_slots,), self.temperature, dtype=torch.float32, device=dev)
-        self._top_k_dev = torch.zeros((num_slots,), dtype=torch.int64, device=dev)
-        self._top_p_dev = torch.ones((num_slots,), dtype=torch.float32, device=dev)
+        self._tables = init_block_tables(self.num_slots, self.max_len, self.block_size, self._scratch_block,
+                                         device=dev)
+        self._lens = torch.zeros((self.num_slots,), dtype=torch.int32, device=dev)  # K4 takes int32 positions
+        self._last_logits = torch.zeros((self.num_slots, config.vocab_size), dtype=torch.float32, device=dev)
+        self._active_dev, self._remaining_dev = init_slot_state(self.num_slots, device=dev)
+        self._temp_dev = torch.full((self.num_slots,), self.temperature, dtype=torch.float32, device=dev)
+        self._top_k_dev = torch.zeros((self.num_slots,), dtype=torch.int64, device=dev)
+        self._top_p_dev = torch.ones((self.num_slots,), dtype=torch.float32, device=dev)
         self._generator = torch.Generator(device=dev)
-        self._generator.manual_seed(int(seed))
+        self._generator.manual_seed(self._seed)
 
     # ------------------------------------------------------------ scheduling
 
@@ -237,6 +308,21 @@ class DecodeEngine:
         """Whether a chunked prefill is in progress (the engine must keep
         stepping even with nothing decoding)."""
         return bool(self._partials)
+
+    @property
+    def has_pending_events(self) -> bool:
+        """Events replayed by an out-of-band flush (cancel, admission) wait for
+        the next :meth:`step`: a drive loop keeps ticking while any do."""
+        return bool(self._pending_events)
+
+    def take_pending_events(self) -> List[StepEvent]:
+        """Drain the events an out-of-band flush buffered. A caller that keys
+        requests by slot drains them right after :meth:`admit_many` or
+        :meth:`cancel`, under the slot mapping from before the call: a flush
+        can retire a slot's previous occupant, and its events are that
+        occupant's."""
+        events, self._pending_events = self._pending_events, []
+        return events
 
     def bucket_for(self, prompt_len: int) -> int:
         for bucket in self._buckets:
@@ -256,6 +342,33 @@ class DecodeEngine:
 
     def available_blocks(self) -> int:
         return self._allocator.available_blocks()
+
+    def kv_pool_stats(self) -> Dict[str, Any]:
+        """Byte accounting of the resident KV pool (shapes only): ``kv_dtype``,
+        ``kv_pool_bytes`` as stored (scales included) and
+        ``kv_pool_bytes_dense_equiv`` at the compute dtype."""
+        stored, full = kv_pool_bytes(self._pool, self._config.dtype)
+        return {
+            "kv_dtype": self.kv_quantize or str(self._config.dtype).replace("torch.", ""),
+            "kv_pool_bytes": stored,
+            "kv_pool_bytes_dense_equiv": full,
+        }
+
+    def pipeline_stats(self) -> Dict[str, Any]:
+        """Depth (1 pipelined, 0 not), whether a burst is in flight, dispatch
+        and idle-dispatch counts, and the host-gap / fetch-block EMAs (ms)."""
+        def rounded(value):
+            return None if value is None else round(value, 3)
+
+        return {
+            "depth": 1 if self.pipeline else 0,
+            "inflight": self._inflight is not None,
+            "step_dispatches": self.step_dispatches,
+            "idle_dispatches": self.idle_dispatches,
+            "ema_host_gap_ms": rounded(self.ema_host_gap_ms),
+            "ema_fetch_block_ms": rounded(self.ema_fetch_block_ms),
+            "graphs": len(self._step_fns),
+        }
 
     def validate_request(
         self, prompt_ids: Sequence[int], max_new_tokens: int, *,
@@ -287,6 +400,10 @@ class DecodeEngine:
 
     def _alloc_slot_blocks(self, slot: int, need: int) -> List[int]:
         ids = self._allocator.alloc_blocks(need)
+        if ids is None and self._inflight is not None:
+            # the in-flight burst's unreplayed retirements may free blocks
+            self._pending_events.extend(self._fetch_inflight())
+            ids = self._allocator.alloc_blocks(need)
         if ids is None:
             raise EngineFailure(
                 f"KV block pool exhausted: need {need} block(s), "
@@ -313,7 +430,9 @@ class DecodeEngine:
         self._slot_device_update(slot, True, budget, temp, top_k, top_p)
 
     def _slot_device_update(self, slot, is_active, budget, temp, top_k, top_p) -> None:
-        """Point-update one slot's device lifecycle and sampling controls."""
+        """Point-update one slot's device lifecycle and sampling controls, in
+        place (a full upload would roll back other slots' retirements inside
+        a burst still in flight)."""
         self._active_dev[slot] = bool(is_active)
         self._remaining_dev[slot] = int(min(budget, np.iinfo(np.int32).max))
         self._temp_dev[slot] = float(temp)
@@ -335,7 +454,9 @@ class DecodeEngine:
         batched bucket prefills; returns the slot of each request, in order.
 
         Every request validates before any device work; ``RuntimeError`` when
-        fewer slots are free than requests. A failure part-way (e.g.
+        fewer slots are free than requests (after fetching a burst in flight,
+        whose retirements may free some: its events wait in
+        :meth:`take_pending_events`). A failure part-way (e.g.
         ``pool_exhausted``) cancels the slots this call admitted and frees
         their blocks before it re-raises.
         """
@@ -344,6 +465,9 @@ class DecodeEngine:
             sampling = dict(req[2]) if len(req) > 2 and req[2] else {}
             normalized.append(self.validate_request(req[0], req[1], **sampling))
         free = self.free_slots
+        if len(normalized) > len(free) and self._inflight is not None:
+            self._pending_events.extend(self._fetch_inflight())
+            free = self.free_slots
         if len(normalized) > len(free):
             raise RuntimeError("no free decode slots")
         slots = free[: len(normalized)]
@@ -358,7 +482,7 @@ class DecodeEngine:
         except Exception:
             for slot in slots:
                 if self._active[slot] or self._reserved[slot]:
-                    self.cancel(slot)
+                    self._release(slot)
                 else:
                     self._free_slot_blocks(slot)
             raise
@@ -383,22 +507,25 @@ class DecodeEngine:
                 for r, slot in enumerate(chunk):
                     self._activate(slot, int(lengths[r]), *slot_to_norm[slot][1:])
 
-    def _prefill(self, prompt_ids: torch.Tensor, lengths: torch.Tensor):
-        """Batched bucket prefill: right-padded rows, dense causal attention;
-        each row's logits at its last REAL token."""
+    def _prefill(self, prompt_ids: torch.Tensor, lengths: torch.Tensor, model: Any = None):
+        """Batched bucket prefill of ``model`` (default the engine's):
+        right-padded rows, dense causal attention (K1 on the card); each row's
+        logits at its last REAL token."""
+        model = self._model if model is None else model
         rows, bucket = prompt_ids.shape
-        local_cache = init_cache(self._config, rows, bucket, device=self.device)
+        local_cache = init_cache(model.config, rows, bucket, device=self.device)
         with torch.no_grad():  # the model's forward also trains; serving keeps no graph
-            logits, local_cache = self._model(prompt_ids, cache=local_cache, position=0)
+            logits, local_cache = model(prompt_ids, cache=local_cache, position=0)
         idx = torch.clamp(lengths - 1, 0, bucket - 1)
         return local_cache, logits[torch.arange(rows, device=self.device), idx]
 
-    def _paged_insert(self, local_cache, local_logits, slots, lengths) -> None:
+    def _paged_insert(self, local_cache, local_logits, slots, lengths, pool=None) -> None:
         """Scatter a bucket prefill's dense K/V into the admitted slots' pool
         blocks through their table rows (``continuous.py:768-827``). Columns
         past a slot's allocation map to scratch. Quantized layers mask positions
         at/after a row's real length to zero, so bucket padding never inflates a
-        block's absmax scale."""
+        block's absmax scale. ``pool`` defaults to the engine's; without a
+        ``pool`` the rows' lengths and logits are set too."""
         bs = self.block_size
         rows_tables = self._tables[slots].long()  # (rows, width)
         bucket = local_cache["layer_0"]["k"].shape[2]
@@ -409,7 +536,7 @@ class DecodeEngine:
         dst_blocks = rows_tables[:, :nb]  # (rows, nb)
         pad = nb * bs - bucket
         valid = torch.arange(nb * bs, device=self.device).reshape(nb, bs)[None] < lengths[:, None, None]
-        for name, layer in self._pool.items():
+        for name, layer in (self._pool if pool is None else pool).items():
             for key in ("k", "v"):
                 local = local_cache[name][key]  # (rows, heads, bucket, hd)
                 if key + "_scale" in layer:
@@ -422,8 +549,9 @@ class DecodeEngine:
                     layer[key + "_scale"][dst_blocks] = scale
                 else:
                     layer[key][dst, :, off, :] = local.transpose(1, 2).to(layer[key].dtype)
-        self._lens[slots] = lengths.to(self._lens.dtype)
-        self._last_logits[slots] = local_logits.float()
+        if pool is None:
+            self._lens[slots] = lengths.to(self._lens.dtype)
+            self._last_logits[slots] = local_logits.float()
 
     # -------------------------------------------------------- chunked prefill
 
@@ -438,8 +566,9 @@ class DecodeEngine:
         }
 
     def _advance_partials(self) -> None:
-        """Run ONE chunk of every in-progress chunked prefill; completed
-        prefills seal their length and logits and activate."""
+        """Run ONE chunk of every in-progress chunked prefill (eagerly, between
+        decode bursts); completed prefills seal their length and logits and
+        activate."""
         chunk = self.prefill_chunk
         for slot in list(self._partials):
             state = self._partials[slot]
@@ -461,10 +590,10 @@ class DecodeEngine:
     # ------------------------------------------------------------------ decode
 
     def _decode_once(self, sampling: bool):
-        """One decode step over every slot, on the device. Returns the
-        step's ``(tokens, active-at-start, non-finite-logits)`` tensors."""
-        last = self._last_logits
-        active = self._active_dev
+        """One decode step over every slot, in place on the static buffers.
+        Returns the step's ``(tokens, active-at-start, non-finite-logits)``."""
+        last, lens = self._last_logits, self._lens
+        active = self._active_dev.clone()
         bad = ~torch.isfinite(last).all(dim=-1)
         if sampling:
             tokens = sample_logits(last, self._generator, self._temp_dev, self._top_k_dev, self._top_p_dev)
@@ -473,41 +602,151 @@ class DecodeEngine:
         # a retired row still writes one K/V column per step; the sentinel
         # position maps that write to the trailing scratch column
         sentinel = (self._table_width - 1) * self.block_size
-        pos = torch.where(active, self._lens, torch.full_like(self._lens, sentinel))
+        pos = torch.where(active, lens, torch.full_like(lens, sentinel))
         with torch.no_grad():
             logits, _ = self._model(tokens[:, None], cache={"table": self._tables, **self._pool}, position=pos)
-        new_lens = torch.where(active, torch.clamp(self._lens + 1, max=self.max_len - 1), self._lens)
-        self._last_logits = torch.where(active[:, None], logits[:, -1, :], last)
-        self._lens = new_lens
-        self._active_dev, self._remaining_dev = advance_slot_state(
+        new_lens = torch.where(active, torch.clamp(lens + 1, max=self.max_len - 1), lens)
+        last.copy_(torch.where(active[:, None], logits[:, -1, :], last))
+        new_active, new_remaining = advance_slot_state(
             active, self._remaining_dev, new_lens, tokens, self.max_len, self.eos_token_id
         )
+        lens.copy_(new_lens)
+        self._active_dev.copy_(new_active)
+        self._remaining_dev.copy_(new_remaining)
         return tokens, active, bad
 
-    def step(self, lookahead: int = 1) -> List[StepEvent]:
-        """Advance chunked prefills by one chunk, then decode ``lookahead``
-        steps for every active slot with ONE device-to-host fetch; returns the
-        per-slot events. Retirement runs on the device inside the burst, so a
-        burst emits exactly what ``lookahead`` single steps would."""
-        events: List[StepEvent] = []
-        if self._partials:
-            self._advance_partials()
-        if not self._active.any():
-            return events
-        room = np.minimum(self._remaining[self._active], (self.max_len - 1) - self._lens_host[self._active])
-        steps = max(1, min(int(lookahead), int(room.max())))
-        sampling = bool((self._slot_temp[self._active] > 0).any())
+    def _burst(self, steps: int, sampling: bool):
+        """``steps`` decode steps: the burst program, ``(steps, num_slots)``
+        tokens, start-of-step masks and non-finite flags."""
         burst = [self._decode_once(sampling) for _ in range(steps)]
-        tokens, masks, bads = (torch.stack(x).cpu().numpy() for x in zip(*burst))
-        for i in range(steps):
+        return tuple(torch.stack(x) for x in zip(*burst))
+
+    def _run_program(self, key: Any, fn, generators=()):
+        """Run one device program: on the card, the CUDA graph of ``key``,
+        captured at its first call (two eager warm-ups, then the recording,
+        with every slot made inactive meanwhile so that neither changes a
+        slot's state; ``generators`` register with the graph); on the CPU,
+        ``fn`` itself. A capture that fails raises: nothing runs eagerly in
+        its place on the card."""
+        if self.device.type != "cuda":
+            return fn()
+        graph = self._step_fns.get(key)
+        if graph is None:
+            active = self._active_dev.clone()
+            self._active_dev.zero_()
+            try:
+                graph = _graphs.capture(fn, (), {}, device=self.device, generators=tuple(generators))
+            finally:
+                self._active_dev.copy_(active)
+            self._step_fns[key] = graph
+        return graph(((), {}))
+
+    def _enqueue_fetch(self, out, steps: int, round: bool = False) -> _Burst:
+        """Wrap a dispatched program's ``(tokens, masks, bads)``: on the card,
+        start their copies into pinned host buffers and record the event the
+        fetch waits on."""
+        if self.device.type != "cuda":
+            return _Burst(*out, steps=steps, round=round)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return _Burst(*host, steps=steps, ready=ready, round=round)
+
+    def _dispatch_step(self, lookahead: int) -> _Burst:
+        """Dispatch ONE decode burst of ``lookahead`` steps and return it in
+        flight. The seam :meth:`step` drives and subclasses override (the
+        speculative engine swaps in its round here). Everything the burst
+        reads rides in device buffers, so a steady-state dispatch copies
+        nothing from the host."""
+        sampling = bool((self._slot_temp[self._active] > 0).any())
+        out = self._run_program(("decode", lookahead, sampling), lambda: self._burst(lookahead, sampling),
+                                (self._generator,) if sampling else ())
+        return self._enqueue_fetch(out, lookahead)
+
+    def _fetch_inflight(self) -> List[StepEvent]:
+        """Fetch the in-flight burst (none: no-op) and replay it under the
+        slot mapping it was dispatched with."""
+        if self._inflight is None:
+            return []
+        burst, skip = self._inflight, self._inflight_skip
+        self._inflight, self._inflight_skip = None, set()
+        return self._replay_burst(burst, skip)
+
+    def _replay_burst(self, burst: _Burst, skip=frozenset()) -> List[StepEvent]:
+        """Wait for one burst's host copies (the one designed sync) and apply
+        its tokens to the host mirrors. A flagged ``(step, slot)``
+        quarantines that slot; a slot in ``skip`` was quarantined or cancelled
+        while the burst was in flight and its tokens are dropped."""
+        t0 = time.perf_counter()
+        if burst.ready is not None:
+            burst.ready.synchronize()
+        tokens, masks, bads = burst.tokens.numpy(), burst.masks.numpy(), burst.bads.numpy()
+        done = time.perf_counter()
+        block_ms = (done - t0) * 1e3
+        self.ema_fetch_block_ms = block_ms if self.ema_fetch_block_ms is None else (
+            0.8 * self.ema_fetch_block_ms + 0.2 * block_ms)
+        self._last_fetch_done = done
+        events: List[StepEvent] = []
+        for i in range(tokens.shape[0]):
             for slot in np.flatnonzero(masks[i]):
                 slot = int(slot)
-                if not self._active[slot]:
-                    continue  # quarantined earlier in this burst
+                if slot in skip or not self._active[slot]:
+                    continue  # quarantined or cancelled meanwhile, or earlier in this burst
                 if bads[i, slot]:
                     events.append(self._quarantine(slot))
                 else:
                     events.append(self._apply_token(slot, int(tokens[i, slot])))
+        return events
+
+    def step(self, lookahead: int = 1) -> List[StepEvent]:
+        """Advance chunked prefills by one chunk, then decode up to
+        ``lookahead`` steps for every active slot in ONE device program with
+        ONE fetch; returns per-slot events. Retirement runs on the device
+        inside the burst, so a burst emits exactly what ``lookahead`` single
+        steps would.
+
+        With ``pipeline=True`` each call dispatches the next burst before it
+        fetches the previous one: the card decodes burst N+1 while the host
+        applies burst N, and events arrive one call after the dispatch that
+        made them. ``lookahead`` is cut to the next power of two above the
+        steps the slots can still take, so a bounded ladder of programs
+        serves every tail."""
+        events: List[StepEvent] = []
+        if self._pending_events:
+            events.extend(self._pending_events)
+            self._pending_events.clear()
+        if self._partials:
+            self._advance_partials()
+        if not self._active.any():
+            return events
+        lookahead = max(1, int(lookahead))
+        inflight_steps = self._inflight.steps if self._inflight is not None else 0
+        room = np.minimum(self._remaining[self._active], (self.max_len - 1) - self._lens_host[self._active])
+        headroom = max(1, int(room.max())) - inflight_steps
+        if headroom <= 0:
+            # every slot the host thinks active retires inside the in-flight
+            # burst: fetch it instead of dispatching a fully masked one
+            events.extend(self._fetch_inflight())
+            return events
+        if headroom < lookahead:
+            lookahead = min(lookahead, 1 << (headroom - 1).bit_length())
+        t0 = time.perf_counter()
+        idle = self._inflight is None
+        burst = self._dispatch_step(lookahead)
+        self.step_dispatches += 1
+        if self._last_fetch_done is not None:
+            self.idle_dispatches += int(idle)
+            gap_ms = min((t0 - self._last_fetch_done) * 1e3, 250.0) if idle else 0.0
+            self.ema_host_gap_ms = gap_ms if self.ema_host_gap_ms is None else (
+                0.8 * self.ema_host_gap_ms + 0.2 * gap_ms)
+        previous, prev_skip = self._inflight, self._inflight_skip
+        self._inflight, self._inflight_skip = burst, set()
+        if previous is not None:
+            events.extend(self._replay_burst(previous, prev_skip))
+        if not self.pipeline:
+            events.extend(self._fetch_inflight())
         return events
 
     def _apply_token(self, slot: int, token: int) -> StepEvent:
@@ -537,13 +776,25 @@ class DecodeEngine:
         self._partials.pop(slot, None)
         self._free_slot_blocks(slot)
         self._slot_device_update(slot, False, 0, self.temperature, 0, 1.0)
+        if self._inflight is not None:
+            # the burst in flight still decodes this slot under an active
+            # mask: its replay must not credit those tokens to a new occupant
+            self._inflight_skip.add(slot)
 
     def cancel(self, slot: int) -> None:
-        """Deactivate one slot (its request is abandoned; the slot is reusable)."""
+        """Deactivate one slot (its request is abandoned; the slot is reusable).
+        A burst in flight is fetched first, so its tokens apply under the slot
+        mapping it was dispatched with; the survivors' events wait in
+        :meth:`take_pending_events`, the cancelled slot's are dropped."""
+        self._pending_events.extend(self._fetch_inflight())
+        self._pending_events = [ev for ev in self._pending_events if ev.slot != slot]
         self._release(slot)
 
     def abort_all(self) -> None:
-        """Deactivate every slot and return every block."""
+        """Deactivate every slot and return every block. A burst in flight is
+        discarded, not fetched: every request it could emit for is abandoned."""
+        self._inflight, self._inflight_skip = None, set()
+        self._pending_events.clear()
         for slot in range(self.num_slots):
             self._release(slot)
 
@@ -618,6 +869,11 @@ class ContinuousBatcher:
     only as far as the pool has blocks for them) between decode steps. At most
     ``max_queue`` requests wait; a submit beyond that raises
     :class:`~unionml_tpu_torch.serving.scheduler.QueueFullError`.
+
+    A request's sampling keywords reach the engine as they are: with a
+    :class:`~unionml_tpu_torch.serving.speculative.SpeculativeEngine`,
+    ``speculative``/``seed``/``gamma`` among them (SLO classes, which set
+    ``speculative`` per class in the JAX package, are not ported yet).
 
     :param lookahead: decode steps per device-to-host fetch.
     :param device: must name the engine's device; ``"cuda"`` (default) raises
@@ -717,9 +973,13 @@ class ContinuousBatcher:
             slots = self._engine.admit_many([(t.prompt, t.budget, t.sampling) for t in batch])
         except Exception as exc:  # the engine rolled this call back: fail its tickets only
             logger.exception("admission failed")
+            self._dispatch(self._engine.take_pending_events())
             for ticket in batch:
                 self._deliver(ticket.sink, "fail", _as_engine_failure(exc, "prefill_failed"))
             return
+        # a flush inside admission replays events of the slots' previous
+        # occupants: deliver them under the old sinks before re-keying
+        self._dispatch(self._engine.take_pending_events())
         for slot, ticket in zip(slots, batch):
             self._sinks[slot] = ticket.sink
 
@@ -732,6 +992,8 @@ class ContinuousBatcher:
                 del self._sinks[event.slot]
                 if not event.finished:
                     self._engine.cancel(event.slot)
+                    # the cancel's flush may carry other slots' events
+                    self._dispatch(self._engine.take_pending_events())
                 continue
             if event.error is not None:
                 del self._sinks[event.slot]
@@ -758,7 +1020,7 @@ class ContinuousBatcher:
                 if self._closed and not len(self._queue) and not self._sinks:
                     return
             self._admit()
-            busy = engine.num_active or engine.has_pending_prefill
+            busy = engine.num_active or engine.has_pending_prefill or engine.has_pending_events
             if not busy:
                 self._work.clear()
                 with self._lock:
