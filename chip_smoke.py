@@ -143,9 +143,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    verify's device ms and largest logit difference with its products
    batched over the chunk instead (the cost and the reason of exactness).
 
-Decode bursts and speculative rounds replay CUDA graphs, whose kernels do not
-move the wrappers' launch counts: a count is the eager launches plus the
-captures' warm-up and recording.
+Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
+graph's recording launches nothing and counts nothing; each replay adds the
+launches its graph recorded. A count is thus the launches that ran: eager
+calls (the captures' two warm-up runs among them) and replays.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. ``--details PATH`` also writes every
@@ -1366,7 +1367,7 @@ def bert_app(device) -> dict:
     kernels.reset_launches()
     predictor.setup()
     answers, coalescing = serve_requests(predictor, requests)
-    serve_launches = dict(kernels.launches)  # K1 launches into each captured graph; replays bypass the wrapper
+    serve_launches = dict(kernels.launches)  # the captures' warm-ups and every replay
     if device.type == "cuda" and not serve_launches["flash_fwd"]:
         raise AssertionError(f"serving launched {serve_launches}; K1 never ran")
 
@@ -1554,13 +1555,16 @@ def verify_vs_plain(engine) -> dict:
     chunk recorded: each layer's contexts (K4 on the card) against the plain
     version on the same inputs (phase 3's K4 tolerance), the pool untouched by
     both."""
+    from unionml_tpu_torch import kernels
     from unionml_tpu_torch.models import gpt as tgpt
 
-    real, calls = tgpt._paged_verify_chunk, []
+    real, calls, launched = tgpt._paged_verify_chunk, [], []
 
     def record(cache, table, position, q, k, v, out_dtype, impl="auto"):
         before = {n: x.clone() for n, x in cache.items()}
+        count = kernels.launches["paged_attention"]
         out = real(cache, table, position, q, k, v, out_dtype, impl=impl)
+        launched.append(kernels.launches["paged_attention"] - count)
         calls.append((before, table.clone(), position.clone(), q, k, v, out_dtype, out))
         return out
 
@@ -1578,14 +1582,16 @@ def verify_vs_plain(engine) -> dict:
         worst = max(worst, check_close(f"verify chunk, layer {layer}", out, want))
         if not all(torch.equal(probe[n], cache[n]) for n in cache):
             raise AssertionError(f"verify chunk, layer {layer}: the plain verify wrote the pool")
-    return {"layers": len(calls), "max_abs_err": worst, "bases": calls[0][2].tolist()}
+    return {"layers": len(calls), "max_abs_err": worst, "bases": calls[0][2].tolist(),
+            "verify_launches_per_round": sum(launched)}
 
 
-def time_k4_verify(device, bases, launches_per_round, H=12, D=64, bs=16, width=65) -> dict:
+def time_k4_verify(device, bases, launches, H=12, D=64, bs=16, width=65) -> dict:
     """K4 at the verify shape: B = len(bases), S 1, over a local copy of each
     row's ``width`` blocks (int8, bf16 queries) and an identity table, as
     ``_paged_verify_chunk`` calls it once per chunk position and layer; and the
-    local gather + one append per leaf, the torch ops around it per layer."""
+    device ms of the local gather + one append per leaf, the torch ops around
+    it per layer. ``launches``: the verify's K4 launches in one round."""
     from unionml_tpu_torch.models.gpt import _paged_append_quantized
     from unionml_tpu_torch.ops.paged_attention import fused_hbm_bytes, paged_attention, reference_paged_attention
     from unionml_tpu_torch.ops.quant import dequantize_blockwise
@@ -1619,11 +1625,11 @@ def time_k4_verify(device, bases, launches_per_round, H=12, D=64, bs=16, width=6
 
     return {
         "name": "paged_attention", "route": "cuda", "source": "unionml_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "unionml_tpu/ops/paged_attention.py:92", "launches": launches_per_round, "max_abs_err": err,
+        "replaces": "unionml_tpu/ops/paged_attention.py:92", "launches": launches, "max_abs_err": err,
         "bound_ms": bound, "bound_by": by,
         "shape": f"verify: bf16 int8 local pool B{B} H{H} S1 D{D} bs{bs} width {width} (identity table), "
-                 f"bases {list(bases)}; launches per round of the target",
-        "gather_append_ms_per_layer": cuda_ms(gather_append),
+                 f"bases {list(bases)}; the verify's launches in one round",
+        "gather_append_ms_per_layer": sum(kernel_ms_by_name(gather_append).values()),
         **_times(lambda: paged_attention(q, *local[:2], ident, base, *local[2:]),
                  lambda: reference_paged_attention(q, *local[:2], ident, base, *local[2:]), gather_sdpa),
     }
@@ -1693,7 +1699,8 @@ def speculation(device) -> dict:
             del engine
             torch.cuda.empty_cache()
         if dtype == torch.bfloat16:
-            r["timings"] = spec_timings(model, vanilla, unpiped, prompt_list, device)
+            r["timings"] = spec_timings(model, vanilla, unpiped, prompt_list, device,
+                                        r["self"]["verify_vs_plain"]["verify_launches_per_round"])
         del model, vanilla, unpiped, drafts
         torch.cuda.empty_cache()
     return out
@@ -1768,10 +1775,13 @@ def verify_products(model, engine, device) -> dict:
     return out
 
 
-def spec_timings(model, vanilla, unpiped, prompt_list, device) -> dict:
-    """A round's wall vs device ms (self-draft, 8 speculative slots), a vanilla
-    decode step's with ``pipeline`` on and off, zero host-to-device copies
-    over 5 steady bursts, and K4 at the verify shape."""
+def spec_timings(model, vanilla, unpiped, prompt_list, device, verify_launches) -> dict:
+    """A round's wall vs device ms (self-draft, 8 speculative slots) and its
+    K4 launches (one replay), a vanilla decode step's with ``pipeline`` on and
+    off, zero host-to-device copies over 5 steady bursts, and K4 at the verify
+    shape."""
+    from unionml_tpu_torch import kernels
+
     out = {}
     for label, engine in (("pipelined", vanilla), ("unpipelined", unpiped)):
         steady(engine, prompt_list, {})
@@ -1785,9 +1795,12 @@ def spec_timings(model, vanilla, unpiped, prompt_list, device) -> dict:
     engine = spec_engine(model, model, device)
     steady(engine, prompt_list, {"speculative": True})
     out["round"] = step_profile(engine.step, 5, top=6)
+    kernels.reset_launches()
+    engine.step()
+    out["round_launches"] = dict(kernels.launches)
     bases = [int(b) for b in engine._lens.tolist()]
     engine.abort_all()
-    out["k4_verify"] = time_k4_verify(device, bases, 12 * (SPEC_GAMMA_MAX + 1))
+    out["k4_verify"] = time_k4_verify(device, bases, verify_launches)
     return out
 
 
@@ -2248,8 +2261,9 @@ def main() -> int:
     kv = tm["k4_verify"]
     print(f"[{name_limit}] {kv['name']} {kv['shape']}: {kv['ms']:.4f} ms per call (bound {kv['bound_ms']:.5f} ms by "
           f"{kv['bound_by']}), plain {kv['plain_ms']:.4f} ms, gather + SDPA {kv['library_ms']:.4f} ms, "
-          f"{kv['launches']} launches per round; the local gather + append {kv['gather_append_ms_per_layer']:.4f} "
-          f"ms per layer and chunk position [{kv['method']}]")
+          f"{kv['launches']} launches per round (counted in an eager round; the whole replayed round launched "
+          f"{tm['round_launches']}); the local gather of the rows' blocks + one append per leaf "
+          f"{kv['gather_append_ms_per_layer']:.4f} ms device per layer [{kv['method']}]")
     details["extra_timings"].append(kv)
     details["total_s"] = time.perf_counter() - t0
     if args.details is not None:

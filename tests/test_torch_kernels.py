@@ -36,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from unionml_tpu_torch import kernels
+from unionml_tpu_torch import _graphs, kernels
 from unionml_tpu_torch.ops.attention import (
     _combined_mask,
     _kv_lens_to_mask,
@@ -597,7 +597,9 @@ def test_verify_chunk_on_the_kernel_matches_plain(cuda, dtype, pool):
 def test_graph_replay_matches_the_eager_program(cuda, spec):
     """A decode burst's and a speculative round's CUDA graphs (f32, a small GPT
     at head_dim 64) against the same programs run eagerly: identical streams,
-    every dispatch a replay."""
+    every dispatch a replay, and K4's launch count that of the eager run plus
+    the captures' warm-ups (a replay counts its graph's launches, the
+    recording none)."""
     from unionml_tpu_torch.models import GPTConfig, init_gpt
     from unionml_tpu_torch.serving import DecodeEngine, SpeculativeEngine
 
@@ -620,7 +622,12 @@ def test_graph_replay_matches_the_eager_program(cuda, spec):
                     streams[ev.slot].append(ev.token)
         return [streams[s] for s in slots], engine
 
+    kernels.reset_launches()
     graphs, engine = run(eager=False)
+    on_graphs = kernels.launches["paged_attention"]
+    kernels.reset_launches()
     assert graphs == run(eager=True)[0]
     assert engine._step_fns and engine.pipeline_stats()["step_dispatches"] == sum(
         g.replays for g in engine._step_fns.values())
+    warmups = _graphs._WARMUP_RUNS * sum(g.launches.get("paged_attention", 0) for g in engine._step_fns.values())
+    assert warmups > 0 and on_graphs == kernels.launches["paged_attention"] + warmups

@@ -17,15 +17,19 @@ prefix cache, which the port does not have yet) on the tiny f32 GPT:
    (``lift_fresh``) and any op that syncs the host, around ``step()`` at
    lookahead 1 and 4 and on the sampling path (the engine's one designed
    sync, the fetch, reads the burst's host copies through numpy);
-4. ``pipeline_stats``' shape and counters.
+4. ``pipeline_stats``' shape and counters;
+5. a stream abandoned while ``ContinuousBatcher`` delivers a burst's events
+   leaves every other stream in order.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from unionml_tpu_torch import _graphs
 from unionml_tpu_torch.models import GPTConfig, init_gpt
-from unionml_tpu_torch.serving.continuous import DecodeEngine
+from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
+from unionml_tpu_torch.serving.scheduler import Ticket
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +174,47 @@ def test_fencing_a_burst_in_flight(model, race):
     assert streams[0] == solo(model, [3, 1, 4, 1, 5], 8)
     assert streams[2] == solo(model, [9, 9, 1, 2], 5)
     assert streams[1] == solo(model, [2, 7], 40)[: len(streams[1])]  # nothing foreign
+
+
+class _Sink:
+    """A batcher sink whose consumer abandons the stream after ``keep``
+    tokens, as ``ContinuousBatcher.stream`` does on exit."""
+
+    def __init__(self, keep=None):
+        self.tokens, self.keep, self.cancelled, self.ended = [], keep, False, None
+
+    def emit(self, token):
+        self.tokens.append(token)
+        self.cancelled = self.keep is not None and len(self.tokens) >= self.keep
+
+    def finish(self):
+        self.ended = "finish"
+
+    def fail(self, exc):
+        self.ended = exc
+
+
+@pytest.mark.parametrize("lookahead", [1, 2])
+def test_stream_abandoned_during_delivery_keeps_other_streams_in_order(model, lookahead):
+    """The lowest slot's stream is abandoned while a burst is in flight: its
+    cancel fetches that burst, whose tokens must reach the higher slots only
+    after the events being delivered (pipelined == unpipelined == alone)."""
+    requests = [([3, 1, 4, 1, 5], 12), ([2, 7], 9), ([1, 8, 2, 8], 10), ([9, 9, 1], 8)]
+
+    def run(pipeline):
+        engine = make_engine(model, pipeline=pipeline, prefill_buckets=(8,), prefill_chunk=None)
+        batcher = ContinuousBatcher(engine, lookahead=lookahead, device="cpu")
+        sinks = [_Sink(keep=3)] + [_Sink() for _ in requests[1:]]
+        for (prompt, n), sink in zip(requests, sinks):
+            batcher._queue.submit(Ticket(prompt=np.asarray(prompt), budget=n, sampling={}, sink=sink))
+        batcher._closed = True
+        batcher._run()  # the worker's loop on this thread: one fixed schedule
+        assert engine.num_active == 0 and engine.available_blocks() == engine._allocator.num_blocks
+        return [(s.tokens, s.ended) for s in sinks]
+
+    on, off = run(True), run(False)
+    assert on == off and on[0] == (off[0][0], None) and len(on[0][0]) == 3
+    assert [tokens for tokens, _ in on[1:]] == [solo(model, p, n) for p, n in requests[1:]]
 
 
 class _NoHostData(_graphs._HostSyncCheck):

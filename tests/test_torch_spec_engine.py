@@ -248,4 +248,4 @@ def test_batchers_pass_speculation_through(gpt, draft):
     assert spec == [ref[i] for i in range(len(PROMPTS))] and engine.spec_rounds > 0
     want = speculative_generate(gpt[2], draft[2], torch.tensor([[1, 2, 3, 4]]), 10, gamma=3)
     assert one == want[0, 4:].tolist() and sampled[0] == sampled[1]
-    assert single.engine.requests_admitted == 3 and single.engine.tokens_decoded == 22
+    assert len(one) == 10 and [len(s) for s in sampled] == [6, 6] and single.round_failures == 0

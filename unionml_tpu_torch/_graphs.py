@@ -27,6 +27,11 @@ is raised before recording starts. The check matters beyond the message: a
 recording that CUDA aborts leaves PyTorch's CUDA generator in capture mode,
 and every later random draw on the device fails. An error of the
 function's own in a warm-up run propagates unchanged.
+
+The recording launches nothing, so the kernel launch counts
+(:mod:`unionml_tpu_torch.kernels`) its wrappers add are taken back and kept
+on the graph, which adds them at every replay: a count is then the launches
+that really ran, eager or replayed.
 """
 
 import threading
@@ -41,6 +46,8 @@ import torch
 from torch import nn
 from torch.utils import _pytree
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from unionml_tpu_torch import kernels
 
 __all__ = ["CaptureError", "CapturedGraph", "GraphCache", "capture", "capturable", "is_resident", "signature"]
 
@@ -135,7 +142,8 @@ class CapturedGraph:
     """
 
     def __init__(self, graph: "torch.cuda.CUDAGraph", spec: Any, n_leaves: int, slots: List[int],
-                 static: List[torch.Tensor], output: Any, capture_ms: float, device: torch.device):
+                 static: List[torch.Tensor], output: Any, capture_ms: float, device: torch.device,
+                 launches: Optional[Dict[str, int]] = None):
         self._graph = graph
         self._device = device
         self._spec = spec
@@ -147,6 +155,8 @@ class CapturedGraph:
         self._done = None  # guarded-by: _lock
         #: wall ms of :func:`capture`: the eager warm-up runs and the recording
         self.capture_ms = capture_ms
+        #: kernel launches per replay, by kernel name (what the recording counted)
+        self.launches = dict(launches or {})
         self.replays = 0  # guarded-by: _lock
 
     @property
@@ -166,6 +176,8 @@ class CapturedGraph:
                 for slot, buf in zip(self._slots, self._static):
                     buf.copy_(leaves[slot])
             self._graph.replay()
+            for name, count in self.launches.items():
+                kernels.launches[name] += count
             out = _pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, self._output)
             self._done = torch.cuda.Event()
             self._done.record(stream)
@@ -220,13 +232,20 @@ def capture(fn: Callable, args: Tuple, kwargs: dict, *, device: Optional[torch.d
         graph = torch.cuda.CUDAGraph()
         for generator in generators:
             graph.register_generator_state(generator)
+        before = dict(kernels.launches)
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 output = run()
         except Exception as exc:
             raise CaptureError(f"capturing {getattr(fn, '__name__', fn)} failed: {type(exc).__name__}: {exc}") from exc
+        finally:
+            # the recording launched nothing: its counts move to the graph
+            recorded = {name: kernels.launches[name] - before.get(name, 0) for name in kernels.launches}
+            for name, count in recorded.items():
+                kernels.launches[name] -= count
         capture_ms = (time.perf_counter() - t0) * 1e3
-    return CapturedGraph(graph, spec, len(leaves), slots, static, output, capture_ms, device)
+    return CapturedGraph(graph, spec, len(leaves), slots, static, output, capture_ms, device,
+                         {name: count for name, count in recorded.items() if count})
 
 
 class GraphCache:

@@ -2,7 +2,10 @@
 
 ``launches`` counts every kernel launch by kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a caller can set the counts
-to 0, drive a path, and read which kernels that path went through.
+to 0, drive a path, and read which kernels that path went through. A wrapper
+called while a CUDA graph records launches nothing then: the graph takes
+those counts back and adds them at each replay
+(:class:`unionml_tpu_torch._graphs.CapturedGraph`).
 """
 
 from typing import Dict

@@ -300,6 +300,7 @@ class DecoderBlock(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         decode_slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        verify: bool = False,
     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """Full sequence (``cache=None``, optionally packed by
         ``segment_ids``), dense-cache or paged step. ``generator`` turns
@@ -313,13 +314,15 @@ class DecoderBlock(nn.Module):
         leaves the pool untouched and returns its K/V as ``"ck"``/``"cv"``)
         or an int (batch-1 chunk);
         ``decode_slots`` (from :func:`_decode_slots`) saves each layer of a
-        decode step from computing the rows' write slots again.
+        decode step from computing the rows' write slots again; ``verify``
+        (set by the model for a paged per-row chunk of more than one token)
+        routes the chunk through the speculative verify.
         """
         cfg = self.config
         batch, seq, _ = hidden.shape
         # a speculative verify chunk takes each position's products at the
         # decode step's shape, so its tokens score as plain decoding scores them
-        dense = _dense_by_position if block_table is not None and _per_row(position) and seq > 1 else _dense
+        dense = _dense_by_position if verify else _dense
         qkv = dense(self.qkv, _layer_norm(self.attn_norm, hidden, cfg.dtype), cfg.dtype)
 
         def heads(x):
@@ -347,7 +350,7 @@ class DecoderBlock(nn.Module):
         elif block_table is not None:
             if pad_offsets is not None:
                 raise ValueError("paged decode does not support pad_offsets (left-padded rows)")
-            if _per_row(position) and seq != 1:
+            if verify:
                 # speculative verify: score the chunk without writing the pool;
                 # the fresh K/V ride along for paged_commit_chunk
                 context = _paged_verify_chunk(cache, block_table, position, q, k, v, cfg.dtype,
@@ -501,6 +504,9 @@ class GPTLMHeadModel(nn.Module):
         new_cache: Dict[str, Any] = {}
         block_table = cache.get("table") if cache is not None else None
         decode_slots = None
+        # a paged chunk of several tokens per row is a speculative verify: one
+        # flag drives its per-position products, its attention route and its head
+        verify = block_table is not None and _per_row(position) and seq > 1
         if block_table is not None and _per_row(position):
             # once per step, not per layer: K4 takes int32 positions, the
             # append its write slots
@@ -510,7 +516,7 @@ class GPTLMHeadModel(nn.Module):
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else cache[f"layer_{i}"]
             hidden, layer_cache = layer(hidden, layer_cache, position, pad_offsets, block_table, segment_ids,
-                                        generator, decode_slots)
+                                        generator, decode_slots, verify)
             if layer_cache is not None:
                 new_cache[f"layer_{i}"] = layer_cache
         if block_table is not None:
@@ -518,7 +524,7 @@ class GPTLMHeadModel(nn.Module):
         hidden = _layer_norm(self.final_norm, hidden, cfg.dtype).float()
         # tied head with genuinely-f32 logits: f32 hidden states times the f32
         # embedding (a verify chunk's position by position, as its blocks)
-        if block_table is not None and _per_row(position) and seq > 1:
+        if verify:
             logits = torch.cat([hidden[:, j:j + 1].contiguous() @ self.wte.weight.t() for j in range(seq)], dim=1)
         else:
             logits = hidden @ self.wte.weight.t()

@@ -984,6 +984,7 @@ class ContinuousBatcher:
             self._sinks[slot] = ticket.sink
 
     def _dispatch(self, events: Sequence[StepEvent]) -> None:
+        abandoned: List[int] = []
         for event in events:
             sink = self._sinks.get(event.slot)
             if sink is None:
@@ -991,9 +992,7 @@ class ContinuousBatcher:
             if sink.cancelled:  # consumer abandoned the stream mid-decode
                 del self._sinks[event.slot]
                 if not event.finished:
-                    self._engine.cancel(event.slot)
-                    # the cancel's flush may carry other slots' events
-                    self._dispatch(self._engine.take_pending_events())
+                    abandoned.append(event.slot)
                 continue
             if event.error is not None:
                 del self._sinks[event.slot]
@@ -1005,6 +1004,12 @@ class ContinuousBatcher:
             if event.finished:
                 del self._sinks[event.slot]
                 self._deliver(sink, "finish")
+        if abandoned:
+            # a cancel fetches the burst in flight, whose tokens come after
+            # every event of this list: the other slots get them only now
+            for slot in abandoned:
+                self._engine.cancel(slot)
+            self._dispatch(self._engine.take_pending_events())
 
     def _fail_all(self, exc: BaseException) -> None:
         failure = _as_engine_failure(exc, "engine_failure")

@@ -32,7 +32,6 @@ the ``/generate`` route.
 
 import asyncio
 import threading
-from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -417,10 +416,6 @@ class SpeculativeBatcher:
         self._generator = torch.Generator(device=self.device)  # guarded-by: _lock
         self._generator.manual_seed(0)
         self.round_failures = 0  # guarded-by: _lock
-        #: the /stats view of a one-slot engine
-        self.engine = SimpleNamespace(num_slots=1, num_active=0, max_len=self._max_len,
-                                      bucket_for=lambda n: n, requests_admitted=0, tokens_decoded=0,
-                                      prefill_tokens_computed=0)
 
     def _validate(self, prompt_ids: Sequence[int], max_new_tokens: int, sampling: dict):
         if self._closed:
@@ -457,8 +452,6 @@ class SpeculativeBatcher:
                 if seed is not None:
                     generator = torch.Generator(device=self.device)
                     generator.manual_seed(int(seed))
-                self.engine.num_active = 1
-                self.engine.requests_admitted += 1
                 prompt = torch.from_numpy(ticket.prompt).to(self.device)[None, :]
                 try:
                     out = speculative_generate(self._target, self._draft, prompt, max_new_tokens, gamma=self._gamma,
@@ -468,12 +461,7 @@ class SpeculativeBatcher:
                     self.round_failures += 1
                     raise EngineFailure(f"speculative round failed: {exc}",
                                         reason="speculative_round_failed") from exc
-                finally:
-                    self.engine.num_active = 0
-                tokens = out[0, ticket.prompt.size:].tolist()
-                self.engine.prefill_tokens_computed += int(ticket.prompt.size)
-                self.engine.tokens_decoded += len(tokens)
-            return tokens
+            return out[0, ticket.prompt.size:].tolist()
         finally:
             with self._turn:
                 self._current = None
