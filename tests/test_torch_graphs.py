@@ -286,3 +286,67 @@ def test_capture_failure_is_abandoned_cleanly(cuda):
     ok = ResidentPredictor(good, buckets=(2,), seq_buckets=(16,), warmup=False)
     np.testing.assert_allclose(ok.predict(features=rows), eager_logits(good, rows), atol=REPLAY_TOL)
     assert ok.eager_fallbacks == 0 and len(ok.graph_stats()) == 1
+
+
+@pytest.mark.cuda
+def test_engine_rebuild_recaptures_its_graphs(cuda):
+    """An engine failure on the card: the rebuild reallocates the burst's
+    buffers and drops every graph over them; the next dispatches capture
+    anew, and greedy and fixed-seed sampled streams equal the fault-free
+    run's (the sampled request arrives with the burst the fault loses, so its
+    resume re-prefills exactly its prompt and the generator is back at that
+    burst's state)."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import ContinuousBatcher, DecodeEngine, EngineSupervisor, FaultPlan
+    from unionml_tpu_torch.serving.scheduler import Ticket
+
+    # head_dim 64: K1's bodies take 64 or 128
+    model = init_gpt(GPTConfig.tiny(hidden_size=128, num_heads=2, dtype=torch.float32, dropout=0.0), std=0.3,
+                     device=cuda)
+
+    class Sink:
+        cancelled = False
+
+        def __init__(self):
+            self.tokens, self.error = [], None
+
+        def emit(self, token):
+            self.tokens.append(token)
+
+        def finish(self):
+            pass
+
+        def fail(self, exc):
+            self.error = exc
+
+    def run(fault):
+        plan = FaultPlan(step_dispatch_failures=(fault,) if fault else ())
+        engine = DecodeEngine(model, num_slots=2, max_len=64, prefill_buckets=(8, 16, 32), block_size=4,
+                              prefix_cache_blocks=32, kv_quantize="int8", prefill_batch=1, seed=7, faults=plan,
+                              device=cuda)
+        sup = EngineSupervisor(watchdog_interval_s=0, backoff_s=0.005)
+        batcher = ContinuousBatcher(engine, supervisor=sup, device=cuda)
+        greedy, sampled = Sink(), Sink()
+        arrived = []
+
+        def arrive(token):
+            Sink.emit(greedy, token)
+            if len(greedy.tokens) == 4 and not arrived:
+                arrived.append(plan._dispatches)
+                batcher._queue.submit(Ticket(prompt=np.asarray([2, 7, 1], dtype=np.int32), budget=8,
+                                             sampling={"temperature": 0.8}, sink=sampled))
+
+        greedy.emit = arrive
+        batcher._queue.submit(Ticket(prompt=np.asarray([3, 1, 4, 1, 5], dtype=np.int32), budget=12, sampling={},
+                                     sink=greedy))
+        batcher._closed = True
+        batcher._run()
+        sup.close()
+        return (greedy.tokens, greedy.error), (sampled.tokens, sampled.error), engine, arrived[0]
+
+    clean_g, clean_s, _, arrived = run(None)
+    got_g, got_s, engine, _ = run(arrived + 2)
+    assert got_s == clean_s and got_g[1] is None and len(got_g[0]) == 12
+    assert engine.failure_count == 1 and engine.graphs_dropped > 0
+    assert engine.graph_captures > engine.graphs_dropped and len(engine._step_fns) > 0
+    assert engine._allocator.slot_blocks == 0 and engine._allocator.pinned_blocks == 0

@@ -84,6 +84,31 @@ def test_flash_kernel_matches_plain(cuda, dtype, Sq, S, D, causal, lens):
     _close(got, reference_attention(q, k, v, mask=mask, causal=causal))
 
 
+@pytest.mark.parametrize("S", [16, 32, 64])
+def test_paged_kernel_at_a_hit_prefill(cuda, S):
+    """A prefix-cache hit's suffix prefill: K4's query tile (bf16 over int8)
+    at the block-aligned base 384, through a table row whose first 24 columns
+    are spliced blocks scattered over the pool, then the slot's own blocks and
+    scratch; against the plain version."""
+    rng = np.random.default_rng(S)
+    H, D, bs, base = 12, 64, 16, 384
+    width, blocks = 1024 // bs + 1, 80
+    ids = rng.permutation(blocks - 1)
+    table = np.full((1, width), blocks - 1, dtype=np.int32)  # scratch tail
+    table[0, : base // bs + S // bs] = ids[: base // bs + S // bs]
+    kp, vp = (torch.from_numpy(rng.integers(-127, 128, (blocks, H, bs, D)).astype(np.int8)).to(cuda)
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.05, (blocks, H, 1, 1)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((1, H, S, D), dtype=np.float32)).to(cuda, torch.bfloat16)
+    t, pos = torch.from_numpy(table).to(cuda), torch.tensor([base], dtype=torch.int32, device=cuda)
+    got = paged_attention(q, kp, vp, t, pos, ks, vs)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), reference_paged_attention(q, kp, vp, t, pos, ks, vs).float(),
+                               atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("quantized", [True, False], ids=["int8", "full"])
 @pytest.mark.parametrize("B,S,bs", [(8, 1, 16), (1, 32, 16), (3, 2, 8), (2, 5, 32)])

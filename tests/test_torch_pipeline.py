@@ -1,7 +1,8 @@
 """Depth-1 dispatch-ahead in the port's ``DecodeEngine`` (``pipeline=True``).
 
 Ports ``tests/unit/test_pipeline_parity.py:118-250, :381`` (without the
-prefix cache, which the port does not have yet) on the tiny f32 GPT:
+prefix cache, whose schedules ``test_torch_prefix_cache.py`` covers) on the
+tiny f32 GPT:
 
 1. parity: a pipelined engine emits exactly the streams of an unpipelined one
    under one fixed call script (admissions, a chunked prefill, a cancel

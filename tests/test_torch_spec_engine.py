@@ -1,8 +1,9 @@
 """Port parity: ``SpeculativeEngine`` on the paged pool.
 
 Ports ``tests/unit/test_spec_engine.py:141-409`` on the tiny f32 GPT (the
-JAX weights carried across) and a smaller draft, without the mesh, prefix,
-chaos and scheduler-class tests (ROADMAP: slices 5, 6 and M12):
+JAX weights carried across) and a smaller draft, without the mesh and
+scheduler-class tests (ROADMAP: slice 6 and M12; the prefix-cache and chaos
+cases are in ``test_torch_prefix_cache.py`` and ``test_torch_recovery.py``):
 
 - greedy speculative streams equal the port's vanilla engine and JAX's
   ``SpeculativeEngine`` on the same weights, with a chunked-prefill admission
@@ -89,7 +90,7 @@ def _spec(reqs, **extra):
 
 
 def _no_leaks(engine):
-    assert engine.available_blocks() == engine._allocator.num_blocks and not engine._slot_blocks
+    assert engine.available_blocks() == engine._allocator.num_blocks and not engine._slot_block_map
 
 
 @pytest.fixture(scope="module")
@@ -213,8 +214,8 @@ def test_rejections_and_constructor_validation(gpt, draft):
     with pytest.raises(ValueError, match="vocab"):
         SpeculativeEngine(gpt[2], init_gpt(GPTConfig.tiny(vocab_size=64, dtype=torch.float32), device="cpu"),
                           device="cpu", max_len=64)
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        make_spec(gpt, draft, prefix_cache_blocks=24)
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        make_spec(gpt, draft, telemetry=object())
 
 
 def test_stats_block_shape(gpt, draft):

@@ -2,17 +2,28 @@
 per padded request shape, :mod:`unionml_tpu_torch.serving.resident`), its
 request coalescing and aiohttp app, and the GPT path's paged ``DecodeEngine``
 and asyncio ``ContinuousBatcher`` (:mod:`unionml_tpu_torch.serving.continuous`),
-and speculative decoding on that engine (:mod:`unionml_tpu_torch.serving.speculative`)."""
+its radix prefix cache (:mod:`unionml_tpu_torch.serving.prefix_cache`), fault
+injection and supervised recovery (:mod:`unionml_tpu_torch.serving.faults`,
+:mod:`unionml_tpu_torch.serving.supervisor`), and speculative decoding on that
+engine (:mod:`unionml_tpu_torch.serving.speculative`)."""
 
 from typing import Any, Optional
 
 from unionml_tpu_torch.serving.app import build_aiohttp_app, jsonable, load_model_artifact, run_app
 from unionml_tpu_torch.serving.batcher import RequestBatcher
-from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine, StepEvent
-from unionml_tpu_torch.serving.faults import EngineFailure
+from unionml_tpu_torch.serving.continuous import (
+    ContinuousBatcher,
+    DecodeEngine,
+    PreemptedSlot,
+    SalvagedSlot,
+    StepEvent,
+)
+from unionml_tpu_torch.serving.faults import EngineFailure, FaultError, FaultPlan
+from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.resident import ResidentPredictor
 from unionml_tpu_torch.serving.scheduler import QueueFullError
 from unionml_tpu_torch.serving.speculative import SpeculativeBatcher, SpeculativeEngine
+from unionml_tpu_torch.serving.supervisor import EngineSupervisor
 
 
 def serving_app(
@@ -50,9 +61,15 @@ __all__ = [
     "ContinuousBatcher",
     "DecodeEngine",
     "EngineFailure",
+    "EngineSupervisor",
+    "FaultError",
+    "FaultPlan",
+    "PreemptedSlot",
+    "PrefixCache",
     "QueueFullError",
     "RequestBatcher",
     "ResidentPredictor",
+    "SalvagedSlot",
     "SpeculativeBatcher",
     "SpeculativeEngine",
     "StepEvent",

@@ -1,7 +1,7 @@
 """Continuous batching for GPT generation over a paged KV pool.
 
 Port of the paged subset of ``unionml_tpu/serving/continuous.py``
-(``DecodeEngine``, ``:166-2763``; ``ContinuousBatcher``, ``:2766-2829``).
+(``DecodeEngine``, ``:166-2763``; ``ContinuousBatcher``, ``:2829-3732``).
 One decode step runs over a fixed set of slots; requests are inserted into
 free slots between steps and evicted when they finish.
 
@@ -11,6 +11,13 @@ free slots between steps and evicted when they finish.
   length; admission allocates ``ceil(min(prompt + budget, max_len) /
   block_size)`` blocks and a shortfall raises
   ``EngineFailure(reason="pool_exhausted")``.
+- The pool's allocator is the radix index
+  (:class:`~unionml_tpu_torch.serving.prefix_cache.PrefixCache`). With the
+  prefix cache on (``prefix_cache_blocks > 0``), a prompt's full blocks are
+  indexed by adoption once it prefills (no copy); a later prompt sharing them
+  splices their ids into its table row and prefills only the suffix, at a
+  block-aligned base, through the table (the K4 kernel's query tile on the
+  card). :meth:`DecodeEngine.preempt` checkpoints a running slot the same way.
 - The table's trailing column always points at a reserved scratch block, and a
   retired row decodes at the sentinel position ``(width - 1) * block_size``,
   so its unavoidable write lands in scratch, never in a block another slot
@@ -18,30 +25,41 @@ free slots between steps and evicted when they finish.
 - Prefill is batched per bucket: queued prompts sharing a bucket prefill
   together, up to ``prefill_batch`` rows at a time (dense causal attention,
   the K1 kernel), then every row is quantized block by block into its pool
-  blocks with positions past its real length masked to zero. Prompts longer
-  than ``prefill_chunk`` prefill one chunk per :meth:`DecodeEngine.step`
-  straight through the table (paged attention, the K4 kernel).
+  blocks with positions past its real length masked to zero. Prompts whose
+  uncached part is longer than ``prefill_chunk`` prefill one chunk per
+  :meth:`DecodeEngine.step` straight through the table (the K4 kernel).
 - Slot lifecycle (``active``/``remaining``) lives on the device and retires
   inside the step (``advance_slot_state``); the host replays the fetched
   tokens into its mirrors, one device-to-host copy per step burst.
 - Each (lookahead, sampling) burst is one CUDA graph on the card (the
   counterpart of JAX's compiled step programs), over static device buffers
-  that admission updates in place by index; the bucket and chunk prefills run
-  eagerly between bursts. A steady-state step copies nothing from the host.
+  that admission updates in place by index; the bucket, hit and chunk
+  prefills run eagerly between bursts. A steady-state step copies nothing
+  from the host. Whatever reallocates those buffers (:meth:`DecodeEngine.rebuild`,
+  :meth:`DecodeEngine.reset`, a re-layout by
+  :meth:`DecodeEngine.enable_prefix_cache`) drops every graph first.
 - Depth-1 dispatch-ahead (``pipeline=True``, the default): :meth:`DecodeEngine.step`
   enqueues burst N+1 (its graph, then asynchronous copies of its tokens into
   pinned host memory and an event) before it waits for burst N's event.
   :meth:`DecodeEngine._dispatch_step` and :meth:`DecodeEngine._replay_burst`
   are the seam the speculative engine overrides.
-- A slot whose logits went NaN/Inf is quarantined alone (its request fails
-  with ``nan_logits``); its neighbours keep decoding.
+- Faults: a slot whose logits went NaN/Inf is quarantined alone (its request
+  fails with ``nan_logits``). A failed dispatch, fetch or device write fails
+  the ENGINE: every slot's transcript is salvaged (host data only), the device
+  state is rebuilt in place with the sampling generator put back where the
+  first undelivered burst found it, and a supervising
+  :class:`ContinuousBatcher` re-queues the requests, which resume token for
+  token. :class:`~unionml_tpu_torch.serving.faults.FaultPlan` injects each
+  fault deterministically.
 
-Not ported yet: the prefix cache, preemption, salvage and rebuild, fault
-plans, telemetry, mesh sharding, weight-int8 ``quantize`` and the dense
-``paged=False`` engine.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
+where it is reachable): telemetry and metrics, mesh sharding, weight-only
+int8 ``quantize``, the dense ``paged=False`` engine, the batcher's SLO
+classes, deadlines and preemption policy, and fleet adoption.
 """
 
 import asyncio
+import contextlib
 import dataclasses
 import threading
 import time
@@ -64,10 +82,11 @@ from unionml_tpu_torch.models.gpt import (
 )
 from unionml_tpu_torch.ops.quant import quantize_blockwise
 from unionml_tpu_torch.ops.sampling import sample_logits, validate_sampling
-from unionml_tpu_torch.serving.faults import EngineFailure
+from unionml_tpu_torch.serving.faults import EngineFailure, FaultError, FaultPlan
+from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.scheduler import FifoQueue, Ticket
 
-__all__ = ["ContinuousBatcher", "DecodeEngine", "StepEvent", "block_demand"]
+__all__ = ["ContinuousBatcher", "DecodeEngine", "PreemptedSlot", "SalvagedSlot", "StepEvent", "block_demand"]
 
 #: default prompt-prefill bucket lengths (right-padded)
 DEFAULT_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512)
@@ -80,6 +99,10 @@ def block_demand(prompt_len: int, budget: int, *, max_len: int, block_size: int)
     return -(-need // int(block_size))
 
 
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
 @dataclasses.dataclass(frozen=True)
 class StepEvent:
     """One slot's outcome for one engine step."""
@@ -89,30 +112,35 @@ class StepEvent:
     #: False for an EOS token (consumed, not part of the completion)
     emit: bool
     finished: bool
-    #: failure slug when the ENGINE terminated this request (``nan_logits``);
-    #: the event carries no token and the consumer must fail the request
+    #: failure slug when the ENGINE terminated this request (``nan_logits``,
+    #: ``prefill_failed``); the event carries no token and the consumer must
+    #: fail the request
     error: Optional[str] = None
 
 
-class _BlockAllocator:
-    """Free list of pool block ids (the JAX engine's ``PrefixCache`` doubles
-    as its allocator; without the prefix cache a free list is all it does)."""
+@dataclasses.dataclass
+class PreemptedSlot:
+    """A preempted request's checkpoint (:meth:`DecodeEngine.preempt`):
+    ``tokens`` is its transcript (prompt plus every token decoded), the resume
+    prompt; ``path`` the radix chain holding the transcript's full blocks,
+    pinned until :meth:`DecodeEngine.release_preempted`."""
 
-    def __init__(self, num_blocks: int) -> None:
-        self.num_blocks = int(num_blocks)
-        self._free = list(range(self.num_blocks))
+    tokens: List[int]
+    path: List[Any]
 
-    def available_blocks(self) -> int:
-        return len(self._free)
 
-    def alloc_blocks(self, n: int) -> Optional[List[int]]:
-        if n > len(self._free):
-            return None
-        ids, self._free = self._free[:n], self._free[n:]
-        return ids
+@dataclasses.dataclass
+class SalvagedSlot:
+    """One slot's resumable state captured at an engine failure: host data
+    only (the device state may be poisoned). ``tokens`` is the transcript
+    delivered so far, ``remaining`` the unspent budget. The paged pool is
+    rebuilt empty, so ``path`` is always empty here: the resume prefills the
+    whole transcript."""
 
-    def free_blocks(self, ids: Sequence[int]) -> None:
-        self._free.extend(int(i) for i in ids)
+    slot: int
+    tokens: List[int]
+    path: List[Any]
+    remaining: int
 
 
 @dataclasses.dataclass
@@ -121,7 +149,8 @@ class _Burst:
     start-of-step activity masks and non-finite-logits flags. On the card they
     are pinned host buffers filled by asynchronous copies that ``ready``
     marks; on the CPU, the tensors themselves. ``round`` marks a speculative
-    round's burst."""
+    round's burst; ``gen_state`` is the sampling generator's state before a
+    burst that draws from it (None for one that does not)."""
 
     tokens: torch.Tensor
     masks: torch.Tensor
@@ -129,6 +158,7 @@ class _Burst:
     steps: int
     ready: Any = None
     round: bool = False
+    gen_state: Any = None
 
 
 class DecodeEngine:
@@ -142,15 +172,18 @@ class DecodeEngine:
     :param eos_token_id: token that terminates a completion (not emitted).
     :param temperature: default sampling temperature (0 = greedy).
     :param prefill_buckets: allowed padded prompt lengths; prompts longer than
-        the largest bucket are rejected with ``ValueError``.
+        the largest bucket are rejected with ``ValueError`` unless a cached
+        prefix leaves a suffix that fits.
     :param seed: seeds the engine's ``torch.Generator`` for sampled slots.
     :param prefill_batch: max prompts prefilled together per bucket.
-    :param prefill_chunk: prompts longer than this prefill in chunks of this
-        many tokens, one chunk per :meth:`step`, through the block table.
-    :param block_size: tokens per pool block (clamped to ``max_len``).
+    :param prefill_chunk: prompts whose uncached part is longer than this
+        prefill in chunks of this many tokens, one chunk per :meth:`step`,
+        through the block table.
+    :param block_size: tokens per pool block, which is also the prefix
+        cache's match granularity (clamped to ``max_len``).
     :param pool_blocks: pool size in blocks including the scratch block;
         ``None`` sizes it so a free slot can always allocate
-        (``num_slots * ceil(max_len / block_size) + 1``).
+        (``num_slots * ceil(max_len / block_size) + prefix_cache_blocks + 1``).
     :param kv_quantize: ``"int8"`` stores the pool as int8 codes with
         per-(block, head) f32 scales; ``None`` keeps the compute dtype.
     :param kv_quantize_skip_layers: layers whose pool stays full precision.
@@ -159,8 +192,16 @@ class DecodeEngine:
         card decodes while the host applies tokens; events then arrive one
         call later. Streams equal ``pipeline=False``'s under the same calls.
     :param paged: must be True (the dense engine is not ported yet).
-    :param prefix_cache_blocks / faults / telemetry / mesh: not ported yet;
-        anything but the default raises ``NotImplementedError``.
+    :param prefix_cache_blocks: when > 0, the prefix cache is on (see
+        :meth:`enable_prefix_cache`) with this many blocks of headroom in the
+        default pool size.
+    :param prefix_cache_generated: also index a retiring slot's generated
+        tokens, so a follow-up turn hits the whole previous turn.
+    :param faults: a :class:`~unionml_tpu_torch.serving.faults.FaultPlan`
+        (fault injection for tests and chaos runs); ``None`` makes every
+        hook one host branch.
+    :param quantize / telemetry / mesh: not ported yet; anything but the
+        default raises ``NotImplementedError``.
     :param device: ``"cuda"`` (default; raises without a CUDA device) or
         ``"cpu"`` for the plain PyTorch path.
     """
@@ -184,23 +225,21 @@ class DecodeEngine:
         pipeline: bool = True,
         paged: bool = True,
         prefix_cache_blocks: int = 0,
-        faults: Any = None,
+        prefix_cache_generated: bool = False,
+        faults: Optional[FaultPlan] = None,
+        quantize: Optional[str] = None,
         telemetry: Any = None,
         mesh: Any = None,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
-        for value, what, item in ((prefix_cache_blocks, "prefix_cache_blocks", "DecodeEngine prefix cache, slice 5"),
-                                  (faults, "faults (FaultPlan)", "DecodeEngine fault plans, slice 5"),
-                                  (telemetry, "telemetry", "DecodeEngine telemetry, slice 5"),
+        for value, what, item in ((quantize, "weight-only int8 (quantize)", "Queue 1, weight-only int8"),
+                                  (telemetry, "telemetry", "slice 7, telemetry and metrics"),
                                   (mesh, "mesh", "M12")):
             if value:
-                raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+                raise _not_ported(what, item)
         if not paged:
-            raise NotImplementedError(
-                "the dense (paged=False) engine is not ported yet (ROADMAP: DecodeEngine "
-                "prefix cache / preemption slice)"
-            )
+            raise _not_ported("the dense (paged=False) engine", "Queue 1, the dense engine")
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
         config = model.config
@@ -218,6 +257,9 @@ class DecodeEngine:
         self.eos_token_id = eos_token_id
         self.temperature = float(temperature)
         self._seed = int(seed)
+        #: full resets (reset, or a rebuild that abandons its work): each
+        #: reseeds the generator so sampled streams do not repeat
+        self._resets = 0
         self.prefill_batch = max(1, int(prefill_batch))
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
@@ -230,17 +272,59 @@ class DecodeEngine:
                 f"kv_quantize_skip_layers {self.kv_quantize_skip_layers} out of range "
                 f"for {config.num_layers} layers"
             )
+        # the pool's block size IS the prefix cache's (one layout, spliced freely)
         self.block_size = min(int(block_size), self.max_len)
         self._table_width = block_table_width(self.max_len, self.block_size)
+        self._explicit_pool_blocks = pool_blocks is not None
         if pool_blocks is None:
-            pool_blocks = self.num_slots * (self._table_width - 1) + 1
+            pool_blocks = self.num_slots * (self._table_width - 1) + int(prefix_cache_blocks) + 1
         if int(pool_blocks) < 2:
             raise ValueError(f"pool_blocks must be >= 2 (1 usable + scratch), got {pool_blocks}")
         self.pool_blocks = int(pool_blocks)
         #: reserved block absorbing retired rows' masked writes; never allocated
         self._scratch_block = self.pool_blocks - 1
-        self._allocator = _BlockAllocator(self.pool_blocks - 1)
-        self._slot_blocks: Dict[int, List[int]] = {}
+        #: the allocator of the pool, and its radix index once the prefix cache is on
+        self._allocator = PrefixCache(self.pool_blocks - 1, self.block_size)
+        #: the radix index (the allocator itself) while the prefix cache is on, else None
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.prefix_cache_generated = bool(prefix_cache_generated)
+        #: per-slot PRIVATE blocks, block index -> pool block id (spliced
+        #: shared blocks live in ``_slot_path``). Freeing at retirement is safe
+        #: with a burst in flight: the retired row writes only scratch, and a
+        #: new owner's writes queue behind that burst on the stream.
+        self._slot_block_map: Dict[int, Dict[int, int]] = {}
+        #: per-slot radix paths held (matched or indexed blocks)
+        self._slot_path: Dict[int, List[Any]] = {}
+        #: per-slot transcript (prompt + applied tokens): generated-KV capture,
+        #: preemption and salvage read it
+        self._slot_tokens: Dict[int, List[int]] = {}
+
+        #: the deterministic fault script (None: every hook is one host branch)
+        self._faults = faults
+        #: engine failures survived; the batcher keys recovery on its delta
+        self.failure_count = 0
+        #: device-state rebuilds performed
+        self.rebuilds = 0
+        #: wall ms of the last rebuild (the graphs' recapture comes at the
+        #: next dispatch and is in each new graph's ``capture_ms``)
+        self.last_rebuild_ms: Optional[float] = None
+        #: salvage captured at the last failure, awaiting :meth:`take_salvage`
+        self._salvage: List[SalvagedSlot] = []
+        #: set when an in-place rebuild failed: the engine refuses work until
+        #: :meth:`rebuild` succeeds
+        self._failed = False
+        #: set when an in-place device write failed part-way: the shared state
+        #: is suspect, so the entry point escalates to an engine failure
+        self._device_poisoned = False
+        #: the generator state a resume rebuild restores (the state before the
+        #: first burst whose tokens were never delivered)
+        self._resume_gen: Any = None
+        #: the generator state before the dispatch in progress, if it samples
+        self._dispatch_gen: Any = None
+        #: liveness stamp (monotonic) the supervisor's watchdog reads
+        self.last_heartbeat = time.monotonic()
+        #: slots admitted by the admit_many call in progress (its rollback set)
+        self._admitting: Optional[List[int]] = None
 
         # host mirrors (authoritative for scheduling; device tensors follow them)
         self._active = np.zeros(num_slots, dtype=bool)
@@ -252,6 +336,17 @@ class DecodeEngine:
         self._slot_temp = np.full(num_slots, self.temperature, dtype=np.float32)
         #: requests terminated by the NaN/Inf-logits quarantine
         self.quarantined_requests = 0
+        #: prefill device calls, and the REAL prompt tokens they computed
+        #: (padding excluded; a prefix-cache hit counts only its suffix)
+        self.prefill_dispatches = 0
+        self.prefill_tokens_computed = 0
+        #: logical prefix restores (copy-free splices) and saves (adoptions)
+        self.prefix_restore_dispatches = 0
+        self.prefix_save_dispatches = 0
+        self.requests_admitted = 0
+        self.tokens_decoded = 0
+        #: running slots checkpointed by :meth:`preempt`
+        self.preempted_requests = 0
 
         #: depth-1 dispatch-ahead: enqueue burst N+1 before fetching burst N
         self.pipeline = bool(pipeline)
@@ -266,17 +361,28 @@ class DecodeEngine:
         #: device programs by key: CUDA graphs on the card (the counterpart of
         #: JAX's compiled step programs), empty on the CPU
         self._step_fns: Dict[Any, Any] = {}
+        #: graphs captured, and graphs dropped because their buffers were reallocated
+        self.graph_captures = 0
+        self.graphs_dropped = 0
         self.step_dispatches = 0
         self.idle_dispatches = 0
         self.ema_host_gap_ms: Optional[float] = None
         self.ema_fetch_block_ms: Optional[float] = None
         self._last_fetch_done: Optional[float] = None
         self._init_device_state()
+        if prefix_cache_blocks:
+            self.enable_prefix_cache(prefix_cache_blocks, cache_generated=prefix_cache_generated)
 
     def _init_device_state(self) -> None:
-        """Allocate the device state: the pool, the tables and every buffer a
-        decode burst reads or writes. They are static: every later write is
-        in place, so a captured burst keeps reading the live values."""
+        """(Re)allocate the device state: the pool, the tables and every
+        buffer a decode burst reads or writes. They are static: every later
+        write is in place, so a captured burst keeps reading the live values.
+        A reallocation drops every graph (each reads the old buffers at their
+        addresses; one replayed over freed memory would corrupt silently) and
+        the burst in flight; the next dispatch of each key captures anew."""
+        self.graphs_dropped += len(self._step_fns)
+        self._step_fns = {}
+        self._inflight, self._inflight_skip = None, set()
         dev, config = self.device, self._config
         self._pool = init_block_pool(
             config, self.pool_blocks, self.block_size, kv_quantize=self.kv_quantize,
@@ -291,7 +397,46 @@ class DecodeEngine:
         self._top_k_dev = torch.zeros((self.num_slots,), dtype=torch.int64, device=dev)
         self._top_p_dev = torch.ones((self.num_slots,), dtype=torch.float32, device=dev)
         self._generator = torch.Generator(device=dev)
-        self._generator.manual_seed(self._seed)
+        self._generator.manual_seed(self._seed + self._resets)
+
+    @contextlib.contextmanager
+    def _device_write(self):
+        """Mark the shared device state poisoned when an in-place write into
+        it (pool, tables, lengths, logits, slot mirrors) fails part-way: the
+        public entry points then escalate to an engine failure."""
+        try:
+            yield
+        except Exception:
+            self._device_poisoned = True
+            raise
+
+    def enable_prefix_cache(self, num_blocks: int, block_size: Optional[int] = None, *,
+                            cache_generated: bool = False) -> None:
+        """Turn the prefix cache on: the allocator already is the radix index,
+        so indexing starts over the same pool. ``block_size`` (default the
+        pool's) or extra headroom in a default-sized pool re-lays the pool
+        out, which is legal only while nothing holds a block (and drops every
+        graph). Callable once (the constructor calls it for
+        ``prefix_cache_blocks > 0``)."""
+        if self.prefix_cache is not None:
+            raise RuntimeError("prefix cache is already enabled on this engine")
+        block_size = self.block_size if block_size is None else int(block_size)
+        if not 1 <= block_size < self.max_len:
+            raise ValueError(f"block_size must be in [1, max_len) = [1, {self.max_len}), got {block_size}")
+        width = block_table_width(self.max_len, block_size)
+        pool_blocks = self.pool_blocks
+        if not self._explicit_pool_blocks:
+            pool_blocks = self.num_slots * (width - 1) + int(num_blocks) + 1
+        if block_size != self.block_size or pool_blocks != self.pool_blocks:
+            if self.busy or self._inflight is not None or self._allocator.slot_blocks:
+                raise RuntimeError("enable_prefix_cache cannot re-layout the block pool while requests hold "
+                                   "blocks; call it before admitting work")
+            self.block_size, self._table_width, self.pool_blocks = block_size, width, pool_blocks
+            self._scratch_block = pool_blocks - 1
+            self._allocator = PrefixCache(pool_blocks - 1, block_size)
+            self._init_device_state()
+        self.prefix_cache = self._allocator
+        self.prefix_cache_generated = bool(cache_generated)
 
     # ------------------------------------------------------------ scheduling
 
@@ -333,14 +478,13 @@ class DecodeEngine:
             f"({self._buckets[-1]}); raise prefill_buckets/max_len or truncate"
         )
 
-    def _chunkable(self, prompt_len: int) -> bool:
-        chunk = self.prefill_chunk
-        return chunk is not None and prompt_len > chunk and -(-prompt_len // chunk) * chunk <= self.max_len
-
     def block_demand(self, prompt_len: int, budget: int) -> int:
+        """Pool blocks a request needs for its whole lifetime (a hit's
+        private share can be smaller: this is the conservative demand)."""
         return block_demand(prompt_len, budget, max_len=self.max_len, block_size=self.block_size)
 
     def available_blocks(self) -> int:
+        """Blocks an admission could allocate now: free plus evictable."""
         return self._allocator.available_blocks()
 
     def kv_pool_stats(self) -> Dict[str, Any]:
@@ -370,6 +514,21 @@ class DecodeEngine:
             "graphs": len(self._step_fns),
         }
 
+    def robustness_stats(self) -> Dict[str, Any]:
+        """Failure and recovery counters (a supervisor keeps its own beside them)."""
+        stats: Dict[str, Any] = {
+            "engine_failures": self.failure_count,
+            "engine_rebuilds": self.rebuilds,
+            "quarantined_requests": self.quarantined_requests,
+            "salvage_pending": len(self._salvage),
+            "graph_captures": self.graph_captures,
+            "graphs_dropped": self.graphs_dropped,
+            "last_rebuild_ms": self.last_rebuild_ms,
+        }
+        if self._faults is not None:
+            stats["faults"] = self._faults.stats()
+        return stats
+
     def validate_request(
         self, prompt_ids: Sequence[int], max_new_tokens: int, *,
         temperature: Optional[float] = None, top_k: int = 0, top_p: float = 1.0,
@@ -387,7 +546,13 @@ class DecodeEngine:
             raise ValueError(f"token ids must lie in [0, {self._config.vocab_size})")
         temperature, top_k, top_p = validate_sampling(temperature, top_k, top_p)
         temperature = self.temperature if temperature is None else temperature
-        self.bucket_for(prompt.size)  # raises for prompts beyond the bucket ladder
+        try:
+            self.bucket_for(prompt.size)  # raises for prompts beyond the bucket ladder
+        except ValueError:
+            # a cached prefix can stand in for the missing bucket: a resumed
+            # transcript longer than the largest bucket still re-admits
+            if not self._prefix_coverable(prompt):
+                raise
         demand = self.block_demand(prompt.size, max_new_tokens)
         if demand > self._allocator.num_blocks:
             raise ValueError(
@@ -396,30 +561,59 @@ class DecodeEngine:
             )
         return prompt, int(max_new_tokens), float(temperature), int(top_k), float(top_p)
 
+    def _prefix_coverable(self, prompt: np.ndarray) -> bool:
+        """Whether the cached prefix of ``prompt`` leaves a suffix that fits
+        the bucket ladder and the slot (a probe: no reference is taken)."""
+        if self.prefix_cache is None:
+            return False
+        if self.prefill_chunk is not None and int(prompt.size) < self.max_len:
+            return True  # the chunked path takes any in-capacity suffix
+        block = self.block_size
+        covered = self.prefix_cache.probe(prompt, (int(prompt.size) - 1) // block) * block
+        if covered <= 0:
+            return False
+        try:
+            return covered + self.bucket_for(int(prompt.size) - covered) <= self.max_len
+        except ValueError:
+            return False
+
     # ---------------------------------------------------------- paged blocks
 
-    def _alloc_slot_blocks(self, slot: int, need: int) -> List[int]:
+    def _alloc_slot_blocks(self, slot: int, start: int, need: int) -> List[int]:
+        """Acquire ``need`` private blocks for ``slot``'s table columns
+        ``[start, start + need)``, fetching the burst in flight once on a
+        shortfall (its unreplayed retirements may free blocks); still short:
+        the retryable ``pool_exhausted`` failure."""
+        if need <= 0:
+            self._slot_block_map.setdefault(slot, {})
+            return []
         ids = self._allocator.alloc_blocks(need)
         if ids is None and self._inflight is not None:
-            # the in-flight burst's unreplayed retirements may free blocks
             self._pending_events.extend(self._fetch_inflight())
             ids = self._allocator.alloc_blocks(need)
         if ids is None:
             raise EngineFailure(
                 f"KV block pool exhausted: need {need} block(s), "
-                f"{self._allocator.available_blocks()} free of {self._allocator.num_blocks}",
+                f"{self._allocator.available_blocks()} reclaimable of {self._allocator.num_blocks}",
                 reason="pool_exhausted", retryable=True,
             )
-        self._slot_blocks[slot] = ids
-        row = np.full((self._table_width,), self._scratch_block, dtype=np.int32)
-        row[: len(ids)] = ids
-        self._tables[slot] = torch.from_numpy(row).to(self.device)
+        self._slot_block_map[slot] = {start + i: b for i, b in enumerate(ids)}
         return ids
 
     def _free_slot_blocks(self, slot: int) -> None:
-        ids = self._slot_blocks.pop(slot, None)
+        """Return ``slot``'s private blocks that the radix index did not adopt."""
+        ids = self._slot_block_map.pop(slot, None)
         if ids:
-            self._allocator.free_blocks(ids)
+            self._allocator.free_blocks(list(ids.values()))
+
+    def _write_slot_row(self, slot: int, block_ids: Sequence[int]) -> None:
+        """Write one slot's table row by index: spliced shared ids first, then
+        private ones, scratch in every other column. A burst in flight read
+        the row before this write on the stream."""
+        row = np.full((self._table_width,), self._scratch_block, dtype=np.int32)
+        row[: len(block_ids)] = block_ids
+        with self._device_write():
+            self._tables[slot] = torch.from_numpy(row).to(self.device)
 
     def _activate(self, slot: int, length: int, budget: int, temp: float, top_k: int, top_p: float) -> None:
         self._active[slot] = True
@@ -427,17 +621,21 @@ class DecodeEngine:
         self._lens_host[slot] = length
         self._remaining[slot] = budget
         self._slot_temp[slot] = temp
+        self.requests_admitted += 1
+        if self._admitting is not None:
+            self._admitting.append(slot)
         self._slot_device_update(slot, True, budget, temp, top_k, top_p)
 
     def _slot_device_update(self, slot, is_active, budget, temp, top_k, top_p) -> None:
         """Point-update one slot's device lifecycle and sampling controls, in
         place (a full upload would roll back other slots' retirements inside
         a burst still in flight)."""
-        self._active_dev[slot] = bool(is_active)
-        self._remaining_dev[slot] = int(min(budget, np.iinfo(np.int32).max))
-        self._temp_dev[slot] = float(temp)
-        self._top_k_dev[slot] = int(top_k)
-        self._top_p_dev[slot] = float(top_p)
+        with self._device_write():
+            self._active_dev[slot] = bool(is_active)
+            self._remaining_dev[slot] = int(min(budget, np.iinfo(np.int32).max))
+            self._temp_dev[slot] = float(temp)
+            self._top_k_dev[slot] = int(top_k)
+            self._top_p_dev[slot] = float(top_p)
 
     # -------------------------------------------------------------- admission
 
@@ -456,10 +654,40 @@ class DecodeEngine:
         Every request validates before any device work; ``RuntimeError`` when
         fewer slots are free than requests (after fetching a burst in flight,
         whose retirements may free some: its events wait in
-        :meth:`take_pending_events`). A failure part-way (e.g.
-        ``pool_exhausted``) cancels the slots this call admitted and frees
-        their blocks before it re-raises.
+        :meth:`take_pending_events`). With the prefix cache on, a request
+        whose prefix a request earlier in the same call will index waits for a
+        second pass and admits as a hit on it.
+
+        A failure part-way that leaves the device state intact (e.g.
+        ``pool_exhausted``, an injected prefill fault) cancels the slots this
+        call admitted and frees their blocks before it re-raises; one inside an
+        in-place device write fails the engine (salvage, rebuild) instead.
         """
+        self._ensure_usable()
+        if self._faults is not None:
+            self._faults.begin_admit()
+        failures_before = self.failure_count
+        self._admitting = []
+        try:
+            return self._admit_many_inner(requests)
+        except Exception:
+            if self.failure_count == failures_before:
+                if self._device_poisoned:
+                    self._on_failure()
+                else:
+                    for slot in list(self._admitting):
+                        self.cancel(slot)
+                    # blocks granted to slots that never activated
+                    for slot in list(self._slot_block_map):
+                        if not (self._active[slot] or self._reserved[slot]):
+                            self._free_slot_blocks(slot)
+            raise
+        finally:
+            self._admitting = None
+            if self._faults is not None:
+                self._faults.end_admit()
+
+    def _admit_many_inner(self, requests: Sequence[Tuple]) -> List[int]:
         normalized = []
         for req in requests:
             sampling = dict(req[2]) if len(req) > 2 and req[2] else {}
@@ -471,22 +699,36 @@ class DecodeEngine:
         if len(normalized) > len(free):
             raise RuntimeError("no free decode slots")
         slots = free[: len(normalized)]
-        try:
-            groups: Dict[int, List[int]] = {}
-            for slot, norm in zip(slots, normalized):
-                if self._chunkable(norm[0].size):
-                    self._start_chunked(slot, *norm)
-                else:
-                    groups.setdefault(self.bucket_for(norm[0].size), []).append(slot)
-            self._flush_groups(groups, dict(zip(slots, normalized)))
-        except Exception:
-            for slot in slots:
-                if self._active[slot] or self._reserved[slot]:
-                    self._release(slot)
-                else:
-                    self._free_slot_blocks(slot)
-            raise
+        slot_to_norm = dict(zip(slots, normalized))
+        groups: Dict[int, List[int]] = {}
+        deferred: List[int] = []
+        sibling_prefixes: set = set()
+        for slot, norm in zip(slots, normalized):
+            if self.prefix_cache is not None:
+                if self._defer_for_sibling(norm[0], sibling_prefixes):
+                    deferred.append(slot)
+                    continue
+                self._note_prefixes(norm[0], sibling_prefixes)
+            self._admit_one(slot, norm, groups)
+        self._flush_groups(groups, slot_to_norm)
+        if deferred:
+            # the siblings' blocks are indexed now: the deferred re-match as hits
+            groups = {}
+            for slot in deferred:
+                self._admit_one(slot, slot_to_norm[slot], groups)
+            self._flush_groups(groups, slot_to_norm)
         return slots
+
+    def _admit_one(self, slot: int, norm: Tuple, groups: Dict[int, List[int]]) -> None:
+        """Route one validated request: chunked prefill, a one-shot prefix
+        hit, or the batched bucket path (queued in ``groups``)."""
+        prompt, budget, temp, top_k, top_p = norm
+        path, matched = self._match_prefix(prompt)
+        if self._start_chunked(slot, prompt, budget, temp, top_k, top_p, path, matched):
+            return
+        if matched and self._admit_with_prefix(slot, prompt, budget, temp, top_k, top_p, path, matched):
+            return
+        groups.setdefault(self.bucket_for(prompt.size), []).append(slot)
 
     def _flush_groups(self, groups: Dict[int, List[int]], slot_to_norm: Dict[int, Tuple]) -> None:
         """Per bucket, prefill up to ``prefill_batch`` rows together, then
@@ -500,12 +742,19 @@ class DecodeEngine:
                     prompt, budget = slot_to_norm[slot][:2]
                     padded[r, : prompt.size] = prompt
                     lengths[r] = prompt.size
-                    self._alloc_slot_blocks(slot, self.block_demand(prompt.size, budget))
+                    self._write_slot_row(slot, self._alloc_slot_blocks(slot, 0, self.block_demand(prompt.size, budget)))
+                if self._faults is not None:
+                    self._faults.check_prefill()
                 lengths_dev = torch.from_numpy(lengths).to(self.device)
                 local_cache, last = self._prefill(torch.from_numpy(padded).to(self.device), lengths_dev)
-                self._paged_insert(local_cache, last, torch.tensor(chunk, device=self.device), lengths_dev)
+                with self._device_write():
+                    self._paged_insert(local_cache, last, torch.tensor(chunk, device=self.device), lengths_dev)
+                self.prefill_dispatches += 1
                 for r, slot in enumerate(chunk):
+                    prompt = slot_to_norm[slot][0]
                     self._activate(slot, int(lengths[r]), *slot_to_norm[slot][1:])
+                    self.prefill_tokens_computed += int(prompt.size)
+                    self._index_prompt(slot, prompt)
 
     def _prefill(self, prompt_ids: torch.Tensor, lengths: torch.Tensor, model: Any = None):
         """Batched bucket prefill of ``model`` (default the engine's):
@@ -553,22 +802,179 @@ class DecodeEngine:
             self._lens[slots] = lengths.to(self._lens.dtype)
             self._last_logits[slots] = local_logits.float()
 
+    def _defer_for_sibling(self, prompt: np.ndarray, sibling_prefixes: set) -> bool:
+        """Whether a request earlier in this call will index a longer block
+        prefix of ``prompt`` than the tree matches today."""
+        block = self.block_size
+        max_blocks = (int(prompt.size) - 1) // block
+        for k in range(max_blocks, 0, -1):
+            if tuple(int(t) for t in prompt[: k * block]) in sibling_prefixes:
+                return k > self.prefix_cache.probe(prompt, max_blocks)
+        return False
+
+    def _note_prefixes(self, prompt: np.ndarray, sibling_prefixes: set) -> None:
+        """Record every block prefix this request will index once it prefills."""
+        block = self.block_size
+        for k in range(1, int(prompt.size) // block + 1):
+            sibling_prefixes.add(tuple(int(t) for t in prompt[: k * block]))
+
+    # ---------------------------------------------------------- prefix cache
+
+    def _match_prefix(self, prompt: np.ndarray) -> Tuple[List[Any], int]:
+        """Longest cached full-block prefix of ``prompt``, capped one token
+        short of it (one real token must prefill to seed decoding); ``([],
+        0)`` with the cache off. The path is reference-held."""
+        if self.prefix_cache is None:
+            return [], 0
+        max_blocks = (int(prompt.size) - 1) // self.block_size
+        if max_blocks <= 0:
+            return [], 0
+        path = self.prefix_cache.match(prompt, max_blocks)
+        return path, len(path) * self.block_size
+
+    def _admit_with_prefix(self, slot: int, prompt: np.ndarray, budget: int, temp: float, top_k: int,
+                           top_p: float, path: List[Any], matched: int) -> bool:
+        """One-shot admission of a prefix-cache hit: splice the matched block
+        ids into the slot's table row and prefill ONLY the suffix over it,
+        bucket-padded, at base ``matched`` through the table (K4's query tile
+        on the card). The base is block-aligned, so the suffix's writes,
+        padding included, land in the slot's private blocks (or scratch),
+        never in a shared one. The match shrinks a block at a time while the
+        suffix bucket would overflow the slot; returns False (path released)
+        when nothing survives, and the caller falls back to the bucket path."""
+        block = self.block_size
+        while matched:
+            try:
+                if matched + self.bucket_for(prompt.size - matched) <= self.max_len:
+                    break
+            except ValueError:
+                # the suffix outgrew the bucket ladder while shrinking
+                self.prefix_cache.release(path)
+                path.clear()
+                return False
+            self.prefix_cache.release([path.pop()])
+            matched -= block
+        if not matched:
+            return False
+        suffix_len = int(prompt.size) - matched
+        ids = np.zeros((1, self.bucket_for(suffix_len)), dtype=np.int64)
+        ids[0, :suffix_len] = prompt[matched:]
+        try:
+            private = self._alloc_slot_blocks(slot, len(path), self.block_demand(prompt.size, budget) - len(path))
+            self._write_slot_row(slot, [node.block_id for node in path] + private)
+            self.prefix_restore_dispatches += 1
+            if self._faults is not None:
+                self._faults.check_prefill()
+            logits = self._run_paged_chunk(ids, slot, matched)
+            self.prefill_dispatches += 1
+            self.prefill_tokens_computed += suffix_len
+            self._seal_slot(slot, int(prompt.size), logits[0, suffix_len - 1])
+        except Exception:
+            self.prefix_cache.release(path)
+            path.clear()
+            self._free_slot_blocks(slot)
+            raise
+        self.prefix_cache.record_hit(matched)
+        self._activate(slot, int(prompt.size), budget, temp, top_k, top_p)
+        self._slot_path[slot] = path
+        self._index_prompt(slot, prompt)
+        return True
+
+    def _run_paged_chunk(self, ids: np.ndarray, slot: int, position: int) -> torch.Tensor:
+        """One batch-1 prefill chunk straight into ``slot``'s pool blocks at
+        ``position`` (the hit's suffix and every chunk of a chunked prefill);
+        returns its logits."""
+        cache = {"table": self._tables[slot : slot + 1], **self._pool}
+        with torch.no_grad(), self._device_write():
+            logits, _ = self._model(torch.from_numpy(ids).to(self.device), cache=cache, position=int(position))
+        return logits
+
+    def _seal_slot(self, slot: int, length: int, last: torch.Tensor) -> None:
+        """Set a table-resident prefill's length and sampling logits."""
+        with self._device_write():
+            self._lens[slot] = int(length)
+            self._last_logits[slot] = last.float()
+
+    def _index_prompt(self, slot: int, prompt: np.ndarray) -> None:
+        """Start the slot's transcript and, with the cache on, index the
+        prompt's full blocks. Runs after :meth:`_activate` on every admission
+        path (the transcript serves salvage even with the cache off)."""
+        self._slot_tokens[slot] = [int(t) for t in prompt]
+        if self.prefix_cache is not None:
+            self._extend_index(slot, prompt)
+
+    def _extend_index(self, slot: int, tokens: np.ndarray) -> None:
+        """Extend the slot's held path over ``tokens``' full blocks by
+        ADOPTION: each block the tree lacks moves from the slot's private
+        blocks to the tree, no device work. Only full blocks are indexed, so
+        an int8 block's codes and scale never change once shared. An exhausted
+        pool (injected) indexes nothing new; the request is never affected."""
+        path = self._slot_path.pop(slot, [])
+        if self._faults is not None and self._faults.pool_exhausted():
+            self._faults.note_observed("pool_exhausted")
+            if path:
+                self._slot_path[slot] = path
+            return
+        full, adopted = self.prefix_cache.adopt(path, tokens, int(tokens.size) // self.block_size,
+                                                self._slot_block_map.setdefault(slot, {}))
+        if adopted:
+            self.prefix_save_dispatches += 1
+        if full:
+            self._slot_path[slot] = full
+
+    def _capture_generated(self, slot: int) -> None:
+        """At retirement (``prefix_cache_generated``): index the slot's whole
+        transcript, eos included, up to its length."""
+        tokens = self._slot_tokens.get(slot)
+        if tokens:
+            self._extend_index(slot, np.asarray(tokens[: int(self._lens_host[slot])], dtype=np.int32))
+
+    def _release_prefix(self, slot: int) -> None:
+        """Drop the slot's references into the radix tree and its transcript."""
+        path = self._slot_path.pop(slot, None)
+        if path and self.prefix_cache is not None:
+            self.prefix_cache.release(path)
+        self._slot_tokens.pop(slot, None)
+
     # -------------------------------------------------------- chunked prefill
 
-    def _start_chunked(self, slot: int, prompt: np.ndarray, budget: int,
-                       temp: float, top_k: int, top_p: float) -> None:
-        """Reserve ``slot`` for a chunked prefill: allocate its lifetime blocks
-        now; every chunk then writes straight through the table."""
-        self._alloc_slot_blocks(slot, self.block_demand(prompt.size, budget))
+    def _start_chunked(self, slot: int, prompt: np.ndarray, budget: int, temp: float, top_k: int, top_p: float,
+                       path: Sequence[Any] = (), matched: int = 0) -> bool:
+        """Reserve ``slot`` for a chunked prefill when the prompt's uncached
+        part is longer than one chunk and its padded length fits the slot:
+        allocate its lifetime blocks, splice a matched prefix into the row, and
+        let every chunk write through the table from ``matched`` on."""
+        chunk = self.prefill_chunk
+        if chunk is None or prompt.size - matched <= chunk:
+            return False
+        if matched + -(-(prompt.size - matched) // chunk) * chunk > self.max_len:
+            return False
+        try:
+            private = self._alloc_slot_blocks(slot, len(path), self.block_demand(prompt.size, budget) - len(path))
+            self._write_slot_row(slot, [node.block_id for node in path] + private)
+        except Exception:
+            if path:
+                self.prefix_cache.release(list(path))
+            self._free_slot_blocks(slot)
+            raise
+        if matched:
+            self.prefix_restore_dispatches += 1  # a copy-free splice
+            self.prefix_cache.record_hit(matched)
+            self._slot_path[slot] = list(path)
         self._reserved[slot] = True
+        if self._admitting is not None:
+            self._admitting.append(slot)
         self._partials[slot] = {
-            "prompt": prompt, "consumed": 0, "budget": budget, "temp": temp, "top_k": top_k, "top_p": top_p,
+            "prompt": prompt, "consumed": matched, "budget": budget, "temp": temp, "top_k": top_k, "top_p": top_p,
         }
+        return True
 
     def _advance_partials(self) -> None:
         """Run ONE chunk of every in-progress chunked prefill (eagerly, between
         decode bursts); completed prefills seal their length and logits and
-        activate."""
+        activate. An injected prefill fault (raised before the chunk runs)
+        fails that request alone with a ``prefill_failed`` event; a chunk that
+        fails while writing the pool raises (an engine failure)."""
         chunk = self.prefill_chunk
         for slot in list(self._partials):
             state = self._partials[slot]
@@ -576,16 +982,32 @@ class DecodeEngine:
             take = min(chunk, prompt.size - consumed)
             ids = np.zeros((1, chunk), dtype=np.int64)
             ids[0, :take] = prompt[consumed : consumed + take]
-            cache = {"table": self._tables[slot : slot + 1], **self._pool}
-            with torch.no_grad():
-                logits, _ = self._model(torch.from_numpy(ids).to(self.device), cache=cache, position=int(consumed))
+            if self._faults is not None:
+                try:
+                    self._faults.check_prefill()
+                except FaultError as exc:
+                    logger.warning("chunked prefill failed for slot %d: %s", slot, exc)
+                    self._fail_partial(slot)
+                    continue
+            logits = self._run_paged_chunk(ids, slot, int(consumed))
+            self.prefill_dispatches += 1
+            self.prefill_tokens_computed += int(take)
             state["consumed"] = consumed + take
             if state["consumed"] < prompt.size:
                 continue
-            self._lens[slot] = int(prompt.size)
-            self._last_logits[slot] = logits[0, take - 1]
+            self._seal_slot(slot, int(prompt.size), logits[0, take - 1])
             del self._partials[slot]
             self._activate(slot, prompt.size, state["budget"], state["temp"], state["top_k"], state["top_p"])
+            self._index_prompt(slot, prompt)
+
+    def _fail_partial(self, slot: int) -> None:
+        """Drop one chunked prefill whose chunk failed: free the slot, release
+        its matched path, and buffer the ``prefill_failed`` event."""
+        self._partials.pop(slot, None)
+        self._reserved[slot] = False
+        self._release_prefix(slot)
+        self._free_slot_blocks(slot)
+        self._pending_events.append(StepEvent(slot=slot, token=-1, emit=False, finished=True, error="prefill_failed"))
 
     # ------------------------------------------------------------------ decode
 
@@ -633,37 +1055,52 @@ class DecodeEngine:
         graph = self._step_fns.get(key)
         if graph is None:
             active = self._active_dev.clone()
+            states = [g.get_state() for g in generators]
             self._active_dev.zero_()
             try:
                 graph = _graphs.capture(fn, (), {}, device=self.device, generators=tuple(generators))
             finally:
                 self._active_dev.copy_(active)
+                # the warm-up runs drew from the generators: putting their
+                # states back makes every replay draw what an eager run of the
+                # same burst would, whenever the graph was captured (so a
+                # rebuild's recapture leaves a sampled stream where it was).
+                # set_state writes the seed and offset into the generator's
+                # state object in place, the object the graph registered, and
+                # each replay reads that offset on the host before it launches
+                for g, state in zip(generators, states):
+                    g.set_state(state)
             self._step_fns[key] = graph
+            self.graph_captures += 1
         return graph(((), {}))
 
-    def _enqueue_fetch(self, out, steps: int, round: bool = False) -> _Burst:
+    def _enqueue_fetch(self, out, steps: int, round: bool = False, gen_state: Any = None) -> _Burst:
         """Wrap a dispatched program's ``(tokens, masks, bads)``: on the card,
         start their copies into pinned host buffers and record the event the
         fetch waits on."""
         if self.device.type != "cuda":
-            return _Burst(*out, steps=steps, round=round)
+            return _Burst(*out, steps=steps, round=round, gen_state=gen_state)
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
         for h, t in zip(host, out):
             h.copy_(t, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        return _Burst(*host, steps=steps, ready=ready, round=round)
+        return _Burst(*host, steps=steps, ready=ready, round=round, gen_state=gen_state)
 
     def _dispatch_step(self, lookahead: int) -> _Burst:
         """Dispatch ONE decode burst of ``lookahead`` steps and return it in
         flight. The seam :meth:`step` drives and subclasses override (the
         speculative engine swaps in its round here). Everything the burst
         reads rides in device buffers, so a steady-state dispatch copies
-        nothing from the host."""
+        nothing from the host. A sampling burst records the generator's state
+        first: a rebuild puts it back if the burst's tokens never arrive."""
         sampling = bool((self._slot_temp[self._active] > 0).any())
+        if self._faults is not None:
+            self._faults.check_step_dispatch()
+        self._dispatch_gen = self._generator.get_state() if sampling else None
         out = self._run_program(("decode", lookahead, sampling), lambda: self._burst(lookahead, sampling),
                                 (self._generator,) if sampling else ())
-        return self._enqueue_fetch(out, lookahead)
+        return self._enqueue_fetch(out, lookahead, gen_state=self._dispatch_gen)
 
     def _fetch_inflight(self) -> List[StepEvent]:
         """Fetch the in-flight burst (none: no-op) and replay it under the
@@ -678,12 +1115,23 @@ class DecodeEngine:
         """Wait for one burst's host copies (the one designed sync) and apply
         its tokens to the host mirrors. A flagged ``(step, slot)``
         quarantines that slot; a slot in ``skip`` was quarantined or cancelled
-        while the burst was in flight and its tokens are dropped."""
+        while the burst was in flight and its tokens are dropped. A failed
+        fetch fails the engine (the burst's tokens are lost with it)."""
         t0 = time.perf_counter()
-        if burst.ready is not None:
-            burst.ready.synchronize()
-        tokens, masks, bads = burst.tokens.numpy(), burst.masks.numpy(), burst.bads.numpy()
+        try:
+            if self._faults is not None:
+                stall_ms = self._faults.take_fetch_stall_ms()
+                if stall_ms is not None:
+                    time.sleep(stall_ms / 1e3)  # a wedged device queue, to the watchdog's eye
+                self._faults.check_fetch()
+            if burst.ready is not None:
+                burst.ready.synchronize()
+            tokens, masks, bads = burst.tokens.numpy(), burst.masks.numpy(), burst.bads.numpy()
+        except Exception:
+            self._on_failure(lost=burst)
+            raise
         done = time.perf_counter()
+        self.last_heartbeat = time.monotonic()
         block_ms = (done - t0) * 1e3
         self.ema_fetch_block_ms = block_ms if self.ema_fetch_block_ms is None else (
             0.8 * self.ema_fetch_block_ms + 0.2 * block_ms)
@@ -712,13 +1160,25 @@ class DecodeEngine:
         applies burst N, and events arrive one call after the dispatch that
         made them. ``lookahead`` is cut to the next power of two above the
         steps the slots can still take, so a bounded ladder of programs
-        serves every tail."""
+        serves every tail.
+
+        A failure in a chunk, the dispatch or the fetch fails the ENGINE:
+        salvage is captured for a supervising batcher, the device state is
+        rebuilt in place, and the exception re-raises."""
+        self._ensure_usable()
         events: List[StepEvent] = []
         if self._pending_events:
             events.extend(self._pending_events)
             self._pending_events.clear()
         if self._partials:
-            self._advance_partials()
+            try:
+                self._advance_partials()
+            except Exception:
+                self._on_failure()
+                raise
+            # an injected chunk failure buffers its event: hand it out now
+            events.extend(self._pending_events)
+            self._pending_events.clear()
         if not self._active.any():
             return events
         lookahead = max(1, int(lookahead))
@@ -734,7 +1194,19 @@ class DecodeEngine:
             lookahead = min(lookahead, 1 << (headroom - 1).bit_length())
         t0 = time.perf_counter()
         idle = self._inflight is None
-        burst = self._dispatch_step(lookahead)
+        try:
+            burst = self._dispatch_step(lookahead)
+        except Exception:
+            self._on_failure()
+            raise
+        self._dispatch_gen = None
+        self.last_heartbeat = time.monotonic()
+        if self._faults is not None:
+            for bad_slot in self._faults.take_nan_slots():
+                # poison the slot's next sampling input in place, between
+                # replays (queued behind the burst just dispatched): the next
+                # burst's start-of-step finiteness flag reads this buffer
+                self._last_logits[bad_slot] = float("nan")
         self.step_dispatches += 1
         if self._last_fetch_done is not None:
             self.idle_dispatches += int(idle)
@@ -752,28 +1224,41 @@ class DecodeEngine:
     def _apply_token(self, slot: int, token: int) -> StepEvent:
         """Advance the host mirrors for one decoded token (the rule
         ``advance_slot_state`` applies on the device)."""
+        self.tokens_decoded += 1
         self._remaining[slot] -= 1
         self._lens_host[slot] = min(self._lens_host[slot] + 1, self.max_len - 1)
+        tokens = self._slot_tokens.get(slot)
+        if tokens is not None:  # the transcript keeps eos too
+            tokens.append(int(token))
         is_eos = self.eos_token_id is not None and token == self.eos_token_id
         finished = is_eos or self._remaining[slot] <= 0 or self._lens_host[slot] >= self.max_len - 1
         if finished:
             self._active[slot] = False
+            if self.prefix_cache is not None and self.prefix_cache_generated:
+                self._capture_generated(slot)  # adopts the slot's full blocks in place
+            self._release_prefix(slot)
             self._free_slot_blocks(slot)
         return StepEvent(slot=slot, token=token, emit=not is_eos, finished=bool(finished))
 
     def _quarantine(self, slot: int) -> StepEvent:
-        """Terminate ONE slot whose logits went NaN/Inf; siblings keep decoding."""
+        """Terminate ONE slot whose logits went NaN/Inf (its generated KV is
+        not indexed); siblings keep decoding."""
         self.quarantined_requests += 1
-        self._release(slot)
+        self._clear_slot(slot)
+        if self._faults is not None:
+            self._faults.note_observed("nan_logits")
         logger.warning("slot %d quarantined: non-finite logits", slot)
         return StepEvent(slot=slot, token=-1, emit=False, finished=True, error="nan_logits")
 
-    def _release(self, slot: int) -> None:
+    def _clear_slot(self, slot: int) -> None:
+        """Free one slot: host and device mirrors, its radix references,
+        transcript and private blocks."""
         self._active[slot] = False
         self._reserved[slot] = False
         self._remaining[slot] = 0
         self._slot_temp[slot] = self.temperature
         self._partials.pop(slot, None)
+        self._release_prefix(slot)
         self._free_slot_blocks(slot)
         self._slot_device_update(slot, False, 0, self.temperature, 0, 1.0)
         if self._inflight is not None:
@@ -786,17 +1271,242 @@ class DecodeEngine:
         A burst in flight is fetched first, so its tokens apply under the slot
         mapping it was dispatched with; the survivors' events wait in
         :meth:`take_pending_events`, the cancelled slot's are dropped."""
+        self._ensure_usable()
         self._pending_events.extend(self._fetch_inflight())
         self._pending_events = [ev for ev in self._pending_events if ev.slot != slot]
-        self._release(slot)
+        self._clear_slot(slot)
 
     def abort_all(self) -> None:
         """Deactivate every slot and return every block. A burst in flight is
-        discarded, not fetched: every request it could emit for is abandoned."""
+        discarded, not fetched: every request it could emit for is abandoned.
+        The host state clears first; if the device then refuses the reset of
+        its slot mirrors, the engine is marked failed (its next entry point
+        rebuilds) instead of raising."""
         self._inflight, self._inflight_skip = None, set()
+        self.discard_salvage()
+        self._clear_host_slots()
+        for slot in list(self._slot_block_map):
+            self._free_slot_blocks(slot)
+        try:
+            # a full reset of the mirrors is legal: nothing is in flight any more
+            self._active_dev.zero_()
+            self._remaining_dev.zero_()
+            self._temp_dev.fill_(self.temperature)
+            self._top_k_dev.zero_()
+            self._top_p_dev.fill_(1.0)
+        except Exception:
+            self._failed = True
+            logger.exception("resetting the slot mirrors failed; engine marked failed")
+
+    def preempt(self, slot: int) -> Optional[PreemptedSlot]:
+        """Checkpoint a RUNNING slot into the prefix cache and free it.
+
+        The burst in flight is fetched first (its tokens extend the
+        transcript and wait in :meth:`take_pending_events`). The transcript's
+        full blocks are then indexed by adoption (no device copy) and the
+        path is pinned; the slot frees like :meth:`cancel`. Re-admitting
+        ``tokens`` as the prompt resumes through the ordinary hit path and
+        prefills only the suffix. The caller must :meth:`release_preempted`
+        the checkpoint once the resume re-admitted (or was abandoned).
+
+        Returns ``None``, the slot still running, when it retired during the
+        flush or its checkpoint could not re-admit (a pool too full to index
+        enough of a transcript beyond the bucket ladder). Raises
+        ``RuntimeError`` with the prefix cache off. The policy that chooses a
+        victim is the SLO scheduler's (ROADMAP slice 6)."""
+        if self.prefix_cache is None:
+            raise RuntimeError("preempt requires the prefix cache (prefix_cache_blocks > 0)")
+        self._ensure_usable()
+        self._pending_events.extend(self._fetch_inflight())
+        if not self._active[slot]:
+            return None
+        transcript = self._slot_tokens.get(slot)
+        if transcript is None:
+            return None
+        valid = int(self._lens_host[slot])
+        tokens = np.asarray(transcript[:valid], dtype=np.int32)
+        self._extend_index(slot, tokens)
+        covered = len(self._slot_path.get(slot, ())) * self.block_size
+        try:
+            admissible = covered + self.bucket_for(valid - covered) <= self.max_len
+        except ValueError:
+            admissible = False
+        if self.prefill_chunk is not None and valid < self.max_len:
+            admissible = True  # the chunked path re-admits any in-capacity suffix
+        if not admissible:
+            return None
+        path = self._slot_path.pop(slot, [])
+        self.prefix_cache.pin(path)  # survives LRU and the working-ref release below
+        try:
+            self.prefix_cache.release(path)
+            self._clear_slot(slot)
+            self.preempted_requests += 1
+        except Exception:
+            self.prefix_cache.unpin(path)
+            raise
+        return PreemptedSlot(tokens=[int(t) for t in tokens], path=path)
+
+    def release_preempted(self, state: PreemptedSlot) -> None:
+        """Drop a checkpoint's pin: after its resume re-admitted (the new slot
+        holds its own references) or when its request was abandoned. Call it
+        once per checkpoint."""
+        if self.prefix_cache is not None and state.path:
+            self.prefix_cache.unpin(state.path)
+
+    # ------------------------------------------------------ failure & recovery
+
+    @property
+    def busy(self) -> bool:
+        """Whether live requests should be making progress (the watchdog
+        counts a stale heartbeat as a stall only then)."""
+        return bool(self._active.any()) or bool(self._partials)
+
+    @property
+    def failed(self) -> bool:
+        """True while an in-place rebuild has failed and not yet succeeded."""
+        return self._failed
+
+    def _ensure_usable(self) -> None:
+        if self._failed:
+            # unsupervised recovery: rebuild afresh (nobody collected the salvage)
+            self.rebuild(resume=False)
+
+    def note_external_failure(self) -> None:
+        """Escalate a device write that failed in an out-of-band call
+        (``cancel``, ``preempt``); a no-op when nothing is poisoned."""
+        if self._device_poisoned:
+            self._on_failure()
+
+    def _on_failure(self, lost: Optional[_Burst] = None) -> None:
+        """The device state is suspect: capture every salvageable slot's
+        transcript, then rebuild in place with the sampling generator put back
+        at its state before the first undelivered burst (``lost``, whose fetch
+        failed, then the burst in flight, then the dispatch that failed). If
+        the rebuild fails, the engine is marked failed for the supervisor's
+        retries."""
+        self.failure_count += 1
+        self._device_poisoned = False
+        pending = [b.gen_state for b in (lost, self._inflight) if b is not None] + [self._dispatch_gen]
+        self._resume_gen = next((s for s in pending if s is not None), self._resume_gen)
+        self._dispatch_gen = None
+        self._inflight, self._inflight_skip = None, set()  # never fetched: its steps decode again
         self._pending_events.clear()
-        for slot in range(self.num_slots):
-            self._release(slot)
+        self._capture_salvage()
+        try:
+            self.rebuild(resume=True)
+        except Exception:
+            self._failed = True
+            logger.exception("in-place engine rebuild failed; engine marked failed")
+
+    def _capture_salvage(self) -> None:
+        """Snapshot every active or reserved slot's transcript and unspent
+        budget (host data only). The rebuild reallocates the pool, so no block
+        survives it: every block and path is released now (the engine
+        reports no leaked block even if the rebuild fails) and each resume
+        prefills its whole transcript."""
+        self.discard_salvage()
+        for slot in list(self._slot_block_map):
+            self._free_slot_blocks(slot)
+        records: List[SalvagedSlot] = []
+        for slot in np.flatnonzero(self._active | self._reserved):
+            slot = int(slot)
+            if self._reserved[slot]:
+                # a chunked prefill in progress delivered nothing yet
+                part = self._partials.get(slot)
+                tokens = [int(t) for t in part["prompt"]] if part else []
+                remaining = int(part["budget"]) if part else 0
+            else:
+                tokens = [int(t) for t in (self._slot_tokens.get(slot) or [])[: int(self._lens_host[slot])]]
+                remaining = int(self._remaining[slot])
+            path = self._slot_path.pop(slot, [])
+            if path and self.prefix_cache is not None:
+                self.prefix_cache.release(path)
+            if tokens and remaining > 0:
+                records.append(SalvagedSlot(slot=slot, tokens=tokens, path=[], remaining=remaining))
+        self._salvage = records
+
+    def take_salvage(self) -> List[SalvagedSlot]:
+        """Collect (and clear) the salvage of the last failure; the caller
+        releases each record's pin through :meth:`release_preempted`."""
+        salvage, self._salvage = self._salvage, []
+        return salvage
+
+    def discard_salvage(self) -> None:
+        """Unpin and drop uncollected salvage."""
+        for rec in self._salvage:
+            if rec.path and self.prefix_cache is not None:
+                self.prefix_cache.unpin(rec.path)
+        self._salvage = []
+
+    def _clear_host_slots(self) -> None:
+        self._pending_events.clear()
+        self._active[:] = False
+        self._reserved[:] = False
+        self._partials.clear()
+        self._lens_host[:] = 0
+        self._remaining[:] = 0
+        self._slot_temp[:] = self.temperature
+        for slot in list(self._slot_path):
+            self._release_prefix(slot)
+        self._slot_tokens.clear()
+
+    def rebuild(self, *, resume: bool = True) -> None:
+        """Reallocate the device state (pool, tables, slot buffers, the
+        generator) from the host-held parameters, dropping every CUDA graph;
+        the allocator and radix index restart empty, since the pool did.
+
+        Every failure reallocates, as in JAX, where the failed step had
+        consumed the donated pool. Here a host-side raise (a dispatch or
+        fetch that never reached the card) leaves the pool intact, so this
+        costs the cached prefixes and makes each resume re-prefill its whole
+        transcript; it is kept for counter parity with the JAX engine, and
+        because a sticky CUDA error leaves no buffer that could be trusted.
+
+        ``resume=True`` (supervised recovery) puts the sampling generator
+        back at its state before the first burst whose tokens were never
+        delivered, so resumed fixed-seed sampled streams continue as a
+        fault-free run's. ``resume=False`` reseeds it (as :meth:`reset`) and
+        drops uncollected salvage.
+
+        Raises when the rebuild itself fails (a device that cannot allocate,
+        an injected ``rebuild_failures``): the engine stays failed. Nothing
+        ever falls back to the CPU."""
+        t0 = time.perf_counter()
+        if self._faults is not None:
+            self._faults.check_rebuild()
+        if resume:
+            # the generator's state is host data (seed and offset on the card),
+            # readable whatever the device's condition
+            resume_state = self._resume_gen if self._resume_gen is not None else self._generator.get_state()
+        else:
+            resume_state = None
+            self._resets += 1
+            self.discard_salvage()
+        self._reallocate(resume_state)
+        self.rebuilds += 1
+        self.last_rebuild_ms = (time.perf_counter() - t0) * 1e3
+
+    def reset(self) -> None:
+        """Reallocate the device state and clear every slot, the radix index
+        and pins included; in-flight requests are abandoned and the generator
+        reseeds."""
+        self._resets += 1
+        self.discard_salvage()
+        self._reallocate()
+
+    def _reallocate(self, resume_state: Any = None) -> None:
+        """Clear every slot and reallocate the device state, the allocator
+        and the block map; the fresh generator (seeded from the reset count)
+        is put back at ``resume_state`` when one is given."""
+        self._clear_host_slots()
+        self._init_device_state()
+        self._allocator.clear()
+        self._slot_block_map.clear()
+        if resume_state is not None:
+            self._generator.set_state(resume_state)
+        self._resume_gen = None
+        self._device_poisoned = False
+        self._failed = False
 
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int, *, lookahead: int = 1,
                  temperature: Optional[float] = None, top_k: int = 0, top_p: float = 1.0) -> List[int]:
@@ -854,9 +1564,13 @@ class _QueueSink:
         self._loop.call_soon_threadsafe(self._queue.put_nowait, exc)
 
 
-def _as_engine_failure(exc: BaseException, reason: str) -> EngineFailure:
+def _as_engine_failure(exc: BaseException, reason: str = "engine_failure") -> EngineFailure:
+    """The structured failure a sink receives; an injected fault keeps its site."""
     if isinstance(exc, EngineFailure):
         return exc
+    site = getattr(exc, "site", None)
+    if site is not None:
+        reason = f"injected_{site}"
     return EngineFailure(f"{type(exc).__name__}: {exc}", reason=reason)
 
 
@@ -868,20 +1582,30 @@ class ContinuousBatcher:
     The worker admits queued requests in arrival order into free slots (and
     only as far as the pool has blocks for them) between decode steps. At most
     ``max_queue`` requests wait; a submit beyond that raises
-    :class:`~unionml_tpu_torch.serving.scheduler.QueueFullError`.
+    :class:`~unionml_tpu_torch.serving.scheduler.QueueFullError`. An admission
+    that fails without failing the engine is retried one request at a time, so
+    only the request at fault fails.
 
     A request's sampling keywords reach the engine as they are: with a
     :class:`~unionml_tpu_torch.serving.speculative.SpeculativeEngine`,
-    ``speculative``/``seed``/``gamma`` among them (SLO classes, which set
-    ``speculative`` per class in the JAX package, are not ported yet).
+    ``speculative``/``seed``/``gamma`` among them (SLO classes, deadlines and
+    the preemption policy are ROADMAP slice 6).
 
     :param lookahead: decode steps per device-to-host fetch.
+    :param supervisor: an :class:`~unionml_tpu_torch.serving.supervisor.EngineSupervisor`
+        for supervised recovery: on an engine failure every salvaged request
+        is re-queued as a resume (its sink keeps the tokens already
+        delivered; its transcript becomes the prompt and its unspent budget
+        the budget) once the engine is rebuilt, with bounded retries of the
+        rebuild. ``None``: the requests in flight fail with a structured
+        :class:`~unionml_tpu_torch.serving.faults.EngineFailure`, and the
+        engine serves the next ones.
     :param device: must name the engine's device; ``"cuda"`` (default) raises
         without a CUDA device.
     """
 
     def __init__(self, engine: DecodeEngine, *, lookahead: int = 1, max_queue: int = 256,
-                 device="cuda") -> None:
+                 supervisor: Optional[Any] = None, device="cuda") -> None:
         device = resolve_device(device)
         if device.type != engine.device.type:
             raise ValueError(f"engine runs on {engine.device}, batcher device is {device}")
@@ -891,9 +1615,16 @@ class ContinuousBatcher:
         self._closed = False  # guarded-by: _lock
         self._lock = threading.Lock()
         self._work = threading.Event()
-        #: slot -> sink; worker-thread-only
+        #: slot -> sink and slot -> ticket; worker-thread-only
         self._sinks: Dict[int, Any] = {}
+        self._slot_meta: Dict[int, Ticket] = {}
+        #: resume pins of tickets failed off the worker (close): the worker
+        #: drops them, so only it mutates the radix index
+        self._orphans: List[PreemptedSlot] = []  # guarded-by: _lock
         self._worker: Optional[threading.Thread] = None
+        self.supervisor = supervisor
+        if supervisor is not None:
+            supervisor.attach(engine)
 
     @property
     def engine(self) -> DecodeEngine:
@@ -902,6 +1633,8 @@ class ContinuousBatcher:
     def _submit(self, prompt_ids, max_new_tokens, sink, sampling) -> None:
         # bad requests fail on the caller's side, not the worker's
         prompt, budget, *_ = self._engine.validate_request(prompt_ids, max_new_tokens, **sampling)
+        if self.supervisor is not None and self.supervisor.state == "failed":
+            raise self.supervisor.unavailable_error()
         ticket = Ticket(prompt=prompt, budget=budget, sampling=dict(sampling), sink=sink)
         with self._lock:
             if self._closed:
@@ -943,6 +1676,18 @@ class ContinuousBatcher:
         except RuntimeError:
             logger.warning("sink %s delivery failed (consumer gone?); dropping request", method)
 
+    def _release_ticket(self, ticket: Ticket) -> None:
+        """Drop a ticket's resume pin (worker thread only)."""
+        if ticket.resume is not None:
+            self._engine.release_preempted(ticket.resume)
+            ticket.resume = None
+
+    def _drain_orphans(self) -> None:
+        with self._lock:
+            orphans, self._orphans = self._orphans, []
+        for state in orphans:
+            self._engine.release_preempted(state)
+
     def _take_admissible(self) -> List[Ticket]:
         """Pop queued tickets in arrival order while slots and pool blocks last
         (head-of-line: a ticket the pool cannot hold yet waits at the head)."""
@@ -950,38 +1695,77 @@ class ContinuousBatcher:
         free = len(engine.free_slots)
         avail = engine.available_blocks()
         batch: List[Ticket] = []
+        dropped: List[Ticket] = []
         with self._lock:
             while len(batch) < free:
                 head = self._queue.peek()
                 if head is None:
                     break
                 if head.sink.cancelled:
-                    self._queue.pop()
+                    dropped.append(self._queue.pop())
                     continue
                 demand = engine.block_demand(head.prompt.size, head.budget)
                 if demand > avail:
                     break
                 avail -= demand
                 batch.append(self._queue.pop())
+        for ticket in dropped:
+            self._release_ticket(ticket)
         return batch
 
+    def _register(self, slot: int, ticket: Ticket) -> None:
+        """Bind an admitted ticket to its slot; a resume's pin can go now (the
+        re-admission holds its own references)."""
+        self._sinks[slot] = ticket.sink
+        self._slot_meta[slot] = ticket
+        self._release_ticket(ticket)
+
     def _admit(self) -> None:
+        self._drain_orphans()
         batch = self._take_admissible()
-        if not batch:
-            return
+        if batch:
+            self._admit_batch(batch)
+
+    def _admit_batch(self, batch: List[Ticket]) -> bool:
+        """Admit popped tickets. A failure that left the engine intact (it
+        rolled the call back) re-admits them one at a time, so only the raiser
+        fails; an engine failure hands the tickets to recovery (they requeue
+        untouched) and returns False."""
+        engine = self._engine
+        failures = engine.failure_count
         try:
-            slots = self._engine.admit_many([(t.prompt, t.budget, t.sampling) for t in batch])
-        except Exception as exc:  # the engine rolled this call back: fail its tickets only
+            slots = engine.admit_many([(t.prompt, t.budget, t.sampling) for t in batch])
+        except Exception as exc:
             logger.exception("admission failed")
-            self._dispatch(self._engine.take_pending_events())
+            if engine.failure_count != failures:
+                self._handle_engine_failure(exc, pending=batch)
+                return False
+            self._dispatch(engine.take_pending_events())
+            if len(batch) == 1:
+                self._release_ticket(batch[0])
+                self._deliver(batch[0].sink, "fail", _as_engine_failure(exc, "prefill_failed"))
+                return True
             for ticket in batch:
-                self._deliver(ticket.sink, "fail", _as_engine_failure(exc, "prefill_failed"))
-            return
+                failures = engine.failure_count
+                try:
+                    (slot,) = engine.admit_many([(ticket.prompt, ticket.budget, ticket.sampling)])
+                except Exception as one_exc:
+                    if engine.failure_count != failures:
+                        self._handle_engine_failure(one_exc, pending=[ticket])
+                        return False
+                    self._dispatch(engine.take_pending_events())
+                    self._release_ticket(ticket)
+                    self._deliver(ticket.sink, "fail", _as_engine_failure(one_exc, "prefill_failed"))
+                    continue
+                self._dispatch(engine.take_pending_events())
+                self._register(slot, ticket)
+            return True
         # a flush inside admission replays events of the slots' previous
         # occupants: deliver them under the old sinks before re-keying
-        self._dispatch(self._engine.take_pending_events())
+        self._dispatch(engine.take_pending_events())
         for slot, ticket in zip(slots, batch):
-            self._sinks[slot] = ticket.sink
+            self._register(slot, ticket)
+        return True
 
     def _dispatch(self, events: Sequence[StepEvent]) -> None:
         abandoned: List[int] = []
@@ -991,11 +1775,15 @@ class ContinuousBatcher:
                 continue
             if sink.cancelled:  # consumer abandoned the stream mid-decode
                 del self._sinks[event.slot]
+                self._slot_meta.pop(event.slot, None)
                 if not event.finished:
                     abandoned.append(event.slot)
                 continue
             if event.error is not None:
                 del self._sinks[event.slot]
+                self._slot_meta.pop(event.slot, None)
+                if self.supervisor is not None:
+                    self.supervisor.note_request_failed()
                 self._deliver(sink, "fail", EngineFailure(
                     f"request terminated by the engine: {event.error}", reason=event.error))
                 continue
@@ -1003,6 +1791,7 @@ class ContinuousBatcher:
                 self._deliver(sink, "emit", event.token)
             if event.finished:
                 del self._sinks[event.slot]
+                self._slot_meta.pop(event.slot, None)
                 self._deliver(sink, "finish")
         if abandoned:
             # a cancel fetches the burst in flight, whose tokens come after
@@ -1012,19 +1801,109 @@ class ContinuousBatcher:
             self._dispatch(self._engine.take_pending_events())
 
     def _fail_all(self, exc: BaseException) -> None:
-        failure = _as_engine_failure(exc, "engine_failure")
+        failure = _as_engine_failure(exc)
         for sink in self._sinks.values():
             self._deliver(sink, "fail", failure)
         self._sinks.clear()
+        self._slot_meta.clear()
         self._engine.abort_all()
+
+    def _handle_engine_failure(self, exc: BaseException, pending: Sequence[Ticket] = ()) -> None:
+        """Recover from an engine failure (``continuous.py:3436-3567``).
+
+        With a supervisor: each salvaged request becomes a resume ticket
+        (sink and delivered tokens kept, transcript as prompt, unspent budget)
+        re-queued once the engine is rebuilt; a request that cannot resume
+        fails with ``request_unrecoverable``; when every rebuild attempt
+        fails, everything (resumes, ``pending``, the queue) fails with the
+        supervisor's structured error. Without one: every request in flight
+        fails, structured, and the salvage's pins are dropped. ``pending``
+        holds popped tickets of a failed admission; they requeue untouched.
+        """
+        engine = self._engine
+        engine.note_external_failure()
+        sup = self.supervisor
+        if sup is None:
+            engine.discard_salvage()
+            failure = _as_engine_failure(exc)
+            for ticket in pending:
+                self._release_ticket(ticket)
+                self._deliver(ticket.sink, "fail", failure)
+            self._fail_all(exc)
+            return
+        sup.note_failure(exc)
+        resumes: List[Ticket] = []
+        for rec in engine.take_salvage():
+            sink = self._sinks.pop(rec.slot, None)
+            meta = self._slot_meta.pop(rec.slot, None)
+            pin = PreemptedSlot(tokens=list(rec.tokens), path=rec.path)
+            if sink is None or meta is None or sink.cancelled:
+                engine.release_preempted(pin)  # no consumer: drop the checkpoint
+                continue
+            try:
+                engine.validate_request(rec.tokens, max(1, int(rec.remaining)), **meta.sampling)
+            except Exception as not_resumable:
+                engine.release_preempted(pin)
+                self._release_ticket(meta)
+                sup.note_request_failed()
+                self._deliver(sink, "fail", EngineFailure(
+                    f"request not resumable after engine failure: {not_resumable}",
+                    reason="request_unrecoverable", retryable=False))
+                continue
+            self._release_ticket(meta)  # the fresher checkpoint supersedes an older one
+            meta.prompt = np.asarray(rec.tokens, dtype=np.int32)
+            meta.budget = int(rec.remaining)
+            meta.resume = pin
+            resumes.append(meta)
+        failure = _as_engine_failure(exc)
+        for slot, sink in list(self._sinks.items()):  # nothing salvageable behind these
+            meta = self._slot_meta.pop(slot, None)
+            if meta is not None:
+                self._release_ticket(meta)
+            sup.note_request_failed()
+            self._deliver(sink, "fail", failure)
+        self._sinks.clear()
+        self._slot_meta.clear()
+        if engine.failed:
+            rebuilt = sup.run_rebuild(engine.rebuild)
+        else:
+            sup.note_rebuilt()  # the engine rebuilt itself in place
+            rebuilt = True
+        if not rebuilt:
+            # handing orphans to another engine is fleet adoption (ROADMAP item 11)
+            with self._lock:
+                queued = self._queue.drain()
+            unavailable = sup.unavailable_error()
+            for ticket in resumes + list(pending) + queued:
+                self._release_ticket(ticket)
+                sup.note_request_failed()
+                self._deliver(ticket.sink, "fail", unavailable)
+            return
+        with self._lock:
+            for ticket in resumes + list(pending):
+                self._queue.requeue(ticket)
+        if resumes:
+            sup.note_recovered(len(resumes))
+        self._work.set()
 
     def _run(self) -> None:
         engine = self._engine
         while True:
             with self._lock:
                 if self._closed and not len(self._queue) and not self._sinks:
-                    return
-            self._admit()
+                    break
+            if self.supervisor is not None and self.supervisor.state == "failed":
+                # the engine is dead: its requests were failed and new ones are
+                # refused, so nothing runs until close
+                self._work.clear()
+                self._work.wait(timeout=0.5)
+                continue
+            try:
+                self._admit()
+            except Exception as exc:  # engine work outside admit_many (a cancel's flush) died
+                logger.exception("admission round failed")
+                self._handle_engine_failure(exc)
+                continue
             busy = engine.num_active or engine.has_pending_prefill or engine.has_pending_events
             if not busy:
                 self._work.clear()
@@ -1037,18 +1916,46 @@ class ContinuousBatcher:
                 events = engine.step(self._lookahead)
             except Exception as exc:
                 logger.exception("continuous-batching step failed")
-                self._fail_all(exc)
+                self._handle_engine_failure(exc)
                 continue
-            self._dispatch(events)
+            try:
+                self._dispatch(events)
+            except Exception as exc:  # an abandoned stream's cancel fetched a failing burst
+                logger.exception("event dispatch failed")
+                self._handle_engine_failure(exc)
+        self._drain_orphans()
+
+    def drain(self, timeout_s: float = 5.0) -> None:
+        """Graceful shutdown: refuse new submissions (``batcher_closed``)
+        while queued and running requests decode to completion for up to
+        ``timeout_s``, then :meth:`close`."""
+        with self._lock:
+            self._closed = True
+        self._work.set()
+        deadline = time.monotonic() + max(0.0, float(timeout_s))
+        while time.monotonic() < deadline:
+            worker = self._worker
+            if worker is None or not worker.is_alive():
+                break
+            # advisory reads of worker-owned state: a stale one costs one poll
+            if not len(self._queue) and not self._sinks and self._engine.num_active == 0:
+                break
+            time.sleep(0.02)
+        self.close()
 
     def close(self, timeout_s: float = 30.0) -> None:
         """Stop accepting requests, fail the queued ones with ``batcher_closed``,
-        let running requests finish, and join the worker."""
+        let running requests finish, and join the worker. Resume pins of the
+        failed tickets are dropped on the worker (or here, once it stopped)."""
         closed = EngineFailure("batcher closed", reason="batcher_closed", retryable=False)
         with self._lock:
             self._closed = True
             queued = self._queue.drain()
             worker = self._worker
+            for ticket in queued:
+                if ticket.resume is not None:
+                    self._orphans.append(ticket.resume)
+                    ticket.resume = None
         for ticket in queued:
             self._deliver(ticket.sink, "fail", closed)
         self._work.set()
@@ -1056,3 +1963,6 @@ class ContinuousBatcher:
             worker.join(timeout=timeout_s)
             if worker.is_alive():
                 raise RuntimeError(f"batcher worker did not stop within {timeout_s}s")
+        self._drain_orphans()
+        if self.supervisor is not None:
+            self.supervisor.close()

@@ -2,9 +2,12 @@
 
 The JAX package's ``serving/scheduler.py`` is an SLO scheduler (priority
 classes, aging, deadlines, preemption). For requests that carry no priority
-or deadline it behaves as a bounded FIFO, which is what this slice ports:
-``max_queue`` (default 256, ``scheduler.py:150``) bounds the queued requests,
-and a submit against a full queue fails with :class:`QueueFullError`.
+or deadline it behaves as a bounded FIFO, which is what the port has so far
+(the SLO scheduler is ROADMAP slice 6): ``max_queue`` (default 256,
+``scheduler.py:150``) bounds the queued requests, a submit against a full
+queue fails with :class:`QueueFullError`, and :meth:`FifoQueue.requeue` puts a
+request salvaged from an engine failure back past the bound, as the JAX
+scheduler's FIFO mode does (``scheduler.py:326-337``).
 """
 
 import collections
@@ -31,13 +34,16 @@ class QueueFullError(SchedulingError):
 
 @dataclasses.dataclass
 class Ticket:
-    """One queued request."""
+    """One queued request. ``resume`` holds the pinned checkpoint
+    (:class:`~unionml_tpu_torch.serving.continuous.PreemptedSlot`) of a
+    request salvaged from an engine failure, until it re-admits."""
 
     prompt: np.ndarray
     budget: int
     sampling: Dict[str, Any]
     sink: Any
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
+    resume: Optional[Any] = None
 
 
 class FifoQueue:
@@ -55,6 +61,11 @@ class FifoQueue:
     def submit(self, ticket: Ticket) -> None:
         if len(self._queued) >= self.max_queue:
             raise QueueFullError(f"queue full ({self.max_queue} requests waiting)")
+        self._queued.append(ticket)
+
+    def requeue(self, ticket: Ticket) -> None:
+        """Queue a salvaged request again, past the bound: its work is
+        partly paid for already."""
         self._queued.append(ticket)
 
     def peek(self) -> Optional[Ticket]:

@@ -23,11 +23,14 @@ fed token and the commit writes exactly the emitted tokens. Greedy streams
 equal the vanilla engine's; sampled streams equal spec-off (γ = 0) streams of
 the same engine bit for bit, and JAX's token for token (the keyed bits match).
 
+A prefix-cache hit arms like a miss: the draft re-prefills the whole prompt
+through the slot's table row, spliced shared blocks included (the draft
+splice, ``speculative.py:443-500``). An engine failure rebuilds the draft pool
+with the target's, and a rebuild drops the round graphs with the bursts'.
 Not ported here (each raises ``NotImplementedError`` naming its ROADMAP item
-where it is reachable): the prefix cache and the draft splice on a cache hit,
-preemption, salvage and rebuild, fault plans, telemetry, mesh sharding, SLO
-classes (:meth:`SpeculativeEngine.note_request_class` stores the label) and
-the ``/generate`` route.
+where it is reachable): telemetry, mesh sharding, SLO classes
+(:meth:`SpeculativeEngine.note_request_class` stores the label) and the
+``/generate`` route.
 """
 
 import asyncio
@@ -41,7 +44,7 @@ from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch.models.gpt import init_block_pool, kv_pool_bytes, paged_commit_chunk
 from unionml_tpu_torch.ops.sampling import keyed_select
 from unionml_tpu_torch.serving.continuous import DecodeEngine, StepEvent, _Burst
-from unionml_tpu_torch.serving.faults import EngineFailure
+from unionml_tpu_torch.serving.faults import EngineFailure, FaultPlan
 from unionml_tpu_torch.serving.scheduler import FifoQueue, Ticket
 
 __all__ = ["SpeculativeBatcher", "SpeculativeEngine"]
@@ -180,8 +183,14 @@ class SpeculativeEngine(DecodeEngine):
             peeled.append((req[0], req[1], sampling))
             spec_args.append((spec, seed, gamma))
         slots = super().admit_many(peeled)
-        for slot, req, (spec, seed, gamma) in zip(slots, peeled, spec_args):
-            self._arm_slot(slot, np.asarray(req[0], dtype=np.int64).reshape(-1), spec, seed, gamma)
+        try:
+            for slot, req, (spec, seed, gamma) in zip(slots, peeled, spec_args):
+                self._arm_slot(slot, np.asarray(req[0], dtype=np.int64).reshape(-1), spec, seed, gamma)
+        except Exception:
+            # the base admission committed the slots and arming writes device
+            # state in place: a failure here is an engine failure
+            self._on_failure()
+            raise
         return slots
 
     def _arm_slot(self, slot: int, prompt: np.ndarray, spec: bool, seed: Optional[int],
@@ -201,23 +210,33 @@ class SpeculativeEngine(DecodeEngine):
             # a derived key: identical admission sequences draw identical keys
             seed = self._seed * 1_000_003 + self._spec_admissions
         self._spec_admissions += 1
-        self._gamma_dev[slot] = g0
-        self._ema_dev[slot] = 1.0
-        self._tprev_dev[slot] = int(prompt[-1])
-        self._keys_dev[slot, 0] = (int(seed) >> 32) & 0xFFFFFFFF
-        self._keys_dev[slot, 1] = int(seed) & 0xFFFFFFFF
+        with self._device_write():
+            self._gamma_dev[slot] = g0
+            self._ema_dev[slot] = 1.0
+            self._tprev_dev[slot] = int(prompt[-1])
+            self._keys_dev[slot, 0] = (int(seed) >> 32) & 0xFFFFFFFF
+            self._keys_dev[slot, 1] = int(seed) & 0xFFFFFFFF
         if armed:
             self._draft_prefill(slot, prompt, bucket)
 
     def _draft_prefill(self, slot: int, prompt: np.ndarray, bucket: int) -> None:
         """The draft's bucket prefill of the whole prompt (the K1 kernel),
-        inserted into the draft pool through ``slot``'s table row."""
+        inserted into the draft pool through ``slot``'s table row.
+
+        On a prefix-cache hit the row starts with shared blocks, whose draft
+        leaves this rewrites (and so also fills for a prefix that a request
+        without speculation indexed). On the CPU the rewrite is bitwise what
+        was there; on the card a prefill of another row count may round
+        differently, so a sibling reading those draft leaves may propose other
+        tokens. The target alone decides what is emitted, so no stream
+        changes, only acceptance."""
         ids = np.zeros((1, bucket), dtype=np.int64)
         ids[0, : prompt.size] = prompt
         lengths = torch.tensor([prompt.size], device=self.device)
         local_cache, _ = self._prefill(torch.from_numpy(ids).to(self.device), lengths, self._draft_model)
-        self._paged_insert(local_cache, None, torch.tensor([slot], device=self.device), lengths,
-                           pool=self._draft_pool)
+        with self._device_write():
+            self._paged_insert(local_cache, None, torch.tensor([slot], device=self.device), lengths,
+                               pool=self._draft_pool)
         self.draft_prefill_dispatches += 1
 
     def note_request_class(self, slot: int, cls: Optional[str]) -> None:
@@ -317,6 +336,8 @@ class SpeculativeEngine(DecodeEngine):
         if not (self._active & (self._slot_spec | (self._slot_temp > 0))).any():
             return super()._dispatch_step(lookahead)
         sampling = bool((self._slot_temp[self._active] > 0).any())
+        if self._faults is not None:
+            self._faults.check_step_dispatch()
         out = self._run_program(("round", sampling), lambda: self._round(sampling))
         self.spec_round_dispatches += 1
         return self._enqueue_fetch(out, self._gamma_max + 1, round=True)
@@ -399,10 +420,12 @@ class SpeculativeBatcher:
     request with a ``seed`` draws from a generator of that seed; others from
     the batcher's own, so identical unseeded sampled requests differ. The
     ``/generate`` route that serves it is not ported yet (ROADMAP slice 7).
+    ``faults``: a :class:`~unionml_tpu_torch.serving.faults.FaultPlan` whose
+    ``speculative_round_failures`` fail those rounds' requests, structured.
     """
 
     def __init__(self, target: Any, draft: Any, *, gamma: int = 4, max_len: Optional[int] = None,
-                 max_queue: int = 256, device="cuda") -> None:
+                 max_queue: int = 256, faults: Optional[FaultPlan] = None, device="cuda") -> None:
         self.device = resolve_device(device)
         if target.device.type != self.device.type:
             raise ValueError(f"target lives on {target.device}, batcher device is {self.device}")
@@ -416,6 +439,7 @@ class SpeculativeBatcher:
         self._generator = torch.Generator(device=self.device)  # guarded-by: _lock
         self._generator.manual_seed(0)
         self.round_failures = 0  # guarded-by: _lock
+        self._faults = faults  # guarded-by: _lock
 
     def _validate(self, prompt_ids: Sequence[int], max_new_tokens: int, sampling: dict):
         if self._closed:
@@ -454,6 +478,8 @@ class SpeculativeBatcher:
                     generator.manual_seed(int(seed))
                 prompt = torch.from_numpy(ticket.prompt).to(self.device)[None, :]
                 try:
+                    if self._faults is not None:
+                        self._faults.check_speculative_round()
                     out = speculative_generate(self._target, self._draft, prompt, max_new_tokens, gamma=self._gamma,
                                                temperature=temperature, generator=generator)
                 except Exception as exc:
