@@ -186,6 +186,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the same cache history under the 1e-2 gate (bf16 only). (6) no
    ``Memcpy HtoD`` in 5 steady bursts with the cache on.
 
+14. SLO scheduling (``bench_serving.py::bench_slo_mix`` at this width, phase
+   13's engine with an ``EngineSupervisor``, lookahead 8): (1) 48 batch
+   requests (6-token prompts, 48 new tokens) flood the queue, 8 interactive
+   ones (8 new tokens, ``deadline_ms`` 30000) arrive 50 ms later, 10 ms
+   apart; the scheduler (preemption on) against FIFO on freshly warmed
+   engines: every request completes with no shed or deadline miss, the
+   scheduler arm preempts at least once and resumes as often, no block stays
+   pinned or owned, interactive p95 TTFT is below FIFO's, streams equal
+   across the arms under the bf16 rule, and identical at f32 without int8
+   (24 batch requests there); prints TTFT p50/p95/p99 and ITL p50/p95 by
+   class, preemptions, resumes, sheds, misses, queue-wait EMAs and K1/K4
+   launches per arm. (2) The ``/generate`` contract through the route's
+   plain functions (``parse_generate_payload``, ``error_for``): 8 batch
+   hogs of 400 tokens, queue bound 2: 429 ``queue_full`` with
+   ``retry_after_ms`` in [750, 1250] (also at a stream's first ``anext``),
+   displacement, 504 queued and running, 503 infeasible, 400 for invalid
+   payloads, streamed tokens equal to the whole answer. (3) Speculation by
+   class: 4 interactive requests run speculative rounds, 4 batch ones none,
+   both equal to vanilla under the gate. (4) No ``Memcpy HtoD`` in 5 steady
+   bursts with the scheduler in place.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -812,12 +833,12 @@ def serve(engine, prompt_list, device):
         batcher.close()
 
 
-def top2_gap_at(engine, prompt, split: int) -> float:
+def top2_gap_at(engine, prompt, split: int, budget: int = MAX_NEW) -> float:
     """The plain engine's top-2 logit gap where it picks token ``split`` of
-    ``prompt``'s greedy stream (replayed alone, unpipelined, so the device
-    state is the host's: rows are independent)."""
+    ``prompt``'s greedy stream of ``budget`` tokens (replayed alone,
+    unpipelined, so the device state is the host's: rows are independent)."""
     pipeline, engine.pipeline = engine.pipeline, False
-    slot = engine.add_request(prompt, MAX_NEW)
+    slot = engine.add_request(prompt, budget)
     while slot in engine._partials:  # finish a chunked prefill without decoding
         engine._advance_partials()
     emitted = 0
@@ -1590,7 +1611,7 @@ def drive(engine, requests) -> list:
     return streams
 
 
-def gated_splits(label, got, want, plain_engine, prompt_list, limit) -> list:
+def gated_splits(label, got, want, plain_engine, prompt_list, limit, budget=MAX_NEW) -> list:
     """Where each greedy stream of ``got`` leaves ``want``, with the plain
     engine's top-2 gap there; raises where that gap is at least ``limit``."""
     splits = []
@@ -1598,7 +1619,7 @@ def gated_splits(label, got, want, plain_engine, prompt_list, limit) -> list:
         if a == b:
             continue
         split = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-        gap = top2_gap_at(plain_engine, prompt_list[i], split)
+        gap = top2_gap_at(plain_engine, prompt_list[i], split, budget)
         print(f"{label}: stream {i} splits at token {split}: vanilla top-2 gap {gap:.3e}")
         if gap >= limit:
             raise AssertionError(f"{label}: stream {i} disagrees with vanilla at token {split} (gap {gap:.3e})")
@@ -2288,7 +2309,6 @@ def recovery_run(model, device, greedy, sampled, quant, faults=None):
     (results, engine, supervisor, the dispatch count when the sampled arrived,
     the tokens each sampled stream delivered before the first failure)."""
     from unionml_tpu_torch.serving import ContinuousBatcher, EngineSupervisor, FaultPlan
-    from unionml_tpu_torch.serving.scheduler import Ticket
 
     plan = FaultPlan(**(faults or {}))
     engine = pc_engine(model, device, PC_BLOCKS, quant, faults=plan)
@@ -2300,15 +2320,15 @@ def recovery_run(model, device, greedy, sampled, quant, faults=None):
         if n == 8 and not arrived:
             arrived.append(plan._dispatches)
             for sink in sinks[len(greedy):]:
-                batcher._queue.submit(Ticket(prompt=np.asarray(sink.prompt, dtype=np.int32), budget=MAX_NEW,
-                                             sampling={"temperature": 0.8}, sink=sink))
+                batcher.scheduler.submit(batcher.scheduler.make_ticket(
+                    np.asarray(sink.prompt, dtype=np.int32), MAX_NEW, {"temperature": 0.8}, sink))
 
     sinks = [_Sink(arrive if i == 0 else None) for i in range(len(greedy))] + [_Sink() for _ in sampled]
     for sink, prompt in zip(sinks, greedy + sampled):
         sink.prompt, sink.engine = prompt, engine
     for sink in sinks[: len(greedy)]:
-        batcher._queue.submit(Ticket(prompt=np.asarray(sink.prompt, dtype=np.int32), budget=MAX_NEW, sampling={},
-                                     sink=sink))
+        batcher.scheduler.submit(batcher.scheduler.make_ticket(np.asarray(sink.prompt, dtype=np.int32), MAX_NEW, {},
+                                                               sink))
     batcher._closed = True
     batcher._run()
     sup.close()
@@ -2428,6 +2448,366 @@ def prefix_cache_phase(device, config=None) -> dict:
         r["recovery"] = pc_recovery(model, device, config.vocab_size, quant, mode, nan=bf16)
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------- phase 14: SLO scheduling
+
+# bench_serving.py::bench_slo_mix at this width: its 24 batch requests over 4
+# slots become 48 over 8 (6x the slots), with its prompts, budgets, deadline
+# and arrival times
+SLO_BATCH, SLO_INTER, SLO_BATCH_NEW, SLO_INTER_NEW = 48, 8, 48, 8
+SLO_F32_BATCH = 24  # the f32 pair's flood, cut to 24 for time (PERF.md section 4)
+SLO_DEADLINE_MS = 30_000.0
+SLO_LOOKAHEAD = 8  # contended bursts run min(8, 4) = 4 steps
+HOG_NEW = 400
+
+
+def slo_prompts(vocab: int, n_batch: int = SLO_BATCH, seed: int = 0):
+    rng = np.random.default_rng(400 + seed)
+    return ([rng.integers(1, vocab, 6).tolist() for _ in range(n_batch)],
+            [rng.integers(1, vocab, 6).tolist() for _ in range(SLO_INTER)])
+
+
+def slo_warm(engine):
+    """Capture every decode burst the mix can replay (lookahead 8 cut to 4,
+    2 and 1 by the slots' headroom, and 4 under contention) and take the
+    preempt-to-prefix-cache ladder once, so TTFT measures scheduling, not
+    graph captures (``bench_serving.py:1066-1090`` warms its programs)."""
+    rng = np.random.default_rng(7)
+    for budget in (8, 4, 2, 1):  # a burst's graph does not depend on how many slots are active
+        engine.admit_many([(rng.integers(1, engine._config.vocab_size, 6).tolist(), budget)])
+        while engine.num_active or engine.has_pending_events:
+            engine.step(SLO_LOOKAHEAD)
+    (slot,) = engine.admit_many([(rng.integers(1, engine._config.vocab_size, 6).tolist(), SLO_BATCH_NEW)])
+    for _ in range(3):
+        engine.step(4)
+    state = engine.preempt(slot)
+    engine.take_pending_events()
+    engine.admit_many([(state.tokens, SLO_BATCH_NEW - (len(state.tokens) - 6))])
+    engine.release_preempted(state)
+    while engine.num_active or engine.has_pending_events:
+        engine.step(4)
+
+
+def slo_pct(xs, qs=(0.5, 0.95, 0.99)) -> dict:
+    """``bench_slo_mix``'s percentiles: the sorted sample at index len * q."""
+    xs = sorted(xs)
+    return {f"p{round(q * 100)}_ms": xs[min(int(len(xs) * q), len(xs) - 1)] for q in qs} if xs else None
+
+
+def slo_arm(model, device, quant, fifo: bool, batch_prompts, inter_prompts) -> dict:
+    """One arm of the SLO mix: the batch flood queued first, the interactive
+    requests 50 ms later, 10 ms apart, every request streamed through a
+    supervised ``ContinuousBatcher``; the scheduler (preemption on) or FIFO."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.serving import ContinuousBatcher, EngineSupervisor, SchedulerConfig, SchedulingError
+
+    engine = pc_engine(model, device, PC_BLOCKS, quant)
+    slo_warm(engine)
+    sup = EngineSupervisor()
+    batcher = ContinuousBatcher(engine, lookahead=SLO_LOOKAHEAD, supervisor=sup, device=device,
+                                scheduler=SchedulerConfig(fifo=fifo, preempt=not fifo, max_queue=4096))
+    preempted = {}  # prompt -> tokens it had delivered when it was first preempted
+    requeue = batcher.scheduler.requeue
+
+    def noting_requeue(ticket, *, preemption=True):
+        if preemption:  # the ticket's prompt is the transcript by now
+            preempted.setdefault(tuple(int(t) for t in ticket.prompt[:6]), len(ticket.prompt) - 6)
+        requeue(ticket, preemption=preemption)
+
+    batcher.scheduler.requeue = noting_requeue
+    ttft, itl = {"interactive": [], "batch": []}, {"interactive": [], "batch": []}
+    streams = {"interactive": [None] * len(inter_prompts), "batch": [None] * len(batch_prompts)}
+    outcomes = {"completed": 0, "shed": 0, "deadline_missed": 0}
+
+    async def one(cls, i, prompt, n, deadline_ms):
+        loop = asyncio.get_running_loop()
+        t0, last, out = loop.time(), None, []
+        try:
+            async for token in batcher.stream(prompt, n, priority=cls, deadline_ms=deadline_ms):
+                now = loop.time()
+                if last is None:
+                    ttft[cls].append((now - t0) * 1e3)
+                else:
+                    itl[cls].append((now - last) * 1e3)
+                last = now
+                out.append(token)
+            outcomes["completed"] += 1
+            streams[cls][i] = out
+        except SchedulingError as exc:
+            outcomes["deadline_missed" if exc.reason == "deadline_exceeded" else "shed"] += 1
+
+    async def drive():
+        t0 = time.perf_counter()
+        tasks = [asyncio.ensure_future(one("batch", i, p, SLO_BATCH_NEW, None)) for i, p in enumerate(batch_prompts)]
+        await asyncio.sleep(0.05)  # the flood owns the queue first
+        for i, p in enumerate(inter_prompts):
+            tasks.append(asyncio.ensure_future(one("interactive", i, p, SLO_INTER_NEW, SLO_DEADLINE_MS)))
+            await asyncio.sleep(0.01)
+        await asyncio.gather(*tasks)
+        return time.perf_counter() - t0
+
+    kernels.reset_launches()
+    total_s = asyncio.run(drive())
+    launches = dict(kernels.launches)
+    stats = batcher.scheduler.stats()
+    batcher.close()
+    label = f"SLO mix {model.config.dtype} {'FIFO' if fifo else 'scheduler'}"
+    if outcomes != {"completed": len(batch_prompts) + len(inter_prompts), "shed": 0, "deadline_missed": 0}:
+        raise AssertionError(f"{label}: outcomes {outcomes}")
+    sheds = stats["shed_queue_full"] + stats["shed_deadline_infeasible"]
+    misses = stats["deadline_misses_queued"] + stats["deadline_misses_running"]
+    if sheds or misses or leaked(engine) != (0, 0, 0):
+        raise AssertionError(f"{label}: sheds {sheds}, deadline misses {misses}, leaks {leaked(engine)}")
+    if not fifo and not (stats["preemptions"] >= 1 and stats["resumes"] == stats["preemptions"]):
+        raise AssertionError(f"{label}: preemptions {stats['preemptions']}, resumes {stats['resumes']}")
+    if device.type == "cuda" and (launches["flash_fwd"] == 0 or launches["paged_attention"] == 0):
+        raise AssertionError(f"{label}: launches {launches}")
+    return {"engine": engine, "streams": streams, "total_s": total_s, "launches": launches, "preempted": preempted,
+            "ttft": {c: slo_pct(v) for c, v in ttft.items()}, "itl": {c: slo_pct(v, (0.5, 0.95)) for c, v in itl.items()},
+            "preemptions": stats["preemptions"], "resumes": stats["resumes"], "sheds": sheds,
+            "deadline_misses": misses, "queue_wait_ema_ms": stats["queue_wait_ema_ms"],
+            "queue_wait_ema_ms_by_class": stats["per_class"], "preempted_requests": engine.preempted_requests,
+            "pinned_blocks": engine.prefix_cache.pinned_blocks}
+
+
+def slo_mix(model, device, quant, n_batch: int) -> dict:
+    """Part 1: the scheduler arm against the FIFO arm on freshly warmed
+    engines. Without ``quant`` (f32 pool) every stream is identical across
+    the arms. With the int8 pool every stream that was never preempted is
+    identical, and a preempted one up to its preemption; after its resume
+    (the transcript's tail re-prefilled and re-quantized) its splits are
+    printed with the FIFO engine's top-2 gap there, not gated: the f32 pair
+    holds the same schedule identical (PERF.md section 6, PR 10)."""
+    batch_prompts, inter_prompts = slo_prompts(model.config.vocab_size, n_batch)
+    sched = slo_arm(model, device, quant, False, batch_prompts, inter_prompts)
+    fifo = slo_arm(model, device, quant, True, batch_prompts, inter_prompts)
+    label = f"SLO mix {model.config.dtype}"
+    splits = {}
+    for cls, prompt_list, budget in (("batch", batch_prompts, SLO_BATCH_NEW), ("interactive", inter_prompts,
+                                                                                 SLO_INTER_NEW)):
+        got, want = sched["streams"][cls], fifo["streams"][cls]
+        if quant:
+            splits[cls] = gated_splits(f"{label} {cls} scheduler vs FIFO", got, want, fifo["engine"], prompt_list,
+                                       float("inf"), budget)
+            for sp in splits[cls]:
+                sp["preempted_after"] = sched["preempted"].get(tuple(prompt_list[sp["request"]]))
+                if sp["preempted_after"] is None or sp["split"] < sp["preempted_after"]:
+                    raise AssertionError(f"{label} {cls}: stream {sp['request']} splits from FIFO's at token "
+                                         f"{sp['split']} before any preemption of it")
+        elif got != want:
+            raise AssertionError(f"{label} {cls}: streams differ between the arms")
+    s95, f95 = sched["ttft"]["interactive"]["p95_ms"], fifo["ttft"]["interactive"]["p95_ms"]
+    if not s95 < f95:
+        raise AssertionError(f"{label}: interactive p95 TTFT {s95:.1f} ms under the scheduler, {f95:.1f} under FIFO")
+    sched["preempted"] = len(sched["preempted"])
+    for arm in (sched, fifo):
+        del arm["engine"], arm["streams"]
+    fifo.pop("preempted")
+    return {"scheduler": sched, "fifo": fifo, "splits": splits, "n_batch": n_batch,
+            "interactive_p95_ttft_fifo_over_scheduler": f95 / s95}
+
+
+def slo_contract(model, device) -> dict:
+    """Part 2: the route's status contract through its plain functions
+    (``parse_generate_payload``, ``error_for``), with the batcher's own worker:
+    8 batch hogs of 400 new tokens hold every slot of a bound-2 queue."""
+    import random
+
+    from unionml_tpu_torch.serving import ContinuousBatcher, EngineSupervisor, SchedulerConfig
+    from unionml_tpu_torch.serving.app import PayloadError, error_for, parse_generate_payload
+
+    engine = pc_engine(model, device, PC_BLOCKS, "int8")
+    batcher = ContinuousBatcher(engine, lookahead=SLO_LOOKAHEAD, supervisor=EngineSupervisor(), device=device,
+                                scheduler=SchedulerConfig(max_queue=2))
+    sched, rng, vocab = batcher.scheduler, random.Random(0), model.config.vocab_size
+    prompt = np.random.default_rng(9).integers(1, vocab, 6).tolist()
+    out = {}
+
+    def envelope(exc):
+        status, body, headers = error_for(exc, request_id="chip", rng=rng)
+        return {"status": status, **body["error"], "retry_after_header": headers.get("Retry-After")}
+
+    async def until(predicate):
+        for _ in range(4000):
+            if predicate():
+                return
+            await asyncio.sleep(0.005)
+        raise AssertionError("phase 14 contract: a state was never reached")
+
+    def pin_wait_ema(value):
+        """Pin the observed queue waits the infeasibility shed reads."""
+        with sched._lock:
+            sched.queue_wait_ema_ms = value
+            sched.queue_wait_ema_ms_by_class = {k: value for k in sched.queue_wait_ema_ms_by_class}
+
+    async def outcome(coro):
+        try:
+            return await coro
+        except Exception as exc:  # mapped as the route maps it
+            return envelope(exc)
+
+    async def drive():
+        hogs = []
+        for _ in range(engine.num_slots):  # one at a time: the queue holds 2
+            hogs.append(asyncio.ensure_future(batcher.generate(prompt, HOG_NEW, priority="batch")))
+            await until(lambda: sched.depth == 0 and engine.num_active == len(hogs))
+        # queued behind the hogs (same class: no preemption) past its deadline;
+        # with no queue wait observed yet, so that it is not shed at submit
+        pin_wait_ema(None)
+        out["queued_deadline"] = await outcome(batcher.generate(prompt, 8, priority="batch", deadline_ms=20))
+        fillers = [asyncio.ensure_future(outcome(batcher.generate(prompt, 8, priority="batch"))) for _ in range(2)]
+        await until(lambda: sched.depth == 2)
+        out["queue_full"] = await outcome(batcher.generate(prompt, 8, priority="batch"))
+        stream = batcher.stream(prompt, 8, priority="batch")
+        out["queue_full_stream"] = await outcome(stream.__anext__())
+        # an interactive submit displaces the worst queued batch ticket, then preempts a hog
+        inter = asyncio.ensure_future(outcome(batcher.generate(prompt, 8, priority="interactive")))
+        out["interactive"] = await inter
+        out["fillers"] = await asyncio.gather(*fillers)
+        # admitted at once (it preempts a hog), then cancelled mid-decode at its deadline
+        out["running_deadline"] = await outcome(batcher.generate(prompt, HOG_NEW, priority="interactive",
+                                                                deadline_ms=500))
+        pin_wait_ema(60_000.0)  # observed queueing of a minute: the deadline is infeasible at submit
+        out["infeasible"] = await outcome(batcher.generate(prompt, 8, deadline_ms=1000))
+        pin_wait_ema(None)
+        out["hogs"] = await asyncio.gather(*(outcome(h) for h in hogs))
+        # one request streamed, then the same request whole
+        out["streamed"] = [t async for t in batcher.stream(prompt, 16, priority="interactive")]
+        out["whole"] = await batcher.generate(prompt, 16, priority="interactive")
+
+    t0 = time.perf_counter()
+    asyncio.run(drive())
+    stats = sched.stats()
+    batcher.close()
+    fail = []
+    if out["queued_deadline"]["status"] != 504 or out["queued_deadline"]["reason"] != "deadline_exceeded":
+        fail.append("queued deadline")
+    qf = out["queue_full"]
+    if qf["status"] != 429 or qf["reason"] != "queue_full" or not 750 <= qf["retry_after_ms"] <= 1250:
+        fail.append("queue full")
+    if out["queue_full_stream"]["status"] != 429:
+        fail.append("a stream's shed at its first anext")
+    if not isinstance(out["interactive"], list) or len(out["interactive"]) != 8:
+        fail.append("interactive")
+    if sorted(isinstance(f, list) for f in out["fillers"]) != [False, True] or not any(
+            isinstance(f, dict) and f["status"] == 429 for f in out["fillers"]):
+        fail.append("displacement")
+    if out["running_deadline"]["status"] != 504 or stats["deadline_misses_running"] != 1:
+        fail.append("running deadline")
+    if out["infeasible"]["status"] != 503 or out["infeasible"]["reason"] != "deadline_infeasible":
+        fail.append("infeasible deadline")
+    if any(not isinstance(h, list) or len(h) != HOG_NEW for h in out["hogs"]):
+        fail.append("hogs")
+    if out["streamed"] != out["whole"] or leaked(engine) != (0, 0, 0):
+        fail.append(f"stream vs whole / leaks {leaked(engine)}")
+    bad = []
+    for payload in ({}, {"prompt_ids": [1, 2], "max_new_tokens": 0}, {"prompt_ids": []},
+                    {"prompt_ids": [1] * 1024}, {"prompt_ids": [1, 2], "priority": "urgent"},
+                    {"prompt_ids": [1, 2], "deadline_ms": -5}, {"prompt_ids": [1, 2], "top_p": 0},
+                    {"prompts": [[1, 2]], "stream": True}):
+        try:
+            parse_generate_payload(payload, batcher)
+            bad.append("accepted")
+        except PayloadError as exc:
+            bad.append(envelope(exc)["status"] if exc.reason == "invalid_request" else exc.reason)
+    if bad != [400] * len(bad):
+        fail.append(f"invalid payloads {bad}")
+    if fail:
+        raise AssertionError(f"phase 14 contract: {fail}; {out}")
+    return {"queue_full": qf, "queued_deadline": out["queued_deadline"]["status"],
+            "running_deadline": out["running_deadline"]["status"], "infeasible": out["infeasible"]["status"],
+            "displaced": [f["status"] for f in out["fillers"] if isinstance(f, dict)], "invalid": bad,
+            "scheduler": {k: v for k, v in stats.items() if k != "pool"}, "s": time.perf_counter() - t0}
+
+
+def slo_speculation(model, device) -> dict:
+    """Part 3: the self-draft speculative engine behind the batcher with the
+    default ``speculative_classes``: 4 interactive requests alone run
+    speculative rounds, 4 batch requests alone run none; both groups' streams
+    equal the vanilla engine's under the bf16 rule."""
+    from unionml_tpu_torch.serving import ContinuousBatcher
+
+    engine = spec_engine(model, model, device)
+    vanilla = vanilla_engine(model, device)
+    prompt_list = spec_prompts(model.config.vocab_size)[:8]
+    batcher = ContinuousBatcher(engine, device=device)
+    rounds, splits = [], {}
+
+    async def group(cls, prompts_):
+        return await asyncio.gather(*(batcher.generate(p, MAX_NEW, priority=cls) for p in prompts_))
+
+    try:
+        for cls, prompts_ in (("interactive", prompt_list[:4]), ("batch", prompt_list[4:])):
+            before = engine.speculation_stats()["rounds"]
+            got = asyncio.run(group(cls, prompts_))
+            rounds.append(engine.speculation_stats()["rounds"] - before)
+            want = drive(vanilla, [(p, MAX_NEW, {}) for p in prompts_])
+            splits[cls] = gated_splits(f"speculation by class ({cls}) vs vanilla", got, want, vanilla, prompts_,
+                                       GAP_LIMIT_BF16)
+    finally:
+        batcher.close()
+    if not (rounds[0] > 0 and rounds[1] == 0):
+        raise AssertionError(f"speculation by class: rounds interactive {rounds[0]}, batch {rounds[1]}")
+    return {"rounds": {"interactive": rounds[0], "batch": rounds[1]}, "splits": splits,
+            "stats": engine.speculation_stats()}
+
+
+def slo_htod(model, device) -> int:
+    """Part 4: ``Memcpy HtoD`` over 5 steady bursts of the batcher's loop
+    with the scheduler in place (its admission, deadline and preemption
+    checks run each time)."""
+    from unionml_tpu_torch.serving import ContinuousBatcher
+
+    engine = pc_engine(model, device, PC_BLOCKS, "int8")
+    batcher = ContinuousBatcher(engine, lookahead=SLO_LOOKAHEAD, device=device)
+    rng = np.random.default_rng(11)
+    for _ in range(engine.num_slots):
+        sink = _Sink()
+        sink.engine = engine
+        batcher.scheduler.submit(batcher.scheduler.make_ticket(
+            rng.integers(1, engine._config.vocab_size, 6), HOG_NEW, {}, sink, priority="batch", deadline_ms=600_000))
+
+    def turn():
+        batcher._admit()
+        batcher._dispatch(engine.step(SLO_LOOKAHEAD))
+
+    for _ in range(3):
+        turn()
+    htod = count_htod(turn, 5)
+    engine.abort_all()
+    if htod:
+        raise AssertionError(f"5 steady bursts with the scheduler in place made {htod} host-to-device copies")
+    return htod
+
+
+def slo_phase(device, config=None) -> dict:
+    """SLO scheduling (phase 14, see the module docstring)."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt, random_params
+
+    t0 = time.perf_counter()
+    config = config or GPTConfig()  # GPT-2 small
+    params = random_params(config, seed=0)
+    out, parts = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t
+
+    model = init_gpt(dataclasses.replace(config, dtype=torch.bfloat16), params=params, device=device)
+    part("mix_bf16", slo_mix, model, device, "int8", SLO_BATCH)
+    part("contract", slo_contract, model, device)
+    part("speculation", slo_speculation, model, device)
+    part("memcpy_htod_5_bursts", slo_htod, model, device)
+    del model
+    model = init_gpt(dataclasses.replace(config, dtype=torch.float32), params=params, device=device)
+    part("mix_f32", slo_mix, model, device, None, SLO_F32_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
     return out
 
 
@@ -2951,6 +3331,33 @@ def main() -> int:
     print(f"NaN fault on slot {nan['slot']}: quarantined ({nan['quarantined']}), {nan['siblings_bitwise']} sibling "
           f"streams bitwise equal to the run without it; Memcpy HtoD over 5 steady bursts with the cache on: "
           f"{bf['memcpy_htod_5_bursts']}; phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    torch.cuda.empty_cache()
+    details["slo"] = slo = slo_phase(device)
+    for key in ("mix_bf16", "mix_f32"):
+        mix = slo[key]
+        for arm in ("scheduler", "fifo"):
+            r = mix[arm]
+            print(f"[{name_limit}] SLO mix {key[4:]} {arm} ({mix['n_batch']} batch x {SLO_BATCH_NEW} tokens, "
+                  f"{SLO_INTER} interactive x {SLO_INTER_NEW}, lookahead {SLO_LOOKAHEAD}): TTFT interactive "
+                  f"{r['ttft']['interactive']}, batch {r['ttft']['batch']}; ITL interactive {r['itl']['interactive']}, "
+                  f"batch {r['itl']['batch']}; preemptions {r['preemptions']}, resumes {r['resumes']}, sheds "
+                  f"{r['sheds']}, deadline misses {r['deadline_misses']}, queue-wait EMA {r['queue_wait_ema_ms']} ms "
+                  f"by class {r['queue_wait_ema_ms_by_class']}; launches K1 {r['launches']['flash_fwd']}, K4 "
+                  f"{r['launches']['paged_attention']}; {r['total_s']:.3f} s")
+        print(f"[{name_limit}] SLO mix {key[4:]}: interactive p95 TTFT FIFO / scheduler "
+              f"{mix['interactive_p95_ttft_fifo_over_scheduler']:.2f}; streams across the arms: "
+              f"{'splits ' + str(mix['splits']) if key == 'mix_bf16' else 'identical'}")
+    ct = slo["contract"]
+    print(f"[{name_limit}] SLO contract (plain route functions, 8 hogs of {HOG_NEW} tokens, queue bound 2): queue full -> "
+          f"{ct['queue_full']['status']} {ct['queue_full']['reason']} retry_after_ms "
+          f"{ct['queue_full']['retry_after_ms']}; displaced -> {ct['displaced']}; deadline queued -> "
+          f"{ct['queued_deadline']}, running -> {ct['running_deadline']}; infeasible -> {ct['infeasible']}; "
+          f"invalid payloads -> {ct['invalid']}; streamed == whole; scheduler {ct['scheduler']}")
+    sp = slo["speculation"]
+    print(f"[{name_limit}] SLO speculation by class (self-draft, bf16): rounds {sp['rounds']}, splits from vanilla {sp['splits']}; "
+          f"Memcpy HtoD over 5 steady bursts with the scheduler: {slo['memcpy_htod_5_bursts']}; "
+          f"phase 14 took {slo['s']:.1f} s ({ {k: round(v, 1) for k, v in slo['parts_s'].items()} })")
     details["total_s"] = time.perf_counter() - t0
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],

@@ -135,9 +135,11 @@ def test_stats_and_index(bert_pair, tmp_path, monkeypatch):
 def test_app_options_not_ported_raise():
     app = sklearn_app(T)
     with pytest.raises(NotImplementedError, match="slice 7"):
-        t_serving_app(app, generator=object(), device="cpu")
+        t_serving_app(app, generator=object(), generate_telemetry=True, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 7"):
-        t_serving_app(app, generate_lookahead=2, device="cpu")
+        t_serving_app(app, generate_trace_journal="journal.jsonl", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        t_serving_app(app, generator=object(), generate_replicas=2, device="cpu")
     with pytest.raises(TypeError, match="unexpected keyword"):
         t_serving_app(app, no_such_option=1, device="cpu")
     with pytest.raises(TypeError, match="Unsupported app type"):

@@ -28,7 +28,7 @@ from unionml_tpu_torch.models import GPTConfig, init_gpt
 from unionml_tpu_torch.ops import sampling as tsampling
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
 from unionml_tpu_torch.serving.faults import EngineFailure
-from unionml_tpu_torch.serving.scheduler import FifoQueue, QueueFullError, Ticket
+from unionml_tpu_torch.serving.scheduler import QueueFullError, SchedulerConfig, SLOScheduler
 
 BUCKETS = (16, 32, 64)
 # (prompt length, max_new_tokens): six requests through two slots
@@ -148,15 +148,17 @@ def test_batcher_rejects_bad_requests_and_closes_cleanly(models):
 
 
 def test_fifo_queue_bound_is_structured():
-    queue = FifoQueue()
-    assert queue.max_queue == 256  # the JAX scheduler's default bound
-    small = FifoQueue(max_queue=2)
-    for _ in range(2):
-        small.submit(Ticket(prompt=np.zeros(1, np.int32), budget=1, sampling={}, sink=None))
+    """The bounded arrival-order queue, now ``SchedulerConfig(fifo=True)``:
+    the JAX scheduler's default bound, a structured shed at the bound that
+    no class displaces, and arrival order whatever the class."""
+    assert SLOScheduler(SchedulerConfig(fifo=True)).config.max_queue == 256  # the JAX scheduler's default bound
+    small = SLOScheduler(SchedulerConfig(fifo=True, max_queue=2))
+    for priority in ("batch", "standard"):
+        small.submit(small.make_ticket(np.zeros(1, np.int32), 1, {}, None, priority=priority))
     with pytest.raises(QueueFullError) as info:
-        small.submit(Ticket(prompt=np.zeros(1, np.int32), budget=1, sampling={}, sink=None))
-    assert info.value.reason == "queue_full" and len(small) == 2
-    assert [t.budget for t in small.drain()] == [1, 1] and len(small) == 0
+        small.submit(small.make_ticket(np.zeros(1, np.int32), 1, {}, None, priority="interactive"))
+    assert info.value.reason == "queue_full" and small.depth == 2
+    assert [t.priority for t in small.pop(2)] == [2, 1] and small.depth == 0
 
 
 def test_pool_exhaustion_and_nan_quarantine(models):

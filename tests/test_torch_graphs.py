@@ -298,7 +298,6 @@ def test_engine_rebuild_recaptures_its_graphs(cuda):
     burst's state)."""
     from unionml_tpu_torch.models import GPTConfig, init_gpt
     from unionml_tpu_torch.serving import ContinuousBatcher, DecodeEngine, EngineSupervisor, FaultPlan
-    from unionml_tpu_torch.serving.scheduler import Ticket
 
     # head_dim 64: K1's bodies take 64 or 128
     model = init_gpt(GPTConfig.tiny(hidden_size=128, num_heads=2, dtype=torch.float32, dropout=0.0), std=0.3,
@@ -333,12 +332,12 @@ def test_engine_rebuild_recaptures_its_graphs(cuda):
             Sink.emit(greedy, token)
             if len(greedy.tokens) == 4 and not arrived:
                 arrived.append(plan._dispatches)
-                batcher._queue.submit(Ticket(prompt=np.asarray([2, 7, 1], dtype=np.int32), budget=8,
-                                             sampling={"temperature": 0.8}, sink=sampled))
+                batcher.scheduler.submit(batcher.scheduler.make_ticket(
+                    np.asarray([2, 7, 1], dtype=np.int32), 8, {"temperature": 0.8}, sampled))
 
         greedy.emit = arrive
-        batcher._queue.submit(Ticket(prompt=np.asarray([3, 1, 4, 1, 5], dtype=np.int32), budget=12, sampling={},
-                                     sink=greedy))
+        batcher.scheduler.submit(batcher.scheduler.make_ticket(np.asarray([3, 1, 4, 1, 5], dtype=np.int32), 12, {},
+                                                               greedy))
         batcher._closed = True
         batcher._run()
         sup.close()
@@ -350,3 +349,72 @@ def test_engine_rebuild_recaptures_its_graphs(cuda):
     assert engine.failure_count == 1 and engine.graphs_dropped > 0
     assert engine.graph_captures > engine.graphs_dropped and len(engine._step_fns) > 0
     assert engine._allocator.slot_blocks == 0 and engine._allocator.pinned_blocks == 0
+
+
+@pytest.mark.cuda
+def test_preempt_lands_while_a_captured_burst_is_in_flight(cuda):
+    """Two batch requests fill both slots of a pipelined engine behind a
+    batcher with lookahead 8; an interactive request arrives while a replayed
+    burst is in flight, so the bursts shorten to 4 (contended) and the
+    preemption fetches that burst first. The victim's resumed stream and the
+    other's equal the run without the arrival (f32 pool), the interactive
+    stream equals it alone, and no block stays pinned or owned."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import ContinuousBatcher, DecodeEngine
+
+    model = init_gpt(GPTConfig.tiny(hidden_size=128, num_heads=2, dtype=torch.float32, dropout=0.0), std=0.3,
+                     device=cuda)
+    hogs, inter_prompt = [([3, 1, 4, 1, 5], 40), ([2, 7, 1, 8], 36)], [9, 9, 2]
+
+    class Sink:
+        cancelled = False
+
+        def __init__(self, hook=None):
+            self.tokens, self.error, self.hook = [], None, hook
+
+        def emit(self, token):
+            self.tokens.append(token)
+            if self.hook is not None:
+                self.hook(len(self.tokens))
+
+        def finish(self):
+            pass
+
+        def fail(self, exc):
+            self.error = exc
+
+    class Worker:  # stands in for the worker thread: the loop runs on this one
+        @staticmethod
+        def is_alive():
+            return True
+
+    def run(arrive: bool):
+        engine = DecodeEngine(model, num_slots=2, max_len=64, prefill_buckets=(8, 16, 32), block_size=4,
+                              prefix_cache_blocks=32, prefill_batch=1, device=cuda)
+        batcher = ContinuousBatcher(engine, lookahead=8, device=cuda)
+        batcher._worker = Worker()
+        inter = Sink()
+
+        def hook(n):
+            if arrive and n == 8 and not inter.tokens and engine._inflight is not None:
+                batcher._closed = False
+                batcher._submit(inter_prompt, 6, inter, {}, priority="interactive")
+                batcher._closed = True
+
+        sinks = [Sink(hook), Sink()]
+        for (prompt, budget), sink in zip(hogs, sinks):
+            batcher._submit(prompt, budget, sink, {}, priority="batch")
+        batcher._closed = True
+        batcher._run()
+        batcher._worker = None
+        cache = engine.prefix_cache
+        assert (cache.pinned_blocks, cache.slot_blocks) == (0, 0)
+        return [s.tokens for s in sinks], inter.tokens, batcher.scheduler.stats(), engine
+
+    want, _, _, _ = run(False)
+    got, inter, stats, engine = run(True)
+    assert stats["preemptions"] == stats["resumes"] == 1
+    assert ("decode", 4, False) in engine._step_fns  # the contended burst replayed a graph of its own
+    assert got == want
+    alone = DecodeEngine(model, num_slots=2, max_len=64, prefill_buckets=(8, 16, 32), block_size=4, device=cuda)
+    assert inter == alone.generate(inter_prompt, 6, lookahead=8)

@@ -30,7 +30,6 @@ import torch
 from unionml_tpu_torch import _graphs
 from unionml_tpu_torch.models import GPTConfig, init_gpt
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
-from unionml_tpu_torch.serving.scheduler import Ticket
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +206,7 @@ def test_stream_abandoned_during_delivery_keeps_other_streams_in_order(model, lo
         batcher = ContinuousBatcher(engine, lookahead=lookahead, device="cpu")
         sinks = [_Sink(keep=3)] + [_Sink() for _ in requests[1:]]
         for (prompt, n), sink in zip(requests, sinks):
-            batcher._queue.submit(Ticket(prompt=np.asarray(prompt), budget=n, sampling={}, sink=sink))
+            batcher.scheduler.submit(batcher.scheduler.make_ticket(np.asarray(prompt), n, {}, sink))
         batcher._closed = True
         batcher._run()  # the worker's loop on this thread: one fixed schedule
         assert engine.num_active == 0 and engine.available_blocks() == engine._allocator.num_blocks
@@ -244,7 +243,7 @@ def test_pipeline_stats_shape_and_counters(model):
     engine.generate([3, 1, 4], 5)
     stats = engine.pipeline_stats()
     assert set(stats) == {"depth", "inflight", "step_dispatches", "idle_dispatches", "ema_host_gap_ms",
-                          "ema_fetch_block_ms", "graphs"}
+                          "ema_fetch_block_ms", "ema_queue_wait_ms", "graphs"}
     assert stats["depth"] == 1 and stats["step_dispatches"] >= 5 and stats["graphs"] == 0  # no graphs on the CPU
     off = make_engine(model, pipeline=False, num_slots=2, prefill_buckets=(8,), prefill_chunk=None)
     off.generate([3, 1, 4], 5)

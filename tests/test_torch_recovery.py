@@ -50,7 +50,6 @@ from unionml_tpu_torch.serving import (
     SpeculativeBatcher,
     SpeculativeEngine,
 )
-from unionml_tpu_torch.serving.scheduler import Ticket
 
 PROMPT_A, BUDGET_A = [3, 1, 4, 1, 5], 12
 PROMPT_B, BUDGET_B = [2, 7, 1], 10
@@ -100,8 +99,8 @@ def run_batcher(eng, requests, sup=None, **sampling):
     if isinstance(eng, DecodeEngine):
         batcher = ContinuousBatcher(eng, supervisor=sup, device="cpu")
         for (prompt, budget), sink in zip(requests, sinks):
-            batcher._queue.submit(Ticket(prompt=np.asarray(prompt, dtype=np.int32), budget=budget,
-                                         sampling=dict(sampling), sink=sink))
+            batcher.scheduler.submit(batcher.scheduler.make_ticket(
+                np.asarray(prompt, dtype=np.int32), budget, dict(sampling), sink))
     else:
         batcher = JaxBatcher(eng, supervisor=sup)
         for (prompt, budget), sink in zip(requests, sinks):

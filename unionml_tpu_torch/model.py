@@ -700,7 +700,9 @@ class Model(TrackedInstance):
         """Attach this model's endpoints to a serving app (``model.py:771-784``).
 
         ``app=None`` builds the native aiohttp app with a resident predictor (a CUDA
-        graph per bucket; see :class:`~unionml_tpu_torch.serving.resident.ResidentPredictor`).
+        graph per bucket; see :class:`~unionml_tpu_torch.serving.resident.ResidentPredictor`);
+        ``generator=`` with the ``generate_*`` options adds ``POST /generate``
+        (see :func:`~unionml_tpu_torch.serving.app.build_aiohttp_app`).
         A FastAPI app raises ``TypeError``: the FastAPI adapter is not ported yet.
         """
         from unionml_tpu_torch.serving import serving_app

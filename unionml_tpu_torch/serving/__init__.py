@@ -2,7 +2,9 @@
 per padded request shape, :mod:`unionml_tpu_torch.serving.resident`), its
 request coalescing and aiohttp app, and the GPT path's paged ``DecodeEngine``
 and asyncio ``ContinuousBatcher`` (:mod:`unionml_tpu_torch.serving.continuous`),
-its radix prefix cache (:mod:`unionml_tpu_torch.serving.prefix_cache`), fault
+its SLO admission scheduler (:mod:`unionml_tpu_torch.serving.scheduler`) behind
+the ``/generate`` route, its radix prefix cache
+(:mod:`unionml_tpu_torch.serving.prefix_cache`), fault
 injection and supervised recovery (:mod:`unionml_tpu_torch.serving.faults`,
 :mod:`unionml_tpu_torch.serving.supervisor`), and speculative decoding on that
 engine (:mod:`unionml_tpu_torch.serving.speculative`)."""
@@ -21,7 +23,16 @@ from unionml_tpu_torch.serving.continuous import (
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultError, FaultPlan
 from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.resident import ResidentPredictor
-from unionml_tpu_torch.serving.scheduler import QueueFullError
+from unionml_tpu_torch.serving.scheduler import (
+    PRIORITY_CLASSES,
+    DeadlineExceededError,
+    DeadlineInfeasibleError,
+    QueueFullError,
+    SchedulerConfig,
+    SchedulingError,
+    SLOScheduler,
+    parse_priority,
+)
 from unionml_tpu_torch.serving.speculative import SpeculativeBatcher, SpeculativeEngine
 from unionml_tpu_torch.serving.supervisor import EngineSupervisor
 
@@ -39,7 +50,8 @@ def serving_app(
 
     ``app=None`` returns the native aiohttp application; extra kwargs
     (``buckets``, ``seq_buckets``, ``example_features``, ``coalesce``,
-    ``device``, ...) flow to :func:`build_aiohttp_app`. Any other ``app``
+    ``device``, ``generator`` and the ``generate_*`` options of
+    ``/generate``, ...) flow to :func:`build_aiohttp_app`. Any other ``app``
     raises ``TypeError``: the FastAPI adapter is not ported yet (as the JAX
     package answers when fastapi is missing).
     """
@@ -58,7 +70,10 @@ def serving_app(
 
 
 __all__ = [
+    "PRIORITY_CLASSES",
     "ContinuousBatcher",
+    "DeadlineExceededError",
+    "DeadlineInfeasibleError",
     "DecodeEngine",
     "EngineFailure",
     "EngineSupervisor",
@@ -69,13 +84,17 @@ __all__ = [
     "QueueFullError",
     "RequestBatcher",
     "ResidentPredictor",
+    "SLOScheduler",
     "SalvagedSlot",
+    "SchedulerConfig",
+    "SchedulingError",
     "SpeculativeBatcher",
     "SpeculativeEngine",
     "StepEvent",
     "build_aiohttp_app",
     "jsonable",
     "load_model_artifact",
+    "parse_priority",
     "run_app",
     "serving_app",
 ]

@@ -52,10 +52,13 @@ free slots between steps and evicted when they finish.
   token. :class:`~unionml_tpu_torch.serving.faults.FaultPlan` injects each
   fault deterministically.
 
+- :class:`ContinuousBatcher` routes every request through the SLO scheduler
+  (:mod:`unionml_tpu_torch.serving.scheduler`): priority classes, deadlines,
+  sheds, and the preemption policy that drives :meth:`DecodeEngine.preempt`.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
 where it is reachable): telemetry and metrics, mesh sharding, weight-only
-int8 ``quantize``, the dense ``paged=False`` engine, the batcher's SLO
-classes, deadlines and preemption policy, and fleet adoption.
+int8 ``quantize``, the dense ``paged=False`` engine, and fleet adoption.
 """
 
 import asyncio
@@ -84,7 +87,13 @@ from unionml_tpu_torch.ops.quant import quantize_blockwise
 from unionml_tpu_torch.ops.sampling import sample_logits, validate_sampling
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultError, FaultPlan
 from unionml_tpu_torch.serving.prefix_cache import PrefixCache
-from unionml_tpu_torch.serving.scheduler import FifoQueue, Ticket
+from unionml_tpu_torch.serving.scheduler import (
+    DeadlineExceededError,
+    SchedulerConfig,
+    SLOScheduler,
+    Ticket,
+    class_name,
+)
 
 __all__ = ["ContinuousBatcher", "DecodeEngine", "PreemptedSlot", "SalvagedSlot", "StepEvent", "block_demand"]
 
@@ -112,6 +121,10 @@ class StepEvent:
     #: False for an EOS token (consumed, not part of the completion)
     emit: bool
     finished: bool
+    #: time the request spent queued before admission (ms), on its FIRST
+    #: decoded token only (None on later events and on requests admitted
+    #: without a queue), so a TTFT splits into queue wait and the rest
+    queue_wait_ms: Optional[float] = None
     #: failure slug when the ENGINE terminated this request (``nan_logits``,
     #: ``prefill_failed``); the event carries no token and the consumer must
     #: fail the request
@@ -347,6 +360,10 @@ class DecodeEngine:
         self.tokens_decoded = 0
         #: running slots checkpointed by :meth:`preempt`
         self.preempted_requests = 0
+        #: per-slot queue wait (:meth:`note_queue_wait`), handed out on the
+        #: slot's first event, and its EMA over admissions
+        self._slot_queue_wait: Dict[int, float] = {}
+        self.ema_queue_wait_ms: Optional[float] = None
 
         #: depth-1 dispatch-ahead: enqueue burst N+1 before fetching burst N
         self.pipeline = bool(pipeline)
@@ -511,7 +528,40 @@ class DecodeEngine:
             "idle_dispatches": self.idle_dispatches,
             "ema_host_gap_ms": rounded(self.ema_host_gap_ms),
             "ema_fetch_block_ms": rounded(self.ema_fetch_block_ms),
+            "ema_queue_wait_ms": rounded(self.ema_queue_wait_ms),
             "graphs": len(self._step_fns),
+        }
+
+    def note_queue_wait(self, slot: int, wait_ms: Optional[float]) -> None:
+        """Record how long ``slot``'s request waited queued (the batcher calls
+        it right after admission): it rides the slot's first
+        :class:`StepEvent` and feeds :meth:`pipeline_stats`'s EMA."""
+        if wait_ms is None:
+            return
+        self._slot_queue_wait[slot] = float(wait_ms)
+        self.ema_queue_wait_ms = float(wait_ms) if self.ema_queue_wait_ms is None else (
+            0.8 * self.ema_queue_wait_ms + 0.2 * float(wait_ms))
+
+    def pool_signal(self) -> Dict[str, Any]:
+        """Block-pool occupancy for :meth:`SLOScheduler.load_signal`:
+        ``num_blocks``, the free/live/cached/pinned fractions,
+        ``available_blocks`` (free plus cached minus pinned, an upper bound on
+        what eviction could reclaim) and ``pressure`` (1 minus the available
+        fraction). Plain counter reads: the exact evictable walk
+        (:meth:`available_blocks`) stays on the worker's admission path."""
+        stats = self._allocator.stats()
+        total = max(1, int(stats["num_blocks"]))
+        free, live = int(stats["free_blocks"]), int(stats["slot_blocks"])
+        cached, pinned = int(stats["cached_blocks"]), int(stats["pinned_blocks"])
+        available = max(0, min(total, free + cached - pinned))
+        return {
+            "num_blocks": total,
+            "free_frac": round(free / total, 4),
+            "live_frac": round(live / total, 4),
+            "cached_frac": round(cached / total, 4),
+            "pinned_frac": round(pinned / total, 4),
+            "available_blocks": available,
+            "pressure": round(1.0 - available / total, 4),
         }
 
     def robustness_stats(self) -> Dict[str, Any]:
@@ -1005,6 +1055,7 @@ class DecodeEngine:
         its matched path, and buffer the ``prefill_failed`` event."""
         self._partials.pop(slot, None)
         self._reserved[slot] = False
+        self._slot_queue_wait.pop(slot, None)
         self._release_prefix(slot)
         self._free_slot_blocks(slot)
         self._pending_events.append(StepEvent(slot=slot, token=-1, emit=False, finished=True, error="prefill_failed"))
@@ -1232,13 +1283,15 @@ class DecodeEngine:
             tokens.append(int(token))
         is_eos = self.eos_token_id is not None and token == self.eos_token_id
         finished = is_eos or self._remaining[slot] <= 0 or self._lens_host[slot] >= self.max_len - 1
+        queue_wait_ms = self._slot_queue_wait.pop(slot, None)
         if finished:
             self._active[slot] = False
             if self.prefix_cache is not None and self.prefix_cache_generated:
                 self._capture_generated(slot)  # adopts the slot's full blocks in place
             self._release_prefix(slot)
             self._free_slot_blocks(slot)
-        return StepEvent(slot=slot, token=token, emit=not is_eos, finished=bool(finished))
+        return StepEvent(slot=slot, token=token, emit=not is_eos, finished=bool(finished),
+                         queue_wait_ms=queue_wait_ms)
 
     def _quarantine(self, slot: int) -> StepEvent:
         """Terminate ONE slot whose logits went NaN/Inf (its generated KV is
@@ -1258,6 +1311,7 @@ class DecodeEngine:
         self._remaining[slot] = 0
         self._slot_temp[slot] = self.temperature
         self._partials.pop(slot, None)
+        self._slot_queue_wait.pop(slot, None)
         self._release_prefix(slot)
         self._free_slot_blocks(slot)
         self._slot_device_update(slot, False, 0, self.temperature, 0, 1.0)
@@ -1312,8 +1366,8 @@ class DecodeEngine:
         Returns ``None``, the slot still running, when it retired during the
         flush or its checkpoint could not re-admit (a pool too full to index
         enough of a transcript beyond the bucket ladder). Raises
-        ``RuntimeError`` with the prefix cache off. The policy that chooses a
-        victim is the SLO scheduler's (ROADMAP slice 6)."""
+        ``RuntimeError`` with the prefix cache off. The batcher's
+        ``_maybe_preempt`` chooses the victim (the SLO scheduler's policy)."""
         if self.prefix_cache is None:
             raise RuntimeError("preempt requires the prefix cache (prefix_cache_blocks > 0)")
         self._ensure_usable()
@@ -1446,6 +1500,7 @@ class DecodeEngine:
         self._lens_host[:] = 0
         self._remaining[:] = 0
         self._slot_temp[:] = self.temperature
+        self._slot_queue_wait.clear()
         for slot in list(self._slot_path):
             self._release_prefix(slot)
         self._slot_tokens.clear()
@@ -1579,39 +1634,63 @@ class ContinuousBatcher:
 
     ``await generate(prompt_ids, max_new_tokens)`` enqueues a request and
     resolves with its completion; ``stream(...)`` yields tokens as they decode.
-    The worker admits queued requests in arrival order into free slots (and
-    only as far as the pool has blocks for them) between decode steps. At most
-    ``max_queue`` requests wait; a submit beyond that raises
-    :class:`~unionml_tpu_torch.serving.scheduler.QueueFullError`. An admission
-    that fails without failing the engine is retried one request at a time, so
-    only the request at fault fails.
+    Every request routes through the SLO scheduler
+    (:class:`~unionml_tpu_torch.serving.scheduler.SLOScheduler`): priority
+    classes with aging, a bounded queue that sheds or displaces
+    (``QueueFullError``, ``DeadlineInfeasibleError``, raised on the caller's
+    side), deadlines enforced on queued AND running requests
+    (``DeadlineExceededError``), and, with the engine's prefix cache on,
+    preempt-to-prefix-cache of the worst running request when a strictly
+    higher class waits against a full house or a starved pool. Between decode
+    bursts the worker admits popped tickets into free slots as far as the pool
+    has blocks for them (a ticket the pool cannot hold re-queues, and those
+    behind it with it). An admission that fails without failing the engine is
+    retried one request at a time, so only the request at fault fails.
 
-    A request's sampling keywords reach the engine as they are: with a
-    :class:`~unionml_tpu_torch.serving.speculative.SpeculativeEngine`,
-    ``speculative``/``seed``/``gamma`` among them (SLO classes, deadlines and
-    the preemption policy are ROADMAP slice 6).
+    Deadlines are checked on the host clock between bursts, so a running
+    request can overrun its deadline by up to one burst plus one eager
+    admission; queued deadlines also expire while the engine idles (the
+    worker's bounded 0.5 s wait).
 
-    :param lookahead: decode steps per device-to-host fetch.
+    A request's sampling keywords reach the engine as they are; with a
+    :class:`~unionml_tpu_torch.serving.speculative.SpeculativeEngine` a
+    request of a class in ``SchedulerConfig.speculative_classes`` decodes
+    speculatively unless it says ``speculative`` itself.
+
+    :param lookahead: decode steps per device-to-host fetch; under contention
+        (work queued, no slot free) bursts are cut to ``min(lookahead, 4)``.
+    :param scheduler: an :class:`~unionml_tpu_torch.serving.scheduler.SLOScheduler`,
+        or a :class:`~unionml_tpu_torch.serving.scheduler.SchedulerConfig` to
+        build one (``None``: the default policy, whose bound is 256 queued
+        requests). ``SchedulerConfig(fifo=True)`` is the arrival-order queue.
     :param supervisor: an :class:`~unionml_tpu_torch.serving.supervisor.EngineSupervisor`
         for supervised recovery: on an engine failure every salvaged request
         is re-queued as a resume (its sink keeps the tokens already
-        delivered; its transcript becomes the prompt and its unspent budget
-        the budget) once the engine is rebuilt, with bounded retries of the
-        rebuild. ``None``: the requests in flight fail with a structured
+        delivered; its transcript becomes the prompt, its unspent budget the
+        budget, its class and deadline ride along) once the engine is
+        rebuilt, with bounded retries of the rebuild. ``None``: the requests
+        in flight fail with a structured
         :class:`~unionml_tpu_torch.serving.faults.EngineFailure`, and the
         engine serves the next ones.
     :param device: must name the engine's device; ``"cuda"`` (default) raises
         without a CUDA device.
     """
 
-    def __init__(self, engine: DecodeEngine, *, lookahead: int = 1, max_queue: int = 256,
+    #: the route forwards its ``request_id`` to ``generate``/``stream``
+    accepts_request_id = True
+
+    def __init__(self, engine: DecodeEngine, *, lookahead: int = 1, scheduler: Optional[Any] = None,
                  supervisor: Optional[Any] = None, device="cuda") -> None:
         device = resolve_device(device)
         if device.type != engine.device.type:
             raise ValueError(f"engine runs on {engine.device}, batcher device is {device}")
         self._engine = engine
         self._lookahead = max(1, int(lookahead))
-        self._queue = FifoQueue(max_queue)  # guarded-by: _lock
+        #: the admission queue (thread-safe: it owns its own leaf lock)
+        self.scheduler = scheduler if isinstance(scheduler, SLOScheduler) else SLOScheduler(
+            scheduler if isinstance(scheduler, SchedulerConfig) else None)
+        if self.scheduler.pool_signal is None:
+            self.scheduler.pool_signal = engine.pool_signal
         self._closed = False  # guarded-by: _lock
         self._lock = threading.Lock()
         self._work = threading.Event()
@@ -1630,34 +1709,46 @@ class ContinuousBatcher:
     def engine(self) -> DecodeEngine:
         return self._engine
 
-    def _submit(self, prompt_ids, max_new_tokens, sink, sampling) -> None:
+    def _submit(self, prompt_ids, max_new_tokens, sink, sampling, priority=None, deadline_ms=None,
+                request_id=None) -> None:
         # bad requests fail on the caller's side, not the worker's
         prompt, budget, *_ = self._engine.validate_request(prompt_ids, max_new_tokens, **sampling)
         if self.supervisor is not None and self.supervisor.state == "failed":
             raise self.supervisor.unavailable_error()
-        ticket = Ticket(prompt=prompt, budget=budget, sampling=dict(sampling), sink=sink)
+        ticket = self.scheduler.make_ticket(prompt, budget, sampling, sink, priority=priority,
+                                            deadline_ms=deadline_ms)
+        ticket.request_id = request_id
         with self._lock:
             if self._closed:
-                raise EngineFailure("batcher is closed", reason="batcher_closed", retryable=False)
-            self._queue.submit(ticket)
+                raise EngineFailure("batcher is closed", reason="batcher_closed")
+            # a shed raises here, on the caller's side, while the close check holds
+            displaced = self.scheduler.submit(ticket)
             if self._worker is None:
                 self._worker = threading.Thread(target=self._run, name="continuous-batcher", daemon=True)
                 self._worker.start()
+        if displaced is not None:
+            # displaced tickets are never resumes: no pin to drop
+            self._deliver(displaced.sink, "fail", displaced.shed_exc)
         self._work.set()
 
-    async def generate(self, prompt_ids: Sequence[int], max_new_tokens: int, **sampling) -> List[int]:
+    async def generate(self, prompt_ids: Sequence[int], max_new_tokens: int, *, priority: Any = None,
+                       deadline_ms: Optional[float] = None, request_id: Optional[str] = None,
+                       **sampling) -> List[int]:
         loop = asyncio.get_running_loop()
         future: asyncio.Future = loop.create_future()
-        self._submit(prompt_ids, max_new_tokens, _FutureSink(loop, future), sampling)
+        self._submit(prompt_ids, max_new_tokens, _FutureSink(loop, future), sampling, priority, deadline_ms,
+                     request_id)
         return await future
 
-    async def stream(self, prompt_ids: Sequence[int], max_new_tokens: int, **sampling):
+    async def stream(self, prompt_ids: Sequence[int], max_new_tokens: int, *, priority: Any = None,
+                     deadline_ms: Optional[float] = None, request_id: Optional[str] = None, **sampling):
         """Async iterator of tokens, yielded as the engine decodes them;
-        abandoning it early cancels the request's slot."""
+        abandoning it early cancels the request's slot. A shed or a bad
+        request raises at the first ``anext``."""
         loop = asyncio.get_running_loop()
         queue: "asyncio.Queue" = asyncio.Queue()
         sink = _QueueSink(loop, queue)
-        self._submit(prompt_ids, max_new_tokens, sink, sampling)
+        self._submit(prompt_ids, max_new_tokens, sink, sampling, priority, deadline_ms, request_id)
         try:
             while True:
                 item = await queue.get()
@@ -1688,43 +1779,144 @@ class ContinuousBatcher:
         for state in orphans:
             self._engine.release_preempted(state)
 
-    def _take_admissible(self) -> List[Ticket]:
-        """Pop queued tickets in arrival order while slots and pool blocks last
-        (head-of-line: a ticket the pool cannot hold yet waits at the head)."""
-        engine = self._engine
-        free = len(engine.free_slots)
-        avail = engine.available_blocks()
-        batch: List[Ticket] = []
-        dropped: List[Ticket] = []
-        with self._lock:
-            while len(batch) < free:
-                head = self._queue.peek()
-                if head is None:
-                    break
-                if head.sink.cancelled:
-                    dropped.append(self._queue.pop())
-                    continue
-                demand = engine.block_demand(head.prompt.size, head.budget)
-                if demand > avail:
-                    break
-                avail -= demand
-                batch.append(self._queue.pop())
-        for ticket in dropped:
+    def _enforce_deadlines(self) -> None:
+        """Fail queued tickets and cancel running slots whose deadline passed
+        (``DeadlineExceededError``, HTTP 504). A cancel fetches the burst in
+        flight and drops only this slot's tokens; the survivors' wait in the
+        engine's pending events, delivered under the unchanged mapping."""
+        now = time.monotonic()
+        for ticket in self.scheduler.take_expired(now):
             self._release_ticket(ticket)
-        return batch
+            self._deliver(ticket.sink, "fail", DeadlineExceededError("deadline expired while queued"))
+        for slot, ticket in list(self._slot_meta.items()):
+            if ticket.expired(now):
+                self._engine.cancel(slot)
+                self.scheduler.note_deadline_miss_running()
+                self._sinks.pop(slot, None)
+                self._slot_meta.pop(slot, None)
+                self._deliver(ticket.sink, "fail", DeadlineExceededError("deadline expired while decoding"))
+
+    def _maybe_preempt(self) -> None:
+        """Preempt-to-prefix-cache: when a strictly higher class waits and no
+        slot is free (or the pool starves the head ticket), checkpoint the
+        worst running victim (lowest class, most tokens left) and re-queue it
+        as a resume. One victim per admission round."""
+        config = self.scheduler.config
+        if config.fifo or not config.preempt or self._engine.prefix_cache is None:
+            return
+        if self._engine.free_slots and not self._block_starved():
+            return
+        waiting = self.scheduler.best_waiting_priority()
+        if waiting is None:
+            return
+        victims = sorted(
+            ((ticket.priority, int(self._engine._remaining[slot]), slot, ticket)
+             for slot, ticket in self._slot_meta.items()
+             if ticket.priority > waiting and self._engine._active[slot]),
+            key=lambda v: v[:3], reverse=True,
+        )
+        for _, _, slot, ticket in victims:
+            state = self._engine.preempt(slot)
+            try:
+                # the preempt's flush ran under the OLD mapping: deliver the
+                # victim's and the survivors' tokens before re-keying
+                self._dispatch(self._engine.take_pending_events())
+                if state is None:
+                    # retired during the flush, or not checkpointable
+                    if self._engine.free_slots:
+                        return
+                    continue
+                # the sink keeps every token it received; the transcript
+                # becomes the prompt and the budget shrinks by what was decoded
+                sink = self._sinks.pop(slot, None)
+                meta = self._slot_meta.pop(slot, ticket)
+                generated = len(state.tokens) - len(meta.prompt)
+                meta.prompt = np.asarray(state.tokens, dtype=np.int32)
+                meta.budget = int(meta.budget) - max(0, generated)
+                meta.resume = state
+                meta.sink = sink if sink is not None else meta.sink
+                self.scheduler.requeue(meta)
+            except Exception as exc:
+                # the checkpoint never reached the queue: drop its pin, and
+                # fail the victim's consumer (it left the slot maps above)
+                if state is not None:
+                    self._engine.release_preempted(state)
+                victim = self._sinks.pop(slot, None) or ticket.sink
+                self._slot_meta.pop(slot, None)
+                ticket.resume = None
+                self._deliver(victim, "fail", exc)
+                raise
+            return
+
+    def _block_starved(self) -> bool:
+        """Whether the head ticket's block demand exceeds what the pool could
+        allocate now: block pressure, not slot scarcity, gates admission."""
+        head = self.scheduler.peek()
+        if head is None:
+            return False
+        return self._engine.block_demand(len(head.prompt), head.budget) > self._engine.available_blocks()
+
+    def _admit(self) -> None:
+        self._drain_orphans()
+        self._enforce_deadlines()
+        self._maybe_preempt()
+        engine = self._engine
+        while True:
+            free = engine.free_slots
+            if not free:
+                return
+            batch = self.scheduler.pop(len(free))
+            if not batch:
+                return
+            admissible: List[Ticket] = []
+            blocked: List[Ticket] = []
+            avail = engine.available_blocks()
+            for ticket in batch:
+                if blocked:
+                    blocked.append(ticket)  # keep scheduler order behind the blocker
+                    continue
+                if ticket.sink.cancelled:  # the consumer gave up while queued
+                    self._release_ticket(ticket)
+                    continue
+                try:
+                    engine.validate_request(ticket.prompt, ticket.budget, **ticket.sampling)
+                except Exception as exc:
+                    self._release_ticket(ticket)
+                    self._deliver(ticket.sink, "fail", exc)
+                    continue
+                demand = engine.block_demand(len(ticket.prompt), ticket.budget)
+                if demand > avail:
+                    # head-of-line on purpose: admitting smaller latecomers
+                    # around a starved head would starve it
+                    blocked.append(ticket)
+                    continue
+                avail -= demand
+                admissible.append(ticket)
+            for ticket in blocked:
+                self.scheduler.requeue(ticket, preemption=False)
+            if admissible and not self._admit_batch(admissible):
+                return  # an engine failure ended this admission round
+            if blocked:
+                return  # the pool binds: wait for retirements
 
     def _register(self, slot: int, ticket: Ticket) -> None:
         """Bind an admitted ticket to its slot; a resume's pin can go now (the
         re-admission holds its own references)."""
         self._sinks[slot] = ticket.sink
         self._slot_meta[slot] = ticket
+        self._engine.note_queue_wait(slot, ticket.queue_wait_ms)
         self._release_ticket(ticket)
 
-    def _admit(self) -> None:
-        self._drain_orphans()
-        batch = self._take_admissible()
-        if batch:
-            self._admit_batch(batch)
+    def _spec_sampling(self, ticket: Ticket) -> Dict[str, Any]:
+        """The ticket's sampling with the class's speculation default
+        (``SchedulerConfig.speculative_classes``) on an engine that speculates;
+        a client's explicit ``speculative`` wins, and a plain engine gets the
+        dict untouched (it rejects unknown keys)."""
+        if not hasattr(self._engine, "speculation_stats"):
+            return ticket.sampling
+        sampling = dict(ticket.sampling)
+        sampling.setdefault("speculative", class_name(ticket.priority) in self.scheduler.config.speculative_classes)
+        return sampling
 
     def _admit_batch(self, batch: List[Ticket]) -> bool:
         """Admit popped tickets. A failure that left the engine intact (it
@@ -1734,7 +1926,7 @@ class ContinuousBatcher:
         engine = self._engine
         failures = engine.failure_count
         try:
-            slots = engine.admit_many([(t.prompt, t.budget, t.sampling) for t in batch])
+            slots = engine.admit_many([(t.prompt, t.budget, self._spec_sampling(t)) for t in batch])
         except Exception as exc:
             logger.exception("admission failed")
             if engine.failure_count != failures:
@@ -1748,7 +1940,7 @@ class ContinuousBatcher:
             for ticket in batch:
                 failures = engine.failure_count
                 try:
-                    (slot,) = engine.admit_many([(ticket.prompt, ticket.budget, ticket.sampling)])
+                    (slot,) = engine.admit_many([(ticket.prompt, ticket.budget, self._spec_sampling(ticket))])
                 except Exception as one_exc:
                     if engine.failure_count != failures:
                         self._handle_engine_failure(one_exc, pending=[ticket])
@@ -1781,7 +1973,9 @@ class ContinuousBatcher:
                 continue
             if event.error is not None:
                 del self._sinks[event.slot]
-                self._slot_meta.pop(event.slot, None)
+                meta = self._slot_meta.pop(event.slot, None)
+                if meta is not None:
+                    self._release_ticket(meta)
                 if self.supervisor is not None:
                     self.supervisor.note_request_failed()
                 self._deliver(sink, "fail", EngineFailure(
@@ -1812,13 +2006,14 @@ class ContinuousBatcher:
         """Recover from an engine failure (``continuous.py:3436-3567``).
 
         With a supervisor: each salvaged request becomes a resume ticket
-        (sink and delivered tokens kept, transcript as prompt, unspent budget)
-        re-queued once the engine is rebuilt; a request that cannot resume
-        fails with ``request_unrecoverable``; when every rebuild attempt
-        fails, everything (resumes, ``pending``, the queue) fails with the
-        supervisor's structured error. Without one: every request in flight
-        fails, structured, and the salvage's pins are dropped. ``pending``
-        holds popped tickets of a failed admission; they requeue untouched.
+        (sink and delivered tokens kept, transcript as prompt, unspent budget,
+        class and deadline unchanged) re-queued once the engine is rebuilt; a
+        request that cannot resume fails with ``request_unrecoverable``; when
+        every rebuild attempt fails, everything (resumes, ``pending``, the
+        queue) fails with the supervisor's structured error. Without one:
+        every request in flight fails, structured, and the salvage's pins are
+        dropped. ``pending`` holds popped tickets of a failed admission; they
+        requeue untouched.
         """
         engine = self._engine
         engine.note_external_failure()
@@ -1854,6 +2049,7 @@ class ContinuousBatcher:
             meta.prompt = np.asarray(rec.tokens, dtype=np.int32)
             meta.budget = int(rec.remaining)
             meta.resume = pin
+            meta.sink = sink
             resumes.append(meta)
         failure = _as_engine_failure(exc)
         for slot, sink in list(self._sinks.items()):  # nothing salvageable behind these
@@ -1871,17 +2067,14 @@ class ContinuousBatcher:
             rebuilt = True
         if not rebuilt:
             # handing orphans to another engine is fleet adoption (ROADMAP item 11)
-            with self._lock:
-                queued = self._queue.drain()
             unavailable = sup.unavailable_error()
-            for ticket in resumes + list(pending) + queued:
+            for ticket in resumes + list(pending) + self.scheduler.drain():
                 self._release_ticket(ticket)
                 sup.note_request_failed()
                 self._deliver(ticket.sink, "fail", unavailable)
             return
-        with self._lock:
-            for ticket in resumes + list(pending):
-                self._queue.requeue(ticket)
+        for ticket in resumes + list(pending):
+            self.scheduler.requeue(ticket, preemption=False)
         if resumes:
             sup.note_recovered(len(resumes))
         self._work.set()
@@ -1890,7 +2083,7 @@ class ContinuousBatcher:
         engine = self._engine
         while True:
             with self._lock:
-                if self._closed and not len(self._queue) and not self._sinks:
+                if self._closed and not self.scheduler.depth and not self._sinks:
                     break
             if self.supervisor is not None and self.supervisor.state == "failed":
                 # the engine is dead: its requests were failed and new ones are
@@ -1900,7 +2093,7 @@ class ContinuousBatcher:
                 continue
             try:
                 self._admit()
-            except Exception as exc:  # engine work outside admit_many (a cancel's flush) died
+            except Exception as exc:  # policy engine work (a deadline cancel, a preempt) died
                 logger.exception("admission round failed")
                 self._handle_engine_failure(exc)
                 continue
@@ -1908,12 +2101,16 @@ class ContinuousBatcher:
             if not busy:
                 self._work.clear()
                 with self._lock:
-                    if len(self._queue) or self._closed:
+                    if self.scheduler.depth or self._closed:
                         continue
+                # bounded: the wait doubles as the queued-deadline tick
                 self._work.wait(timeout=0.5)
                 continue
+            # full house and work queued: shorter bursts readmit a retiring
+            # slot within a few steps, without giving up the lookahead
+            contended = bool(self.scheduler.depth) and not engine.free_slots
             try:
-                events = engine.step(self._lookahead)
+                events = engine.step(min(self._lookahead, 4) if contended else self._lookahead)
             except Exception as exc:
                 logger.exception("continuous-batching step failed")
                 self._handle_engine_failure(exc)
@@ -1938,7 +2135,7 @@ class ContinuousBatcher:
             if worker is None or not worker.is_alive():
                 break
             # advisory reads of worker-owned state: a stale one costs one poll
-            if not len(self._queue) and not self._sinks and self._engine.num_active == 0:
+            if not self.scheduler.depth and not self._sinks and self._engine.num_active == 0:
                 break
             time.sleep(0.02)
         self.close()
@@ -1947,10 +2144,10 @@ class ContinuousBatcher:
         """Stop accepting requests, fail the queued ones with ``batcher_closed``,
         let running requests finish, and join the worker. Resume pins of the
         failed tickets are dropped on the worker (or here, once it stopped)."""
-        closed = EngineFailure("batcher closed", reason="batcher_closed", retryable=False)
+        closed = EngineFailure("batcher closed", reason="batcher_closed")
         with self._lock:
             self._closed = True
-            queued = self._queue.drain()
+            queued = self.scheduler.drain()
             worker = self._worker
             for ticket in queued:
                 if ticket.resume is not None:

@@ -27,14 +27,17 @@ A prefix-cache hit arms like a miss: the draft re-prefills the whole prompt
 through the slot's table row, spliced shared blocks included (the draft
 splice, ``speculative.py:443-500``). An engine failure rebuilds the draft pool
 with the target's, and a rebuild drops the round graphs with the bursts'.
-Not ported here (each raises ``NotImplementedError`` naming its ROADMAP item
-where it is reachable): telemetry, mesh sharding, SLO classes
-(:meth:`SpeculativeEngine.note_request_class` stores the label) and the
-``/generate`` route.
+Behind ``ContinuousBatcher`` a request's class sets its speculation default
+(``SchedulerConfig.speculative_classes``); ``SpeculativeBatcher`` takes turns
+through the same SLO scheduler. Not ported here (each raises
+``NotImplementedError`` naming its ROADMAP item where it is reachable):
+telemetry (and with it the per-class acceptance gauge) and mesh sharding.
 """
 
 import asyncio
 import threading
+import time
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,7 +48,7 @@ from unionml_tpu_torch.models.gpt import init_block_pool, kv_pool_bytes, paged_c
 from unionml_tpu_torch.ops.sampling import keyed_select
 from unionml_tpu_torch.serving.continuous import DecodeEngine, StepEvent, _Burst
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultPlan
-from unionml_tpu_torch.serving.scheduler import FifoQueue, Ticket
+from unionml_tpu_torch.serving.scheduler import DeadlineExceededError, SchedulerConfig, SLOScheduler, Ticket
 
 __all__ = ["SpeculativeBatcher", "SpeculativeEngine"]
 
@@ -121,7 +124,7 @@ class SpeculativeEngine(DecodeEngine):
         self._gamma_init = int(gamma_init)
         self._ema_beta, self._ema_hi, self._ema_lo = float(ema_beta), float(ema_hi), float(ema_lo)
         super().__init__(model, **kwargs)
-        #: per-request class labels (the batcher's; SLO classes are not ported)
+        #: per-slot class labels (read by telemetry's per-class gauge, ROADMAP slice 7)
         self._slot_class: Dict[int, str] = {}
         self.spec_rounds = 0  #: round bursts replayed
         self.spec_slot_rounds = 0  #: (slot, round) pairs that ran with γ > 0
@@ -240,8 +243,9 @@ class SpeculativeEngine(DecodeEngine):
         self.draft_prefill_dispatches += 1
 
     def note_request_class(self, slot: int, cls: Optional[str]) -> None:
-        """Label ``slot``'s occupant with its class (SLO classes are not
-        ported yet: the label is only stored)."""
+        """Label ``slot``'s occupant with its class (only stored: the per-class
+        acceptance gauge that reads it, and the batcher's call, come with
+        telemetry, ROADMAP slice 7)."""
         if cls is not None:
             self._slot_class[slot] = str(cls)
 
@@ -414,24 +418,32 @@ class SpeculativeEngine(DecodeEngine):
 class SpeculativeBatcher:
     """Single-stream speculative generation behind the batcher contract.
 
-    Requests queue in arrival order (a bounded FIFO, ``max_queue``; SLO
-    classes and deadlines are not ported) and run one at a time through
+    Requests route through the same SLO scheduler as
+    :class:`~unionml_tpu_torch.serving.continuous.ContinuousBatcher`
+    (:mod:`unionml_tpu_torch.serving.scheduler`): a bounded queue with
+    structured sheds and displacement, priority-ordered turn-taking for the
+    single stream, and deadlines enforced while queued, so ``GET /stats``
+    reports one scheduler block whichever generator serves ``/generate``.
+    Preemption does not apply (a batch-1 loop with no KV checkpoint to take).
+    Each request runs through
     :func:`~unionml_tpu_torch.models.speculative.speculative_generate`. A
     request with a ``seed`` draws from a generator of that seed; others from
-    the batcher's own, so identical unseeded sampled requests differ. The
-    ``/generate`` route that serves it is not ported yet (ROADMAP slice 7).
+    the batcher's own, so identical unseeded sampled requests differ.
     ``faults``: a :class:`~unionml_tpu_torch.serving.faults.FaultPlan` whose
     ``speculative_round_failures`` fail those rounds' requests, structured.
     """
 
     def __init__(self, target: Any, draft: Any, *, gamma: int = 4, max_len: Optional[int] = None,
-                 max_queue: int = 256, faults: Optional[FaultPlan] = None, device="cuda") -> None:
+                 scheduler: Optional[Any] = None, faults: Optional[FaultPlan] = None, device="cuda") -> None:
         self.device = resolve_device(device)
         if target.device.type != self.device.type:
             raise ValueError(f"target lives on {target.device}, batcher device is {self.device}")
         self._target, self._draft, self._gamma = target, draft, int(gamma)
         self._max_len = int(max_len or target.config.max_position_embeddings)
-        self._queue = FifoQueue(max_queue)  # guarded-by: _turn
+        self.scheduler = scheduler if isinstance(scheduler, SLOScheduler) else SLOScheduler(
+            scheduler if isinstance(scheduler, SchedulerConfig) else None)
+        #: turn-taking for the single stream: executor threads wait here until
+        #: the scheduler ranks their ticket first and no request runs
         self._turn = threading.Condition()
         self._current: Optional[Ticket] = None  # guarded-by: _turn
         self._closed = False
@@ -440,6 +452,12 @@ class SpeculativeBatcher:
         self._generator.manual_seed(0)
         self.round_failures = 0  # guarded-by: _lock
         self._faults = faults  # guarded-by: _lock
+        # the /stats view: one slot, and the continuous engine's counters;
+        # bucket_for is the route's prompt check (no bucket ladder here)
+        self.engine = SimpleNamespace(  # guarded-by: _lock
+            num_slots=1, num_active=0, max_len=self._max_len, bucket_for=lambda n: n,
+            requests_admitted=0, tokens_decoded=0, prefill_tokens_computed=0,
+        )
 
     def _validate(self, prompt_ids: Sequence[int], max_new_tokens: int, sampling: dict):
         if self._closed:
@@ -461,15 +479,34 @@ class SpeculativeBatcher:
             raise ValueError("speculative decoding supports temperature sampling only (no top_k/top_p)")
         return prompt, float(sampling.get("temperature", 0.0) or 0.0), sampling.get("seed")
 
+    def _await_turn(self, ticket: Ticket) -> None:
+        """Block until the scheduler ranks ``ticket`` first and the stream is
+        free. Raises the ticket's shed error when a later, higher-class submit
+        displaced it, and ``DeadlineExceededError`` when its deadline passes
+        while queued."""
+        with self._turn:
+            while True:
+                if self._closed:
+                    self.scheduler.remove(ticket)
+                    raise RuntimeError("SpeculativeBatcher is closed")
+                if ticket.shed_exc is not None:  # displaced under a full queue
+                    raise ticket.shed_exc
+                if ticket.expired(time.monotonic()):
+                    # removes this ticket (and expired peers, whose threads
+                    # raise on their next poll) and counts the misses
+                    self.scheduler.take_expired()
+                    raise DeadlineExceededError("deadline expired while queued")
+                if self._current is None and self.scheduler.peek() is ticket:
+                    if not self.scheduler.pop_ticket(ticket):
+                        raise RuntimeError("ticket vanished from the scheduler queue")
+                    self._current = ticket
+                    return
+                self._turn.wait(timeout=0.02)
+
     def _run(self, ticket: Ticket, max_new_tokens: int, temperature: float, seed) -> List[int]:
         from unionml_tpu_torch.models.speculative import speculative_generate
 
-        with self._turn:
-            while self._current is not None or self._queue.peek() is not ticket:
-                if self._closed:
-                    raise RuntimeError("SpeculativeBatcher is closed")
-                self._turn.wait(timeout=0.05)
-            self._current = self._queue.pop()
+        self._await_turn(ticket)
         try:
             with self._lock:
                 generator = self._generator
@@ -477,6 +514,8 @@ class SpeculativeBatcher:
                     generator = torch.Generator(device=self.device)
                     generator.manual_seed(int(seed))
                 prompt = torch.from_numpy(ticket.prompt).to(self.device)[None, :]
+                self.engine.num_active = 1
+                self.engine.requests_admitted += 1
                 try:
                     if self._faults is not None:
                         self._faults.check_speculative_round()
@@ -487,27 +526,41 @@ class SpeculativeBatcher:
                     self.round_failures += 1
                     raise EngineFailure(f"speculative round failed: {exc}",
                                         reason="speculative_round_failed") from exc
-            return out[0, ticket.prompt.size:].tolist()
+                finally:
+                    self.engine.num_active = 0
+                tokens = out[0, ticket.prompt.size:].tolist()
+                self.engine.prefill_tokens_computed += int(ticket.prompt.size)
+                self.engine.tokens_decoded += len(tokens)
+            return tokens
         finally:
             with self._turn:
                 self._current = None
                 self._turn.notify_all()
 
-    async def generate(self, prompt_ids: Sequence[int], max_new_tokens: int, **sampling) -> List[int]:
+    async def generate(self, prompt_ids: Sequence[int], max_new_tokens: int, *, priority: Any = None,
+                       deadline_ms: Optional[float] = None, request_id: Optional[str] = None,
+                       **sampling) -> List[int]:
         prompt, temperature, seed = self._validate(prompt_ids, max_new_tokens, sampling)
-        ticket = Ticket(prompt=prompt, budget=int(max_new_tokens), sampling=dict(sampling), sink=None)
-        with self._turn:
-            self._queue.submit(ticket)  # QueueFullError on the caller's side
+        # sheds raise here, on the caller's side, before any device work
+        ticket = self.scheduler.make_ticket(prompt, int(max_new_tokens), sampling, None, priority=priority,
+                                            deadline_ms=deadline_ms)
+        ticket.request_id = request_id
+        displaced = self.scheduler.submit(ticket)
+        if displaced is not None:
+            with self._turn:  # wake the displaced ticket's waiting thread
+                self._turn.notify_all()
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(None, self._run, ticket, int(max_new_tokens), temperature, seed)
 
-    async def stream(self, prompt_ids: Sequence[int], max_new_tokens: int, **sampling):
+    async def stream(self, prompt_ids: Sequence[int], max_new_tokens: int, *, priority: Any = None,
+                     deadline_ms: Optional[float] = None, request_id: Optional[str] = None, **sampling):
         """Tokens in one burst at completion: a round verifies whole proposal
         chunks, so there is no per-token step to stream from."""
-        for token in await self.generate(prompt_ids, max_new_tokens, **sampling):
+        for token in await self.generate(prompt_ids, max_new_tokens, priority=priority, deadline_ms=deadline_ms,
+                                         request_id=request_id, **sampling):
             yield token
 
     def close(self) -> None:
         self._closed = True
-        with self._turn:
+        with self._turn:  # wake queued waiters so they fail promptly
             self._turn.notify_all()

@@ -3,8 +3,8 @@
 The port's copy of ``unionml_tpu/serving/supervisor.py:47-340`` for one
 :class:`~unionml_tpu_torch.serving.continuous.DecodeEngine` behind a
 :class:`~unionml_tpu_torch.serving.continuous.ContinuousBatcher`, without its
-telemetry hooks (ROADMAP slice 7; ``/healthz`` under a supervisor comes with
-the ``/generate`` route, slice 7 too):
+telemetry hooks (ROADMAP slice 7); ``GET /healthz`` serves its state
+(``serving/app.py``):
 
 - **Health** ``ok -> degraded -> rebuilding -> ok`` on a recovered fault,
   ``rebuilding -> failed`` when the rebuild budget is spent.
