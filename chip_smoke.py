@@ -207,6 +207,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    both equal to vanilla under the gate. (4) No ``Memcpy HtoD`` in 5 steady
    bursts with the scheduler in place.
 
+15. serving telemetry (``serving/telemetry.py``, ``metrics.py``, ``slo.py``
+   and the hooks of the serving modules): GPT-2 small bf16, phase 13's int8
+   pool engine. (1) One fixed engine-level schedule (``admit_many`` and
+   ``step``: a 392..444-token prompt alone, then 7 that hit its system prompt
+   and 4 bucket misses) on two freshly warmed engines, telemetry off then on:
+   greedy streams bitwise identical, K1 and K4 launch counts equal,
+   ``decode_fetch_ms`` observed once per burst fetched, and with telemetry on
+   no ``Memcpy HtoD`` in 5 steady replayed bursts. (2) Wall ms per replayed
+   burst (8 slots), off and on, in the order off, on, on, off (printed, not
+   gated). (3) Traces through ``ContinuousBatcher`` with the SLO scheduler
+   and an ``EngineSupervisor``: 8 batch requests sharing a 128-token system
+   prompt (7 hits), an interactive request that preempts one of them, and a
+   NaN fault (``FaultPlan``) that quarantines another. Every trace opens with
+   ``admission`` and ends with one ``end``; a completed one has
+   ``queue_wait``, then its prefill or hit, then ``decode``; the preempted one
+   has ``preempted`` and a resumed ``queue_wait``; the quarantined one ends
+   ``error`` with ``nan_logits``; ``assert_balanced`` holds; tokens out,
+   prefix hit tokens, preemptions, resumes and quarantines equal the engine's
+   and scheduler's own counts; the ``/metrics`` body from
+   ``app.metrics_answer`` carries the headline families. K1's and K4's
+   launches in (1) ride the kernels line as ``launches_telemetry``.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -226,6 +248,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -2811,6 +2834,181 @@ def slo_phase(device, config=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------ telemetry
+
+TEL_SYSTEM, TEL_BATCH, TEL_BATCH_NEW, TEL_INTER_NEW = 128, 8, 64, 8
+TEL_NAN = (30, 1)  # (dispatch, slot): a batch request decoding, not the preemption's victim (slot 7)
+TEL_BURSTS = 60  # replayed bursts per wall timing
+
+
+def tel_shorts(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, int(n)).tolist() for n in rng.integers(20, 200, 8)]
+
+
+def tel_arm(model, device, telemetry, schedule) -> dict:
+    """Part 1's arm: a freshly warmed engine (its decode graph captured on 8
+    short requests, then aborted) runs the fixed ``schedule`` through
+    ``drive`` (a miss alone, then hits and bucket misses); streams, K1/K4
+    launches and the bursts dispatched (each one fetched by the end)."""
+    from unionml_tpu_torch import kernels
+
+    engine = pc_engine(model, device, PC_BLOCKS, "int8", telemetry=telemetry)
+    steady(engine, tel_shorts(model.config.vocab_size, 1), {})
+    engine.abort_all()
+    dispatches, fetched = engine.step_dispatches, (telemetry.decode_fetch_ms._snapshot()["count"]
+                                                   if telemetry is not None else 0)
+    kernels.reset_launches()
+    streams = [s for part in schedule for s in drive(engine, [(p, MAX_NEW, {}) for p in part])]
+    launches = {k: kernels.launches[k] for k in ("flash_fwd", "paged_attention")}
+    return {"engine": engine, "streams": streams, "launches": launches,
+            "bursts": engine.step_dispatches - dispatches,
+            "fetch_observed": (telemetry.decode_fetch_ms._snapshot()["count"] - fetched
+                               if telemetry is not None else None)}
+
+
+def tel_burst_ms(engine, bursts: int = TEL_BURSTS) -> float:
+    """Wall ms per replayed decode burst (pipelined ``step``), synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(bursts):
+        engine.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / bursts
+
+
+def tel_traces(model, device) -> dict:
+    """Part 3: traces through ``ContinuousBatcher`` with the SLO scheduler and
+    a supervisor. 8 batch requests sharing a 128-token system prompt fill the
+    8 slots at once (the first misses, the 7 others hit its blocks in the
+    same admission); when the first has 8 tokens an interactive request
+    arrives and preempts one; a NaN fault quarantines another. The worker
+    loop runs on this thread, so the schedule is fixed."""
+    from unionml_tpu_torch.serving import ContinuousBatcher, EngineSupervisor, FaultPlan, SchedulerConfig, Telemetry
+    from unionml_tpu_torch.serving.app import metrics_answer
+
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(1500)
+    system = rng.integers(1, vocab, TEL_SYSTEM).tolist()
+    batch = [system + rng.integers(1, vocab, int(n)).tolist() for n in rng.integers(8, 41, TEL_BATCH)]
+    inter = rng.integers(1, vocab, 6).tolist()
+    tel = Telemetry()
+    engine = pc_engine(model, device, PC_BLOCKS, "int8", faults=FaultPlan(nan_logits=(TEL_NAN,)))
+    sup = EngineSupervisor(watchdog_interval_s=0)
+    batcher = ContinuousBatcher(engine, scheduler=SchedulerConfig(aging_s=0), supervisor=sup, telemetry=tel,
+                                device=device)
+    batcher._worker = types.SimpleNamespace(is_alive=lambda: True)  # no thread: this one runs the loop
+
+    def submit(prompt, budget, sink, priority):
+        batcher._closed = False
+        try:
+            batcher._submit(prompt, budget, sink, {}, priority=priority)
+        finally:
+            batcher._closed = True
+
+    def arrive(n):
+        if n == 8:
+            submit(inter, TEL_INTER_NEW, sinks[-1], "interactive")
+
+    sinks = [_Sink(arrive if i == 0 else None) for i in range(TEL_BATCH)] + [_Sink()]
+    for sink in sinks:
+        sink.engine = engine
+    for prompt, sink in zip(batch, sinks):
+        submit(prompt, TEL_BATCH_NEW, sink, "batch")
+    batcher._run()
+    sup.close()
+    tel.assert_balanced()
+    traces = tel.recent(1000)
+    if len(traces) != len(sinks):
+        raise AssertionError(f"{len(traces)} traces completed for {len(sinks)} requests")
+    preempted, quarantined = [], []
+    for tr in traces:
+        kinds = [sp["kind"] for sp in tr["spans"]]
+        if kinds[0] != "admission" or kinds[-1] != "end" or kinds.count("end") != 1:
+            raise AssertionError(f"trace {tr['request_id']}: spans {kinds}")
+        if tr["status"] == "ok":
+            first = min(kinds.index(k) for k in ("prefill", "prefix_hit", "prefill_chunk") if k in kinds)
+            if not kinds.index("queue_wait") < first < kinds.index("decode"):
+                raise AssertionError(f"trace {tr['request_id']}: out of order {kinds}")
+        if "preempted" in kinds:
+            resumed = [sp for sp in tr["spans"][kinds.index("preempted"):] if sp["kind"] == "queue_wait"]
+            if tr["status"] != "ok" or not resumed or not resumed[0]["attrs"]["resume"]:
+                raise AssertionError(f"preempted trace {tr['request_id']}: status {tr['status']}, spans {kinds}")
+            preempted.append(tr)
+        if tr["status"] == "error":
+            if tr.get("reason") != "nan_logits" or "quarantine" not in kinds:
+                raise AssertionError(f"failed trace {tr['request_id']}: {tr.get('reason')}, spans {kinds}")
+            quarantined.append(tr)
+    if len(preempted) != 1 or len(quarantined) != 1:
+        raise AssertionError(f"{len(preempted)} preempted and {len(quarantined)} quarantined traces (1 each expected)")
+    sched, cache = batcher.scheduler.stats(), engine.prefix_cache.stats()
+    counters = {
+        "tokens_out": (tel.tokens_out_total.value(), sum(len(sk.tokens) for sk in sinks)),
+        "prefix_hit_tokens": (tel.prefix_hit_tokens_total.value(), cache["hit_tokens"]),
+        "preemptions": (tel.preemptions_total.value(), sched["preemptions"]),
+        "resumes": (tel.resumes_total.value(), sched["resumes"]),
+        "quarantines": (tel.quarantines_total.value(), engine.quarantined_requests),
+    }
+    for name, (mirror, own) in counters.items():
+        if mirror != own:
+            raise AssertionError(f"telemetry {name} {mirror} != the engine's own {own}")
+    if cache["hits"] < TEL_BATCH - 1 or sched["preemptions"] != 1:
+        raise AssertionError(f"hits {cache['hits']}, preemptions {sched['preemptions']}")
+    status, text, headers = metrics_answer(tel)
+    families = ["unionml_requests_total", "unionml_ttft_ms", "unionml_decode_fetch_ms_bucket",
+                "unionml_slo_attainment", 'unionml_kv_pool_bytes{kv_dtype="int8"}']
+    missing = [f for f in families if f not in text]
+    if status != 200 or missing:
+        raise AssertionError(f"/metrics answered {status}, missing {missing}")
+    if leaked(engine) != (0, 0, 0):
+        raise AssertionError(f"blocks left pinned or owned: {leaked(engine)}")
+    return {"traces": len(traces), "statuses": sorted(tr["status"] for tr in traces),
+            "preempted_spans": [sp["kind"] for sp in preempted[0]["spans"]],
+            "quarantined_spans": [sp["kind"] for sp in quarantined[0]["spans"]],
+            "counters": {k: v[0] for k, v in counters.items()}, "hits": cache["hits"],
+            "metrics_bytes": len(text), "content_type": headers["Content-Type"]}
+
+
+def telemetry_phase(device, config=None) -> dict:
+    """Telemetry (phase 15, see the module docstring)."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt, random_params
+    from unionml_tpu_torch.serving import Telemetry
+
+    t0 = time.perf_counter()
+    config = config or GPTConfig()  # GPT-2 small
+    model = init_gpt(dataclasses.replace(config, dtype=torch.bfloat16), params=random_params(config, seed=0),
+                     device=device)
+    shared = pc_prompts(config.vocab_size, n=8, seed=15)
+    schedule = [shared[:1], shared[1:] + tel_shorts(config.vocab_size, 2)[:4]]
+    tel = Telemetry()
+    off, on = tel_arm(model, device, None, schedule), tel_arm(model, device, tel, schedule)
+    if on["streams"] != off["streams"]:
+        bad = [i for i, (a, b) in enumerate(zip(on["streams"], off["streams"])) if a != b]
+        raise AssertionError(f"telemetry on changed greedy streams {bad}")
+    if on["launches"] != off["launches"] or (device.type == "cuda" and 0 in on["launches"].values()):
+        raise AssertionError(f"K1/K4 launches with telemetry on {on['launches']}, off {off['launches']}")
+    if on["fetch_observed"] < on["bursts"]:
+        raise AssertionError(f"decode_fetch_ms observed {on['fetch_observed']} of {on['bursts']} bursts")
+    shorts = tel_shorts(config.vocab_size, 3)
+    for arm in (off, on):
+        steady(arm["engine"], shorts, {})
+    htod = count_htod(on["engine"].step, 5)
+    if htod:
+        raise AssertionError(f"5 steady bursts with telemetry on made {htod} host-to-device copies")
+    walls = {}
+    for label in ("off", "on", "on", "off"):
+        walls.setdefault(label, []).append(tel_burst_ms((off if label == "off" else on)["engine"]))
+    for arm in (off, on):
+        arm["engine"].abort_all()
+    out = {"streams_identical": len(on["streams"]), "launches": on["launches"], "bursts": on["bursts"],
+           "fetch_observed": on["fetch_observed"], "memcpy_htod_5_bursts": htod, "burst_wall_ms": walls}
+    del off, on
+    torch.cuda.empty_cache()
+    out["traces"] = tel_traces(model, device)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -3358,6 +3556,22 @@ def main() -> int:
     print(f"[{name_limit}] SLO speculation by class (self-draft, bf16): rounds {sp['rounds']}, splits from vanilla {sp['splits']}; "
           f"Memcpy HtoD over 5 steady bursts with the scheduler: {slo['memcpy_htod_5_bursts']}; "
           f"phase 14 took {slo['s']:.1f} s ({ {k: round(v, 1) for k, v in slo['parts_s'].items()} })")
+    torch.cuda.empty_cache()
+    details["telemetry"] = tm = telemetry_phase(device)
+    print(f"telemetry on vs off (one fixed engine schedule, {tm['streams_identical']} greedy streams): identical; "
+          f"K1/K4 launches equal {tm['launches']}; decode_fetch_ms observed {tm['fetch_observed']} of "
+          f"{tm['bursts']} bursts; Memcpy HtoD over 5 steady bursts with telemetry on: {tm['memcpy_htod_5_bursts']}")
+    print(f"[{name_limit}] replayed decode burst (8 slots, pipelined), wall ms per burst over {TEL_BURSTS} bursts "
+          f"in the order off, on, on, off: off {[round(x, 4) for x in tm['burst_wall_ms']['off']]}, on "
+          f"{[round(x, 4) for x in tm['burst_wall_ms']['on']]}")
+    tt = tm["traces"]
+    print(f"telemetry traces through the batcher: {tt['traces']} traces {tt['statuses']}, {tt['hits']} prefix hits; "
+          f"preempted {tt['preempted_spans']}; quarantined {tt['quarantined_spans']}; counters equal to the "
+          f"engine's own {tt['counters']}; /metrics {tt['metrics_bytes']} bytes ({tt['content_type']}); "
+          f"phase 15 took {tm['s']:.1f} s")
+    for r in records:
+        if r["name"] in tm["launches"]:
+            r["launches_telemetry"] = tm["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],
@@ -3377,7 +3591,11 @@ def main() -> int:
     print(name_limit)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+    line = [{k: r[k] for k in keys} for r in records]
+    for entry, r in zip(line, records):
+        if "launches_telemetry" in r:  # phase 15's K1/K4 launches, beside the main path's
+            entry["launches_telemetry"] = r["launches_telemetry"]
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -134,10 +134,11 @@ def test_stats_and_index(bert_pair, tmp_path, monkeypatch):
 
 def test_app_options_not_ported_raise():
     app = sklearn_app(T)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_serving_app(app, generator=object(), generate_telemetry=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_serving_app(app, generate_trace_journal="journal.jsonl", device="cpu")
+    # telemetry is wired now: both options build, with the JAX app's routes
+    for kw in (dict(generator=object(), generate_telemetry=True), dict(generate_trace_journal="journal.jsonl")):
+        built = t_serving_app(app, resident=False, device="cpu", **kw)
+        routes = {r.resource.canonical for r in built.router.routes()}
+        assert {"/metrics", "/trace/{request_id}", "/traces/recent"} <= routes and built["telemetry"] is None
     with pytest.raises(NotImplementedError, match="item 11"):
         t_serving_app(app, generator=object(), generate_replicas=2, device="cpu")
     with pytest.raises(TypeError, match="unexpected keyword"):

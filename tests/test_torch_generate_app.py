@@ -9,18 +9,23 @@ envelopes (``request_id`` aside, a seeded ``retry_jitter_rng``) for 400,
 404, 429, 503 and 504, the 500 and 503 of an ``EngineFailure``, streaming
 ndjson lines and trailer, ``/healthz`` through ``ok`` → ``rebuilding`` →
 ``failed`` under a ``FaultPlan``, and ``/stats`` → ``generation`` with JAX's
-keys apart from telemetry's ``slo``.
+keys, its ``slo`` block included.
 
 No sleep races a decode: each engine's ``step`` is gated by a test-local
 ``threading.Event`` (monkeypatched on the instance), so a hog holds its slot
 for exactly as long as the test needs; the tests poll for a state (a slot
-taken, a queue depth) and never for a decode to have got somewhere.
+taken, a queue depth, a settled supervisor) and never for a decode to have
+got somewhere. Where an answer prints a time left, the clock the scheduler
+reads is pinned.
 """
 
 import asyncio
+import contextlib
+import functools
 import json
 import random
 import threading
+import time
 import types
 
 import pytest
@@ -125,6 +130,29 @@ def pin_wait_ema(sched, value):
             sched.queue_wait_ema_ms_by_class[name] = value
 
 
+@contextlib.contextmanager
+def pinned_clock(sched):
+    """Pin the ``now`` the scheduler reads at submit: an infeasible deadline's
+    detail prints the time left then, ``round((deadline - now) * 1e3)``."""
+    now = time.monotonic()
+    sched.make_ticket = functools.partial(sched.make_ticket, now=now)
+    sched.submit = functools.partial(sched.submit, now=now)
+    try:
+        yield
+    finally:
+        del sched.make_ticket, sched.submit
+
+
+def slo_counts(report):
+    """``generation.slo`` less what depends on measured TTFTs (good,
+    attainment, burn rates, alerts): objectives, windows and totals."""
+    keep = {}
+    for cls, row in report["per_class"].items():
+        keep[cls] = (row["objective_ttft_ms"], row["target"], row["total"],
+                     {name: w["total"] for name, w in row["windows"].items()})
+    return report["windows"], report["alert_burn"], keep
+
+
 def contract_run(gpt, kind):
     """The status contract's requests, in order, against one app (a bound-2
     queue: a two-prompt batch always fits, whenever the worker pops)."""
@@ -162,12 +190,15 @@ def contract_run(gpt, kind):
             out["hog2"] = await hog
             # 503: the observed queue wait makes the deadline infeasible
             pin_wait_ema(sched, 60_000.0)
-            out["infeasible"] = await answer(client, {"prompt_ids": [1, 2], "max_new_tokens": 4, "deadline_ms": 50})
-            out["infeasible_stream"] = await answer(
-                client, {"prompt_ids": [1, 2], "max_new_tokens": 4, "deadline_ms": 50, "stream": True})
+            with pinned_clock(sched):
+                out["infeasible"] = await answer(client, {"prompt_ids": [1, 2], "max_new_tokens": 4,
+                                                          "deadline_ms": 50})
+                out["infeasible_stream"] = await answer(
+                    client, {"prompt_ids": [1, 2], "max_new_tokens": 4, "deadline_ms": 50, "stream": True})
             pin_wait_ema(sched, None)
             stats = await (await client.get("/stats")).json()
-            out["stats_keys"] = sorted(set(stats["generation"]) - {"slo"})
+            out["stats_keys"] = sorted(stats["generation"])
+            out["slo"] = slo_counts(stats["generation"]["slo"])
             block = stats["generation"]["scheduler"]
             out["scheduler"] = {k: v for k, v in block.items() if k not in ("queue_wait_ema_ms", "per_class")}
             out["engine"] = {k: stats["generation"][k] for k in ("num_slots", "active", "max_len",
@@ -182,7 +213,7 @@ def test_status_contract_matches_jax(gpt):
     a batch, a stream's ndjson lines and trailer), 429 ``queue_full`` with a
     seeded ``retry_after_ms`` in [750, 1250] (as a stream's first ``anext``
     too), 504 ``deadline_exceeded``, 503 ``deadline_infeasible`` (also for a
-    stream), and the same ``/stats`` keys and scheduler counters."""
+    stream), and the same ``/stats`` keys, scheduler counters and SLO totals."""
     port, jax = contract_run(gpt, "torch"), contract_run(gpt, "jax")
     assert port.keys() == jax.keys()
     for key in port:
@@ -204,6 +235,8 @@ def test_status_contract_matches_jax(gpt):
     assert sched["policy"] == "priority" and sched["shed_queue_full"] == 2
     assert sched["shed_deadline_infeasible"] == 2 and sched["deadline_misses_queued"] == 1
     assert set(sched["depth_by_class"]) == {"interactive", "standard", "batch"}
+    assert port["infeasible"][1]["error"]["detail"].startswith("deadline 50ms is below")
+    assert port["slo"][2]["batch"][2] == 1 and port["slo"][2]["standard"][2] == 12  # every ended trace
 
 
 @pytest.mark.parametrize("case", ["prefill_failed", "batcher_closed"])
@@ -250,11 +283,27 @@ def test_not_enabled_is_404(gpt):
     assert port == jax and port[0] == 404 and port[1]["error"]["reason"] == "not_enabled"
 
 
+def settled(gen, kind):
+    """Whether the supervised batcher reached the state the ``/healthz`` test
+    reads after the rebuild budget is spent. The port's worker parks once the
+    supervisor is ``failed``. JAX's keeps stepping the failed engine: each
+    ``step`` retries the rebuild lazily (``DecodeEngine._ensure_usable``),
+    each raise re-enters recovery, and once the plan's rebuild failures are
+    spent a rebuild succeeds and ``run_rebuild`` returns the supervisor to
+    ``ok`` with the engine idle (ROADMAP Queue 3)."""
+    if kind == "jax":
+        return gen.supervisor.state == "ok" and not gen.engine.busy
+    return gen.supervisor.state == "failed"
+
+
 def test_healthz_follows_the_supervisor_through_a_failed_rebuild(gpt):
     """``/healthz`` reads ``ok`` (200), then ``rebuilding`` (503, with the
     last fault) while the supervisor backs off between rebuild attempts,
     then ``failed`` (503) once they are spent; requests then fail with
-    ``engine_failed`` (500). The backoff sleep is held by a test-local gate."""
+    ``engine_failed`` (500). The backoff sleep is held by a test-local gate,
+    and each later read waits for the settled state. JAX's arm settles in
+    ``ok`` and serves again (see :func:`settled`); up to the failed request
+    the two arms answer alike."""
     def run(kind):
         gate, backoff, released = threading.Event(), threading.Event(), threading.Event()
         gate.set()
@@ -281,6 +330,7 @@ def test_healthz_follows_the_supervisor_through_a_failed_rebuild(gpt):
                 seen.append(await health(client))
                 released.set()
                 seen.append((await doomed)[:2])
+                await until(lambda: settled(app["continuous_batcher"], kind))
                 seen.append(await health(client))
                 seen.append((await answer(client, {"prompt_ids": [3, 1, 4], "max_new_tokens": 8}))[:2])
                 return seen
@@ -288,10 +338,11 @@ def test_healthz_follows_the_supervisor_through_a_failed_rebuild(gpt):
         return asyncio.run(main())
 
     port, jax = run("torch"), run("jax")
-    assert port == jax
+    assert port[:3] == jax[:3]
     assert [s[:2] for s in (port[0], port[1], port[3])] == [(200, "ok"), (503, "rebuilding"), (503, "failed")]
-    assert port[1][3] == "injected_rebuild" and port[2][0] == port[4][0] == 500
-    assert port[4][1]["error"]["reason"] == "engine_failed"
+    assert port[1][3] == port[3][3] == "injected_rebuild" and port[2][0] == port[4][0] == 500
+    assert port[2][1]["error"]["reason"] == port[4][1]["error"]["reason"] == "engine_failed"
+    assert jax[3][:2] == (200, "ok") and jax[4][0] == 200 and len(jax[4][1]["tokens"]) == 8
 
 
 def test_payload_checks_and_error_mapping_are_plain_functions(gpt):

@@ -39,6 +39,7 @@ import torch
 from tests.test_torch_prefix_cache import Pair, leaks
 from unionml_tpu.serving.continuous import ContinuousBatcher as JaxBatcher
 from unionml_tpu.serving.supervisor import EngineSupervisor as JaxSupervisor
+from unionml_tpu.serving.telemetry import Telemetry as JaxTelemetry
 from unionml_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeEngine,
@@ -49,6 +50,7 @@ from unionml_tpu_torch.serving import (
     PreemptedSlot,
     SpeculativeBatcher,
     SpeculativeEngine,
+    Telemetry,
 )
 
 PROMPT_A, BUDGET_A = [3, 1, 4, 1, 5], 12
@@ -346,8 +348,20 @@ def test_classify_names_torch_device_errors():
     assert EngineSupervisor.classify(torch.cuda.OutOfMemoryError("CUDA out of memory")) == "device_oom"
     assert EngineSupervisor.classify(RuntimeError("CUDA error: an illegal memory access")) == "cuda_error"
     assert EngineSupervisor.classify(ValueError("other")) == "device_failure"
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        EngineSupervisor(telemetry=object())
+    # the supervisor's telemetry, op for op against JAX's
+    renders = []
+    for sup_cls, tel_cls in ((EngineSupervisor, Telemetry), (JaxSupervisor, JaxTelemetry)):
+        tel = tel_cls()
+        sup = sup_cls(watchdog_interval_s=0, max_rebuild_attempts=1, sleep_fn=lambda s: None, telemetry=tel)
+        sup.note_failure(FaultError("x", site="step_fetch"))
+        sup.note_rebuilt()
+        sup.note_failure(FaultError("y", site="step_dispatch"))
+        assert sup.run_rebuild(lambda: None)
+        sup.note_failure(FaultError("z", site="rebuild"))
+        assert not sup.run_rebuild(lambda: (_ for _ in ()).throw(FaultError("w", site="rebuild")))
+        renders.append(tel.metrics.render())
+        assert tel.rebuilds_total.value() == 2 and tel.health_transitions_total.value("failed") == 1
+    assert renders[0] == renders[1]
 
 
 # ----------------------------------------------------------- teardowns and pins
@@ -489,7 +503,13 @@ def test_speculative_round_failure_is_structured_and_isolated(gpt):
 
 
 def test_unported_modes_raise_naming_their_items(gpt):
-    for kw, match in ((dict(quantize="int8"), "weight-only int8"), (dict(telemetry=object()), "slice 7"),
-                      (dict(paged=False), "dense engine")):
+    for kw, match in ((dict(quantize="int8"), "weight-only int8"), (dict(paged=False), "dense engine")):
         with pytest.raises(NotImplementedError, match=match):
             DecodeEngine(gpt.tmodel, max_len=64, device="cpu", **kw)
+    # telemetry is wired: the engine names its paged attention path and feeds the pool gauges
+    tel = Telemetry()
+    eng = DecodeEngine(gpt.tmodel, max_len=64, device="cpu", telemetry=tel, kv_quantize="int8")
+    assert tel.paged_attn_impl.value("reference") == 1.0 and eng.kv_pool_stats()["impl"] == "reference"
+    eng.generate([3, 1, 4], 4)
+    assert tel.pool_kv_bytes.value("int8") == eng.kv_pool_stats()["kv_pool_bytes"] > 0
+    assert tel.tokens_out_total.value() == 4

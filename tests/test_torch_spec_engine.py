@@ -34,7 +34,13 @@ import torch
 from unionml_tpu.models import gpt as jgpt
 from unionml_tpu.serving.speculative import SpeculativeEngine as JaxSpeculativeEngine
 from unionml_tpu_torch.models import GPTConfig, init_gpt, speculative_generate
-from unionml_tpu_torch.serving import ContinuousBatcher, DecodeEngine, SpeculativeBatcher, SpeculativeEngine
+from unionml_tpu_torch.serving import (
+    ContinuousBatcher,
+    DecodeEngine,
+    SpeculativeBatcher,
+    SpeculativeEngine,
+    Telemetry,
+)
 
 ENGINE_KW = dict(num_slots=4, max_len=64, prefill_buckets=(4, 8, 16), prefill_chunk=4, seed=7, temperature=0.0)
 PROMPTS = [
@@ -214,8 +220,12 @@ def test_rejections_and_constructor_validation(gpt, draft):
     with pytest.raises(ValueError, match="vocab"):
         SpeculativeEngine(gpt[2], init_gpt(GPTConfig.tiny(vocab_size=64, dtype=torch.float32), device="cpu"),
                           device="cpu", max_len=64)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        make_spec(gpt, draft, telemetry=object())
+    # telemetry is wired: the round's counters feed the registry
+    tel = Telemetry()
+    eng = make_spec(gpt, draft, telemetry=tel)
+    drive(eng, _spec([([1, 2, 3, 4], 6, {})]))
+    assert tel.spec_proposed_total.value() == eng.spec_proposed > 0
+    assert tel.spec_accepted_total.value() == eng.spec_accepted
 
 
 def test_stats_block_shape(gpt, draft):

@@ -6,8 +6,10 @@ its SLO admission scheduler (:mod:`unionml_tpu_torch.serving.scheduler`) behind
 the ``/generate`` route, its radix prefix cache
 (:mod:`unionml_tpu_torch.serving.prefix_cache`), fault
 injection and supervised recovery (:mod:`unionml_tpu_torch.serving.faults`,
-:mod:`unionml_tpu_torch.serving.supervisor`), and speculative decoding on that
-engine (:mod:`unionml_tpu_torch.serving.speculative`)."""
+:mod:`unionml_tpu_torch.serving.supervisor`), speculative decoding on that
+engine (:mod:`unionml_tpu_torch.serving.speculative`), and the telemetry
+behind ``/metrics`` and ``/trace`` (:mod:`unionml_tpu_torch.serving.telemetry`,
+:mod:`unionml_tpu_torch.serving.metrics`, :mod:`unionml_tpu_torch.serving.slo`)."""
 
 from typing import Any, Optional
 
@@ -21,6 +23,7 @@ from unionml_tpu_torch.serving.continuous import (
     StepEvent,
 )
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultError, FaultPlan
+from unionml_tpu_torch.serving.metrics import MetricsRegistry
 from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.resident import ResidentPredictor
 from unionml_tpu_torch.serving.scheduler import (
@@ -33,8 +36,10 @@ from unionml_tpu_torch.serving.scheduler import (
     SLOScheduler,
     parse_priority,
 )
+from unionml_tpu_torch.serving.slo import SLOConfig, SLOObjective, SLOTracker
 from unionml_tpu_torch.serving.speculative import SpeculativeBatcher, SpeculativeEngine
 from unionml_tpu_torch.serving.supervisor import EngineSupervisor
+from unionml_tpu_torch.serving.telemetry import Telemetry
 
 
 def serving_app(
@@ -79,18 +84,23 @@ __all__ = [
     "EngineSupervisor",
     "FaultError",
     "FaultPlan",
+    "MetricsRegistry",
     "PreemptedSlot",
     "PrefixCache",
     "QueueFullError",
     "RequestBatcher",
     "ResidentPredictor",
+    "SLOConfig",
+    "SLOObjective",
     "SLOScheduler",
+    "SLOTracker",
     "SalvagedSlot",
     "SchedulerConfig",
     "SchedulingError",
     "SpeculativeBatcher",
     "SpeculativeEngine",
     "StepEvent",
+    "Telemetry",
     "build_aiohttp_app",
     "jsonable",
     "load_model_artifact",

@@ -1,5 +1,5 @@
 """Native HTTP serving app (aiohttp): ``/``, ``/health``, ``/healthz``, ``/predict``,
-``/generate``, ``/stats``.
+``/generate``, ``/stats``, ``/metrics``, ``/trace/{request_id}``, ``/traces/recent``.
 
 Port of ``unionml_tpu/serving/app.py``: the same ``/predict`` contract
 (``inputs`` = reader kwargs, or ``features`` = raw features; 422 for a body
@@ -17,22 +17,21 @@ JAX route's status contract: ``priority`` and ``deadline_ms`` in the payload,
 deadline (with a jittered ``Retry-After``), 500/503 for engine failures, all
 in one envelope ``{"error": {"code", "reason", "detail", "retry_after_ms"?,
 "request_id"}}``. The payload checks (:func:`parse_generate_payload`), the
-exception mapping (:func:`error_for`) and the ``/stats`` and ``/healthz``
-bodies are plain functions that import no ``aiohttp``: the route calls them,
-and so can a driver without ``aiohttp``.
+exception mapping (:func:`error_for`), the ``/stats`` and ``/healthz``
+bodies and the telemetry routes' answers (:func:`metrics_answer`,
+:func:`trace_answer`, :func:`traces_recent_answer`) are plain functions that
+import no ``aiohttp``: the routes call them, and so can a caller without
+``aiohttp``.
 
 ``aiohttp`` is imported inside :func:`build_aiohttp_app` and :func:`run_app`
 only. Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: telemetry (``generate_telemetry``, ``generate_trace_journal``, the
-``/metrics`` and ``/trace`` routes: slice 7), the fleet
-(``generate_replicas > 1``, ``generate_fleet_config``: Queue 1 item 11), and
-remote model resolution (M14).
+item: the fleet (``generate_replicas > 1``, ``generate_fleet_config``: Queue 1
+item 11), and remote model resolution (M14).
 """
 
 import dataclasses
 import os
 import random
-import uuid
 from http import HTTPStatus
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -50,6 +49,7 @@ from unionml_tpu_torch.serving.scheduler import (
     SchedulingError,
     parse_priority,
 )
+from unionml_tpu_torch.serving.telemetry import Telemetry, new_request_id
 
 _INDEX_HTML = """
 <html>
@@ -235,11 +235,11 @@ def parse_generate_payload(payload: Any, gen: Any) -> GenerateRequest:
                            sampling=sampling, stream=stream)
 
 
-def generation_stats(gen: Any) -> Dict[str, Any]:
+def generation_stats(gen: Any, telemetry: Any = None) -> Dict[str, Any]:
     """The ``GET /stats`` → ``generation`` block: engine counters, then
     ``speculation``, ``pipeline``, ``prefix_cache`` (with the pool's bytes and
     ``prefill_tokens_computed``), ``scheduler`` and ``robustness`` where the
-    generator has them (the JAX block less its telemetry ``slo``)."""
+    generator has them, and with ``telemetry`` its per-class ``slo`` report."""
     engine = gen.engine
     out: Dict[str, Any] = {
         "num_slots": engine.num_slots,
@@ -268,7 +268,45 @@ def generation_stats(gen: Any) -> Dict[str, Any]:
         robustness.update(sup.stats())
     if robustness:
         out["robustness"] = robustness
+    if telemetry is not None:
+        out["slo"] = telemetry.slo.report()
     return out
+
+
+_TELEMETRY_OFF = "Telemetry is not enabled on this app."
+
+
+def metrics_answer(telemetry: Any) -> Tuple[int, Any, Dict[str, str]]:
+    """``GET /metrics``: ``(200, the registry's Prometheus text (format
+    0.0.4), headers)``, or the 404 ``not_enabled`` envelope."""
+    if telemetry is None:
+        return error_envelope(404, "not_enabled", _TELEMETRY_OFF)
+    return 200, telemetry.metrics.render(), {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"}
+
+
+def trace_answer(telemetry: Any, request_id: str) -> Tuple[int, Dict[str, Any], Dict[str, str]]:
+    """``GET /trace/{request_id}``: the request's span tree (active or
+    recently completed), 404 ``trace_not_found`` for an unknown id, 404
+    ``not_enabled`` without telemetry."""
+    if telemetry is None:
+        return error_envelope(404, "not_enabled", _TELEMETRY_OFF)
+    trace = telemetry.get_trace(request_id)
+    if trace is None:
+        return error_envelope(404, "trace_not_found", f"no active or recent trace for request_id {request_id!r} "
+                              f"(the journal ring may have evicted it)", request_id=request_id)
+    return 200, trace, {}
+
+
+def traces_recent_answer(telemetry: Any, n: Any = 50) -> Tuple[int, Dict[str, Any], Dict[str, str]]:
+    """``GET /traces/recent?n=K``: the journal ring's ``K`` latest completed
+    traces, oldest first; 400 when ``n`` is not an integer."""
+    if telemetry is None:
+        return error_envelope(404, "not_enabled", _TELEMETRY_OFF)
+    try:
+        n = int(n)
+    except (TypeError, ValueError):
+        return error_envelope(400, "invalid_request", "n must be an integer.")
+    return 200, {"traces": telemetry.recent(n)}, {}
 
 
 def healthz_body(gen: Any, model: Any) -> Tuple[int, Dict[str, Any]]:
@@ -288,13 +326,14 @@ def healthz_body(gen: Any, model: Any) -> Tuple[int, Dict[str, Any]]:
 
 def build_generator(generator: Any, *, lookahead: int = 1, prefix_cache_blocks: int = 0,
                     prefix_block_size: int = 16, scheduler: Any = None, supervisor: Any = None,
-                    device: Any = "cuda") -> Any:
+                    telemetry: Any = None, device: Any = "cuda") -> Any:
     """What ``/generate`` serves: a prebuilt batcher as it is, or a bare
     :class:`~unionml_tpu_torch.serving.continuous.DecodeEngine` (or a zero-arg
     callable returning either) wrapped in a ``ContinuousBatcher``.
     ``prefix_cache_blocks`` turns the engine's prefix cache on unless it has
     one; ``supervisor=None`` builds an ``EngineSupervisor`` and ``False``
-    serves unsupervised."""
+    serves unsupervised. ``telemetry`` is attached to a batcher that has none
+    (a caller's own wins)."""
     from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
     from unionml_tpu_torch.serving.speculative import SpeculativeBatcher
     from unionml_tpu_torch.serving.supervisor import EngineSupervisor
@@ -311,6 +350,8 @@ def build_generator(generator: Any, *, lookahead: int = 1, prefix_cache_blocks: 
             supervisor = None
         built = ContinuousBatcher(built, lookahead=lookahead, scheduler=scheduler, supervisor=supervisor,
                                   device=device)
+    if telemetry is not None and isinstance(built, ContinuousBatcher):
+        built.attach_telemetry(telemetry)
     return built
 
 
@@ -335,7 +376,7 @@ def build_aiohttp_app(
     generate_drain_s: float = 5.0,
     generate_replicas: int = 1,
     generate_fleet_config: Optional[Any] = None,
-    generate_telemetry: Any = False,
+    generate_telemetry: Any = True,
     generate_trace_journal: Optional[str] = None,
     retry_jitter_rng: Optional[random.Random] = None,
     mesh: Optional[Any] = None,
@@ -366,14 +407,20 @@ def build_aiohttp_app(
     to ``generate_drain_s`` seconds. ``retry_jitter_rng`` (a
     ``random.Random``) seeds the ``Retry-After`` jitter.
 
-    ``generate_telemetry`` defaults to ``False`` until telemetry is ported; a
-    truthy value or ``generate_trace_journal`` raises ``NotImplementedError``
-    (ROADMAP slice 7), as do ``generate_replicas > 1`` and
-    ``generate_fleet_config`` (the fleet, Queue 1 item 11).
+    ``generate_telemetry`` wires a
+    :class:`~unionml_tpu_torch.serving.telemetry.Telemetry` into the generator
+    at startup: per-request traces (``GET /trace/{request_id}``, ``GET
+    /traces/recent``), Prometheus metrics (``GET /metrics``), a ``telemetry``
+    block and ``generation.slo`` under ``GET /stats``. ``True`` (default)
+    builds one, a ``Telemetry`` instance is used as it is, ``False``/``None``
+    turns it off (each hook is then one host branch).
+    ``generate_trace_journal`` names a JSONL file that completed traces append
+    to. Every ``/generate`` answer carries a ``request_id``; for one prompt it
+    keys the trace.
+
+    ``generate_replicas > 1`` and ``generate_fleet_config`` raise
+    ``NotImplementedError`` (the fleet, Queue 1 item 11).
     """
-    if generate_telemetry or generate_trace_journal is not None:
-        raise NotImplementedError("generate_telemetry / generate_trace_journal (telemetry, /metrics, /trace) "
-                                  "is not ported yet (ROADMAP: slice 7, telemetry)")
     if int(generate_replicas) > 1 or generate_fleet_config is not None:
         raise NotImplementedError("generate_replicas > 1 / generate_fleet_config (the engine fleet) is not "
                                   "ported yet (ROADMAP: Queue 1 item 11, the fleet)")
@@ -409,10 +456,16 @@ def build_aiohttp_app(
             # graftlint: disable=async-blocking -- startup hook: the warmup capture runs before the server accepts any traffic, so blocking the (idle) loop here is the point
             predictor.setup()
         if generator is not None:
-            app["continuous_batcher"] = build_generator(
+            telemetry = None
+            if generate_telemetry:
+                telemetry = (generate_telemetry if isinstance(generate_telemetry, Telemetry)
+                             else Telemetry(journal_path=generate_trace_journal))
+            built = build_generator(
                 generator, lookahead=generate_lookahead, prefix_cache_blocks=generate_prefix_cache_blocks,
                 prefix_block_size=generate_prefix_block_size, scheduler=generate_scheduler,
-                supervisor=generate_supervisor, device=device)
+                supervisor=generate_supervisor, telemetry=telemetry, device=device)
+            app["telemetry"] = getattr(built, "_telemetry", None) or telemetry
+            app["continuous_batcher"] = built
         logger.info("Serving app ready (model=%s).", model.name)
 
     async def on_cleanup(app):
@@ -449,13 +502,26 @@ def build_aiohttp_app(
         status, body, headers = envelope
         return web.json_response(body, status=status, headers=headers)
 
+    async def metrics_route(request):
+        status, body, headers = metrics_answer(request.app.get("telemetry"))
+        if status != 200:
+            return web.json_response(body, status=status, headers=headers)
+        return web.Response(body=body.encode("utf-8"), headers=headers)
+
+    async def trace_route(request):
+        return respond(trace_answer(request.app.get("telemetry"), request.match_info["request_id"]))
+
+    async def traces_recent(request):
+        return respond(traces_recent_answer(request.app.get("telemetry"), request.query.get("n", 50)))
+
     async def generate_route(request):
         import asyncio
         import contextlib
         import json
 
-        # a 16-hex id minted at entry, so every outcome, 400s included, carries one
-        request_id = uuid.uuid4().hex[:16]
+        # minted at entry, so every outcome, 400s included, carries one; for a
+        # single prompt the same id keys the trace (GET /trace/{request_id})
+        request_id = new_request_id()
         gen = request.app.get("continuous_batcher")
         if gen is None:
             return respond(error_envelope(404, "not_enabled", "Generation is not enabled on this app.",
@@ -579,8 +645,12 @@ def build_aiohttp_app(
             payload["device_latency"] = predictor.device_stats()
             payload["eager_fallbacks"] = predictor.eager_fallbacks
         gen = request.app.get("continuous_batcher")
+        tel = request.app.get("telemetry")
         if gen is not None:
-            payload["generation"] = generation_stats(gen)
+            payload["generation"] = generation_stats(gen, tel)
+        if tel is not None:
+            # trace and journal state plus every registry instrument (what /metrics renders)
+            payload["telemetry"] = {**tel.stats(), "metrics": tel.metrics.snapshot()}
         if batcher is not None:
             payload["coalescing"] = dict(batcher.stats)
             if batcher.ema_gap_ms is not None:
@@ -591,11 +661,15 @@ def build_aiohttp_app(
     app.router.add_get("/health", health)
     app.router.add_get("/healthz", healthz)
     app.router.add_get("/stats", stats)
+    app.router.add_get("/metrics", metrics_route)
+    app.router.add_get("/trace/{request_id}", trace_route)
+    app.router.add_get("/traces/recent", traces_recent)
     app.router.add_post("/predict", predict)
     app.router.add_post("/generate", generate_route)
     app["unionml_model"] = model
     app["resident_predictor"] = predictor
     app["request_batcher"] = batcher
+    app["telemetry"] = None  # set at startup when a generator is wired
     return app
 
 

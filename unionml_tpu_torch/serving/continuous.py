@@ -55,10 +55,16 @@ free slots between steps and evicted when they finish.
 - :class:`ContinuousBatcher` routes every request through the SLO scheduler
   (:mod:`unionml_tpu_torch.serving.scheduler`): priority classes, deadlines,
   sheds, and the preemption policy that drives :meth:`DecodeEngine.preempt`.
+- Telemetry (:mod:`unionml_tpu_torch.serving.telemetry`): with a
+  ``Telemetry`` attached, every request gets a trace (admission, queue wait,
+  block allocation, prefill or prefix hit and chunks, preemption, quarantine,
+  salvage, decode, end) and the metric families of ``/metrics``. Each hook is
+  one host ``is not None`` branch; a burst's decode timing reads only the
+  stamps its fetch already took and the host arrays it already produced.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
-where it is reachable): telemetry and metrics, mesh sharding, weight-only
-int8 ``quantize``, the dense ``paged=False`` engine, and fleet adoption.
+where it is reachable): mesh sharding, weight-only int8 ``quantize``, the
+dense ``paged=False`` engine, and fleet adoption.
 """
 
 import asyncio
@@ -213,8 +219,10 @@ class DecodeEngine:
     :param faults: a :class:`~unionml_tpu_torch.serving.faults.FaultPlan`
         (fault injection for tests and chaos runs); ``None`` makes every
         hook one host branch.
-    :param quantize / telemetry / mesh: not ported yet; anything but the
-        default raises ``NotImplementedError``.
+    :param telemetry: a :class:`~unionml_tpu_torch.serving.telemetry.Telemetry`
+        (spans and metrics; ``None`` makes every hook one host branch).
+    :param quantize / mesh: not ported yet; anything but the default raises
+        ``NotImplementedError``.
     :param device: ``"cuda"`` (default; raises without a CUDA device) or
         ``"cpu"`` for the plain PyTorch path.
     """
@@ -247,7 +255,6 @@ class DecodeEngine:
     ) -> None:
         self.device = resolve_device(device)
         for value, what, item in ((quantize, "weight-only int8 (quantize)", "Queue 1, weight-only int8"),
-                                  (telemetry, "telemetry", "slice 7, telemetry and metrics"),
                                   (mesh, "mesh", "M12")):
             if value:
                 raise _not_ported(what, item)
@@ -285,6 +292,19 @@ class DecodeEngine:
                 f"kv_quantize_skip_layers {self.kv_quantize_skip_layers} out of range "
                 f"for {config.num_layers} layers"
             )
+        #: span/metrics collector (None: every hook is one host branch, as the
+        #: fault hooks are; decode timing reuses the burst fetch's stamps)
+        self._telemetry = telemetry
+        if faults is not None and telemetry is not None and faults.telemetry is None:
+            faults.telemetry = telemetry
+        #: slot -> request_id of the occupant's trace (batcher-set); spans for
+        #: a slot emitted before the id binds are buffered and flushed at bind
+        self._slot_rid: Dict[int, str] = {}
+        self._slot_pending_spans: Dict[int, List[Tuple[str, float, Optional[float], Dict[str, Any]]]] = {}
+        #: the paged attention path the engine's programs run: the CUDA kernel,
+        #: or its plain version (CPU tensors, or ``paged_attn_impl="reference"``)
+        self.paged_attn_impl = (
+            "reference" if config.paged_attn_impl == "reference" or self.device.type != "cuda" else "kernel")
         # the pool's block size IS the prefix cache's (one layout, spliced freely)
         self.block_size = min(int(block_size), self.max_len)
         self._table_width = block_table_width(self.max_len, self.block_size)
@@ -297,7 +317,9 @@ class DecodeEngine:
         #: reserved block absorbing retired rows' masked writes; never allocated
         self._scratch_block = self.pool_blocks - 1
         #: the allocator of the pool, and its radix index once the prefix cache is on
-        self._allocator = PrefixCache(self.pool_blocks - 1, self.block_size)
+        self._allocator = PrefixCache(self.pool_blocks - 1, self.block_size, telemetry=self._telemetry)
+        if self._telemetry is not None:
+            self._telemetry.paged_attn_impl.set(1.0, self.paged_attn_impl)
         #: the radix index (the allocator itself) while the prefix cache is on, else None
         self.prefix_cache: Optional[PrefixCache] = None
         self.prefix_cache_generated = bool(prefix_cache_generated)
@@ -450,7 +472,7 @@ class DecodeEngine:
                                    "blocks; call it before admitting work")
             self.block_size, self._table_width, self.pool_blocks = block_size, width, pool_blocks
             self._scratch_block = pool_blocks - 1
-            self._allocator = PrefixCache(pool_blocks - 1, block_size)
+            self._allocator = PrefixCache(pool_blocks - 1, block_size, telemetry=self._telemetry)
             self._init_device_state()
         self.prefix_cache = self._allocator
         self.prefix_cache_generated = bool(cache_generated)
@@ -506,13 +528,15 @@ class DecodeEngine:
 
     def kv_pool_stats(self) -> Dict[str, Any]:
         """Byte accounting of the resident KV pool (shapes only): ``kv_dtype``,
-        ``kv_pool_bytes`` as stored (scales included) and
-        ``kv_pool_bytes_dense_equiv`` at the compute dtype."""
+        ``kv_pool_bytes`` as stored (scales included),
+        ``kv_pool_bytes_dense_equiv`` at the compute dtype, and ``impl``, the
+        paged attention path (``"kernel"`` or ``"reference"``)."""
         stored, full = kv_pool_bytes(self._pool, self._config.dtype)
         return {
             "kv_dtype": self.kv_quantize or str(self._config.dtype).replace("torch.", ""),
             "kv_pool_bytes": stored,
             "kv_pool_bytes_dense_equiv": full,
+            "impl": self.paged_attn_impl,
         }
 
     def pipeline_stats(self) -> Dict[str, Any]:
@@ -541,6 +565,31 @@ class DecodeEngine:
         self._slot_queue_wait[slot] = float(wait_ms)
         self.ema_queue_wait_ms = float(wait_ms) if self.ema_queue_wait_ms is None else (
             0.8 * self.ema_queue_wait_ms + 0.2 * float(wait_ms))
+
+    def note_request_id(self, slot: int, request_id: Optional[str]) -> None:
+        """Bind ``slot``'s occupant to its trace (the batcher calls it at
+        registration) and flush the spans its admission buffered meanwhile."""
+        if self._telemetry is None or request_id is None:
+            return
+        self._slot_rid[slot] = request_id
+        for kind, at, dur_ms, attrs in self._slot_pending_spans.pop(slot, ()):
+            self._telemetry.span(request_id, kind, dur_ms=dur_ms, at=at, **attrs)
+
+    def _note_span(self, slot: int, kind: str, dur_ms: Optional[float] = None, **attrs: Any) -> None:
+        """Record a slot-keyed span, buffered (with its time) while the slot's
+        request id is not bound yet: admission's spans come before the
+        batcher's registration. Callers gate on ``self._telemetry is not None``."""
+        rid = self._slot_rid.get(slot)
+        if rid is not None:
+            self._telemetry.span(rid, kind, dur_ms=dur_ms, **attrs)
+        else:
+            self._slot_pending_spans.setdefault(slot, []).append((kind, time.perf_counter(), dur_ms, attrs))
+
+    def _drop_rid(self, slot: int) -> None:
+        """Forget a freed slot's trace binding (the batcher, which owns
+        terminal delivery, ends the trace)."""
+        self._slot_rid.pop(slot, None)
+        self._slot_pending_spans.pop(slot, None)
 
     def pool_signal(self) -> Dict[str, Any]:
         """Block-pool occupancy for :meth:`SLOScheduler.load_signal`:
@@ -648,6 +697,10 @@ class DecodeEngine:
                 reason="pool_exhausted", retryable=True,
             )
         self._slot_block_map[slot] = {start + i: b for i, b in enumerate(ids)}
+        if self._telemetry is not None:
+            self._telemetry.blocks_per_request.observe(float(need))
+            self._note_span(slot, "block_alloc", blocks=need, shared=start)
+            self._note_pool_gauges()
         return ids
 
     def _free_slot_blocks(self, slot: int) -> None:
@@ -655,6 +708,21 @@ class DecodeEngine:
         ids = self._slot_block_map.pop(slot, None)
         if ids:
             self._allocator.free_blocks(list(ids.values()))
+            if self._telemetry is not None:
+                self._note_pool_gauges()
+
+    def _note_pool_gauges(self) -> None:
+        """Refresh the pool gauges from host counters and shapes (no device
+        work; callers gate on ``self._telemetry is not None``)."""
+        stats = self._allocator.stats()
+        self._telemetry.pool_free_blocks.set(float(stats["free_blocks"]))
+        self._telemetry.pool_live_blocks.set(float(stats["slot_blocks"]))
+        self._telemetry.pool_cached_blocks.set(float(stats["cached_blocks"]))
+        self._telemetry.pool_pinned_blocks.set(float(stats["pinned_blocks"]))
+        kv = self.kv_pool_stats()
+        self._telemetry.pool_kv_bytes.set(float(kv["kv_pool_bytes"]), kv["kv_dtype"])
+        self._telemetry.pool_kv_bytes_dense_equiv.set(float(kv["kv_pool_bytes_dense_equiv"]))
+        self._telemetry.paged_attn_impl.set(1.0, kv["impl"])
 
     def _write_slot_row(self, slot: int, block_ids: Sequence[int]) -> None:
         """Write one slot's table row by index: spliced shared ids first, then
@@ -805,6 +873,10 @@ class DecodeEngine:
                     self._activate(slot, int(lengths[r]), *slot_to_norm[slot][1:])
                     self.prefill_tokens_computed += int(prompt.size)
                     self._index_prompt(slot, prompt)
+                    if self._telemetry is not None:
+                        self._telemetry.prefill_tokens_total.inc(float(prompt.size))
+                        self._note_span(slot, "prefill", tokens=int(prompt.size), bucket=int(bucket),
+                                        batch_rows=len(chunk))
 
     def _prefill(self, prompt_ids: torch.Tensor, lengths: torch.Tensor, model: Any = None):
         """Batched bucket prefill of ``model`` (default the engine's):
@@ -928,6 +1000,10 @@ class DecodeEngine:
         self._activate(slot, int(prompt.size), budget, temp, top_k, top_p)
         self._slot_path[slot] = path
         self._index_prompt(slot, prompt)
+        if self._telemetry is not None:
+            self._telemetry.prefill_tokens_total.inc(float(suffix_len))
+            self._note_span(slot, "prefix_hit", matched_tokens=matched, blocks=len(path))
+            self._note_span(slot, "prefill", tokens=suffix_len, restored=matched)
         return True
 
     def _run_paged_chunk(self, ids: np.ndarray, slot: int, position: int) -> torch.Tensor:
@@ -969,6 +1045,8 @@ class DecodeEngine:
                                                 self._slot_block_map.setdefault(slot, {}))
         if adopted:
             self.prefix_save_dispatches += 1
+            if self._telemetry is not None:
+                self._note_pool_gauges()
         if full:
             self._slot_path[slot] = full
 
@@ -1011,6 +1089,8 @@ class DecodeEngine:
             self.prefix_restore_dispatches += 1  # a copy-free splice
             self.prefix_cache.record_hit(matched)
             self._slot_path[slot] = list(path)
+            if self._telemetry is not None:
+                self._note_span(slot, "prefix_hit", matched_tokens=matched, blocks=len(path))
         self._reserved[slot] = True
         if self._admitting is not None:
             self._admitting.append(slot)
@@ -1043,6 +1123,10 @@ class DecodeEngine:
             self.prefill_dispatches += 1
             self.prefill_tokens_computed += int(take)
             state["consumed"] = consumed + take
+            if self._telemetry is not None:
+                self._telemetry.prefill_tokens_total.inc(float(take))
+                self._note_span(slot, "prefill_chunk", tokens=int(take), consumed=int(state["consumed"]),
+                                total=int(prompt.size))
             if state["consumed"] < prompt.size:
                 continue
             self._seal_slot(slot, int(prompt.size), logits[0, take - 1])
@@ -1058,6 +1142,7 @@ class DecodeEngine:
         self._slot_queue_wait.pop(slot, None)
         self._release_prefix(slot)
         self._free_slot_blocks(slot)
+        self._drop_rid(slot)
         self._pending_events.append(StepEvent(slot=slot, token=-1, emit=False, finished=True, error="prefill_failed"))
 
     # ------------------------------------------------------------------ decode
@@ -1188,6 +1273,8 @@ class DecodeEngine:
             0.8 * self.ema_fetch_block_ms + 0.2 * block_ms)
         self._last_fetch_done = done
         events: List[StepEvent] = []
+        telemetry = self._telemetry
+        emitted: Dict[Optional[str], int] = {}
         for i in range(tokens.shape[0]):
             for slot in np.flatnonzero(masks[i]):
                 slot = int(slot)
@@ -1195,8 +1282,19 @@ class DecodeEngine:
                     continue  # quarantined or cancelled meanwhile, or earlier in this burst
                 if bads[i, slot]:
                     events.append(self._quarantine(slot))
-                else:
-                    events.append(self._apply_token(slot, int(tokens[i, slot])))
+                    continue
+                rid = self._slot_rid.get(slot) if telemetry is not None else None
+                event = self._apply_token(slot, int(tokens[i, slot]))
+                events.append(event)
+                if telemetry is not None and event.emit:
+                    emitted[rid] = emitted.get(rid, 0) + 1
+        if telemetry is not None and emitted:
+            # the burst's decode timing reads only the stamps this fetch took
+            # (t0, done) and the host arrays it already produced: no sync, no
+            # host read of a tensor, no new device tensor
+            telemetry.decode_fetch_ms.observe(block_ms)
+            for rid, n in emitted.items():
+                telemetry.decode_tokens(rid, n, at=done)
         return events
 
     def step(self, lookahead: int = 1) -> List[StepEvent]:
@@ -1290,6 +1388,7 @@ class DecodeEngine:
                 self._capture_generated(slot)  # adopts the slot's full blocks in place
             self._release_prefix(slot)
             self._free_slot_blocks(slot)
+            self._drop_rid(slot)
         return StepEvent(slot=slot, token=token, emit=not is_eos, finished=bool(finished),
                          queue_wait_ms=queue_wait_ms)
 
@@ -1300,7 +1399,13 @@ class DecodeEngine:
         self._clear_slot(slot)
         if self._faults is not None:
             self._faults.note_observed("nan_logits")
-        logger.warning("slot %d quarantined: non-finite logits", slot)
+        if self._telemetry is not None:
+            self._note_span(slot, "quarantine", reason="nan_logits")
+            self._telemetry.quarantines_total.inc()
+        rid = self._slot_rid.get(slot)
+        self._drop_rid(slot)
+        logger.warning("slot %d quarantined: non-finite logits%s", slot,
+                       f" (request_id={rid})" if rid is not None else "")
         return StepEvent(slot=slot, token=-1, emit=False, finished=True, error="nan_logits")
 
     def _clear_slot(self, slot: int) -> None:
@@ -1329,6 +1434,7 @@ class DecodeEngine:
         self._pending_events.extend(self._fetch_inflight())
         self._pending_events = [ev for ev in self._pending_events if ev.slot != slot]
         self._clear_slot(slot)
+        self._drop_rid(slot)
 
     def abort_all(self) -> None:
         """Deactivate every slot and return every block. A burst in flight is
@@ -1395,6 +1501,10 @@ class DecodeEngine:
             self.prefix_cache.release(path)
             self._clear_slot(slot)
             self.preempted_requests += 1
+            if self._telemetry is not None:
+                self._note_span(slot, "preempted", transcript_tokens=valid, pinned_blocks=len(path))
+                self._telemetry.preemptions_total.inc()
+            self._drop_rid(slot)
         except Exception:
             self.prefix_cache.unpin(path)
             raise
@@ -1501,6 +1611,8 @@ class DecodeEngine:
         self._remaining[:] = 0
         self._slot_temp[:] = self.temperature
         self._slot_queue_wait.clear()
+        self._slot_rid.clear()
+        self._slot_pending_spans.clear()
         for slot in list(self._slot_path):
             self._release_prefix(slot)
         self._slot_tokens.clear()
@@ -1672,6 +1784,11 @@ class ContinuousBatcher:
         in flight fail with a structured
         :class:`~unionml_tpu_torch.serving.faults.EngineFailure`, and the
         engine serves the next ones.
+    :param telemetry: a :class:`~unionml_tpu_torch.serving.telemetry.Telemetry`
+        (default: the engine's). The batcher wires the one instance into the
+        engine, its fault plan and prefix cache, the scheduler and the
+        supervisor, opens each request's trace at submit and ends it at
+        terminal delivery.
     :param device: must name the engine's device; ``"cuda"`` (default) raises
         without a CUDA device.
     """
@@ -1680,7 +1797,7 @@ class ContinuousBatcher:
     accepts_request_id = True
 
     def __init__(self, engine: DecodeEngine, *, lookahead: int = 1, scheduler: Optional[Any] = None,
-                 supervisor: Optional[Any] = None, device="cuda") -> None:
+                 supervisor: Optional[Any] = None, telemetry: Optional[Any] = None, device="cuda") -> None:
         device = resolve_device(device)
         if device.type != engine.device.type:
             raise ValueError(f"engine runs on {engine.device}, batcher device is {device}")
@@ -1689,6 +1806,10 @@ class ContinuousBatcher:
         #: the admission queue (thread-safe: it owns its own leaf lock)
         self.scheduler = scheduler if isinstance(scheduler, SLOScheduler) else SLOScheduler(
             scheduler if isinstance(scheduler, SchedulerConfig) else None)
+        self.supervisor = supervisor
+        #: span/metrics collector shared by the whole request path (None: off)
+        self._telemetry = None
+        self.attach_telemetry(telemetry if telemetry is not None else engine._telemetry)
         if self.scheduler.pool_signal is None:
             self.scheduler.pool_signal = engine.pool_signal
         self._closed = False  # guarded-by: _lock
@@ -1701,13 +1822,32 @@ class ContinuousBatcher:
         #: drops them, so only it mutates the radix index
         self._orphans: List[PreemptedSlot] = []  # guarded-by: _lock
         self._worker: Optional[threading.Thread] = None
-        self.supervisor = supervisor
         if supervisor is not None:
             supervisor.attach(engine)
 
     @property
     def engine(self) -> DecodeEngine:
         return self._engine
+
+    def attach_telemetry(self, telemetry: Any) -> None:
+        """Wire one collector into the batcher, the engine, its fault plan
+        and prefix cache, the scheduler and the supervisor, wherever none is
+        attached yet (a no-op when the batcher has one). Call it before the
+        first submission: the hooks are read without a lock."""
+        if telemetry is None or self._telemetry is not None:
+            return
+        self._telemetry = telemetry
+        engine = self._engine
+        if engine._telemetry is None:
+            engine._telemetry = telemetry
+        if engine._faults is not None and engine._faults.telemetry is None:
+            engine._faults.telemetry = telemetry
+        if engine.prefix_cache is not None and engine.prefix_cache.telemetry is None:
+            engine.prefix_cache.telemetry = telemetry
+        if self.supervisor is not None and getattr(self.supervisor, "_telemetry", None) is None:
+            self.supervisor._telemetry = telemetry
+        if self.scheduler._telemetry is None:
+            self.scheduler._telemetry = telemetry
 
     def _submit(self, prompt_ids, max_new_tokens, sink, sampling, priority=None, deadline_ms=None,
                 request_id=None) -> None:
@@ -1718,16 +1858,31 @@ class ContinuousBatcher:
         ticket = self.scheduler.make_ticket(prompt, budget, sampling, sink, priority=priority,
                                             deadline_ms=deadline_ms)
         ticket.request_id = request_id
-        with self._lock:
-            if self._closed:
-                raise EngineFailure("batcher is closed", reason="batcher_closed")
-            # a shed raises here, on the caller's side, while the close check holds
-            displaced = self.scheduler.submit(ticket)
-            if self._worker is None:
-                self._worker = threading.Thread(target=self._run, name="continuous-batcher", daemon=True)
-                self._worker.start()
+        telemetry = self._telemetry
+        if telemetry is not None:
+            cls = class_name(ticket.priority)
+            ticket.request_id = telemetry.new_trace(request_id, cls=cls)
+            telemetry.note_tokens_in(ticket.request_id, int(prompt.size))
+            # journal v2: the pool arithmetic at admission time
+            telemetry.span(ticket.request_id, "admission", prompt_tokens=int(prompt.size), budget=budget, cls=cls,
+                           deadline_ms=deadline_ms, block_demand=self._engine.block_demand(int(prompt.size), budget),
+                           available_blocks=self._engine.pool_signal()["available_blocks"])
+        try:
+            with self._lock:
+                if self._closed:
+                    raise EngineFailure("batcher is closed", reason="batcher_closed")
+                # a shed raises here, on the caller's side, while the close check holds
+                displaced = self.scheduler.submit(ticket)
+                if self._worker is None:
+                    self._worker = threading.Thread(target=self._run, name="continuous-batcher", daemon=True)
+                    self._worker.start()
+        except Exception as exc:
+            # recorded outside both locks (telemetry is lock-leaf)
+            self._tel_end(ticket, "shed", getattr(exc, "reason", "rejected"))
+            raise
         if displaced is not None:
             # displaced tickets are never resumes: no pin to drop
+            self._tel_end(displaced, "shed", "displaced")
             self._deliver(displaced.sink, "fail", displaced.shed_exc)
         self._work.set()
 
@@ -1773,6 +1928,15 @@ class ContinuousBatcher:
             self._engine.release_preempted(ticket.resume)
             ticket.resume = None
 
+    def _tel_end(self, ticket: Ticket, status: str, reason: Optional[str] = None) -> None:
+        """End a ticket's trace at terminal delivery (a shed also counts by
+        reason); a no-op without telemetry. Called outside the batcher lock."""
+        if self._telemetry is None or ticket.request_id is None:
+            return
+        if status == "shed" and reason is not None:
+            self._telemetry.sheds_total.inc(1.0, reason)
+        self._telemetry.end_trace(ticket.request_id, status, reason=reason)
+
     def _drain_orphans(self) -> None:
         with self._lock:
             orphans, self._orphans = self._orphans, []
@@ -1787,6 +1951,7 @@ class ContinuousBatcher:
         now = time.monotonic()
         for ticket in self.scheduler.take_expired(now):
             self._release_ticket(ticket)
+            self._tel_end(ticket, "shed", "deadline_exceeded")
             self._deliver(ticket.sink, "fail", DeadlineExceededError("deadline expired while queued"))
         for slot, ticket in list(self._slot_meta.items()):
             if ticket.expired(now):
@@ -1794,6 +1959,7 @@ class ContinuousBatcher:
                 self.scheduler.note_deadline_miss_running()
                 self._sinks.pop(slot, None)
                 self._slot_meta.pop(slot, None)
+                self._tel_end(ticket, "shed", "deadline_exceeded")
                 self._deliver(ticket.sink, "fail", DeadlineExceededError("deadline expired while decoding"))
 
     def _maybe_preempt(self) -> None:
@@ -1845,6 +2011,7 @@ class ContinuousBatcher:
                 self._slot_meta.pop(slot, None)
                 ticket.resume = None
                 self._deliver(victim, "fail", exc)
+                self._tel_end(ticket, "error", "preempt_requeue_failed")
                 raise
             return
 
@@ -1877,11 +2044,13 @@ class ContinuousBatcher:
                     continue
                 if ticket.sink.cancelled:  # the consumer gave up while queued
                     self._release_ticket(ticket)
+                    self._tel_end(ticket, "cancelled")
                     continue
                 try:
                     engine.validate_request(ticket.prompt, ticket.budget, **ticket.sampling)
                 except Exception as exc:
                     self._release_ticket(ticket)
+                    self._tel_end(ticket, "error", "invalid_request")
                     self._deliver(ticket.sink, "fail", exc)
                     continue
                 demand = engine.block_demand(len(ticket.prompt), ticket.budget)
@@ -1905,7 +2074,14 @@ class ContinuousBatcher:
         self._sinks[slot] = ticket.sink
         self._slot_meta[slot] = ticket
         self._engine.note_queue_wait(slot, ticket.queue_wait_ms)
+        if self._telemetry is not None:
+            # binds the trace to the slot and flushes the spans admission buffered
+            self._engine.note_request_id(slot, ticket.request_id)
+            self._telemetry.span(ticket.request_id, "admitted", slot=slot, resume=ticket.resume is not None)
         self._release_ticket(ticket)
+        if hasattr(self._engine, "note_request_class"):
+            # labels the slot for the per-class acceptance gauge
+            self._engine.note_request_class(slot, class_name(ticket.priority))
 
     def _spec_sampling(self, ticket: Ticket) -> Dict[str, Any]:
         """The ticket's sampling with the class's speculation default
@@ -1935,6 +2111,7 @@ class ContinuousBatcher:
             self._dispatch(engine.take_pending_events())
             if len(batch) == 1:
                 self._release_ticket(batch[0])
+                self._tel_end(batch[0], "error", "prefill_failed")
                 self._deliver(batch[0].sink, "fail", _as_engine_failure(exc, "prefill_failed"))
                 return True
             for ticket in batch:
@@ -1947,6 +2124,7 @@ class ContinuousBatcher:
                         return False
                     self._dispatch(engine.take_pending_events())
                     self._release_ticket(ticket)
+                    self._tel_end(ticket, "error", "prefill_failed")
                     self._deliver(ticket.sink, "fail", _as_engine_failure(one_exc, "prefill_failed"))
                     continue
                 self._dispatch(engine.take_pending_events())
@@ -1967,7 +2145,9 @@ class ContinuousBatcher:
                 continue
             if sink.cancelled:  # consumer abandoned the stream mid-decode
                 del self._sinks[event.slot]
-                self._slot_meta.pop(event.slot, None)
+                meta = self._slot_meta.pop(event.slot, None)
+                if meta is not None:
+                    self._tel_end(meta, "cancelled")
                 if not event.finished:
                     abandoned.append(event.slot)
                 continue
@@ -1976,6 +2156,7 @@ class ContinuousBatcher:
                 meta = self._slot_meta.pop(event.slot, None)
                 if meta is not None:
                     self._release_ticket(meta)
+                    self._tel_end(meta, "error", event.error)
                 if self.supervisor is not None:
                     self.supervisor.note_request_failed()
                 self._deliver(sink, "fail", EngineFailure(
@@ -1985,7 +2166,9 @@ class ContinuousBatcher:
                 self._deliver(sink, "emit", event.token)
             if event.finished:
                 del self._sinks[event.slot]
-                self._slot_meta.pop(event.slot, None)
+                meta = self._slot_meta.pop(event.slot, None)
+                if meta is not None:
+                    self._tel_end(meta, "ok")
                 self._deliver(sink, "finish")
         if abandoned:
             # a cancel fetches the burst in flight, whose tokens come after
@@ -1996,6 +2179,8 @@ class ContinuousBatcher:
 
     def _fail_all(self, exc: BaseException) -> None:
         failure = _as_engine_failure(exc)
+        for ticket in self._slot_meta.values():
+            self._tel_end(ticket, "error", failure.reason)
         for sink in self._sinks.values():
             self._deliver(sink, "fail", failure)
         self._sinks.clear()
@@ -2023,6 +2208,7 @@ class ContinuousBatcher:
             failure = _as_engine_failure(exc)
             for ticket in pending:
                 self._release_ticket(ticket)
+                self._tel_end(ticket, "error", failure.reason)
                 self._deliver(ticket.sink, "fail", failure)
             self._fail_all(exc)
             return
@@ -2034,6 +2220,8 @@ class ContinuousBatcher:
             pin = PreemptedSlot(tokens=list(rec.tokens), path=rec.path)
             if sink is None or meta is None or sink.cancelled:
                 engine.release_preempted(pin)  # no consumer: drop the checkpoint
+                if meta is not None:
+                    self._tel_end(meta, "cancelled")
                 continue
             try:
                 engine.validate_request(rec.tokens, max(1, int(rec.remaining)), **meta.sampling)
@@ -2041,6 +2229,7 @@ class ContinuousBatcher:
                 engine.release_preempted(pin)
                 self._release_ticket(meta)
                 sup.note_request_failed()
+                self._tel_end(meta, "error", "request_unrecoverable")
                 self._deliver(sink, "fail", EngineFailure(
                     f"request not resumable after engine failure: {not_resumable}",
                     reason="request_unrecoverable", retryable=False))
@@ -2050,12 +2239,17 @@ class ContinuousBatcher:
             meta.budget = int(rec.remaining)
             meta.resume = pin
             meta.sink = sink
+            if self._telemetry is not None:
+                # the trace stays open across salvage, from the death to the resumed decode
+                self._telemetry.span(meta.request_id, "salvaged", transcript_tokens=len(rec.tokens),
+                                     remaining=int(rec.remaining))
             resumes.append(meta)
         failure = _as_engine_failure(exc)
         for slot, sink in list(self._sinks.items()):  # nothing salvageable behind these
             meta = self._slot_meta.pop(slot, None)
             if meta is not None:
                 self._release_ticket(meta)
+                self._tel_end(meta, "error", failure.reason)
             sup.note_request_failed()
             self._deliver(sink, "fail", failure)
         self._sinks.clear()
@@ -2071,6 +2265,7 @@ class ContinuousBatcher:
             for ticket in resumes + list(pending) + self.scheduler.drain():
                 self._release_ticket(ticket)
                 sup.note_request_failed()
+                self._tel_end(ticket, "error", unavailable.reason)
                 self._deliver(ticket.sink, "fail", unavailable)
             return
         for ticket in resumes + list(pending):
@@ -2154,6 +2349,7 @@ class ContinuousBatcher:
                     self._orphans.append(ticket.resume)
                     ticket.resume = None
         for ticket in queued:
+            self._tel_end(ticket, "shed", "batcher_closed")
             self._deliver(ticket.sink, "fail", closed)
         self._work.set()
         if worker is not None:

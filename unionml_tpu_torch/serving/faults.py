@@ -1,7 +1,7 @@
 """Deterministic fault injection and the structured engine-failure error.
 
 The port's copy of ``unionml_tpu/serving/faults.py:43-237`` (numpy only),
-without its telemetry mirror (ROADMAP slice 7).
+with its telemetry mirror (``unionml_faults_injected_total`` by site).
 
 - :class:`FaultPlan` is a schedule-addressable fault script: "fail the 3rd
   step dispatch", "NaN slot 1's logits after dispatch 5", "raise on the 2nd
@@ -86,6 +86,9 @@ class FaultPlan:
     seed: int = 0
 
     def __post_init__(self) -> None:
+        #: optional Telemetry mirror for the injected-fault counter (attach with
+        #: ``plan.telemetry = tel``); consulted behind ``is not None`` only
+        self.telemetry = None
         self._rng = np.random.default_rng(self.seed)
         self._dispatches = 0
         self._fetches = 0
@@ -105,6 +108,8 @@ class FaultPlan:
 
     def _count(self, site: str, n: int = 1) -> None:
         self.injected[site] = self.injected.get(site, 0) + n
+        if self.telemetry is not None:
+            self.telemetry.faults_injected_total.inc(float(n), site)
 
     def _fire(self, site: str, message: str) -> None:
         self._count(site)

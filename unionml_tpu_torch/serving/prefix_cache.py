@@ -1,7 +1,7 @@
 """Host radix index over token-id blocks: the paged pool's allocator and prefix cache.
 
 The port's copy of ``unionml_tpu/serving/prefix_cache.py:46-400`` (standard
-library only), without its telemetry hooks (ROADMAP slice 7).
+library only), with its telemetry hooks (lookups, hits, hit tokens).
 
 A node caches exactly ``block_size`` tokens' KV in one pool block; matching
 walks whole blocks, so a prompt sharing 10 tokens of a cached prefix at
@@ -86,11 +86,13 @@ class PrefixCache:
     its wait in the queue. :meth:`stats` counts hits, insertions and evictions.
     """
 
-    def __init__(self, num_blocks: int, block_size: int) -> None:
+    def __init__(self, num_blocks: int, block_size: int, *, telemetry=None) -> None:
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        #: optional Telemetry mirror for the hit-rate counters (``is not None`` guarded)
+        self.telemetry = telemetry
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self._root = _Node((), -1, None)
@@ -122,6 +124,8 @@ class PrefixCache:
         matched node: the caller must :meth:`release` the path."""
         self._tick += 1
         self.lookups += 1
+        if self.telemetry is not None:
+            self.telemetry.prefix_lookups_total.inc()
         node, path = self._root, []
         while len(path) < max_blocks:
             child = node.children.get(self._key_at(tokens, len(path)))
@@ -151,6 +155,9 @@ class PrefixCache:
         if matched_tokens > 0:
             self.hits += 1
             self.hit_tokens += int(matched_tokens)
+            if self.telemetry is not None:
+                self.telemetry.prefix_hits_total.inc()
+                self.telemetry.prefix_hit_tokens_total.inc(float(matched_tokens))
 
     def extend(self, path: List[_Node], tokens: Sequence[int], max_blocks: int) -> Tuple[List[_Node], List[_Node]]:
         """Index ``tokens``' full blocks beyond ``path``, up to ``max_blocks``,

@@ -20,8 +20,9 @@ Port of ``unionml_tpu/serving/scheduler.py`` (the policy layer between the
 
 Pure host code: it never touches the engine. ``SchedulerConfig(fifo=True)``
 is the plain arrival-order queue (no priorities, no preemption). Every method
-that reads the clock takes ``now=``. The JAX module's ``telemetry=`` hooks are
-not ported (ROADMAP: slice 7, telemetry).
+that reads the clock takes ``now=``. With ``telemetry=``, each admission
+records its queue wait (the class's histogram and the trace's ``queue_wait``
+span) outside the scheduler's lock.
 """
 
 import dataclasses
@@ -165,8 +166,8 @@ class Ticket:
     shed_exc: Optional[SchedulingError] = None
     #: queue wait measured at pop time (ms), for TTFT decomposition
     queue_wait_ms: Optional[float] = None
-    #: the route's correlation id (rides the ticket across preemption and
-    #: salvage; no trace keys on it until telemetry is ported)
+    #: trace correlation id (set by the owning batcher; rides the ticket
+    #: across preemption and salvage)
     request_id: Optional[str] = None
 
     def effective_priority(self, now: float, aging_s: float) -> int:
@@ -189,10 +190,12 @@ class SLOScheduler:
     surfaced to the owning batcher, which performs the engine work.
     """
 
-    def __init__(self, config: Optional[SchedulerConfig] = None) -> None:
+    def __init__(self, config: Optional[SchedulerConfig] = None, *, telemetry: Optional[Any] = None) -> None:
         if config is not None and not isinstance(config, SchedulerConfig):
             raise TypeError(f"expected SchedulerConfig, got {type(config)!r}")
         self.config = config or SchedulerConfig()
+        #: optional Telemetry; every record site is OUTSIDE _lock (lock-leaf)
+        self._telemetry = telemetry
         #: optional zero-arg provider of the engine's block-pool occupancy
         #: (``DecodeEngine.pool_signal``). Set by the owning batcher before
         #: traffic, and invoked OUTSIDE ``_lock`` so the scheduler lock stays
@@ -398,6 +401,13 @@ class SLOScheduler:
             self.admitted += 1
             if ticket.resume is not None:
                 self.resumes += 1
+        if self._telemetry is not None:  # outside _lock: telemetry is lock-leaf
+            self._telemetry.set_class(ticket.request_id, cls)
+            self._telemetry.queue_wait_ms.observe(wait_ms, cls)
+            self._telemetry.span(ticket.request_id, "queue_wait", dur_ms=round(wait_ms, 3), cls=cls,
+                                 resume=ticket.resume is not None)
+            if ticket.resume is not None:
+                self._telemetry.resumes_total.inc()
 
     def peek(self, now: Optional[float] = None) -> Optional[Ticket]:
         """The ticket :meth:`pop` would return first (not removed)."""

@@ -29,9 +29,11 @@ splice, ``speculative.py:443-500``). An engine failure rebuilds the draft pool
 with the target's, and a rebuild drops the round graphs with the bursts'.
 Behind ``ContinuousBatcher`` a request's class sets its speculation default
 (``SchedulerConfig.speculative_classes``); ``SpeculativeBatcher`` takes turns
-through the same SLO scheduler. Not ported here (each raises
-``NotImplementedError`` naming its ROADMAP item where it is reachable):
-telemetry (and with it the per-class acceptance gauge) and mesh sharding.
+through the same SLO scheduler. With telemetry, each round feeds
+``unionml_spec_proposed_total``/``unionml_spec_accepted_total``, a
+``speculation`` span per armed slot, the per-class acceptance gauge and the
+mean γ. Not ported here (raising ``NotImplementedError`` naming its ROADMAP
+item where it is reachable): mesh sharding.
 """
 
 import asyncio
@@ -124,7 +126,7 @@ class SpeculativeEngine(DecodeEngine):
         self._gamma_init = int(gamma_init)
         self._ema_beta, self._ema_hi, self._ema_lo = float(ema_beta), float(ema_hi), float(ema_lo)
         super().__init__(model, **kwargs)
-        #: per-slot class labels (read by telemetry's per-class gauge, ROADMAP slice 7)
+        #: per-slot class labels (read by telemetry's per-class acceptance gauge)
         self._slot_class: Dict[int, str] = {}
         self.spec_rounds = 0  #: round bursts replayed
         self.spec_slot_rounds = 0  #: (slot, round) pairs that ran with γ > 0
@@ -241,11 +243,12 @@ class SpeculativeEngine(DecodeEngine):
             self._paged_insert(local_cache, None, torch.tensor([slot], device=self.device), lengths,
                                pool=self._draft_pool)
         self.draft_prefill_dispatches += 1
+        if self._telemetry is not None:
+            self._note_span(slot, "draft_prefill", tokens=int(prompt.size), bucket=int(bucket))
 
     def note_request_class(self, slot: int, cls: Optional[str]) -> None:
-        """Label ``slot``'s occupant with its class (only stored: the per-class
-        acceptance gauge that reads it, and the batcher's call, come with
-        telemetry, ROADMAP slice 7)."""
+        """Label ``slot``'s occupant with its SLO class (the batcher sets it)
+        so the acceptance gauge can report per class."""
         if cls is not None:
             self._slot_class[slot] = str(cls)
 
@@ -360,6 +363,7 @@ class SpeculativeEngine(DecodeEngine):
             if ev.error is None:
                 fed[ev.slot] = fed.get(ev.slot, 0) + 1
         self.spec_rounds += 1
+        telemetry = self._telemetry
         for slot, m in fed.items():
             if not spec[slot]:
                 continue
@@ -375,6 +379,20 @@ class SpeculativeEngine(DecodeEngine):
             self._slot_ema[slot] = ema
             bump = 1 if ema >= self._ema_hi else (-1 if ema < self._ema_lo else 0)
             self._slot_gamma[slot] = min(self._gamma_max, max(0, g + bump))
+            if telemetry is not None:
+                telemetry.spec_proposed_total.inc(float(g))
+                telemetry.spec_accepted_total.inc(float(a))
+                self._note_span(slot, "speculation", gamma=g, accepted=a, alpha=round(a / g, 4))
+        if telemetry is not None:
+            live = self._active & self._slot_spec
+            by_class: Dict[str, List[float]] = {}
+            for slot in np.flatnonzero(live):
+                cls = self._slot_class.get(int(slot), "standard")
+                by_class.setdefault(cls, []).append(float(self._slot_ema[int(slot)]))
+            for cls, vals in by_class.items():
+                telemetry.spec_acceptance.set(sum(vals) / len(vals), cls)
+            if live.any():
+                telemetry.spec_gamma.set(float(self._slot_gamma[live].mean()))
         return events
 
     def abort_all(self) -> None:

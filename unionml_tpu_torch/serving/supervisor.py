@@ -2,9 +2,9 @@
 
 The port's copy of ``unionml_tpu/serving/supervisor.py:47-340`` for one
 :class:`~unionml_tpu_torch.serving.continuous.DecodeEngine` behind a
-:class:`~unionml_tpu_torch.serving.continuous.ContinuousBatcher`, without its
-telemetry hooks (ROADMAP slice 7); ``GET /healthz`` serves its state
-(``serving/app.py``):
+:class:`~unionml_tpu_torch.serving.continuous.ContinuousBatcher`, with its
+telemetry hooks (health transitions, engine failures, rebuilds); ``GET
+/healthz`` serves its state (``serving/app.py``):
 
 - **Health** ``ok -> degraded -> rebuilding -> ok`` on a recovered fault,
   ``rebuilding -> failed`` when the rebuild budget is spent.
@@ -46,7 +46,8 @@ class EngineSupervisor:
     :param max_rebuild_attempts: rebuild attempts per incident before ``failed``.
     :param backoff_s: attempt ``k`` sleeps ``backoff_s * 2**(k-1)`` before the
         next, capped at ``backoff_max_s``.
-    :param telemetry: not ported yet (ROADMAP slice 7); anything but ``None`` raises.
+    :param telemetry: optional :class:`~unionml_tpu_torch.serving.telemetry.Telemetry`;
+        every record site runs outside the supervisor's lock.
     """
 
     def __init__(
@@ -61,8 +62,8 @@ class EngineSupervisor:
         sleep_fn: Callable[[float], None] = time.sleep,
         telemetry: Optional[Any] = None,
     ) -> None:
-        if telemetry is not None:
-            raise NotImplementedError("supervisor telemetry is not ported yet (ROADMAP: slice 7, telemetry/metrics)")
+        #: optional Telemetry; every record site runs OUTSIDE _lock (lock-leaf)
+        self._telemetry = telemetry
         self.stall_timeout_s = float(stall_timeout_s)
         self.watchdog_interval_s = float(watchdog_interval_s)
         self.max_rebuild_attempts = max(1, int(max_rebuild_attempts))
@@ -97,6 +98,8 @@ class EngineSupervisor:
     def _notify(self, old: str, new: str) -> None:
         if old == new:
             return
+        if self._telemetry is not None:
+            self._telemetry.health_transitions_total.inc(1.0, new)
         for callback in list(self._subscribers):
             try:
                 callback(old, new)
@@ -161,6 +164,8 @@ class EngineSupervisor:
                 self._state = "rebuilding"
             new = self._state
         self._notify(old, new)
+        if self._telemetry is not None:
+            self._telemetry.engine_failures_total.inc(1.0, self.classify(exc))
         logger.warning("engine failure (%s): entering recovery", self.classify(exc))
 
     def run_rebuild(self, rebuild: Callable[[], None]) -> bool:
@@ -185,6 +190,8 @@ class EngineSupervisor:
                 self._state = "ok"
                 self._note_recovery_time()
             self._notify(old, "ok")
+            if self._telemetry is not None:
+                self._telemetry.rebuilds_total.inc()
             logger.info("engine rebuilt (attempt %d/%d)", attempt, self.max_rebuild_attempts)
             return True
         with self._lock:
@@ -211,6 +218,8 @@ class EngineSupervisor:
             new = self._state
             self._note_recovery_time()
         self._notify(old, new)
+        if self._telemetry is not None:
+            self._telemetry.rebuilds_total.inc()
 
     def note_recovered(self, n: int = 1) -> None:
         """Count requests resumed across a rebuild."""
