@@ -229,6 +229,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``app.metrics_answer`` carries the headline families. K1's and K4's
    launches in (1) ride the kernels line as ``launches_telemetry``.
 
+16. the engine fleet (``serving/fleet.py``) and the fleet simulator
+   (``sim/``): two replicas of phase 13's engine (GPT-2 small bf16, int8
+   pool, 8 slots each) sharing the one card, each on its own CUDA stream and
+   worker thread, supervised, lookahead 8, behind the prefix-affinity router.
+   Traffic is ``bench_serving.py::bench_fleet``'s mix at this width: 4 groups
+   x 8 requests sharing a 384-token prefix, 6..24-token suffixes, groups
+   interleaved, one in four ``interactive``, 32 new tokens, greedy. (1) A cold
+   pass per router arm on fresh replicas: affinity's prefix hit rate must
+   beat random's. Then, for affinity and for one replica alone (graphs
+   captured first), every prompt is primed on every replica and a warm pass
+   prints tokens/s and TTFT p50/p95 by class; one more warm pass runs in one
+   CUDA profile for the device idle share (device events as a union in time
+   across the two streams) and the share of device time that overlapped.
+   Each replica's replayed burst wall is printed with the other replica idle
+   and with it decoding on its own thread. The two warm passes' streams are
+   printed side by side with their splits' top-2 gaps (report: a prefix
+   block's int8 codes depend on the row count of the chunk that first
+   prefilled it). (2) Parity: at the exact-path configuration (phase 13's
+   chunks of 64), a 2-replica fleet's bf16 streams agree with one supervised
+   batcher's under the bf16 rule up to each stream's first preemption, and
+   at f32 with an f32 pool they are identical (16 requests each). (3) At
+   f32, replica 0 fails once and recovers in place (its graphs recaptured
+   while replica 1 replays), and in another run replica 1 dies
+   (``FaultPlan``, every rebuild failing): every request completes with
+   identical streams, ``rerouted_tickets`` >= 1 with no failed re-route, no
+   block stays pinned, no capture fails, and the K1/K4 counts equal the sum
+   of the per-thread tallies, two worker threads launching K4. (4) 4
+   sessions of 3 turns (a 24..48-token opening, then the transcript plus
+   6..24 tokens): every turn of a session on one replica, each later turn
+   prefilling at most its message plus one block; session 3's replica dies
+   in its second turn, the turn completes on the adopter (its transcript a
+   bucket prefill, K1) and the session's third turn sticks there. (5) The
+   affinity fleet's journal through ``replay_journal`` and
+   ``fit_cost_model``, and a 2-replica ``FleetSimulator`` on the same mix
+   with the fitted costs: its TTFT by class and seconds beside the measured
+   warm pass (printed, not gated). The fleet path's K1/K4 launches ride the
+   kernels line as ``launches_fleet``.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -247,6 +285,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -348,7 +387,9 @@ _STARTED = time.perf_counter()
 def cuda_profile(body):
     """Run ``body(first)`` in a CUDA-only ``torch.profiler`` session that
     opens with the pad (``first`` is False on a retake); returns the profile
-    and the last call's result."""
+    and the last call's result. The pad is counted from the profiler's raw
+    device events (:func:`device_events`), which builds no event tree, so a
+    session of a few hundred thousand kernels is checked in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     pad = torch.ones(1, device="cuda")
@@ -361,12 +402,19 @@ def cuda_profile(body):
                 torch.special.i0e(pad)
             out = body(take == 0)
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        kept = sum(e.count for e in events if PAD_KERNEL in e.key)
-        PROFILE_LOST.append((time.perf_counter() - _STARTED, PROFILE_PAD - kept, sum(e.count for e in events)))
+        names = [name for name, _, _ in device_events(prof)]
+        kept = sum(PAD_KERNEL in name for name in names)
+        PROFILE_LOST.append((time.perf_counter() - _STARTED, PROFILE_PAD - kept, len(names)))
         if kept:
             return prof, out
     raise AssertionError(f"{PROFILE_TAKES} profiles in a row kept none of their {PROFILE_PAD} pad records")
+
+
+def device_events(prof) -> list:
+    """``(name, start ns, end ns)`` of every device event of a profile, from
+    the profiler's raw results."""
+    return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")]
 
 
 def _kernel_us(prof) -> dict:
@@ -3009,6 +3057,520 @@ def telemetry_phase(device, config=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 16: the fleet
+
+# bench_serving.py::bench_fleet's mix at this width: 4 groups x 8 requests,
+# each group sharing phase 13's 384-token system prompt, a unique 6..24-token
+# suffix each, groups interleaved, one request in four interactive
+FLEET_GROUPS, FLEET_PER_GROUP, FLEET_NEW, FLEET_LOOKAHEAD = 4, 8, 32, 8
+# the exact-path and f32 arms' requests per group, cut for time (PERF.md section 4)
+FLEET_EXACT_PER_GROUP = FLEET_F32_PER_GROUP = 4
+FLEET_SESSIONS, FLEET_TURNS, FLEET_TURN_NEW = 4, 3, 16
+FLEET_JOURNAL = Path(__file__).resolve().parent / "build" / "fleet" / "journal.jsonl"
+FLEET_KERNELS = ("flash_fwd", "paged_attention")
+
+
+def fleet_mix(vocab: int, per_group: int = FLEET_PER_GROUP, seed: int = 0) -> list:
+    """``(prompt, class)`` pairs in arrival order (the groups interleaved)."""
+    rng = np.random.default_rng(1600 + seed)
+    prefixes = [rng.integers(1, vocab, PC_SYSTEM).tolist() for _ in range(FLEET_GROUPS)]
+    return [(prefix + rng.integers(1, vocab, int(rng.integers(6, 25))).tolist(),
+             "interactive" if j % 4 == 0 else "batch") for j in range(per_group) for prefix in prefixes]
+
+
+def fleet_engine(model, device, quant, warm: bool = True, **kw):
+    """Phase 13's engine; ``warm`` captures every decode burst graph a pass
+    can replay first (lookahead 8, cut to 4, 2 and 1 by the slots' headroom
+    or under contention), so a pass times serving, not captures."""
+    engine = pc_engine(model, device, PC_BLOCKS, quant, **kw)
+    if warm:
+        rng = np.random.default_rng(7)
+        for budget in (8, 4, 2, 1):
+            engine.admit_many([(rng.integers(1, engine._config.vocab_size, 6).tolist(), budget)])
+            while engine.num_active or engine.has_pending_events:
+                engine.step(FLEET_LOOKAHEAD)
+    return engine
+
+
+def build_fleet(engines, policy: str, telemetry=None, supervisors=None):
+    from unionml_tpu_torch.serving import EngineFleet, EngineSupervisor, FleetConfig
+
+    # patient watchdogs: a first capture must not read as a stall
+    sups = supervisors or [EngineSupervisor(stall_timeout_s=120.0) for _ in engines]
+    return EngineFleet(engines, config=FleetConfig(policy=policy, seed=0), lookahead=FLEET_LOOKAHEAD,
+                       supervisors=sups, telemetry=telemetry)
+
+
+def counted(tally: dict, fn, *args):
+    """``fn(*args)`` with the K1/K4 launch counts set to 0 just before and
+    read just after, added to ``tally``; returns (result, this call's counts)."""
+    from unionml_tpu_torch import kernels
+
+    kernels.reset_launches()
+    result = fn(*args)
+    counts = {k: kernels.launches[k] for k in FLEET_KERNELS}
+    for k, n in counts.items():
+        tally[k] = tally.get(k, 0) + n
+    return result, counts
+
+
+def fleet_pass(gen, mix, tag: str, new_tokens: int = FLEET_NEW) -> dict:
+    """Every request of ``mix`` streamed through ``gen`` (a fleet or a
+    batcher) at once, routed in arrival order: wall s, tokens/s, TTFT p50/p95
+    by class, and the streams."""
+    ttft = {"interactive": [], "batch": []}
+    streams = [None] * len(mix)
+
+    async def one(i, prompt, cls):
+        loop = asyncio.get_running_loop()
+        t0, out = loop.time(), []
+        async for token in gen.stream(prompt, new_tokens, priority=cls, request_id=f"{tag}-{i}"):
+            if not out:
+                ttft[cls].append((loop.time() - t0) * 1e3)
+            out.append(token)
+        streams[i] = out
+
+    async def run():
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one(i, p, c) for i, (p, c) in enumerate(mix)))
+        return time.perf_counter() - t0
+
+    wall = asyncio.run(run())
+    if any(s is None or len(s) != new_tokens for s in streams):
+        raise AssertionError(f"{tag}: a request did not complete its {new_tokens} tokens")
+    return {"wall_s": wall, "tokens_per_s": len(mix) * new_tokens / wall, "streams": streams,
+            "ttft_ms": {c: slo_pct(v, (0.5, 0.95)) for c, v in ttft.items()}}
+
+
+def prime(fleet, mix):
+    """Every prompt of ``mix`` once on every replica, straight through its
+    batcher (one new token): each replica's radix index then holds every
+    prompt's full blocks, so a later pass hits the same blocks wherever it is
+    routed and its streams can be held to one replica's."""
+    async def run():
+        await asyncio.gather(*(rep.batcher.generate(p, 1, request_id=f"prime-{rep.index}-{i}")
+                               for rep in fleet.replicas for i, (p, _) in enumerate(mix)))
+
+    asyncio.run(run())
+
+
+def note_preemptions(schedulers, mix, tag: str, preempted: dict) -> None:
+    """Record, for each request of a pass tagged ``tag`` that one of
+    ``schedulers`` preempts, the fewest tokens it had delivered at a
+    preemption (its ticket's prompt is the transcript by then)."""
+    for sched in schedulers:
+        requeue = sched.requeue
+
+        def noting(ticket, *, preemption=True, _requeue=requeue):
+            rid = str(ticket.request_id)
+            if preemption and rid.startswith(tag):
+                i = int(rid.rsplit("-", 1)[1])
+                delivered = len(ticket.prompt) - len(mix[i][0])
+                preempted[i] = min(preempted.get(i, delivered), delivered)
+            _requeue(ticket, preemption=preemption)
+
+        sched.requeue = noting
+
+
+def busy_union(prof) -> dict:
+    """Device ms of a CUDA profile's events (the pad left out): their sum,
+    and their union in time, where events of two streams that overlap count
+    once."""
+    spans = sorted((start, end) for name, start, end in device_events(prof) if PAD_KERNEL not in name)
+    union, last = 0, None
+    for start, end in spans:
+        if last is None or start > last:
+            union += end - start
+            last = end
+        elif end > last:
+            union += end - last
+            last = end
+    return {"sum_ms": sum(end - start for start, end in spans) / 1e6, "union_ms": union / 1e6, "events": len(spans)}
+
+
+def burst_wall_ms(engine, bursts: int = TEL_BURSTS) -> float:
+    """Wall ms per replayed decode burst (pipelined ``step``) on the engine's
+    own stream, synchronized on that stream only."""
+    with torch.cuda.stream(engine.stream):
+        engine.stream.synchronize()
+        t = time.perf_counter()
+        for _ in range(bursts):
+            engine.step()
+        engine.stream.synchronize()
+    return (time.perf_counter() - t) * 1e3 / bursts
+
+
+def fleet_coupling(engines, vocab: int) -> dict:
+    """Each replica's burst wall with the other replica idle, then with the
+    other decoding on its own thread and stream (two workers, one GIL, one
+    card): 8 slots each, filled by bucket-prefilled requests."""
+    shorts = tel_shorts(vocab, 16)
+    for engine in engines:
+        steady(engine, shorts, {})
+    out = {}
+    for i, (a, b) in enumerate((engines, engines[::-1])):
+        idle = burst_wall_ms(a)
+        stop = threading.Event()
+
+        def spin():
+            with b._on_stream():
+                while not stop.is_set():
+                    b.step()
+
+        worker = threading.Thread(target=spin)
+        worker.start()
+        try:
+            busy = burst_wall_ms(a)
+        finally:
+            stop.set()
+            worker.join(timeout=60)
+        if worker.is_alive():
+            raise AssertionError("the busy replica's thread did not stop")
+        out[f"replica_{i}"] = {"other_idle_ms": idle, "other_busy_ms": busy}
+    for engine in engines:
+        engine.abort_all()
+    return out
+
+
+def fleet_routing(model, device, mix, tally) -> dict:
+    """Parts 1 and 2 (bf16): the cold pass of each router arm on fresh warmed
+    replicas, then, for affinity and for one replica alone, a warm pass after
+    priming, its device idle share in one CUDA profile, the per-replica burst
+    coupling, and the two warm passes' streams side by side. Every arm is
+    traced (the affinity fleet's journal feeds part 5)."""
+    from unionml_tpu_torch.serving import EngineFleet, EngineSupervisor, Telemetry
+
+    FLEET_JOURNAL.parent.mkdir(parents=True, exist_ok=True)
+    FLEET_JOURNAL.unlink(missing_ok=True)
+    out = {}
+    for arm in ("random", "affinity", "single"):
+        steps, t = {}, time.perf_counter()
+
+        def lap(name):
+            nonlocal t
+            steps[name] = time.perf_counter() - t
+            t = time.perf_counter()
+
+        tel = Telemetry(journal_path=str(FLEET_JOURNAL) if arm == "affinity" else None)
+        # the random arm is read for its hit rate only: its graphs are captured in the pass
+        engines = [fleet_engine(model, device, "int8", warm=arm != "random")
+                   for _ in range(1 if arm == "single" else 2)]
+        if arm == "single":
+            fleet = EngineFleet(engines, lookahead=FLEET_LOOKAHEAD, telemetry=tel,
+                                supervisors=[EngineSupervisor(stall_timeout_s=120.0)])
+        else:
+            fleet = build_fleet(engines, arm, telemetry=tel)
+        lap("warm_up")
+        try:
+            cold, launches = counted(tally, fleet_pass, fleet, mix, f"{arm}-cold")
+            rec = {"cold_hit_rate": fleet.router.stats()["prefix_hit_rate"], "cold_router": fleet.router.stats(),
+                   "cold_wall_s": cold["wall_s"], "cold_launches": launches}
+            lap("cold")
+            if arm != "random":
+                prime(fleet, mix)
+                lap("prime")
+                rec["preempted"] = {}
+                note_preemptions([r.batcher.scheduler for r in fleet.replicas], mix, f"{arm}-warm", rec["preempted"])
+                warm, rec["warm_launches"] = counted(tally, fleet_pass, fleet, mix, f"{arm}-warm")
+                rec["warm"] = {k: warm[k] for k in ("wall_s", "tokens_per_s", "ttft_ms")}
+                rec["streams"] = warm["streams"]
+                lap("warm")
+
+                def profiled(first):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    fleet_pass(fleet, mix, f"{arm}-profiled")
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - start) * 1e3
+
+                sessions = len(PROFILE_LOST)
+                prof, wall_ms = cuda_profile(profiled)
+                busy = busy_union(prof)
+                if not busy["events"]:
+                    raise AssertionError(f"fleet {arm}: the profile recorded no device event")
+                rec["profiled"] = {"wall_ms": wall_ms, **busy, "profile_sessions": len(PROFILE_LOST) - sessions,
+                                   "idle_share": 1.0 - busy["union_ms"] / wall_ms,
+                                   "idle_share_by_sum": 1.0 - busy["sum_ms"] / wall_ms,
+                                   "overlap_share": 1.0 - busy["union_ms"] / busy["sum_ms"]}
+                del prof
+                lap("profiled")
+            rec["per_replica"] = [{"state": r["state"], "scheduler_admitted": r["scheduler"]["admitted"],
+                                   "prefix_cache_hits": r["prefix_cache"]["hits"]}
+                                  for r in fleet.stats()["fleet"]["per_replica"]]
+        finally:
+            fleet.close()
+        rec["capture_failures"] = [e.capture_failures for e in engines]
+        rec["failures"] = [e.failure_count for e in engines]
+        if any(rec["capture_failures"]) or any(rec["failures"]) or any(leaked(e) != (0, 0, 0) for e in engines):
+            raise AssertionError(f"fleet {arm}: capture failures {rec['capture_failures']}, engine failures "
+                                 f"{rec['failures']}, leaks {[leaked(e) for e in engines]}")
+        if arm == "affinity":
+            rec["coupling"] = fleet_coupling(engines, model.config.vocab_size)
+            lap("coupling")
+        if arm == "single":
+            rec["engine"] = engines[0]
+            out["pool_blocks"] = engines[0].pool_blocks - 1
+        rec["steps_s"] = steps
+        out[arm] = rec
+        del engines, fleet
+        torch.cuda.empty_cache()
+    aff, rnd = out["affinity"]["cold_hit_rate"], out["random"]["cold_hit_rate"]
+    if not (aff is not None and rnd is not None and aff > rnd):
+        raise AssertionError(f"cold prefix hit rate: affinity {aff} is not above random {rnd}")
+    # printed, not gated: a prefix block's int8 codes come from whichever
+    # request prefilled it first, in a 256-token chunk whose row count is that
+    # request's length, so the two arms' cached blocks can round otherwise
+    # (phase 13's part 1, PERF.md section 6); fleet_bf16_exact holds the
+    # same comparison where the prefills' row counts match
+    single = out["single"].pop("engine")
+    out["bf16_splits"] = gated_splits("fleet bf16 served configuration, 2 replicas vs 1 (warm; report)",
+                                      out["affinity"].pop("streams"), out["single"].pop("streams"), single,
+                                      [p for p, _ in mix], float("inf"), FLEET_NEW)
+    del single
+    return out
+
+
+def fleet_bf16_exact(model, device, mix, tally) -> dict:
+    """Part 2 at bf16 with the int8 pool on the exact-path configuration
+    (phase 13's: chunks of 64, buckets from 64, so a prefix block's codes do
+    not depend on which request prefilled it): a 2-replica fleet's cold pass
+    against one supervised batcher's, under the bf16 rule up to each
+    stream's first preemption in either arm (a resume re-prefills and
+    re-quantizes the transcript's tail, PERF.md section 6)."""
+    from unionml_tpu_torch.serving import ContinuousBatcher, EngineSupervisor
+
+    fleet = build_fleet([pc_engine(model, device, PC_BLOCKS, "int8", **PC_EXACT_KW) for _ in range(2)], "affinity")
+    single = ContinuousBatcher(pc_engine(model, device, PC_BLOCKS, "int8", **PC_EXACT_KW), lookahead=FLEET_LOOKAHEAD,
+                               supervisor=EngineSupervisor(stall_timeout_s=120.0), device=device)
+    preempted = {}
+    note_preemptions([r.batcher.scheduler for r in fleet.replicas] + [single.scheduler], mix, "exact-", preempted)
+    try:
+        got = counted(tally, fleet_pass, fleet, mix, "exact-fleet")[0]["streams"]
+        want = counted(tally, fleet_pass, single, mix, "exact-single")[0]["streams"]
+    finally:
+        fleet.close()
+        single.close()
+    splits = gated_splits("fleet bf16 exact path, 2 replicas vs 1", got, want, single.engine, [p for p, _ in mix],
+                          float("inf"), FLEET_NEW)
+    for sp in splits:
+        sp["preempted_after"] = preempted.get(sp["request"])
+        if sp["vanilla_top2_gap"] >= GAP_LIMIT_BF16 and (sp["preempted_after"] is None
+                                                         or sp["split"] < sp["preempted_after"]):
+            raise AssertionError(f"fleet bf16 exact path: stream {sp['request']} splits from one batcher's at token "
+                                 f"{sp['split']} (gap {sp['vanilla_top2_gap']:.3e}) before any preemption of it")
+    left = [leaked(e) for e in [r.engine for r in fleet.replicas] + [single.engine]]
+    if any(x != (0, 0, 0) for x in left):
+        raise AssertionError(f"fleet bf16 exact path: blocks left {left}")
+    return {"splits": splits, "preempted": preempted, "identical": sum(a == b for a, b in zip(got, want))}
+
+
+def fleet_sessions(model, device, vocab: int, tally) -> dict:
+    """Part 4: 4 sessions of 3 turns, one turn at a time, each opening with a
+    24..48-token message (a bucket prefill) and each later turn the
+    transcript plus a 6..24-token message. Sessions 0-2 are placed on replica
+    0 and session 3 on replica 1 before their first turn; replica 1 dies
+    (``FaultPlan``, its rebuilds failing too) in session 3's second turn."""
+    from unionml_tpu_torch.serving import EngineSupervisor, FaultPlan, Telemetry
+
+    engines = [fleet_engine(model, device, "int8", warm=False, prefix_cache_generated=True) for _ in range(2)]
+    sups = [EngineSupervisor(stall_timeout_s=120.0),
+            EngineSupervisor(stall_timeout_s=120.0, max_rebuild_attempts=2, backoff_s=0.005)]
+    tel = Telemetry()
+    fleet = build_fleet(engines, "affinity", telemetry=tel, supervisors=sups)
+    rng = np.random.default_rng(1700)
+    sessions = [f"s{i}" for i in range(FLEET_SESSIONS)]
+    victim = sessions[-1]
+    transcripts = {sid: rng.integers(1, vocab, int(rng.integers(24, 49))).tolist() for sid in sessions}
+    for sid in sessions:  # placement: a route with one candidate sticks the session there
+        fleet.router.route(transcripts[sid], [(1 if sid == victim else 0, 1.0, 0.0)], session_id=sid)
+    block, turns, bad = engines[0].block_size, [], []
+    try:
+        for turn in range(FLEET_TURNS):
+            for sid in sessions:
+                message = rng.integers(1, vocab, int(rng.integers(6, 25))).tolist() if turn else []
+                prompt = transcripts[sid] + message
+                if sid == victim and turn == 1:
+                    engines[1]._faults = FaultPlan(step_dispatch_failures=(1,), rebuild_failures=99)
+                before = [e.prefill_tokens_computed for e in engines]
+                rid = f"{sid}-turn{turn}"
+                out, launches = counted(tally, lambda: asyncio.run(fleet.generate(
+                    prompt, FLEET_TURN_NEW, session_id=sid, request_id=rid)))
+                spans = tel.get_trace(rid)["spans"]
+                routed = next(sp["attrs"]["replica"] for sp in spans if sp["kind"] == "route")
+                adopted = [sp["attrs"]["to_replica"] for sp in spans if sp["kind"] == "failover_adopt"]
+                cost = sum(e.prefill_tokens_computed - b for e, b in zip(engines, before))
+                turns.append({"session": sid, "turn": turn, "replica": routed, "adopted_by": adopted,
+                              "prefill_tokens": cost, "message": len(message), "launches": launches})
+                transcripts[sid] = prompt + out
+                if turn and not adopted and cost > len(message) + block:
+                    bad.append(f"{rid} prefilled {cost} tokens for a {len(message)}-token message")
+        restuck = fleet.router.session_replica(victim)
+        health = fleet.healthz()
+        fstats = {k: v for k, v in fleet.stats()["fleet"].items() if k not in ("router", "per_replica")}
+    finally:
+        fleet.close()
+    for sid in sessions:
+        mine = [t for t in turns if t["session"] == sid]
+        homes = {t["replica"] for t in mine}
+        if sid != victim and len(homes) != 1:
+            bad.append(f"{sid} moved between replicas {sorted(homes)}")
+    died = [t for t in turns if t["adopted_by"]]
+    after = [t for t in turns if t["session"] == victim and t["turn"] == FLEET_TURNS - 1]
+    if len(died) != 1 or died[0]["session"] != victim or died[0]["adopted_by"] != [0]:
+        bad.append(f"the failover turn(s): {died}")
+    if not after or after[0]["replica"] != 0 or restuck != 0:
+        bad.append(f"{victim} did not re-stick to its adopter: turn {after}, session replica {restuck}")
+    if fstats["rerouted_tickets"] != 1 or fstats["reroute_failed"] or health["state"] != "degraded":
+        bad.append(f"fleet {fstats}, health {health['state']}")
+    k1 = sum(t["launches"]["flash_fwd"] for t in turns)
+    if device.type == "cuda" and (k1 == 0 or any(t["launches"]["paged_attention"] == 0 for t in turns)):
+        bad.append(f"launches by turn {[t['launches'] for t in turns]}")
+    if any(leaked(e) != (0, 0, 0) for e in engines) or any(e.capture_failures for e in engines):
+        bad.append(f"leaks {[leaked(e) for e in engines]}, capture failures {[e.capture_failures for e in engines]}")
+    if bad:
+        raise AssertionError(f"fleet sessions: {bad}")
+    del engines, fleet
+    torch.cuda.empty_cache()
+    return {"turns": [{k: v for k, v in t.items() if k != "launches"} for t in turns], "victim": victim,
+            "restuck_to": restuck, "fleet": fstats, "k1_launches": k1}
+
+
+def fleet_f32(model, device, mix, tally) -> dict:
+    """Parts 2 and 3 at f32 with an f32 pool (the exact path): one supervised
+    batcher, then 2-replica fleets without a fault, with a fault replica 0
+    recovers from in place (it recaptures its graphs while replica 1 keeps
+    replaying), and with replica 1 dying (every rebuild failing): streams
+    identical throughout, the dead replica's tickets re-routed."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.serving import ContinuousBatcher, EngineSupervisor, FaultPlan
+
+    def engines_with(*plans):
+        return [fleet_engine(model, device, None, warm=False, faults=plan) for plan in plans]
+
+    single = ContinuousBatcher(fleet_engine(model, device, None, warm=False), lookahead=FLEET_LOOKAHEAD,
+                               supervisor=EngineSupervisor(stall_timeout_s=120.0), device=device)
+    try:
+        want = counted(tally, fleet_pass, single, mix, "f32-single")[0]["streams"]
+    finally:
+        single.close()
+    del single
+    out = {}
+    runs = {
+        "clean": (engines_with(None, None), None),
+        "recapture": (engines_with(FaultPlan(step_dispatch_failures=(2,)), None), None),
+        "death": (engines_with(None, FaultPlan(step_dispatch_failures=(3,), rebuild_failures=99)),
+                  [EngineSupervisor(stall_timeout_s=120.0),
+                   EngineSupervisor(stall_timeout_s=120.0, max_rebuild_attempts=2, backoff_s=0.005)]),
+    }
+    for name, (engines, sups) in runs.items():
+        fleet = build_fleet(engines, "affinity", supervisors=sups)
+        try:
+            got, launches = counted(tally, fleet_pass, fleet, mix, f"f32-{name}")
+            tallies = kernels.tallies()
+            fstats = {k: v for k, v in fleet.stats()["fleet"].items() if k not in ("router", "per_replica")}
+            states = [rep.supervisor.state for rep in fleet.replicas]
+        finally:
+            fleet.close()
+        rec = {"fleet": fstats, "states": states, "launches": launches,
+               "failures": [e.failure_count for e in engines], "rebuilds": [e.rebuilds for e in engines],
+               "capture_failures": [e.capture_failures for e in engines],
+               "graph_captures": [e.graph_captures for e in engines],
+               "graphs_dropped": [e.graphs_dropped for e in engines],
+               "threads_launching_k4": sum(1 for t in tallies.values() if t["paged_attention"])}
+        summed = {k: sum(t[k] for t in tallies.values()) for k in FLEET_KERNELS}
+        bad = [i for i, (a, b) in enumerate(zip(got["streams"], want)) if a != b]
+        if bad:
+            raise AssertionError(f"f32 fleet {name}: streams {bad} differ from one supervised batcher's")
+        if any(rec["capture_failures"]) or any(leaked(e) != (0, 0, 0) for e in engines):
+            raise AssertionError(f"f32 fleet {name}: {rec}, leaks {[leaked(e) for e in engines]}")
+        if summed != launches or (device.type == "cuda" and (launches["paged_attention"] == 0
+                                                             or rec["threads_launching_k4"] < 2)):
+            raise AssertionError(f"f32 fleet {name}: launches {launches}, per-thread sums {summed}, "
+                                 f"{rec['threads_launching_k4']} threads launched K4")
+        expect = {"clean": ([0, 0], ["ok", "ok"], 0), "recapture": ([1, 0], ["ok", "ok"], 0),
+                  "death": ([0, 1], ["ok", "failed"], None)}[name]
+        if rec["failures"] != expect[0] or states != expect[1]:
+            raise AssertionError(f"f32 fleet {name}: engine failures {rec['failures']}, states {states}")
+        if name == "recapture" and (rec["rebuilds"][0] < 1 or (device.type == "cuda" and rec["graphs_dropped"][0] < 1)):
+            raise AssertionError(f"f32 fleet recapture: rebuilds {rec['rebuilds']}")
+        if name == "death" and (fstats["rerouted_tickets"] < 1 or fstats["reroute_failed"]):
+            raise AssertionError(f"f32 fleet death: {fstats}")
+        out[name] = rec
+        del engines, fleet
+        torch.cuda.empty_cache()
+    out["requests"] = len(mix)
+    return out
+
+
+def fleet_sim(mix, measured: dict, pool_blocks: int) -> dict:
+    """Part 5: the affinity fleet's journal (cold, priming and warm passes)
+    through the port's ``replay_journal`` and ``fit_cost_model`` (priming
+    requests left out of the fit), then a 2-replica ``FleetSimulator`` with
+    the fitted costs on the same mix, all arriving at once: its TTFT by class
+    and its seconds beside the measured warm pass (printed, not gated)."""
+    from unionml_tpu_torch.serving import FleetConfig
+    from unionml_tpu_torch.sim import FleetSimulator, SimConfig, SimRequest, fit_cost_model, load_journal, \
+        replay_journal
+
+    records = load_journal(str(FLEET_JOURNAL))
+    replay = replay_journal(records)
+    cost = fit_cost_model([r for r in records if not r.request_id.startswith("prime-")])
+    requests = [SimRequest(arrival_s=0.0, session_id=f"r{i}", prompt=tuple(p), budget=FLEET_NEW, cls=cls,
+                           deadline_ms=None) for i, (p, cls) in enumerate(mix)]
+    sim = FleetSimulator(SimConfig(num_replicas=2, num_slots=PC_ENGINE_KW["num_slots"], num_blocks=pool_blocks,
+                                   block_size=16, max_len=PC_ENGINE_KW["max_len"], cost=cost,
+                                   fleet=FleetConfig(policy="affinity", seed=0)), requests)
+    ttft = {"interactive": [], "batch": []}
+    record = sim.slo.record
+
+    def noting(cls, status, ttft_ms, **kw):
+        if ttft_ms is not None:
+            ttft[cls].append(ttft_ms)
+        return record(cls, status, ttft_ms, **kw)
+
+    sim.slo.record = noting
+    report = sim.run()
+    if report["completed"] != len(mix) or replay["records"] != len(records):
+        raise AssertionError(f"simulator: {report['completed']} of {len(mix)} completed; replay {replay['records']}")
+    return {"fitted": dataclasses.asdict(cost), "records": len(records), "replay": {
+        k: replay[k] for k in ("status", "by_class", "shed", "preemptions", "resumes", "failover_adoptions",
+                               "block_demand_violations")},
+        "simulated": {"ttft_ms": {c: slo_pct(v, (0.5, 0.95)) for c, v in ttft.items()},
+                      "duration_s": report["duration_s"], "router": report["router"]["prefix_hit_rate"]},
+        "measured": {"ttft_ms": measured["ttft_ms"], "wall_s": measured["wall_s"]}}
+
+
+def fleet_phase(device, config=None) -> dict:
+    """The engine fleet (phase 16, see the module docstring)."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt, random_params
+
+    t0 = time.perf_counter()
+    config = config or GPTConfig()  # GPT-2 small
+    params = random_params(config, seed=0)
+    out, parts, tally = {}, {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t
+
+    mix = fleet_mix(config.vocab_size)
+    model = init_gpt(dataclasses.replace(config, dtype=torch.bfloat16), params=params, device=device)
+    part("routing", fleet_routing, model, device, mix, tally)
+    part("bf16_exact", fleet_bf16_exact, model, device, fleet_mix(config.vocab_size, FLEET_EXACT_PER_GROUP), tally)
+    part("sessions", fleet_sessions, model, device, config.vocab_size, tally)
+    del model
+    model = init_gpt(dataclasses.replace(config, dtype=torch.float32), params=params, device=device)
+    part("f32", fleet_f32, model, device, fleet_mix(config.vocab_size, FLEET_F32_PER_GROUP), tally)
+    del model
+    part("sim", fleet_sim, mix, out["routing"]["affinity"]["warm"], out["routing"]["pool_blocks"])
+    if device.type == "cuda" and not all(tally.get(k) for k in FLEET_KERNELS):
+        raise AssertionError(f"the fleet path launched {tally}")
+    out["launches"], out["parts_s"], out["s"] = tally, parts, time.perf_counter() - t0
+    return out
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -3569,9 +4131,55 @@ def main() -> int:
           f"preempted {tt['preempted_spans']}; quarantined {tt['quarantined_spans']}; counters equal to the "
           f"engine's own {tt['counters']}; /metrics {tt['metrics_bytes']} bytes ({tt['content_type']}); "
           f"phase 15 took {tm['s']:.1f} s")
+    torch.cuda.empty_cache()
+    details["fleet"] = fl = fleet_phase(device)
+    ro = fl["routing"]
+    print(f"[{name_limit}] fleet routing A/B ({FLEET_GROUPS} groups x {FLEET_PER_GROUP} requests sharing a "
+          f"{PC_SYSTEM}-token prefix, {FLEET_NEW} new tokens, 2 replicas on one card, cold pass): prefix hit rate "
+          f"affinity {ro['affinity']['cold_hit_rate']} > random {ro['random']['cold_hit_rate']}; one replica alone "
+          f"{ro['single']['cold_hit_rate']}")
+    for arm in ("affinity", "single"):
+        w, pf = ro[arm]["warm"], ro[arm]["profiled"]
+        print(f"[{name_limit}] fleet warm pass, {'2 replicas (affinity)' if arm == 'affinity' else '1 replica'}: "
+              f"{w['tokens_per_s']:.1f} tokens/s ({w['wall_s']:.3f} s), TTFT interactive {w['ttft_ms']['interactive']}, "
+              f"batch {w['ttft_ms']['batch']}; profiled pass {pf['wall_ms']:.1f} ms wall, {pf['events']} device events "
+              f"{pf['sum_ms']:.1f} ms summed, {pf['union_ms']:.1f} ms as a union in time: device idle share "
+              f"{pf['idle_share']:.4f} (by the sum {pf['idle_share_by_sum']:.4f}), overlap share "
+              f"{pf['overlap_share']:.4f}")
+    for rep, c in ro["affinity"]["coupling"].items():
+        print(f"[{name_limit}] fleet {rep}: replayed burst (8 slots) {c['other_idle_ms']:.4f} ms wall with the other "
+              f"replica idle, {c['other_busy_ms']:.4f} ms with it decoding on its own thread and stream")
+    ex = fl["bf16_exact"]
+    print(f"fleet bf16 parity at the exact-path configuration (chunks of 64), 2 replicas vs one supervised batcher: "
+          f"{ex['identical']} of {FLEET_GROUPS * FLEET_EXACT_PER_GROUP} "
+          f"streams identical, splits {ex['splits']} (gate {GAP_LIMIT_BF16} before a stream's first preemption; "
+          f"preempted, request: tokens delivered {ex['preempted']}); at the served configuration (warm, report): "
+          f"splits {ro['bf16_splits']}, preempted 2 replicas {ro['affinity']['preempted']}, 1 replica "
+          f"{ro['single']['preempted']}")
+    f32 = fl["f32"]
+    for name in ("clean", "recapture", "death"):
+        r = f32[name]
+        print(f"fleet f32 {name} ({f32['requests']} requests): streams identical to one supervised batcher's; "
+              f"fleet {r['fleet']}, states {r['states']}, engine failures {r['failures']}, rebuilds {r['rebuilds']}, "
+              f"graphs captured {r['graph_captures']}, dropped {r['graphs_dropped']}, capture failures "
+              f"{r['capture_failures']}; launches {r['launches']} (the per-thread tallies' sum, "
+              f"{r['threads_launching_k4']} threads launched K4); no block left pinned")
+    se = fl["sessions"]
+    print(f"fleet sessions ({FLEET_SESSIONS} x {FLEET_TURNS} turns): (session, turn, replica, adopted by, prefill "
+          f"tokens, message tokens) {[(t['session'], t['turn'], t['replica'], t['adopted_by'], t['prefill_tokens'], t['message']) for t in se['turns']]}; "
+          f"{se['victim']} re-stuck to replica {se['restuck_to']}; fleet {se['fleet']}; K1 launches {se['k1_launches']}")
+    sm = fl["sim"]
+    print(f"[{name_limit}] fleet simulator fitted from the phase's journal ({sm['records']} records, replay "
+          f"{sm['replay']}): {sm['fitted']}; simulated TTFT {sm['simulated']['ttft_ms']}, "
+          f"{sm['simulated']['duration_s']} s, hit rate {sm['simulated']['router']}; measured TTFT "
+          f"{sm['measured']['ttft_ms']}, {sm['measured']['wall_s']:.3f} s")
+    print(f"fleet path launches {fl['launches']}; phase 16 took {fl['s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in fl['parts_s'].items()} })")
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
+        if r["name"] in fl["launches"]:
+            r["launches_fleet"] = fl["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],
@@ -3595,6 +4203,8 @@ def main() -> int:
     for entry, r in zip(line, records):
         if "launches_telemetry" in r:  # phase 15's K1/K4 launches, beside the main path's
             entry["launches_telemetry"] = r["launches_telemetry"]
+        if "launches_fleet" in r:  # phase 16's K1/K4 launches on the fleet path
+            entry["launches_fleet"] = r["launches_fleet"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

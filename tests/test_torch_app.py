@@ -22,6 +22,7 @@ from aiohttp.test_utils import TestClient, TestServer
 import unionml_tpu as J
 import unionml_tpu_torch as T
 from unionml_tpu.serving import serving_app as j_serving_app
+from unionml_tpu_torch.serving import FleetConfig
 from unionml_tpu_torch.serving import serving_app as t_serving_app
 from unionml_tpu_torch.serving.app import jsonable
 
@@ -139,8 +140,10 @@ def test_app_options_not_ported_raise():
         built = t_serving_app(app, resident=False, device="cpu", **kw)
         routes = {r.resource.canonical for r in built.router.routes()}
         assert {"/metrics", "/trace/{request_id}", "/traces/recent"} <= routes and built["telemetry"] is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_serving_app(app, generator=object(), generate_replicas=2, device="cpu")
+    # the fleet is wired too: generate_replicas > 1 builds (its engines are made at startup)
+    built = t_serving_app(app, resident=False, generator=object(), generate_replicas=2, device="cpu",
+                          generate_fleet_config=FleetConfig(policy="random"))
+    assert "/generate" in {r.resource.canonical for r in built.router.routes()}
     with pytest.raises(TypeError, match="unexpected keyword"):
         t_serving_app(app, no_such_option=1, device="cpu")
     with pytest.raises(TypeError, match="Unsupported app type"):

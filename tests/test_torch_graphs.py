@@ -418,3 +418,58 @@ def test_preempt_lands_while_a_captured_burst_is_in_flight(cuda):
     assert got == want
     alone = DecodeEngine(model, num_slots=2, max_len=64, prefill_buckets=(8, 16, 32), block_size=4, device=cuda)
     assert inter == alone.generate(inter_prompt, 6, lookahead=8)
+
+
+@pytest.mark.cuda
+def test_engines_on_one_card_replay_their_graphs_at_once(cuda):
+    """Two engines on the card, their burst graphs recorded by one thread,
+    then decoding at once on two threads (a fleet's replicas): each engine's
+    greedy streams equal those it decodes alone. Each engine records its
+    graphs on its own stream; on one shared capture stream the two graphs
+    shared cuBLAS's workspace (one per thread and stream) and overlapping
+    replays corrupted each other's products."""
+    import threading
+
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    # GPT-2 small's widths (head_dim 64), two layers; f32, so streams compare exactly
+    model = init_gpt(GPTConfig(num_layers=2, dtype=torch.float32, dropout=0.0), std=0.3, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 50257, int(n)).tolist() for n in rng.integers(8, 60, 16)]
+
+    def engine():
+        eng = DecodeEngine(model, num_slots=8, max_len=256, prefill_buckets=(64,), block_size=16, device=cuda)
+        eng.admit_many([(prompts[0], 8)])  # records the lookahead-8 burst graph on this thread
+        while eng.num_active or eng.has_pending_events:
+            eng.step(8)
+        return eng
+
+    def serve(eng, batch):
+        streams, owner = {i: [] for i in batch}, {}
+        for slot, i in zip(eng.admit_many([(prompts[i], 48) for i in batch]), batch):
+            owner[slot] = i
+        while eng.num_active or eng.has_pending_events:
+            for ev in eng.step(8):
+                if ev.emit:
+                    streams[owner[ev.slot]].append(ev.token)
+        return [streams[i] for i in batch]
+
+    halves = [list(range(0, 8)), list(range(8, 16))]
+    engines = [engine(), engine()]
+    alone = [serve(eng, half) for eng, half in zip(engines, halves)]
+    together = [None, None]
+
+    def worker(k):
+        with engines[k]._on_stream():
+            together[k] = [serve(engines[k], halves[k]) for _ in range(3)]
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for k in (0, 1):
+        assert together[k] == [alone[k]] * 3
+        assert engines[k].capture_failures == 0

@@ -29,9 +29,10 @@ and every later random draw on the device fails. An error of the
 function's own in a warm-up run propagates unchanged.
 
 The recording launches nothing, so the kernel launch counts
-(:mod:`unionml_tpu_torch.kernels`) its wrappers add are taken back and kept
-on the graph, which adds them at every replay: a count is then the launches
-that really ran, eager or replayed.
+(:mod:`unionml_tpu_torch.kernels`) its wrappers add on the capturing thread
+are taken back and kept on the graph, which adds them at every replay: a count
+is then the launches that really ran, eager or replayed, whichever thread ran
+them.
 """
 
 import threading
@@ -177,7 +178,7 @@ class CapturedGraph:
                     buf.copy_(leaves[slot])
             self._graph.replay()
             for name, count in self.launches.items():
-                kernels.launches[name] += count
+                kernels.note_launch(name, count)
             out = _pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, self._output)
             self._done = torch.cuda.Event()
             self._done.record(stream)
@@ -186,7 +187,8 @@ class CapturedGraph:
 
 
 def capture(fn: Callable, args: Tuple, kwargs: dict, *, device: Optional[torch.device] = None,
-            generators: Tuple[torch.Generator, ...] = ()) -> CapturedGraph:
+            generators: Tuple[torch.Generator, ...] = (), stream: Optional["torch.cuda.Stream"] = None
+            ) -> CapturedGraph:
     """Record ``fn(*args, **kwargs)`` as a CUDA graph (see the module's
     docstring). The returned graph has not run yet: call it to replay.
 
@@ -195,6 +197,11 @@ def capture(fn: Callable, args: Tuple, kwargs: dict, *, device: Optional[torch.d
     an engine's static buffers). ``generators`` are the ``torch.Generator``
     objects the function draws from besides the default one: each is
     registered with the graph, so every replay draws fresh numbers from it.
+    ``stream`` is the stream to record on (default: PyTorch's one capture
+    stream). Graphs that replay at once on different streams must be
+    recorded on different streams: cuBLAS takes its workspace per (thread,
+    stream), so two graphs recorded by one thread on one stream read and
+    write the same workspace, and overlapping replays corrupt each other.
 
     :raises CaptureError: the call cannot be recorded (see the module's
         docstring); nothing of the graph is kept.
@@ -232,20 +239,16 @@ def capture(fn: Callable, args: Tuple, kwargs: dict, *, device: Optional[torch.d
         graph = torch.cuda.CUDAGraph()
         for generator in generators:
             graph.register_generator_state(generator)
-        before = dict(kernels.launches)
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            # the recording launched nothing: its counts (this thread's only)
+            # move to the graph
+            with kernels.recording() as recorded, torch.cuda.graph(graph, stream=stream,
+                                                                   capture_error_mode="thread_local"):
                 output = run()
         except Exception as exc:
             raise CaptureError(f"capturing {getattr(fn, '__name__', fn)} failed: {type(exc).__name__}: {exc}") from exc
-        finally:
-            # the recording launched nothing: its counts move to the graph
-            recorded = {name: kernels.launches[name] - before.get(name, 0) for name in kernels.launches}
-            for name, count in recorded.items():
-                kernels.launches[name] -= count
         capture_ms = (time.perf_counter() - t0) * 1e3
-    return CapturedGraph(graph, spec, len(leaves), slots, static, output, capture_ms, device,
-                         {name: count for name, count in recorded.items() if count})
+    return CapturedGraph(graph, spec, len(leaves), slots, static, output, capture_ms, device, recorded)
 
 
 class GraphCache:

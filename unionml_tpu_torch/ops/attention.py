@@ -373,7 +373,7 @@ def _flash_forward(q, k, v, kv_lens, causal: bool, scale: float, return_lse: boo
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         _build.check(status, "flash_fwd")
-        kernels.launches["flash_fwd"] += 1
+        kernels.note_launch("flash_fwd")
     return out, lse, ranges
 
 
@@ -496,9 +496,9 @@ def _flash_backward(q, k, v, out, lse, d_out, kv_lens, causal: bool, scale: floa
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               _ptr(lens), _ptr(ids))
     _build.check(lib.flash_bwd_dq(*inputs, _ptr(q_map), dq.data_ptr(), *common), "flash_bwd_dq")
-    kernels.launches["flash_bwd_dq"] += 1
+    kernels.note_launch("flash_bwd_dq")
     _build.check(lib.flash_bwd_dkv(*inputs, _ptr(k_map), dk.data_ptr(), dv.data_ptr(), *common), "flash_bwd_dkv")
-    kernels.launches["flash_bwd_dkv"] += 1
+    kernels.note_launch("flash_bwd_dkv")
     return dq, dk, dv
 
 

@@ -221,7 +221,7 @@ def paged_attention(
             head_dim ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )
         _build.check(status, "paged_attention")
-        kernels.launches["paged_attention"] += 1
+        kernels.note_launch("paged_attention")
     return out
 
 

@@ -7,9 +7,11 @@ the ``/generate`` route, its radix prefix cache
 (:mod:`unionml_tpu_torch.serving.prefix_cache`), fault
 injection and supervised recovery (:mod:`unionml_tpu_torch.serving.faults`,
 :mod:`unionml_tpu_torch.serving.supervisor`), speculative decoding on that
-engine (:mod:`unionml_tpu_torch.serving.speculative`), and the telemetry
+engine (:mod:`unionml_tpu_torch.serving.speculative`), the telemetry
 behind ``/metrics`` and ``/trace`` (:mod:`unionml_tpu_torch.serving.telemetry`,
-:mod:`unionml_tpu_torch.serving.metrics`, :mod:`unionml_tpu_torch.serving.slo`)."""
+:mod:`unionml_tpu_torch.serving.metrics`, :mod:`unionml_tpu_torch.serving.slo`),
+and the engine fleet behind its prefix-affinity router
+(:mod:`unionml_tpu_torch.serving.fleet`)."""
 
 from typing import Any, Optional
 
@@ -23,6 +25,7 @@ from unionml_tpu_torch.serving.continuous import (
     StepEvent,
 )
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultError, FaultPlan
+from unionml_tpu_torch.serving.fleet import EngineFleet, FleetConfig, Router, split_devices
 from unionml_tpu_torch.serving.metrics import MetricsRegistry
 from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.resident import ResidentPredictor
@@ -81,15 +84,18 @@ __all__ = [
     "DeadlineInfeasibleError",
     "DecodeEngine",
     "EngineFailure",
+    "EngineFleet",
     "EngineSupervisor",
     "FaultError",
     "FaultPlan",
+    "FleetConfig",
     "MetricsRegistry",
     "PreemptedSlot",
     "PrefixCache",
     "QueueFullError",
     "RequestBatcher",
     "ResidentPredictor",
+    "Router",
     "SLOConfig",
     "SLOObjective",
     "SLOScheduler",
@@ -107,4 +113,5 @@ __all__ = [
     "parse_priority",
     "run_app",
     "serving_app",
+    "split_devices",
 ]

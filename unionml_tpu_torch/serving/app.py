@@ -11,7 +11,9 @@ per padded request shape) and, for row-list payloads, the coalescing
 
 ``POST /generate`` serves a decoder through
 :class:`~unionml_tpu_torch.serving.continuous.ContinuousBatcher` (or a
-:class:`~unionml_tpu_torch.serving.speculative.SpeculativeBatcher`) with the
+:class:`~unionml_tpu_torch.serving.speculative.SpeculativeBatcher`, or
+``generate_replicas`` engines behind an
+:class:`~unionml_tpu_torch.serving.fleet.EngineFleet`) with the
 JAX route's status contract: ``priority`` and ``deadline_ms`` in the payload,
 400 for an invalid request, 429/503 for sheds and 504 for an expired
 deadline (with a jittered ``Retry-After``), 500/503 for engine failures, all
@@ -24,9 +26,8 @@ import no ``aiohttp``: the routes call them, and so can a caller without
 ``aiohttp``.
 
 ``aiohttp`` is imported inside :func:`build_aiohttp_app` and :func:`run_app`
-only. Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the fleet (``generate_replicas > 1``, ``generate_fleet_config``: Queue 1
-item 11), and remote model resolution (M14).
+only. Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
+remote model resolution (M14).
 """
 
 import dataclasses
@@ -174,8 +175,8 @@ def parse_generate_payload(payload: Any, gen: Any) -> GenerateRequest:
     """Check a ``/generate`` payload against generator ``gen`` in the JAX
     route's order; raises :class:`PayloadError` with its message and reason.
     Every prompt is checked before any is scheduled. ``session_id`` is
-    checked and, for a solo generator, not forwarded (stickiness is the
-    fleet's, ROADMAP Queue 1 item 11)."""
+    checked and forwarded to a fleet only (stickiness is the router's; a solo
+    generator takes no such keyword)."""
     if not isinstance(payload, dict):
         raise PayloadError("prompt_ids (one prompt) or prompts (a batch) must be supplied.")
     prompt_ids, prompts = payload.get("prompt_ids"), payload.get("prompts")
@@ -213,6 +214,8 @@ def parse_generate_payload(payload: Any, gen: Any) -> GenerateRequest:
         session_id = payload["session_id"]
         if not isinstance(session_id, str) or not session_id:
             raise PayloadError(f"session_id must be a non-empty string, got {session_id!r}")
+        if getattr(gen, "is_fleet", False):
+            slo["session_id"] = session_id
     try:
         temp, top_k, top_p = validate_sampling(
             payload.get("temperature"),
@@ -239,7 +242,15 @@ def generation_stats(gen: Any, telemetry: Any = None) -> Dict[str, Any]:
     """The ``GET /stats`` → ``generation`` block: engine counters, then
     ``speculation``, ``pipeline``, ``prefix_cache`` (with the pool's bytes and
     ``prefill_tokens_computed``), ``scheduler`` and ``robustness`` where the
-    generator has them, and with ``telemetry`` its per-class ``slo`` report."""
+    generator has them, and with ``telemetry`` its per-class ``slo`` report.
+    A fleet answers with its own block (aggregate counters and ``fleet``: the
+    router, per-replica scheduler, supervisor and prefix-cache state, and the
+    failover counts)."""
+    if getattr(gen, "is_fleet", False):
+        out = gen.stats()
+        if telemetry is not None:
+            out["slo"] = telemetry.slo.report()
+        return out
     engine = gen.engine
     out: Dict[str, Any] = {
         "num_slots": engine.num_slots,
@@ -312,7 +323,11 @@ def traces_recent_answer(telemetry: Any, n: Any = 50) -> Tuple[int, Dict[str, An
 def healthz_body(gen: Any, model: Any) -> Tuple[int, Dict[str, Any]]:
     """``GET /healthz``: the supervisor's state machine (200 while
     ``ok``/``degraded``, 503 while ``rebuilding``/``failed``, with the last
-    fault); without a supervised generator, the model artifact alone."""
+    fault); without a supervised generator, the model artifact alone. A fleet
+    reports each replica's state and serves (200) while any replica does."""
+    if gen is not None and getattr(gen, "is_fleet", False):
+        body = gen.healthz()
+        return (200 if body["state"] in ("ok", "degraded") else 503), body
     sup = getattr(gen, "supervisor", None) if gen is not None else None
     if sup is None:
         state = "ok" if model.artifact is not None else "failed"
@@ -326,23 +341,65 @@ def healthz_body(gen: Any, model: Any) -> Tuple[int, Dict[str, Any]]:
 
 def build_generator(generator: Any, *, lookahead: int = 1, prefix_cache_blocks: int = 0,
                     prefix_block_size: int = 16, scheduler: Any = None, supervisor: Any = None,
-                    telemetry: Any = None, device: Any = "cuda") -> Any:
-    """What ``/generate`` serves: a prebuilt batcher as it is, or a bare
-    :class:`~unionml_tpu_torch.serving.continuous.DecodeEngine` (or a zero-arg
-    callable returning either) wrapped in a ``ContinuousBatcher``.
+                    telemetry: Any = None, replicas: int = 1, fleet_config: Any = None,
+                    device: Any = "cuda") -> Any:
+    """What ``/generate`` serves: a prebuilt batcher or fleet as it is, or a
+    bare :class:`~unionml_tpu_torch.serving.continuous.DecodeEngine` (or a
+    zero-arg callable returning either) wrapped in a ``ContinuousBatcher``.
     ``prefix_cache_blocks`` turns the engine's prefix cache on unless it has
     one; ``supervisor=None`` builds an ``EngineSupervisor`` and ``False``
-    serves unsupervised. ``telemetry`` is attached to a batcher that has none
-    (a caller's own wins)."""
+    serves unsupervised. ``telemetry`` is attached to a batcher or fleet that
+    has none (a caller's own wins).
+
+    ``replicas > 1`` with a factory (JAX ``app.py:262-310``): the factory
+    builds one bare engine per replica (called with ``replica=i`` when its
+    signature takes it; on one card each engine runs on its own CUDA stream)
+    and an :class:`~unionml_tpu_torch.serving.fleet.EngineFleet` with one
+    supervisor and one scheduler per replica serves them, routed by
+    ``fleet_config``. ``supervisor`` must then be None and ``scheduler`` a
+    ``SchedulerConfig``."""
+    import inspect
+
+    from unionml_tpu_torch._device import resolve_device
     from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
+    from unionml_tpu_torch.serving.fleet import EngineFleet
+    from unionml_tpu_torch.serving.scheduler import SLOScheduler
     from unionml_tpu_torch.serving.speculative import SpeculativeBatcher
     from unionml_tpu_torch.serving.supervisor import EngineSupervisor
 
-    prebuilt = isinstance(generator, (DecodeEngine, ContinuousBatcher, SpeculativeBatcher))
+    def enable_cache(engine):
+        if prefix_cache_blocks and isinstance(engine, DecodeEngine) and engine.prefix_cache is None:
+            engine.enable_prefix_cache(prefix_cache_blocks, prefix_block_size)
+
+    prebuilt = isinstance(generator, (DecodeEngine, ContinuousBatcher, SpeculativeBatcher, EngineFleet))
+    if int(replicas) > 1 and not prebuilt:
+        if supervisor is not None:
+            # False would drop the failover the fleet stands on, and one
+            # supervisor cannot watch several engines (EngineFleet takes supervisors=)
+            raise ValueError("generate_replicas > 1 builds one supervisor per replica; "
+                             "generate_supervisor must be left None")
+        if isinstance(scheduler, SLOScheduler):
+            raise ValueError("generate_replicas > 1 needs a SchedulerConfig (each replica owns its own "
+                             "scheduler), not an SLOScheduler")
+        takes_replica = "replica" in inspect.signature(generator).parameters
+        kind = resolve_device(device).type
+        engines = []
+        for i in range(int(replicas)):
+            engine = generator(replica=i) if takes_replica else generator()
+            if not isinstance(engine, DecodeEngine):
+                raise TypeError(f"fleet generator must return a DecodeEngine per replica, got {type(engine)!r}")
+            if engine.device.type != kind:
+                raise ValueError(f"replica {i}'s engine runs on {engine.device}, the app's device is {device}")
+            enable_cache(engine)
+            engines.append(engine)
+        return EngineFleet(engines, config=fleet_config, lookahead=lookahead, scheduler=scheduler,
+                           telemetry=telemetry)
     built = generator() if callable(generator) and not prebuilt else generator
-    engine = built.engine if isinstance(built, ContinuousBatcher) else built
-    if prefix_cache_blocks and isinstance(engine, DecodeEngine) and engine.prefix_cache is None:
-        engine.enable_prefix_cache(prefix_cache_blocks, prefix_block_size)
+    if isinstance(built, EngineFleet):
+        for rep in built.replicas:
+            enable_cache(rep.engine)
+    else:
+        enable_cache(built.engine if isinstance(built, ContinuousBatcher) else built)
     if isinstance(built, DecodeEngine):
         if supervisor is None:
             supervisor = EngineSupervisor()
@@ -350,7 +407,7 @@ def build_generator(generator: Any, *, lookahead: int = 1, prefix_cache_blocks: 
             supervisor = None
         built = ContinuousBatcher(built, lookahead=lookahead, scheduler=scheduler, supervisor=supervisor,
                                   device=device)
-    if telemetry is not None and isinstance(built, ContinuousBatcher):
+    if telemetry is not None and isinstance(built, (ContinuousBatcher, EngineFleet)):
         built.attach_telemetry(telemetry)
     return built
 
@@ -418,12 +475,13 @@ def build_aiohttp_app(
     to. Every ``/generate`` answer carries a ``request_id``; for one prompt it
     keys the trace.
 
-    ``generate_replicas > 1`` and ``generate_fleet_config`` raise
-    ``NotImplementedError`` (the fleet, Queue 1 item 11).
+    ``generate_replicas > 1`` serves the factory's engines behind an
+    :class:`~unionml_tpu_torch.serving.fleet.EngineFleet` routed by
+    ``generate_fleet_config`` (a
+    :class:`~unionml_tpu_torch.serving.fleet.FleetConfig`; see
+    :func:`build_generator`): ``/generate`` then honours ``session_id``, and
+    ``/healthz`` and ``/stats`` answer per replica.
     """
-    if int(generate_replicas) > 1 or generate_fleet_config is not None:
-        raise NotImplementedError("generate_replicas > 1 / generate_fleet_config (the engine fleet) is not "
-                                  "ported yet (ROADMAP: Queue 1 item 11, the fleet)")
     from aiohttp import web
 
     app = web.Application()
@@ -463,7 +521,8 @@ def build_aiohttp_app(
             built = build_generator(
                 generator, lookahead=generate_lookahead, prefix_cache_blocks=generate_prefix_cache_blocks,
                 prefix_block_size=generate_prefix_block_size, scheduler=generate_scheduler,
-                supervisor=generate_supervisor, telemetry=telemetry, device=device)
+                supervisor=generate_supervisor, telemetry=telemetry, replicas=generate_replicas,
+                fleet_config=generate_fleet_config, device=device)
             app["telemetry"] = getattr(built, "_telemetry", None) or telemetry
             app["continuous_batcher"] = built
         logger.info("Serving app ready (model=%s).", model.name)

@@ -62,17 +62,26 @@ free slots between steps and evicted when they finish.
   one host ``is not None`` branch; a burst's decode timing reads only the
   stamps its fetch already took and the host arrays it already produced.
 
+- Engines that share one card (the replicas of
+  :class:`~unionml_tpu_torch.serving.fleet.EngineFleet`) each issue their
+  device work on their own CUDA stream (:attr:`DecodeEngine.stream`): a
+  replica's fetch waits for its own bursts, not for another replica's
+  prefill. A ``ContinuousBatcher`` whose engine died for good hands its
+  tickets to the fleet (:attr:`ContinuousBatcher.on_tickets_orphaned`,
+  :meth:`ContinuousBatcher.adopt_ticket`).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
-where it is reachable): mesh sharding, weight-only int8 ``quantize``, the
-dense ``paged=False`` engine, and fleet adoption.
+where it is reachable): mesh sharding, weight-only int8 ``quantize``, and the
+dense ``paged=False`` engine.
 """
 
 import asyncio
 import contextlib
 import dataclasses
+import functools
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +125,18 @@ def block_demand(prompt_len: int, budget: int, *, max_len: int, block_size: int)
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+def on_engine_stream(method):
+    """Run an engine entry point on the engine's own CUDA stream
+    (:meth:`DecodeEngine._on_stream`)."""
+
+    @functools.wraps(method)
+    def guarded(self, *args, **kwargs):
+        with self._on_stream():
+            return method(self, *args, **kwargs)
+
+    return guarded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,6 +275,10 @@ class DecodeEngine:
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
+        #: the engine's own CUDA stream (None on the CPU): every entry point
+        #: issues its device work there, so a fetch waits for this engine's
+        #: bursts only, not for another engine's work on the same card
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         for value, what, item in ((quantize, "weight-only int8 (quantize)", "Queue 1, weight-only int8"),
                                   (mesh, "mesh", "M12")):
             if value:
@@ -400,15 +425,19 @@ class DecodeEngine:
         #: device programs by key: CUDA graphs on the card (the counterpart of
         #: JAX's compiled step programs), empty on the CPU
         self._step_fns: Dict[Any, Any] = {}
-        #: graphs captured, and graphs dropped because their buffers were reallocated
+        #: graphs captured, graphs dropped because their buffers were
+        #: reallocated, and captures that failed (each fails the engine: no
+        #: burst ever runs eagerly in a graph's place on the card)
         self.graph_captures = 0
         self.graphs_dropped = 0
+        self.capture_failures = 0
         self.step_dispatches = 0
         self.idle_dispatches = 0
         self.ema_host_gap_ms: Optional[float] = None
         self.ema_fetch_block_ms: Optional[float] = None
         self._last_fetch_done: Optional[float] = None
-        self._init_device_state()
+        with self._on_stream():
+            self._init_device_state()
         if prefix_cache_blocks:
             self.enable_prefix_cache(prefix_cache_blocks, cache_generated=prefix_cache_generated)
 
@@ -439,6 +468,29 @@ class DecodeEngine:
         self._generator.manual_seed(self._seed + self._resets)
 
     @contextlib.contextmanager
+    def _on_stream(self):
+        """Issue the block's device work on :attr:`stream`. Entered from
+        another stream (a caller driving the engine from its own thread), the
+        engine's stream first waits for the caller's work, and the caller's
+        stream waits for the block's work at the end: the order a single
+        stream would give, without a host sync. A no-op on the CPU and on the
+        engine's own stream (the batcher's worker runs there)."""
+        stream = self.stream
+        if stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        if caller == stream:
+            yield
+            return
+        stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(stream):
+                yield
+        finally:
+            caller.wait_stream(stream)
+
+    @contextlib.contextmanager
     def _device_write(self):
         """Mark the shared device state poisoned when an in-place write into
         it (pool, tables, lengths, logits, slot mirrors) fails part-way: the
@@ -449,6 +501,7 @@ class DecodeEngine:
             self._device_poisoned = True
             raise
 
+    @on_engine_stream
     def enable_prefix_cache(self, num_blocks: int, block_size: Optional[int] = None, *,
                             cache_generated: bool = False) -> None:
         """Turn the prefix cache on: the allocator already is the radix index,
@@ -765,6 +818,7 @@ class DecodeEngine:
             [(prompt_ids, max_new_tokens, dict(temperature=temperature, top_k=top_k, top_p=top_p))]
         )[0]
 
+    @on_engine_stream
     def admit_many(self, requests: Sequence[Tuple]) -> List[int]:
         """Admit ``(prompt_ids, max_new_tokens[, sampling_dict])`` requests with
         batched bucket prefills; returns the slot of each request, in order.
@@ -1099,6 +1153,7 @@ class DecodeEngine:
         }
         return True
 
+    @on_engine_stream
     def _advance_partials(self) -> None:
         """Run ONE chunk of every in-progress chunked prefill (eagerly, between
         decode bursts); completed prefills seal their length and logits and
@@ -1194,7 +1249,13 @@ class DecodeEngine:
             states = [g.get_state() for g in generators]
             self._active_dev.zero_()
             try:
-                graph = _graphs.capture(fn, (), {}, device=self.device, generators=tuple(generators))
+                # recorded on the engine's own stream, so its cuBLAS workspace
+                # is its own (engines on one card replay at once)
+                graph = _graphs.capture(fn, (), {}, device=self.device, generators=tuple(generators),
+                                        stream=self.stream)
+            except _graphs.CaptureError:
+                self.capture_failures += 1
+                raise
             finally:
                 self._active_dev.copy_(active)
                 # the warm-up runs drew from the generators: putting their
@@ -1297,6 +1358,7 @@ class DecodeEngine:
                 telemetry.decode_tokens(rid, n, at=done)
         return events
 
+    @on_engine_stream
     def step(self, lookahead: int = 1) -> List[StepEvent]:
         """Advance chunked prefills by one chunk, then decode up to
         ``lookahead`` steps for every active slot in ONE device program with
@@ -1425,6 +1487,7 @@ class DecodeEngine:
             # mask: its replay must not credit those tokens to a new occupant
             self._inflight_skip.add(slot)
 
+    @on_engine_stream
     def cancel(self, slot: int) -> None:
         """Deactivate one slot (its request is abandoned; the slot is reusable).
         A burst in flight is fetched first, so its tokens apply under the slot
@@ -1436,6 +1499,7 @@ class DecodeEngine:
         self._clear_slot(slot)
         self._drop_rid(slot)
 
+    @on_engine_stream
     def abort_all(self) -> None:
         """Deactivate every slot and return every block. A burst in flight is
         discarded, not fetched: every request it could emit for is abandoned.
@@ -1458,6 +1522,7 @@ class DecodeEngine:
             self._failed = True
             logger.exception("resetting the slot mirrors failed; engine marked failed")
 
+    @on_engine_stream
     def preempt(self, slot: int) -> Optional[PreemptedSlot]:
         """Checkpoint a RUNNING slot into the prefix cache and free it.
 
@@ -1617,6 +1682,7 @@ class DecodeEngine:
             self._release_prefix(slot)
         self._slot_tokens.clear()
 
+    @on_engine_stream
     def rebuild(self, *, resume: bool = True) -> None:
         """Reallocate the device state (pool, tables, slot buffers, the
         generator) from the host-held parameters, dropping every CUDA graph;
@@ -1653,6 +1719,7 @@ class DecodeEngine:
         self.rebuilds += 1
         self.last_rebuild_ms = (time.perf_counter() - t0) * 1e3
 
+    @on_engine_stream
     def reset(self) -> None:
         """Reallocate the device state and clear every slot, the radix index
         and pins included; in-flight requests are abandoned and the generator
@@ -1675,6 +1742,7 @@ class DecodeEngine:
         self._device_poisoned = False
         self._failed = False
 
+    @on_engine_stream
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int, *, lookahead: int = 1,
                  temperature: Optional[float] = None, top_k: int = 0, top_p: float = 1.0) -> List[int]:
         """Run one request to completion on an otherwise idle engine and return
@@ -1822,6 +1890,11 @@ class ContinuousBatcher:
         #: drops them, so only it mutates the radix index
         self._orphans: List[PreemptedSlot] = []  # guarded-by: _lock
         self._worker: Optional[threading.Thread] = None
+        #: the fleet's hand-off: called on the worker thread with this
+        #: batcher's tickets once its engine is dead for good (every rebuild
+        #: failed); returns the tickets no other replica took, which then fail
+        #: with the supervisor's unavailable error. None: all of them fail.
+        self.on_tickets_orphaned: Optional[Callable[[List[Ticket]], Sequence[Ticket]]] = None
         if supervisor is not None:
             supervisor.attach(engine)
 
@@ -1873,9 +1946,7 @@ class ContinuousBatcher:
                     raise EngineFailure("batcher is closed", reason="batcher_closed")
                 # a shed raises here, on the caller's side, while the close check holds
                 displaced = self.scheduler.submit(ticket)
-                if self._worker is None:
-                    self._worker = threading.Thread(target=self._run, name="continuous-batcher", daemon=True)
-                    self._worker.start()
+                self._ensure_worker()
         except Exception as exc:
             # recorded outside both locks (telemetry is lock-leaf)
             self._tel_end(ticket, "shed", getattr(exc, "reason", "rejected"))
@@ -1884,6 +1955,31 @@ class ContinuousBatcher:
             # displaced tickets are never resumes: no pin to drop
             self._tel_end(displaced, "shed", "displaced")
             self._deliver(displaced.sink, "fail", displaced.shed_exc)
+        self._work.set()
+
+    def _ensure_worker(self) -> None:
+        # guarded-by: _lock (both callers hold it)
+        if self._worker is None:
+            self._worker = threading.Thread(target=self._run, name="continuous-batcher", daemon=True)
+            self._worker.start()
+
+    def adopt_ticket(self, ticket: Ticket) -> None:
+        """Take another batcher's orphaned ticket (fleet failover,
+        ``continuous.py:3042-3062``). Its prompt is already the transcript,
+        its budget the unspent rest, its class, deadline and sink untouched,
+        and its resume pin was released on the dead engine (pins never cross
+        engines: this one prefills afresh, shortened by what its own cache
+        holds). Host work only: the ticket requeues through the scheduler's
+        salvage path, past the queue bound. Raises ``ValueError`` for a prompt
+        this engine cannot take and ``EngineFailure`` when this batcher is
+        closed, so the caller tries the next replica."""
+        prompt = np.asarray(ticket.prompt, dtype=np.int32).reshape(-1)
+        self._engine.bucket_for(prompt.size)
+        with self._lock:
+            if self._closed:
+                raise EngineFailure("batcher is closed", reason="batcher_closed")
+            self.scheduler.requeue(ticket, preemption=False)
+            self._ensure_worker()
         self._work.set()
 
     async def generate(self, prompt_ids: Sequence[int], max_new_tokens: int, *, priority: Any = None,
@@ -2195,10 +2291,12 @@ class ContinuousBatcher:
         class and deadline unchanged) re-queued once the engine is rebuilt; a
         request that cannot resume fails with ``request_unrecoverable``; when
         every rebuild attempt fails, everything (resumes, ``pending``, the
-        queue) fails with the supervisor's structured error. Without one:
-        every request in flight fails, structured, and the salvage's pins are
-        dropped. ``pending`` holds popped tickets of a failed admission; they
-        requeue untouched.
+        queue) is handed to :attr:`on_tickets_orphaned` (the fleet re-routes
+        them to surviving replicas), each resume pin released on this engine
+        first; what no replica takes fails with the supervisor's structured
+        error. Without a supervisor: every request in flight fails,
+        structured, and the salvage's pins are dropped. ``pending`` holds
+        popped tickets of a failed admission; they requeue untouched.
         """
         engine = self._engine
         engine.note_external_failure()
@@ -2260,10 +2358,26 @@ class ContinuousBatcher:
             sup.note_rebuilt()  # the engine rebuilt itself in place
             rebuilt = True
         if not rebuilt:
-            # handing orphans to another engine is fleet adoption (ROADMAP item 11)
-            unavailable = sup.unavailable_error()
+            # dead for good (``continuous.py:3529-3560``): every resume pin
+            # points into this engine's pool, which no other engine can read,
+            # so each is released here; the transcript-as-prompt carries the
+            # resume to whichever replica adopts it
+            orphans: List[Ticket] = []
             for ticket in resumes + list(pending) + self.scheduler.drain():
                 self._release_ticket(ticket)
+                orphans.append(ticket)
+            unplaced: Sequence[Ticket] = orphans
+            handoff = self.on_tickets_orphaned
+            if handoff is not None and orphans:
+                try:
+                    unplaced = list(handoff(orphans))
+                except Exception:
+                    logger.exception("orphaned-ticket hand-off failed; failing all tickets")
+                    unplaced = orphans
+            if len(orphans) > len(unplaced):
+                sup.note_recovered(len(orphans) - len(unplaced))
+            unavailable = sup.unavailable_error()
+            for ticket in unplaced:
                 sup.note_request_failed()
                 self._tel_end(ticket, "error", unavailable.reason)
                 self._deliver(ticket.sink, "fail", unavailable)
@@ -2275,6 +2389,11 @@ class ContinuousBatcher:
         self._work.set()
 
     def _run(self) -> None:
+        # the worker issues its engine's device work on the engine's stream
+        with self._engine._on_stream():
+            self._loop()
+
+    def _loop(self) -> None:
         engine = self._engine
         while True:
             with self._lock:

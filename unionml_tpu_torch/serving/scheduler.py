@@ -456,8 +456,9 @@ class SLOScheduler:
             return len(self._queued)
 
     def load_signal(self) -> Dict[str, Any]:
-        """The load signal a fleet router and an autoscaler score from (both
-        are still to port, ROADMAP Queue 1 item 11): queue depth plus the global and per-class queue-wait EMAs
+        """The load signal the fleet's router (``EngineFleet._candidates``)
+        and the simulator's autoscaler score from: queue depth plus the
+        global and per-class queue-wait EMAs
         (taken in one lock hold so the numbers are mutually consistent),
         and — when the owning batcher wired a paged engine's
         ``pool_signal`` provider — the block-pool occupancy under

@@ -19,7 +19,7 @@ The tracker is deliberately engine-free pure host code with an injectable
 clock on every method (``now=``), so the SAME object scores the live
 ``/metrics`` + ``/stats`` surface (fed by :class:`~unionml_tpu_torch.serving.
 telemetry.Telemetry.end_trace`) and the fleet simulator's virtual-clock
-replay/synthetic runs (the JAX package's ``sim``, not ported yet) — one definition of "meeting
+replay/synthetic runs (:mod:`unionml_tpu_torch.sim`) — one definition of "meeting
 the SLO" everywhere, which is what makes the simulator's golden-replay
 equality check meaningful.
 

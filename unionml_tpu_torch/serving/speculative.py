@@ -48,7 +48,7 @@ import torch
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch.models.gpt import init_block_pool, kv_pool_bytes, paged_commit_chunk
 from unionml_tpu_torch.ops.sampling import keyed_select
-from unionml_tpu_torch.serving.continuous import DecodeEngine, StepEvent, _Burst
+from unionml_tpu_torch.serving.continuous import DecodeEngine, StepEvent, _Burst, on_engine_stream
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultPlan
 from unionml_tpu_torch.serving.scheduler import DeadlineExceededError, SchedulerConfig, SLOScheduler, Ticket
 
@@ -174,6 +174,7 @@ class SpeculativeEngine(DecodeEngine):
         self._reject_unsupported_sampling(sampling)
         return super().validate_request(prompt_ids, max_new_tokens, **sampling)
 
+    @on_engine_stream
     def admit_many(self, requests: Sequence[Tuple]) -> List[int]:
         """Peel ``speculative``/``seed``/``gamma`` off each sampling dict, admit
         through the base engine, then arm every admitted slot: its γ, EMA,
