@@ -267,6 +267,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    warm pass (printed, not gated). The fleet path's K1/K4 launches ride the
    kernels line as ``launches_fleet``.
 
+17. the sparse (mixture-of-experts) GPT (``models/moe.py``, ``parallel/ep.py``):
+   GPT-2 small widths with every second block sparse (8 experts, top-2,
+   capacity factor 1.25; expert weights bf16), seeded random weights. (a)
+   ``MoEMlp`` bf16 and f32 against its plain version (the one-hot einsum
+   formulation, f32 on the card) on the same gates: capacity mode at one
+   training step's 8192 tokens with a router biased toward expert 0, so
+   choices really drop (the drop count printed, the dropped sets equal
+   exactly), and dropless at a chunk's 256 and a decode step's 8 tokens;
+   the index dispatch's forward ms beside the one-hot's. (b) A moe-textgen
+   shaped app (``build_moe_app``) through ``Model.train``: ``fit_lm(moe_aux=
+   True, pack=True)`` for 10 steps at B8 S1024 (K2/K3 once per layer and
+   step, K1 at least that); the first 3 steps against the plain path
+   (losses within 1e-2 relative, ``grad_norm`` within 2 %); the router
+   losses, a step's wall against device ms and idle share; ``Model.predict``
+   (ragged prompts through ``generate``, dropless) equal to ``generate``
+   called directly. (c) What ``model.serve(generator=...)`` builds for
+   ``/generate`` (``build_generator``: lookahead 8, supervised, a self-draft
+   ``SpeculativeEngine`` with 8 slots and the prefix cache) through the
+   route's plain handler (``parse_generate_payload``, ``stream``): 8
+   requests sharing a 128-token prompt (the first alone, then 7 at once that
+   hit it; the last ``interactive``, so it speculates; then a warm pass of
+   the same requests for the timings), 32 new tokens each,
+   bf16 over the int8 pool (streams against the plain path's engine under
+   the 1e-2 gap rule) and f32 over an f32 pool (identical); tokens/s, TTFT
+   p50/p95 and launches. A 1-step decode burst (8 slots) of the sparse model
+   and of the dense GPT-2 small, wall against device ms, beside the floor of
+   reading every expert weight once. The sparse path's K1-K4 launches ride
+   the kernels line as ``launches_moe``.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -1178,10 +1207,10 @@ def lm_state(config, params, device, impl: str = "auto"):
     return create_train_state(model, learning_rate=3e-4, warmup_steps=10, total_steps=1000, seed=0)
 
 
-def lm_first_steps(config, params, device, impl: str, batches) -> list:
+def lm_first_steps(config, params, device, impl: str, batches, moe_aux: bool = False) -> list:
     from unionml_tpu_torch.models import make_lm_train_step
 
-    state, step = lm_state(config, params, device, impl), make_lm_train_step(packed=True)
+    state, step = lm_state(config, params, device, impl), make_lm_train_step(packed=True, moe_aux=moe_aux)
     history = []
     for batch in batches:
         state, metrics = step(state, batch)
@@ -3571,6 +3600,431 @@ def fleet_phase(device, config=None) -> dict:
     return out
 
 
+# ---------------------------------------------------- phase 17: the sparse GPT
+
+MOE_SEQ, MOE_SEQS, MOE_STEPS = LM_SEQ, 384, 10  # B8 x 1024 rows packed from 384 ragged sequences
+MOE_TOKENS = 8192  # the layer check's capacity shape: one training step's tokens
+MOE_SYSTEM, MOE_REQUESTS, MOE_NEW, MOE_LOOKAHEAD, MOE_BLOCKS = 128, 8, 32, 8, 256
+MOE_ENGINE_KW = dict(num_slots=8, max_len=1024, prefill_chunk=PREFILL_CHUNK, prefill_batch=1, seed=0)
+MOE_BURSTS = 20  # profiled 1-step bursts per burst reading
+
+
+def moe_config():
+    """GPT-2 small widths with the JAX package's MoE defaults: every second
+    block sparse (6 of 12), 8 experts, top-2, capacity factor 1.25."""
+    from unionml_tpu_torch.models import GPTConfig
+
+    return GPTConfig(moe_every=2)
+
+
+def moe_layer_parity(config, device) -> dict:
+    """(a) ``MoEMlp`` on the card against its plain version: the one-hot
+    formulation in f32 on the card, on the same gates (routed once in the
+    layer's dtype, then upcast: the same choices, ties and drops). A router
+    biased toward expert 0 makes capacity mode (the training shape, 8192
+    tokens) really drop choices; the dropped sets must be equal exactly.
+    Dropless at a prefill chunk's and a decode step's token counts."""
+    from unionml_tpu_torch.models.moe import MoEMlp, _experts
+    from unionml_tpu_torch.parallel.ep import moe_apply_topk, reference_moe_apply_topk, reference_topk_dispatch_combine, \
+        topk_route
+
+    d, experts, k, cf = config.hidden_size, config.num_experts, config.moe_k, config.moe_capacity_factor
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        torch.manual_seed(0)
+        layer = MoEMlp(d, experts, 4 * d, k=k, capacity_factor=cf, dtype=dtype, device=device)
+        with torch.no_grad():
+            layer.router.weight.normal_(0.0, 0.05)
+            layer.router.bias.copy_(torch.linspace(0.6, -0.6, experts, device=device))  # imbalanced
+        rec = {}
+        for mode, tokens in (("capacity", MOE_TOKENS), ("dropless", PREFILL_CHUNK), ("dropless", 8)):
+            x = torch.randn(tokens, d, generator=torch.Generator(device=device).manual_seed(tokens), device=device)
+            x = x.to(dtype)
+            with torch.no_grad():
+                gates, _ = layer.route(x)
+                cap = cf if mode == "capacity" else None
+                params = (layer.w_in, layer.w_out)
+                got = moe_apply_topk(_experts, params, x, gates, k=k, capacity_factor=cap)
+                want = reference_moe_apply_topk(_experts, tuple(p.float() for p in params), x.float(), gates.float(),
+                                                k=k, capacity_factor=cap)
+            label = f"MoEMlp {str(dtype)[6:]} {mode} T{tokens}"
+            err = check_close(label, got, want)
+            entry = {"max_abs_err": err}
+            if mode == "capacity":
+                routing = topk_route(gates, k, cf)
+                kept = torch.zeros(tokens, experts, dtype=torch.bool, device=device)
+                kept[torch.arange(tokens, device=device)[:, None].expand(-1, k)[routing.keep],
+                     routing.index[routing.keep]] = True
+                order = torch.sort(gates.float(), dim=-1, descending=True, stable=True).indices[:, :k]
+                dispatch, _ = reference_topk_dispatch_combine(order, routing.gates.float(), experts, routing.capacity,
+                                                              torch.float32)
+                if not torch.equal(kept, dispatch.sum(-1) > 0):
+                    raise AssertionError(f"{label}: the index dispatch's dropped set differs from the plain version's")
+                dropped = int((~routing.keep).sum())
+                if dropped == 0:
+                    raise AssertionError(f"{label}: the imbalanced router dropped nothing")
+                entry.update(dropped=dropped, choices=tokens * k, capacity=routing.capacity,
+                             dropped_first_choices=int((~routing.keep[:, 0]).sum()))
+                if dtype == torch.bfloat16:
+                    def index():
+                        with torch.no_grad():
+                            moe_apply_topk(_experts, params, x, gates, k=k, capacity_factor=cf)
+
+                    def one_hot():
+                        with torch.no_grad():
+                            reference_moe_apply_topk(_experts, params, x, gates, k=k, capacity_factor=cf)
+
+                    entry["forward_ms"] = {"index": cuda_ms(index, 5), "one_hot": cuda_ms(one_hot, 5)}
+            rec[f"{mode}_T{tokens}"] = entry
+        out[str(dtype)] = rec
+        del layer
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_corpus(seqs: int = MOE_SEQS) -> dict:
+    """``lm_corpus`` as a reader's arrays: right-padded ids and lengths."""
+    corpus = lm_corpus(seqs, MOE_SEQ, seed=7)
+    ids = np.zeros((len(corpus), max(len(s) for s in corpus)), np.int32)
+    for i, s in enumerate(corpus):
+        ids[i, : len(s)] = s
+    return {"input_ids": ids, "length": np.array([len(s) for s in corpus], np.int32)}
+
+
+def build_moe_app(config, params, device, record: dict):
+    """The moe-textgen app (``unionml_tpu/templates/moe-textgen/app.py``)
+    through the port's ``Dataset`` and ``Model``: a seeded reader of ragged
+    sequences, a trainer that packs them through ``fit_lm(moe_aux=True,
+    pack=True)`` (capacity-bounded experts, router losses in the objective),
+    a predictor that runs ``generate`` (dropless) over left-padded ragged
+    prompts, and the packed LM eval loss from the evaluator. The trainer's
+    ``FitResult`` lands in ``record["fit"]``."""
+    from typing import Any, Dict
+
+    from unionml_tpu_torch import Dataset, Model
+    from unionml_tpu_torch.models import TrainState, create_train_state, fit_lm, generate, init_gpt, make_lm_eval_step
+    from unionml_tpu_torch.ops.packing import pack_sequences
+
+    dataset = Dataset(name="moe_app_dataset", test_size=0.1)
+
+    def sequences(features):
+        return [row[:n] for row, n in zip(np.asarray(features["input_ids"]), np.asarray(features["length"]))]
+
+    def init(learning_rate: float = 3e-4) -> TrainState:
+        return create_train_state(init_gpt(config, params=params, device=device), learning_rate=learning_rate,
+                                  warmup_steps=10, total_steps=1000, seed=0)
+
+    model = Model(name="moe_app", init=init, dataset=dataset)
+
+    @dataset.reader
+    def reader(n: int = MOE_SEQS) -> Dict[str, np.ndarray]:
+        return moe_corpus(n)
+
+    @dataset.feature_loader
+    def feature_loader(features: Any) -> Dict[str, Any]:
+        return features
+
+    @model.trainer
+    def trainer(state: TrainState, features: Dict[str, np.ndarray], targets: Any, *, num_steps: int = MOE_STEPS,
+                batch_size: int = LM_BATCH) -> TrainState:
+        record["fit"] = fit_lm(state, sequences(features), seq_len=MOE_SEQ, batch_size=batch_size, pack=True,
+                               num_steps=num_steps, log_every=1, seed=0, moe_aux=True)
+        return record["fit"].state
+
+    @model.predictor(jit=False)
+    def predictor(state: TrainState, features: Dict[str, Any]) -> torch.Tensor:
+        prompts = [np.asarray(p, np.int64) for p in features["prompt_ids"]]
+        max_new = int(features.get("max_new_tokens", MOE_NEW))
+        width = max(len(p) for p in prompts)
+        ids, mask = np.zeros((len(prompts), width), np.int64), np.zeros((len(prompts), width), np.int64)
+        for row, p in enumerate(prompts):
+            ids[row, width - len(p):], mask[row, width - len(p):] = p, 1
+        ragged = any(len(p) != width for p in prompts)
+        return generate(state.model, torch.from_numpy(ids), max_new, max_len=width + max_new,
+                        prompt_mask=torch.from_numpy(mask) if ragged else None)
+
+    @model.evaluator
+    def evaluator(state: TrainState, features: Dict[str, np.ndarray], targets: Any) -> float:
+        packed = pack_sequences(sequences(features), MOE_SEQ)
+        batch = {k: torch.from_numpy(packed[k][:LM_BATCH]).to(device) for k in ("input_ids", "segment_ids")}
+        return float(make_lm_eval_step(packed=True)(state, batch)["loss"])
+
+    return dataset, model
+
+
+def moe_train(config, params, device) -> dict:
+    """(b) ``Model.train`` of the sparse app: K1, K2 and K3 once per layer and
+    step; finite losses; the first 3 steps against the plain path
+    (``attention_impl="reference"``, same weights and dropout); the aux
+    losses, a step's wall against device ms, and ``Model.predict``."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import collect_aux_losses, dict_batches, generate, make_lm_train_step
+    from unionml_tpu_torch.ops.packing import pack_sequences
+
+    record = {}
+    _, app = build_moe_app(config, params, device, record)
+    kernels.reset_launches()
+    state, metrics = app.train()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    fit = record["fit"]
+    history = fit.metrics_history
+    if device.type == "cuda":
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            per_run = config.num_layers * MOE_STEPS
+            if launches[name] < per_run or (name != "flash_fwd" and launches[name] != per_run):
+                raise AssertionError(f"MoE Model.train launched {name} {launches[name]} times; expected "
+                                     f"{config.num_layers} per step over {MOE_STEPS} steps (K1 more: the evaluator)")
+    if fit.steps != MOE_STEPS or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"MoE training: {fit.steps} steps, history {history}")
+    corpus = moe_corpus()
+    packed = pack_sequences([row[:n] for row, n in zip(corpus["input_ids"], corpus["length"])], MOE_SEQ)
+    batches = list(dict_batches({k: packed[k] for k in ("input_ids", "segment_ids")}, LM_BATCH,
+                                rng=np.random.default_rng(1), device=device))
+    with torch.no_grad():
+        logits, aux = state.model(batches[0]["input_ids"], segment_ids=batches[0]["segment_ids"], deterministic=False,
+                                  generator=torch.Generator(device=device).manual_seed(0), return_aux=True)
+    aux_total = float(collect_aux_losses(aux))
+    by_layer = [{k: round(float(v), 5) for k, v in a.items()} for a in aux]
+    del logits
+    step = make_lm_train_step(packed=True, moe_aux=True)
+    step(state, batches[0])
+    profile = step_profile(lambda: step(state, batches[0]), 3, top=8)
+
+    # Model.predict: two ragged prompts through generate (dropless), the same
+    # tokens as generate called directly
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, config.vocab_size, n).tolist() for n in (9, 23)]
+    predicted = app.predict(features={"prompt_ids": prompts, "max_new_tokens": 16})
+    width = 23
+    ids = torch.zeros((2, width), dtype=torch.long)
+    mask = torch.zeros((2, width), dtype=torch.long)
+    for row, p in enumerate(prompts):
+        ids[row, width - len(p):], mask[row, width - len(p):] = torch.tensor(p), 1
+    direct = generate(state.model, ids, 16, max_len=width + 16, prompt_mask=mask)
+    if predicted.shape != (2, width + 16) or not torch.equal(predicted.cpu(), direct.cpu()) or bool(
+            (predicted < 0).any() or (predicted >= config.vocab_size).any()):
+        raise AssertionError(f"Model.predict of the sparse app: {predicted.shape}, equal to generate "
+                             f"{torch.equal(predicted.cpu(), direct.cpu())}")
+    del state, app
+    torch.cuda.empty_cache()
+    agreement = compare_first_steps(lm_first_steps(config, params, device, "auto", batches[:3], moe_aux=True),
+                                    lm_first_steps(config, params, device, "reference", batches[:3], moe_aux=True))
+    return {"launches": launches, "steps": fit.steps, "history": history, "metrics": metrics,
+            "step_ms": 1e3 / fit.steps_per_s, "aux": aux_total, "aux_by_layer": by_layer, "step_profile": profile,
+            "first_steps_vs_plain": agreement, "predicted": predicted[:, width:].tolist()}
+
+
+def moe_payloads(vocab: int) -> list:
+    """``/generate`` payloads: a 128-token system prompt shared by all, user
+    suffixes of 8..40 tokens; the last is ``interactive`` (a speculative
+    class), the rest ``standard``; streamed."""
+    rng = np.random.default_rng(500)
+    system = rng.integers(0, vocab, MOE_SYSTEM).tolist()
+    payloads = [{"prompt_ids": system + rng.integers(0, vocab, int(rng.integers(8, 41))).tolist(),
+                 "max_new_tokens": MOE_NEW, "priority": "standard", "stream": True} for _ in range(MOE_REQUESTS)]
+    payloads[-1]["priority"] = "interactive"
+    return payloads
+
+
+def moe_serve_arm(model, device, quant, payloads) -> dict:
+    """What ``model.serve(generator=...)`` builds for ``/generate``
+    (``build_generator``: a ``ContinuousBatcher`` with lookahead 8 and an
+    ``EngineSupervisor`` over a self-draft ``SpeculativeEngine``, 8 slots,
+    prefix cache on), driven through the route's plain handler
+    (``parse_generate_payload``, then the generator's ``stream``): the first
+    request alone (it fills the cache), then the other 7 at once. A second,
+    warm pass of the same requests (every one a hit now) gives tokens/s and
+    TTFT; the first pass's streams are the ones compared."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.serving.app import build_generator, parse_generate_payload
+    from unionml_tpu_torch.serving.speculative import SpeculativeEngine
+
+    engine = SpeculativeEngine(model, model, gamma_max=SPEC_GAMMA_MAX, kv_quantize=quant,
+                               prefix_cache_blocks=MOE_BLOCKS, device=device, **MOE_ENGINE_KW)
+    gen = build_generator(engine, lookahead=MOE_LOOKAHEAD, device=device)
+
+    async def one(payload, t0):
+        req = parse_generate_payload(payload, gen)
+        out, ttft = [], None
+        async for token in gen.stream(req.prompt_ids, req.max_new_tokens, **req.slo, **req.sampling):
+            ttft = time.perf_counter() - t0 if ttft is None else ttft
+            out.append(token)
+        return out, ttft
+
+    async def run():
+        t0 = time.perf_counter()
+        head = [await one(payloads[0], t0)]
+        t0 = time.perf_counter()
+        tail = await asyncio.gather(*(one(p, t0) for p in payloads[1:]))
+        return head + list(tail), time.perf_counter() - t0
+
+    kernels.reset_launches()
+    try:
+        results, cold_wall = asyncio.run(run())
+        warm, wall = asyncio.run(run())
+    finally:
+        gen.close()
+    torch.cuda.synchronize()
+    streams, ttft = [s for s, _ in results], [t * 1e3 for _, t in warm]
+    rest = sum(len(s) for s, _ in warm[1:])
+    return {"engine": engine, "streams": streams, "ttft_ms": ttft, "cold_ttft_ms": [t * 1e3 for _, t in results],
+            "cold_tokens_per_s": sum(len(s) for s in streams[1:]) / cold_wall, "wall_s": wall,
+            "tokens_per_s": rest / wall, "launches": dict(kernels.launches),
+            "hits": engine.prefix_cache.stats()["hits"], "speculation": engine.speculation_stats(),
+            "graph_replays": sum(graph_replays(engine).values())}
+
+
+def moe_burst(model, device, prompt_list) -> dict:
+    """A 1-step decode burst replayed with 8 slots decoding (int8 pool,
+    vanilla engine): wall ms against the device ms of its kernels."""
+    engine = vanilla_engine(model, device)
+    steady(engine, prompt_list, {})
+    result = step_profile(engine.step, MOE_BURSTS, top=8)
+    engine.abort_all()
+    return result
+
+
+def moe_routes(model, ids) -> dict:
+    """Each sparse layer's sorted top-k experts per token, and its gates, in
+    a deterministic (dropless) full forward of ``ids``."""
+    from unionml_tpu_torch.parallel.ep import topk_route
+
+    routes, hooks = {}, []
+
+    def recorder(i):
+        def record(module, args):
+            gates, _ = module.route(args[0].reshape(-1, args[0].shape[-1]))
+            routes[i] = (torch.sort(topk_route(gates, module.k, None).index, -1).values, gates)
+        return record
+
+    for i, layer in enumerate(model.layers):
+        if layer.use_moe:
+            hooks.append(layer.moe_mlp.register_forward_pre_hook(recorder(i)))
+    try:
+        with torch.no_grad():
+            model(torch.tensor([ids], device=model.device))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return routes
+
+
+def first_flip(kernel_model, plain_model, ids):
+    """The first (layer, token) whose expert choice differs between the
+    kernel and the plain path over ``ids``, with the plain path's margin
+    between its k-th and (k+1)-th gate there (bf16); None when every choice
+    agrees."""
+    got, want = moe_routes(kernel_model, ids), moe_routes(plain_model, ids)
+    k = kernel_model.config.moe_k
+    for i in sorted(got):
+        differ = (got[i][0] != want[i][0]).any(-1)
+        if bool(differ.any()):
+            t = int(differ.nonzero()[0, 0])
+            top = torch.sort(want[i][1][t].float(), descending=True).values
+            return {"layer": i, "token": t, "gate": float(top[k - 1]), "plain_margin": float(top[k - 1] - top[k])}
+    return None
+
+
+def moe_bf16_splits(kernel_model, plain_model, got, want, plain_engine, prompt_list) -> list:
+    """bf16 streams of the kernel path against the plain path's. A sparse
+    model's gates are rounded to bf16 before top-k (JAX's order), so two
+    experts tied to the last bit swap on a last-bit difference in the
+    block's input, and the token then runs another expert: its hidden state
+    moves by O(1) and the streams can split at any gap. A split is accepted
+    where the plain path's top-2 gap is below 1e-2 (the bf16 rule), or
+    where a full forward of the common prefix routes some token otherwise
+    on the two paths and the first such choice is a near-tie (the plain
+    path's k-th and (k+1)-th gates within 2^-6 of each other, relative: two
+    bf16 steps). Any other split fails."""
+    splits = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        split = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        gap = top2_gap_at(plain_engine, prompt_list[i], split, MOE_NEW)
+        flip = first_flip(kernel_model, plain_model, prompt_list[i] + b[:split]) if gap >= GAP_LIMIT_BF16 else None
+        near_tie = flip is not None and flip["plain_margin"] <= flip["gate"] * 2 ** -6
+        print(f"sparse bf16 stream {i} splits at token {split}: plain top-2 gap {gap:.3e}; first routing "
+              f"difference {flip}")
+        if gap >= GAP_LIMIT_BF16 and not near_tie:
+            raise AssertionError(f"sparse bf16 stream {i} disagrees with the plain path at token {split} (gap "
+                                 f"{gap:.3e}) with no near-tied expert choice to explain it ({flip})")
+        splits.append({"request": i, "split": split, "plain_top2_gap": gap, "first_flip": flip})
+    return splits
+
+
+def moe_serving(config, params, device) -> dict:
+    """(c) Serving the sparse model: bf16 (int8 pool) and f32 (f32 pool)
+    against the plain path's engine (``impl="reference"``) on the same
+    schedule; a decode burst beside the dense GPT-2-small's."""
+    from unionml_tpu_torch.models import init_gpt, random_params
+
+    payloads = moe_payloads(config.vocab_size)
+    prompt_list = [p["prompt_ids"] for p in payloads]
+    out = {}
+    for dtype, quant in ((torch.bfloat16, "int8"), (torch.float32, None)):
+        arms, models = {}, {}
+        for impl in ("auto", "reference"):
+            cfg = dataclasses.replace(config, dtype=dtype, attention_impl=impl, paged_attn_impl=impl)
+            models[impl] = init_gpt(cfg, params=params, device=device)
+            arms[impl] = moe_serve_arm(models[impl], device, quant, payloads)
+        kernel, plain = arms["auto"], arms["reference"]
+        label = f"MoE serving {str(dtype)[6:]}"
+        if dtype == torch.bfloat16:
+            splits = moe_bf16_splits(models["auto"], models["reference"], kernel["streams"], plain["streams"],
+                                     plain["engine"], prompt_list)
+        else:
+            splits = pc_compare(label, kernel["streams"], plain["streams"], plain["engine"], prompt_list,
+                                "identical")
+        if device.type == "cuda" and not all(kernel["launches"].get(k) for k in ("flash_fwd", "paged_attention")):
+            raise AssertionError(f"{label}: launches {kernel['launches']}")
+        if kernel["hits"] < 2 * MOE_REQUESTS - 1 or kernel["speculation"]["rounds"] == 0:
+            raise AssertionError(f"{label}: prefix hits {kernel['hits']}, speculation {kernel['speculation']}")
+        if any(len(s) != MOE_NEW for s in kernel["streams"]):
+            raise AssertionError(f"{label}: stream lengths {[len(s) for s in kernel['streams']]}")
+        rec = {k: v for k, v in kernel.items() if k != "engine"}
+        rec["splits"] = splits
+        rec["ttft_p50_p95_ms"] = [float(np.percentile(kernel["ttft_ms"][1:], q)) for q in (50, 95)]
+        out[str(dtype)] = rec
+        del arms, models, kernel, plain
+        torch.cuda.empty_cache()
+    sparse = init_gpt(config, params=params, device=device)
+    out["burst_moe"] = moe_burst(sparse, device, prompt_list)
+    expert_bytes = sum(layer.moe_mlp.w_in.numel() + layer.moe_mlp.w_out.numel()
+                       for layer in sparse.layers if layer.use_moe) * config.dtype.itemsize
+    del sparse
+    dense_cfg = dataclasses.replace(config, moe_every=0)  # the dense model of the same widths
+    dense = init_gpt(dense_cfg, params=random_params(dense_cfg, seed=0), device=device)
+    out["burst_dense"] = moe_burst(dense, device, prompt_list)
+    del dense
+    out["expert_bytes"] = expert_bytes
+    out["expert_floor_ms"] = expert_bytes / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def moe_phase(device, config=None) -> dict:
+    """The sparse GPT (phase 17, see the module docstring)."""
+    from unionml_tpu_torch.models import random_params
+
+    t0 = time.perf_counter()
+    config = config or moe_config()
+    params = random_params(config, seed=0)
+    out, parts = {}, {}
+    for name, fn, args in (("layer", moe_layer_parity, (config, device)), ("train", moe_train, (config, params, device)),
+                           ("serving", moe_serving, (config, params, device))):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t
+    launches = {}
+    for part in (out["train"]["launches"], out["serving"][str(torch.bfloat16)]["launches"]):
+        for name, count in part.items():
+            launches[name] = launches.get(name, 0) + count
+    out["launches"], out["parts_s"], out["s"] = launches, parts, time.perf_counter() - t0
+    return out
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -3848,6 +4302,49 @@ def time_kernels(device, e2e: dict):
         time_k4(device, 1, K4_LONG_BASES, launches["paged_attention"]),
     ]
     return main, extra
+
+
+def report_moe(moe: dict, name_limit: str) -> None:
+    """Print phase 17's results (``moe_phase``'s record)."""
+    for dtype, rec in moe["layer"].items():
+        for shape, r in rec.items():
+            drops = (f", {r['dropped']} of {r['choices']} choices dropped at capacity {r['capacity']} "
+                     f"({r['dropped_first_choices']} first choices), dropped set equal to the plain version's"
+                     if "dropped" in r else "")
+            fwd = (f"; forward {r['forward_ms']['index']:.3f} ms by index against {r['forward_ms']['one_hot']:.3f} "
+                   "ms by one-hot einsums" if "forward_ms" in r else "")
+            print(f"[{name_limit}] MoEMlp {dtype[6:]} {shape} vs the one-hot plain version (f32): max |err| "
+                  f"{r['max_abs_err']:.3e}{drops}{fwd}")
+    tr = moe["train"]
+    prof = tr["step_profile"]
+    print(f"[{name_limit}] sparse GPT-2-small (6 of 12 blocks MoE, 8 experts, top-2, capacity 1.25) through "
+          f"Model.train: {tr['steps']} steps of fit_lm(moe_aux=True, pack=True) at B{LM_BATCH} S{MOE_SEQ}, launches "
+          f"{tr['launches']}, loss by step {[(h['step'], round(h['loss'], 4)) for h in tr['history']]}, metrics "
+          f"{tr['metrics']}; router losses {tr['aux']:.5f} weighted (per layer {tr['aux_by_layer']})")
+    print(f"[{name_limit}] sparse LM train step: {tr['step_ms']:.2f} ms wall in fit; profiled "
+          f"{prof['wall_ms_per_step']:.2f} ms wall, {prof['device_ms_per_step']:.2f} ms device kernels, device idle "
+          f"share {prof['device_idle_share']:.3f}; top kernels {prof['top_kernels_ms_per_step']}")
+    print(f"sparse LM first 3 steps, kernels vs plain path: {tr['first_steps_vs_plain']}; Model.predict (generate, "
+          f"dropless) equal to generate called directly: {tr['predicted']}")
+    sv = moe["serving"]
+    for dtype in (str(torch.bfloat16), str(torch.float32)):
+        r = sv[dtype]
+        print(f"[{name_limit}] sparse /generate {dtype[6:]} ({'int8' if 'bfloat16' in dtype else 'f32'} pool, "
+              f"{MOE_REQUESTS} requests sharing a {MOE_SYSTEM}-token prompt, {MOE_NEW} new tokens, lookahead "
+              f"{MOE_LOOKAHEAD}, self-draft speculation for the interactive one): warm pass {r['tokens_per_s']:.1f} "
+              f"tokens/s, TTFT p50/p95 {r['ttft_p50_p95_ms'][0]:.1f}/{r['ttft_p50_p95_ms'][1]:.1f} ms (the 7 after the "
+              f"first; cold pass {r['cold_tokens_per_s']:.1f} tokens/s), "
+              f"hits {r['hits']}, speculation rounds {r['speculation']['rounds']} accepted {r['speculation']['accepted']}"
+              f", graph replays {r['graph_replays']}, launches {r['launches']}; streams vs plain: "
+              f"{'identical' if 'float32' in dtype else 'splits ' + str(r['splits'])}")
+    for label in ("burst_moe", "burst_dense"):
+        b = sv[label]
+        print(f"[{name_limit}] {'sparse' if label == 'burst_moe' else 'dense'} GPT-2-small decode burst (1 step, 8 "
+              f"slots, int8 pool): {b['wall_ms_per_step']:.3f} ms wall, {b['device_ms_per_step']:.3f} ms device "
+              f"kernels, idle share {b['device_idle_share']:.3f}; top kernels {b['top_kernels_ms_per_step']}")
+    print(f"[{name_limit}] expert weights {sv['expert_bytes'] / 1e6:.1f} MB bf16: a dropless step reads them all, "
+          f"floor {sv['expert_floor_ms']:.4f} ms at 3.35 TB/s; phase 17 took {moe['s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in moe['parts_s'].items()} }), launches {moe['launches']}")
 
 
 def main() -> int:
@@ -4175,11 +4672,16 @@ def main() -> int:
           f"{sm['measured']['ttft_ms']}, {sm['measured']['wall_s']:.3f} s")
     print(f"fleet path launches {fl['launches']}; phase 16 took {fl['s']:.1f} s "
           f"({ {k: round(v, 1) for k, v in fl['parts_s'].items()} })")
+    torch.cuda.empty_cache()
+    details["moe"] = moe = moe_phase(device)
+    report_moe(moe, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
         if r["name"] in fl["launches"]:
             r["launches_fleet"] = fl["launches"][r["name"]]
+        if r["name"] in moe["launches"]:
+            r["launches_moe"] = moe["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],
@@ -4205,6 +4707,8 @@ def main() -> int:
             entry["launches_telemetry"] = r["launches_telemetry"]
         if "launches_fleet" in r:  # phase 16's K1/K4 launches on the fleet path
             entry["launches_fleet"] = r["launches_fleet"]
+        if "launches_moe" in r:  # phase 17's K1-K4 launches on the sparse path (train + serve)
+            entry["launches_moe"] = r["launches_moe"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

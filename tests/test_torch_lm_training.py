@@ -205,7 +205,8 @@ def test_fit_lm_trains_with_the_jax_step_count(pair, pack, num_steps, num_epochs
 
 
 @pytest.mark.parametrize("option", [
-    dict(moe_aux=True), dict(mesh=object()), dict(prefetch=True),
+    # moe_aux alone trains (tests/test_torch_moe_gpt.py); sharded sparse training is M12
+    dict(moe_aux=True, mesh=object()), dict(mesh=object()), dict(prefetch=True),
 ], ids=["moe_aux", "mesh", "prefetch"])
 def test_fit_lm_rejects_unported_options(pair, option):
     _, params = pair

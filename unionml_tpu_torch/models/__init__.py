@@ -1,6 +1,7 @@
-"""The port's model zoo: the GPT decoder, the BERT classifier, the MLP and
-CNN classifiers, their weight conversion, and the training loops (classifier
-fine-tuning and packed causal-LM training), and speculative generation."""
+"""The port's model zoo: the GPT decoder (dense and sparse), the BERT
+classifier, the MLP and CNN classifiers, the mixture-of-experts block, their
+weight conversion, the training loops (classifier fine-tuning and packed
+causal-LM training), and speculative generation."""
 
 from unionml_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, import_hf_weights, init_bert
 from unionml_tpu_torch.models.convert import (
@@ -16,6 +17,7 @@ from unionml_tpu_torch.models.convert import (
 )
 from unionml_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate, lm_loss
 from unionml_tpu_torch.models.mlp import CNNClassifier, MLPClassifier
+from unionml_tpu_torch.models.moe import MoEMlp, collect_aux_losses
 from unionml_tpu_torch.models.speculative import speculative_generate
 from unionml_tpu_torch.models.training import (
     FitResult,
@@ -39,12 +41,14 @@ __all__ = [
     "GPTConfig",
     "GPTLMHeadModel",
     "MLPClassifier",
+    "MoEMlp",
     "TrainState",
     "bert_flops_per_token",
     "bert_grads_to_jax",
     "bert_params_from_jax",
     "bert_random_params",
     "cnn_params_from_jax",
+    "collect_aux_losses",
     "create_train_state",
     "dict_batches",
     "fit",

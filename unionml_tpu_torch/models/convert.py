@@ -6,8 +6,13 @@ The JAX package keeps flax parameters as ``{"params": {"wte": {"embedding"},
 "final_norm"}}``, with Dense kernels laid out ``(in, out)``. PyTorch's
 ``nn.Linear`` stores ``(out, in)``, so kernels transpose on the way across;
 LayerNorm ``scale`` becomes ``weight`` and Embed ``embedding`` becomes
-``weight``. BERT's tree (``{"bert": {"word_embeddings", ..., "encoder":
-{"layer_i": {"attention": {...}, "mlp": {...}}}, "pooler"}, "classifier"}``)
+``weight``. A sparse block carries ``"moe_mlp": {"router": {"kernel",
+"bias"}, "w_in", "w_out"}`` in place of ``mlp_up``/``mlp_down``: the router
+kernel ``(d, E)`` transposes into its ``nn.Linear``, the stacked expert
+weights keep their layout and land in the parameters' dtype
+(``config.dtype``: a bf16 tree converts exactly). BERT's tree (``{"bert":
+{"word_embeddings", ..., "encoder": {"layer_i": {"attention": {...}, "mlp":
+{...}}}, "pooler"}, "classifier"}``)
 maps the same way onto :class:`~unionml_tpu_torch.models.bert.
 BertForSequenceClassification`; :func:`gpt_grads_to_jax` and
 :func:`bert_grads_to_jax` map the port's named gradients back onto the trees,
@@ -34,8 +39,10 @@ __all__ = [
     "random_params",
 ]
 
-_DENSE = ("qkv", "attn_out", "mlp_up", "mlp_down")
+_ATTN = ("qkv", "attn_out")
+_MLP = ("mlp_up", "mlp_down")
 _NORMS = ("attn_norm", "mlp_norm")
+_EXPERTS = ("w_in", "w_out")
 
 
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -59,9 +66,14 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for name in _NORMS:
             state[f"layers.{layer}.{name}.weight"] = t(src[name]["scale"])
             state[f"layers.{layer}.{name}.bias"] = t(src[name]["bias"])
-        for name in _DENSE:
-            state[f"layers.{layer}.{name}.weight"] = t(src[name]["kernel"]).t().contiguous()
-            state[f"layers.{layer}.{name}.bias"] = t(src[name]["bias"])
+        dense = {name: src[name] for name in _ATTN + (() if "moe_mlp" in src else _MLP)}
+        if "moe_mlp" in src:
+            dense["moe_mlp.router"] = src["moe_mlp"]["router"]
+            for name in _EXPERTS:
+                state[f"layers.{layer}.moe_mlp.{name}"] = t(src["moe_mlp"][name])
+        for name, node in dense.items():
+            state[f"layers.{layer}.{name}.weight"] = t(node["kernel"]).t().contiguous()
+            state[f"layers.{layer}.{name}.bias"] = t(node["bias"])
         layer += 1
     return state
 
@@ -70,6 +82,10 @@ def _np32(value) -> np.ndarray:
     if torch.is_tensor(value):
         value = value.detach().float().cpu().numpy()
     return np.asarray(value, dtype=np.float32)
+
+
+def _dense_grads(named_grads: Mapping[str, Any], module: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _np32(named_grads[module + ".weight"]).T.copy(), "bias": _np32(named_grads[module + ".bias"])}
 
 
 def gpt_grads_to_jax(named_grads: Mapping[str, Any]) -> Dict[str, Any]:
@@ -89,9 +105,13 @@ def gpt_grads_to_jax(named_grads: Mapping[str, Any]) -> Dict[str, Any]:
         for name in _NORMS:
             node[name] = {"scale": _np32(named_grads[f"layers.{layer}.{name}.weight"]),
                           "bias": _np32(named_grads[f"layers.{layer}.{name}.bias"])}
-        for name in _DENSE:
-            node[name] = {"kernel": _np32(named_grads[f"layers.{layer}.{name}.weight"]).T.copy(),
-                          "bias": _np32(named_grads[f"layers.{layer}.{name}.bias"])}
+        prefix = f"layers.{layer}."
+        sparse = prefix + "moe_mlp.w_in" in named_grads
+        for name in _ATTN + (() if sparse else _MLP):
+            node[name] = _dense_grads(named_grads, prefix + name)
+        if sparse:
+            node["moe_mlp"] = {"router": _dense_grads(named_grads, prefix + "moe_mlp.router"),
+                               **{w: _np32(named_grads[prefix + "moe_mlp." + w]) for w in _EXPERTS}}
         layer += 1
     return tree
 
@@ -99,9 +119,11 @@ def gpt_grads_to_jax(named_grads: Mapping[str, Any]) -> Dict[str, Any]:
 def random_params(config: GPTConfig, seed: int = 0, std: float = 0.02) -> Dict[str, Any]:
     """A JAX-layout parameter tree of seeded random weights (numpy float32):
     normal(0, ``std``) embeddings and Dense kernels (the GPT-2 recipe), zero
-    biases, unit LayerNorm scales. The same tree feeds both packages."""
+    biases, unit LayerNorm scales; a sparse block's router kernel and
+    stacked expert weights normal(0, ``std``) too. The same tree feeds both
+    packages."""
     rng = np.random.default_rng(seed)
-    d = config.hidden_size
+    d, experts = config.hidden_size, config.num_experts
 
     def normal(*shape):
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
@@ -118,14 +140,13 @@ def random_params(config: GPTConfig, seed: int = 0, std: float = 0.02) -> Dict[s
         "final_norm": norm(),
     }
     for i in range(config.num_layers):
-        tree[f"layer_{i}"] = {
-            "attn_norm": norm(),
-            "qkv": dense(d, 3 * d),
-            "attn_out": dense(d, d),
-            "mlp_norm": norm(),
-            "mlp_up": dense(d, 4 * d),
-            "mlp_down": dense(4 * d, d),
-        }
+        layer = tree[f"layer_{i}"] = {"attn_norm": norm(), "qkv": dense(d, 3 * d), "attn_out": dense(d, d),
+                                      "mlp_norm": norm()}
+        if config.moe_every > 0 and (i + 1) % config.moe_every == 0:
+            layer["moe_mlp"] = {"router": dense(d, experts), "w_in": normal(experts, d, 4 * d),
+                                "w_out": normal(experts, 4 * d, d)}
+        else:
+            layer.update(mlp_up=dense(d, 4 * d), mlp_down=dense(4 * d, d))
     return {"params": tree}
 
 

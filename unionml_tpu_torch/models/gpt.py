@@ -30,9 +30,18 @@ Mixed precision as flax does it: parameters are float32, each layer casts
 its weight and input to ``config.dtype`` (``models/_layers.py``), the
 embedding lookups return ``config.dtype`` and the tied head multiplies
 float32 hidden states by the float32 embedding. KV caches and pools keep
-``config.dtype``. Not ported yet (each raises ``NotImplementedError`` naming
-its ROADMAP item): the MoE and ring/ulysses layers, ``remat`` and
-``param_shardings``.
+``config.dtype``.
+
+Sparse configs (``moe_every > 0``, ``gpt.py:52-66``) swap every
+``moe_every``-th block's MLP for a :class:`~unionml_tpu_torch.models.moe.MoEMlp`
+(its expert weights in ``config.dtype``): capacity-bounded top-k dispatch in
+training, dropless whenever the forward is deterministic (eval, ``generate``
+and every serving path, where capacity would depend on the call's token
+count). ``return_aux=True`` hands back the router losses of every sparse
+block for :func:`~unionml_tpu_torch.models.moe.collect_aux_losses`. Not
+ported yet (each raises ``NotImplementedError`` naming its ROADMAP item): the
+ring/ulysses layers, the expert-parallel ``a2a`` dispatch and ``ep_mesh``,
+``remat`` and ``param_shardings``.
 """
 
 import dataclasses
@@ -44,6 +53,7 @@ from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch.models._layers import _dense, _dropout, _layer_norm
+from unionml_tpu_torch.models.moe import MoEMlp
 from unionml_tpu_torch.ops.attention import attention, reference_attention
 from unionml_tpu_torch.ops.losses import cross_entropy_with_integer_labels
 from unionml_tpu_torch.ops.paged_attention import paged_attention
@@ -55,8 +65,8 @@ _IMPLS = ("auto", "kernel", "reference")
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """GPT-2 small by default (``gpt.py:28-78``, minus the sequence- and
-    expert-parallel fields, which the port has no counterpart for yet)."""
+    """GPT-2 small by default (``gpt.py:28-78``, minus the sequence-parallel
+    ``sp_mesh``, which the port has no counterpart for yet)."""
 
     vocab_size: int = 50257
     hidden_size: int = 768
@@ -73,10 +83,26 @@ class GPTConfig:
     paged_attn_impl: str = "auto"
     #: activation recompute for training forwards; not ported yet for GPT
     remat: bool = False
+    #: sparse variant: every Nth block routes its MLP through experts (0 = dense)
+    moe_every: int = 0
+    num_experts: int = 8
+    moe_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_router_noise: float = 0.0
+    #: "gshard" (one device, index dispatch); "a2a" is expert parallelism (M12)
+    moe_dispatch: str = "gshard"
+    #: the expert-parallel mesh (M12)
+    ep_mesh: Any = None
 
     def __post_init__(self) -> None:
         if self.remat:
             raise NotImplementedError("remat for GPT is not ported yet (ROADMAP: GPT remat, Queue 1)")
+        if self.moe_dispatch not in ("gshard", "a2a"):
+            raise ValueError(f"moe_dispatch must be 'gshard' or 'a2a', got {self.moe_dispatch!r}")
+        if self.moe_dispatch == "a2a" or self.ep_mesh is not None:
+            raise NotImplementedError(
+                "moe_dispatch='a2a' / ep_mesh: expert parallelism is not ported yet (ROADMAP: M12)"
+            )
         for name in ("attention_impl", "paged_attn_impl"):
             value = getattr(self, name)
             if value in ("ring", "ulysses"):
@@ -277,9 +303,10 @@ def paged_commit_chunk(layer_cache, block_table, position, counts, ck, cv):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-LN block: attention then a tanh-GELU MLP, each with a residual."""
+    """Pre-LN block: attention then a tanh-GELU MLP (or, with ``use_moe``,
+    a :class:`MoEMlp`), each with a residual."""
 
-    def __init__(self, config: GPTConfig, device: torch.device) -> None:
+    def __init__(self, config: GPTConfig, device: torch.device, use_moe: bool = False) -> None:
         super().__init__()
         d, kw = config.hidden_size, dict(device=device, dtype=torch.float32)
         self.config = config
@@ -287,8 +314,14 @@ class DecoderBlock(nn.Module):
         self.qkv = nn.Linear(d, 3 * d, **kw)
         self.attn_out = nn.Linear(d, d, **kw)
         self.mlp_norm = nn.LayerNorm(d, eps=config.layer_norm_eps, **kw)
-        self.mlp_up = nn.Linear(d, 4 * d, **kw)
-        self.mlp_down = nn.Linear(4 * d, d, **kw)
+        if use_moe:
+            self.moe_mlp = MoEMlp(d, config.num_experts, 4 * d, k=config.moe_k,
+                                  capacity_factor=config.moe_capacity_factor, router_noise=config.moe_router_noise,
+                                  dtype=config.dtype, device=device)
+        else:
+            self.mlp_up = nn.Linear(d, 4 * d, **kw)
+            self.mlp_down = nn.Linear(4 * d, d, **kw)
+        self.use_moe = use_moe
 
     def forward(
         self,
@@ -301,10 +334,12 @@ class DecoderBlock(nn.Module):
         generator: Optional[torch.Generator] = None,
         decode_slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         verify: bool = False,
-    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-        """Full sequence (``cache=None``, optionally packed by
-        ``segment_ids``), dense-cache or paged step. ``generator`` turns
-        dropout on and draws its masks.
+    ):
+        """``(hidden, cache, aux)`` of a full sequence (``cache=None``,
+        optionally packed by ``segment_ids``), a dense-cache or a paged
+        step; ``aux`` is a sparse block's router losses (None when dense).
+        ``generator`` turns dropout (and router jitter) on and draws its
+        masks; without one a sparse block is dropless.
 
         Dense cache: ``{"k","v"}`` of shape (batch, heads, max_len, head_dim)
         and a scalar ``position``. Paged: pool leaves (num_blocks, heads,
@@ -364,8 +399,17 @@ class DecoderBlock(nn.Module):
         context = context.transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
         hidden = hidden + _dropout(dense(self.attn_out, context, cfg.dtype), cfg.dropout, generator)
         normed = _layer_norm(self.mlp_norm, hidden, cfg.dtype)
-        up = F.gelu(dense(self.mlp_up, normed, cfg.dtype), approximate="tanh")
-        return hidden + _dropout(dense(self.mlp_down, up, cfg.dtype), cfg.dropout, generator), new_cache
+        aux = None
+        if not self.use_moe:
+            down = dense(self.mlp_down, F.gelu(dense(self.mlp_up, normed, cfg.dtype), approximate="tanh"), cfg.dtype)
+        elif verify:
+            # position by position, as _dense_by_position: each expert
+            # product has the decode step's rows (the layer is dropless here)
+            down = torch.cat([self.moe_mlp(normed[:, j:j + 1], dropless=True)[0] for j in range(seq)], dim=1)
+        else:
+            # dropless exactly when deterministic (gpt.py:534)
+            down, aux = self.moe_mlp(normed, dropless=generator is None, generator=generator)
+        return hidden + _dropout(down, cfg.dropout, generator), new_cache, aux
 
     def _dense(self, q, k, v, cache, position, pad_offsets, pad_mask):
         cfg = self.config
@@ -447,7 +491,10 @@ class GPTLMHeadModel(nn.Module):
         self.config = config
         self.wte = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = nn.Embedding(config.max_position_embeddings, config.hidden_size, **kw)
-        self.layers = nn.ModuleList(DecoderBlock(config, device) for _ in range(config.num_layers))
+        self.layers = nn.ModuleList(
+            DecoderBlock(config, device, use_moe=config.moe_every > 0 and (i + 1) % config.moe_every == 0)
+            for i in range(config.num_layers)
+        )
         self.final_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
 
     @property
@@ -463,23 +510,30 @@ class GPTLMHeadModel(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        return_aux: bool = False,
     ):
-        """Logits ``(batch, seq, vocab)`` f32, and the updated cache when one
-        is given. ``pad_offsets`` (batch,) batches LEFT-padded ragged rows: each
-        row's positions start at its first real token and its pad region is
-        masked. A ``cache`` carrying a ``"table"`` key selects paged decoding
+        """Logits ``(batch, seq, vocab)`` f32, the updated cache when one is
+        given, and with ``return_aux`` the list of the sparse blocks' router
+        losses (``(logits[, cache], aux)``). ``pad_offsets`` (batch,) batches
+        LEFT-padded ragged rows: each row's positions start at its first real
+        token and its pad region is masked. A ``cache`` carrying a ``"table"`` key selects paged decoding
         (see :func:`init_block_pool`). ``segment_ids`` (batch, seq) packs
         several sequences per row (0 = padding; training only, no cache):
         attention stays inside each segment and positions restart at every id
         change. With ``deterministic=False`` dropout is on and draws its masks
         from ``generator``. Inference callers run this under ``torch.no_grad()``."""
+        cfg = self.config
+        if pad_offsets is not None and cfg.moe_every > 0 and not deterministic:
+            raise ValueError(
+                "pad_offsets with a MoE config requires deterministic=True: "
+                "capacity-bounded expert dispatch lets pad tokens evict real tokens."
+            )
         if deterministic:
             generator = None
         elif generator is None:
             raise ValueError("deterministic=False draws dropout masks from `generator`; pass one")
         if segment_ids is not None and cache is not None:
             raise ValueError("segment_ids is a packed-TRAINING feature; decode caches are unpacked")
-        cfg = self.config
         batch, seq = input_ids.shape
         steps = torch.arange(seq, device=input_ids.device)
         if segment_ids is not None:
@@ -502,6 +556,7 @@ class GPTLMHeadModel(nn.Module):
         hidden = _dropout(word + F.embedding(positions, self.wpe.weight).to(cfg.dtype), cfg.dropout, generator)
 
         new_cache: Dict[str, Any] = {}
+        aux = []
         block_table = cache.get("table") if cache is not None else None
         decode_slots = None
         # a paged chunk of several tokens per row is a speculative verify: one
@@ -515,10 +570,12 @@ class GPTLMHeadModel(nn.Module):
                 decode_slots = _decode_slots(position, block_table, cache["layer_0"]["k"].shape[2])
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else cache[f"layer_{i}"]
-            hidden, layer_cache = layer(hidden, layer_cache, position, pad_offsets, block_table, segment_ids,
-                                        generator, decode_slots, verify)
+            hidden, layer_cache, layer_aux = layer(hidden, layer_cache, position, pad_offsets, block_table,
+                                                   segment_ids, generator, decode_slots, verify)
             if layer_cache is not None:
                 new_cache[f"layer_{i}"] = layer_cache
+            if layer_aux is not None:
+                aux.append(layer_aux)
         if block_table is not None:
             new_cache["table"] = block_table
         hidden = _layer_norm(self.final_norm, hidden, cfg.dtype).float()
@@ -528,7 +585,10 @@ class GPTLMHeadModel(nn.Module):
             logits = torch.cat([hidden[:, j:j + 1].contiguous() @ self.wte.weight.t() for j in range(seq)], dim=1)
         else:
             logits = hidden @ self.wte.weight.t()
-        return (logits, new_cache) if cache is not None else logits
+        out = (logits, new_cache) if cache is not None else (logits,)
+        if return_aux:
+            return (*out, aux)
+        return out if cache is not None else logits
 
 
 def init_cache(config: GPTConfig, batch: int, max_len: Optional[int] = None, dtype=None,

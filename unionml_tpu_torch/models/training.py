@@ -24,9 +24,12 @@ Port of ``unionml_tpu/models/training.py`` for one device, run eagerly (no
 
 Unlike the JAX package, the train step updates the state IN PLACE (the
 model's parameters and the moments) and returns the same object.
+A sparse GPT's expert weights are parameters in the compute dtype (bf16 in
+a bf16 config, as flax makes them): their AdamW moments follow each leaf's
+dtype, as optax's do, and ``moe_aux=True`` adds the router losses
+(:func:`~unionml_tpu_torch.models.moe.collect_aux_losses`) to the LM loss.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-meshes and parameter specs (M12), the native prefetcher, and the MoE
-auxiliary losses (M13).
+meshes and parameter specs (M12) and the native prefetcher.
 """
 
 import time
@@ -40,6 +43,7 @@ from torch import nn
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.models.gpt import lm_loss
+from unionml_tpu_torch.models.moe import collect_aux_losses
 from unionml_tpu_torch.ops.losses import cross_entropy_and_accuracy
 from unionml_tpu_torch.ops.packing import pack_sequences, packing_efficiency
 
@@ -118,7 +122,13 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """One optimizer update in place; returns the global norm of ``grads``
-        (before clipping) as a device tensor.
+        (before clipping) as a float32 device tensor.
+
+        Each leaf's norm is taken in float32. optax sums a bf16 leaf's squares
+        in bf16 (``optax.global_norm``), so with bf16 leaves (a sparse
+        model's experts in a bf16 config) the two norms differ by the
+        rounding of those leaves' sums (about 2^-8 of their share); f32
+        leaves agree to rounding.
 
         optax's arithmetic: ``g if norm < max else g / norm * max`` (here
         ``g / denom * max`` with ``denom = max`` below the threshold: exact for
@@ -127,7 +137,7 @@ class TrainState:
         ``mu_hat / (sqrt(nu_hat) + eps)``, plus ``weight_decay * p``, times
         ``-lr`` at the pre-increment count, added to the parameters.
         """
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)))
         denom = torch.where(norm < self.max_grad_norm, torch.full_like(norm, self.max_grad_norm), norm)
         clipped = torch._foreach_div(grads, denom)
         torch._foreach_mul_(clipped, self.max_grad_norm)
@@ -250,24 +260,32 @@ def classifier_grads(
     return grads, loss, acc
 
 
-def _lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool, **kwargs) -> torch.Tensor:
+def _lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool, moe_aux: bool = False,
+             **kwargs) -> torch.Tensor:
     """``lm_loss`` of ``model`` on an LM batch: ``input_ids``, ``segment_ids``
-    (looked up strictly) when packed, and an optional ``mask``."""
+    (looked up strictly) when packed, and an optional ``mask``; with
+    ``moe_aux`` plus the sparse blocks' router losses (``training.py:239-260``)."""
     # strict lookup: a packed step fed a batch without segment ids must fail,
     # not silently train across packed-sequence boundaries (training.py:250-252)
     segment_ids = batch["segment_ids"] if packed else None
-    logits = model(batch["input_ids"], segment_ids=segment_ids, **kwargs)
-    return lm_loss(logits, batch["input_ids"], mask=batch.get("mask"), segment_ids=segment_ids)
+    if not moe_aux:
+        logits = model(batch["input_ids"], segment_ids=segment_ids, **kwargs)
+        return lm_loss(logits, batch["input_ids"], mask=batch.get("mask"), segment_ids=segment_ids)
+    logits, aux = model(batch["input_ids"], segment_ids=segment_ids, return_aux=True, **kwargs)
+    loss = lm_loss(logits, batch["input_ids"], mask=batch.get("mask"), segment_ids=segment_ids)
+    return collect_aux_losses(aux).to(loss.device) + loss
 
 
 def lm_grads(
-    state: TrainState, batch: Dict[str, torch.Tensor], packed: bool = False, grad_accum: int = 1
+    state: TrainState, batch: Dict[str, torch.Tensor], packed: bool = False, grad_accum: int = 1,
+    moe_aux: bool = False,
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """``(grads, loss)`` of one causal-LM train step, dropout on, over
-    ``grad_accum`` microbatches (each weighted equally, as in JAX)."""
+    """``(grads, loss)`` of one causal-LM train step, dropout (and router
+    jitter) on, over ``grad_accum`` microbatches (each weighted equally, as
+    in JAX); ``moe_aux`` folds the router losses into the loss."""
 
     def loss_fn(micro, generator):
-        return (_lm_loss(state.model, micro, packed, deterministic=False, generator=generator),)
+        return (_lm_loss(state.model, micro, packed, moe_aux, deterministic=False, generator=generator),)
 
     grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn)
     return grads, loss
@@ -316,11 +334,9 @@ def make_classifier_eval_step(input_signature: Tuple[str, ...] = ("inputs",)) ->
     return eval_step
 
 
-def _check_lm_options(mesh, param_spec, grad_accum: int, moe_aux: bool) -> None:
+def _check_lm_options(mesh, param_spec, grad_accum: int) -> None:
     if mesh is not None or param_spec is not None:
         raise _not_ported("mesh / param_spec (sharded training)", "M12")
-    if moe_aux:
-        raise _not_ported("moe_aux (the MoE router's auxiliary losses)", "M13")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -341,11 +357,14 @@ def make_lm_train_step(
     unpacked batches may carry a ``"mask"`` (1 = real token). Metrics:
     ``loss`` and, unless ``light_metrics``, ``grad_norm`` (before clipping),
     device tensors. ``grad_accum=N`` averages N sequential microbatches.
+    ``moe_aux=True`` (sparse decoders) adds the router z-loss and
+    load-balancing loss to the objective; the router jitter draws from the
+    step's dropout generator. The reported ``loss`` includes them, as JAX's.
     """
-    _check_lm_options(mesh, param_spec, grad_accum, moe_aux)
+    _check_lm_options(mesh, param_spec, grad_accum)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        grads, loss = lm_grads(state, batch, packed, grad_accum)
+        grads, loss = lm_grads(state, batch, packed, grad_accum, moe_aux)
         norm = state.apply_gradients(grads)
         metrics = {"loss": loss}
         if not light_metrics:
