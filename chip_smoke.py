@@ -296,6 +296,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reading every expert weight once. The sparse path's K1-K4 launches ride
    the kernels line as ``launches_moe``.
 
+18. the DecodeEngine's last two modes at GPT-2-small width with phase 5's
+   seeded weights and 10 requests (32 new tokens, 8 slots, max_len 1024,
+   chunks of 256, one prompt per prefill dispatch). (a) Weight-only int8
+   (``quantize="int8"``: the engine's own copy of the model, every decoder
+   kernel int8 with per-output f32 scales, dequantized per layer just before
+   its product) through ``ContinuousBatcher``, bf16 over the int8 pool and f32
+   over an f32 pool: streams against the same engine on the plain path (f32
+   identical; bf16 under the 1e-2 gap rule, a split at a larger gap passing
+   only inside bf16 rounding, see ``di_gate``); ``quantized_bytes`` exactly
+   (243 287 040 stored, 497 759 232 at f32); the caller's model unchanged
+   (dtypes, an f64 checksum, layer types); a self-draft
+   ``SpeculativeEngine(quantize="int8")`` against the vanilla int8 engine
+   under the 1e-2 gap rule. Prints, ungated, the greedy agreement with
+   full-precision weights, the largest first-step logit gap between the two,
+   and a 1-step 8-slot bf16 burst's wall and device ms with full-precision
+   and int8 weights (in turns: full, int8, int8, full), with its top kernels
+   and the memory of its first graph's private pool. (b) The dense engine
+   (``paged=False``) at bf16 and f32: streams against its plain path and
+   against the paged engine over a pool of the compute dtype (f32: identical
+   or split where the plain path's top-2 gap is below 1e-5; bf16 as in (a));
+   K1 must launch and K4 never; no ``Memcpy HtoD`` in 5 steady bursts; its
+   burst against the paged one (dense, paged, paged, dense) and tokens/s and
+   TTFT against the paged engine's. At f32 the prefix cache: 9 requests on a
+   384-token system prompt (8 hits), streams on against off under the f32
+   rule, prefill tokens, restores and saves printed; 2 preemptions and resumes
+   whose streams must be identical to the same requests uninterrupted, each
+   resume prefilling at most one block. The K1 launches of (b) and the K1/K4
+   launches of (a), at bf16, ride the kernels line as ``launches_dense_int8``.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -937,6 +966,13 @@ def top2_gap_at(engine, prompt, split: int, budget: int = MAX_NEW) -> float:
     """The plain engine's top-2 logit gap where it picks token ``split`` of
     ``prompt``'s greedy stream of ``budget`` tokens (replayed alone,
     unpipelined, so the device state is the host's: rows are independent)."""
+    top = torch.topk(logits_at(engine, prompt, split, budget), 2).values
+    return float(top[0] - top[1])
+
+
+def logits_at(engine, prompt, split: int, budget: int = MAX_NEW) -> torch.Tensor:
+    """The logits ``engine`` picks token ``split`` of ``prompt``'s greedy
+    stream from (see ``top2_gap_at``)."""
     pipeline, engine.pipeline = engine.pipeline, False
     slot = engine.add_request(prompt, budget)
     while slot in engine._partials:  # finish a chunked prefill without decoding
@@ -944,10 +980,10 @@ def top2_gap_at(engine, prompt, split: int, budget: int = MAX_NEW) -> float:
     emitted = 0
     while emitted < split:
         emitted += sum(1 for ev in engine.step() if ev.slot == slot and ev.emit)
-    top = torch.topk(engine._last_logits[slot], 2).values
+    logits = engine._last_logits[slot].clone()
     engine.cancel(slot)
     engine.pipeline = pipeline
-    return float(top[0] - top[1])
+    return logits
 
 
 def stream_splits(kernel_streams, plain_streams, plain_engine, prompt_list) -> list:
@@ -2033,8 +2069,9 @@ def pc_engine(model, device, blocks, quant, **kw):
 
 def leaked(engine) -> tuple:
     """(pinned blocks, slot-owned blocks, largest node refcount): zero once
-    every request retired and every checkpoint was released."""
-    cache = engine._allocator
+    every request retired and every checkpoint was released (a dense
+    engine's index owns no slot blocks)."""
+    cache = engine._allocator if engine._allocator is not None else engine.prefix_cache
     worst, stack = 0, list(cache._root.children.values())
     while stack:
         node = stack.pop()
@@ -4025,6 +4062,349 @@ def moe_phase(device, config=None) -> dict:
     return out
 
 
+# ---------------------------------- phase 18: int8 weights and the dense engine
+
+#: GPT-2 small's parameter bytes as stored with every decoder kernel int8 (its
+#: per-output f32 scales included), and at f32 (``quantized_bytes``)
+QW_BYTES = (243_287_040, 497_759_232)
+DI_KW = dict(num_slots=8, max_len=1024, prefill_chunk=PREFILL_CHUNK, prefill_batch=1, seed=0)
+DI_BURSTS = 20  # profiled 1-step bursts per burst reading
+DI_PREFIX = 9  # requests on the 384-token system prompt: the first misses, 8 hit
+
+
+def di_model(config, params, device, impl: str = "auto"):
+    from unionml_tpu_torch.models import init_gpt
+
+    return init_gpt(dataclasses.replace(config, attention_impl=impl, paged_attn_impl=impl), params=params,
+                    device=device)
+
+
+def di_engine(model, device, **kw):
+    """Phase 5's engine shape, one prompt per prefill dispatch (phase 12's
+    reason: a bucket prefill's products round by their row count), in the
+    mode ``kw`` names."""
+    from unionml_tpu_torch.serving.continuous import DecodeEngine
+
+    return DecodeEngine(model, device=device, **dict(DI_KW, **kw))
+
+
+def checksum(model) -> tuple:
+    """(parameter dtypes, f64 sum of every parameter, layer types)."""
+    with torch.no_grad():
+        return (sorted({str(p.dtype) for p in model.parameters()}),
+                float(sum(p.double().sum() for p in model.parameters())),
+                sorted({type(m).__name__ for m in model.modules()}))
+
+
+def di_serve(engine, prompt_list, device, tally: dict = None, profile: bool = False) -> dict:
+    """Phase 5's 10 requests through ``ContinuousBatcher`` after a warm-up
+    request; the measured pass's launches are added to ``tally``. With
+    ``profile``, a second (warm) pass in a CUDA profile gives tokens/s and
+    TTFT with every graph captured, and the device's busy time against the
+    pass's wall (its idle share)."""
+    from unionml_tpu_torch import kernels
+
+    serve(engine, [prompt_list[0]], device)
+    kernels.reset_launches()
+    streams, ttft, wall = serve(engine, prompt_list, device)
+    launches = dict(kernels.launches)
+    for name, count in launches.items():
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + count
+    for i, s in enumerate(streams):
+        if len(s) != MAX_NEW or min(s) < 0 or max(s) >= engine._config.vocab_size:
+            raise AssertionError(f"request {i}: bad stream {s}")
+    rec = {"streams": streams, "ttft_ms": [t * 1e3 for t in ttft], "wall_s": wall, "launches": launches,
+           "tokens_per_s": sum(map(len, streams)) / wall}
+    if profile:
+        prof, (warm, warm_ttft, warm_wall) = cuda_profile(lambda first: serve(engine, prompt_list, device))
+        busy = busy_union(prof)["union_ms"]
+        rec["warm"] = {"tokens_per_s": sum(map(len, warm)) / warm_wall, "ttft_ms": [t * 1e3 for t in warm_ttft],
+                       "wall_ms": warm_wall * 1e3, "device_busy_ms": busy,
+                       "device_idle_share": 1.0 - busy / (warm_wall * 1e3)}
+    return rec
+
+
+def di_gate(label, got, want, engines, prompt_list, dtype, exact: bool = False, reference=None) -> list:
+    """Greedy streams ``got`` of ``engines[0]`` against ``want`` of
+    ``engines[1]`` (the sampled request left out); ``engines[2]``, the plain
+    path, gives each split's top-2 gap. ``exact``: identical. f32: splits
+    only where that gap is below 1e-5 (phase 12's rule). bf16: below 1e-2
+    (PERF.md section 2), or, at a larger gap, where the choice lies inside
+    bf16 rounding: at the split (each engine on the common prefix) the plain
+    path's logits sit at least half the gap from those of ``reference()``,
+    the plain path at f32, and the two compared engines' no farther than
+    twice the plain path's."""
+    splits, ref = [], None
+    for i, (_, sampling) in enumerate(REQUESTS):
+        a, b = got[i], want[i]
+        if sampling is not None or a == b:
+            continue
+        if exact:
+            raise AssertionError(f"{label}: stream {i} differs (identical required)")
+        split = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        rec = {"request": i, "split": split, "plain_top2_gap": top2_gap_at(engines[2], prompt_list[i], split)}
+        limit = GAP_LIMIT_BF16 if dtype == torch.bfloat16 else GAP_LIMIT_F32
+        if rec["plain_top2_gap"] >= limit:
+            if dtype != torch.bfloat16:
+                raise AssertionError(f"{label}: stream {i} splits at token {split}, gap {rec['plain_top2_gap']:.3e}")
+            ref = reference() if ref is None else ref
+            exact_logits = logits_at(ref, prompt_list[i], split)
+            noise, got_err, want_err = (float((logits_at(e, prompt_list[i], split) - exact_logits).abs().max())
+                                        for e in (engines[2], engines[0], engines[1]))
+            rec.update(plain_bf16_vs_f32=noise, got_vs_f32=got_err, want_vs_f32=want_err)
+            if rec["plain_top2_gap"] > 2 * noise or max(got_err, want_err) > 2 * noise:
+                raise AssertionError(f"{label}: stream {i} splits at token {split} outside bf16 rounding: {rec}")
+        print(f"{label}: {rec}")
+        splits.append(rec)
+    return splits
+
+
+def graph_pools() -> dict:
+    """Bytes of device memory by CUDA-graph private pool (the caching
+    allocator's snapshot; the default pool left out)."""
+    pools = {}
+    for segment in torch.cuda.memory_snapshot():
+        pool = tuple(segment.get("segment_pool_id", (0, 0)))
+        if pool != (0, 0):
+            pools[pool] = pools.get(pool, 0) + segment["total_size"]
+    return pools
+
+
+def di_burst(engine, prompt_list) -> dict:
+    """A 1-step decode burst replayed with 8 slots decoding: wall against
+    device ms and top kernels (``step_profile``), and the device memory of
+    the private pool the engine's first burst graph was recorded into."""
+    short = [p for p in prompt_list if len(p) <= PREFILL_CHUNK][: engine.num_slots]
+    short += short[: engine.num_slots - len(short)]
+    engine.admit_many([(p, 400) for p in short])
+    before = graph_pools()
+    engine.step()  # the capture
+    graph_mb = sum(size for pool, size in graph_pools().items() if pool not in before) / 2**20
+    for _ in range(2):
+        engine.step()
+    result = step_profile(engine.step, DI_BURSTS, top=8)
+    engine.abort_all()
+    return {"graph_pool_mb": graph_mb, **result}
+
+
+def logit_gap(full_model, int8_model, prompt_list) -> float:
+    """The largest |logit| difference, full-precision against int8 weights,
+    at each prompt's first decode step (its last prompt position)."""
+    worst = 0.0
+    with torch.no_grad():
+        for prompt in prompt_list:
+            ids = torch.tensor([prompt], device=full_model.device)
+            worst = max(worst, float((full_model(ids)[0, -1] - int8_model(ids)[0, -1]).abs().max()))
+    return worst
+
+
+def greedy_equal(a, b) -> int:
+    return sum(a[i] == b[i] for i, (_, sampling) in enumerate(REQUESTS) if sampling is None)
+
+
+def int8_weights(config, params, device, prompt_list, tally: dict) -> dict:
+    """Part (a): weight-only int8, bf16 over the int8 pool and f32 over an
+    f32 pool (see the module docstring, phase 18)."""
+    from unionml_tpu_torch.models._layers import QuantizedLinear
+    from unionml_tpu_torch.ops import quantized_bytes
+    from unionml_tpu_torch.serving.speculative import SpeculativeEngine
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(config, dtype=dtype)
+        quant = "int8" if dtype == torch.bfloat16 else None
+        model = di_model(cfg, params, device)
+        before = checksum(model)
+        engine = di_engine(model, device, quantize="int8", kv_quantize=quant)
+        stored = quantized_bytes(engine._variables)
+        if stored != QW_BYTES or not isinstance(engine._model.layers[0].qkv, QuantizedLinear):
+            raise AssertionError(f"{dtype} int8 weights: quantized_bytes {stored}, expected {QW_BYTES}")
+        got = di_serve(engine, prompt_list, device, tally if dtype == torch.bfloat16 else None,
+                       profile=dtype == torch.bfloat16)
+        k1, k4 = got["launches"]["flash_fwd"], got["launches"]["paged_attention"]
+        if device.type == "cuda" and dtype == torch.bfloat16 and (k1 == 0 or k4 == 0):
+            raise AssertionError(f"int8 weights: K1 and K4 must launch, {got['launches']}")
+        plain = di_engine(di_model(cfg, params, device, "reference"), device, quantize="int8", kv_quantize=quant)
+        want = di_serve(plain, prompt_list, device)
+        f32 = dataclasses.replace(config, dtype=torch.float32)
+        reference = lambda: di_engine(di_model(f32, params, device, "reference"), device, quantize="int8")  # noqa: E731
+        splits = di_gate(f"{dtype} int8 weights vs plain", got["streams"], want["streams"], (engine, plain, plain),
+                         prompt_list, dtype, exact=dtype == torch.float32, reference=reference)
+        del plain
+        full = di_serve(di_engine(model, device, kv_quantize=quant), prompt_list, device,
+                        profile=dtype == torch.bfloat16)
+        rec = out[str(dtype)] = {
+            "quantized_bytes": stored, "splits": splits, "launches": got["launches"],
+            "tokens_per_s": got["tokens_per_s"], "full_tokens_per_s": full["tokens_per_s"],
+            "warm": {"int8": got.get("warm"), "full": full.get("warm")},
+            "greedy_equal_to_full_weights": greedy_equal(got["streams"], full["streams"]),
+            "first_step_logit_gap": logit_gap(model, engine._model, prompt_list),
+        }
+        del engine
+        torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            sp = spec_prompts(config.vocab_size)
+            vanilla = vanilla_engine(model, device, quantize="int8")
+            spec = SpeculativeEngine(model, model, gamma_max=SPEC_GAMMA_MAX, quantize="int8", device=device,
+                                     **SPEC_ENGINE_KW)
+            batch_serve(vanilla, sp[:1], {}, device)
+            van, _ = batch_serve(vanilla, sp, {}, device)
+            batch_serve(spec, sp[:1], {"speculative": True}, device)
+            spec_streams, _ = batch_serve(spec, sp, {"speculative": True}, device)
+            rec["spec_splits"] = gated_splits("bf16 int8 self-draft vs vanilla int8", spec_streams, van, vanilla, sp,
+                                              GAP_LIMIT_BF16)
+            rec["speculation"] = spec.speculation_stats()
+            del spec, vanilla
+            torch.cuda.empty_cache()
+            # one call, both arms in turns: full precision, int8, int8, full precision
+            rec["burst"] = [(q or "none", di_burst(vanilla_engine(model, device, quantize=q), prompt_list))
+                            for q in (None, "int8", "int8", None)]
+        if checksum(model) != before:
+            raise AssertionError(f"{dtype}: the caller's model changed: {before} -> {checksum(model)}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_engine(config, params, device, prompt_list, tally: dict) -> dict:
+    """Part (b): the dense engine (``paged=False``), bf16 and f32 (see the
+    module docstring, phase 18)."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(config, dtype=dtype)
+        model = di_model(cfg, params, device)
+        engine = di_engine(model, device, paged=False)
+        got = di_serve(engine, prompt_list, device, tally if dtype == torch.bfloat16 else None,
+                       profile=dtype == torch.bfloat16)
+        if (device.type == "cuda" and got["launches"]["flash_fwd"] == 0) or got["launches"]["paged_attention"]:
+            raise AssertionError(f"{dtype} dense: K1 must launch and K4 never, {got['launches']}")
+        plain = di_engine(di_model(cfg, params, device, "reference"), device, paged=False)
+        want = di_serve(plain, prompt_list, device)
+        paged = di_engine(model, device)  # a pool of the compute dtype
+        pgot = di_serve(paged, prompt_list, device, profile=dtype == torch.bfloat16)
+        f32 = dataclasses.replace(config, dtype=torch.float32)
+        reference = lambda: di_engine(di_model(f32, params, device, "reference"), device, paged=False)  # noqa: E731
+        rec = out[str(dtype)] = {
+            "vs_plain": di_gate(f"{dtype} dense vs plain", got["streams"], want["streams"], (engine, plain, plain),
+                                prompt_list, dtype, reference=reference),
+            "vs_paged": di_gate(f"{dtype} dense vs paged", got["streams"], pgot["streams"], (engine, paged, plain),
+                                prompt_list, dtype, reference=reference),
+            "launches": got["launches"], "tokens_per_s": {"dense": got["tokens_per_s"], "paged": pgot["tokens_per_s"]},
+            "ttft_ms": {"dense": got["ttft_ms"], "paged": pgot["ttft_ms"]},
+            "warm": {"dense": got.get("warm"), "paged": pgot.get("warm")},
+        }
+        if dtype == torch.bfloat16:
+            steady(engine, prompt_list, {})
+            rec["memcpy_htod_5_bursts"] = count_htod(engine.step, 5)
+            if rec["memcpy_htod_5_bursts"]:
+                raise AssertionError(f"dense: {rec['memcpy_htod_5_bursts']} Memcpy HtoD in 5 steady bursts")
+        del engine, plain, paged
+        torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            # fresh engines, so each arm's first reading measures its capture
+            fresh = {"dense": di_engine(model, device, paged=False), "paged": di_engine(model, device)}
+            rec["burst"] = [(label, di_burst(fresh[label], prompt_list))
+                            for label in ("dense", "paged", "paged", "dense")]
+            del fresh
+        else:
+            rec["prefix"] = dense_prefix(model, device)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_prefix(model, device) -> dict:
+    """The dense engine's prefix pool at f32: 9 requests on a 384-token
+    system prompt with the cache on and off, then 2 preemptions and resumes
+    against the same requests uninterrupted (``pc_preempt``)."""
+    vocab = model.config.vocab_size
+    prompt_list = pc_prompts(vocab, n=DI_PREFIX)
+    on = di_engine(model, device, paged=False, prefix_cache_blocks=PC_BLOCKS)
+    off = di_engine(model, device, paged=False)
+    for engine in (on, off):  # warm-up: graphs, cuBLAS handles
+        stream_after(engine, [], [[7] * 20], device)
+    before = {e: (e.prefill_tokens_computed, e.prefix_restore_dispatches, e.prefix_save_dispatches)
+              for e in (on, off)}
+    got, _, _ = stream_after(on, prompt_list[:1], prompt_list[1:], device)
+    want, _, _ = stream_after(off, prompt_list[:1], prompt_list[1:], device)
+    counts = {name: [e.prefill_tokens_computed - before[e][0], e.prefix_restore_dispatches - before[e][1],
+                     e.prefix_save_dispatches - before[e][2]] for name, e in (("on", on), ("off", off))}
+    splits = gated_splits("f32 dense prefix cache on vs off", got, want, off, prompt_list, GAP_LIMIT_F32)
+    stats = on.prefix_cache.stats()
+    if stats["hits"] != DI_PREFIX - 1 or leaked(on) != (0, 0, 0):
+        raise AssertionError(f"f32 dense prefix cache: {stats}, leaks {leaked(on)}")
+    del off
+    preempt = pc_preempt(on, prompt_list, "identical")
+    return {"prefill_restore_save": counts, "stats": stats, "splits": splits, "preempt": preempt}
+
+
+def dense_int8_phase(device, config=None) -> dict:
+    """Weight-only int8 and the dense engine (phase 18, see the module docstring)."""
+    from unionml_tpu_torch.models import GPTConfig, random_params
+
+    t0 = time.perf_counter()
+    config = config or GPTConfig()
+    params = random_params(config, seed=0)  # phase 5's weights
+    prompt_list = prompts(config.vocab_size)
+    launches, out, parts = {}, {}, {}
+    for name, fn in (("int8", int8_weights), ("dense", dense_engine)):
+        t = time.perf_counter()
+        out[name] = fn(config, params, device, prompt_list, launches)
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t
+    out["launches"], out["parts_s"], out["s"] = launches, parts, time.perf_counter() - t0
+    return out
+
+
+def report_warm(warm: dict, label: str, name_limit: str) -> None:
+    for arm, w in warm.items():
+        if w is not None:
+            print(f"[{name_limit}] {label}, warm pass, {arm}: {w['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                  f"{np.median(w['ttft_ms']):.1f} ms, {w['wall_ms']:.1f} ms wall on {w['device_busy_ms']:.1f} ms of "
+                  f"device time (idle share {w['device_idle_share']:.3f})")
+
+
+def report_dense_int8(di: dict, name_limit: str) -> None:
+    """Print phase 18's results (``dense_int8_phase``'s record)."""
+    for dtype, r in di["int8"].items():
+        pool = "int8 pool" if "bfloat16" in dtype else "f32 pool"
+        print(f"[{name_limit}] int8 weights {dtype[6:]} ({pool}): quantized_bytes {r['quantized_bytes']} (stored, "
+              f"full); streams vs plain ok, splits {r['splits']}; launches {r['launches']}; {r['tokens_per_s']:.1f} "
+              f"tokens/s against {r['full_tokens_per_s']:.1f} with full-precision weights; greedy streams equal to "
+              f"full-precision weights {r['greedy_equal_to_full_weights']}/9; first-step logit gap "
+              f"{r['first_step_logit_gap']:.4f}; the caller's model unchanged")
+        report_warm(r["warm"], f"int8 weights {dtype[6:]}", name_limit)
+        if "burst" in r:
+            s = r["speculation"]
+            print(f"[{name_limit}] int8 self-draft speculation vs vanilla int8: ok, splits {r['spec_splits']}; "
+                  f"accepted per target step {s['accepted_per_target_step']}")
+            for q, b in r["burst"]:
+                print(f"[{name_limit}] bf16 1-step 8-slot burst, weights {q}: {b['wall_ms_per_step']:.3f} ms wall, "
+                      f"{b['device_ms_per_step']:.3f} ms device, idle {b['device_idle_share']:.3f}, first graph's pool "
+                      f"{b['graph_pool_mb']:.1f} MiB; top {b['top_kernels_ms_per_step']}")
+    for dtype, r in di["dense"].items():
+        tps, ttft = r["tokens_per_s"], r["ttft_ms"]
+        print(f"[{name_limit}] dense engine {dtype[6:]}: vs plain ok (splits {r['vs_plain']}), vs paged ok (splits "
+              f"{r['vs_paged']}); launches {r['launches']}; tokens/s dense {tps['dense']:.1f} paged "
+              f"{tps['paged']:.1f}; TTFT p50 dense {np.median(ttft['dense']):.1f} paged "
+              f"{np.median(ttft['paged']):.1f} ms")
+        report_warm(r["warm"], f"dense engine {dtype[6:]}", name_limit)
+        if "burst" in r:
+            print(f"dense bf16: Memcpy HtoD in 5 steady bursts {r['memcpy_htod_5_bursts']}")
+            for label, b in r["burst"]:
+                print(f"[{name_limit}] bf16 1-step 8-slot burst, {label}: {b['wall_ms_per_step']:.3f} ms wall, "
+                      f"{b['device_ms_per_step']:.3f} ms device, idle {b['device_idle_share']:.3f}, first graph's pool "
+                      f"{b['graph_pool_mb']:.1f} MiB; top {b['top_kernels_ms_per_step']}")
+        if "prefix" in r:
+            p = r["prefix"]
+            print(f"dense f32 prefix cache ({DI_PREFIX} requests on a {PC_SYSTEM}-token prompt): [prefill tokens, "
+                  f"restores, saves] {p['prefill_restore_save']}, hits {p['stats']['hits']}, splits {p['splits']}; "
+                  f"preempt/resume identical, resume prefill tokens {p['preempt']['resume_prefill_tokens']}")
+    print(f"phase 18 launches {di['launches']}; phase 18 took {di['s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in di['parts_s'].items()} })")
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -4675,6 +5055,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["moe"] = moe = moe_phase(device)
     report_moe(moe, name_limit)
+    torch.cuda.empty_cache()
+    details["dense_int8"] = di = dense_int8_phase(device)
+    report_dense_int8(di, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -4682,6 +5065,8 @@ def main() -> int:
             r["launches_fleet"] = fl["launches"][r["name"]]
         if r["name"] in moe["launches"]:
             r["launches_moe"] = moe["launches"][r["name"]]
+        if r["name"] in di["launches"]:
+            r["launches_dense_int8"] = di["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],
@@ -4709,6 +5094,8 @@ def main() -> int:
             entry["launches_fleet"] = r["launches_fleet"]
         if "launches_moe" in r:  # phase 17's K1-K4 launches on the sparse path (train + serve)
             entry["launches_moe"] = r["launches_moe"]
+        if "launches_dense_int8" in r:  # phase 18's K1/K4 launches (int8 weights, the dense engine)
+            entry["launches_dense_int8"] = r["launches_dense_int8"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -473,3 +473,40 @@ def test_engines_on_one_card_replay_their_graphs_at_once(cuda):
     for k in (0, 1):
         assert together[k] == [alone[k]] * 3
         assert engines[k].capture_failures == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "int8_weights"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_burst_replay_equals_the_eager_burst(cuda, mode, dtype):
+    """The dense engine's bursts (``paged=False``, per-row writes into the
+    slot cache, plain masked attention) and the int8-weight engine's
+    (``quantize="int8"``, each kernel dequantized inside the graph) replayed
+    as CUDA graphs: greedy and sampled streams and the carried logits
+    bitwise equal to the same engine running every burst eagerly."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    # head_dim 64: K1's and K4's bodies take it
+    model = init_gpt(GPTConfig.tiny(hidden_size=128, num_heads=2, dtype=dtype, dropout=0.0), std=0.3, device=cuda)
+    extra = dict(paged=False, prefix_cache_blocks=16) if mode == "dense" else dict(quantize="int8", kv_quantize="int8")
+    requests = [([3, 1, 4, 1, 5], 12, {}), ([2, 7, 1], 10, {"temperature": 0.8}), (list(range(1, 20)), 8, {})]
+
+    def run(eager):
+        engine = DecodeEngine(model, num_slots=4, max_len=64, prefill_buckets=(8, 16, 32), block_size=4, seed=7,
+                              device=cuda, **extra)
+        if eager:  # every burst runs as plain launches, never captured
+            engine._run_program = lambda key, fn, generators=(): fn()
+        slots = engine.admit_many(requests)
+        out = {s: [] for s in slots}
+        while engine.num_active or engine.has_pending_events:
+            for ev in engine.step(2):
+                if ev.emit:
+                    out[ev.slot].append(ev.token)
+        torch.cuda.synchronize()
+        return [out[s] for s in slots], engine
+
+    (got, graphed), (want, eager) = run(False), run(True)
+    assert got == want and [len(s) for s in got] == [12, 10, 8]
+    assert graphed.graph_captures > 0 and eager.graph_captures == 0
+    assert torch.equal(graphed._last_logits, eager._last_logits)

@@ -75,8 +75,8 @@ def gpt():
 
 def leaks(engine):
     """``(pinned blocks, slot-owned blocks, largest node refcount)``: all zero
-    once every request retired."""
-    cache = engine._allocator
+    once every request retired (a dense engine's index has no slot blocks)."""
+    cache = engine._allocator if engine._allocator is not None else engine.prefix_cache
     worst, stack = 0, list(cache._root.children.values())
     while stack:
         node = stack.pop()

@@ -503,9 +503,8 @@ def test_speculative_round_failure_is_structured_and_isolated(gpt):
 
 
 def test_unported_modes_raise_naming_their_items(gpt):
-    for kw, match in ((dict(quantize="int8"), "weight-only int8"), (dict(paged=False), "dense engine")):
-        with pytest.raises(NotImplementedError, match=match):
-            DecodeEngine(gpt.tmodel, max_len=64, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="M12"):
+        DecodeEngine(gpt.tmodel, max_len=64, device="cpu", mesh=object())
     # telemetry is wired: the engine names its paged attention path and feeds the pool gauges
     tel = Telemetry()
     eng = DecodeEngine(gpt.tmodel, max_len=64, device="cpu", telemetry=tel, kv_quantize="int8")

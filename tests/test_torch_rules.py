@@ -125,10 +125,12 @@ def test_engine_and_batcher_default_to_cuda_and_raise_without_it(no_cuda):
 
 def test_engine_rejects_unported_modes():
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(model, paged=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="M12"):
+        DecodeEngine(model, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         DecodeEngine(model, kv_quantize="int4", device="cpu")
+    with pytest.raises(ValueError):
+        DecodeEngine(model, quantize="int4", device="cpu")
 
 
 def test_kernel_sources_ship_with_the_package_and_nothing_launched_on_cpu():

@@ -12,9 +12,9 @@ module names so each counterpart is easy to find:
 
 - :mod:`unionml_tpu_torch.ops` — attention (flash forward and backward, with
   packed segment ids), paged attention, classification losses, sequence
-  packing, blockwise int8 quantization and token sampling. The attention ops
-  run hand-written CUDA kernels (``csrc/``) on CUDA tensors and their plain
-  PyTorch versions on CPU tensors.
+  packing, int8 quantization (KV blocks and weight-only) and token sampling.
+  The attention ops run hand-written CUDA kernels (``csrc/``) on CUDA
+  tensors and their plain PyTorch versions on CPU tensors.
 - :mod:`unionml_tpu_torch.models.gpt` — the GPT-2-style decoder as
   ``nn.Module``s with dense and paged KV caches.
 - :mod:`unionml_tpu_torch.models.bert` and
@@ -26,7 +26,8 @@ module names so each counterpart is easy to find:
   (``pack_sequences`` → ``create_train_state`` → ``fit_lm(pack=True)``,
   ``make_lm_eval_step``), with the kernels in their segment-id mode.
 - :mod:`unionml_tpu_torch.serving.continuous` — ``DecodeEngine`` (paged int8
-  KV pool, bucket and chunked prefill) and the asyncio ``ContinuousBatcher``.
+  KV pool or dense per-slot caches, bucket and chunked prefill, weight-only
+  int8) and the asyncio ``ContinuousBatcher``.
 
 Importing the package loads ``torch`` and ``numpy`` and nothing else heavy:
 the models and serving load with their submodules, and the CUDA kernels

@@ -1,11 +1,17 @@
 """GPT-style causal decoder (PyTorch) with dense and paged KV caches.
 
 Port of ``unionml_tpu/models/gpt.py``: pre-LN decoder blocks, tanh-approximate
-GELU, learned positions, a tied LM head with float32 logits, and the three
-cache paths the serving engine drives:
+GELU, learned positions, a tied LM head with float32 logits, and the cache
+paths the serving engine drives:
 
 - dense-cache prefill at position 0: causal attention over the chunk, the K1
   flash kernel on the card (``gpt.py:485-492``);
+- dense-cache per-row decode (the ``paged=False`` engine, ``gpt.py:468-511``):
+  each row writes its token at its own column and attends over its own
+  ``[0, position]``; a mid-sequence chunk (a prefix hit's suffix) attends
+  over the cache under a causal mask; :func:`gather_block_prefix` and
+  :func:`slice_cache_blocks` move blocks between a dense cache and the
+  dense engine's prefix pool;
 - paged per-row decode: the int8 (or full-precision) append into each row's
   tail block, then K4 over the block table (``gpt.py:386-466``);
 - paged batch-1 chunk prefill: :func:`_paged_chunk_quantized`, then K4;
@@ -30,7 +36,9 @@ Mixed precision as flax does it: parameters are float32, each layer casts
 its weight and input to ``config.dtype`` (``models/_layers.py``), the
 embedding lookups return ``config.dtype`` and the tied head multiplies
 float32 hidden states by the float32 embedding. KV caches and pools keep
-``config.dtype``.
+``config.dtype``. A serving copy made by
+:func:`~unionml_tpu_torch.models._layers.quantize_model` keeps its decoder
+kernels as int8 and dequantizes each just before its product.
 
 Sparse configs (``moe_every > 0``, ``gpt.py:52-66``) swap every
 ``moe_every``-th block's MLP for a :class:`~unionml_tpu_torch.models.moe.MoEMlp`
@@ -52,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
-from unionml_tpu_torch.models._layers import _dense, _dropout, _layer_norm
+from unionml_tpu_torch.models._layers import _dense, _dropout, _kernel, _layer_norm
 from unionml_tpu_torch.models.moe import MoEMlp
 from unionml_tpu_torch.ops.attention import attention, reference_attention
 from unionml_tpu_torch.ops.losses import cross_entropy_with_integer_labels
@@ -220,7 +228,7 @@ def _dense_by_position(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) ->
     one position at a time: each product has the decode step's shape
     (``batch`` rows), so a row's result is bit for bit the decode step's (a
     GEMM's rounding depends on its row count on the card and on the CPU)."""
-    weight = layer.weight.to(dtype)
+    weight = _kernel(layer, dtype)
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     x = x.to(dtype)
     return torch.cat([F.linear(x[:, j:j + 1].contiguous(), weight, bias) for j in range(x.shape[1])], dim=1)
@@ -413,12 +421,24 @@ class DecoderBlock(nn.Module):
 
     def _dense(self, q, k, v, cache, position, pad_offsets, pad_mask):
         cfg = self.config
-        seq = q.shape[2]
+        batch, _, seq, _ = q.shape
+        k_pos = torch.arange(cache["k"].shape[2], device=q.device)
         if _per_row(position):
-            raise NotImplementedError(
-                "per-row positions on a dense cache (the paged=False engine) are not ported "
-                "yet (ROADMAP: DecodeEngine prefix cache / pipelining slice)"
-            )
+            if seq != 1:
+                raise ValueError("per-row cache positions require single-token decode (seq=1)")
+            # continuous batching: each row writes its token's K/V at its own
+            # column (one scatter; a position past the cache clamps to its
+            # last column, which the engine allows only for finished rows) and
+            # attends over exactly its own [0, position]
+            position = position.long()
+            rows = torch.arange(batch, device=q.device)
+            cols = torch.clamp(position, 0, cache["k"].shape[2] - 1)
+            cache["k"][rows, :, cols, :] = k[:, :, 0, :].to(cache["k"].dtype)
+            cache["v"][rows, :, cols, :] = v[:, :, 0, :].to(cache["v"].dtype)
+            mask = (k_pos[None, :] <= position[:, None])[:, None, None, :]
+            if pad_offsets is not None:
+                mask = mask & pad_mask(k_pos)
+            return reference_attention(q, cache["k"], cache["v"], mask=mask)
         position = int(position)
         cache["k"][:, :, position:position + seq] = k.to(cache["k"].dtype)
         cache["v"][:, :, position:position + seq] = v.to(cache["v"].dtype)
@@ -430,7 +450,6 @@ class DecoderBlock(nn.Module):
             return reference_attention(
                 q, k, v, causal=True, mask=pad_mask(torch.arange(seq, device=q.device))
             )
-        k_pos = torch.arange(cache["k"].shape[2], device=q.device)
         q_pos = position + torch.arange(seq, device=q.device)
         mask = (k_pos[None, :] <= q_pos[:, None])[None, None, :, :]
         if pad_offsets is not None:
@@ -643,6 +662,37 @@ def init_block_pool(
                 "v": torch.zeros(shape, dtype=dtype, device=device),
             }
     return pool
+
+
+def gather_block_prefix(pool: Dict[str, Any], block_ids: torch.Tensor, pad_len: int) -> Dict[str, Any]:
+    """Pool blocks ``block_ids`` ``(n,)`` gathered in order into a fresh
+    batch-1 dense cache of ``(1, heads, pad_len, head_dim)`` leaves, zero past
+    the ``n * block_size`` restored columns (``gpt.py:823-840``)."""
+    out: Dict[str, Any] = {}
+    for name, layer in pool.items():
+        out[name] = {}
+        for key, leaf in layer.items():
+            blocks = leaf[block_ids.long()]  # (n, heads, block_size, head_dim)
+            n, heads, block_size, head_dim = blocks.shape
+            cache = torch.zeros((1, heads, pad_len, head_dim), dtype=leaf.dtype, device=leaf.device)
+            cache[0, :, : n * block_size] = blocks.transpose(0, 1).reshape(heads, n * block_size, head_dim)
+            out[name][key] = cache
+    return out
+
+
+def slice_cache_blocks(cache: Dict[str, Any], row: int, start_block: int, num_blocks: int,
+                       block_size: int) -> Dict[str, Any]:
+    """Blocks ``[start_block, start_block + num_blocks)`` of dense-cache row
+    ``row`` in pool layout, ``(num_blocks, heads, block_size, head_dim)`` per
+    leaf (``gpt.py:843-862``)."""
+    out: Dict[str, Any] = {}
+    for name, layer in cache.items():
+        out[name] = {}
+        for key, leaf in layer.items():
+            src = leaf[row, :, start_block * block_size : (start_block + num_blocks) * block_size]
+            heads, _, head_dim = src.shape
+            out[name][key] = src.reshape(heads, num_blocks, block_size, head_dim).transpose(0, 1)
+    return out
 
 
 def kv_pool_bytes(pool: Dict[str, Any], dense_dtype: torch.dtype) -> Tuple[int, int]:

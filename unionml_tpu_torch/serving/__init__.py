@@ -1,7 +1,7 @@
 """The port's serving: the resident predictor behind ``/predict`` (a CUDA graph
 per padded request shape, :mod:`unionml_tpu_torch.serving.resident`), its
-request coalescing and aiohttp app, and the GPT path's paged ``DecodeEngine``
-and asyncio ``ContinuousBatcher`` (:mod:`unionml_tpu_torch.serving.continuous`),
+request coalescing and aiohttp app, and the GPT path's ``DecodeEngine`` (paged
+or dense, full-precision or int8 weights) and asyncio ``ContinuousBatcher`` (:mod:`unionml_tpu_torch.serving.continuous`),
 its SLO admission scheduler (:mod:`unionml_tpu_torch.serving.scheduler`) behind
 the ``/generate`` route, its radix prefix cache
 (:mod:`unionml_tpu_torch.serving.prefix_cache`), fault

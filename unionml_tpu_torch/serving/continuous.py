@@ -1,9 +1,10 @@
-"""Continuous batching for GPT generation over a paged KV pool.
+"""Continuous batching for GPT generation over a paged KV pool or dense
+per-slot caches.
 
-Port of the paged subset of ``unionml_tpu/serving/continuous.py``
-(``DecodeEngine``, ``:166-2763``; ``ContinuousBatcher``, ``:2829-3732``).
-One decode step runs over a fixed set of slots; requests are inserted into
-free slots between steps and evicted when they finish.
+Port of ``unionml_tpu/serving/continuous.py`` (``DecodeEngine``,
+``:166-2763``; ``ContinuousBatcher``, ``:2829-3732``) on one device. One
+decode step runs over a fixed set of slots; requests are inserted into free
+slots between steps and evicted when they finish.
 
 - The KV cache is a block POOL shared by all slots: ``(num_blocks, heads,
   block_size, head_dim)`` per layer, int8 codes plus per-(block, head) f32
@@ -43,6 +44,22 @@ free slots between steps and evicted when they finish.
   pinned host memory and an event) before it waits for burst N's event.
   :meth:`DecodeEngine._dispatch_step` and :meth:`DecodeEngine._replay_burst`
   are the seam the speculative engine overrides.
+- The dense engine (``paged=False``, JAX's A/B arm): each slot owns a
+  ``max_len`` row of a ``(slots, heads, max_len, head_dim)`` cache per layer;
+  a bucket prefill inserts its rows there, decode writes each row's token at
+  its own column. Its prefix cache is a separate full-precision block pool
+  behind its own radix index: a hit gathers the matched blocks into a local
+  cache (restore) and prefills the suffix over it; indexing copies a slot's
+  new full blocks out of its row into the pool (save), and a failed save
+  rebuilds that pool empty. The pool and index survive an engine rebuild, so
+  salvaged requests resume through hits. ``block_demand`` is 0,
+  ``available_blocks`` and ``pool_signal`` are None, ``kv_pool_stats`` is
+  ``{}`` (no block accounting).
+- Weight-only int8 (``quantize="int8"``): the engine serves its own copy of
+  the model (:func:`~unionml_tpu_torch.models._layers.quantize_model`) whose
+  decoder kernels are int8 codes with per-output f32 scales, each
+  dequantized just before its product, in every prefill, chunk and captured
+  burst. The caller's model is left untouched.
 - Faults: a slot whose logits went NaN/Inf is quarantined alone (its request
   fails with ``nan_logits``). A failed dispatch, fetch or device write fails
   the ENGINE: every slot's transcript is salvaged (host data only), the device
@@ -70,9 +87,8 @@ free slots between steps and evicted when they finish.
   tickets to the fleet (:attr:`ContinuousBatcher.on_tickets_orphaned`,
   :meth:`ContinuousBatcher.adopt_ticket`).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item
-where it is reachable): mesh sharding, weight-only int8 ``quantize``, and the
-dense ``paged=False`` engine.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+mesh sharding.
 """
 
 import asyncio
@@ -89,18 +105,21 @@ import torch
 from unionml_tpu_torch import _graphs
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.models._layers import quantize_model
 from unionml_tpu_torch.models.gpt import (
     advance_slot_state,
     block_table_width,
+    gather_block_prefix,
     init_block_pool,
     init_block_tables,
     init_cache,
     init_slot_state,
     kv_pool_bytes,
+    slice_cache_blocks,
 )
 from unionml_tpu_torch.ops.quant import quantize_blockwise
 from unionml_tpu_torch.ops.sampling import sample_logits, validate_sampling
-from unionml_tpu_torch.serving.faults import EngineFailure, FaultError, FaultPlan
+from unionml_tpu_torch.serving.faults import EngineFailure, FaultPlan
 from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.scheduler import (
     DeadlineExceededError,
@@ -173,9 +192,11 @@ class PreemptedSlot:
 class SalvagedSlot:
     """One slot's resumable state captured at an engine failure: host data
     only (the device state may be poisoned). ``tokens`` is the transcript
-    delivered so far, ``remaining`` the unspent budget. The paged pool is
-    rebuilt empty, so ``path`` is always empty here: the resume prefills the
-    whole transcript."""
+    delivered so far, ``remaining`` the unspent budget. A paged engine's pool
+    is rebuilt empty, so its ``path`` is empty and the resume prefills the
+    whole transcript; a dense engine's prefix pool survives the rebuild, and
+    ``path`` is the slot's indexed chain, pinned until
+    :meth:`DecodeEngine.release_preempted`."""
 
     slot: int
     tokens: List[int]
@@ -202,7 +223,8 @@ class _Burst:
 
 
 class DecodeEngine:
-    """Slot-based continuous-batching decode engine over a paged KV pool.
+    """Slot-based continuous-batching decode engine over a paged KV pool (or
+    dense per-slot caches with ``paged=False``).
 
     :param model: a :class:`~unionml_tpu_torch.models.gpt.GPTLMHeadModel` on
         ``device``.
@@ -220,21 +242,25 @@ class DecodeEngine:
         prefill in chunks of this many tokens, one chunk per :meth:`step`,
         through the block table.
     :param block_size: tokens per pool block, which is also the prefix
-        cache's match granularity (clamped to ``max_len``).
+        cache's match granularity (clamped to ``max_len``); JAX's
+        ``prefix_block_size``.
     :param pool_blocks: pool size in blocks including the scratch block;
         ``None`` sizes it so a free slot can always allocate
         (``num_slots * ceil(max_len / block_size) + prefix_cache_blocks + 1``).
     :param kv_quantize: ``"int8"`` stores the pool as int8 codes with
         per-(block, head) f32 scales; ``None`` keeps the compute dtype.
+        Requires ``paged=True``.
     :param kv_quantize_skip_layers: layers whose pool stays full precision.
     :param pipeline: depth-1 dispatch-ahead (default on): each :meth:`step`
         enqueues the next burst before it fetches the previous one, so the
         card decodes while the host applies tokens; events then arrive one
         call later. Streams equal ``pipeline=False``'s under the same calls.
-    :param paged: must be True (the dense engine is not ported yet).
+    :param paged: the paged block pool (default). ``False`` keeps a dense
+        ``max_len`` cache row per slot, with the prefix cache in a separate
+        block pool of ``prefix_cache_blocks`` blocks (JAX's A/B arm).
     :param prefix_cache_blocks: when > 0, the prefix cache is on (see
         :meth:`enable_prefix_cache`) with this many blocks of headroom in the
-        default pool size.
+        default pool size (dense: the prefix pool's size).
     :param prefix_cache_generated: also index a retiring slot's generated
         tokens, so a follow-up turn hits the whole previous turn.
     :param faults: a :class:`~unionml_tpu_torch.serving.faults.FaultPlan`
@@ -242,7 +268,10 @@ class DecodeEngine:
         hook one host branch.
     :param telemetry: a :class:`~unionml_tpu_torch.serving.telemetry.Telemetry`
         (spans and metrics; ``None`` makes every hook one host branch).
-    :param quantize / mesh: not ported yet; anything but the default raises
+    :param quantize: ``"int8"`` serves weight-only int8 decoder kernels (per
+        output channel, :mod:`unionml_tpu_torch.ops.quant`) from the engine's
+        own copy of the model; the caller's model is not modified.
+    :param mesh: not ported yet (M12); anything but ``None`` raises
         ``NotImplementedError``.
     :param device: ``"cuda"`` (default; raises without a CUDA device) or
         ``"cpu"`` for the plain PyTorch path.
@@ -279,12 +308,8 @@ class DecodeEngine:
         #: issues its device work there, so a fetch waits for this engine's
         #: bursts only, not for another engine's work on the same card
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        for value, what, item in ((quantize, "weight-only int8 (quantize)", "Queue 1, weight-only int8"),
-                                  (mesh, "mesh", "M12")):
-            if value:
-                raise _not_ported(what, item)
-        if not paged:
-            raise _not_ported("the dense (paged=False) engine", "Queue 1, the dense engine")
+        if mesh is not None:
+            raise _not_ported("mesh", "M12")
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
         config = model.config
@@ -293,10 +318,24 @@ class DecodeEngine:
             raise ValueError(
                 f"max_len ({max_len}) exceeds max_position_embeddings ({config.max_position_embeddings})"
             )
+        if quantize not in (None, "int8"):
+            raise ValueError(f"Unknown quantize mode {quantize!r}; expected None or 'int8'")
         if kv_quantize not in (None, "int8"):
             raise ValueError(f"Unknown kv_quantize mode {kv_quantize!r}; expected None or 'int8'")
+        if kv_quantize is not None and not paged:
+            raise ValueError("kv_quantize requires paged=True (the block pool is what quantizes)")
+        #: the weights the engine serves (what ``quantized_bytes`` reads):
+        #: with ``quantize="int8"`` the quantized tree of its own model copy
+        #: (the caller's model, which a full-precision engine, fleet replicas
+        #: or a draft may share, is not modified), else the model's parameters
+        if quantize == "int8":
+            model, self._variables = quantize_model(model)
+        else:
+            self._variables = dict(model.named_parameters())
         self._model = model
         self._config = config
+        #: paged KV pool (default), or dense per-slot caches (``paged=False``)
+        self.paged = bool(paged)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.eos_token_id = eos_token_id
@@ -327,24 +366,34 @@ class DecodeEngine:
         self._slot_rid: Dict[int, str] = {}
         self._slot_pending_spans: Dict[int, List[Tuple[str, float, Optional[float], Dict[str, Any]]]] = {}
         #: the paged attention path the engine's programs run: the CUDA kernel,
-        #: or its plain version (CPU tensors, or ``paged_attn_impl="reference"``)
-        self.paged_attn_impl = (
-            "reference" if config.paged_attn_impl == "reference" or self.device.type != "cuda" else "kernel")
+        #: or its plain version (CPU tensors, or ``paged_attn_impl="reference"``);
+        #: None on a dense engine
+        self.paged_attn_impl: Optional[str] = None
         # the pool's block size IS the prefix cache's (one layout, spliced freely)
         self.block_size = min(int(block_size), self.max_len)
-        self._table_width = block_table_width(self.max_len, self.block_size)
         self._explicit_pool_blocks = pool_blocks is not None
-        if pool_blocks is None:
-            pool_blocks = self.num_slots * (self._table_width - 1) + int(prefix_cache_blocks) + 1
-        if int(pool_blocks) < 2:
-            raise ValueError(f"pool_blocks must be >= 2 (1 usable + scratch), got {pool_blocks}")
-        self.pool_blocks = int(pool_blocks)
-        #: reserved block absorbing retired rows' masked writes; never allocated
-        self._scratch_block = self.pool_blocks - 1
-        #: the allocator of the pool, and its radix index once the prefix cache is on
-        self._allocator = PrefixCache(self.pool_blocks - 1, self.block_size, telemetry=self._telemetry)
-        if self._telemetry is not None:
-            self._telemetry.paged_attn_impl.set(1.0, self.paged_attn_impl)
+        #: the allocator of the paged pool, and its radix index once the prefix
+        #: cache is on; None on a dense engine
+        self._allocator: Optional[PrefixCache] = None
+        #: the paged pool (or, dense, the prefix cache's block pool), the
+        #: block tables and the dense per-slot cache, as the mode has them
+        self._pool: Optional[Dict[str, Any]] = None
+        self._tables: Optional[torch.Tensor] = None
+        self._cache: Optional[Dict[str, Any]] = None
+        if self.paged:
+            self.paged_attn_impl = (
+                "reference" if config.paged_attn_impl == "reference" or self.device.type != "cuda" else "kernel")
+            self._table_width = block_table_width(self.max_len, self.block_size)
+            if pool_blocks is None:
+                pool_blocks = self.num_slots * (self._table_width - 1) + int(prefix_cache_blocks) + 1
+            if int(pool_blocks) < 2:
+                raise ValueError(f"pool_blocks must be >= 2 (1 usable + scratch), got {pool_blocks}")
+            self.pool_blocks = int(pool_blocks)
+            #: reserved block absorbing retired rows' masked writes; never allocated
+            self._scratch_block = self.pool_blocks - 1
+            self._allocator = PrefixCache(self.pool_blocks - 1, self.block_size, telemetry=self._telemetry)
+            if self._telemetry is not None:
+                self._telemetry.paged_attn_impl.set(1.0, self.paged_attn_impl)
         #: the radix index (the allocator itself) while the prefix cache is on, else None
         self.prefix_cache: Optional[PrefixCache] = None
         self.prefix_cache_generated = bool(prefix_cache_generated)
@@ -442,22 +491,27 @@ class DecodeEngine:
             self.enable_prefix_cache(prefix_cache_blocks, cache_generated=prefix_cache_generated)
 
     def _init_device_state(self) -> None:
-        """(Re)allocate the device state: the pool, the tables and every
-        buffer a decode burst reads or writes. They are static: every later
-        write is in place, so a captured burst keeps reading the live values.
-        A reallocation drops every graph (each reads the old buffers at their
-        addresses; one replayed over freed memory would corrupt silently) and
-        the burst in flight; the next dispatch of each key captures anew."""
+        """(Re)allocate the device state: the paged pool and its tables (or
+        the dense per-slot cache) and every buffer a decode burst reads or
+        writes. They are static: every later write is in place, so a captured
+        burst keeps reading the live values. A reallocation drops every graph
+        (each reads the old buffers at their addresses; one replayed over
+        freed memory would corrupt silently) and the burst in flight; the
+        next dispatch of each key captures anew. A dense engine's prefix pool
+        is no burst's state: it survives (``continuous.py:870-915``)."""
         self.graphs_dropped += len(self._step_fns)
         self._step_fns = {}
         self._inflight, self._inflight_skip = None, set()
         dev, config = self.device, self._config
-        self._pool = init_block_pool(
-            config, self.pool_blocks, self.block_size, kv_quantize=self.kv_quantize,
-            kv_quantize_skip_layers=self.kv_quantize_skip_layers, device=dev,
-        )
-        self._tables = init_block_tables(self.num_slots, self.max_len, self.block_size, self._scratch_block,
-                                         device=dev)
+        if self.paged:
+            self._pool = init_block_pool(
+                config, self.pool_blocks, self.block_size, kv_quantize=self.kv_quantize,
+                kv_quantize_skip_layers=self.kv_quantize_skip_layers, device=dev,
+            )
+            self._tables = init_block_tables(self.num_slots, self.max_len, self.block_size, self._scratch_block,
+                                             device=dev)
+        else:
+            self._cache = init_cache(config, self.num_slots, self.max_len, device=dev)
         self._lens = torch.zeros((self.num_slots,), dtype=torch.int32, device=dev)  # K4 takes int32 positions
         self._last_logits = torch.zeros((self.num_slots, config.vocab_size), dtype=torch.float32, device=dev)
         self._active_dev, self._remaining_dev = init_slot_state(self.num_slots, device=dev)
@@ -504,17 +558,24 @@ class DecodeEngine:
     @on_engine_stream
     def enable_prefix_cache(self, num_blocks: int, block_size: Optional[int] = None, *,
                             cache_generated: bool = False) -> None:
-        """Turn the prefix cache on: the allocator already is the radix index,
-        so indexing starts over the same pool. ``block_size`` (default the
-        pool's) or extra headroom in a default-sized pool re-lays the pool
+        """Turn the prefix cache on. Paged: the allocator already is the radix
+        index, so indexing starts over the same pool; ``block_size`` (default
+        the pool's) or extra headroom in a default-sized pool re-lays the pool
         out, which is legal only while nothing holds a block (and drops every
-        graph). Callable once (the constructor calls it for
-        ``prefix_cache_blocks > 0``)."""
+        graph). Dense: a separate pool of ``num_blocks`` full-precision blocks
+        behind its own radix index (``continuous.py:1000-1008``). Callable
+        once (the constructor calls it for ``prefix_cache_blocks > 0``)."""
         if self.prefix_cache is not None:
             raise RuntimeError("prefix cache is already enabled on this engine")
         block_size = self.block_size if block_size is None else int(block_size)
         if not 1 <= block_size < self.max_len:
             raise ValueError(f"block_size must be in [1, max_len) = [1, {self.max_len}), got {block_size}")
+        if not self.paged:
+            self.prefix_cache = PrefixCache(int(num_blocks), block_size, telemetry=self._telemetry)
+            self.prefix_cache_generated = bool(cache_generated)
+            self.block_size = block_size
+            self._pool = init_block_pool(self._config, int(num_blocks), block_size, device=self.device)
+            return
         width = block_table_width(self.max_len, block_size)
         pool_blocks = self.pool_blocks
         if not self._explicit_pool_blocks:
@@ -572,18 +633,27 @@ class DecodeEngine:
 
     def block_demand(self, prompt_len: int, budget: int) -> int:
         """Pool blocks a request needs for its whole lifetime (a hit's
-        private share can be smaller: this is the conservative demand)."""
+        private share can be smaller: this is the conservative demand); 0 on
+        a dense engine (no block accounting)."""
+        if not self.paged:
+            return 0
         return block_demand(prompt_len, budget, max_len=self.max_len, block_size=self.block_size)
 
-    def available_blocks(self) -> int:
-        """Blocks an admission could allocate now: free plus evictable."""
+    def available_blocks(self) -> Optional[int]:
+        """Blocks an admission could allocate now: free plus evictable; None
+        on a dense engine (unbounded)."""
+        if not self.paged:
+            return None
         return self._allocator.available_blocks()
 
     def kv_pool_stats(self) -> Dict[str, Any]:
         """Byte accounting of the resident KV pool (shapes only): ``kv_dtype``,
         ``kv_pool_bytes`` as stored (scales included),
         ``kv_pool_bytes_dense_equiv`` at the compute dtype, and ``impl``, the
-        paged attention path (``"kernel"`` or ``"reference"``)."""
+        paged attention path (``"kernel"`` or ``"reference"``); ``{}`` on a
+        dense engine."""
+        if not self.paged:
+            return {}
         stored, full = kv_pool_bytes(self._pool, self._config.dtype)
         return {
             "kv_dtype": self.kv_quantize or str(self._config.dtype).replace("torch.", ""),
@@ -644,13 +714,16 @@ class DecodeEngine:
         self._slot_rid.pop(slot, None)
         self._slot_pending_spans.pop(slot, None)
 
-    def pool_signal(self) -> Dict[str, Any]:
+    def pool_signal(self) -> Optional[Dict[str, Any]]:
         """Block-pool occupancy for :meth:`SLOScheduler.load_signal`:
         ``num_blocks``, the free/live/cached/pinned fractions,
         ``available_blocks`` (free plus cached minus pinned, an upper bound on
         what eviction could reclaim) and ``pressure`` (1 minus the available
-        fraction). Plain counter reads: the exact evictable walk
-        (:meth:`available_blocks`) stays on the worker's admission path."""
+        fraction); None on a dense engine. Plain counter reads: the exact
+        evictable walk (:meth:`available_blocks`) stays on the worker's
+        admission path."""
+        if not self.paged:
+            return None
         stats = self._allocator.stats()
         total = max(1, int(stats["num_blocks"]))
         free, live = int(stats["free_blocks"]), int(stats["slot_blocks"])
@@ -706,7 +779,7 @@ class DecodeEngine:
             if not self._prefix_coverable(prompt):
                 raise
         demand = self.block_demand(prompt.size, max_new_tokens)
-        if demand > self._allocator.num_blocks:
+        if self.paged and demand > self._allocator.num_blocks:
             raise ValueError(
                 f"request needs {demand} KV blocks but the pool has only "
                 f"{self._allocator.num_blocks}; raise pool_blocks or lower max_new_tokens"
@@ -904,7 +977,7 @@ class DecodeEngine:
 
     def _flush_groups(self, groups: Dict[int, List[int]], slot_to_norm: Dict[int, Tuple]) -> None:
         """Per bucket, prefill up to ``prefill_batch`` rows together, then
-        insert every row into its pool blocks."""
+        insert every row into its pool blocks (dense: its cache row)."""
         for bucket, idxs in groups.items():
             for start in range(0, len(idxs), self.prefill_batch):
                 chunk = idxs[start : start + self.prefill_batch]
@@ -914,13 +987,14 @@ class DecodeEngine:
                     prompt, budget = slot_to_norm[slot][:2]
                     padded[r, : prompt.size] = prompt
                     lengths[r] = prompt.size
-                    self._write_slot_row(slot, self._alloc_slot_blocks(slot, 0, self.block_demand(prompt.size, budget)))
+                    if self.paged:
+                        blocks = self._alloc_slot_blocks(slot, 0, self.block_demand(prompt.size, budget))
+                        self._write_slot_row(slot, blocks)
                 if self._faults is not None:
                     self._faults.check_prefill()
                 lengths_dev = torch.from_numpy(lengths).to(self.device)
                 local_cache, last = self._prefill(torch.from_numpy(padded).to(self.device), lengths_dev)
-                with self._device_write():
-                    self._paged_insert(local_cache, last, torch.tensor(chunk, device=self.device), lengths_dev)
+                self._insert_into_slots(local_cache, last, torch.tensor(chunk, device=self.device), lengths_dev)
                 self.prefill_dispatches += 1
                 for r, slot in enumerate(chunk):
                     prompt = slot_to_norm[slot][0]
@@ -943,6 +1017,22 @@ class DecodeEngine:
             logits, local_cache = model(prompt_ids, cache=local_cache, position=0)
         idx = torch.clamp(lengths - 1, 0, bucket - 1)
         return local_cache, logits[torch.arange(rows, device=self.device), idx]
+
+    def _insert_into_slots(self, local_cache, local_logits, slots, lengths) -> None:
+        """Insert a prefill's local cache rows and last logits into ``slots``
+        (``continuous.py:1903-1922``): through the rows' block tables into
+        the pool, or into the dense cache rows. A failure part-way poisons
+        the shared state."""
+        with self._device_write():
+            if self.paged:
+                self._paged_insert(local_cache, local_logits, slots, lengths)
+                return
+            for name, layer in self._cache.items():
+                for key in ("k", "v"):
+                    local = local_cache[name][key]  # (rows, heads, width, hd) into columns [0, width)
+                    layer[key][slots, :, : local.shape[2]] = local.to(layer[key].dtype)
+            self._lens[slots] = lengths.to(self._lens.dtype)
+            self._last_logits[slots] = local_logits.float()
 
     def _paged_insert(self, local_cache, local_logits, slots, lengths, pool=None) -> None:
         """Scatter a bucket prefill's dense K/V into the admitted slots' pool
@@ -1015,9 +1105,12 @@ class DecodeEngine:
         bucket-padded, at base ``matched`` through the table (K4's query tile
         on the card). The base is block-aligned, so the suffix's writes,
         padding included, land in the slot's private blocks (or scratch),
-        never in a shared one. The match shrinks a block at a time while the
-        suffix bucket would overflow the slot; returns False (path released)
-        when nothing survives, and the caller falls back to the bucket path."""
+        never in a shared one. A dense engine restores the matched blocks
+        into a local cache of ``matched + bucket`` columns, prefills the
+        suffix over it (the plain masked attention) and inserts it into the
+        slot's row. The match shrinks a block at a time while the suffix
+        bucket would overflow the slot; returns False (path released) when
+        nothing survives, and the caller falls back to the bucket path."""
         block = self.block_size
         while matched:
             try:
@@ -1033,18 +1126,29 @@ class DecodeEngine:
         if not matched:
             return False
         suffix_len = int(prompt.size) - matched
-        ids = np.zeros((1, self.bucket_for(suffix_len)), dtype=np.int64)
+        bucket = self.bucket_for(suffix_len)
+        ids = np.zeros((1, bucket), dtype=np.int64)
         ids[0, :suffix_len] = prompt[matched:]
         try:
-            private = self._alloc_slot_blocks(slot, len(path), self.block_demand(prompt.size, budget) - len(path))
-            self._write_slot_row(slot, [node.block_id for node in path] + private)
+            if self.paged:
+                private = self._alloc_slot_blocks(slot, len(path), self.block_demand(prompt.size, budget) - len(path))
+                self._write_slot_row(slot, [node.block_id for node in path] + private)
+            else:
+                local_cache = self._restore(path, matched + bucket)  # exact: the suffix write never clamps
             self.prefix_restore_dispatches += 1
             if self._faults is not None:
                 self._faults.check_prefill()
-            logits = self._run_paged_chunk(ids, slot, matched)
+            if self.paged:
+                logits = self._run_paged_chunk(ids, slot, matched)
+            else:
+                logits = self._run_dense_chunk(ids, local_cache, matched)
             self.prefill_dispatches += 1
             self.prefill_tokens_computed += suffix_len
-            self._seal_slot(slot, int(prompt.size), logits[0, suffix_len - 1])
+            if self.paged:
+                self._seal_slot(slot, int(prompt.size), logits[0, suffix_len - 1])
+            else:
+                self._insert_into_slots(local_cache, logits[:, suffix_len - 1], self._device_ints(slot),
+                                        self._device_ints(prompt.size))
         except Exception:
             self.prefix_cache.release(path)
             path.clear()
@@ -1069,6 +1173,23 @@ class DecodeEngine:
             logits, _ = self._model(torch.from_numpy(ids).to(self.device), cache=cache, position=int(position))
         return logits
 
+    def _run_dense_chunk(self, ids: np.ndarray, local_cache: Dict[str, Any], position: int) -> torch.Tensor:
+        """One batch-1 prefill chunk into a local dense cache at ``position``
+        (a dense hit's suffix, every chunk of a dense chunked prefill): K1 at
+        position 0, the plain masked attention over the cache after it. It
+        writes only the local cache; returns its logits."""
+        with torch.no_grad():
+            logits, _ = self._model(torch.from_numpy(ids).to(self.device), cache=local_cache, position=int(position))
+        return logits
+
+    def _restore(self, path: Sequence[Any], pad_len: int) -> Dict[str, Any]:
+        """A dense engine's prefix restore: the matched blocks gathered from
+        its prefix pool into a fresh batch-1 cache of ``pad_len`` columns."""
+        return gather_block_prefix(self._pool, self._device_ints(*(node.block_id for node in path)), pad_len)
+
+    def _device_ints(self, *values: int) -> torch.Tensor:
+        return torch.tensor([int(v) for v in values], dtype=torch.int64, device=self.device)
+
     def _seal_slot(self, slot: int, length: int, last: torch.Tensor) -> None:
         """Set a table-resident prefill's length and sampling logits."""
         with self._device_write():
@@ -1084,25 +1205,57 @@ class DecodeEngine:
             self._extend_index(slot, prompt)
 
     def _extend_index(self, slot: int, tokens: np.ndarray) -> None:
-        """Extend the slot's held path over ``tokens``' full blocks by
-        ADOPTION: each block the tree lacks moves from the slot's private
-        blocks to the tree, no device work. Only full blocks are indexed, so
-        an int8 block's codes and scale never change once shared. An exhausted
-        pool (injected) indexes nothing new; the request is never affected."""
+        """Extend the slot's held path over ``tokens``' full blocks. Paged: by
+        ADOPTION, each block the tree lacks moves from the slot's private
+        blocks to the tree, no device work; only full blocks are indexed, so
+        an int8 block's codes and scale never change once shared. Dense: the
+        new blocks are copied out of the slot's cache row into the prefix
+        pool (a save); a save that fails rebuilds the pool empty and forgets
+        every cached prefix (``continuous.py:1694-1732``). An exhausted pool
+        (injected) indexes nothing new; the request is never affected."""
         path = self._slot_path.pop(slot, [])
         if self._faults is not None and self._faults.pool_exhausted():
             self._faults.note_observed("pool_exhausted")
             if path:
                 self._slot_path[slot] = path
             return
-        full, adopted = self.prefix_cache.adopt(path, tokens, int(tokens.size) // self.block_size,
-                                                self._slot_block_map.setdefault(slot, {}))
-        if adopted:
-            self.prefix_save_dispatches += 1
-            if self._telemetry is not None:
-                self._note_pool_gauges()
+        max_blocks = int(tokens.size) // self.block_size
+        if self.paged:
+            full, adopted = self.prefix_cache.adopt(path, tokens, max_blocks,
+                                                    self._slot_block_map.setdefault(slot, {}))
+            if adopted:
+                self.prefix_save_dispatches += 1
+                if self._telemetry is not None:
+                    self._note_pool_gauges()
+        else:
+            full, new = self.prefix_cache.extend(path, tokens, max_blocks)
+            if new:
+                try:
+                    self._save(slot, len(full) - len(new), [node.block_id for node in new])
+                except Exception as exc:
+                    logger.warning("prefix-cache block save failed (%s); rebuilding the pool in place", exc)
+                    self._rebuild_pool()
+                    return
+                self.prefix_save_dispatches += 1
         if full:
             self._slot_path[slot] = full
+
+    def _save(self, slot: int, start_block: int, block_ids: Sequence[int]) -> None:
+        """Copy blocks ``[start_block, start_block + len(block_ids))`` of
+        ``slot``'s dense cache row into the prefix pool at ``block_ids``."""
+        blocks = slice_cache_blocks(self._cache, slot, start_block, len(block_ids), self.block_size)
+        dst = self._device_ints(*block_ids)
+        for name, layer in self._pool.items():
+            for key, leaf in layer.items():
+                leaf[dst] = blocks[name][key].to(leaf.dtype)
+
+    def _rebuild_pool(self) -> None:
+        """Reallocate a dense engine's prefix pool and forget every cached
+        prefix. Held paths (other slots', pinned checkpoints') now name
+        orphaned nodes; releasing or unpinning them later is harmless."""
+        self.prefix_cache.clear()
+        self._slot_path.clear()
+        self._pool = init_block_pool(self._config, self.prefix_cache.num_blocks, self.block_size, device=self.device)
 
     def _capture_generated(self, slot: int) -> None:
         """At retirement (``prefix_cache_generated``): index the slot's whole
@@ -1123,24 +1276,34 @@ class DecodeEngine:
     def _start_chunked(self, slot: int, prompt: np.ndarray, budget: int, temp: float, top_k: int, top_p: float,
                        path: Sequence[Any] = (), matched: int = 0) -> bool:
         """Reserve ``slot`` for a chunked prefill when the prompt's uncached
-        part is longer than one chunk and its padded length fits the slot:
-        allocate its lifetime blocks, splice a matched prefix into the row, and
-        let every chunk write through the table from ``matched`` on."""
+        part is longer than one chunk and its padded length fits the slot.
+        Paged: allocate its lifetime blocks, splice a matched prefix into the
+        row, and let every chunk write through the table from ``matched`` on.
+        Dense: the chunks run over a local cache of the padded length, the
+        restored prefix (or zeros) at first, inserted at the last chunk."""
         chunk = self.prefill_chunk
         if chunk is None or prompt.size - matched <= chunk:
             return False
-        if matched + -(-(prompt.size - matched) // chunk) * chunk > self.max_len:
+        padded_len = matched + -(-(prompt.size - matched) // chunk) * chunk
+        if padded_len > self.max_len:
             return False
+        local_cache = None
         try:
-            private = self._alloc_slot_blocks(slot, len(path), self.block_demand(prompt.size, budget) - len(path))
-            self._write_slot_row(slot, [node.block_id for node in path] + private)
+            if self.paged:
+                private = self._alloc_slot_blocks(slot, len(path),
+                                                  self.block_demand(prompt.size, budget) - len(path))
+                self._write_slot_row(slot, [node.block_id for node in path] + private)
+            elif matched:
+                local_cache = self._restore(path, padded_len)
+            else:
+                local_cache = init_cache(self._config, 1, padded_len, device=self.device)
         except Exception:
             if path:
                 self.prefix_cache.release(list(path))
             self._free_slot_blocks(slot)
             raise
         if matched:
-            self.prefix_restore_dispatches += 1  # a copy-free splice
+            self.prefix_restore_dispatches += 1  # paged: a copy-free splice
             self.prefix_cache.record_hit(matched)
             self._slot_path[slot] = list(path)
             if self._telemetry is not None:
@@ -1149,17 +1312,21 @@ class DecodeEngine:
         if self._admitting is not None:
             self._admitting.append(slot)
         self._partials[slot] = {
-            "prompt": prompt, "consumed": matched, "budget": budget, "temp": temp, "top_k": top_k, "top_p": top_p,
+            "prompt": prompt, "consumed": matched, "cache": local_cache, "budget": budget, "temp": temp,
+            "top_k": top_k, "top_p": top_p,
         }
         return True
 
     @on_engine_stream
     def _advance_partials(self) -> None:
         """Run ONE chunk of every in-progress chunked prefill (eagerly, between
-        decode bursts); completed prefills seal their length and logits and
-        activate. An injected prefill fault (raised before the chunk runs)
-        fails that request alone with a ``prefill_failed`` event; a chunk that
-        fails while writing the pool raises (an engine failure)."""
+        decode bursts); completed prefills seal their length and logits (dense:
+        insert their local cache) and activate. A chunk that fails without
+        touching shared state (an injected prefill fault, raised before the
+        chunk runs; any failure of a dense chunk, which writes only its local
+        cache) fails that request alone with a ``prefill_failed`` event; a
+        paged chunk that fails while writing the pool raises (an engine
+        failure)."""
         chunk = self.prefill_chunk
         for slot in list(self._partials):
             state = self._partials[slot]
@@ -1167,14 +1334,19 @@ class DecodeEngine:
             take = min(chunk, prompt.size - consumed)
             ids = np.zeros((1, chunk), dtype=np.int64)
             ids[0, :take] = prompt[consumed : consumed + take]
-            if self._faults is not None:
-                try:
+            try:
+                if self._faults is not None:
                     self._faults.check_prefill()
-                except FaultError as exc:
-                    logger.warning("chunked prefill failed for slot %d: %s", slot, exc)
-                    self._fail_partial(slot)
-                    continue
-            logits = self._run_paged_chunk(ids, slot, int(consumed))
+                if self.paged:
+                    logits = self._run_paged_chunk(ids, slot, int(consumed))
+                else:
+                    logits = self._run_dense_chunk(ids, state["cache"], int(consumed))
+            except Exception as exc:
+                if self._device_poisoned:
+                    raise
+                logger.warning("chunked prefill failed for slot %d: %s", slot, exc)
+                self._fail_partial(slot)
+                continue
             self.prefill_dispatches += 1
             self.prefill_tokens_computed += int(take)
             state["consumed"] = consumed + take
@@ -1184,7 +1356,11 @@ class DecodeEngine:
                                 total=int(prompt.size))
             if state["consumed"] < prompt.size:
                 continue
-            self._seal_slot(slot, int(prompt.size), logits[0, take - 1])
+            if self.paged:
+                self._seal_slot(slot, int(prompt.size), logits[0, take - 1])
+            else:
+                self._insert_into_slots(state["cache"], logits[:, take - 1], self._device_ints(slot),
+                                        self._device_ints(prompt.size))
             del self._partials[slot]
             self._activate(slot, prompt.size, state["budget"], state["temp"], state["top_k"], state["top_p"])
             self._index_prompt(slot, prompt)
@@ -1212,12 +1388,18 @@ class DecodeEngine:
             tokens = sample_logits(last, self._generator, self._temp_dev, self._top_k_dev, self._top_p_dev)
         else:
             tokens = torch.argmax(last, dim=-1)
-        # a retired row still writes one K/V column per step; the sentinel
-        # position maps that write to the trailing scratch column
-        sentinel = (self._table_width - 1) * self.block_size
-        pos = torch.where(active, lens, torch.full_like(lens, sentinel))
+        if self.paged:
+            # a retired row still writes one K/V column per step; the sentinel
+            # position maps that write to the trailing scratch column
+            sentinel = (self._table_width - 1) * self.block_size
+            pos = torch.where(active, lens, torch.full_like(lens, sentinel))
+            cache = {"table": self._tables, **self._pool}
+        else:
+            # dense: a retired row writes at its own frozen length, a column
+            # its next occupant's prefill or decode writes before reading
+            pos, cache = lens, self._cache
         with torch.no_grad():
-            logits, _ = self._model(tokens[:, None], cache={"table": self._tables, **self._pool}, position=pos)
+            logits, _ = self._model(tokens[:, None], cache=cache, position=pos)
         new_lens = torch.where(active, torch.clamp(lens + 1, max=self.max_len - 1), lens)
         last.copy_(torch.where(active[:, None], logits[:, -1, :], last))
         new_active, new_remaining = advance_slot_state(
@@ -1528,8 +1710,9 @@ class DecodeEngine:
 
         The burst in flight is fetched first (its tokens extend the
         transcript and wait in :meth:`take_pending_events`). The transcript's
-        full blocks are then indexed by adoption (no device copy) and the
-        path is pinned; the slot frees like :meth:`cancel`. Re-admitting
+        full blocks are then indexed (paged: by adoption, no device copy;
+        dense: by a device copy of the blocks the index lacks) and the path
+        is pinned; the slot frees like :meth:`cancel`. Re-admitting
         ``tokens`` as the prompt resumes through the ordinary hit path and
         prefills only the suffix. The caller must :meth:`release_preempted`
         the checkpoint once the resume re-admitted (or was abandoned).
@@ -1629,10 +1812,12 @@ class DecodeEngine:
 
     def _capture_salvage(self) -> None:
         """Snapshot every active or reserved slot's transcript and unspent
-        budget (host data only). The rebuild reallocates the pool, so no block
-        survives it: every block and path is released now (the engine
-        reports no leaked block even if the rebuild fails) and each resume
-        prefills its whole transcript."""
+        budget (host data only). Paged: the rebuild reallocates the pool, so
+        no block survives it: every block and path is released now (the
+        engine reports no leaked block even if the rebuild fails) and each
+        resume prefills its whole transcript. Dense: the prefix pool survives,
+        so a resumable slot's indexed path is pinned and its resume hits it
+        (``continuous.py:2024-2075``)."""
         self.discard_salvage()
         for slot in list(self._slot_block_map):
             self._free_slot_blocks(slot)
@@ -1648,10 +1833,15 @@ class DecodeEngine:
                 tokens = [int(t) for t in (self._slot_tokens.get(slot) or [])[: int(self._lens_host[slot])]]
                 remaining = int(self._remaining[slot])
             path = self._slot_path.pop(slot, [])
+            resumable = bool(tokens) and remaining > 0
             if path and self.prefix_cache is not None:
+                keep = resumable and not self.paged
+                if keep:
+                    self.prefix_cache.pin(path)  # outlives the slot's working refs, released next
                 self.prefix_cache.release(path)
-            if tokens and remaining > 0:
-                records.append(SalvagedSlot(slot=slot, tokens=tokens, path=[], remaining=remaining))
+                path = path if keep else []
+            if resumable:
+                records.append(SalvagedSlot(slot=slot, tokens=tokens, path=path, remaining=remaining))
         self._salvage = records
 
     def take_salvage(self) -> List[SalvagedSlot]:
@@ -1686,7 +1876,10 @@ class DecodeEngine:
     def rebuild(self, *, resume: bool = True) -> None:
         """Reallocate the device state (pool, tables, slot buffers, the
         generator) from the host-held parameters, dropping every CUDA graph;
-        the allocator and radix index restart empty, since the pool did.
+        the allocator and radix index restart empty, since the pool did. On a
+        dense engine the prefix pool and its index SURVIVE (a save's failure
+        rebuilds that pool alone), so salvaged requests resume through their
+        pinned hits and prefill only a suffix (``continuous.py:2092-2155``).
 
         Every failure reallocates, as in JAX, where the failed step had
         consumed the donated pool. Here a host-side raise (a dispatch or
@@ -1722,20 +1915,23 @@ class DecodeEngine:
     @on_engine_stream
     def reset(self) -> None:
         """Reallocate the device state and clear every slot, the radix index
-        and pins included; in-flight requests are abandoned and the generator
-        reseeds."""
+        and pins included (a dense engine's prefix pool too); in-flight
+        requests are abandoned and the generator reseeds."""
         self._resets += 1
         self.discard_salvage()
         self._reallocate()
+        if not self.paged and self.prefix_cache is not None:
+            self._rebuild_pool()
 
     def _reallocate(self, resume_state: Any = None) -> None:
-        """Clear every slot and reallocate the device state, the allocator
-        and the block map; the fresh generator (seeded from the reset count)
-        is put back at ``resume_state`` when one is given."""
+        """Clear every slot and reallocate the device state (paged: the
+        allocator and the block map too); the fresh generator (seeded from
+        the reset count) is put back at ``resume_state`` when one is given."""
         self._clear_host_slots()
         self._init_device_state()
-        self._allocator.clear()
-        self._slot_block_map.clear()
+        if self.paged:
+            self._allocator.clear()
+            self._slot_block_map.clear()
         if resume_state is not None:
             self._generator.set_state(resume_state)
         self._resume_gen = None
@@ -1937,9 +2133,10 @@ class ContinuousBatcher:
             ticket.request_id = telemetry.new_trace(request_id, cls=cls)
             telemetry.note_tokens_in(ticket.request_id, int(prompt.size))
             # journal v2: the pool arithmetic at admission time
+            pool = self._engine.pool_signal()  # None on a dense engine
             telemetry.span(ticket.request_id, "admission", prompt_tokens=int(prompt.size), budget=budget, cls=cls,
                            deadline_ms=deadline_ms, block_demand=self._engine.block_demand(int(prompt.size), budget),
-                           available_blocks=self._engine.pool_signal()["available_blocks"])
+                           available_blocks=None if pool is None else pool["available_blocks"])
         try:
             with self._lock:
                 if self._closed:
@@ -2113,11 +2310,13 @@ class ContinuousBatcher:
 
     def _block_starved(self) -> bool:
         """Whether the head ticket's block demand exceeds what the pool could
-        allocate now: block pressure, not slot scarcity, gates admission."""
+        allocate now: block pressure, not slot scarcity, gates admission.
+        Never on a dense engine (no block accounting)."""
+        avail = self._engine.available_blocks()
         head = self.scheduler.peek()
-        if head is None:
+        if avail is None or head is None:
             return False
-        return self._engine.block_demand(len(head.prompt), head.budget) > self._engine.available_blocks()
+        return self._engine.block_demand(len(head.prompt), head.budget) > avail
 
     def _admit(self) -> None:
         self._drain_orphans()
@@ -2133,7 +2332,7 @@ class ContinuousBatcher:
                 return
             admissible: List[Ticket] = []
             blocked: List[Ticket] = []
-            avail = engine.available_blocks()
+            avail = engine.available_blocks()  # None on a dense engine: no block gate
             for ticket in batch:
                 if blocked:
                     blocked.append(ticket)  # keep scheduler order behind the blocker
@@ -2149,13 +2348,14 @@ class ContinuousBatcher:
                     self._tel_end(ticket, "error", "invalid_request")
                     self._deliver(ticket.sink, "fail", exc)
                     continue
-                demand = engine.block_demand(len(ticket.prompt), ticket.budget)
-                if demand > avail:
-                    # head-of-line on purpose: admitting smaller latecomers
-                    # around a starved head would starve it
-                    blocked.append(ticket)
-                    continue
-                avail -= demand
+                if avail is not None:
+                    demand = engine.block_demand(len(ticket.prompt), ticket.budget)
+                    if demand > avail:
+                        # head-of-line on purpose: admitting smaller latecomers
+                        # around a starved head would starve it
+                        blocked.append(ticket)
+                        continue
+                    avail -= demand
                 admissible.append(ticket)
             for ticket in blocked:
                 self.scheduler.requeue(ticket, preemption=False)
