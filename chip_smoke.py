@@ -325,6 +325,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    resume prefilling at most one block. The K1 launches of (b) and the K1/K4
    launches of (a), at bf16, ride the kernels line as ``launches_dense_int8``.
 
+19. the rest of single-device training (GPT remat, the native packer, the
+   pinned-memory prefetcher, the project templates). (1) GPT-2 small at full
+   width through ``fit_lm(pack=True)`` at B8 S1024, 3 steps from one seed with
+   ``remat=False`` and ``remat=True``, bf16 and f32: K1 must launch 24 times
+   per step with remat (the recompute) and 12 without, K2/K3 12 either way;
+   the peak memory (``max_memory_allocated``) must be lower with remat; f32
+   losses within 1e-6 relative and the first step's gradients within 1e-4 of
+   each leaf's largest magnitude; bf16 losses within 1e-2 relative; a bf16
+   step's wall and device ms printed for both arms. The sparse GPT (phase
+   17's widths) one f32 step with remat off and on: the router losses and the
+   loss within 1e-6 relative, gradients within 1e-4. (2) The host-to-device
+   copy of a ``dict_batches``-fed BERT and LM step (its ``Memcpy HtoD``
+   device ms and the wall), then ``fit`` (BERT-base B64 S128) and ``fit_lm``
+   (GPT-2 small B8 S1024 packed), 20 steps each, with ``prefetch`` off and
+   on (walls in turns off, on, on, off; one profiled call each for device
+   ms, idle share and copies); every loss of the first 3 f32 steps identical
+   between the arms; a ``PrefetchLoader`` over seeded float32 rows with a
+   bf16 conversion must be native, pinned and bitwise a torch cast. (3)
+   ``gpt-textgen``, ``moe-textgen``, ``packed-textgen``, ``bert-finetune``
+   and ``mnist-cnn`` rendered and run with ``runpy``: ``model.train`` with
+   the step counts cut, ``model.predict`` on ``data/sample_features.json``
+   (the textgen outputs prompt length + ``max_new_tokens`` wide), trained on
+   the card, K1 launched. (4) ``pack_sequences(impl="native")`` and
+   ``"auto"`` on 65 536 seeded sequences of 16..1024 tokens at seq_len 1024
+   byte-identical to the Python loop, which runs in a process of its own
+   started with the script. K1-K3's launches ride the kernels line as
+   ``launches_training_rest``.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -4405,6 +4433,535 @@ def report_dense_int8(di: dict, name_limit: str) -> None:
           f"({ {k: round(v, 1) for k, v in di['parts_s'].items()} })")
 
 
+# ------------------------------------- phase 19: the rest of training
+
+TR_STEPS = 3  # fit_lm steps per remat arm
+PF_STEPS = 20  # steps per fit call of a prefetch arm
+PF_PROFILED = 5  # profiled dict_batches-fed steps for the host-to-device copy
+PACK_SEQS, PACK_LENS, PACK_WAIT_S = 65_536, (16, 1024), 900.0
+TEMPLATE_DIR = Path(__file__).resolve().parent / "build" / "templates"
+#: template: (reader kwargs, trainer kwargs), the step counts cut to fit the phase
+TEMPLATES_ON_CARD = {
+    "gpt-textgen": ({}, {"num_steps": 30, "batch_size": 32}),
+    "moe-textgen": ({}, {"num_steps": 30, "batch_size": 32}),
+    "packed-textgen": ({}, {"num_epochs": 3, "batch_size": 16}),
+    "bert-finetune": ({"n": 256}, {"num_epochs": 1, "batch_size": 32}),
+    "mnist-cnn": ({}, {"num_epochs": 2}),
+}
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def pack_corpus(seed: int = 0) -> list:
+    """Phase 19's packer corpus: 65 536 seeded sequences of 16..1024 tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 50_000, int(n)).astype(np.int32) for n in rng.integers(PACK_LENS[0], PACK_LENS[1] + 1,
+                                                                                    PACK_SEQS)]
+
+
+def pack_digest(packed: dict) -> dict:
+    """Rows, ``truncated`` and a sha256 of each packed array's bytes."""
+    import hashlib
+
+    return {"rows": int(packed["input_ids"].shape[0]), "truncated": int(packed["truncated"]),
+            **{k: hashlib.sha256(packed[k].tobytes()).hexdigest() for k in ("input_ids", "segment_ids", "positions")}}
+
+
+def _python_pack_worker(conn) -> None:
+    from unionml_tpu_torch.ops.packing import pack_sequences
+
+    corpus = pack_corpus()
+    t0 = time.perf_counter()
+    packed = pack_sequences(corpus, LM_SEQ, impl="python")
+    conn.send({"wall_s": time.perf_counter() - t0, **pack_digest(packed)})
+    conn.close()
+
+
+def start_python_pack():
+    """The Python packer over phase 19's corpus in a process of its own
+    (spawned; its first fit scans every row for each sequence, minutes at
+    65 536 sequences), so it runs while the earlier phases do; phase 19 reads
+    its digest. Returns ``(process, connection)``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    receiver, sender = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_python_pack_worker, args=(sender,), daemon=True)
+    proc.start()
+    sender.close()
+    return proc, receiver
+
+
+def packer_part(packer) -> dict:
+    """The native packer (``impl="native"`` and ``"auto"``) on phase 19's
+    corpus against the Python loop's digest: rows, ``truncated`` and the
+    three arrays' bytes equal; each wall time."""
+    from unionml_tpu_torch.ops.packing import pack_sequences
+
+    corpus = pack_corpus()
+    out = {}
+    for impl in ("native", "auto"):
+        t0 = time.perf_counter()
+        packed = pack_sequences(corpus, LM_SEQ, impl=impl)
+        out[impl] = {"wall_s": time.perf_counter() - t0, **pack_digest(packed)}
+        del packed
+    proc, conn = packer
+    t0 = time.perf_counter()
+    if not conn.poll(PACK_WAIT_S):
+        proc.terminate()
+        raise AssertionError(f"the Python packer did not finish within {PACK_WAIT_S:.0f} s more")
+    python = conn.recv()
+    proc.join(30)
+    python["waited_s"] = time.perf_counter() - t0
+    for impl in ("native", "auto"):
+        for key in ("rows", "truncated", "input_ids", "segment_ids", "positions"):
+            if out[impl][key] != python[key]:
+                raise AssertionError(f"pack_sequences(impl={impl!r}) {key} differs from the Python loop's: "
+                                     f"{out[impl][key]} vs {python[key]}")
+    return {"python": python, **out}
+
+
+def _launch_sum(total: dict, launches: dict) -> None:
+    for name in TRAIN_KERNELS:
+        total[name] = total.get(name, 0) + launches[name]
+
+
+def remat_arm(config, params, device, remat: bool, corpus, batch, total: dict, profile: bool) -> dict:
+    """``fit_lm(pack=True)`` for ``TR_STEPS`` steps from the seeded weights
+    with ``remat`` on or off: the logged losses, K1-K3 launches per step, the
+    peak memory of the run, the first step's gradients (a fresh state on
+    ``batch``) and, with ``profile``, a step's wall and device ms."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import fit_lm, make_lm_train_step
+    from unionml_tpu_torch.models.training import lm_grads
+
+    cfg = dataclasses.replace(config, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = lm_state(cfg, params, device)
+    kernels.reset_launches()
+    result = fit_lm(state, corpus, seq_len=LM_SEQ, batch_size=LM_BATCH, pack=True, num_steps=TR_STEPS, log_every=1,
+                    seed=0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    _launch_sum(total, launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_fwd": (24 if remat else 12) * TR_STEPS, "flash_bwd_dq": 12 * TR_STEPS,
+            "flash_bwd_dkv": 12 * TR_STEPS}
+    for name, n in want.items():
+        if device.type == "cuda" and launches[name] != n:
+            raise AssertionError(f"remat={remat} {cfg.dtype}: {name} launched {launches[name]} times in "
+                                 f"{TR_STEPS} steps, expected {n}")
+    out = {"losses": [h["loss"] for h in result.metrics_history], "peak_bytes": peak,
+           "launches_per_step": {k: launches[k] / TR_STEPS for k in TRAIN_KERNELS}}
+    if profile:
+        step = make_lm_train_step(packed=True)
+        out["step"] = step_profile(lambda: step(state, batch), 3, top=6)
+    del state
+    torch.cuda.empty_cache()
+    fresh = lm_state(cfg, params, device)
+    grads, loss = lm_grads(fresh, batch, packed=True)
+    out["first_loss"], out["grads"], out["names"] = float(loss), grads, fresh.names
+    del fresh
+    return out
+
+
+def grads_within(label: str, names, got, want, rel: float) -> float:
+    """Each leaf of ``got`` within ``rel`` of ``want``'s largest magnitude;
+    returns the worst relative error."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        scale = float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        if err > rel * scale:
+            raise AssertionError(f"{label} gradient {name}: max |err| {err:.3e} beyond {rel:g} x {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def sparse_remat_step(config, params, device, batch, remat: bool) -> dict:
+    """One f32 sparse LM step's loss, router losses and gradients with
+    ``remat`` on or off (the step's dropout generator)."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import collect_aux_losses, lm_loss
+    from unionml_tpu_torch.models.training import dropout_generator
+
+    state = lm_state(dataclasses.replace(config, remat=remat, dtype=torch.float32), params, device)
+    kernels.reset_launches()
+    generator = dropout_generator(state.seed, state.step, device)
+    logits, aux = state.model(batch["input_ids"], segment_ids=batch["segment_ids"], deterministic=False,
+                              generator=generator, return_aux=True)
+    aux_total = collect_aux_losses(aux)
+    loss = lm_loss(logits, batch["input_ids"], segment_ids=batch["segment_ids"]) + aux_total
+    grads = torch.autograd.grad(loss, state.params)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss.detach()), "aux": [{k: float(v.detach()) for k, v in block.items()} for block in aux],
+           "aux_total": float(aux_total.detach()), "grads": grads, "names": state.names, "launches": dict(kernels.launches)}
+    del state, logits
+    return out
+
+
+def remat_part(device, total: dict) -> dict:
+    """Phase 19 (1): GPT-2 small through ``fit_lm(pack=True)`` at B8 S1024
+    with remat off and on, bf16 and f32; one sparse step at f32."""
+    from unionml_tpu_torch.models import GPTConfig, dict_batches, random_params
+
+    config = GPTConfig()
+    params = random_params(config, seed=0)
+    corpus = lm_corpus(LM_SEQS, LM_SEQ)
+    packed = lm_packed()
+    data = {k: packed[k] for k in ("input_ids", "segment_ids")}
+    batch = next(iter(dict_batches(data, LM_BATCH, rng=np.random.default_rng(1), device=device)))
+    out = {}
+    for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-6)):
+        cfg = dataclasses.replace(config, dtype=dtype)
+        off = remat_arm(cfg, params, device, False, corpus, batch, total, profile=dtype == torch.bfloat16)
+        on = remat_arm(cfg, params, device, True, corpus, batch, total, profile=dtype == torch.bfloat16)
+        for a, b in zip([on["first_loss"], *on["losses"]], [off["first_loss"], *off["losses"]]):
+            if abs(a - b) > rel * abs(b):
+                raise AssertionError(f"{dtype} remat losses {on['losses']} vs {off['losses']} (first step "
+                                     f"{on['first_loss']} vs {off['first_loss']}): beyond {rel:g} relative")
+        if on["peak_bytes"] >= off["peak_bytes"]:
+            raise AssertionError(f"{dtype}: remat's peak {on['peak_bytes']} bytes is not below {off['peak_bytes']}")
+        rec = {"losses": {"off": [off["first_loss"], *off["losses"]], "on": [on["first_loss"], *on["losses"]]},
+               "peak_gib": {"off": off["peak_bytes"] / 2**30, "on": on["peak_bytes"] / 2**30},
+               "launches_per_step": {"off": off["launches_per_step"], "on": on["launches_per_step"]}}
+        if dtype == torch.float32:
+            rec["grads_worst_relative_err"] = grads_within("f32 remat", on["names"], on["grads"], off["grads"], 1e-4)
+        else:
+            rec["step"] = {"off": off["step"], "on": on["step"]}
+        out[str(dtype)] = rec
+        del off, on
+        torch.cuda.empty_cache()
+
+    sparse_cfg = moe_config()
+    sparse_params = random_params(sparse_cfg, seed=0)
+    steps = {remat: sparse_remat_step(sparse_cfg, sparse_params, device, batch, remat) for remat in (False, True)}
+    off, on = steps[False], steps[True]
+    for block_on, block_off in zip(on["aux"], off["aux"]):
+        for key, value in block_off.items():
+            if abs(block_on[key] - value) > 1e-6 * abs(value):
+                raise AssertionError(f"sparse remat router loss {key}: {block_on[key]} vs {value}")
+    if abs(on["loss"] - off["loss"]) > 1e-6 * abs(off["loss"]):
+        raise AssertionError(f"sparse remat loss {on['loss']} vs {off['loss']}")
+    if device.type == "cuda" and (on["launches"]["flash_fwd"] != 2 * off["launches"]["flash_fwd"] or
+                                  on["launches"]["flash_bwd_dq"] != off["launches"]["flash_bwd_dq"]):
+        raise AssertionError(f"sparse remat launches {on['launches']} vs {off['launches']}")
+    _launch_sum(total, on["launches"])
+    _launch_sum(total, off["launches"])
+    out["sparse"] = {"loss": {"off": off["loss"], "on": on["loss"]}, "aux_total": {"off": off["aux_total"],
+                                                                                   "on": on["aux_total"]},
+                     "grads_worst_relative_err": grads_within("sparse f32 remat", on["names"], on["grads"],
+                                                              off["grads"], 1e-4),
+                     "launches": {"off": off["launches"], "on": on["launches"]}}
+    del steps, off, on, sparse_params
+    torch.cuda.empty_cache()
+    return out
+
+
+def htod_profile(step, batches, steps: int) -> dict:
+    """``steps`` steps, each fed the next of ``batches`` (``dict_batches``:
+    a synchronous pageable copy per array), in one CUDA profile: the
+    ``Memcpy HtoD`` records' device ms and count per step, the host ms spent
+    making each batch, and the wall ms per step."""
+    it = iter(batches)
+    step(next(it))
+
+    def body(first):
+        host = 0.0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t = time.perf_counter()
+            batch = next(it)
+            host += time.perf_counter() - t
+            step(batch)
+        torch.cuda.synchronize()
+        return host, time.perf_counter() - t0
+
+    prof, (host, wall) = cuda_profile(body)
+    copies = [(end - start) / 1e6 for name, start, end in device_events(prof) if "Memcpy HtoD" in name]
+    return {"htod_ms_per_step": sum(copies) / steps, "htod_per_step": len(copies) / steps,
+            "batch_host_ms_per_step": host * 1e3 / steps, "wall_ms_per_step": wall * 1e3 / steps}
+
+
+def fit_arm(make_state, run, prefetch: bool, profile: bool) -> dict:
+    """One ``run(state, prefetch)`` call (``fit`` or ``fit_lm`` for
+    ``PF_STEPS`` steps with one host fetch, at the end) on a state that
+    ``make_state()`` builds beforehand: wall ms per step in fit's timed
+    window and the last loss; with ``profile``, the call in a CUDA profile:
+    device ms per step (every stream's events as a union in time), the idle
+    share of the call's wall and its ``Memcpy HtoD`` records."""
+    state = make_state()
+    torch.cuda.synchronize()
+    if not profile:
+        result = run(state, prefetch)
+        return {"step_ms": 1e3 / result.steps_per_s, "loss": result.metrics_history[-1]["loss"]}
+
+    def body(first):
+        t0 = time.perf_counter()
+        result = run(state, prefetch)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    prof, (result, wall) = cuda_profile(body)
+    busy = busy_union(prof)
+    copies = [(end - start) / 1e6 for name, start, end in device_events(prof) if "Memcpy HtoD" in name]
+    return {"step_ms": 1e3 / result.steps_per_s, "call_ms_per_step": wall * 1e3 / PF_STEPS,
+            "device_ms_per_step": busy["union_ms"] / PF_STEPS, "idle_share": 1.0 - busy["union_ms"] / (wall * 1e3),
+            "htod_ms_per_step": sum(copies) / PF_STEPS, "htod_per_step": len(copies) / PF_STEPS}
+
+
+def prefetch_part(device, total: dict) -> dict:
+    """Phase 19 (3): the host-to-device copy of a ``dict_batches``-fed step,
+    then ``fit`` (BERT-base B64 S128) and ``fit_lm`` (GPT-2 small B8 S1024,
+    packed) with ``prefetch`` off and on; the f32 losses of the first 3 steps
+    identical between the arms; the bf16 conversion into a pinned slot."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import (
+        BertConfig, GPTConfig, bert_random_params, dict_batches, fit, fit_lm, make_classifier_train_step,
+        make_lm_train_step, random_params,
+    )
+    from unionml_tpu_torch.models.training import prefetched_batches
+    from unionml_tpu_torch.native import PrefetchLoader, native_available
+
+    if not native_available():
+        raise AssertionError("the native library did not build: fit(prefetch=True) would gather in Python")
+    bert_cfg, lm_cfg = BertConfig.base(), GPTConfig()
+    bert_params, lm_params = bert_random_params(bert_cfg, seed=0), random_params(lm_cfg, seed=0)
+    bert_rows = bert_data(bert_cfg, rows=8 * BERT_BATCH)
+    corpus = lm_corpus(LM_SEQS, LM_SEQ)
+    packed = lm_packed()
+    lm_rows = {k: packed[k] for k in ("input_ids", "segment_ids")}
+    out = {}
+
+    # (a) what a dict_batches-fed step spends on the host-to-device copy, and
+    # the same loop fed by the prefetcher
+    for label, make_state, step, rows, size in (
+            ("bert", lambda: bert_state(bert_cfg, bert_params, device), make_classifier_train_step(
+                input_signature=BERT_SIG), bert_rows, BERT_BATCH),
+            ("lm", lambda: lm_state(lm_cfg, lm_params, device), make_lm_train_step(packed=True), lm_rows,
+             LM_BATCH)):
+        state = make_state()
+        out[f"htod_{label}"] = htod_profile(lambda b: step(state, b), dict_batches(
+            rows, size, rng=np.random.default_rng(0), device=device), PF_PROFILED)
+        loader = PrefetchLoader(rows, size, pin_memory=device.type == "cuda")
+        try:
+            out[f"prefetched_{label}"] = htod_profile(lambda b: step(state, b), prefetched_batches(
+                loader, np.random.default_rng(0), device), PF_PROFILED)
+        finally:
+            loader.close()
+        del state
+        torch.cuda.empty_cache()
+
+    # (b) the two arms, 20 steps each, one host fetch at the end (fit's own
+    # loop): walls in turns off, on, on, off, then one profiled call each; the
+    # LM's profiled call runs fit on the packed rows (fit_lm's loop without
+    # its host-side packing inside the profile)
+    def bert_fit(state, prefetch):
+        return fit(state, bert_rows, batch_size=BERT_BATCH, num_steps=PF_STEPS, log_every=PF_STEPS,
+                   input_signature=BERT_SIG, seed=0, prefetch=prefetch)
+
+    def lm_fit_lm(state, prefetch):
+        return fit_lm(state, corpus, seq_len=LM_SEQ, batch_size=LM_BATCH, pack=True, num_steps=PF_STEPS,
+                      log_every=PF_STEPS, seed=0, prefetch=prefetch)
+
+    def lm_fit(state, prefetch):
+        return fit(state, lm_rows, batch_size=LM_BATCH, num_steps=PF_STEPS, log_every=PF_STEPS, seed=0,
+                   prefetch=prefetch, step_fn=make_lm_train_step(packed=True))
+
+    arms = {"bert": (lambda: bert_state(bert_cfg, bert_params, device), bert_fit, bert_fit),
+            "lm": (lambda: lm_state(lm_cfg, lm_params, device), lm_fit_lm, lm_fit)}
+    for label, (make_state, run, profiled_run) in arms.items():
+        kernels.reset_launches()
+        walls = {False: [], True: []}
+        for prefetch in (False, True, True, False):
+            walls[prefetch].append(fit_arm(make_state, run, prefetch, profile=False))
+        profiled = {prefetch: fit_arm(make_state, profiled_run, prefetch, profile=True) for prefetch in (False, True)}
+        torch.cuda.synchronize()
+        _launch_sum(total, dict(kernels.launches))
+        out[label] = {("on" if k else "off"): {"step_ms": [w["step_ms"] for w in v], "profiled": profiled[k],
+                                              "loss": [w["loss"] for w in v]} for k, v in walls.items()}
+        torch.cuda.empty_cache()
+
+    # (c) f32: every step's loss of the first 3, prefetch off and on, identical
+    def recorded(step_fn, losses):
+        def step(state, batch):
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+        return step
+
+    f32 = {}
+    for label in ("bert", "lm"):
+        arms = {}
+        for prefetch in (False, True):
+            losses = []
+            if label == "bert":
+                cfg = dataclasses.replace(bert_cfg, dtype=torch.float32)
+                step = recorded(make_classifier_train_step(input_signature=BERT_SIG), losses)
+                fit(bert_state(cfg, bert_params, device), bert_rows, batch_size=BERT_BATCH, num_steps=3,
+                    log_every=1, input_signature=BERT_SIG, seed=0, prefetch=prefetch, step_fn=step)
+            else:
+                cfg = dataclasses.replace(lm_cfg, dtype=torch.float32)
+                step = recorded(make_lm_train_step(packed=True), losses)
+                fit(lm_state(cfg, lm_params, device), lm_rows, batch_size=LM_BATCH, num_steps=3, log_every=1,
+                    seed=0, prefetch=prefetch, step_fn=step)
+            arms[prefetch] = losses
+            torch.cuda.empty_cache()
+        if arms[True] != arms[False] or len(arms[True]) != 3:
+            raise AssertionError(f"f32 {label} losses with prefetch {arms[True]} differ from without {arms[False]}")
+        f32[label] = arms[True]
+    out["f32_losses"] = f32
+
+    # (d) the loader itself: native, pinned slots, bf16 bits equal to a torch cast of the same rows
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4096, 256)).astype(np.float32)
+    pinned = device.type == "cuda"
+    loader = PrefetchLoader({"x": x}, 512, convert={"x": "bfloat16"}, pin_memory=pinned)
+    try:
+        if not loader.uses_native:
+            raise AssertionError("PrefetchLoader.uses_native is False on the card")
+        perm = np.random.default_rng(4).permutation(len(x))
+        for b, batch in enumerate(loader.epoch(rng=np.random.default_rng(4), copy=False)):
+            want = torch.from_numpy(x[perm[b * 512:(b + 1) * 512]]).to(torch.bfloat16)
+            if batch["x"].dtype != torch.bfloat16 or batch["x"].is_pinned() != pinned or \
+                    not torch.equal(batch["x"].view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"PrefetchLoader bf16 batch {b}: not the bits of a torch cast, or not pinned")
+    finally:
+        loader.close()
+    out["loader"] = {"uses_native": True, "pinned": pinned, "batches_bitwise": len(x) // 512}
+    return out
+
+
+def templates_part(device, total: dict) -> dict:
+    """Phase 19 (4): five of the port's templates rendered and run as a user
+    runs them (``runpy``): ``model.train`` with the step counts cut, then
+    ``model.predict`` on the template's ``data/sample_features.json``."""
+    import runpy
+    import shutil
+
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.templates import render_template
+
+    shutil.rmtree(TEMPLATE_DIR, ignore_errors=True)
+    TEMPLATE_DIR.mkdir(parents=True)
+    out = {}
+    kernels.reset_launches()
+    for name, (reader_kw, trainer_kw) in TEMPLATES_ON_CARD.items():
+        t0 = time.perf_counter()
+        target = render_template(name, name.replace("-", "_") + "_app", TEMPLATE_DIR)
+        if name == "bert-finetune":
+            trainer_kw = dict(trainer_kw, checkpoint_dir=str(target / "checkpoints"))
+        model = runpy.run_path(str(target / "app.py"), run_name="not_main")["model"]
+        before = dict(kernels.launches)
+        _, metrics = model.train(trainer_kwargs=trainer_kw, **reader_kw)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        sample = json.loads((target / "data" / "sample_features.json").read_text())
+        t1 = time.perf_counter()
+        pred = np.asarray(model.predict(features=sample["features"]) if "features" in sample
+                          else model.predict(**sample["inputs"]))
+        torch.cuda.synchronize()
+        t_predict = time.perf_counter() - t1
+        launched = {k: kernels.launches[k] - before[k] for k in TRAIN_KERNELS}
+        if model.artifact.model_object.device.type != device.type:
+            raise AssertionError(f"template {name} trained on {model.artifact.model_object.device}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"template {name}: metrics {metrics}")
+        if "features" in sample:
+            prompts, new = sample["features"]["prompt"], sample["features"]["max_new_tokens"]
+            if pred.shape != (len(prompts), len(prompts[0]) + new):
+                raise AssertionError(f"template {name}: generated {pred.shape} for prompts {prompts} + {new}")
+        elif pred.shape != (sample["inputs"]["n"],):
+            raise AssertionError(f"template {name}: predicted {pred.shape}")
+        out[name] = {"metrics": metrics, "prediction_shape": list(pred.shape), "train_s": t_train,
+                     "predict_s": t_predict, "launches": launched}
+        del model
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _launch_sum(total, dict(kernels.launches))
+    if device.type == "cuda" and sum(r["launches"]["flash_fwd"] for r in out.values()) == 0:
+        raise AssertionError(f"the templates launched no K1: {out}")
+    return out
+
+
+def training_rest_phase(device, packer=None) -> dict:
+    """Phase 19: GPT remat at full width, the native packer, the pinned-memory
+    prefetcher behind ``fit``/``fit_lm`` and five project templates; K1-K3's
+    launches over the phase under ``launches``. ``packer`` is a running
+    :func:`start_python_pack` (started here when None)."""
+    from unionml_tpu_torch.native import library_path, native_available
+
+    t0 = time.perf_counter()
+    packer = packer or start_python_pack()
+    parts, total = {}, {}
+    built = library_path().exists()
+    if not native_available():
+        raise AssertionError("the port's native library did not build (g++)")
+    out = {"native_build_s": 0.0 if built else time.perf_counter() - t0}
+    for name, part in (("remat", lambda: remat_part(device, total)),
+                       ("prefetch", lambda: prefetch_part(device, total)),
+                       ("templates", lambda: templates_part(device, total)),
+                       ("packer", lambda: packer_part(packer))):
+        t = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t
+    for name in TRAIN_KERNELS:
+        if device.type == "cuda" and not total.get(name):
+            raise AssertionError(f"phase 19 launched {name} no time: {total}")
+    out.update(launches=total, parts_s=parts, s=time.perf_counter() - t0)
+    return out
+
+
+def report_training_rest(tr: dict, name_limit: str) -> None:
+    """Print phase 19's results (``training_rest_phase``'s record)."""
+    rm = tr["remat"]
+    for dtype in (str(torch.bfloat16), str(torch.float32)):
+        r = rm[dtype]
+        print(f"[{name_limit}] GPT-2 small remat {dtype[6:]} (fit_lm pack=True B{LM_BATCH} S{LM_SEQ}, {TR_STEPS} "
+              f"steps): losses off {[round(x, 6) for x in r['losses']['off']]} on "
+              f"{[round(x, 6) for x in r['losses']['on']]}; K1/K2/K3 per step off "
+              f"{r['launches_per_step']['off']} on {r['launches_per_step']['on']}; peak memory "
+              f"{r['peak_gib']['off']:.3f} GiB off, {r['peak_gib']['on']:.3f} GiB on"
+              + (f"; step-1 gradients worst {r['grads_worst_relative_err']:.3e} of each leaf's max (limit 1e-4)"
+                 if "grads_worst_relative_err" in r else ""))
+        for arm, st in r.get("step", {}).items():
+            print(f"[{name_limit}] LM bf16 train step remat {arm}: {st['wall_ms_per_step']:.2f} ms wall, "
+                  f"{st['device_ms_per_step']:.2f} ms device, idle {st['device_idle_share']:.3f}; top "
+                  f"{st['top_kernels_ms_per_step']}")
+    sp = rm["sparse"]
+    print(f"sparse GPT-2 small (moe_every 2) f32, one step remat off/on: loss {sp['loss']['off']:.7f} / "
+          f"{sp['loss']['on']:.7f}, router losses {sp['aux_total']['off']:.7f} / {sp['aux_total']['on']:.7f}, "
+          f"gradients worst {sp['grads_worst_relative_err']:.3e}; launches {sp['launches']}")
+    pf = tr["prefetch"]
+    for label in ("htod_bert", "prefetched_bert", "htod_lm", "prefetched_lm"):
+        h = pf[label]
+        feed = "dict_batches" if label.startswith("htod") else "prefetcher"
+        print(f"[{name_limit}] {feed}-fed {label.split('_')[1]} step ({PF_PROFILED} profiled): Memcpy HtoD "
+              f"{h['htod_ms_per_step']:.4f} ms device in {h['htod_per_step']:.1f} copies per step; host ms making "
+              f"the batch {h['batch_host_ms_per_step']:.3f}; wall {h['wall_ms_per_step']:.2f} ms per step")
+    for label in ("bert", "lm"):
+        for arm in ("off", "on"):
+            r = pf[label][arm]
+            p = r["profiled"]
+            print(f"[{name_limit}] fit {label} prefetch {arm} ({PF_STEPS} steps): step ms in fit "
+                  f"{[round(x, 2) for x in r['step_ms']]}, loss at step {PF_STEPS} {r['loss']}; profiled call {p['call_ms_per_step']:.2f} ms wall, "
+                  f"{p['device_ms_per_step']:.2f} ms device per step, idle {p['idle_share']:.3f}, Memcpy HtoD "
+                  f"{p['htod_ms_per_step']:.4f} ms in {p['htod_per_step']:.1f} copies per step")
+    print(f"prefetch f32 losses of the first 3 steps, identical off and on: {pf['f32_losses']}; loader "
+          f"{pf['loader']}")
+    pk = tr["packer"]
+    print(f"[{name_limit}] packer ({PACK_SEQS} sequences of {PACK_LENS[0]}..{PACK_LENS[1]} tokens, seq_len "
+          f"{LM_SEQ}, {pk['native']['rows']} rows, {pk['native']['truncated']} truncated): native "
+          f"{pk['native']['wall_s']:.3f} s, auto {pk['auto']['wall_s']:.3f} s, Python {pk['python']['wall_s']:.1f} s "
+          f"(its own process, waited {pk['python']['waited_s']:.1f} s); byte-identical")
+    for name, r in tr["templates"].items():
+        print(f"[{name_limit}] template {name}: train {r['train_s']:.2f} s (metrics {r['metrics']}), predict "
+              f"{r['predict_s']:.3f} s -> {r['prediction_shape']}; K1/K2/K3 launches {r['launches']}")
+    print(f"phase 19 launches {tr['launches']}; native library build {tr['native_build_s']:.1f} s; phase 19 took "
+          f"{tr['s']:.1f} s ({ {k: round(v, 1) for k, v in tr['parts_s'].items()} })")
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -4740,6 +5297,7 @@ def main() -> int:
     set_precision_flags()
     device = torch.device("cuda")
     name_limit = card()
+    packer = start_python_pack()  # phase 19's Python packer runs beside phases 1-18
     details = {"card": name_limit, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
@@ -5058,6 +5616,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["dense_int8"] = di = dense_int8_phase(device)
     report_dense_int8(di, name_limit)
+    torch.cuda.empty_cache()
+    details["training_rest"] = tr = training_rest_phase(device, packer)
+    report_training_rest(tr, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -5067,6 +5628,8 @@ def main() -> int:
             r["launches_moe"] = moe["launches"][r["name"]]
         if r["name"] in di["launches"]:
             r["launches_dense_int8"] = di["launches"][r["name"]]
+        if r["name"] in tr["launches"]:
+            r["launches_training_rest"] = tr["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],
@@ -5096,6 +5659,8 @@ def main() -> int:
             entry["launches_moe"] = r["launches_moe"]
         if "launches_dense_int8" in r:  # phase 18's K1/K4 launches (int8 weights, the dense engine)
             entry["launches_dense_int8"] = r["launches_dense_int8"]
+        if "launches_training_rest" in r:  # phase 19's K1-K3 launches (remat, prefetch, templates)
+            entry["launches_training_rest"] = r["launches_training_rest"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -16,10 +16,13 @@ setup(
     include_package_data=True,
     # glob semantics skip dotfiles: the scaffold .gitignore files need their own
     # explicit pattern or wheels ship templates without them. The PyTorch
-    # port's CUDA sources build on first use, so they ship as package data.
+    # port's CUDA and C++ sources build on first use, so they ship as package
+    # data, with the port's templates.
     package_data={
         "unionml_tpu": ["templates/**/*", "templates/*/.gitignore"],
-        "unionml_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "unionml_tpu_torch": [
+            "csrc/*.cu", "csrc/*.cuh", "native/*.cpp", "templates/**/*", "templates/*/.gitignore",
+        ],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -140,8 +140,12 @@ def test_config_defaults_and_unported_paths():
     assert cfg.head_dim == 64 and cfg.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="M12"):
         dataclasses.replace(cfg, attention_impl="ring")
-    with pytest.raises(NotImplementedError, match="GPT remat"):
-        dataclasses.replace(cfg, remat=True)
+    # remat is ported (tests/test_torch_remat.py): the config builds and a tiny model's forward is unchanged
+    assert dataclasses.replace(cfg, remat=True).remat
+    ids = torch.from_numpy(_ids(0, 2, 6)).long()
+    plain, remat = (GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, remat=flag), device="cpu") for flag in (0, 1))
+    remat.load_state_dict(plain.state_dict())
+    torch.testing.assert_close(remat(ids), plain(ids), atol=0, rtol=0)
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, paged_attn_impl="pallas")
     with pytest.raises(NotImplementedError):

@@ -210,8 +210,16 @@ def test_fit_lm_trains_with_the_jax_step_count(pair, pack, num_steps, num_epochs
 ], ids=["moe_aux", "mesh", "prefetch"])
 def test_fit_lm_rejects_unported_options(pair, option):
     _, params = pair
+
+    def run(**kwargs):
+        return fit_lm(create_train_state(_port_model(params)), _corpus(9, 8), seq_len=SEQ, batch_size=2, **kwargs)
+
+    if option == dict(prefetch=True):  # ported: the native prefetcher feeds the same batches
+        losses = [[h["loss"] for h in run(log_every=1, num_epochs=2, **kw).metrics_history] for kw in (option, {})]
+        assert losses[0] == losses[1] and len(losses[0]) >= 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_lm(create_train_state(_port_model(params)), _corpus(9, 8), seq_len=SEQ, batch_size=2, **option)
+        run(**option)
 
 
 def test_fit_lm_checkpoints_and_resumes(pair, tmp_path):

@@ -67,8 +67,11 @@ def test_pack_sequences_options_and_unported_native():
     empty = tpacking.pack_sequences([], 8, pad_id=7)
     assert empty["input_ids"].tolist() == [[7] * 8] and empty["truncated"] == 0
     assert tpacking.pack_sequences([np.arange(20)], 8, impl="python")["truncated"] == 1
-    with pytest.raises(NotImplementedError, match="native packer"):
-        tpacking.pack_sequences([np.arange(3)], 8, impl="native")
+    # the native packer is ported (tests/test_torch_native.py): the same arrays as the Python loop
+    corpus = _corpus(4, 30, 8)
+    native, python = (tpacking.pack_sequences(corpus, 8, impl=impl) for impl in ("native", "python"))
+    assert native["truncated"] == python["truncated"] > 0
+    assert all(native[k].tobytes() == python[k].tobytes() for k in ("input_ids", "segment_ids", "positions"))
     with pytest.raises(ValueError):
         tpacking.pack_sequences([np.arange(3)], 0)
     with pytest.raises(ValueError):

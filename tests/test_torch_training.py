@@ -240,6 +240,20 @@ def test_train_step_metrics_stay_tensors(jax_bert):
 ], ids=["prefetch", "prefetch_convert", "mesh", "param_spec"])
 def test_fit_rejects_unported_options(jax_bert, option):
     _, params = jax_bert
+
+    def losses(data, **kwargs):
+        result = fit(_port_state(params), data, batch_size=4, input_signature=SIG, log_every=1, **kwargs)
+        return [h["loss"] for h in result.metrics_history]
+
+    if "prefetch" in option:  # ported: the native prefetcher feeds the same batches
+        assert losses(_data(8, 8), **option) == losses(_data(8, 8))
+        return
+    if "prefetch_convert" in option:  # ported: it needs prefetch=True, as JAX's does
+        with pytest.raises(ValueError, match="requires prefetch=True"):
+            fit(_port_state(params), _data(8, 8), batch_size=4, input_signature=SIG, **option)
+        wide = dict(_data(8, 8), labels=_data(8, 8)["labels"].astype(np.int64))  # converted in the workers
+        assert losses(wide, prefetch=True, **option) == losses(_data(8, 8))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fit(_port_state(params), _data(8, 8), batch_size=4, input_signature=SIG, **option)
 

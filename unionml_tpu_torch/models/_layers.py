@@ -3,7 +3,9 @@
 Parameters stay float32; each layer casts its weight and input to the
 compute dtype in ``forward``, as ``nn.Dense(dtype=...)`` does. LayerNorm
 takes its statistics and affine in float32 and returns the compute dtype.
-Dropout draws its masks from an explicit ``torch.Generator``.
+Dropout draws its masks from an explicit ``torch.Generator``;
+:func:`recomputed` runs a block under activation recompute (``remat``) with
+the same masks in the recompute as in the forward.
 
 Weight-only int8 for serving (``unionml_tpu/ops/quant.py``): :func:`quantize_model`
 gives a model whose selected ``nn.Linear`` layers are :class:`QuantizedLinear`
@@ -19,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch.ops.quant import QuantizedArray, quantize_tree
 
@@ -95,3 +98,30 @@ def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator])
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def recomputed(layer: nn.Module, generator: Optional[torch.Generator], *args: Any) -> Any:
+    """``layer(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the backward
+    pass, as ``nn.remat`` does in the JAX package. ``generator`` is one of
+    ``args`` (the dropout and router-jitter draws): the recompute rewinds it
+    to its state before the layer, so it draws the forward's masks again, and
+    then puts it back where it found it, so after the backward pass the
+    generator stands where a forward without recompute leaves it."""
+    if generator is None:
+        return checkpoint(layer, *args, use_reentrant=False)
+    before = generator.get_state()
+    calls = [0]
+
+    def run(*inputs):
+        calls[0] += 1
+        if calls[0] == 1:  # the forward itself: the generator advances as usual
+            return layer(*inputs)
+        found = generator.get_state()
+        generator.set_state(before)
+        try:
+            return layer(*inputs)
+        finally:
+            generator.set_state(found)
+
+    return checkpoint(run, *args, use_reentrant=False)

@@ -30,10 +30,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import resolve_device
-from unionml_tpu_torch.models._layers import _dense, _dropout, _layer_norm
+from unionml_tpu_torch.models._layers import _dense, _dropout, _layer_norm, recomputed
 from unionml_tpu_torch.models.convert import bert_params_from_jax, bert_random_params
 from unionml_tpu_torch.ops.attention import attention
 
@@ -173,24 +172,10 @@ class BertEncoder(nn.Module):
     def forward(self, hidden, kv_lens, dense_mask, generator):
         for layer in self.layers:
             if self.config.remat and torch.is_grad_enabled():
-                hidden = _recomputed(layer, hidden, kv_lens, dense_mask, generator)
+                hidden = recomputed(layer, generator, hidden, kv_lens, dense_mask, generator)
             else:
                 hidden = layer(hidden, kv_lens, dense_mask, generator)
         return hidden
-
-
-def _recomputed(layer, hidden, kv_lens, dense_mask, generator):
-    """``layer`` under ``torch.utils.checkpoint``. The recompute in the
-    backward pass rewinds the dropout generator to its state before the layer,
-    so it draws the same masks as the forward did."""
-    state = generator.get_state() if generator is not None else None
-
-    def run(h):
-        if generator is not None:
-            generator.set_state(state)
-        return layer(h, kv_lens, dense_mask, generator)
-
-    return checkpoint(run, hidden, use_reentrant=False)
 
 
 class BertModel(nn.Module):

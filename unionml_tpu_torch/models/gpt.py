@@ -46,10 +46,18 @@ Sparse configs (``moe_every > 0``, ``gpt.py:52-66``) swap every
 training, dropless whenever the forward is deterministic (eval, ``generate``
 and every serving path, where capacity would depend on the call's token
 count). ``return_aux=True`` hands back the router losses of every sparse
-block for :func:`~unionml_tpu_torch.models.moe.collect_aux_losses`. Not
-ported yet (each raises ``NotImplementedError`` naming its ROADMAP item): the
-ring/ulysses layers, the expert-parallel ``a2a`` dispatch and ``ep_mesh``,
-``remat`` and ``param_shardings``.
+block for :func:`~unionml_tpu_torch.models.moe.collect_aux_losses`.
+
+``remat=True`` recomputes every decoder block of a training forward (no
+cache, gradients on) in the backward pass instead of keeping its activations
+(``gpt.py:615-619``), through
+:func:`~unionml_tpu_torch.models._layers.recomputed`: the recompute draws
+the forward's dropout masks and router jitter, and a sparse block's router
+losses come out of the recomputed block as they do without it. Decode and
+prefill never recompute. Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): the ring/ulysses layers,
+the expert-parallel ``a2a`` dispatch and ``ep_mesh``, and
+``param_shardings``.
 """
 
 import dataclasses
@@ -60,7 +68,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
-from unionml_tpu_torch.models._layers import _dense, _dropout, _kernel, _layer_norm
+from unionml_tpu_torch.models._layers import _dense, _dropout, _kernel, _layer_norm, recomputed
 from unionml_tpu_torch.models.moe import MoEMlp
 from unionml_tpu_torch.ops.attention import attention, reference_attention
 from unionml_tpu_torch.ops.losses import cross_entropy_with_integer_labels
@@ -89,7 +97,8 @@ class GPTConfig:
     attention_impl: str = "auto"
     #: paged attention: "auto" (K4 kernel on CUDA), "kernel", or "reference"
     paged_attn_impl: str = "auto"
-    #: activation recompute for training forwards; not ported yet for GPT
+    #: recompute the decoder blocks of training forwards in the backward pass
+    #: instead of keeping their activations (decode and prefill never do)
     remat: bool = False
     #: sparse variant: every Nth block routes its MLP through experts (0 = dense)
     moe_every: int = 0
@@ -103,8 +112,6 @@ class GPTConfig:
     ep_mesh: Any = None
 
     def __post_init__(self) -> None:
-        if self.remat:
-            raise NotImplementedError("remat for GPT is not ported yet (ROADMAP: GPT remat, Queue 1)")
         if self.moe_dispatch not in ("gshard", "a2a"):
             raise ValueError(f"moe_dispatch must be 'gshard' or 'a2a', got {self.moe_dispatch!r}")
         if self.moe_dispatch == "a2a" or self.ep_mesh is not None:
@@ -587,10 +594,13 @@ class GPTLMHeadModel(nn.Module):
             position = position.to(torch.int32)
             if seq == 1:
                 decode_slots = _decode_slots(position, block_table, cache["layer_0"]["k"].shape[2])
+        # training forwards only, as JAX's nn.remat: a cached step never recomputes
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             layer_cache = None if cache is None else cache[f"layer_{i}"]
-            hidden, layer_cache, layer_aux = layer(hidden, layer_cache, position, pad_offsets, block_table,
-                                                   segment_ids, generator, decode_slots, verify)
+            args = (hidden, layer_cache, position, pad_offsets, block_table, segment_ids, generator, decode_slots,
+                    verify)
+            hidden, layer_cache, layer_aux = recomputed(layer, generator, *args) if remat else layer(*args)
             if layer_cache is not None:
                 new_cache[f"layer_{i}"] = layer_cache
             if layer_aux is not None:

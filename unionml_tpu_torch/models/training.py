@@ -21,6 +21,8 @@ Port of ``unionml_tpu/models/training.py`` for one device, run eagerly (no
   outside the timed window, the barrier is a host fetch of the loss; with
   ``checkpoint_dir`` it resumes from the latest step checkpoint, saves every
   step the interval admits and flushes at the end (``training.py:465-508``).
+  ``prefetch=True`` feeds it from the native
+  :class:`~unionml_tpu_torch.native.PrefetchLoader` (:func:`prefetched_batches`).
 
 Unlike the JAX package, the train step updates the state IN PLACE (the
 model's parameters and the moments) and returns the same object.
@@ -29,7 +31,7 @@ a bf16 config, as flax makes them): their AdamW moments follow each leaf's
 dtype, as optax's do, and ``moe_aux=True`` adds the router losses
 (:func:`~unionml_tpu_torch.models.moe.collect_aux_losses`) to the LM loss.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-meshes and parameter specs (M12) and the native prefetcher.
+meshes and parameter specs (M12).
 """
 
 import time
@@ -62,6 +64,7 @@ __all__ = [
     "make_classifier_train_step",
     "make_lm_eval_step",
     "make_lm_train_step",
+    "prefetched_batches",
 ]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -420,6 +423,58 @@ def dict_batches(
         yield {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(device) for k, v in host.items()}
 
 
+def prefetched_batches(loader: Any, rng: Optional[np.random.Generator], device: torch.device
+                       ) -> Iterable[Dict[str, torch.Tensor]]:
+    """One epoch of ``loader``'s batches (a
+    :class:`~unionml_tpu_torch.native.PrefetchLoader`) on ``device``, in
+    ``dict_batches``' order for the same ``rng``.
+
+    On a CUDA device each batch leaves its pinned slot by an asynchronous
+    copy on a stream of its own, issued while the previous step computes
+    (``training.py:414-466`` overlaps the transfer the same way): the compute
+    stream waits on the copy's event before the step reads the batch, the
+    batch's memory is recorded on the compute stream so the allocator does
+    not reuse it under a later step, and a slot is released only once its
+    copy has completed, one batch behind. On the CPU the batches are the
+    loader's own copies."""
+    if device.type != "cuda":
+        yield from loader.epoch(rng=rng, copy=True)
+        return
+    compute = torch.cuda.current_stream(device)
+    copies = torch.cuda.Stream(device)
+    queue = []  # (batch, copy event, release), oldest first: handed over, to hand over, in flight
+    try:
+        for views, release in loader.epoch(rng=rng, copy=False, defer_release=True):
+            with torch.cuda.stream(copies):
+                batch = {k: v.to(device, non_blocking=True) for k, v in views.items()}
+                done = torch.cuda.Event()
+                done.record(copies)
+            queue.append((batch, done, release))
+            if len(queue) > 2:  # the slot of the batch handed over last: its copy has long completed
+                _, old_done, old_release = queue.pop(0)
+                old_done.synchronize()
+                old_release()
+            if len(queue) > 1:
+                yield _handed_over(queue[-2], compute)
+        if queue:
+            yield _handed_over(queue[-1], compute)
+    finally:
+        # an abandoned epoch (fit's first step takes one batch) must not leave a
+        # copy reading a slot that the next epoch's workers refill
+        copies.synchronize()
+
+
+def _handed_over(entry, compute: torch.cuda.Stream) -> Dict[str, torch.Tensor]:
+    """The batch of ``entry``, ordered after its copy on ``compute`` and its
+    memory recorded there (the allocator must not reuse it under a later
+    step)."""
+    batch, done, _ = entry
+    compute.wait_event(done)
+    for tensor in batch.values():
+        tensor.record_stream(compute)
+    return batch
+
+
 def fit(
     state: TrainState,
     data: Dict[str, np.ndarray],
@@ -450,18 +505,28 @@ def fit(
     ``checkpoint_every`` steps, with the SIGTERM flush): a directory that
     already holds one resumes from its latest step, restored in place into
     ``state``.
+
+    ``prefetch=True`` gathers batches with the native threaded prefetcher
+    into pinned slots and copies each to the card on its own stream while
+    the previous step computes (:func:`prefetched_batches`); the batches and
+    their order are ``dict_batches``'. ``prefetch_convert`` (e.g.
+    ``{"inputs": "float32", "labels": "int32"}`` for float64/int64 data, or
+    ``{"inputs": "bfloat16"}``) converts in the gather workers and requires
+    ``prefetch=True``.
     """
     if mesh is not None or param_spec is not None:
         raise _not_ported("mesh / param_spec (sharded training)", "M12")
-    if prefetch or prefetch_convert:
-        raise _not_ported("prefetch / prefetch_convert", "the native prefetcher, slice 2b")
     if step_fn is not None and grad_accum != 1:
         raise ValueError("grad_accum applies to the built-in step; pass it to your step builder")
+    if prefetch_convert and not prefetch:
+        raise ValueError("prefetch_convert requires prefetch=True (conversion runs in the native gather workers)")
     if step_fn is None:
         step_fn = make_classifier_train_step(input_signature=input_signature, grad_accum=grad_accum)
     device = state.device
 
     def batches(epoch_rng):
+        if loader is not None:
+            return prefetched_batches(loader, epoch_rng, device)
         return dict_batches(data, batch_size, rng=epoch_rng, device=device)
 
     checkpointer = None
@@ -475,7 +540,12 @@ def fit(
             logger.info("Resuming from checkpoint step %d", latest)
             state = checkpointer.restore(state)
 
+    loader = None
     try:
+        if prefetch:
+            from unionml_tpu_torch.native import PrefetchLoader
+
+            loader = PrefetchLoader(data, batch_size, convert=prefetch_convert, pin_memory=device.type == "cuda")
         rng = np.random.default_rng(seed)
         history = []
         step = start_step = state.step
@@ -507,6 +577,8 @@ def fit(
     finally:
         if checkpointer is not None:
             checkpointer.close()  # flushes the pending writes
+        if loader is not None:
+            loader.close()
 
     executed = step - start_step - 1  # the first step is excluded from the timing
     return FitResult(

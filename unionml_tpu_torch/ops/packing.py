@@ -8,15 +8,23 @@ the keys of its own segment, and the GPT model restarts its positions at
 every segment start, so a packed row trains as its sequences would alone.
 
 The output is byte-identical to the JAX package's Python path, which its
-native packer also matches; the port's copy of the native packer
-(``native/pack.cpp``) is not ported yet, so ``impl="native"`` raises.
+native packer also matches. ``impl="native"`` (and ``"auto"`` for corpora of
+``NATIVE_PACK_THRESHOLD`` or more sequences) runs the port's own copy of that
+packer (``native/pack.cpp``, :func:`~unionml_tpu_torch.native.pack_sequences_native`),
+the same first fit in C++; without a compiler it falls back to the Python
+loop, as the JAX package does.
 """
 
 from typing import Dict, List, Sequence
 
 import numpy as np
 
-__all__ = ["pack_sequences", "packing_efficiency"]
+__all__ = ["NATIVE_PACK_THRESHOLD", "pack_sequences", "packing_efficiency"]
+
+#: corpora at least this large route to the native packer under impl="auto"
+#: (``unionml_tpu/ops/packing.py:26-28``): below it the ctypes marshalling
+#: rivals the Python loop's cost
+NATIVE_PACK_THRESHOLD = 2048
 
 
 def pack_sequences(
@@ -34,8 +42,10 @@ def pack_sequences(
         in the result's ``truncated``.
     :param pad_id: token id written into padding slots.
     :param max_segments_per_row: cap on sequences per row (0 = unlimited).
-    :param impl: ``"auto"`` or ``"python"`` (the same loop); ``"native"``
-        raises ``NotImplementedError``.
+    :param impl: ``"python"``, ``"native"`` (the C++ packer, built on first
+        use; the Python loop when no compiler is found) or ``"auto"`` (native
+        for ``NATIVE_PACK_THRESHOLD`` or more sequences). Both run the same
+        first fit and give byte-identical arrays.
     :returns: ``input_ids``, ``segment_ids`` and ``positions`` (rows,
         seq_len) int32 arrays, and ``truncated`` (int).
     """
@@ -43,8 +53,6 @@ def pack_sequences(
         raise ValueError(f"seq_len must be positive, got {seq_len}")
     if impl not in ("auto", "python", "native"):
         raise ValueError(f"impl must be 'auto', 'python', or 'native', got {impl!r}")
-    if impl == "native":
-        raise NotImplementedError("the native packer is not ported yet (ROADMAP: native packer, Queue 1)")
 
     arrays: List[np.ndarray] = []
     truncated = 0
@@ -56,6 +64,18 @@ def pack_sequences(
             arr = arr[:seq_len]
             truncated += 1
         arrays.append(arr)
+
+    if impl == "native" or (impl == "auto" and len(arrays) >= NATIVE_PACK_THRESHOLD):
+        from unionml_tpu_torch.native import pack_sequences_native
+
+        lengths = np.asarray([a.size for a in arrays], dtype=np.int64)
+        flat = (np.concatenate([a.astype(np.int32, copy=False) for a in arrays]) if arrays
+                else np.empty((0,), dtype=np.int32))
+        packed = pack_sequences_native(flat, lengths, seq_len, pad_id, max_segments_per_row)
+        if packed is not None:
+            packed["truncated"] = truncated
+            return packed
+        # no toolchain: the Python loop below
 
     rows: List[List[np.ndarray]] = []
     row_space: List[int] = []
