@@ -353,6 +353,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    started with the script. K1-K3's launches ride the kernels line as
    ``launches_training_rest``.
 
+20. the app's entry points (``cli.py``, ``backend/``, ``remote.py``,
+   ``profiling.py``, ``debug.py``, ``models.gpt.import_hf_weights``) at
+   GPT-2-small width, seeded weights, in ``build/entry_points/`` (removed
+   after). (1) An HF-named GPT-2 state dict (``transformer.`` keys, Conv1D
+   weights ``(in, out)``, the tied ``lm_head``; seeded numpy, no
+   ``transformers``) through ``import_hf_gpt_weights`` and ``init_gpt``:
+   leaves mapped bitwise, and f32 greedy streams (4 prompts of 7..300 tokens,
+   16 new, f32 pool) identical with the kernels and with the plain versions.
+   (2) An app module written there (``EP_APP``: a reader of seeded tokens,
+   ``fit_lm`` for 3 steps at B8 S1024 bf16, a generating predictor, the LM
+   loss with the trainer's K1-K3 launches as metrics, a ``generator``
+   factory) through the commands' plain functions: ``train --local
+   --profile-dir`` (trace files, stage timings, K1-K3 launched),
+   ``predict --local --model-path`` (the saved state reloaded, prompts kept
+   and 8 tokens generated), ``serve``'s kwargs (the factory found, the trace
+   journal) and ``/generate`` through ``parse_generate_payload`` and the
+   batcher (K1 and K4 launched, one journal record per request). (3)
+   ``LocalBackend`` with a spawned worker process: ``deploy`` at a fixed
+   version, ``train --wait`` on the card (the worker's K1-K3 launches, each
+   above 0), ``list-model-versions``, ``fetch-model``, ``Model.remote_load``:
+   the state bitwise the worker's saved one both ways, and its f32 greedy
+   streams identical with the kernels and the plain versions. (4)
+   ``assert_pure`` on CUDA tensors (a graph replay) accepts a pure function
+   and rejects a Python counter; ``RetraceMonitor`` counts 1, 1, 2 over
+   shapes (4,), (4,), (8,); ``debug_nans`` raises at ``x / 0 * 0``;
+   ``device_memory_stats()[0]["bytes_limit"]`` is the card's total memory.
+   The phase's K1-K4 launches, this process's and the worker's, ride the
+   kernels line as ``launches_entry_points``.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -4962,6 +4991,452 @@ def report_training_rest(tr: dict, name_limit: str) -> None:
           f"{tr['s']:.1f} s ({ {k: round(v, 1) for k, v in tr['parts_s'].items()} })")
 
 
+# ------------------------------------------------------------ phase 20: the entry points
+
+
+EP_DIR = Path(__file__).resolve().parent / "build" / "entry_points"
+EP_PROMPTS = (7, 30, 100, 300)  # the HF import's and the fetched state's greedy prompts
+EP_NEW = 16  # new tokens per greedy stream
+EP_ROWS, EP_BATCH, EP_STEPS = 24, 8, 3  # the app's reader rows, fit_lm batch and steps
+EP_GENERATE = (12, 40, 90, 200)  # /generate prompts through the served generator
+EP_APP = '''"""Phase 20's app, written by chip_smoke.py: GPT-2 small through the port's
+Dataset and Model (a reader of seeded tokens, fit_lm in the trainer, a
+generating predictor, the LM loss with the trainer's kernel launches as
+metrics, and a generator factory for /generate)."""
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from unionml_tpu_torch import Dataset, Model, kernels
+from unionml_tpu_torch.models import GPTConfig, TrainState, create_train_state, fit_lm, generate, init_gpt
+from unionml_tpu_torch.models import make_lm_eval_step
+
+DEVICE = {device!r}
+SEQ, BATCH = {seq}, {batch}
+config = GPTConfig(vocab_size={vocab}, hidden_size={hidden}, num_layers={layers}, num_heads={heads},
+                   max_position_embeddings={positions}, dropout=0.0)
+#: the last fit's kernel launches in this process, by kernel name
+TRAIN_LAUNCHES: Dict[str, int] = {{}}
+
+dataset = Dataset(name="ep_app_dataset", test_size=1 / 3)
+
+
+def init(learning_rate: float = 3e-4, seed: int = 0) -> TrainState:
+    return create_train_state(init_gpt(config, seed=seed, device=DEVICE), learning_rate=learning_rate,
+                              warmup_steps=0, total_steps=1000, seed=seed)
+
+
+model = Model(name="ep_app", init=init, dataset=dataset)
+
+
+@dataset.reader
+def reader(n: int = {rows}, seed: int = 0) -> Dict[str, np.ndarray]:
+    return {{"input_ids": np.random.default_rng(seed).integers(1, config.vocab_size, (n, SEQ)).astype(np.int32)}}
+
+
+@dataset.feature_loader
+def feature_loader(features: Any) -> Dict[str, Any]:
+    return features
+
+
+@model.trainer
+def trainer(state: TrainState, features: Dict[str, np.ndarray], targets: Any, *, num_steps: int = {steps},
+            batch_size: int = BATCH) -> TrainState:
+    before = dict(kernels.launches)
+    result = fit_lm(state, list(np.asarray(features["input_ids"])), seq_len=SEQ, batch_size=batch_size,
+                    pack=False, num_steps=num_steps, log_every=1, seed=0)
+    if not all(np.isfinite(h["loss"]) for h in result.metrics_history):
+        raise FloatingPointError(f"non-finite loss: {{result.metrics_history}}")
+    TRAIN_LAUNCHES.update({{k: kernels.launches[k] - before[k] for k in before}})
+    return result.state
+
+
+@model.predictor(jit=False)
+def predictor(state: TrainState, features: Dict[str, Any]) -> np.ndarray:
+    ids = torch.tensor(np.asarray(features["prompt_ids"], np.int64), device=state.device)
+    max_new = int(features.get("max_new_tokens", 8))
+    with torch.no_grad():
+        return generate(state.model, ids, max_new, max_len=ids.shape[1] + max_new).cpu().numpy()
+
+
+@model.evaluator(jit=False)
+def evaluator(state: TrainState, features: Dict[str, np.ndarray], targets: Any) -> Dict[str, float]:
+    ids = np.asarray(features["input_ids"])
+    step = make_lm_eval_step()
+    losses = [float(step(state, {{"input_ids": torch.from_numpy(ids[i:i + BATCH]).to(state.device)}})["loss"])
+              for i in range(0, len(ids), BATCH)]
+    return {{"lm_loss": float(np.mean(losses)), **{{f"launches_{{k}}": float(v) for k, v in TRAIN_LAUNCHES.items()}}}}
+
+
+def generator(replica: int = 0):
+    """The /generate engine over the served state's model (int8 paged pool)."""
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    return DecodeEngine(model.artifact.model_object.model, num_slots=4, max_len=SEQ, kv_quantize="int8",
+                        prefill_chunk=256, seed=0, device=DEVICE)
+'''
+
+
+def hf_gpt2_state_dict(config, seed: int = 0) -> dict:
+    """A HuggingFace ``GPT2LMHeadModel`` state dict of seeded random weights at
+    ``config``'s widths (``transformer.`` keys, Conv1D weights ``(in, out)``,
+    the tied ``lm_head``): the layout ``transformers`` saves, made without it."""
+    rng = np.random.default_rng(seed)
+    d, f = config.hidden_size, 4 * config.hidden_size
+
+    def normal(*shape, std=0.02):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+
+    hf = {"transformer.wte.weight": normal(config.vocab_size, d),
+          "transformer.wpe.weight": normal(config.max_position_embeddings, d, std=0.01)}
+    for i in range(config.num_layers):
+        p = f"transformer.h.{i}."
+        for norm in ("ln_1", "ln_2"):
+            hf[p + norm + ".weight"], hf[p + norm + ".bias"] = 1.0 + normal(d, std=0.05), normal(d)
+        for name, (n_in, n_out) in (("attn.c_attn", (d, 3 * d)), ("attn.c_proj", (d, d)),
+                                    ("mlp.c_fc", (d, f)), ("mlp.c_proj", (f, d))):
+            hf[p + name + ".weight"], hf[p + name + ".bias"] = normal(n_in, n_out), normal(n_out)
+    hf["transformer.ln_f.weight"], hf["transformer.ln_f.bias"] = 1.0 + normal(d, std=0.05), normal(d)
+    hf["lm_head.weight"] = hf["transformer.wte.weight"]
+    return hf
+
+
+def ep_streams(model, prompt_list, device, kv_quantize=None) -> list:
+    """Greedy streams of ``prompt_list`` (``EP_NEW`` tokens each) through a
+    fresh ``DecodeEngine`` and ``ContinuousBatcher`` over ``model``."""
+    from unionml_tpu_torch.serving import ContinuousBatcher, DecodeEngine
+
+    engine = DecodeEngine(model, num_slots=4, max_len=model.config.max_position_embeddings, prefill_chunk=256,
+                          kv_quantize=kv_quantize, seed=0, device=device)
+    batcher = ContinuousBatcher(engine, device=device)
+
+    async def drive():
+        return await asyncio.gather(*(batcher.generate(p, EP_NEW) for p in prompt_list))
+
+    try:
+        return [list(s) for s in asyncio.run(drive())]
+    finally:
+        batcher.close()
+
+
+def ep_kernel_vs_plain(config, state_dict, prompt_list, device) -> dict:
+    """f32 greedy streams of one set of weights with the kernels and with the
+    plain versions: identical required; the kernels' K1/K4 launches."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import GPTLMHeadModel
+
+    streams, launched = {}, {}
+    for impl in ("auto", "reference"):
+        cfg = dataclasses.replace(config, dtype=torch.float32, dropout=0.0, attention_impl=impl,
+                                  paged_attn_impl=impl)
+        model = GPTLMHeadModel(cfg, device=device)
+        model.load_state_dict(state_dict)
+        before = dict(kernels.launches)
+        streams[impl] = ep_streams(model.requires_grad_(False), prompt_list, device)
+        launched[impl] = {k: kernels.launches[k] - before[k] for k in ("flash_fwd", "paged_attention")}
+        del model
+    if streams["auto"] != streams["reference"]:
+        raise AssertionError(f"f32 greedy streams differ, kernels vs plain: {streams}")
+    if device.type == "cuda" and not all(launched["auto"].values()):
+        raise AssertionError(f"the kernels' f32 streams launched {launched['auto']}")
+    return {"streams": streams["auto"], "launches": launched["auto"]}
+
+
+def ep_import(config, device) -> dict:
+    """Phase 20 (1): an HF-named GPT-2 state dict of seeded weights through
+    ``import_hf_gpt_weights`` (``models.gpt.import_hf_weights``) and ``init_gpt``; f32 greedy streams kernels vs plain."""
+    from unionml_tpu_torch.models import import_hf_gpt_weights, init_gpt
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(config, dtype=torch.float32, dropout=0.0)
+    hf = hf_gpt2_state_dict(cfg)
+    params = import_hf_gpt_weights(hf, cfg)
+    model = init_gpt(cfg, params=params, device=device)
+    state = {k: v for k, v in model.state_dict().items()}
+    last = cfg.num_layers - 1
+    for ours, theirs, transpose in ((f"layers.{last}.qkv.weight", f"transformer.h.{last}.attn.c_attn.weight", True),
+                                    ("layers.0.mlp_down.weight", "transformer.h.0.mlp.c_proj.weight", True),
+                                    ("wte.weight", "lm_head.weight", False),
+                                    ("final_norm.bias", "transformer.ln_f.bias", False)):
+        want = hf[theirs].t() if transpose else hf[theirs]
+        if not torch.equal(state[ours].cpu(), want):
+            raise AssertionError(f"import_hf_weights: {ours} is not {theirs}{'.T' if transpose else ''}")
+    del model
+    rng = np.random.default_rng(20)
+    prompt_list = [rng.integers(0, cfg.vocab_size, n).tolist() for n in EP_PROMPTS]
+    out = ep_kernel_vs_plain(cfg, state, prompt_list, device)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def ep_write_app(workdir: Path, config, device) -> None:
+    workdir.mkdir(parents=True, exist_ok=True)
+    (workdir / "ep_app.py").write_text(EP_APP.format(
+        device=device.type, seq=config.max_position_embeddings, batch=EP_BATCH, rows=EP_ROWS, steps=EP_STEPS,
+        vocab=config.vocab_size, hidden=config.hidden_size, layers=config.num_layers, heads=config.num_heads,
+        positions=config.max_position_embeddings))
+
+
+def ep_cli_local(workdir: Path, device) -> dict:
+    """Phase 20 (2): the CLI's local commands through their plain functions:
+    ``train --local --profile-dir``, ``predict --local --model-path``, and
+    ``serve``'s kwargs driving ``/generate`` through the route functions."""
+    from unionml_tpu_torch import cli, kernels
+    from unionml_tpu_torch.serving.app import build_generator, load_model_artifact, parse_generate_payload
+    from unionml_tpu_torch.serving.telemetry import Telemetry
+
+    app, out = "ep_app:model", {}
+    t0 = time.perf_counter()
+    before = dict(kernels.launches)
+    printed = json.loads(cli.train(app, local=True, profile_dir=str(workdir / "trace")))
+    sync(device)
+    out["train_s"] = time.perf_counter() - t0
+    out["train_launches"] = {k: kernels.launches[k] - before[k] for k in TRAIN_KERNELS}
+    traces = sorted(p for p in (workdir / "trace").iterdir() if p.suffix == ".json")
+    if not traces or not printed["stage_timings_s"] or None in printed["stage_timings_s"].values():
+        raise AssertionError(f"train --local --profile-dir: traces {traces}, printed {printed}")
+    metrics = printed["metrics"]
+    if not all(np.isfinite(m["lm_loss"]) for m in metrics.values()):
+        raise AssertionError(f"train --local: metrics {metrics}")
+    if device.type == "cuda" and not all(out["train_launches"].values()):
+        raise AssertionError(f"train --local launched {out['train_launches']}")
+    out.update(metrics=metrics, stage_timings_s=printed["stage_timings_s"],
+               trace_mb=sum(p.stat().st_size for p in traces) / 1e6)
+    module = sys.modules["ep_app"]
+    t = time.perf_counter()
+    module.model.save(workdir / "model.pt")
+    out["save_s"] = time.perf_counter() - t
+
+    rng = np.random.default_rng(21)
+    prompt_ids = rng.integers(1, module.config.vocab_size, (2, 24)).tolist()
+    (workdir / "features.json").write_text(json.dumps({"prompt_ids": prompt_ids, "max_new_tokens": 8}))
+    module.model._artifact = None
+    t = time.perf_counter()
+    predicted = json.loads(cli.predict(app, features=workdir / "features.json", local=True,
+                                       model_path=workdir / "model.pt"))
+    sync(device)
+    out["predict_s"] = time.perf_counter() - t
+    if np.asarray(predicted).shape != (2, 24 + 8) or np.asarray(predicted)[:, :24].tolist() != prompt_ids:
+        raise AssertionError(f"predict --local: {predicted}")
+
+    # serve: its kwargs, the startup load from --model-path, /generate through the route functions
+    t = time.perf_counter()
+    model, kwargs = cli.serve_kwargs(app, model_path=workdir / "model.pt", trace_journal=workdir / "journal.jsonl")
+    if kwargs.get("generator") is not module.generator or not kwargs["generate_telemetry"]:
+        raise AssertionError(f"serve's kwargs: {kwargs}")
+    model._artifact = None
+    load_model_artifact(model, remote=kwargs["remote"], app_version=kwargs["app_version"],
+                        model_version=kwargs["model_version"])
+    gen = build_generator(kwargs["generator"], telemetry=Telemetry(journal_path=kwargs["generate_trace_journal"]),
+                          device=device)
+    before = dict(kernels.launches)
+    prompts = [rng.integers(1, module.config.vocab_size, n).tolist() for n in EP_GENERATE]
+    try:
+        reqs = [parse_generate_payload({"prompt_ids": p, "max_new_tokens": EP_NEW}, gen) for p in prompts]
+
+        async def drive():
+            return await asyncio.gather(*(gen.generate(r.prompt_ids, r.max_new_tokens, **r.slo, **r.sampling)
+                                          for r in reqs))
+
+        streams = asyncio.run(drive())
+    finally:
+        gen.close()
+    sync(device)
+    out["generate_s"] = time.perf_counter() - t
+    out["generate_launches"] = {k: kernels.launches[k] - before[k] for k in ("flash_fwd", "paged_attention")}
+    if [len(s) for s in streams] != [EP_NEW] * len(prompts) or not all(0 <= x < module.config.vocab_size
+                                                                        for s in streams for x in s):
+        raise AssertionError(f"/generate streams {streams}")
+    if device.type == "cuda" and not all(out["generate_launches"].values()):
+        raise AssertionError(f"/generate launched {out['generate_launches']}")
+    journal = (workdir / "journal.jsonl").read_text().splitlines()
+    out["journal_records"] = len(journal)
+    if len(journal) != len(prompts):
+        raise AssertionError(f"the trace journal holds {len(journal)} records for {len(prompts)} requests")
+    model._artifact = None
+    return out
+
+
+def ep_backend(workdir: Path, config, device) -> dict:
+    """Phase 20 (3): deploy, ``train --wait`` in a spawned worker process on the
+    card, ``list-model-versions``, ``fetch-model``, ``Model.remote_load``: the
+    fetched state bitwise the worker's, its f32 greedy streams kernels vs plain."""
+    import pickle
+
+    from unionml_tpu_torch import cli
+    from unionml_tpu_torch.backend import LocalBackend
+    from unionml_tpu_torch.exceptions import BackendError
+
+    app, out = "ep_app:model", {}
+    module = sys.modules["ep_app"]
+    model = module.model
+    backend = LocalBackend(root=workdir / "backend")
+    model.remote(backend, gpu=1, gpu_memory="80Gi")
+    if cli.deploy(app, app_version="ep-v1") != "Deployed app version ep-v1":
+        raise AssertionError("deploy")
+    t = time.perf_counter()
+    try:
+        printed = json.loads(cli.train(app, app_version="ep-v1", wait=True))
+    except BackendError as exc:
+        logs = "\n".join(p.read_text()[-4000:] for p in (workdir / "backend").rglob("worker.log"))
+        raise AssertionError(f"the worker failed: {exc}\n{logs}") from exc
+    out["train_wait_s"] = time.perf_counter() - t
+    metrics = printed["metrics"]
+    out["worker_launches"] = {k: int(metrics["train"][f"launches_{k}"]) for k in TRAIN_KERNELS}
+    if device.type == "cuda" and not all(out["worker_launches"].values()):
+        raise AssertionError(f"the worker's fit launched {out['worker_launches']}")
+    versions = cli.list_model_versions(app).split()
+    if len(versions) != 1:
+        raise AssertionError(f"list-model-versions: {versions}")
+    t = time.perf_counter()
+    if cli.fetch_model(app, output_file=workdir / "fetched.pt") != f"Saved model to {workdir / 'fetched.pt'}":
+        raise AssertionError("fetch-model")
+    out["fetch_s"] = time.perf_counter() - t
+    execution = backend.get_execution(versions[0])
+    with (execution.directory / "outputs.pkl").open("rb") as f:
+        saved = pickle.load(f)["model_object"]["__unionml_state_dict__"]
+    t = time.perf_counter()
+    model.remote_load(execution)
+    out["remote_load_s"] = time.perf_counter() - t
+    fetched = model._loader(workdir / "fetched.pt")
+    for label, state in (("remote_load", model.artifact.model_object), ("fetch-model", fetched)):
+        if state.device.type != device.type or state.step != saved["step"] or saved["step"] != EP_STEPS:
+            raise AssertionError(f"{label}: device {state.device}, step {state.step} (saved {saved['step']})")
+        for group in ("params", "mu", "nu"):
+            for name, tensor in zip(state.names, getattr(state, group)):
+                if not torch.equal(tensor.cpu(), saved[group][name]):
+                    raise AssertionError(f"{label}: {group} {name} differs from the worker's saved state")
+    out["state_bytes"] = sum(v.numel() * v.element_size() for g in ("params", "mu", "nu") for v in saved[g].values())
+    rng = np.random.default_rng(22)
+    prompt_list = [rng.integers(0, config.vocab_size, n).tolist() for n in EP_PROMPTS]
+    sd = {k: v for k, v in model.artifact.model_object.model.state_dict().items()}
+    out["f32_streams"] = ep_kernel_vs_plain(config, sd, prompt_list, device)
+    model._artifact = None
+    del fetched, sd
+    return out
+
+
+def ep_debug(device) -> dict:
+    """Phase 20 (4): the debug and profiling helpers on ``device``."""
+    from unionml_tpu_torch import debug, profiling
+
+    x = torch.arange(4.0, device=device)
+    debug.assert_pure(lambda t: t * 2 + 1, x, atol=0)
+    state = {"calls": 0}
+
+    def impure(t):
+        state["calls"] += 1
+        return t + state["calls"]
+
+    try:
+        debug.assert_pure(impure, x)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("assert_pure accepted a function that bumps a Python counter")
+    monitor = debug.RetraceMonitor(lambda t: t * 2, name="double")
+    traces = []
+    for shape in ((4,), (4,), (8,)):
+        got = monitor(torch.ones(shape, device=device))
+        traces.append(monitor.traces)
+        if not torch.equal(got, torch.full(shape, 2.0, device=device)):
+            raise AssertionError(f"RetraceMonitor answered {got}")
+    if traces != [1, 1, 2]:
+        raise AssertionError(f"RetraceMonitor counted {traces}")
+    try:
+        with debug.debug_nans():
+            (x[1] / 0.0) * 0.0
+    except FloatingPointError:
+        pass
+    else:
+        raise AssertionError("debug_nans did not raise at x / 0 * 0")
+    stats = profiling.device_memory_stats()
+    total = torch.cuda.get_device_properties(0).total_memory if device.type == "cuda" else None
+    if stats[0]["bytes_limit"] != total:
+        raise AssertionError(f"device_memory_stats {stats[0]} against the card's {total} bytes")
+    return {"retrace_counts": traces, "memory_stats": stats[0], "total_memory": total}
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def entry_points_phase(device, config=None) -> dict:
+    """Phase 20: the app's entry points on ``device`` at GPT-2-small width (or
+    ``config``): the HF import, the CLI's local commands, the backend with a
+    spawned worker, the debug and profiling helpers; K1-K4's launches in this
+    process over the phase plus the worker's K1-K3 under ``launches``."""
+    import os
+    import shutil
+
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import GPTConfig
+
+    config = config or GPTConfig(dropout=0.0)
+    t0 = time.perf_counter()
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    ep_write_app(EP_DIR, config, device)
+    root = str(Path(__file__).resolve().parent)
+    saved_env = {k: os.environ.get(k) for k in ("PYTHONPATH", "UNIONML_MODEL_PATH")}
+    os.environ["PYTHONPATH"] = os.pathsep.join(filter(None, (root, saved_env["PYTHONPATH"])))  # the worker's imports
+    cwd = os.getcwd()
+    kernels.reset_launches()
+    out, parts = {}, {}
+    try:
+        os.chdir(EP_DIR)  # the commands import ep_app from the working directory, as a user's shell does
+        for name, part in (("import", lambda: ep_import(config, device)),
+                           ("cli_local", lambda: ep_cli_local(EP_DIR, device)),
+                           ("backend", lambda: ep_backend(EP_DIR, config, device)),
+                           ("debug", lambda: ep_debug(device))):
+            t = time.perf_counter()
+            out[name] = part()
+            sync(device)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            parts[name] = time.perf_counter() - t
+    finally:
+        os.chdir(cwd)
+        sys.modules.pop("ep_app", None)
+        shutil.rmtree(EP_DIR, ignore_errors=True)  # three copies of the state, about 1.5 GB each
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    launches = dict(kernels.launches)
+    for name, count in out["backend"]["worker_launches"].items():
+        launches[name] += count
+    out.update(launches=launches, parts_s=parts, s=time.perf_counter() - t0)
+    return out
+
+
+def report_entry_points(ep: dict, name_limit: str) -> None:
+    """Print phase 20's results (``entry_points_phase``'s record)."""
+    im, lo, be, db = ep["import"], ep["cli_local"], ep["backend"], ep["debug"]
+    print(f"[{name_limit}] GPT-2 small from an HF state dict (seeded, transformer. keys, Conv1D (in, out)) through "
+          f"import_hf_weights: f32 greedy streams ({len(EP_PROMPTS)} prompts of {EP_PROMPTS} tokens, {EP_NEW} new) "
+          f"identical with the kernels and the plain versions; launches {im['launches']}; {im['s']:.1f} s")
+    print(f"[{name_limit}] CLI train --local --profile-dir ({EP_STEPS} fit_lm steps B{EP_BATCH} S1024 bf16): "
+          f"{lo['train_s']:.1f} s, metrics {lo['metrics']}, stage timings {lo['stage_timings_s']}, trace "
+          f"{lo['trace_mb']:.1f} MB, K1-K3 launches {lo['train_launches']}; save {lo['save_s']:.1f} s; predict "
+          f"--local --model-path {lo['predict_s']:.1f} s; serve kwargs -> /generate ({len(EP_GENERATE)} requests "
+          f"of {EP_GENERATE} tokens, {EP_NEW} new, int8 pool, telemetry journal {lo['journal_records']} records): "
+          f"{lo['generate_s']:.1f} s with the startup load, launches {lo['generate_launches']}")
+    print(f"[{name_limit}] backend: deploy ep-v1, train --wait in a spawned worker {be['train_wait_s']:.1f} s "
+          f"(the worker's K1-K3 launches {be['worker_launches']}), list-model-versions, fetch-model "
+          f"{be['fetch_s']:.1f} s, remote_load {be['remote_load_s']:.1f} s: the state ({be['state_bytes'] / 1e9:.2f} "
+          f"GB) bitwise the worker's; its f32 greedy streams identical with the kernels and the plain versions "
+          f"(launches {be['f32_streams']['launches']})")
+    print(f"debug on the card: assert_pure accepts a pure function and rejects a counter; RetraceMonitor "
+          f"{db['retrace_counts']}; debug_nans raised at x / 0 * 0; device_memory_stats bytes_limit "
+          f"{db['memory_stats']['bytes_limit']} = the card's {db['total_memory']}")
+    print(f"[{name_limit}] phase 20 launches {ep['launches']} (this process and the worker); phase 20 took "
+          f"{ep['s']:.1f} s ({ {k: round(v, 1) for k, v in ep['parts_s'].items()} })")
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -5619,6 +6094,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["training_rest"] = tr = training_rest_phase(device, packer)
     report_training_rest(tr, name_limit)
+    torch.cuda.empty_cache()
+    details["entry_points"] = ep = entry_points_phase(device)
+    report_entry_points(ep, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -5630,6 +6108,8 @@ def main() -> int:
             r["launches_dense_int8"] = di["launches"][r["name"]]
         if r["name"] in tr["launches"]:
             r["launches_training_rest"] = tr["launches"][r["name"]]
+        if r["name"] in ep["launches"]:
+            r["launches_entry_points"] = ep["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],
@@ -5661,6 +6141,8 @@ def main() -> int:
             entry["launches_dense_int8"] = r["launches_dense_int8"]
         if "launches_training_rest" in r:  # phase 19's K1-K3 launches (remat, prefetch, templates)
             entry["launches_training_rest"] = r["launches_training_rest"]
+        if "launches_entry_points" in r:  # phase 20's K1-K4 launches (CLI, backend worker, import)
+            entry["launches_entry_points"] = r["launches_entry_points"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

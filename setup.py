@@ -1,7 +1,8 @@
 """Packaging for unionml-tpu.
 
 Reference parity: the console-script pattern of the reference's setup.py
-(``unionml = unionml.cli:app``) — here ``unionml-tpu = unionml_tpu.cli:main``.
+(``unionml = unionml.cli:app``) — here ``unionml-tpu = unionml_tpu.cli:main``, and
+``unionml-tpu-torch = unionml_tpu_torch.cli:main`` for the PyTorch port.
 """
 
 from setuptools import find_packages, setup
@@ -44,5 +45,10 @@ setup(
         "gcs": ["gcsfs"],
         "torch": ["torch"],
     },
-    entry_points={"console_scripts": ["unionml-tpu = unionml_tpu.cli:main"]},
+    entry_points={
+        "console_scripts": [
+            "unionml-tpu = unionml_tpu.cli:main",
+            "unionml-tpu-torch = unionml_tpu_torch.cli:main",
+        ]
+    },
 )

@@ -182,3 +182,63 @@ def test_bf16_config_keeps_f32_parameters_equal_to_the_jax_tree(pair):
     with torch.no_grad():
         logits = model(torch.from_numpy(_ids(2, 2, 7)).long())
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+
+
+def _hf_state_dict(tree, lm_head: bool):
+    """A HuggingFace GPT-2 state dict (``transformer.`` keys when ``lm_head``) of
+    the JAX tree's weights: Conv1D weights keep the flax ``(in, out)`` layout."""
+    prefix = "transformer." if lm_head else ""
+    hf = {f"{prefix}wte.weight": tree["wte"]["embedding"], f"{prefix}wpe.weight": tree["wpe"]["embedding"],
+          f"{prefix}ln_f.weight": tree["final_norm"]["scale"], f"{prefix}ln_f.bias": tree["final_norm"]["bias"]}
+    names = {"attn_norm": "ln_1", "qkv": "attn.c_attn", "attn_out": "attn.c_proj", "mlp_norm": "ln_2",
+             "mlp_up": "mlp.c_fc", "mlp_down": "mlp.c_proj"}
+    i = 0
+    while f"layer_{i}" in tree:
+        for ours, theirs in names.items():
+            node = tree[f"layer_{i}"][ours]
+            hf[f"{prefix}h.{i}.{theirs}.weight"] = node["kernel" if "kernel" in node else "scale"]
+            hf[f"{prefix}h.{i}.{theirs}.bias"] = node["bias"]
+        i += 1
+    if lm_head:
+        hf["lm_head.weight"] = tree["wte"]["embedding"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in hf.items()}
+
+
+@pytest.mark.parametrize("lm_head", [False, True], ids=["GPT2Model", "GPT2LMHeadModel"])
+def test_import_hf_weights_matches_the_jax_import(pair, lm_head):
+    """One HF-keyed dict built from the JAX package's seeded parameters, imported
+    by both packages: the same tree, and float32 logits within 1e-5."""
+    jmodel, _, params, _ = pair
+    hf = _hf_state_dict(params["params"], lm_head)
+    cfg = GPTConfig.tiny(dtype=torch.float32)
+    got = tgpt.import_hf_weights(hf, cfg)
+    want = jgpt.import_hf_weights(hf, jmodel.config)
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    ids = _ids(77, 2, 13)
+    jlogits = np.asarray(jmodel.apply(jax.tree_util.tree_map(jnp.asarray, want), jnp.asarray(ids)))
+    tmodel = init_gpt(cfg, params=got, device="cpu").requires_grad_(False)
+    np.testing.assert_allclose(tmodel(torch.from_numpy(ids).long()).numpy(), jlogits, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="dense GPT-2"):
+        tgpt.import_hf_weights(hf, GPTConfig.tiny(moe_every=2))
+
+
+def test_import_hf_weights_reproduces_transformers_logits():
+    """``unionml_tpu/models/gpt.py``'s HF parity test on the port: a
+    ``GPT2LMHeadModel`` built in code with random weights (no download)."""
+    transformers = pytest.importorskip("transformers")
+    hf_config = transformers.GPT2Config(
+        vocab_size=128, n_positions=64, n_embd=32, n_layer=2, n_head=4,
+        resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0,
+    )
+    torch.manual_seed(0)
+    hf_model = transformers.GPT2LMHeadModel(hf_config).eval()
+    config = GPTConfig(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4, max_position_embeddings=64,
+                       dropout=0.0, dtype=torch.float32)
+    model = init_gpt(config, params=tgpt.import_hf_weights(hf_model.state_dict(), config), device="cpu")
+    ids = np.random.default_rng(0).integers(0, 128, size=(2, 16))
+    with torch.no_grad():
+        want = hf_model(torch.tensor(ids)).logits.numpy()
+        got = model(torch.tensor(ids), deterministic=True).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4)

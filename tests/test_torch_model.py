@@ -12,10 +12,11 @@ Two apps are built in both packages from one numpy-seeded description:
 Tolerances: float32 logits within 1e-5 (one forward each; the two packages
 sum in different orders); labels identical; saved and loaded models
 bitwise. ``Model``'s own surface (hyperparameter types, stage interfaces,
-artifacts, callbacks, the unported deploy surface) is held to the JAX
-package's answers exactly.
+artifacts, callbacks, the deploy surface on an in-process backend) is held to
+the JAX package's answers exactly.
 """
 
+from datetime import timedelta
 from typing import Any, Dict, List
 
 import jax
@@ -393,7 +394,7 @@ def test_hyperparameter_types_match():
             assert _fields(t.hyperparameter_type) == _fields(j.hyperparameter_type)
 
 
-def test_artifacts_and_errors():
+def test_artifacts_and_errors(tmp_path):
     app = sklearn_app(T)
     with pytest.raises(RuntimeError, match="ModelArtifact not found"):
         app.predict(features=[{"x1": 0.0, "x2": 0.0}])
@@ -403,7 +404,16 @@ def test_artifacts_and_errors():
     assert app.resolve_model_artifact(model_object=obj).model_object is obj
     with pytest.raises(ValueError, match="only one of"):
         app.resolve_model_artifact(model_object=obj, model_file="x")
-    with pytest.raises(NotImplementedError, match="M14"):
+    # a model version resolves through the backend's lineage, as in the JAX package
+    from unionml_tpu.exceptions import BackendError as JaxBackendError
+    from unionml_tpu_torch.exceptions import BackendError
+
+    japp = sklearn_app(J)
+    japp.remote(f"local://{tmp_path / 'jax'}")
+    app.remote(f"local://{tmp_path / 'port'}")
+    with pytest.raises(JaxBackendError, match="'v1' not found"):
+        japp.resolve_model_artifact(model_version="v1")
+    with pytest.raises(BackendError, match="'v1' not found"):
         app.resolve_model_artifact(model_version="v1")
     with pytest.raises(ValueError, match="env var"):
         app.load_from_env("UNIONML_NO_SUCH_VARIABLE")
@@ -411,9 +421,46 @@ def test_artifacts_and_errors():
 
 @pytest.mark.parametrize("method", ["remote", "remote_deploy", "remote_train", "remote_predict",
                                     "schedule_training", "schedule_prediction"])
-def test_deploy_surface_raises_naming_m14(method):
-    with pytest.raises(NotImplementedError, match="M14"):
-        getattr(sklearn_app(T), method)("x")
+def test_deploy_surface_raises_naming_m14(method, tmp_path, monkeypatch):
+    """The deploy surface (ROADMAP M14) once raised here; each method now works
+    against an in-process backend on the port's backend app, with the local
+    path's answers. Its one unported part, jobs on several hosts, raises
+    naming M12."""
+    from tests.torch_backend_app import model
+    from unionml_tpu_torch.backend import LocalBackend
+
+    for attr in ("_artifact", "_backend", "_resources"):
+        monkeypatch.setattr(model, attr, getattr(model, attr))
+    model._artifact = None
+    monkeypatch.setattr(model, "_training_schedules", list(model._training_schedules))
+    monkeypatch.setattr(model, "_prediction_schedules", [])
+    backend = LocalBackend(root=tmp_path / "backend", in_process=True)
+    hyperparameters = {"max_iter": 200}
+    if method == "remote":
+        model.remote(f"local://{tmp_path / 'store'}", gpu=2, gpu_memory="80Gi")
+        assert model._remote.root == tmp_path / "store" and model.resources.gpu == 2
+        with pytest.raises(NotImplementedError, match="M12"):
+            model.remote(backend, host_count=2)
+        return
+    model.remote(backend)
+    if method == "remote_deploy":
+        assert model.remote_deploy(app_version="v1") == "v1"
+        assert backend.fetch_workflow_spec(model.train_workflow_name, "v1")["app_variable"] == "model"
+    elif method == "remote_train":
+        artifact = model.remote_train(hyperparameters=hyperparameters, n=60)
+        _, metrics = model.train(hyperparameters=hyperparameters, n=60)
+        assert artifact.metrics == metrics
+    elif method == "remote_predict":
+        model.remote_train(hyperparameters=hyperparameters, n=60)
+        assert model.remote_predict(n=20) == model.predict(n=20)
+    elif method == "schedule_training":
+        model.schedule_training("hourly", fixed_rate=timedelta(hours=1), n=30)
+        model.remote_deploy(app_version="v2")
+        assert {r["name"] for r in backend.list_schedules()} == {"nightly-train", "hourly"}
+    else:
+        model.remote_train(hyperparameters=hyperparameters, n=60)
+        model.schedule_prediction("daily-preds", expression="@daily", n=10)
+        assert model.prediction_schedules[0].inputs["model_object"] is model.artifact.model_object
 
 
 def test_prediction_callbacks():

@@ -1,8 +1,7 @@
 """The port's project templates against the JAX package's.
 
-- ``list_templates()`` is nine of JAX's twelve names (``data-parallel``,
-  ``serverless`` and ``bentoml-serving`` wait for the mesh and the services
-  of the deploy surface);
+- ``list_templates()`` is eleven of JAX's twelve names (``data-parallel``
+  waits for the mesh, ROADMAP M12);
 - each renders, compiles, carries ``.git`` and JAX's file set, and has no
   ``{{app_name}}`` left (``tests/unit/test_cli_templates.py:31-50``); its
   ``app.py`` imports neither JAX nor the JAX package, and the five that run
@@ -29,8 +28,8 @@ from unionml_tpu.templates import list_templates as jax_templates
 from unionml_tpu.templates import template_description as jax_description
 from unionml_tpu_torch.templates import list_templates, render_template, template_description
 
-PORTED = ["basic", "bert-finetune", "gpt-textgen", "jax-digits", "keras-mnist", "mnist-cnn", "moe-textgen",
-          "packed-textgen", "torch-digits"]
+PORTED = ["basic", "bentoml-serving", "bert-finetune", "gpt-textgen", "jax-digits", "keras-mnist", "mnist-cnn",
+          "moe-textgen", "packed-textgen", "serverless", "torch-digits"]
 #: the templates the card runs: the card's machine has no pandas, sklearn or keras
 ON_CARD = {"bert-finetune", "gpt-textgen", "mnist-cnn", "moe-textgen", "packed-textgen"}
 
@@ -49,7 +48,7 @@ def _one_thread():
 def test_list_templates_is_nine_of_jax():
     assert list_templates() == PORTED
     assert set(PORTED) <= set(jax_templates())
-    assert set(jax_templates()) - set(PORTED) == {"data-parallel", "serverless", "bentoml-serving"}
+    assert set(jax_templates()) - set(PORTED) == {"data-parallel"}
     for name in PORTED:
         assert template_description(name) and jax_description(name)
 
@@ -132,3 +131,41 @@ def test_template_trains_and_predicts(template, reader_kwargs, trainer_kwargs, t
         out = model.predict(**sample["inputs"])
         assert len(out) == sample["inputs"]["n"]
     assert all(0 <= int(label) < 10 for label in out)
+
+
+def test_serverless_template_answers_events(tmp_path, monkeypatch):
+    """``serverless``: the app's FaaS handler answers the template's request body
+    with the model's own predictions (sklearn: the CPU tests only)."""
+    target = render_template("serverless", "serverless_app", tmp_path)
+    monkeypatch.chdir(target)
+    namespace = runpy.run_path(str(target / "app.py"), run_name="not_main")
+    model, handler = namespace["model"], namespace["handler"]
+    _, metrics = model.train(hyperparameters={"C": 1.0, "max_iter": 200})
+    assert metrics["test"] > 0.8
+    model.save(target / "model.joblib")
+    monkeypatch.setenv("UNIONML_MODEL_PATH", str(target / "model.joblib"))
+    sample = json.loads((target / "data" / "sample_features.json").read_text())
+    response = handler({"body": json.dumps(sample)}, None)
+    assert response["statusCode"] == 200
+    assert json.loads(response["body"]) == model.predict(features=sample["features"])
+
+
+def test_bentoml_serving_template_serves_through_the_adapter(tmp_path, monkeypatch):
+    """``bentoml-serving``: the app trains, saves into the (stand-in) bento store,
+    and the service ``service.py`` builds answers ``/predict``'s request body."""
+    import unionml_tpu_torch.services.bentoml_service as bs
+    from tests.unit.test_services import _FakeBentoml
+
+    monkeypatch.setattr(bs, "bentoml", _FakeBentoml())
+    monkeypatch.setenv("UNIONML_DEVICE", "cpu")
+    target = render_template("bentoml-serving", "bento_app", tmp_path)
+    py_compile.compile(str(target / "service.py"), doraise=True)
+    monkeypatch.chdir(target)
+    model = runpy.run_path(str(target / "app.py"), run_name="not_main")["model"]
+    model.train(hyperparameters={"C": 1.0, "max_iter": 200})
+    svc = bs.BentoMLService(model, device="cpu")
+    svc.save_model(name="bento_app")
+    rows = json.loads((target / "data" / "sample_features_list.json").read_text())
+    handler = svc.configure("bento_app").apis[0]["handler"]
+    assert handler(rows) == model.predict(features=rows)
+    assert "nvidia.com/gpu" in (target / "README.md").read_text()

@@ -29,6 +29,11 @@ module names so each counterpart is easy to find:
   KV pool or dense per-slot caches, bucket and chunked prefill, weight-only
   int8) and the asyncio ``ContinuousBatcher``.
 
+- :mod:`unionml_tpu_torch.cli` (console script ``unionml-tpu-torch``),
+  :mod:`unionml_tpu_torch.backend`, :mod:`unionml_tpu_torch.remote` and
+  :mod:`unionml_tpu_torch.schedule`: the commands and the deploy surface
+  behind ``Model.remote_*`` (a local job store with worker processes).
+
 Importing the package loads ``torch`` and ``numpy`` and nothing else heavy:
 the models and serving load with their submodules, and the CUDA kernels
 build on first launch.

@@ -3,8 +3,8 @@
 Port of ``unionml_tpu/model.py``: the same decorator slots (``trainer``,
 ``predictor``, ``evaluator`` required; ``init``/``saver``/``loader``
 defaulted), task and workflow factories, local ``train``/``predict``,
-persistence (``save``/``load``/``load_from_env``), ``resolve_model_artifact``
-and ``serve``.
+persistence (``save``/``load``/``load_from_env``), ``resolve_model_artifact``,
+``serve``, scheduling, and the ``remote_*`` deploy surface.
 
 - ``trainer``/``predictor``/``evaluator`` are wrapped as
   :class:`~unionml_tpu_torch.stage.TracedFunction` — a CUDA graph per call
@@ -13,14 +13,17 @@ and ``serve``.
   opaque model objects (sklearn).
 - default persistence understands the port's ``TrainState``, ``nn.Module``s
   and tensor dicts (see :mod:`unionml_tpu_torch.checkpoint`).
-- the schedule and remote-deployment surface is not ported yet: each of its
-  methods raises ``NotImplementedError`` naming ROADMAP's M14.
+- the remote backend is the port's own :mod:`unionml_tpu_torch.backend` (a
+  filesystem job store with worker processes); job specs request the port's
+  GPU :class:`~unionml_tpu_torch.defaults.Resources`. Jobs on several hosts
+  (``host_count > 1``) raise ``NotImplementedError`` naming ROADMAP's M12.
 """
 
 import inspect
 import os
 from collections import OrderedDict
 from dataclasses import asdict, field, is_dataclass
+from datetime import timedelta
 from inspect import Parameter, signature
 from pathlib import Path
 from typing import IO, Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Type, Union, get_origin
@@ -30,6 +33,7 @@ from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.dataset import Dataset, is_dataframe_type
 from unionml_tpu_torch.defaults import DEFAULT_RESOURCES, Resources
 from unionml_tpu_torch.exceptions import ModelArtifactNotFound
+from unionml_tpu_torch.schedule import Schedule, ScheduleType
 from unionml_tpu_torch.stage import Stage, TracedFunction, _scalarize, stage
 from unionml_tpu_torch.tracker import TrackedInstance
 from unionml_tpu_torch.utils import make_json_dataclass
@@ -39,7 +43,7 @@ _EMPTY = Parameter.empty
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: M14, the deploy surface)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP: M12, parallelism)")
 
 
 class BaseHyperparameters:
@@ -79,7 +83,13 @@ class Model(TrackedInstance):
         self._predictor: Optional[Callable] = None
         self._evaluator: Optional[Callable] = None
 
+        # deployment configuration (set via Model.remote)
+        self._backend = None
+        self._config_file: Optional[str] = None
+        self._project: Optional[str] = None
+        self._domain: Optional[str] = None
         self._resources: Optional[Resources] = None
+        self._patch_destination_dir: Optional[str] = None
 
         if self._dataset.name is None:
             self._dataset.name = f"{self.name}.dataset"
@@ -93,6 +103,9 @@ class Model(TrackedInstance):
         self._predict_stage_kwargs: Optional[Dict[str, Any]] = None
 
         self._hyperparameter_type: Optional[Type] = None
+
+        self._training_schedules: List[Schedule] = []
+        self._prediction_schedules: List[Schedule] = []
 
     # ------------------------------------------------------------------ properties
 
@@ -202,9 +215,29 @@ class Model(TrackedInstance):
         return f"{self.name}.predict_from_features"
 
     @property
+    def config_file(self) -> Optional[str]:
+        return self._config_file
+
+    @property
     def resources(self) -> Optional[Resources]:
-        """GPU resources requested for deployed jobs (none until M14 ports deployment)."""
+        """GPU resources requested for deployed jobs."""
         return self._resources
+
+    @property
+    def training_schedules(self) -> List[Schedule]:
+        return self._training_schedules
+
+    @property
+    def training_schedule_names(self) -> List[str]:
+        return [s.name for s in self._training_schedules]
+
+    @property
+    def prediction_schedules(self) -> List[Schedule]:
+        return self._prediction_schedules
+
+    @property
+    def prediction_schedule_names(self) -> List[str]:
+        return [s.name for s in self._prediction_schedules]
 
     # ------------------------------------------------------------------ decorators
 
@@ -264,6 +297,8 @@ class Model(TrackedInstance):
 
         if not hasattr(fn, "__unionml_model__"):
             fn.__unionml_model__ = self  # type: ignore[attr-defined]
+        for sched in getattr(fn, "__unionml_schedules__", []):
+            self.add_trainer_schedule(sched)
         return fn
 
     def predictor(
@@ -305,6 +340,8 @@ class Model(TrackedInstance):
 
         if not hasattr(fn, "__unionml_model__"):
             fn.__unionml_model__ = self  # type: ignore[attr-defined]
+        for sched in getattr(fn, "__unionml_schedules__", []):
+            self.add_predictor_schedule(sched)
         return fn
 
     def evaluator(
@@ -333,17 +370,114 @@ class Model(TrackedInstance):
 
     # ------------------------------------------------------------------ schedules
 
-    def add_trainer_schedule(self, schedule: Any) -> None:
-        raise _not_ported("add_trainer_schedule")
+    def add_trainer_schedule(self, schedule: Schedule) -> None:
+        if schedule.type != ScheduleType.trainer:
+            raise ValueError(f"Expected schedule type {ScheduleType.trainer}, found {schedule.type}")
+        if schedule.name in self.training_schedule_names:
+            raise ValueError(
+                f"Scheduled job {schedule.name} must have a unique name. Existing: {self.training_schedule_names}"
+            )
+        self._training_schedules.append(schedule)
 
-    def add_predictor_schedule(self, schedule: Any) -> None:
-        raise _not_ported("add_predictor_schedule")
+    def add_predictor_schedule(self, schedule: Schedule) -> None:
+        if schedule.type != ScheduleType.predictor:
+            raise ValueError(f"Expected schedule type {ScheduleType.predictor}, found {schedule.type}")
+        if schedule.name in self.prediction_schedule_names:
+            raise ValueError(
+                f"Scheduled job {schedule.name} must have a unique name. Existing: {self.prediction_schedule_names}"
+            )
+        self._prediction_schedules.append(schedule)
 
-    def schedule_training(self, name: str, **kwargs: Any) -> None:
-        raise _not_ported("schedule_training")
+    def schedule_training(
+        self,
+        name: str,
+        *,
+        expression: Optional[str] = None,
+        offset: Optional[str] = None,
+        fixed_rate: Optional[timedelta] = None,
+        reader_time_arg: Optional[str] = None,
+        activate_on_deploy: bool = True,
+        launchplan_kwargs: Optional[dict] = None,
+        hyperparameters: Optional[Dict[str, Any]] = None,
+        loader_kwargs: Optional[Dict[str, Any]] = None,
+        splitter_kwargs: Optional[Dict[str, Any]] = None,
+        parser_kwargs: Optional[Dict[str, Any]] = None,
+        trainer_kwargs: Optional[Dict[str, Any]] = None,
+        **reader_kwargs,
+    ) -> None:
+        """Register a scheduled training job, activated at deploy time (``model.py:786-855``)."""
+        if name in self.training_schedule_names:
+            raise ValueError(
+                f"Scheduled job {name} must have a unique name. Existing: {self.training_schedule_names}"
+            )
+        schedule = Schedule(
+            type=ScheduleType.trainer,
+            name=name,
+            expression=expression,
+            offset=offset,
+            fixed_rate=fixed_rate,
+            time_arg=reader_time_arg,
+            inputs={
+                "hyperparameters": self.hyperparameter_type(**(hyperparameters or {})),
+                "loader_kwargs": self._dataset.loader_kwargs_type(**(loader_kwargs or {})),
+                "splitter_kwargs": self._dataset.splitter_kwargs_type(**(splitter_kwargs or {})),
+                "parser_kwargs": self._dataset.parser_kwargs_type(**(parser_kwargs or {})),
+                **{**reader_kwargs, **(trainer_kwargs or {})},
+            },
+            activate_on_deploy=activate_on_deploy,
+            launchplan_kwargs=launchplan_kwargs,
+        )
+        self._training_schedules.append(schedule)
 
-    def schedule_prediction(self, name: str, **kwargs: Any) -> None:
-        raise _not_ported("schedule_prediction")
+    def schedule_prediction(
+        self,
+        name: str,
+        *,
+        expression: Optional[str] = None,
+        offset: Optional[str] = None,
+        fixed_rate: Optional[timedelta] = None,
+        reader_time_arg: Optional[str] = None,
+        activate_on_deploy: bool = True,
+        launchplan_kwargs: Optional[dict] = None,
+        model_object: Optional[Any] = None,
+        model_version: Optional[str] = None,
+        app_version: Optional[str] = None,
+        model_file: Optional[Union[str, Path]] = None,
+        loader_kwargs: Optional[dict] = None,
+        **reader_kwargs,
+    ) -> None:
+        """Register a scheduled batch-prediction job (``model.py:857-934``)."""
+        if name in self.prediction_schedule_names:
+            raise ValueError(
+                f"Scheduled job {name} must have a unique name. Existing: {self.prediction_schedule_names}"
+            )
+        from unionml_tpu_torch.backend import wire_encode_value
+
+        resolved = self.resolve_model_artifact(
+            model_object=model_object,
+            model_version=model_version,
+            app_version=app_version,
+            model_file=model_file,
+            loader_kwargs=loader_kwargs,
+        )
+        # an explicit in-memory model_object carries no hyperparameters; fall back to
+        # the current artifact's so non-picklable objects can be rebuilt when firing
+        hp = resolved.hyperparameters
+        if hp is None and self._artifact is not None and resolved.model_object is self._artifact.model_object:
+            hp = self._artifact.hyperparameters
+        model_object_input = wire_encode_value(resolved.model_object, hp)
+        schedule = Schedule(
+            type=ScheduleType.predictor,
+            name=name,
+            expression=expression,
+            offset=offset,
+            fixed_rate=fixed_rate,
+            time_arg=reader_time_arg,
+            inputs={"model_object": model_object_input, **reader_kwargs},
+            activate_on_deploy=activate_on_deploy,
+            launchplan_kwargs=launchplan_kwargs,
+        )
+        self._prediction_schedules.append(schedule)
 
     # ------------------------------------------------------------------ stage factories
 
@@ -677,7 +811,9 @@ class Model(TrackedInstance):
         if model_object is not None:
             return ModelArtifact(model_object)
         if model_version is not None:
-            raise _not_ported("resolve_model_artifact(model_version=...)")
+            from unionml_tpu_torch import remote
+
+            return remote.get_model_artifact(self, app_version=app_version, model_version=model_version)
         if model_file is not None:
             return ModelArtifact(self.load(model_file, **(loader_kwargs or {})))
         if self.artifact is not None:
@@ -702,8 +838,11 @@ class Model(TrackedInstance):
         ``app=None`` builds the native aiohttp app with a resident predictor (a CUDA
         graph per bucket; see :class:`~unionml_tpu_torch.serving.resident.ResidentPredictor`);
         ``generator=`` with the ``generate_*`` options adds ``POST /generate``
-        (see :func:`~unionml_tpu_torch.serving.app.build_aiohttp_app`).
-        A FastAPI app raises ``TypeError``: the FastAPI adapter is not ported yet.
+        (see :func:`~unionml_tpu_torch.serving.app.build_aiohttp_app`); a
+        ``fastapi.FastAPI`` instance gets the same ``/``, ``/predict`` and
+        ``/health`` endpoints attached in place
+        (:func:`~unionml_tpu_torch.serving.fastapi_adapter.attach_fastapi`).
+        ``remote=True`` loads the model from the backend's lineage at startup.
         """
         from unionml_tpu_torch.serving import serving_app
 
@@ -713,47 +852,228 @@ class Model(TrackedInstance):
 
     # ------------------------------------------------------------------ remote backend surface
 
-    def remote(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote")
+    def remote(
+        self,
+        backend: Any = None,
+        *,
+        config_file: Optional[str] = None,
+        project: Optional[str] = None,
+        domain: Optional[str] = None,
+        resources: Optional[Resources] = None,
+        gpu: Optional[int] = None,
+        gpu_memory: Optional[str] = None,
+        host_count: int = 1,
+        patch_destination_dir: Optional[str] = None,
+    ) -> None:
+        """Configure the execution backend for deployment (``model.py:936-965``).
 
-    def remote_deploy(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_deploy")
+        Instead of docker registry / dockerfile configuration, the deployment config
+        carries the job's GPU request: ``gpu`` (cards per job) and ``gpu_memory`` (per
+        card, e.g. ``"80Gi"``), or a whole :class:`~unionml_tpu_torch.defaults.Resources`
+        as ``resources``. ``backend`` is a backend object or a target string
+        (``"local"``, ``"sandbox"``, ``"local://<path>"``). ``host_count > 1`` raises
+        ``NotImplementedError`` naming ROADMAP's M12.
+        """
+        requested = resources.host_count if resources is not None else host_count
+        if requested > 1:
+            raise _not_ported("multi-host jobs (host_count > 1)")
+        self._backend = backend
+        self._config_file = config_file
+        self._project = project
+        self._domain = domain
+        self._patch_destination_dir = patch_destination_dir
+        if resources is not None:
+            self._resources = resources
+        elif gpu is not None or gpu_memory is not None:
+            self._resources = Resources(gpu=gpu or 0, gpu_memory=gpu_memory, host_count=host_count)
 
-    def remote_train(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_train")
+    @property
+    def _remote(self):
+        """Lazily build the backend client from config (``model.py:967-981``)."""
+        if self._backend is not None and not isinstance(self._backend, str):
+            return self._backend
+        from unionml_tpu_torch.backend import backend_from_config
 
-    def remote_predict(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_predict")
+        self._backend = backend_from_config(
+            self._backend if isinstance(self._backend, str) else None,
+            config_file=self._config_file,
+            project=self._project,
+            domain=self._domain,
+        )
+        return self._backend
 
-    def remote_wait(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_wait")
+    def _require_backend(self):
+        backend = self._remote
+        if backend is None:
+            raise RuntimeError("First configure the remote backend with the `Model.remote` method")
+        return backend
 
-    def remote_load(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_load")
+    def remote_deploy(
+        self,
+        app_version: Optional[str] = None,
+        allow_uncommitted: bool = False,
+        patch: bool = False,
+        schedule: bool = True,
+    ) -> str:
+        """Deploy app workflows (and schedules) to the backend (``model.py:983-1083``)."""
+        from unionml_tpu_torch import remote
 
-    def remote_fetch_model(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_fetch_model")
+        return remote.deploy_app(
+            self,
+            backend=self._require_backend(),
+            app_version=app_version,
+            allow_uncommitted=allow_uncommitted,
+            patch=patch,
+            schedule=schedule,
+        )
 
-    def remote_fetch_predictions(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_fetch_predictions")
+    def remote_train(
+        self,
+        app_version: Optional[str] = None,
+        wait: bool = True,
+        *,
+        hyperparameters: Optional[Dict[str, Any]] = None,
+        loader_kwargs: Optional[Dict[str, Any]] = None,
+        splitter_kwargs: Optional[Dict[str, Any]] = None,
+        parser_kwargs: Optional[Dict[str, Any]] = None,
+        trainer_kwargs: Optional[Dict[str, Any]] = None,
+        **reader_kwargs,
+    ):
+        """Run a training job on the backend (``model.py:1085-1158``)."""
+        backend = self._require_backend()
 
-    def remote_list_model_versions(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_list_model_versions")
+        hp_type = self._resolve_hyperparameter_type(hyperparameters)
+        hp_value = hyperparameters if hp_type is dict else hp_type(**(hyperparameters or {}))
+        inputs = {
+            "hyperparameters": hp_value if hp_value is not None else {},
+            "loader_kwargs": self._dataset.loader_kwargs_type(**(loader_kwargs or {})),
+            "splitter_kwargs": self._dataset.splitter_kwargs_type(**(splitter_kwargs or {})),
+            "parser_kwargs": self._dataset.parser_kwargs_type(**(parser_kwargs or {})),
+            **{**reader_kwargs, **(trainer_kwargs or {})},
+        }
+        execution = backend.execute(self, self.train_workflow_name, inputs=inputs, app_version=app_version)
 
-    def remote_list_prediction_ids(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_list_prediction_ids")
+        logger.info("Executing %s, execution name: %s", self.train_workflow_name, execution.id)
+        if not wait:
+            return execution
+        self.remote_wait(execution)
+        self.remote_load(execution)
+        return self.artifact
 
-    def remote_activate_schedules(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_activate_schedules")
+    def remote_predict(
+        self,
+        app_version: Optional[str] = None,
+        model_version: Optional[str] = None,
+        wait: bool = True,
+        *,
+        features: Any = None,
+        **reader_kwargs,
+    ):
+        """Run a batch-prediction job on the backend (``model.py:1160-1226``)."""
+        backend = self._require_backend()
+        from unionml_tpu_torch import remote
 
-    def remote_deactivate_schedules(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_deactivate_schedules")
+        from unionml_tpu_torch.backend import wire_encode_value
 
-    def remote_list_scheduled_training_runs(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_list_scheduled_training_runs")
+        model_artifact = remote.get_model_artifact(self, app_version=app_version, model_version=model_version)
+        inputs: Dict[str, Any] = {
+            "model_object": wire_encode_value(model_artifact.model_object, model_artifact.hyperparameters)
+        }
+        if features is None:
+            workflow_name = self.predict_workflow_name
+            inputs.update(reader_kwargs)
+        else:
+            workflow_name = self.predict_from_features_workflow_name
+            inputs["features"] = self._dataset.get_features(features)
 
-    def remote_list_scheduled_prediction_runs(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("Model.remote_list_scheduled_prediction_runs")
+        execution = backend.execute(self, workflow_name, inputs=inputs, app_version=app_version)
+        logger.info("Executing %s, execution name: %s", workflow_name, execution.id)
+        if not wait:
+            return execution
+        execution = self.remote_wait(execution)
+        predictions, *_ = execution.outputs.values()
+        return predictions
+
+    def remote_wait(self, execution, **kwargs):
+        """Block until an execution completes (``model.py:1228-1232``)."""
+        return self._require_backend().wait(execution, **kwargs)
+
+    def _remote_load_model_artifact(self, execution) -> ModelArtifact:
+        backend = self._require_backend()
+        if not execution.is_done:
+            logger.info("Waiting for execution %s to complete...", execution.id)
+            execution = backend.wait(execution)
+        from unionml_tpu_torch.backend import wire_decode_value
+
+        outputs = execution.outputs
+        model_object = wire_decode_value(outputs["model_object"], self)
+        return ModelArtifact(model_object, outputs.get("hyperparameters"), outputs.get("metrics"))
+
+    def remote_load(self, execution) -> None:
+        """Set ``self.artifact`` from a completed training execution (``model.py:1263-1270``)."""
+        self.artifact = self._remote_load_model_artifact(execution)
+
+    def remote_fetch_model(self, execution) -> ModelArtifact:
+        return self._remote_load_model_artifact(execution)
+
+    def remote_fetch_predictions(self, execution) -> Any:
+        backend = self._require_backend()
+        if not execution.is_done:
+            execution = backend.wait(execution)
+        predictions, *_ = execution.outputs.values()
+        return predictions
+
+    def remote_list_model_versions(self, app_version: Optional[str] = None, limit: int = 10) -> List[str]:
+        """Model versions (training execution ids), newest first (``model.py:1272-1282``)."""
+        from unionml_tpu_torch import remote
+
+        return remote.list_model_versions(self, app_version=app_version, limit=limit)
+
+    def remote_list_prediction_ids(self, app_version: Optional[str] = None, limit: int = 10) -> List[str]:
+        from unionml_tpu_torch import remote
+
+        return remote.list_prediction_ids(self, app_version=app_version, limit=limit)
+
+    def remote_activate_schedules(
+        self, app_version: Optional[str] = None, schedule_names: Optional[List[str]] = None
+    ) -> None:
+        """Activate deployed schedules (``model.py:1317-1346``)."""
+        backend = self._require_backend()
+        for sched in [*self.training_schedules, *self.prediction_schedules]:
+            if schedule_names and sched.name not in schedule_names:
+                continue
+            logger.info("Activating schedule %s", sched.name)
+            backend.activate_schedule(self, sched, app_version=app_version)
+
+    def remote_deactivate_schedules(
+        self, app_version: Optional[str] = None, schedule_names: Optional[List[str]] = None
+    ) -> None:
+        """Deactivate deployed schedules (``model.py:1348-1377``)."""
+        backend = self._require_backend()
+        for sched in [*self.training_schedules, *self.prediction_schedules]:
+            if schedule_names and sched.name not in schedule_names:
+                continue
+            logger.info("Deactivating schedule %s", sched.name)
+            backend.deactivate_schedule(self, sched, app_version=app_version)
+
+    def remote_list_scheduled_training_runs(
+        self, schedule_name: str, app_version: Optional[str] = None, limit: int = 5
+    ) -> List[Any]:
+        """Executions kicked off by a training schedule (``model.py:1379-1399``)."""
+        if schedule_name not in self.training_schedule_names:
+            raise ValueError(
+                f"Schedule '{schedule_name}' does not exist. Must be one of {self.training_schedule_names}"
+            )
+        return self._require_backend().list_scheduled_runs(schedule_name, app_version=app_version, limit=limit)
+
+    def remote_list_scheduled_prediction_runs(
+        self, schedule_name: str, app_version: Optional[str] = None, limit: int = 5
+    ) -> List[Any]:
+        if schedule_name not in self.prediction_schedule_names:
+            raise ValueError(
+                f"Schedule '{schedule_name}' does not exist. Must be one of {self.prediction_schedule_names}"
+            )
+        return self._require_backend().list_scheduled_runs(schedule_name, app_version=app_version, limit=limit)
 
 
 def _add_stage_inputs(wf: Workflow, task: Stage) -> None:

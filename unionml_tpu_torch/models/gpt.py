@@ -849,3 +849,53 @@ def lm_loss(
         same = (segment_ids[:, 1:] == segment_ids[:, :-1]) & (segment_ids[:, 1:] > 0)
         weights = same.float() if weights is None else weights * same.float()
     return cross_entropy_with_integer_labels(shifted, targets, weights)
+
+
+def import_hf_weights(hf_state_dict: Dict[str, Any], config: GPTConfig) -> Dict[str, Any]:
+    """Map a HuggingFace GPT-2 state dict (torch tensors or numpy) onto the
+    JAX-layout parameter tree that ``init_gpt(config, params=...)`` takes
+    (``unionml_tpu/models/gpt.py:1050-1093``).
+
+    Accepts ``GPT2Model`` or ``GPT2LMHeadModel`` state dicts (the latter's
+    keys carry a ``transformer.`` prefix). HF GPT-2's Conv1D projections
+    store their weights ``(in, out)``, the flax kernel layout, so they pass
+    through as they are: :func:`~unionml_tpu_torch.models.convert.params_from_jax`
+    transposes them into ``nn.Linear``'s ``(out, in)``. The LM head stays tied
+    to ``wte``, as in this module.
+    """
+    if config.moe_every > 0:
+        raise ValueError(
+            "import_hf_weights supports dense GPT-2 checkpoints only: a sparse config "
+            "(moe_every > 0) has expert parameters with no HF counterpart."
+        )
+    import numpy as np
+
+    def t(name: str) -> "np.ndarray":
+        value = hf_state_dict[name]
+        if hasattr(value, "detach"):
+            value = value.detach().cpu().numpy()
+        return np.asarray(value, dtype=np.float32)
+
+    def conv1d(prefix: str) -> Dict[str, Any]:
+        return {"kernel": t(f"{prefix}.weight"), "bias": t(f"{prefix}.bias")}
+
+    def norm(prefix: str) -> Dict[str, Any]:
+        return {"scale": t(f"{prefix}.weight"), "bias": t(f"{prefix}.bias")}
+
+    prefix = "transformer." if any(key.startswith("transformer.") for key in hf_state_dict) else ""
+    params: Dict[str, Any] = {
+        "wte": {"embedding": t(f"{prefix}wte.weight")},
+        "wpe": {"embedding": t(f"{prefix}wpe.weight")},
+        "final_norm": norm(f"{prefix}ln_f"),
+    }
+    for i in range(config.num_layers):
+        hf_layer = f"{prefix}h.{i}"
+        params[f"layer_{i}"] = {
+            "attn_norm": norm(f"{hf_layer}.ln_1"),
+            "qkv": conv1d(f"{hf_layer}.attn.c_attn"),
+            "attn_out": conv1d(f"{hf_layer}.attn.c_proj"),
+            "mlp_norm": norm(f"{hf_layer}.ln_2"),
+            "mlp_up": conv1d(f"{hf_layer}.mlp.c_fc"),
+            "mlp_down": conv1d(f"{hf_layer}.mlp.c_proj"),
+        }
+    return {"params": params}

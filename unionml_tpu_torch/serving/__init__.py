@@ -10,8 +10,10 @@ injection and supervised recovery (:mod:`unionml_tpu_torch.serving.faults`,
 engine (:mod:`unionml_tpu_torch.serving.speculative`), the telemetry
 behind ``/metrics`` and ``/trace`` (:mod:`unionml_tpu_torch.serving.telemetry`,
 :mod:`unionml_tpu_torch.serving.metrics`, :mod:`unionml_tpu_torch.serving.slo`),
-and the engine fleet behind its prefix-affinity router
-(:mod:`unionml_tpu_torch.serving.fleet`)."""
+the engine fleet behind its prefix-affinity router
+(:mod:`unionml_tpu_torch.serving.fleet`), and the FastAPI adapter
+(:mod:`unionml_tpu_torch.serving.fastapi_adapter`, importable only with
+``fastapi`` installed)."""
 
 from typing import Any, Optional
 
@@ -54,14 +56,17 @@ def serving_app(
     resident: bool = True,
     **serving_kwargs: Any,
 ):
-    """Build a serving app for a model (``unionml_tpu/serving/__init__.py:24-61``).
+    """Build or extend a serving app for a model (``unionml_tpu/serving/__init__.py:24-61``).
 
-    ``app=None`` returns the native aiohttp application; extra kwargs
-    (``buckets``, ``seq_buckets``, ``example_features``, ``coalesce``,
-    ``device``, ``generator`` and the ``generate_*`` options of
-    ``/generate``, ...) flow to :func:`build_aiohttp_app`. Any other ``app``
-    raises ``TypeError``: the FastAPI adapter is not ported yet (as the JAX
-    package answers when fastapi is missing).
+    - ``app=None``: returns the native aiohttp application. Extra kwargs
+      (``buckets``, ``seq_buckets``, ``example_features``, ``coalesce``,
+      ``device``, ``generator`` and the ``generate_*`` options of
+      ``/generate``, ...) flow to :func:`build_aiohttp_app`.
+    - ``app`` is a ``fastapi.FastAPI`` instance (when fastapi is installed):
+      the endpoints are attached in place
+      (:func:`~unionml_tpu_torch.serving.fastapi_adapter.attach_fastapi`).
+
+    Any other ``app`` raises ``TypeError``.
     """
     if app is None:
         return build_aiohttp_app(
@@ -72,8 +77,24 @@ def serving_app(
             resident=resident,
             **serving_kwargs,
         )
+    try:
+        from fastapi import FastAPI
+    except ImportError:
+        FastAPI = None  # type: ignore[assignment]
+    if FastAPI is not None and isinstance(app, FastAPI):
+        from unionml_tpu_torch.serving.fastapi_adapter import attach_fastapi
+
+        return attach_fastapi(
+            model,
+            app,
+            remote=remote,
+            app_version=app_version,
+            model_version=model_version,
+            resident=resident,
+            **serving_kwargs,
+        )
     raise TypeError(
-        f"Unsupported app type {type(app)!r}: pass None for the native app (the FastAPI adapter is not ported yet)."
+        f"Unsupported app type {type(app)!r}: pass None for the native app or a fastapi.FastAPI instance."
     )
 
 

@@ -26,8 +26,8 @@ import no ``aiohttp``: the routes call them, and so can a caller without
 ``aiohttp``.
 
 ``aiohttp`` is imported inside :func:`build_aiohttp_app` and :func:`run_app`
-only. Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
-remote model resolution (M14).
+only. With ``remote=True`` the model loads from the execution backend's
+lineage at startup (:func:`unionml_tpu_torch.remote.get_model_artifact`).
 """
 
 import dataclasses
@@ -92,11 +92,15 @@ def load_model_artifact(
     model_path: Optional[str] = None,
 ) -> None:
     """Startup model resolution (``fastapi.py:22-34`` parity): the local path
-    from ``model_path`` or ``UNIONML_MODEL_PATH``."""
+    from ``model_path`` or ``UNIONML_MODEL_PATH``, or with ``remote=True`` the
+    trained model ``model_version`` of ``app_version`` from the backend."""
     if model.artifact is not None:
         return
     if remote:
-        raise NotImplementedError("remote model resolution is not ported yet (ROADMAP: M14, the deploy surface)")
+        from unionml_tpu_torch.remote import get_model_artifact
+
+        model.artifact = get_model_artifact(model, app_version=app_version, model_version=model_version)
+        return
     model_path = model_path or os.getenv("UNIONML_MODEL_PATH")
     if model_path is None:
         raise ValueError("Model artifact path not specified: set UNIONML_MODEL_PATH (local mode).")

@@ -22,6 +22,8 @@ _DESCRIPTIONS = {
     "gpt-textgen": "character-level GPT text generation with KV-cache decoding",
     "moe-textgen": "sparse (mixture-of-experts) GPT text generation with router aux losses",
     "packed-textgen": "packed-sequence GPT training (fit_lm(pack=True)) + generation",
+    "serverless": "sklearn digits behind a FaaS event handler (API-Gateway / storage events)",
+    "bentoml-serving": "sklearn digits packaged as a BentoML service (GPU runnable, resident predictor)",
 }
 
 

@@ -6,6 +6,7 @@ devices of a tree's CUDA tensors, and :func:`to_device_arrays` makes tensors on
 an explicit device.
 """
 
+import importlib
 from dataclasses import asdict, field, fields, make_dataclass
 from inspect import Parameter, signature
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Type, Union
@@ -39,6 +40,24 @@ def is_sklearn_model(obj_or_type: Any) -> bool:
     if isinstance(obj_or_type, type):
         return issubclass(obj_or_type, sklearn.base.BaseEstimator)
     return isinstance(obj_or_type, sklearn.base.BaseEstimator)
+
+
+def module_is_installed(module: str) -> bool:
+    """``utils.py:71-76`` parity."""
+    try:
+        importlib.import_module(module)
+        return True
+    except ImportError:
+        return False
+
+
+def pick_free_port() -> int:
+    """Reserve an ephemeral localhost port (bind-probe; small TOCTOU window applies)."""
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
 
 
 def hard_sync(tree: Any) -> None:
