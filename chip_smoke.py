@@ -233,9 +233,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``sim/``): two replicas of phase 13's engine (GPT-2 small bf16, int8
    pool, 8 slots each) sharing the one card, each on its own CUDA stream and
    worker thread, supervised, lookahead 8, behind the prefix-affinity router.
-   Traffic is ``bench_serving.py::bench_fleet``'s mix at this width: 4 groups
-   x 8 requests sharing a 384-token prefix, 6..24-token suffixes, groups
-   interleaved, one in four ``interactive``, 32 new tokens, greedy. (1) A cold
+   Traffic is ``bench_serving.py::bench_fleet``'s mix at this width, cut to 4
+   groups x 4 requests sharing a 384-token prefix, 6..24-token suffixes,
+   groups interleaved, one in four ``interactive``, 32 new tokens, greedy. (1) A cold
    pass per router arm on fresh replicas: affinity's prefix hit rate must
    beat random's. Then, for affinity and for one replica alone (graphs
    captured first), every prompt is primed on every replica and a warm pass
@@ -249,7 +249,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefilled it). (2) Parity: at the exact-path configuration (phase 13's
    chunks of 64), a 2-replica fleet's bf16 streams agree with one supervised
    batcher's under the bf16 rule up to each stream's first preemption, and
-   at f32 with an f32 pool they are identical (16 requests each). (3) At
+   at f32 with an f32 pool they are identical (8 requests each). (3) At
    f32, replica 0 fails once and recovers in place (its graphs recaptured
    while replica 1 replays), and in another run replica 1 dies
    (``FaultPlan``, every rebuild failing): every request completes with
@@ -338,7 +338,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    loss within 1e-6 relative, gradients within 1e-4. (2) The host-to-device
    copy of a ``dict_batches``-fed BERT and LM step (its ``Memcpy HtoD``
    device ms and the wall), then ``fit`` (BERT-base B64 S128) and ``fit_lm``
-   (GPT-2 small B8 S1024 packed), 20 steps each, with ``prefetch`` off and
+   (GPT-2 small B8 S1024 packed), 10 steps each, with ``prefetch`` off and
    on (walls in turns off, on, on, off; one profiled call each for device
    ms, idle share and copies); every loss of the first 3 f32 steps identical
    between the arms; a ``PrefetchLoader`` over seeded float32 rows with a
@@ -382,6 +382,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    The phase's K1-K4 launches, this process's and the worker's, ride the
    kernels line as ``launches_entry_points``.
 
+21. the port's linter (``unionml_tpu_torch/analysis/``). (1) ``python -m
+   unionml_tpu_torch.analysis unionml_tpu_torch/ --budget 10`` in a
+   subprocess must exit 0; prints the files, the findings (0), the
+   suppressions by rule and the wall time. (2) Phase 5's requests through
+   ``ContinuousBatcher`` on phase 5's engine (GPT-2 small bf16, int8 pool,
+   seeded weights; one prompt per prefill dispatch, so a bf16 stream does not
+   depend on what the worker found queued), each run on a fresh engine after
+   phase 5's warm-up request: once under ``torch.cuda.set_sync_debug_mode(
+   "warn")`` with every warning recorded with its Python stack, once with the
+   mode off. The streams must be identical. Each recorded sync is mapped to
+   its innermost port frame (``rules_host_sync.runtime_site``): none may lie
+   on the hot path at run time (reached from a ``hot-path`` root through no
+   ``off-path`` or captured function) unless its line carries a reasoned
+   ``host-sync`` suppression, and every one that does must lie in the
+   linter's static hot set. Prints the sync sites with their counts, and
+   which syncs the mode reports on the installed torch (one call each: an
+   event's and a stream's ``synchronize``, ``torch.cuda.synchronize``,
+   ``.item()``, ``.tolist()``, ``.cpu()``, a pinned non-blocking copy, a
+   tensor from a host list, ``.nonzero()``). (3) The negative control: with
+   ``DecodeEngine._dispatch_step`` wrapped here to call ``.item()`` on
+   ``_active_dev``, the mode must report that line; the same edit in a
+   temporary copy of ``serving/continuous.py`` must make the linter exit 1
+   with a ``host-sync`` finding whose witness runs through
+   ``DecodeEngine.step``. K1's and K4's launches (the two served runs) ride
+   the kernels line as ``launches_lint``.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -395,6 +421,7 @@ result.
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import re
@@ -979,15 +1006,15 @@ def prompts(vocab: int, seed: int = 0):
     return [rng.integers(0, vocab, n).tolist() for n, _ in REQUESTS]
 
 
-def build_engine(config, params, device, *, impl: str):
+def build_engine(config, params, device, *, impl: str, **engine_kw):
     from unionml_tpu_torch.models import init_gpt
     from unionml_tpu_torch.serving.continuous import DecodeEngine
 
     config = dataclasses.replace(config, attention_impl=impl, paged_attn_impl=impl)
     model = init_gpt(config, params=params, device=device)
     return DecodeEngine(
-        model, num_slots=8, max_len=1024, kv_quantize="int8", prefill_chunk=PREFILL_CHUNK,
-        seed=0, device=device,
+        model, **{**dict(num_slots=8, max_len=1024, kv_quantize="int8", prefill_chunk=PREFILL_CHUNK, seed=0),
+                  **engine_kw}, device=device,
     )
 
 
@@ -3182,12 +3209,13 @@ def telemetry_phase(device, config=None) -> dict:
 
 # ------------------------------------------------------------ phase 16: the fleet
 
-# bench_serving.py::bench_fleet's mix at this width: 4 groups x 8 requests,
-# each group sharing phase 13's 384-token system prompt, a unique 6..24-token
-# suffix each, groups interleaved, one request in four interactive
-FLEET_GROUPS, FLEET_PER_GROUP, FLEET_NEW, FLEET_LOOKAHEAD = 4, 8, 32, 8
+# bench_serving.py::bench_fleet's mix at this width, cut to 4 groups x 4
+# requests for the script's time (PERF.md section 4): each group sharing phase
+# 13's 384-token system prompt, a unique 6..24-token suffix each, groups
+# interleaved, one request in four interactive
+FLEET_GROUPS, FLEET_PER_GROUP, FLEET_NEW, FLEET_LOOKAHEAD = 4, 4, 32, 8
 # the exact-path and f32 arms' requests per group, cut for time (PERF.md section 4)
-FLEET_EXACT_PER_GROUP = FLEET_F32_PER_GROUP = 4
+FLEET_EXACT_PER_GROUP = FLEET_F32_PER_GROUP = 2
 FLEET_SESSIONS, FLEET_TURNS, FLEET_TURN_NEW = 4, 3, 16
 FLEET_JOURNAL = Path(__file__).resolve().parent / "build" / "fleet" / "journal.jsonl"
 FLEET_KERNELS = ("flash_fwd", "paged_attention")
@@ -4465,17 +4493,17 @@ def report_dense_int8(di: dict, name_limit: str) -> None:
 # ------------------------------------- phase 19: the rest of training
 
 TR_STEPS = 3  # fit_lm steps per remat arm
-PF_STEPS = 20  # steps per fit call of a prefetch arm
+PF_STEPS = 10  # steps per fit call of a prefetch arm
 PF_PROFILED = 5  # profiled dict_batches-fed steps for the host-to-device copy
 PACK_SEQS, PACK_LENS, PACK_WAIT_S = 65_536, (16, 1024), 900.0
 TEMPLATE_DIR = Path(__file__).resolve().parent / "build" / "templates"
 #: template: (reader kwargs, trainer kwargs), the step counts cut to fit the phase
 TEMPLATES_ON_CARD = {
-    "gpt-textgen": ({}, {"num_steps": 30, "batch_size": 32}),
-    "moe-textgen": ({}, {"num_steps": 30, "batch_size": 32}),
-    "packed-textgen": ({}, {"num_epochs": 3, "batch_size": 16}),
-    "bert-finetune": ({"n": 256}, {"num_epochs": 1, "batch_size": 32}),
-    "mnist-cnn": ({}, {"num_epochs": 2}),
+    "gpt-textgen": ({}, {"num_steps": 10, "batch_size": 32}),
+    "moe-textgen": ({}, {"num_steps": 10, "batch_size": 32}),
+    "packed-textgen": ({}, {"num_epochs": 1, "batch_size": 16}),
+    "bert-finetune": ({"n": 128}, {"num_epochs": 1, "batch_size": 32}),
+    "mnist-cnn": ({}, {"num_epochs": 1}),
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -5437,6 +5465,250 @@ def report_entry_points(ep: dict, name_limit: str) -> None:
           f"{ep['s']:.1f} s ({ {k: round(v, 1) for k, v in ep['parts_s'].items()} })")
 
 
+# ------------------------------------------------------ phase 21: the linter
+
+LINT_BUDGET_S = 10.0
+LINT_ROOT = Path(__file__).resolve().parent
+#: the negative control's edit of ``DecodeEngine._dispatch_step``: a host
+#: fetch of a device value at the top of every dispatch
+LINT_SEED_ANCHOR = '        out = self._run_program(("decode", lookahead, sampling), '
+LINT_SEED_LINE = "        self._active_dev.sum().item()\n"
+SYNC_MESSAGE = "synchronizing CUDA operation"
+
+
+def lint_cli(paths, budget=None) -> dict:
+    """``python -m unionml_tpu_torch.analysis PATHS --json`` in a subprocess
+    from the repo root: exit code, wall seconds and the JSON report."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=LINT_ROOT / "build") as d:
+        report = Path(d) / "report.json"
+        cmd = [sys.executable, "-m", "unionml_tpu_torch.analysis", *map(str, paths), "--json", str(report)]
+        if budget is not None:
+            cmd += ["--budget", str(budget)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=LINT_ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        parsed = json.loads(report.read_text()) if report.exists() else None
+    said = re.search(r"wall ([0-9.]+)s", proc.stdout + proc.stderr)
+    return {"rc": proc.returncode, "wall_s": wall, "lint_wall_s": float(said.group(1)) if said else None,
+            "report": parsed, "output": (proc.stdout + proc.stderr)[-3000:]}
+
+
+class SyncWarnings:
+    """Every warning ``torch.cuda.set_sync_debug_mode("warn")`` raises while
+    the block runs, with the Python stack it was raised under (any thread:
+    the mode is process-wide). Other warnings pass through."""
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        self.records = []
+        self._show, self._filters = warnings.showwarning, list(warnings.filters)
+        warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if SYNC_MESSAGE in str(message):
+                self.records.append(traceback.extract_stack()[:-1])
+            else:
+                self._show(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import warnings
+
+        torch.cuda.set_sync_debug_mode("default")
+        warnings.showwarning = self._show
+        warnings.filters[:] = self._filters
+        return False
+
+
+def sync_probe(device) -> dict:
+    """Which syncs the mode reports on the installed torch: one call each of
+    the engine's designed fetch (an event's ``synchronize``) and the others
+    the linter knows."""
+    x = torch.arange(8, device=device, dtype=torch.float32)
+    host = torch.empty(8, pin_memory=True)
+    probes = {
+        "Event.synchronize()": lambda: (lambda e: (e.record(), e.synchronize()))(torch.cuda.Event()),
+        "Stream.synchronize()": lambda: torch.cuda.current_stream(device).synchronize(),
+        "torch.cuda.synchronize()": lambda: torch.cuda.synchronize(device),
+        ".item()": lambda: x.sum().item(),
+        ".tolist()": lambda: x.tolist(),
+        ".cpu() (pageable)": lambda: x.cpu(),
+        "copy_ into pinned, non_blocking": lambda: host.copy_(x, non_blocking=True),
+        "torch.tensor(host list, device=cuda)": lambda: torch.tensor([1, 2, 3], device=device),
+        ".nonzero()": lambda: x.nonzero(),
+    }
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn in probes.items():
+        with SyncWarnings() as seen:
+            fn()
+        torch.cuda.synchronize()
+        out[name] = len(seen.records) > 0
+    return out
+
+
+def lint_serve(config, params, device, prompt_list, mode: bool, seed_sync: bool = False) -> dict:
+    """Phase 5's requests through ``ContinuousBatcher`` on a fresh phase-5
+    engine (warm-up request first, as phase 5 does), with the sync debug mode
+    on or off; ``seed_sync`` wraps ``DecodeEngine._dispatch_step`` with the
+    negative control's ``.item()`` (one request only)."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.serving.continuous import DecodeEngine
+
+    engine = build_engine(config, params, device, impl="auto", prefill_batch=1)
+    original = DecodeEngine._dispatch_step
+    seeded_line = None
+    if seed_sync:
+        def seeded(self, lookahead):
+            self._active_dev.sum().item()  # the negative control's sync
+            return original(self, lookahead)
+        seeded_line = seeded.__code__.co_firstlineno + 1
+        DecodeEngine._dispatch_step = seeded
+    kernels.reset_launches()
+    recorder = SyncWarnings() if mode else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    try:
+        with recorder:
+            serve(engine, [prompt_list[0]], device)
+            streams = [] if seed_sync else serve(engine, prompt_list, device)[0]
+    finally:
+        DecodeEngine._dispatch_step = original
+    torch.cuda.synchronize()
+    out = {"streams": streams, "launches": dict(kernels.launches), "s": time.perf_counter() - t0,
+           "records": recorder.records if mode else [], "seeded_line": seeded_line}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def sync_sites(project, records) -> list:
+    """The recorded syncs by the linter's reading of their innermost port
+    frame (``runtime_site``), with counts; a sync with no port frame is
+    listed under its innermost frame."""
+    from unionml_tpu_torch.analysis.rules_host_sync import runtime_site
+
+    sites = {}
+    for stack in records:
+        site = runtime_site(project, stack)
+        if site is None:
+            frame = stack[-1]
+            site = {"path": frame.filename, "line": frame.lineno, "function": frame.name, "static_hot": False,
+                    "dynamic_hot": False, "suppression": None}
+        key = (site["path"], site["line"])
+        sites.setdefault(key, dict(site, count=0))["count"] += 1
+    return sorted(sites.values(), key=lambda s: -s["count"])
+
+
+def lint_phase(device, config=None) -> dict:
+    """Phase 21: the port's linter on the card's machine, its static hot set
+    against the syncs the card reports on phase 5's path, and the negative
+    control both ways (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from unionml_tpu_torch.analysis.core import Project
+    from unionml_tpu_torch.models import GPTConfig, random_params
+
+    t0 = time.perf_counter()
+    (LINT_ROOT / "build").mkdir(exist_ok=True)
+    out = {}
+    # (1) the linter over the port tree, in a subprocess, under its budget
+    lint = lint_cli(["unionml_tpu_torch/"], budget=LINT_BUDGET_S)
+    report = lint["report"]
+    if lint["rc"] != 0 or report is None or report["counts"]["findings"]:
+        raise AssertionError(f"the port's linter exited {lint['rc']}: {lint['output']}")
+    by_rule = {}
+    for sup in report["suppressed"]:
+        by_rule[sup["rule"]] = by_rule.get(sup["rule"], 0) + 1
+    out["lint"] = {"rc": lint["rc"], "files": report["files"], "findings": report["counts"]["findings"],
+                   "suppressed_by_rule": by_rule, "wall_s": lint["wall_s"], "lint_wall_s": lint["lint_wall_s"],
+                   "timings": report["timings"]}
+
+    # (2) phase 5's requests with the sync debug mode on and off
+    config = dataclasses.replace(config or GPTConfig(), dtype=torch.bfloat16)
+    params = random_params(config, seed=0)
+    prompt_list = prompts(config.vocab_size)
+    out["probe"] = sync_probe(device)
+    on = lint_serve(config, params, device, prompt_list, mode=True)
+    off = lint_serve(config, params, device, prompt_list, mode=False)
+    if on["streams"] != off["streams"]:
+        raise AssertionError(f"streams differ with the sync debug mode on and off: {on['streams']} vs {off['streams']}")
+    for i, s in enumerate(on["streams"]):
+        if len(s) != MAX_NEW or min(s) < 0 or max(s) >= config.vocab_size:
+            raise AssertionError(f"request {i}: bad stream {s}")
+    launches = {k: on["launches"].get(k, 0) + off["launches"].get(k, 0) for k in ("flash_fwd", "paged_attention")}
+    if device.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"phase 21's serving launched {launches}")
+    project = Project([str(LINT_ROOT / "unionml_tpu_torch")])
+    sites = sync_sites(project, on["records"])
+    hot = [s for s in sites if s["dynamic_hot"] and not s["suppression"]]
+    missed = [s for s in sites if s["dynamic_hot"] and not s["static_hot"]]
+    if hot or missed:
+        raise AssertionError(f"syncs on the hot path the linter does not account for: unsuppressed {hot}, "
+                             f"outside its hot set {missed}")
+    designed = [s for s in sites if s["suppression"]]
+    out["serve"] = {"streams_identical": len(on["streams"]), "syncs": len(on["records"]), "sites": sites,
+                    "designed_fetch_seen": bool(designed), "s": {"on": on["s"], "off": off["s"]}}
+    out["launches"] = launches
+
+    # (3) the negative control: the mode reports the seeded line ...
+    seeded = lint_serve(config, params, device, prompt_list, mode=True, seed_sync=True)
+    here = str(Path(__file__).resolve())
+    at_seed = sum(1 for stack in seeded["records"] if any(
+        str(Path(frame.filename).resolve()) == here and frame.lineno == seeded["seeded_line"] for frame in stack))
+    if not at_seed:
+        raise AssertionError(f"the sync debug mode did not report the seeded .item() (line {seeded['seeded_line']}): "
+                             f"{sync_sites(project, seeded['records'])}")
+    # ... and the linter, on a temporary copy of serving/continuous.py with the same edit
+    src = (LINT_ROOT / "unionml_tpu_torch" / "serving" / "continuous.py").read_text()
+    if src.count(LINT_SEED_ANCHOR) != 1:
+        raise AssertionError("the negative control's anchor in DecodeEngine._dispatch_step moved")
+    copy_dir = Path(tempfile.mkdtemp(dir=LINT_ROOT / "build"))
+    try:
+        (copy_dir / "continuous.py").write_text(src.replace(LINT_SEED_ANCHOR, LINT_SEED_LINE + LINT_SEED_ANCHOR))
+        mutated = lint_cli([copy_dir / "continuous.py"])
+    finally:
+        shutil.rmtree(copy_dir, ignore_errors=True)
+    found = [f for f in (mutated["report"] or {"findings": []})["findings"]
+             if f["rule"] == "host-sync" and "DecodeEngine.step" in f["message"]]
+    if mutated["rc"] != 1 or not found:
+        raise AssertionError(f"the linter did not catch the seeded .item(): exit {mutated['rc']}, {mutated['output']}")
+    out["control"] = {"mode_reports": at_seed, "seeded_line": seeded["seeded_line"], "linter_rc": mutated["rc"],
+                      "linter_finding": found[0]["message"], "linter_line": found[0]["line"]}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def report_lint(li: dict, name_limit: str) -> None:
+    """Print phase 21's results (``lint_phase``'s record)."""
+    lint = li["lint"]
+    print(f"[{name_limit}] graftlint over unionml_tpu_torch/ on the card's machine: exit {lint['rc']}, "
+          f"{lint['files']} files, {lint['findings']} findings, suppressions by rule {lint['suppressed_by_rule']}, "
+          f"the lint's own wall {lint['lint_wall_s']:.2f} s (budget {LINT_BUDGET_S:.0f} s; by family {lint['timings']}), "
+          f"{lint['wall_s']:.2f} s for the whole subprocess (the package's import loads torch)")
+    print(f"sync debug mode on this torch reports: {li['probe']}")
+    sv = li["serve"]
+    print(f"phase 5's requests, sync debug mode on vs off: {sv['streams_identical']} streams identical; "
+          f"{sv['syncs']} syncs reported ({sv['s']['on']:.1f} s on, {sv['s']['off']:.1f} s off); the designed "
+          f"fetch {'seen' if sv['designed_fetch_seen'] else 'not seen by the mode'}")
+    for s in sv["sites"]:
+        print(f"  sync site {s['path']}:{s['line']} {s['function']}: {s['count']}x, linter hot set "
+              f"{s['static_hot']}, on the hot path at run time {s['dynamic_hot']}, suppression "
+              f"{s['suppression'] or '-'}")
+    ct = li["control"]
+    print(f"negative control (.item() of _active_dev in every _dispatch_step): the mode reported line "
+          f"{ct['seeded_line']} {ct['mode_reports']}x; the linter on the edited copy exited {ct['linter_rc']} "
+          f"with host-sync at line {ct['linter_line']}: {ct['linter_finding']}")
+    print(f"phase 21 launches {li['launches']}; phase 21 took {li['s']:.1f} s")
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -6097,6 +6369,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["entry_points"] = ep = entry_points_phase(device)
     report_entry_points(ep, name_limit)
+    torch.cuda.empty_cache()
+    details["lint"] = li = lint_phase(device)
+    report_lint(li, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -6110,7 +6385,13 @@ def main() -> int:
             r["launches_training_rest"] = tr["launches"][r["name"]]
         if r["name"] in ep["launches"]:
             r["launches_entry_points"] = ep["launches"][r["name"]]
+        if r["name"] in li["launches"]:
+            r["launches_lint"] = li["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
+    phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
+                "20": ep["s"], "21": li["s"]}
+    print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
+          f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
     worst_age, worst = max(((a, n) for a, n, _ in PROFILE_LOST if n < PROFILE_PAD), key=lambda x: x[1],
                            default=(0.0, 0))
@@ -6143,6 +6424,8 @@ def main() -> int:
             entry["launches_training_rest"] = r["launches_training_rest"]
         if "launches_entry_points" in r:  # phase 20's K1-K4 launches (CLI, backend worker, import)
             entry["launches_entry_points"] = r["launches_entry_points"]
+        if "launches_lint" in r:  # phase 21's K1/K4 launches (phase 5's requests, sync debug mode on and off)
+            entry["launches_lint"] = r["launches_lint"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -186,7 +186,7 @@ class CapturedGraph:
         return out
 
 
-def capture(fn: Callable, args: Tuple, kwargs: dict, *, device: Optional[torch.device] = None,
+def capture(fn: Callable, args: Tuple, kwargs: dict, *, device: Optional[torch.device] = None,  # graftlint: off-path (a key's first use: recording a graph is compile work, once per key)
             generators: Tuple[torch.Generator, ...] = (), stream: Optional["torch.cuda.Stream"] = None
             ) -> CapturedGraph:
     """Record ``fn(*args, **kwargs)`` as a CUDA graph (see the module's
@@ -290,9 +290,9 @@ class GraphCache:
 
     def _drop_freed(self) -> None:
         while self._freed:
-            for key in self._keys_of.pop(self._freed.popleft(), ()):
-                self.graphs.pop(key, None)
-                self.failed.discard(key)
+            for key in self._keys_of.pop(self._freed.popleft(), ()):  # graftlint: disable=lock-discipline -- lookup() is the only caller and already holds _lock
+                self.graphs.pop(key, None)  # graftlint: disable=lock-discipline -- lookup() is the only caller and already holds _lock
+                self.failed.discard(key)  # graftlint: disable=lock-discipline -- lookup() is the only caller and already holds _lock
 
     def _watch(self, key: Any, tree: Any) -> None:
         for leaf in _pytree.tree_leaves(tree):
@@ -303,9 +303,9 @@ class GraphCache:
                 try:
                     weakref.finalize(leaf, GraphCache._note_freed, weakref.ref(self), ident).atexit = False
                 except TypeError:
-                    self._pinned[ident] = leaf
-                self._keys_of[ident] = set()
-            self._keys_of[ident].add(key)
+                    self._pinned[ident] = leaf  # graftlint: disable=lock-discipline -- lookup() is the only caller and already holds _lock
+                self._keys_of[ident] = set()  # graftlint: disable=lock-discipline -- lookup() is the only caller and already holds _lock
+            self._keys_of[ident].add(key)  # graftlint: disable=lock-discipline -- lookup() is the only caller and already holds _lock
 
     def captured(self) -> List[CapturedGraph]:
         """The graphs held now."""

@@ -228,7 +228,8 @@ class Checkpointer:
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(int(save_interval_steps), 1)
         self._queue: "queue.Queue" = queue.Queue()
-        self._error: Optional[BaseException] = None
+        self._error_lock = threading.Lock()
+        self._error: Optional[BaseException] = None  # guarded-by: _error_lock
         self._writer = threading.Thread(target=self._write_loop, name="checkpoint-writer", daemon=True)
         self._writer.start()
 
@@ -241,8 +242,10 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def _raise_pending_error(self) -> None:
-        if self._error is not None:
+        # taken and cleared in one step: a failure the writer records meanwhile is kept for the next call
+        with self._error_lock:
             error, self._error = self._error, None
+        if error is not None:
             raise RuntimeError("a background checkpoint write failed") from error
 
     def save(self, step: int, state: Any) -> bool:
@@ -270,7 +273,8 @@ class Checkpointer:
                     shutil.rmtree(self.directory / str(old), ignore_errors=True)
             except Exception as exc:  # the writer thread must keep serving; the next save/flush raises it
                 logger.exception("checkpoint write failed")
-                self._error = exc
+                with self._error_lock:
+                    self._error = exc
             finally:
                 self._queue.task_done()
 

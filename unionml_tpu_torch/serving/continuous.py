@@ -401,7 +401,7 @@ class DecodeEngine:
         #: shared blocks live in ``_slot_path``). Freeing at retirement is safe
         #: with a burst in flight: the retired row writes only scratch, and a
         #: new owner's writes queue behind that burst on the stream.
-        self._slot_block_map: Dict[int, Dict[int, int]] = {}
+        self._slot_block_map: Dict[int, Dict[int, int]] = {}  # holds: kv-block
         #: per-slot radix paths held (matched or indexed blocks)
         self._slot_path: Dict[int, List[Any]] = {}
         #: per-slot transcript (prompt + applied tokens): generated-KV capture,
@@ -418,7 +418,7 @@ class DecodeEngine:
         #: next dispatch and is in each new graph's ``capture_ms``)
         self.last_rebuild_ms: Optional[float] = None
         #: salvage captured at the last failure, awaiting :meth:`take_salvage`
-        self._salvage: List[SalvagedSlot] = []
+        self._salvage: List[SalvagedSlot] = []  # holds: kv-pin
         #: set when an in-place rebuild failed: the engine refuses work until
         #: :meth:`rebuild` succeeds
         self._failed = False
@@ -804,6 +804,7 @@ class DecodeEngine:
 
     # ---------------------------------------------------------- paged blocks
 
+    # transfers: kv-block
     def _alloc_slot_blocks(self, slot: int, start: int, need: int) -> List[int]:
         """Acquire ``need`` private blocks for ``slot``'s table columns
         ``[start, start + need)``, fetching the burst in flight once on a
@@ -813,15 +814,16 @@ class DecodeEngine:
             self._slot_block_map.setdefault(slot, {})
             return []
         ids = self._allocator.alloc_blocks(need)
-        if ids is None and self._inflight is not None:
-            self._pending_events.extend(self._fetch_inflight())
-            ids = self._allocator.alloc_blocks(need)
         if ids is None:
-            raise EngineFailure(
-                f"KV block pool exhausted: need {need} block(s), "
-                f"{self._allocator.available_blocks()} reclaimable of {self._allocator.num_blocks}",
-                reason="pool_exhausted", retryable=True,
-            )
+            if self._inflight is not None:
+                self._pending_events.extend(self._fetch_inflight())
+                ids = self._allocator.alloc_blocks(need)
+            if ids is None:
+                raise EngineFailure(
+                    f"KV block pool exhausted: need {need} block(s), "
+                    f"{self._allocator.available_blocks()} reclaimable of {self._allocator.num_blocks}",
+                    reason="pool_exhausted", retryable=True,
+                )
         self._slot_block_map[slot] = {start + i: b for i, b in enumerate(ids)}
         if self._telemetry is not None:
             self._telemetry.blocks_per_request.observe(float(need))
@@ -829,6 +831,7 @@ class DecodeEngine:
             self._note_pool_gauges()
         return ids
 
+    # owns: kv-block
     def _free_slot_blocks(self, slot: int) -> None:
         """Return ``slot``'s private blocks that the radix index did not adopt."""
         ids = self._slot_block_map.pop(slot, None)
@@ -1228,6 +1231,7 @@ class DecodeEngine:
                 if self._telemetry is not None:
                     self._note_pool_gauges()
         else:
+            # graftlint: disable=resource-leak -- the pool-rebuild return path drops 'full' deliberately: _rebuild_pool() forgets every cached prefix, so the refs die with the rebuilt cache
             full, new = self.prefix_cache.extend(path, tokens, max_blocks)
             if new:
                 try:
@@ -1318,7 +1322,7 @@ class DecodeEngine:
         return True
 
     @on_engine_stream
-    def _advance_partials(self) -> None:
+    def _advance_partials(self) -> None:  # graftlint: off-path (admission work, not steady-state decode)
         """Run ONE chunk of every in-progress chunked prefill (eagerly, between
         decode bursts); completed prefills seal their length and logits (dense:
         insert their local cache) and activate. A chunk that fails without
@@ -1504,6 +1508,7 @@ class DecodeEngine:
                     time.sleep(stall_ms / 1e3)  # a wedged device queue, to the watchdog's eye
                 self._faults.check_fetch()
             if burst.ready is not None:
+                # graftlint: disable=host-sync -- the ONE designed sync per burst: one event fences the burst's tokens, masks and non-finite flags, copied together into pinned host buffers (the pipelined-decode contract)
                 burst.ready.synchronize()
             tokens, masks, bads = burst.tokens.numpy(), burst.masks.numpy(), burst.bads.numpy()
         except Exception:
@@ -1541,7 +1546,7 @@ class DecodeEngine:
         return events
 
     @on_engine_stream
-    def step(self, lookahead: int = 1) -> List[StepEvent]:
+    def step(self, lookahead: int = 1) -> List[StepEvent]:  # graftlint: hot-path
         """Advance chunked prefills by one chunk, then decode up to
         ``lookahead`` steps for every active slot in ONE device program with
         ONE fetch; returns per-slot events. Retirement runs on the device
@@ -1599,7 +1604,7 @@ class DecodeEngine:
                 # poison the slot's next sampling input in place, between
                 # replays (queued behind the burst just dispatched): the next
                 # burst's start-of-step finiteness flag reads this buffer
-                self._last_logits[bad_slot] = float("nan")
+                self._last_logits[bad_slot] = float("nan")  # graftlint: disable=host-sync -- fault injection only: a FaultPlan's NaN poison, never run when faults is None
         self.step_dispatches += 1
         if self._last_fetch_done is not None:
             self.idle_dispatches += int(idle)
@@ -1636,7 +1641,7 @@ class DecodeEngine:
         return StepEvent(slot=slot, token=token, emit=not is_eos, finished=bool(finished),
                          queue_wait_ms=queue_wait_ms)
 
-    def _quarantine(self, slot: int) -> StepEvent:
+    def _quarantine(self, slot: int) -> StepEvent:  # graftlint: off-path (error path: a slot's logits went non-finite)
         """Terminate ONE slot whose logits went NaN/Inf (its generated KV is
         not indexed); siblings keep decoding."""
         self.quarantined_requests += 1
@@ -1704,8 +1709,9 @@ class DecodeEngine:
             self._failed = True
             logger.exception("resetting the slot mirrors failed; engine marked failed")
 
+    # transfers: kv-pin
     @on_engine_stream
-    def preempt(self, slot: int) -> Optional[PreemptedSlot]:
+    def preempt(self, slot: int) -> Optional[PreemptedSlot]:  # graftlint: off-path (scheduler policy action, not steady-state decode)
         """Checkpoint a RUNNING slot into the prefix cache and free it.
 
         The burst in flight is fetched first (its tokens extend the
@@ -1758,6 +1764,7 @@ class DecodeEngine:
             raise
         return PreemptedSlot(tokens=[int(t) for t in tokens], path=path)
 
+    # owns: kv-pin
     def release_preempted(self, state: PreemptedSlot) -> None:
         """Drop a checkpoint's pin: after its resume re-admitted (the new slot
         holds its own references) or when its request was abandoned. Call it
@@ -1789,7 +1796,7 @@ class DecodeEngine:
         if self._device_poisoned:
             self._on_failure()
 
-    def _on_failure(self, lost: Optional[_Burst] = None) -> None:
+    def _on_failure(self, lost: Optional[_Burst] = None) -> None:  # graftlint: off-path (error recovery, not steady-state decode)
         """The device state is suspect: capture every salvageable slot's
         transcript, then rebuild in place with the sampling generator put back
         at its state before the first undelivered burst (``lost``, whose fetch
@@ -1844,12 +1851,14 @@ class DecodeEngine:
                 records.append(SalvagedSlot(slot=slot, tokens=tokens, path=path, remaining=remaining))
         self._salvage = records
 
+    # transfers: kv-pin
     def take_salvage(self) -> List[SalvagedSlot]:
         """Collect (and clear) the salvage of the last failure; the caller
         releases each record's pin through :meth:`release_preempted`."""
         salvage, self._salvage = self._salvage, []
         return salvage
 
+    # owns: kv-pin
     def discard_salvage(self) -> None:
         """Unpin and drop uncollected salvage."""
         for rec in self._salvage:
@@ -1873,7 +1882,7 @@ class DecodeEngine:
         self._slot_tokens.clear()
 
     @on_engine_stream
-    def rebuild(self, *, resume: bool = True) -> None:
+    def rebuild(self, *, resume: bool = True) -> None:  # graftlint: off-path (error recovery, not steady-state decode)
         """Reallocate the device state (pool, tables, slot buffers, the
         generator) from the host-held parameters, dropping every CUDA graph;
         the allocator and radix index restart empty, since the pool did. On a
@@ -1913,7 +1922,7 @@ class DecodeEngine:
         self.last_rebuild_ms = (time.perf_counter() - t0) * 1e3
 
     @on_engine_stream
-    def reset(self) -> None:
+    def reset(self) -> None:  # graftlint: off-path (error recovery, not steady-state decode)
         """Reallocate the device state and clear every slot, the radix index
         and pins included (a dense engine's prefix pool too); in-flight
         requests are abandoned and the generator reseeds."""
@@ -2105,7 +2114,7 @@ class ContinuousBatcher:
         first submission: the hooks are read without a lock."""
         if telemetry is None or self._telemetry is not None:
             return
-        self._telemetry = telemetry
+        self._telemetry = telemetry  # graftlint: disable=data-race -- documented contract: called before the first submission, so the wiring happens-before every worker read
         engine = self._engine
         if engine._telemetry is None:
             engine._telemetry = telemetry
@@ -2114,9 +2123,9 @@ class ContinuousBatcher:
         if engine.prefix_cache is not None and engine.prefix_cache.telemetry is None:
             engine.prefix_cache.telemetry = telemetry
         if self.supervisor is not None and getattr(self.supervisor, "_telemetry", None) is None:
-            self.supervisor._telemetry = telemetry
+            self.supervisor._telemetry = telemetry  # graftlint: disable=data-race -- pre-traffic wiring (see docstring); supervisor is never rebound after __init__
         if self.scheduler._telemetry is None:
-            self.scheduler._telemetry = telemetry
+            self.scheduler._telemetry = telemetry  # graftlint: disable=data-race -- pre-traffic wiring; scheduler is never rebound after __init__ and SLOScheduler guards its own state
 
     def _submit(self, prompt_ids, max_new_tokens, sink, sampling, priority=None, deadline_ms=None,
                 request_id=None) -> None:
@@ -2215,12 +2224,14 @@ class ContinuousBatcher:
         except RuntimeError:
             logger.warning("sink %s delivery failed (consumer gone?); dropping request", method)
 
+    # owns: kv-pin
     def _release_ticket(self, ticket: Ticket) -> None:
         """Drop a ticket's resume pin (worker thread only)."""
         if ticket.resume is not None:
             self._engine.release_preempted(ticket.resume)
             ticket.resume = None
 
+    # owns: trace
     def _tel_end(self, ticket: Ticket, status: str, reason: Optional[str] = None) -> None:
         """End a ticket's trace at terminal delivery (a shed also counts by
         reason); a no-op without telemetry. Called outside the batcher lock."""
@@ -2236,7 +2247,7 @@ class ContinuousBatcher:
         for state in orphans:
             self._engine.release_preempted(state)
 
-    def _enforce_deadlines(self) -> None:
+    def _enforce_deadlines(self) -> None:  # graftlint: off-path (scheduler policy, not steady-state decode)
         """Fail queued tickets and cancel running slots whose deadline passed
         (``DeadlineExceededError``, HTTP 504). A cancel fetches the burst in
         flight and drops only this slot's tokens; the survivors' wait in the
@@ -2250,12 +2261,12 @@ class ContinuousBatcher:
             if ticket.expired(now):
                 self._engine.cancel(slot)
                 self.scheduler.note_deadline_miss_running()
-                self._sinks.pop(slot, None)
+                self._sinks.pop(slot, None)  # graftlint: disable=data-race -- _sinks is worker-thread-only by design (declared at __init__); the api-side accesses are drain/close idle probes that tolerate staleness
                 self._slot_meta.pop(slot, None)
                 self._tel_end(ticket, "shed", "deadline_exceeded")
                 self._deliver(ticket.sink, "fail", DeadlineExceededError("deadline expired while decoding"))
 
-    def _maybe_preempt(self) -> None:
+    def _maybe_preempt(self) -> None:  # graftlint: off-path (scheduler policy, not steady-state decode)
         """Preempt-to-prefix-cache: when a strictly higher class waits and no
         slot is free (or the pool starves the head ticket), checkpoint the
         worst running victim (lowest class, most tokens left) and re-queue it
@@ -2318,7 +2329,7 @@ class ContinuousBatcher:
             return False
         return self._engine.block_demand(len(head.prompt), head.budget) > avail
 
-    def _admit(self) -> None:
+    def _admit(self) -> None:  # graftlint: off-path (admission, not steady-state decode)
         self._drain_orphans()
         self._enforce_deadlines()
         self._maybe_preempt()
@@ -2390,7 +2401,7 @@ class ContinuousBatcher:
         sampling.setdefault("speculative", class_name(ticket.priority) in self.scheduler.config.speculative_classes)
         return sampling
 
-    def _admit_batch(self, batch: List[Ticket]) -> bool:
+    def _admit_batch(self, batch: List[Ticket]) -> bool:  # graftlint: off-path (admission, not steady-state decode)
         """Admit popped tickets. A failure that left the engine intact (it
         rolled the call back) re-admits them one at a time, so only the raiser
         fails; an engine failure hands the tickets to recovery (they requeue
@@ -2473,7 +2484,7 @@ class ContinuousBatcher:
                 self._engine.cancel(slot)
             self._dispatch(self._engine.take_pending_events())
 
-    def _fail_all(self, exc: BaseException) -> None:
+    def _fail_all(self, exc: BaseException) -> None:  # graftlint: off-path (error path)
         failure = _as_engine_failure(exc)
         for ticket in self._slot_meta.values():
             self._tel_end(ticket, "error", failure.reason)
@@ -2483,7 +2494,8 @@ class ContinuousBatcher:
         self._slot_meta.clear()
         self._engine.abort_all()
 
-    def _handle_engine_failure(self, exc: BaseException, pending: Sequence[Ticket] = ()) -> None:
+    # owns: kv-pin
+    def _handle_engine_failure(self, exc: BaseException, pending: Sequence[Ticket] = ()) -> None:  # graftlint: off-path (error recovery)
         """Recover from an engine failure (``continuous.py:3436-3567``).
 
         With a supervisor: each salvaged request becomes a resume ticket
@@ -2588,7 +2600,7 @@ class ContinuousBatcher:
             sup.note_recovered(len(resumes))
         self._work.set()
 
-    def _run(self) -> None:
+    def _run(self) -> None:  # graftlint: hot-path
         # the worker issues its engine's device work on the engine's stream
         with self._engine._on_stream():
             self._loop()

