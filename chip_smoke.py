@@ -408,6 +408,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``DecodeEngine.step``. K1's and K4's launches (the two served runs) ride
    the kernels line as ``launches_lint``.
 
+22. tensor-parallel generation (``DecodeEngine(mesh=...)``,
+   ``SpeculativeEngine(mesh=...)``). (1) K1 (B1 S256 causal) and K4 (8
+   decode rows, a 64-token query tile, over the int8 pool) at the heads a
+   rank of GPT-2 small holds on tensor axes of 1-4 (12, 6, 4, 3), bf16 and
+   f32, against their plain versions. (2) A world of one rank over NCCL in
+   this process (``initialize_distributed`` on a free localhost port, a
+   ``{"tensor": 1}`` mesh): GPT-2 small at full width and depth (vocab
+   50257), seeded weights, an int8 paged pool with the prefix cache on and
+   4 slots, 4 requests admitted two steps apart (two hit a 128-token system
+   prompt, one prefills in chunks), then one speculative request (a 2-layer
+   draft, whole on the rank), at f32 and at bf16: every stream must be
+   bit-identical to the unmeshed engines', the burst and round graphs
+   captured over the tensor-parallel forward, no capture failed. This shows
+   that a one-rank mesh computes what the unmeshed engine does; it
+   exercises no exchange between ranks: an all-reduce over one rank launches
+   no NCCL kernel, and a mesh of one rank skips the lead protocol. K1's and
+   K4's launches of the meshed runs ride the kernels line as
+   ``launches_tensor_parallel``. Then a 1-step 4-slot bf16 burst, unmeshed
+   and meshed in turns (unmeshed, meshed, meshed, unmeshed): wall and device
+   ms and the NCCL kernels and device copies the profile shows. (3) Worlds
+   of 2 and 4 ranks over NCCL (spawned, vocab 50304, which the axis
+   divides) only where the machine has that many cards, rank 0 leading:
+   f32 streams identical to the unmeshed engine's; a bf16 stream may split
+   from the unmeshed engine's only where that engine's top-2 logit gap at
+   the split is below 1e-2; rank 0's burst meshed against unmeshed. On one
+   card the phase prints that this arm did not run, and why.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -5709,6 +5736,311 @@ def report_lint(li: dict, name_limit: str) -> None:
     print(f"phase 21 launches {li['launches']}; phase 21 took {li['s']:.1f} s")
 
 
+# -------------------------------------------------------------- phase 22
+
+TP_HEADS = (12, 6, 4, 3)  # GPT-2 small's heads per rank on tensor axes of 1, 2, 3 and 4
+TP_VOCAB = 50304  # GPT-2's vocabulary padded to a multiple of 64: a tensor axis of 2 or 4 divides it
+TP_SYSTEM = 128  # the shared system prompt the later requests hit
+TP_NEW = 16
+TP_BURSTS = 20  # profiled 1-step bursts per burst reading
+TP_KW = dict(num_slots=4, max_len=1024, kv_quantize="int8", prefix_cache_blocks=64, prefill_chunk=PREFILL_CHUNK,
+             prefill_batch=1, seed=0)
+TP_DIR = Path(__file__).resolve().parent / "build" / "tensor_parallel"
+
+
+def tp_prompts(vocab: int, seed: int = 0) -> list:
+    """A shared system prompt with two suffixes (the second and later
+    admissions hit it), a short prompt and a chunked one (400 tokens)."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, TP_SYSTEM).tolist()
+    return [system + rng.integers(0, vocab, 22).tolist(), system + rng.integers(0, vocab, 62).tolist(),
+            rng.integers(0, vocab, 7).tolist(), rng.integers(0, vocab, 400).tolist()]
+
+
+def tp_local_heads(device) -> dict:
+    """K1 (a causal bucket prefill) and K4 (8 decode rows, a hit's 64-token
+    query tile) at the heads a rank of GPT-2 small holds on tensor axes of
+    1-4, bf16 and f32 over the int8 pool, against their plain versions."""
+    from unionml_tpu_torch.ops.attention import flash_attention, reference_attention
+    from unionml_tpu_torch.ops.paged_attention import paged_attention, reference_paged_attention
+
+    worst = 0.0
+    for H in TP_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = k1_inputs(1, H, 256, 64, dtype, device, seed=H)
+            worst = max(worst, check_close(f"K1 {dtype} B1 H{H} S256 D64 causal", flash_attention(q, k, v, causal=True),
+                                           reference_attention(q, k, v, causal=True)))
+            for B, S in ((8, 1), (1, 64)):
+                q, (kk, vv, ks, vs), table, base = k4_inputs(B, S, dtype, True, device, seed=H, H=H)
+                worst = max(worst, check_close(f"K4 {dtype} int8 B{B} H{H} S{S} D64",
+                                               paged_attention(q, kk, vv, table, base, ks, vs),
+                                               reference_paged_attention(q, kk, vv, table, base, ks, vs)))
+    return {"max_abs_err": worst}
+
+
+def tp_drive(engine, prompt_list, sampling=None) -> list:
+    """Admit one request at a time, two steps apart (so the later ones hit
+    the first one's indexed blocks), then run dry; the streams in order.
+    Rank 0 drives and then releases the followers; another rank follows."""
+    if engine._lead is not None and not engine._lead.is_leader:
+        engine.follow()
+        return []
+    try:
+        out, owner = {}, {}
+        for i, prompt in enumerate(prompt_list):
+            (slot,) = engine.admit_many([(prompt, TP_NEW, sampling or {})])
+            owner[slot], out[i] = i, []
+            for _ in range(2):
+                for ev in engine.step():
+                    if ev.emit:
+                        out[owner[ev.slot]].append(ev.token)
+        while engine.num_active or engine.has_pending_prefill:
+            for ev in engine.step():
+                if ev.emit:
+                    out[owner[ev.slot]].append(ev.token)
+        return [out[i] for i in range(len(prompt_list))]
+    finally:
+        engine.stop_followers()
+
+
+def tp_burst(engine, prompt_list) -> dict:
+    """A 1-step burst replayed with every slot decoding (``step_profile``);
+    ``collective_ms`` the device ms per step of the kernels and copies whose
+    names say NCCL or a device-to-device copy (what a collective over one
+    rank can be)."""
+    engine.admit_many([(p, 400) for p in prompt_list[: engine.num_slots]])
+    for _ in range(3):  # the capture, then two replays
+        engine.step()
+    result = step_profile(engine.step, TP_BURSTS, top=1000)
+    engine.abort_all()
+    kernels = result.pop("top_kernels_ms_per_step")
+    result["top_kernels_ms_per_step"] = kernels[:8]
+    result["collective_ms"] = {n: ms for n, ms in kernels if "nccl" in n.lower() or "DtoD" in n}
+    return result
+
+
+def tp_engines(config, params, device, mesh, dtype, prompt_list, launches: dict) -> dict:
+    """One dtype of the world-of-one arm: the meshed engine's and the
+    speculative engine's streams (the main path: K1 and K4 launches counted
+    around them) against the unmeshed engines'."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import DecodeEngine, SpeculativeEngine
+
+    model = init_gpt(dataclasses.replace(config, dtype=dtype), params=params, device=device)
+    draft = init_gpt(GPTConfig(num_layers=2, dtype=dtype), seed=1, device=device)
+    plain = tp_drive(DecodeEngine(model, device=device, **TP_KW), prompt_list)
+    plain_spec = tp_drive(SpeculativeEngine(model, draft, gamma_max=4, device=device, **TP_KW), prompt_list[:1],
+                          {"speculative": True})
+    meshed = DecodeEngine(model, mesh=mesh, device=device, **TP_KW)
+    spec = SpeculativeEngine(model, draft, mesh=mesh, gamma_max=4, device=device, **TP_KW)
+    kernels.reset_launches()
+    streams = tp_drive(meshed, prompt_list)
+    spec_streams = tp_drive(spec, prompt_list[:1], {"speculative": True})
+    for name, count in kernels.launches.items():
+        launches[name] = launches.get(name, 0) + count
+    if streams != plain or spec_streams != plain_spec:
+        raise AssertionError(f"tensor-parallel {dtype} at a world of 1: streams {streams} / {spec_streams} differ "
+                             f"from the unmeshed engines' {plain} / {plain_spec} (identical required)")
+    if spec.spec_round_dispatches < 1 or meshed.prefix_cache.stats()["hits"] < 1:
+        raise AssertionError(f"tensor-parallel {dtype}: rounds {spec.spec_round_dispatches}, prefix cache "
+                             f"{meshed.prefix_cache.stats()}")
+    if (device.type == "cuda" and meshed.graph_captures < 1) or meshed.capture_failures or spec.capture_failures:
+        raise AssertionError(f"tensor-parallel {dtype}: graphs captured {meshed.graph_captures}, failures "
+                             f"{meshed.capture_failures} / {spec.capture_failures}")
+    return {"streams_identical": len(streams), "hits": meshed.prefix_cache.stats()["hits"],
+            "rounds": spec.spec_round_dispatches, "graphs": meshed.graph_captures + spec.graph_captures,
+            "pool_heads": int(meshed._pool["layer_0"]["k"].shape[1])}
+
+
+def tp_world_of_one(device, config, params) -> dict:
+    """A world of one rank over NCCL in this process (a ``{"tensor": 1}``
+    mesh): f32 and bf16 streams against the unmeshed engine's, then the
+    burst A/B (unmeshed, meshed, meshed, unmeshed) with the NCCL kernels the
+    meshed burst's profile shows."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import init_gpt
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device)
+    try:
+        mesh = make_mesh({"tensor": 1}, device=device)
+        prompt_list = tp_prompts(config.vocab_size)
+        out = {"launches": {}}
+        for dtype in (torch.float32, torch.bfloat16):
+            out[str(dtype)] = tp_engines(config, params, device, mesh, dtype, prompt_list, out["launches"])
+            torch.cuda.empty_cache()
+        model = init_gpt(config, params=params, device=device)
+        short = tp_prompts(config.vocab_size, seed=1)[:3]
+        engines = {"unmeshed": DecodeEngine(model, device=device, **TP_KW),
+                   "meshed": DecodeEngine(model, mesh=mesh, device=device, **TP_KW)}
+        bursts = {name: [] for name in engines}
+        for name in ("unmeshed", "meshed", "meshed", "unmeshed"):
+            bursts[name].append(tp_burst(engines[name], short + short[:1]))
+        engines["meshed"].stop_followers()
+        out["bursts"] = bursts
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _tp_rank(rank: int, world: int, port: int, config, out_dir: str) -> None:
+    """One rank of a multi-card world (spawned): the meshed engine's streams
+    at f32 and bf16 and its bf16 burst, rank 0 leading; rank 0 then runs
+    the unmeshed engine on its own card."""
+    import os
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import init_gpt, random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = torch.device("cuda", rank)
+    initialize_distributed(f"localhost:{port}", world, rank, strict=True, device="cuda")
+    mesh = make_mesh({"tensor": world}, device="cuda")
+    params = random_params(config, seed=0)
+    prompt_list, short = tp_prompts(config.vocab_size), tp_prompts(config.vocab_size, seed=1)[:3]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_gpt(dataclasses.replace(config, dtype=dtype), params=params, device=device)
+        meshed = DecodeEngine(model, mesh=mesh, device=device, **TP_KW)
+        out[str(dtype)] = {"meshed": tp_drive(meshed, prompt_list)}
+        if dtype == torch.bfloat16:
+            if rank == 0:
+                out["burst_meshed"] = tp_burst(meshed, short + short[:1])
+                meshed.stop_followers()
+            else:
+                meshed.follow()
+        if rank == 0:
+            unmeshed = DecodeEngine(model, device=device, **TP_KW)
+            streams = out[str(dtype)]
+            streams["unmeshed"] = tp_drive(unmeshed, prompt_list)
+            if dtype == torch.bfloat16:
+                out["bf16_splits"] = tp_splits(streams["meshed"], streams["unmeshed"], unmeshed, prompt_list)
+                out["burst_unmeshed"] = tp_burst(unmeshed, short + short[:1])
+        del meshed, model
+        dist.barrier()
+    dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def tp_splits(got, want, engine, prompt_list) -> list:
+    """Where each meshed bf16 stream leaves the unmeshed ``engine``'s, with
+    that engine's top-2 logit gap there (the 1e-2 gap rule)."""
+    splits = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            split = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            splits.append({"request": i, "split": split, "gap": top2_gap_at(engine, prompt_list[i], split, TP_NEW)})
+    return splits
+
+
+def tp_multi_card(config) -> dict:
+    """Worlds of 2 (and 4) ranks over NCCL, one card each, where the machine
+    has them: f32 streams identical to the unmeshed engine's, bf16 streams
+    under the 1e-2 gap rule, and rank 0's 4-slot bf16 burst meshed against
+    unmeshed."""
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in (2, 4) if w <= cards]
+    if not worlds:
+        return {"run": False, "why": f"{cards} card on this machine: NCCL needs a card per rank"}
+    config = dataclasses.replace(config, vocab_size=TP_VOCAB)
+    out = {"run": True}
+    for world in worlds:
+        out_dir = TP_DIR / f"world{world}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        mp.spawn(_tp_rank, args=(world, free_port(), config, str(out_dir)), nprocs=world, join=True)
+        got = json.loads((out_dir / "rank0.json").read_text())
+        f32 = got[str(torch.float32)]
+        if f32["meshed"] != f32["unmeshed"]:
+            raise AssertionError(f"world {world}: f32 streams differ from the unmeshed engine's")
+        wide = [sp for sp in got["bf16_splits"] if sp["gap"] >= GAP_LIMIT_BF16]
+        if wide:
+            raise AssertionError(f"world {world}: bf16 streams split from the unmeshed engine's where its top-2 gap "
+                                 f"is at least {GAP_LIMIT_BF16}: {wide}")
+        out[world] = {"f32_identical": len(f32["meshed"]), "bf16_splits": got["bf16_splits"],
+                      "burst_meshed": got["burst_meshed"], "burst_unmeshed": got["burst_unmeshed"]}
+    return out
+
+
+def tensor_parallel_phase(device, config=None) -> dict:
+    """Phase 22: tensor-parallel generation (see the module docstring)."""
+    from unionml_tpu_torch.models import GPTConfig, random_params
+
+    t0 = time.perf_counter()
+    config = config or GPTConfig()
+    out, parts = {}, {}
+    # a rank's shapes on tensor axes of 2 and 4: bucket prefill, 8 decode rows
+    for name, part in (("local_heads", lambda: tp_local_heads(device)),
+                       ("timings", lambda: [t for H in (6, 3) for t in (time_k1(device, 1, 256, None, H=H),
+                                                                        time_k4(device, 1, K4_LONG_BASES, None, H=H))]),
+                       ("world1", lambda: tp_world_of_one(device, config, random_params(config, seed=0)))):
+        t = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t
+    out["launches"] = out["world1"].pop("launches")
+    for name in ("flash_fwd", "paged_attention"):
+        if out["launches"].get(name, 0) < 1:
+            raise AssertionError(f"phase 22: {name} never launched on the meshed path ({out['launches']})")
+    t = time.perf_counter()
+    out["multi_card"] = tp_multi_card(config)
+    parts["multi_card"] = time.perf_counter() - t
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
+    return out
+
+
+def report_tensor_parallel(tp: dict, name_limit: str) -> None:
+    print(f"K1/K4 at a rank's local heads {TP_HEADS} (B1 S256 causal; B8 S1 and B1 S64 over the int8 pool) vs "
+          f"plain: ok, max |err| {tp['local_heads']['max_abs_err']:.3e} (K1/K4 tolerances)")
+    for r in tp.get("timings", []):
+        print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms [{r['method']}]")
+    w1 = tp["world1"]
+    for dtype in (str(torch.float32), str(torch.bfloat16)):
+        r = w1[dtype]
+        print(f"tensor-parallel {dtype}, a world of 1 rank over NCCL (mesh {{'tensor': 1}}): {r['streams_identical']} "
+              f"streams and a speculative one ({r['rounds']} rounds) bit-identical to the unmeshed engines'; "
+              f"{r['hits']} prefix hits; {r['graphs']} graphs captured over the tensor-parallel forward, no capture "
+              f"failed; pool heads {r['pool_heads']} (a one-rank mesh computes what the unmeshed engine does: its "
+              "all-reduces launch no NCCL kernel and it skips the lead protocol, so no exchange between ranks ran)")
+    for name, runs in w1["bursts"].items():
+        for b in runs:
+            print(f"[{name_limit}] tensor-parallel burst (4 slots, bf16) {name}: {b['wall_ms_per_step']:.4f} ms wall, "
+                  f"{b['device_ms_per_step']:.4f} ms device kernels, idle share {b['device_idle_share']:.3f}; NCCL "
+                  f"kernels and device copies {b['collective_ms']}; top kernels {b['top_kernels_ms_per_step']}")
+    mc = tp["multi_card"]
+    if not mc["run"]:
+        print(f"tensor-parallel worlds of 2 and 4: not run ({mc['why']})")
+    for world in (2, 4):
+        if world not in mc:
+            continue
+        r = mc[world]
+        print(f"tensor-parallel world of {world} over NCCL (vocab {TP_VOCAB}): {r['f32_identical']} f32 streams "
+              f"identical to the unmeshed engine's; bf16 splits, each below the {GAP_LIMIT_BF16} gap "
+              f"{r['bf16_splits']}")
+        for name in ("burst_unmeshed", "burst_meshed"):
+            b = r[name]
+            print(f"[{name_limit}] world of {world}, rank 0's burst (4 slots, bf16) {name[6:]}: "
+                  f"{b['wall_ms_per_step']:.4f} ms wall, {b['device_ms_per_step']:.4f} ms device kernels, idle share "
+                  f"{b['device_idle_share']:.3f}; NCCL kernels and device copies {b['collective_ms']}")
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in tp["parts_s"].items())
+    print(f"phase 22 launches {tp['launches']}; phase 22 took {tp['s']:.1f} s ({parts})")
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -5817,7 +6149,7 @@ def time_k4(device, S, bases, launches, H=12, D=64, bs=16) -> dict:
     from unionml_tpu_torch.ops.quant import dequantize_blockwise
 
     B = len(bases)
-    q, (kp, vp, ks, vs), table, base = k4_inputs(B, S, torch.bfloat16, True, device, bases=bases)
+    q, (kp, vp, ks, vs), table, base = k4_inputs(B, S, torch.bfloat16, True, device, bases=bases, H=H)
     err = check_close("K4 timing inputs", paged_attention(q, kp, vp, table, base, ks, vs),
                       reference_paged_attention(q, kp, vp, table, base, ks, vs))
     cols = [(b + S - 1) // bs + 1 for b in bases]
@@ -6372,6 +6704,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["lint"] = li = lint_phase(device)
     report_lint(li, name_limit)
+    torch.cuda.empty_cache()
+    details["tensor_parallel"] = tp = tensor_parallel_phase(device)
+    report_tensor_parallel(tp, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -6387,9 +6722,11 @@ def main() -> int:
             r["launches_entry_points"] = ep["launches"][r["name"]]
         if r["name"] in li["launches"]:
             r["launches_lint"] = li["launches"][r["name"]]
+        if r["name"] in tp["launches"]:
+            r["launches_tensor_parallel"] = tp["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
-                "20": ep["s"], "21": li["s"]}
+                "20": ep["s"], "21": li["s"], "22": tp["s"]}
     print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
           f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
@@ -6426,6 +6763,8 @@ def main() -> int:
             entry["launches_entry_points"] = r["launches_entry_points"]
         if "launches_lint" in r:  # phase 21's K1/K4 launches (phase 5's requests, sync debug mode on and off)
             entry["launches_lint"] = r["launches_lint"]
+        if "launches_tensor_parallel" in r:  # phase 22's K1/K4 launches (the meshed engines at a world of 1)
+            entry["launches_tensor_parallel"] = r["launches_tensor_parallel"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -258,6 +258,41 @@ def test_clean_twin_is_finding_free(tmp_path):
     assert {key[1]: names for key, names in project.graph.wrappers.items()} == {"capture": {"fn"}}
 
 
+#: the sharding rule's seeds: a spec axis no mesh declares (line 10), a
+#: sharding cut off another mesh than the function's own (line 11); the
+#: JAX twin spells the specs JAX's way
+SHARDING_TWIN = """\
+from unionml_tpu_torch.parallel.mesh import NamedSharding, Spec, make_mesh
+
+TENSOR_AXIS = "tensor"
+
+
+def layout(params, mesh, other):
+    tp_mesh = make_mesh({"data": 2, "tensor": 2})
+    ok = NamedSharding(tp_mesh, Spec("data", TENSOR_AXIS))
+    fused = Spec(TENSOR_AXIS, None, parts=3)
+    typo = Spec("tensr", None)
+    foreign = NamedSharding(other, Spec())
+    return ok, fused, typo, foreign, NamedSharding(mesh, Spec(None, "data"))
+"""
+
+
+def test_sharding_rule_catches_a_seeded_axis_and_a_foreign_mesh(tmp_path):
+    f = tmp_path / "layout.py"
+    f.write_text(SHARDING_TWIN)
+    result = run_lint([str(f)])
+    assert [(x.rule, x.line) for x in sorted(result.findings, key=lambda x: x.line)] == \
+        [("sharding", 10), ("sharding", 11)]
+    by_line = {x.line: x.message for x in result.findings}
+    assert "'tensr'" in by_line[10] and "known axes: data, tensor" in by_line[10]
+    assert "'other'" in by_line[11] and "mesh, tp_mesh" in by_line[11]
+    jax_twin = tmp_path / "jax_layout.py"
+    jax_twin.write_text(SHARDING_TWIN.replace("Spec(", "P(").replace(", parts=3", ""))
+    assert sorted(x.line for x in jax_run_lint([str(jax_twin)]).findings) == [10, 11]
+    f.write_text(SHARDING_TWIN.replace('"tensr"', "TENSOR_AXIS").replace("NamedSharding(other,", "NamedSharding(mesh,"))
+    assert run_lint([str(f)]).ok
+
+
 #: a host value stored into a device tensor: a blocking host-to-device copy
 #: (the card's sync debug mode reports the engine's slot updates as syncs)
 HOST_STORE = '''

@@ -24,6 +24,7 @@ Tolerance: none; every comparison is exact. The card's replay of a dense
 burst is ``test_torch_graphs.py::test_burst_replay_equals_the_eager_burst``.
 """
 
+from types import SimpleNamespace
 import numpy as np
 import pytest
 
@@ -34,6 +35,9 @@ from unionml_tpu.serving.continuous import ContinuousBatcher as JaxBatcher
 from unionml_tpu.serving.supervisor import EngineSupervisor as JaxSupervisor
 from unionml_tpu.serving.telemetry import Telemetry as JaxTelemetry
 from unionml_tpu_torch.serving import ContinuousBatcher, DecodeEngine, SpeculativeEngine, Telemetry
+
+#: a mesh whose fsdp axis spans two ranks: serving over it is not ported (M12)
+FSDP_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("fsdp",), size=lambda dim: 2)
 
 MIXED_KW = dict(num_slots=4, max_len=64, prefill_buckets=(4, 8, 16), prefill_chunk=4, blocks=24)
 
@@ -175,8 +179,9 @@ def test_constructor_errors(gpt):
     for kind in ("torch", "jax"):
         with pytest.raises(ValueError, match="kv_quantize requires paged=True"):
             gpt.engine(kind, pool="int8", paged=False)
+    # a tensor-parallel mesh serves (tests/test_torch_tensor_parallel.py); an fsdp axis is still M12
     with pytest.raises(NotImplementedError, match="M12"):
-        DecodeEngine(gpt.tmodel, mesh=object(), device="cpu")
+        DecodeEngine(gpt.tmodel, mesh=FSDP_MESH, device="cpu")
     with pytest.raises(ValueError, match="paged"):
         SpeculativeEngine(gpt.tmodel, gpt.tmodel, paged=False, device="cpu")
     eng = dense(gpt, "torch", blocks=0)

@@ -10,6 +10,7 @@ left-padded batches (``prompt_mask``).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -148,8 +149,10 @@ def test_config_defaults_and_unported_paths():
     torch.testing.assert_close(remat(ids), plain(ids), atol=0, rtol=0)
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, paged_attn_impl="pallas")
-    with pytest.raises(NotImplementedError):
-        tgpt.param_shardings()
+    # param_shardings is ported (tests/test_torch_mesh.py); sparse blocks under a tensor mesh are still M12
+    sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="M12"):
+        tgpt.tensor_parallel(sparse, SimpleNamespace(mesh_dim_names=("tensor",), size=lambda dim: 2))
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
     ids, segs = torch.zeros((1, 4), dtype=torch.long), torch.ones((1, 4), dtype=torch.long)
     # packed training runs now (and lm_loss with it); packing composes with no cache and no pad_offsets

@@ -31,6 +31,7 @@ test_engine_rebuild_recaptures_its_graphs``.
 """
 
 import asyncio
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -52,6 +53,9 @@ from unionml_tpu_torch.serving import (
     SpeculativeEngine,
     Telemetry,
 )
+
+#: a mesh whose fsdp axis spans two ranks: serving over it is not ported (M12)
+FSDP_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("fsdp",), size=lambda dim: 2)
 
 PROMPT_A, BUDGET_A = [3, 1, 4, 1, 5], 12
 PROMPT_B, BUDGET_B = [2, 7, 1], 10
@@ -503,8 +507,9 @@ def test_speculative_round_failure_is_structured_and_isolated(gpt):
 
 
 def test_unported_modes_raise_naming_their_items(gpt):
+    # a tensor-parallel mesh serves (tests/test_torch_tensor_parallel.py); an fsdp axis is still M12
     with pytest.raises(NotImplementedError, match="M12"):
-        DecodeEngine(gpt.tmodel, max_len=64, device="cpu", mesh=object())
+        DecodeEngine(gpt.tmodel, max_len=64, device="cpu", mesh=FSDP_MESH)
     # telemetry is wired: the engine names its paged attention path and feeds the pool gauges
     tel = Telemetry()
     eng = DecodeEngine(gpt.tmodel, max_len=64, device="cpu", telemetry=tel, kv_quantize="int8")

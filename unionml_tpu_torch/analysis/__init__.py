@@ -37,6 +37,8 @@ Rules (``--list-rules`` prints the catalog):
 - ``double-release`` — two releases of the same resource key on one path.
 - ``unbalanced-transfer`` — ``# owns:`` / ``# transfers:`` contract comments
   whose bodies don't release / whose callers drop the handed-over resource.
+- ``sharding`` — a ``Spec`` axis no mesh of the tree declares, and a
+  ``NamedSharding`` cut off another mesh than the function's own.
 - ``suppression`` — always-on hygiene: every ``# graftlint: disable=`` needs a
   known rule name and a reason string.
 

@@ -427,6 +427,7 @@ def _load_rule_modules() -> None:
         rules_races,
         rules_recapture,
         rules_resources,
+        rules_sharding,
     )
 
 

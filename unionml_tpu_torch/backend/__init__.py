@@ -611,7 +611,7 @@ def backend_from_config(
         if target.startswith("tpu-pod://"):
             raise NotImplementedError(
                 "the tpu-pod:// backend (a job store shared by the hosts of a pod) is not ported yet "
-                "(ROADMAP: M12, parallelism)"
+                "(ROADMAP: M12, the multi-host backend and store)"
             )
         if target.startswith("local://"):
             root = Path(target[len("local://") :]) if len(target) > len("local://") else None
@@ -655,7 +655,7 @@ def _host_count(resources: Optional[Dict[str, Any]]) -> int:
 
 def _multi_host() -> NotImplementedError:
     return NotImplementedError(
-        "multi-host jobs (host_count > 1) are not ported yet (ROADMAP: M12, parallelism)"
+        "multi-host jobs (host_count > 1) are not ported yet (ROADMAP: M12, the multi-host backend and store)"
     )
 
 

@@ -43,7 +43,7 @@ _EMPTY = Parameter.empty
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: M12, parallelism)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP: M12, the multi-host backend and store)")
 
 
 class BaseHyperparameters:

@@ -56,9 +56,11 @@ def _kernel(layer: nn.Module, dtype: torch.dtype) -> torch.Tensor:
     return weight.to(dtype)
 
 
-def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``nn.Dense(dtype=...)``: input, kernel and bias cast to the compute dtype."""
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
+def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype, bias: bool = True) -> torch.Tensor:
+    """``nn.Dense(dtype=...)``: input, kernel and bias cast to the compute
+    dtype. ``bias=False`` leaves the bias out (a row-parallel shard of a
+    tensor-parallel layer on every rank but one)."""
+    bias = layer.bias.to(dtype) if bias and layer.bias is not None else None
     return F.linear(x.to(dtype), _kernel(layer, dtype), bias)
 
 

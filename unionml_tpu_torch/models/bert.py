@@ -81,7 +81,7 @@ class BertConfig:
         if self.attention_impl in ("ring", "ulysses") or self.sp_mesh is not None:
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r} / sp_mesh: sequence-parallel attention is not "
-                "ported yet (ROADMAP: M12)"
+                "ported yet (ROADMAP: M12, ring/ulysses)"
             )
         if self.attention_impl not in _IMPLS:
             raise ValueError(f"attention_impl must be one of {_IMPLS}, got {self.attention_impl!r}")

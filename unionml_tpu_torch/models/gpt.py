@@ -54,21 +54,39 @@ cache, gradients on) in the backward pass instead of keeping its activations
 :func:`~unionml_tpu_torch.models._layers.recomputed`: the recompute draws
 the forward's dropout masks and router jitter, and a sparse block's router
 losses come out of the recomputed block as they do without it. Decode and
-prefill never recompute. Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): the ring/ulysses layers,
-the expert-parallel ``a2a`` dispatch and ``ep_mesh``, and
-``param_shardings``.
+prefill never recompute.
+
+Tensor parallelism (``param_shardings``, ``gpt.py:981-1042``): under a mesh
+with a ``tensor`` axis of N ranks, :func:`tensor_parallel` gives each rank a
+copy of the model holding its Megatron shard of every weight, and the
+forward issues the collectives XLA inserts in the JAX package, over the
+tensor axis's process group. ``qkv`` and ``mlp_up`` are column-parallel
+(this rank's heads of q, k and v, its quarter of the MLP); ``attn_out`` and
+``mlp_down`` are row-parallel, one all-reduce each, with the bias added by
+rank 0 alone (inside its product, as the unsharded layer adds it, so a world
+of one rank computes bit for bit what the unsharded model does); ``wte`` and
+``wpe`` are vocab- and position-parallel (a masked lookup and an
+all-reduce), and the tied head's f32 logits are all-gathered, so every rank
+holds the same logits bit for bit. Each rank attends over ``num_heads / N``
+heads, and its KV cache or pool holds only those (:func:`kv_cache_spec`).
+Where N does not divide the heads, q, k, v and the cache stay whole on
+every rank and only the projections after attention split. Not ported yet
+(each raises ``NotImplementedError`` naming its ROADMAP item): the
+ring/ulysses layers, the expert-parallel ``a2a`` dispatch and ``ep_mesh``,
+sparse blocks and training under a tensor mesh.
 """
 
+import copy
 import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.distributed as dist
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
-from unionml_tpu_torch.models._layers import _dense, _dropout, _kernel, _layer_norm, recomputed
+from unionml_tpu_torch.models._layers import QuantizedLinear, _dense, _dropout, _kernel, _layer_norm, recomputed
 from unionml_tpu_torch.models.moe import MoEMlp
 from unionml_tpu_torch.ops.attention import attention, reference_attention
 from unionml_tpu_torch.ops.losses import cross_entropy_with_integer_labels
@@ -116,14 +134,15 @@ class GPTConfig:
             raise ValueError(f"moe_dispatch must be 'gshard' or 'a2a', got {self.moe_dispatch!r}")
         if self.moe_dispatch == "a2a" or self.ep_mesh is not None:
             raise NotImplementedError(
-                "moe_dispatch='a2a' / ep_mesh: expert parallelism is not ported yet (ROADMAP: M12)"
+                "moe_dispatch='a2a' / ep_mesh: expert parallelism is not ported yet "
+                "(ROADMAP: M12, expert-parallel a2a)"
             )
         for name in ("attention_impl", "paged_attn_impl"):
             value = getattr(self, name)
             if value in ("ring", "ulysses"):
                 raise NotImplementedError(
                     f"{name}={value!r}: sequence-parallel attention is not ported yet "
-                    "(ROADMAP: M12)"
+                    "(ROADMAP: M12, ring/ulysses)"
                 )
             if value not in _IMPLS:
                 raise ValueError(f"{name} must be one of {_IMPLS}, got {value!r}")
@@ -230,13 +249,13 @@ def _paged_chunk_quantized(pool_q, pool_scale, table_row, position: int, vals):
     return pool_q, pool_scale
 
 
-def _dense_by_position(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _dense_by_position(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, bias: bool = True) -> torch.Tensor:
     """:func:`~unionml_tpu_torch.models._layers._dense` of ``x`` (batch, S, in)
     one position at a time: each product has the decode step's shape
     (``batch`` rows), so a row's result is bit for bit the decode step's (a
     GEMM's rounding depends on its row count on the card and on the CPU)."""
     weight = _kernel(layer, dtype)
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    bias = layer.bias.to(dtype) if bias and layer.bias is not None else None
     x = x.to(dtype)
     return torch.cat([F.linear(x[:, j:j + 1].contiguous(), weight, bias) for j in range(x.shape[1])], dim=1)
 
@@ -317,6 +336,53 @@ def paged_commit_chunk(layer_cache, block_table, position, counts, ck, cv):
     return layer_cache
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """How one rank of a tensor-parallel model computes: the tensor axis's
+    process group, its size and this rank's index on it, and the attention
+    heads this rank holds (``num_heads / size``, or all of them when the axis
+    does not divide the heads and q, k, v stay whole)."""
+
+    group: Any
+    size: int
+    rank: int
+    heads: int
+    split_heads: bool
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the tensor axis, in place."""
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def lookup(self, ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """A vocab- (or position-) parallel embedding: this rank's rows of the
+        table answer the ids in its range, zeros the rest, and the sum over
+        the axis is every id's row (exact: one addend is not zero)."""
+        rows = weight.shape[0]
+        local = ids - self.rank * rows
+        inside = (local >= 0) & (local < rows)
+        out = F.embedding(torch.where(inside, local, torch.zeros_like(local)), weight)
+        return self.all_reduce(torch.where(inside[..., None], out, torch.zeros_like(out)))
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' shards of the last dimension concatenated in rank order
+        (the tied head's vocab-parallel logits)."""
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        out = torch.empty((self.size * flat.shape[0], flat.shape[1]), dtype=x.dtype, device=x.device)
+        # torch 2.13 deprecates all_gather_into_tensor (a FutureWarning) for
+        # all_gather_single, which torch 2.11 does not have
+        (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, flat, group=self.group)
+        out = out.reshape(self.size, flat.shape[0], flat.shape[1]).transpose(0, 1)
+        return out.reshape(*x.shape[:-1], self.size * x.shape[-1])
+
+
+def kv_heads(model: nn.Module) -> int:
+    """Attention heads of ``model``'s KV cache on this rank: this rank's share
+    under tensor parallelism, else the config's."""
+    tp = getattr(model, "tp", None)
+    return model.config.num_heads if tp is None else tp.heads
+
+
 class DecoderBlock(nn.Module):
     """Pre-LN block: attention then a tanh-GELU MLP (or, with ``use_moe``,
     a :class:`MoEMlp`), each with a residual."""
@@ -337,6 +403,8 @@ class DecoderBlock(nn.Module):
             self.mlp_up = nn.Linear(d, 4 * d, **kw)
             self.mlp_down = nn.Linear(4 * d, d, **kw)
         self.use_moe = use_moe
+        #: this rank's share of a tensor-parallel model (:func:`tensor_parallel`)
+        self.tp: Optional[TensorParallel] = None
 
     def forward(
         self,
@@ -368,17 +436,26 @@ class DecoderBlock(nn.Module):
         (set by the model for a paged per-row chunk of more than one token)
         routes the chunk through the speculative verify.
         """
-        cfg = self.config
+        cfg, tp = self.config, self.tp
         batch, seq, _ = hidden.shape
         # a speculative verify chunk takes each position's products at the
         # decode step's shape, so its tokens score as plain decoding scores them
         dense = _dense_by_position if verify else _dense
         qkv = dense(self.qkv, _layer_norm(self.attn_norm, hidden, cfg.dtype), cfg.dtype)
+        n_heads = cfg.num_heads if tp is None else tp.heads
+        width = n_heads * cfg.head_dim
 
         def heads(x):
-            return x.reshape(batch, seq, cfg.num_heads, cfg.head_dim).transpose(1, 2).contiguous()
+            return x.reshape(batch, seq, n_heads, cfg.head_dim).transpose(1, 2).contiguous()
 
-        q, k, v = (heads(x) for x in qkv.split(cfg.hidden_size, dim=-1))
+        def row_parallel(layer, x):
+            # the shards' partial products summed over the tensor axis; rank 0
+            # adds the bias inside its product, as the unsharded layer does
+            if tp is None:
+                return dense(layer, x, cfg.dtype)
+            return tp.all_reduce(dense(layer, x, cfg.dtype, bias=tp.rank == 0))
+
+        q, k, v = (heads(x) for x in qkv.split(width, dim=-1))
 
         def pad_mask(k_positions):
             # (batch, 1, 1, Lk): keys in a row's left-pad region contribute nothing
@@ -411,12 +488,16 @@ class DecoderBlock(nn.Module):
         else:
             context = self._dense(q, k, v, cache, position, pad_offsets, pad_mask)
 
-        context = context.transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
-        hidden = hidden + _dropout(dense(self.attn_out, context, cfg.dtype), cfg.dropout, generator)
+        context = context.transpose(1, 2).reshape(batch, seq, width)
+        if tp is not None and not tp.split_heads:
+            # whole heads on every rank: attn_out's input rows split all the same
+            part = cfg.hidden_size // tp.size
+            context = context[..., tp.rank * part:(tp.rank + 1) * part]
+        hidden = hidden + _dropout(row_parallel(self.attn_out, context), cfg.dropout, generator)
         normed = _layer_norm(self.mlp_norm, hidden, cfg.dtype)
         aux = None
         if not self.use_moe:
-            down = dense(self.mlp_down, F.gelu(dense(self.mlp_up, normed, cfg.dtype), approximate="tanh"), cfg.dtype)
+            down = row_parallel(self.mlp_down, F.gelu(dense(self.mlp_up, normed, cfg.dtype), approximate="tanh"))
         elif verify:
             # position by position, as _dense_by_position: each expert
             # product has the decode step's rows (the layer is dropless here)
@@ -522,10 +603,15 @@ class GPTLMHeadModel(nn.Module):
             for i in range(config.num_layers)
         )
         self.final_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, **kw)
+        #: this rank's share of a tensor-parallel model (:func:`tensor_parallel`)
+        self.tp: Optional[TensorParallel] = None
 
     @property
     def device(self) -> torch.device:
         return self.wte.weight.device
+
+    def _lookup(self, ids: torch.Tensor, table: nn.Embedding) -> torch.Tensor:
+        return F.embedding(ids, table.weight) if self.tp is None else self.tp.lookup(ids, table.weight)
 
     def forward(
         self,
@@ -558,6 +644,9 @@ class GPTLMHeadModel(nn.Module):
             generator = None
         elif generator is None:
             raise ValueError("deterministic=False draws dropout masks from `generator`; pass one")
+        elif self.tp is not None:
+            raise NotImplementedError("training a tensor-parallel model is not ported yet "
+                                      "(ROADMAP: M12, sharded training: DDP and FSDP2)")
         if segment_ids is not None and cache is not None:
             raise ValueError("segment_ids is a packed-TRAINING feature; decode caches are unpacked")
         batch, seq = input_ids.shape
@@ -578,8 +667,8 @@ class GPTLMHeadModel(nn.Module):
             positions = (int(position) + steps)[None, :]
         if pad_offsets is not None:
             positions = torch.clamp(positions - pad_offsets.long()[:, None], min=0)
-        word = F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
-        hidden = _dropout(word + F.embedding(positions, self.wpe.weight).to(cfg.dtype), cfg.dropout, generator)
+        word = self._lookup(input_ids, self.wte).to(cfg.dtype)
+        hidden = _dropout(word + self._lookup(positions, self.wpe).to(cfg.dtype), cfg.dropout, generator)
 
         new_cache: Dict[str, Any] = {}
         aux = []
@@ -614,6 +703,8 @@ class GPTLMHeadModel(nn.Module):
             logits = torch.cat([hidden[:, j:j + 1].contiguous() @ self.wte.weight.t() for j in range(seq)], dim=1)
         else:
             logits = hidden @ self.wte.weight.t()
+        if self.tp is not None:
+            logits = self.tp.gather_last(logits)
         out = (logits, new_cache) if cache is not None else (logits,)
         if return_aux:
             return (*out, aux)
@@ -621,12 +712,14 @@ class GPTLMHeadModel(nn.Module):
 
 
 def init_cache(config: GPTConfig, batch: int, max_len: Optional[int] = None, dtype=None,
-               device: Device = "cuda") -> Dict[str, Any]:
-    """Zeroed dense KV cache (config's compute dtype) for incremental decoding."""
+               device: Device = "cuda", heads: Optional[int] = None) -> Dict[str, Any]:
+    """Zeroed dense KV cache (config's compute dtype) for incremental decoding;
+    ``heads`` (default the config's) is a tensor-parallel rank's share
+    (:func:`kv_heads`)."""
     device = resolve_device(device)
     max_len = max_len or config.max_position_embeddings
     dtype = dtype if dtype is not None else config.dtype
-    shape = (batch, config.num_heads, max_len, config.head_dim)
+    shape = (batch, heads or config.num_heads, max_len, config.head_dim)
     return {
         f"layer_{i}": {
             "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -644,19 +737,24 @@ def init_block_pool(
     kv_quantize: Optional[str] = None,
     kv_quantize_skip_layers=(),
     device: Device = "cuda",
+    heads: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Zeroed KV block pool, ``(num_blocks, heads, block_size, head_dim)`` per
     layer. ``kv_quantize="int8"`` stores int8 codes with per-(block, head) f32
     scales (``k_scale``/``v_scale``, shape ``(blocks, heads, 1, 1)``); layers in
     ``kv_quantize_skip_layers`` keep full-precision leaves and no scales — the
-    attention layer detects the mode per layer from the keys present."""
+    attention layer detects the mode per layer from the keys present.
+    ``heads`` (default the config's) is a tensor-parallel rank's share: the
+    scales are per head, so given the same K/V a rank's codes and scales are
+    bit for bit the head slice of an unsharded pool's."""
     device = resolve_device(device)
     dtype = dtype if dtype is not None else config.dtype
     if kv_quantize not in (None, "int8"):
         raise ValueError(f"kv_quantize must be None or 'int8', got {kv_quantize!r}")
     skip = frozenset(int(i) for i in kv_quantize_skip_layers)
-    shape = (num_blocks, config.num_heads, block_size, config.head_dim)
-    scale_shape = (num_blocks, config.num_heads, 1, 1)
+    heads = heads or config.num_heads
+    shape = (num_blocks, heads, block_size, config.head_dim)
+    scale_shape = (num_blocks, heads, 1, 1)
     pool: Dict[str, Any] = {}
     for i in range(config.num_layers):
         if kv_quantize == "int8" and i not in skip:
@@ -800,7 +898,7 @@ def generate(
         # left padding: each row's pad count is its number of leading zeros
         pad_offsets = prompt_len - prompt_mask.to(device).long().sum(dim=1)
 
-    cache = init_cache(config, batch, max_len, device=device)
+    cache = init_cache(config, batch, max_len, device=device, heads=kv_heads(model))
     logits, cache = model(prompt_ids, cache=cache, position=0, pad_offsets=pad_offsets)
     last = logits[:, -1, :]
     rows = torch.full((batch,), temperature, dtype=torch.float32, device=device)
@@ -820,15 +918,155 @@ def generate(
     return torch.cat([prompt_ids.long(), torch.stack(tokens, dim=1)], dim=1)
 
 
-def _not_ported(name: str, item: str):
-    def fail(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP: {item})")
+def param_shardings(params: Any, mesh_axis_names: Tuple[str, ...] = ("data", "tensor")) -> Any:
+    """:class:`~unionml_tpu_torch.parallel.mesh.Spec` tree for the port's GPT
+    parameter tree (``dict(model.named_parameters())``, or the weight tree of
+    :func:`~unionml_tpu_torch.models._layers.quantize_model`), the
+    Megatron-style split of ``gpt.py:981-1042``:
 
-    fail.__name__ = name
-    return fail
+    - fused ``qkv`` and ``mlp_up``: the OUTPUT dim over ``tensor``
+    - ``attn_out`` and ``mlp_down``: the INPUT dim over ``tensor``
+    - ``wte``/``wpe``: the vocab/position dim over ``tensor``
+    - expert stacks ``(E, d, h)``/``(E, h, d)``: the expert dim over
+      ``expert``, inner dims Megatron-split like the dense MLP
+    - other matrices FSDP-sharded over ``fsdp`` when present; everything
+      else (norms, biases) replicated
+    - a :class:`~unionml_tpu_torch.ops.quant.QuantizedArray` takes the
+      kernel's spec for its codes and keeps, for its scale, only the axes
+      where the scale has extent (the output channel)
+
+    The entries are JAX's with each ``nn.Linear`` weight's two dimensions
+    flipped (``(out, in)`` against flax's ``(in, out)``). The ``qkv`` spec
+    also carries ``parts=3``: its rows are q, k and v, each split on its own
+    (see :class:`~unionml_tpu_torch.parallel.mesh.Spec`)."""
+    from unionml_tpu_torch.models._sharding import shard_by_rules
+    from unionml_tpu_torch.ops.quant import QuantizedArray
+    from unionml_tpu_torch.parallel.ep import EXPERT_AXIS
+    from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS, Spec
+
+    tensor = TENSOR_AXIS if TENSOR_AXIS in mesh_axis_names else None
+    fsdp = FSDP_AXIS if FSDP_AXIS in mesh_axis_names else None
+    expert = EXPERT_AXIS if EXPERT_AXIS in mesh_axis_names else None
+
+    def dense_spec(path_str: str, leaf) -> Spec:
+        ndim = len(leaf.shape)
+        if "w_in" in path_str and ndim == 3:
+            return Spec(expert, fsdp, tensor)
+        if "w_out" in path_str and ndim == 3:
+            return Spec(expert, tensor, fsdp)
+        if ndim < 2:
+            return Spec()
+        if "wte" in path_str or "wpe" in path_str:
+            return Spec(tensor, None)
+        if "qkv" in path_str:
+            return Spec(tensor, fsdp, parts=3)
+        if "mlp_up" in path_str:
+            return Spec(tensor, fsdp)
+        if "attn_out" in path_str or "mlp_down" in path_str:
+            return Spec(fsdp, tensor)
+        return Spec(None, fsdp)
+
+    def spec_for(path: Tuple[str, ...], leaf):
+        path_str = "/".join(path)
+        if isinstance(leaf, QuantizedArray):
+            base = dense_spec(path_str, leaf.q)
+            entries = tuple(base) + (None,) * (leaf.q.dim() - len(base))
+            scale = Spec(*(axis if leaf.scale.shape[i] > 1 else None for i, axis in enumerate(entries)),
+                         parts=base.parts)
+            return QuantizedArray(q=base, scale=scale, dtype=leaf.dtype)
+        return dense_spec(path_str, leaf)
+
+    return shard_by_rules(params, spec_for, is_leaf=lambda leaf: isinstance(leaf, QuantizedArray))
 
 
-param_shardings = _not_ported("param_shardings", "mesh-sharded serving")
+def kv_cache_spec(config: GPTConfig, mesh_axis_names: Tuple[str, ...]) -> Any:
+    """Spec of KV-cache leaves ``(batch, heads, max_len, head_dim)``: heads on
+    ``tensor`` (``gpt.py:659-674``), the split ``param_shardings`` gives
+    ``qkv``, so each rank holds exactly the K/V its attention shard produces.
+    The engine replicates the cache where the axis does not divide the heads."""
+    from unionml_tpu_torch.parallel.mesh import TENSOR_AXIS, Spec
+
+    return Spec(None, TENSOR_AXIS if TENSOR_AXIS in mesh_axis_names else None, None, None)
+
+
+def kv_block_spec(config: GPTConfig, mesh_axis_names: Tuple[str, ...]) -> Any:
+    """Spec of KV block-pool leaves ``(blocks, heads, block_size, head_dim)``
+    (and their ``(blocks, heads, 1, 1)`` int8 scales): heads on ``tensor``,
+    exactly like :func:`kv_cache_spec`, so pool and cache blocks move
+    between each other shard-local."""
+    return kv_cache_spec(config, mesh_axis_names)
+
+
+def _weight_tree(model: nn.Module) -> Dict[str, Any]:
+    """``model``'s parameters by name, an int8 layer's weight as its
+    :class:`~unionml_tpu_torch.ops.quant.QuantizedArray`."""
+    tree: Dict[str, Any] = dict(model.named_parameters())
+    for name, module in model.named_modules():
+        if isinstance(module, QuantizedLinear):
+            tree[f"{name}.weight"] = module.weight
+    return tree
+
+
+def tensor_parallel(model: GPTLMHeadModel, mesh: Any) -> Tuple[GPTLMHeadModel, Dict[str, Any]]:
+    """``(this rank's model, its weight tree)``: a copy of ``model`` (which
+    every rank holds whole, from the same seed or checkpoint, and which is
+    left untouched) whose weights are this rank's shards under
+    :func:`param_shardings`, and whose forward runs the tensor axis's
+    collectives. A mesh without a ``tensor`` axis gives ``model`` itself
+    (every rank computes the same). Where the axis does not divide the heads,
+    ``qkv`` stays whole on every rank. Raises JAX's ``ValueError`` where the
+    axis does not divide a sharded dimension (the vocabulary, the positions,
+    the MLP), and ``NotImplementedError`` for sparse blocks and for a mesh
+    axis other than ``data``/``tensor`` of more than one rank."""
+    from unionml_tpu_torch.models._sharding import place_by_specs
+    from unionml_tpu_torch.ops.quant import QuantizedArray
+    from unionml_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, Spec, axis_index, axis_names, axis_size
+
+    cfg = model.config
+    names = axis_names(mesh)
+    others = [a for a in names if a not in (DATA_AXIS, TENSOR_AXIS) and axis_size(mesh, a) > 1]
+    if others:
+        raise NotImplementedError(f"serving over the mesh axes {others} is not ported yet "
+                                  "(ROADMAP: M12, sharded training: DDP and FSDP2)")
+    tree = _weight_tree(model)
+    if TENSOR_AXIS not in names:
+        return model, tree
+    if cfg.moe_every > 0:
+        raise NotImplementedError("sparse blocks under a tensor mesh are not ported yet "
+                                  "(ROADMAP: M12, expert-parallel a2a)")
+    n = axis_size(mesh, TENSOR_AXIS)
+    split_heads = cfg.num_heads % n == 0
+    specs = param_shardings(tree, names)
+    for name in specs:
+        # a rank computes its columns' product whole: the column-parallel
+        # biases split with their outputs (JAX replicates them and XLA slices)
+        column = ".qkv." in name or ".mlp_up." in name
+        if ".qkv." in name and not split_heads:
+            spec = Spec()
+        elif column and name.endswith("bias"):
+            spec = Spec(TENSOR_AXIS, parts=3 if ".qkv." in name else 1)
+        else:
+            continue
+        specs[name] = QuantizedArray(q=spec, scale=spec, dtype=tree[name].dtype) \
+            if isinstance(tree[name], QuantizedArray) else spec
+    with torch.no_grad():
+        local = place_by_specs(tree, mesh, specs)
+    # the module structure is copied, no weight is: the memo maps each to
+    # itself, and each shard then replaces its leaf in the copy
+    shard = copy.deepcopy(model, memo={id(t): t for t in [*model.parameters(), *model.buffers()]})
+    for name, leaf in local.items():
+        owner_name, _, attr = name.rpartition(".")
+        owner = shard.get_submodule(owner_name)
+        if isinstance(leaf, QuantizedArray):
+            owner.q, owner.scale = leaf.q, leaf.scale
+        else:
+            setattr(owner, attr, nn.Parameter(leaf, requires_grad=False))
+    tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, rank=axis_index(mesh, TENSOR_AXIS),
+                        heads=cfg.num_heads // n if split_heads else cfg.num_heads, split_heads=split_heads)
+    for module in shard.modules():
+        if isinstance(module, (GPTLMHeadModel, DecoderBlock)):
+            module.tp = tp
+    return shard, local
 
 
 def lm_loss(

@@ -71,7 +71,8 @@ class MoEMlp(nn.Module):
             raise ValueError(f"dispatch must be 'gshard' or 'a2a', got {dispatch!r}")
         if dispatch == "a2a" or mesh is not None:
             raise NotImplementedError(
-                "MoEMlp with dispatch='a2a' or an expert mesh: expert parallelism is not ported yet (ROADMAP: M12)"
+                "MoEMlp with dispatch='a2a' or an expert mesh: expert parallelism is not ported yet "
+                "(ROADMAP: M12, expert-parallel a2a)"
             )
         self.num_experts, self.k = num_experts, k
         self.capacity_factor, self.router_noise, self.dtype = capacity_factor, router_noise, dtype

@@ -310,7 +310,7 @@ def make_classifier_train_step(
     gradients average before the one optimizer step.
     """
     if mesh is not None or param_spec is not None:
-        raise _not_ported("mesh / param_spec (sharded training)", "M12")
+        raise _not_ported("mesh / param_spec (sharded training)", "M12, sharded training: DDP and FSDP2")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -339,7 +339,7 @@ def make_classifier_eval_step(input_signature: Tuple[str, ...] = ("inputs",)) ->
 
 def _check_lm_options(mesh, param_spec, grad_accum: int) -> None:
     if mesh is not None or param_spec is not None:
-        raise _not_ported("mesh / param_spec (sharded training)", "M12")
+        raise _not_ported("mesh / param_spec (sharded training)", "M12, sharded training: DDP and FSDP2")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -410,7 +410,7 @@ def dict_batches(
 ) -> Iterable[Dict[str, torch.Tensor]]:
     """Static-shape dict batches of host ``data``, each copied to ``device``."""
     if mesh is not None:
-        raise _not_ported("mesh (sharded batches)", "M12")
+        raise _not_ported("mesh (sharded batches)", "M12, sharded training: DDP and FSDP2")
     device = resolve_device(device)
     host = {k: np.asarray(v) for k, v in data.items()}
     n_rows = len(next(iter(host.values())))
@@ -515,7 +515,7 @@ def fit(
     ``prefetch=True``.
     """
     if mesh is not None or param_spec is not None:
-        raise _not_ported("mesh / param_spec (sharded training)", "M12")
+        raise _not_ported("mesh / param_spec (sharded training)", "M12, sharded training: DDP and FSDP2")
     if step_fn is not None and grad_accum != 1:
         raise ValueError("grad_accum applies to the built-in step; pass it to your step builder")
     if prefetch_convert and not prefetch:

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "EXPERT_AXIS",
     "Routing",
     "expert_sharding",
     "moe_apply",
@@ -56,8 +57,12 @@ __all__ = [
     "topk_route",
 ]
 
+#: the mesh axis expert weights shard over (``ep.py:31``)
+EXPERT_AXIS = "expert"
+
 def _no_mesh(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name}: expert-parallel dispatch over a mesh is not ported yet (ROADMAP: M12)")
+    return NotImplementedError(
+        f"{name}: expert-parallel dispatch over a mesh is not ported yet (ROADMAP: M12, expert-parallel a2a)")
 
 
 def moe_apply(*args: Any, **kwargs: Any):

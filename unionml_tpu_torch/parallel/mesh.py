@@ -1,0 +1,290 @@
+"""Device meshes and sharding specs over ``torch.distributed``.
+
+Port of ``unionml_tpu/parallel/mesh.py``. The JAX package expresses
+communication as ``PartitionSpec`` annotations over one controller's
+``Mesh`` and lets XLA insert the collectives. The port is SPMD: one process
+per card, a ``torch.distributed.device_mesh.DeviceMesh`` over the world
+(:func:`make_mesh`), and each process holds only its shard of a sharded
+tensor. :class:`Spec` is the ``PartitionSpec`` counterpart (one axis name,
+a tuple of names, or ``None`` per tensor dimension) and
+:class:`NamedSharding` binds one to a mesh; ``NamedSharding.shard`` cuts a
+full tensor down to this rank's shard, which is what ``jax.device_put``
+with that sharding lays on each device. The collectives themselves are
+issued by the code that computes on the shards (the tensor-parallel GPT,
+``models/gpt.py``).
+
+Axis convention (used across models/, parallel/ and serving/):
+
+- ``"data"`` — batch sharding (DP)
+- ``"fsdp"`` — parameter sharding along the data axis (ZeRO-style)
+- ``"tensor"`` — tensor parallelism within attention/MLP blocks
+- ``"sequence"`` — sequence/context parallelism (ring attention)
+"""
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "DATA_AXIS",
+    "FSDP_AXIS",
+    "SEQUENCE_AXIS",
+    "TENSOR_AXIS",
+    "MeshSpec",
+    "NamedSharding",
+    "Spec",
+    "axis_index",
+    "axis_names",
+    "axis_size",
+    "batch_axis_size",
+    "batch_sharding",
+    "logical_to_sharding",
+    "make_hybrid_mesh",
+    "make_mesh",
+    "named_sharding_tree",
+    "replicated",
+    "shard_batch",
+    "wrapped_row_indices",
+]
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+TENSOR_AXIS = "tensor"
+SEQUENCE_AXIS = "sequence"
+
+
+class Spec(tuple):
+    """``PartitionSpec`` counterpart: one entry per tensor dimension, each an
+    axis name, a tuple of axis names, or ``None`` (not sharded). Trailing
+    dimensions left out are not sharded. It compares equal to the tuple of
+    its entries.
+
+    ``parts`` > 1 marks a dimension that concatenates that many equal parts
+    (the fused ``qkv`` projection's q, k and v): each part splits over the
+    axis on its own, so a rank's shard holds its slice of every part. JAX's
+    spec splits such a dimension contiguously and XLA reshards after the
+    reshape; a rank of the port computes on its shard in place, so it needs
+    its own heads of q, k and v."""
+
+    def __new__(cls, *axes: Any, parts: int = 1) -> "Spec":
+        spec = super().__new__(cls, axes)
+        spec.parts = int(parts)
+        return spec
+
+    def __repr__(self) -> str:
+        entries = ", ".join(repr(a) for a in self)
+        return f"Spec({entries}{', parts=' + str(self.parts) if self.parts > 1 else ''})"
+
+    def __reduce__(self):
+        return (_spec, (tuple(self), self.parts))
+
+
+def _spec(axes: Tuple[Any, ...], parts: int) -> Spec:
+    return Spec(*axes, parts=parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Logical mesh shape: ordered mapping of axis name -> size.
+
+    A size of ``-1`` means "all remaining ranks" (at most one axis may use it).
+    """
+
+    axes: Tuple[Tuple[str, int], ...] = ((DATA_AXIS, -1),)
+
+    @classmethod
+    def from_dict(cls, axes: Mapping[str, int]) -> "MeshSpec":
+        return cls(tuple(axes.items()))
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(name for name, _ in self.axes)
+
+    def resolve_shape(self, n_devices: int) -> Tuple[int, ...]:
+        sizes = [size for _, size in self.axes]
+        wildcards = [i for i, s in enumerate(sizes) if s == -1]
+        if len(wildcards) > 1:
+            raise ValueError(f"At most one mesh axis may be -1; got {self.axes}")
+        fixed = int(np.prod([s for s in sizes if s != -1])) if sizes else 1
+        if wildcards:
+            if n_devices % fixed != 0:
+                raise ValueError(f"{n_devices} devices not divisible by fixed axes product {fixed}")
+            sizes[wildcards[0]] = n_devices // fixed
+        elif fixed != n_devices:
+            raise ValueError(f"Mesh axes {self.axes} require {fixed} devices; found {n_devices}")
+        return tuple(sizes)
+
+    def build(self, device="cuda"):
+        return make_mesh(dict(self.axes), device=device)
+
+
+def _world_size() -> int:
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh spans the torch.distributed world: call "
+                           "unionml_tpu_torch.parallel.initialize_distributed first")
+    return dist.get_world_size()
+
+
+def make_mesh(axis_sizes: Optional[Mapping[str, int]] = None, device="cuda"):
+    """A ``DeviceMesh`` over every rank of the world (one card each, or the
+    CPU with ``device="cpu"``). ``axis_sizes=None`` is a 1-D data-parallel
+    mesh. Ranks fill the mesh row-major, so the last axis joins neighbouring
+    ranks (the cards of one host under torchrun)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = _world_size()
+    if axis_sizes is None:
+        axis_sizes = {DATA_AXIS: world}
+    spec = MeshSpec.from_dict(axis_sizes)
+    shape = spec.resolve_shape(world)
+    return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=spec.axis_names)
+
+
+def make_hybrid_mesh(ici_axes: Mapping[str, int], dcn_axes: Mapping[str, int], device="cuda"):
+    """Multi-host mesh: ``dcn_axes`` span hosts, ``ici_axes`` the cards of
+    one host (NVLink); an axis in both has the product of its extents, its
+    host part varying slowest. torchrun numbers ranks host by host, so the
+    host axes take the leading factors of the rank order."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = list(dict.fromkeys([*dcn_axes, *ici_axes]))
+    ici_shape = [int(ici_axes.get(name, 1)) for name in names]
+    dcn_shape = [int(dcn_axes.get(name, 1)) for name in names]
+    total = [i * d for i, d in zip(ici_shape, dcn_shape)]
+    world = _world_size()
+    if int(np.prod(total)) != world:
+        raise ValueError(f"Mesh axes {dict(zip(names, total))} require {int(np.prod(total))} devices; found {world}")
+    ranks = torch.arange(world).reshape(dcn_shape + ici_shape)
+    order = [i for k in range(len(names)) for i in (k, len(names) + k)]
+    ranks = ranks.permute(order).reshape(total)
+    return DeviceMesh(torch.device(device).type, ranks, mesh_dim_names=tuple(names))
+
+
+def axis_names(mesh: Any) -> Tuple[str, ...]:
+    return tuple(getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def axis_size(mesh: Any, name: str) -> int:
+    """Ranks along ``name`` (1 when the mesh lacks the axis)."""
+    names = axis_names(mesh)
+    return int(mesh.size(names.index(name))) if name in names else 1
+
+
+def axis_index(mesh: Any, name: str) -> int:
+    """This rank's coordinate along ``name`` (0 when the mesh lacks it)."""
+    return int(mesh.get_local_rank(name)) if name in axis_names(mesh) else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`Spec` bound to a mesh (``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: Spec
+
+    def shard(self, tensor: Any) -> Any:
+        """This rank's shard of the full ``tensor`` (a torch tensor or a numpy
+        array), contiguous. Raises ``ValueError`` when an axis does not
+        divide its dimension, or when the spec names an axis the mesh lacks,
+        as ``jax.device_put`` does."""
+        names = axis_names(self.mesh)
+        out = tensor
+        for dim, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            ways, index = 1, 0
+            for axis in axes:
+                if axis not in names:
+                    raise ValueError(f"Resource axis: {axis} of {self.spec!r} is not found in mesh: {names}.")
+                size = axis_size(self.mesh, axis)
+                ways, index = ways * size, index * size + axis_index(self.mesh, axis)
+            if ways == 1:
+                continue
+            shape = tuple(out.shape)
+            parts = self.spec.parts
+            if shape[dim] % ways or (shape[dim] // parts) % ways:
+                sizes = {name: axis_size(self.mesh, name) for name in names}
+                raise ValueError(
+                    f"a tensor given the sharding {self.spec!r} over mesh axes {sizes} implies that the global "
+                    f"size of its dimension {dim} should be divisible by {ways}"
+                    f"{f' in each of its {parts} parts' if parts > 1 else ''}, but it is equal to {shape[dim]} "
+                    f"(full shape: {shape})")
+            part = shape[dim] // parts
+            step = part // ways
+            split = out.reshape(shape[:dim] + (parts, part) + shape[dim + 1:])
+            split = split[(slice(None),) * (dim + 1) + (slice(index * step, (index + 1) * step),)]
+            out = split.reshape(shape[:dim] + (parts * step,) + shape[dim + 1:])
+        return out.contiguous() if torch.is_tensor(out) else np.ascontiguousarray(out)
+
+
+def replicated(mesh: Any) -> NamedSharding:
+    return NamedSharding(mesh, Spec())
+
+
+def _batch_axes(mesh: Any, axis: str) -> Tuple[str, ...]:
+    names = axis_names(mesh)
+    axes = (axis, FSDP_AXIS) if axis == DATA_AXIS else (axis,)
+    return tuple(a for a in axes if a in names)
+
+
+def batch_sharding(mesh: Any, axis: str = DATA_AXIS) -> NamedSharding:
+    """Shard the leading (batch) dimension across ``axis`` (``data`` also
+    spans ``fsdp`` when the mesh has it)."""
+    present = _batch_axes(mesh, axis)
+    return NamedSharding(mesh, Spec(present if len(present) > 1 else (present[0] if present else None)))
+
+
+def batch_axis_size(mesh: Any, axis: str = DATA_AXIS) -> int:
+    """Ranks the leading (batch) dim is sharded over under :func:`batch_sharding`
+    — the data×fsdp product when both axes are present."""
+    size = 1
+    for a in _batch_axes(mesh, axis):
+        size *= axis_size(mesh, a)
+    return size
+
+
+def wrapped_row_indices(n_rows: int, multiple: int):
+    """Row indices that wrap-fill ``n_rows`` up to a multiple of ``multiple``.
+
+    Returns ``None`` when already aligned. The fill repeats REAL rows
+    (wrap-around) instead of fabricating zero rows, so a ragged batch rescued
+    onto a mesh never trains or evaluates on fake data."""
+    if multiple <= 1 or n_rows % multiple == 0:
+        return None
+    target = ((n_rows // multiple) + 1) * multiple
+    return np.resize(np.arange(n_rows), target)
+
+
+def _tree_map(fn: Callable[..., Any], tree: Any, *rest: Any, is_leaf: Callable[[Any], bool] = lambda x: False) -> Any:
+    if not is_leaf(tree):
+        if isinstance(tree, dict):
+            return {k: _tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):
+            return type(tree)(_tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def shard_batch(batch: Any, mesh: Any, axis: str = DATA_AXIS) -> Any:
+    """This rank's rows of a host batch (a tree of tensors or numpy arrays),
+    sharded along the leading dim: what ``jax.device_put`` with
+    :func:`batch_sharding` lays on this rank's device."""
+    sharding = batch_sharding(mesh, axis)
+    return _tree_map(sharding.shard, batch)
+
+
+def logical_to_sharding(mesh: Any, *spec: Any) -> NamedSharding:
+    """``Spec(*spec)`` bound to ``mesh``, dropping absent axes."""
+    names = axis_names(mesh)
+    return NamedSharding(mesh, Spec(*(s if (s is None or s in names) else None for s in spec)))
+
+
+def named_sharding_tree(mesh: Any, spec_tree: Any) -> Any:
+    """Bind a :class:`Spec` tree to ``mesh`` as a matching
+    :class:`NamedSharding` tree (``param_shardings`` tables produce spec
+    trees; the engine binds them here)."""
+    return _tree_map(lambda spec: NamedSharding(mesh, spec), spec_tree, is_leaf=lambda x: isinstance(x, Spec))
+

@@ -2,8 +2,8 @@
 per-slot caches.
 
 Port of ``unionml_tpu/serving/continuous.py`` (``DecodeEngine``,
-``:166-2763``; ``ContinuousBatcher``, ``:2829-3732``) on one device. One
-decode step runs over a fixed set of slots; requests are inserted into free
+``:166-2763``; ``ContinuousBatcher``, ``:2829-3732``), on one device or
+tensor-parallel over a mesh (below). One decode step runs over a fixed set of slots; requests are inserted into free
 slots between steps and evicted when they finish.
 
 - The KV cache is a block POOL shared by all slots: ``(num_blocks, heads,
@@ -87,20 +87,44 @@ slots between steps and evicted when they finish.
   tickets to the fleet (:attr:`ContinuousBatcher.on_tickets_orphaned`,
   :meth:`ContinuousBatcher.adopt_ticket`).
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-mesh sharding.
+- Tensor parallelism (``mesh=``, ``continuous.py:300-329``): SPMD, one
+  process per card. Every rank builds the engine from the same whole model;
+  each serves its Megatron shard of it
+  (:func:`~unionml_tpu_torch.models.gpt.tensor_parallel`) over a pool and
+  cache of its own heads, so K1 and K4 run at ``num_heads / N`` heads, and
+  the collectives of the tensor axis (NCCL on the card, captured in the burst
+  graphs; gloo on the CPU) give every rank the same logits bit for bit. The
+  block tables, the radix index, the scheduler state and the sampling
+  generator are host state every rank holds identically, because every rank
+  makes the same calls in the same order: rank 0 of the mesh LEADS (each of
+  its public calls that changes slot or device state is sent over a gloo
+  side group before it runs: one small all-reduce, which also carries every
+  rank's outcome of the call before), and the other ranks
+  :meth:`DecodeEngine.follow`, replaying those calls until
+  :meth:`DecodeEngine.stop_followers` (a mesh of one rank has nobody to lead
+  and runs its calls as they come). So a ``ContinuousBatcher`` or
+  ``/generate`` app on rank 0 serves over the whole mesh; the batcher keeps
+  idle followers alive (:meth:`DecodeEngine.keep_alive`) and releases them
+  when it closes. A rank whose call raised where rank 0's did not (or the
+  reverse) ends every rank's run with ``MeshDivergence`` at the next
+  message; a rank that died ends the others' at their next collective,
+  within the process group's timeout.
 """
 
 import asyncio
 import contextlib
 import dataclasses
+import datetime
 import functools
+import pickle
 import threading
 import time
+import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unionml_tpu_torch import _graphs
 from unionml_tpu_torch._device import resolve_device
@@ -114,11 +138,14 @@ from unionml_tpu_torch.models.gpt import (
     init_block_tables,
     init_cache,
     init_slot_state,
+    kv_heads,
     kv_pool_bytes,
     slice_cache_blocks,
+    tensor_parallel,
 )
 from unionml_tpu_torch.ops.quant import quantize_blockwise
 from unionml_tpu_torch.ops.sampling import sample_logits, validate_sampling
+from unionml_tpu_torch.parallel.distributed import collective_timeout_s
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultPlan
 from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.scheduler import (
@@ -129,7 +156,8 @@ from unionml_tpu_torch.serving.scheduler import (
     class_name,
 )
 
-__all__ = ["ContinuousBatcher", "DecodeEngine", "PreemptedSlot", "SalvagedSlot", "StepEvent", "block_demand"]
+__all__ = ["ContinuousBatcher", "DecodeEngine", "MeshDivergence", "PreemptedSlot", "SalvagedSlot", "StepEvent",
+           "block_demand"]
 
 #: default prompt-prefill bucket lengths (right-padded)
 DEFAULT_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512)
@@ -142,10 +170,6 @@ def block_demand(prompt_len: int, budget: int, *, max_len: int, block_size: int)
     return -(-need // int(block_size))
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
-
-
 def on_engine_stream(method):
     """Run an engine entry point on the engine's own CUDA stream
     (:meth:`DecodeEngine._on_stream`)."""
@@ -156,6 +180,227 @@ def on_engine_stream(method):
             return method(self, *args, **kwargs)
 
     return guarded
+
+
+class MeshDivergence(RuntimeError):
+    """The ranks of a meshed engine no longer hold the same state: a led call
+    raised on some ranks and not on others. Every rank raises it, and the
+    engine refuses every later call."""
+
+
+#: the public calls of :class:`DecodeEngine` that change slot, device or
+#: radix-index state: rank 0 of a meshed engine sends each before it runs
+#: (op code: index + 2)
+_LED_CALLS = ("enable_prefix_cache", "add_request", "admit_many", "step", "cancel", "abort_all", "preempt",
+              "release_preempted", "take_salvage", "discard_salvage", "note_external_failure", "rebuild", "reset",
+              "generate")
+#: the leader's other messages: release the followers, or keep them waiting
+_STOP, _PING = 0, 1
+#: int arguments a message carries in its header (more, or others, are pickled)
+_PACKED = 4
+#: header: op, packed-argument count (-1: pickled), payload bytes, the
+#: packed arguments, then the sender's outcome of its last call and its negation
+_HEADER = 3 + _PACKED + 2
+#: a follower's share of the leader's fields: the MAX reduce keeps the leader's
+_NONE = -(2 ** 63)
+
+
+def leads(method):
+    """Make ``method`` a led call of a meshed engine (:class:`_MeshLead`); on
+    an unmeshed engine, or inside another led call, it runs as it is."""
+    name = method.__name__
+
+    @functools.wraps(method)
+    def led(self, *args, **kwargs):
+        lead = self._lead
+        if lead is None or lead.depth:
+            return method(self, *args, **kwargs)
+        return lead.run(self, name, method, args, kwargs)
+
+    led.leads = True
+    return led
+
+
+def _lead_calls(cls) -> None:
+    """Make the led calls ``cls`` defines (``_LED_CALLS``) lead; an override
+    in a subclass leads too, and its nested base call is not sent again."""
+    for name in _LED_CALLS:
+        method = cls.__dict__.get(name)
+        if method is not None and not getattr(method, "leads", False):
+            setattr(cls, name, leads(method))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Handed:
+    """A checkpoint crossing to the followers: its path of radix nodes is
+    each rank's own, so it travels as the handle under which every rank
+    registered that path when the call that made it returned."""
+
+    checkpoint: Any
+    handle: int
+
+
+def _outcome(error: Optional[BaseException]) -> int:
+    """A call's outcome as a number every rank computes alike: 0 for a
+    return, else a code of the exception's class."""
+    return 0 if error is None else (zlib.crc32(type(error).__name__.encode()) & 0x3FFFFFFF) + 1
+
+
+class _MeshLead:
+    """Rank 0 of a meshed engine leads and the other ranks follow.
+
+    ``group`` is a gloo group over the mesh's ranks, for host messages
+    whatever the card's backend, with the world's collective timeout. Each
+    led call costs one all-reduce (MAX) of a small int64 header before it
+    runs: the leader's op code and up to ``_PACKED`` int arguments (the
+    followers contribute ``_NONE``, so the leader's fields win), and every
+    rank's outcome of its previous call with that outcome negated; the
+    ranks agree iff the two maxima cancel, so a call that raised on some
+    ranks only ends every rank's run with :class:`MeshDivergence` at the
+    next message. The leader waits for each message before it runs its
+    call, so a follower that left on a divergence never leaves it inside a
+    collective the follower will not join. Other arguments follow as one
+    pickled broadcast. A leader idle for ``keepalive_s`` sends a no-op
+    (:meth:`keep_alive`), so a follower's wait never reaches the group's
+    timeout."""
+
+    def __init__(self, mesh: Any, timeout_s: float) -> None:
+        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+        self.group = dist.new_group(ranks, backend="gloo", timeout=datetime.timedelta(seconds=timeout_s))
+        self.keepalive_s = timeout_s / 4
+        self.leader = ranks[0]
+        self.rank = dist.get_rank()
+        #: led calls in progress on this rank (a nested one is not sent)
+        self.depth = 0
+        self.broken: Optional[str] = None
+        #: the leader released the followers (:meth:`stop`) and made no led
+        #: call since: another stop is a no-op, and nothing keeps them alive
+        self.stopped = False
+        #: this rank's last led call and its outcome, sent with the next message
+        self._last, self._outcome = "", 0
+        self._sent = time.monotonic()
+        #: the leader's id(path) -> (handle, path); a follower's handle -> path
+        self._paths: Dict[int, Any] = {}
+        self._handed = 0
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == self.leader
+
+    def _check(self) -> None:
+        if self.broken is not None:
+            raise MeshDivergence(self.broken)
+
+    def _exchange(self, op: int = _NONE, packed: Optional[Tuple[int, ...]] = None,
+                  payload: bytes = b"") -> Tuple[int, tuple, dict]:
+        """One message: the leader's op and arguments to every rank, every
+        rank's last outcome to all. A follower gets ``(op, args, kwargs)``."""
+        fields = [_NONE] * _HEADER
+        if self.is_leader:
+            fields[:3] = [op, -1 if packed is None else len(packed), len(payload)]
+            fields[3:3 + len(packed or ())] = packed or ()
+        outcome, self._outcome = self._outcome, 0
+        fields[-2:] = [outcome, -outcome]
+        header = torch.tensor(fields, dtype=torch.int64)
+        dist.all_reduce(header, op=dist.ReduceOp.MAX, group=self.group)
+        self._sent = time.monotonic()
+        values = header.tolist()
+        if values[-2] != -values[-1]:
+            self.broken = (f"rank {self.rank}'s {self._last}() {'raised' if outcome else 'returned'} where "
+                           "another rank's did not: the mesh's ranks no longer hold the same state")
+            raise MeshDivergence(self.broken)
+        op, count, size = values[:3]
+        if count >= 0:
+            return op, tuple(values[3:3 + count]), {}
+        if self.is_leader:
+            dist.broadcast(torch.frombuffer(bytearray(payload), dtype=torch.uint8), src=self.leader,
+                           group=self.group)
+            return op, (), {}
+        data = torch.empty(size, dtype=torch.uint8)
+        dist.broadcast(data, src=self.leader, group=self.group)
+        args, kwargs = self._decode(pickle.loads(data.numpy().tobytes()))
+        return op, args, kwargs
+
+    def run(self, engine: "DecodeEngine", name: str, method, args: tuple, kwargs: dict) -> Any:
+        """The leader's led call: send, then run."""
+        if not self.is_leader:
+            raise RuntimeError(f"rank {self.rank} follows rank {self.leader} of this meshed engine: "
+                               f"call follow(), not {name}()")
+        self._check()
+        packed = None
+        if not kwargs and len(args) <= _PACKED and all(type(a) is int and abs(a) < 2 ** 62 for a in args):
+            packed = tuple(args)
+        payload = b"" if packed is not None else pickle.dumps((self._encode(args), self._encode(kwargs)))
+        # after a stop the followers are to follow() again
+        self.stopped = False
+        self._exchange(2 + _LED_CALLS.index(name), packed, payload)
+        result, error = self._settle(name, lambda: method(engine, *args, **kwargs))
+        if error is not None:
+            raise error
+        return result
+
+    def follow(self, engine: "DecodeEngine") -> int:
+        """Replay the leader's calls until it stops; returns how many ran."""
+        calls = 0
+        while True:
+            self._check()
+            op, args, kwargs = self._exchange()
+            if op == _STOP:
+                self.stopped = True
+                return calls
+            if op == _PING:
+                continue
+            name = _LED_CALLS[op - 2]
+            # an error here the leader's outcome meets at the next message
+            self._settle(name, lambda: getattr(engine, name)(*args, **kwargs))
+            calls += 1
+
+    def stop(self) -> None:
+        if self.is_leader and self.broken is None and not self.stopped:
+            self.stopped = True
+            self._exchange(_STOP, ())
+
+    def keep_alive(self) -> None:
+        if (self.is_leader and self.broken is None and not self.stopped and not self.depth
+                and time.monotonic() - self._sent >= self.keepalive_s):
+            self._exchange(_PING, ())
+
+    def _settle(self, name: str, call) -> Tuple[Any, Optional[Exception]]:
+        self.depth += 1
+        try:
+            result, error = call(), None
+        except Exception as exc:
+            result, error = None, exc
+        finally:
+            self.depth -= 1
+        self._last, self._outcome = name, _outcome(error)
+        for item in result if isinstance(result, list) else [result]:
+            if isinstance(item, (PreemptedSlot, SalvagedSlot)):
+                key = id(item.path) if self.is_leader else self._handed
+                self._paths[key] = (self._handed, item.path) if self.is_leader else item.path
+                self._handed += 1
+        return result, error
+
+    def _encode(self, value: Any) -> Any:
+        if isinstance(value, (tuple, list)):
+            return type(value)(self._encode(v) for v in value)
+        if isinstance(value, dict):
+            return {k: self._encode(v) for k, v in value.items()}
+        if isinstance(value, (PreemptedSlot, SalvagedSlot)):
+            entry = self._paths.pop(id(value.path), None)
+            if entry is None:
+                raise ValueError("a checkpoint this meshed engine did not hand out, or one already released")
+            return _Handed(dataclasses.replace(value, path=None), entry[0])
+        return value
+
+    def _decode(self, value: Any) -> Any:
+        if isinstance(value, (tuple, list)):
+            return type(value)(self._decode(v) for v in value)
+        if isinstance(value, dict):
+            return {k: self._decode(v) for k, v in value.items()}
+        if isinstance(value, _Handed):
+            return dataclasses.replace(value.checkpoint, path=self._paths.pop(value.handle))
+        return value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,8 +516,11 @@ class DecodeEngine:
     :param quantize: ``"int8"`` serves weight-only int8 decoder kernels (per
         output channel, :mod:`unionml_tpu_torch.ops.quant`) from the engine's
         own copy of the model; the caller's model is not modified.
-    :param mesh: not ported yet (M12); anything but ``None`` raises
-        ``NotImplementedError``.
+    :param mesh: a ``DeviceMesh`` (:func:`~unionml_tpu_torch.parallel.mesh.make_mesh`)
+        whose ``tensor`` axis the engine serves tensor-parallel over; every
+        rank of the mesh builds the engine with the same arguments, rank 0
+        drives it and the others call :meth:`follow`. ``None`` (default)
+        serves on one device.
     :param device: ``"cuda"`` (default; raises without a CUDA device) or
         ``"cpu"`` for the plain PyTorch path.
     """
@@ -303,13 +551,16 @@ class DecodeEngine:
         mesh: Any = None,
         device="cuda",
     ) -> None:
+        #: rank 0's lead over a meshed engine's ranks (set last: the
+        #: constructor's own calls run on every rank alike)
+        self._lead: Optional[_MeshLead] = None
         self.device = resolve_device(device)
         #: the engine's own CUDA stream (None on the CPU): every entry point
         #: issues its device work there, so a fetch waits for this engine's
         #: bursts only, not for another engine's work on the same card
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        if mesh is not None:
-            raise _not_ported("mesh", "M12")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"mesh is over {mesh.device_type} devices, engine device is {self.device}")
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
         config = model.config
@@ -332,8 +583,17 @@ class DecodeEngine:
             model, self._variables = quantize_model(model)
         else:
             self._variables = dict(model.named_parameters())
+        #: the mesh the engine is tensor-parallel over (None: one device); the
+        #: weights it serves are then this rank's shards
+        self.mesh = mesh
+        if mesh is not None:
+            # quantize first, then shard: the int8 codes and scales split as
+            # their kernel does (continuous.py:300-303)
+            model, self._variables = tensor_parallel(model, mesh)
         self._model = model
         self._config = config
+        #: heads of this rank's KV pool and caches
+        self._kv_heads = kv_heads(model)
         #: paged KV pool (default), or dense per-slot caches (``paged=False``)
         self.paged = bool(paged)
         self.num_slots = int(num_slots)
@@ -489,6 +749,46 @@ class DecodeEngine:
             self._init_device_state()
         if prefix_cache_blocks:
             self.enable_prefix_cache(prefix_cache_blocks, cache_generated=prefix_cache_generated)
+        if mesh is not None and mesh.mesh.numel() > 1:
+            # a mesh of one rank has no follower to tell or agree with
+            self._lead = _MeshLead(mesh, collective_timeout_s())
+
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        super().__init_subclass__(**kwargs)
+        _lead_calls(cls)
+
+    def follow(self) -> int:
+        """On a rank other than rank 0 of a meshed engine: replay rank 0's led
+        calls, in order, until rank 0 calls :meth:`stop_followers`; returns
+        the number replayed. Raises :class:`MeshDivergence` when this rank's
+        call and rank 0's disagree, and the process group's error when a
+        rank is gone."""
+        if self._lead is None or self._lead.is_leader:
+            raise RuntimeError("follow() runs on the ranks that follow rank 0 of a meshed engine")
+        return self._lead.follow(self)
+
+    def stop_followers(self) -> None:
+        """On rank 0 of a meshed engine: end the other ranks' :meth:`follow`
+        (a no-op on an unmeshed engine, or once they were released). Raises
+        :class:`MeshDivergence` when the last led call diverged."""
+        if self._lead is not None:
+            self._lead.stop()
+
+    @property
+    def keepalive_s(self) -> Optional[float]:
+        """How long rank 0 of a meshed engine may go without a led call before
+        it must call :meth:`keep_alive` (a quarter of the collective timeout);
+        None on an unmeshed engine."""
+        return None if self._lead is None else self._lead.keepalive_s
+
+    def keep_alive(self) -> None:
+        """On rank 0 of a meshed engine idle for :attr:`keepalive_s`: send the
+        followers a no-op, so their wait never reaches the side group's
+        timeout (:class:`ContinuousBatcher` calls it whenever it idles). A
+        no-op otherwise; raises :class:`MeshDivergence` when the last led
+        call diverged."""
+        if self._lead is not None:
+            self._lead.keep_alive()
 
     def _init_device_state(self) -> None:
         """(Re)allocate the device state: the paged pool and its tables (or
@@ -506,12 +806,12 @@ class DecodeEngine:
         if self.paged:
             self._pool = init_block_pool(
                 config, self.pool_blocks, self.block_size, kv_quantize=self.kv_quantize,
-                kv_quantize_skip_layers=self.kv_quantize_skip_layers, device=dev,
+                kv_quantize_skip_layers=self.kv_quantize_skip_layers, device=dev, heads=self._kv_heads,
             )
             self._tables = init_block_tables(self.num_slots, self.max_len, self.block_size, self._scratch_block,
                                              device=dev)
         else:
-            self._cache = init_cache(config, self.num_slots, self.max_len, device=dev)
+            self._cache = init_cache(config, self.num_slots, self.max_len, device=dev, heads=self._kv_heads)
         self._lens = torch.zeros((self.num_slots,), dtype=torch.int32, device=dev)  # K4 takes int32 positions
         self._last_logits = torch.zeros((self.num_slots, config.vocab_size), dtype=torch.float32, device=dev)
         self._active_dev, self._remaining_dev = init_slot_state(self.num_slots, device=dev)
@@ -574,7 +874,8 @@ class DecodeEngine:
             self.prefix_cache = PrefixCache(int(num_blocks), block_size, telemetry=self._telemetry)
             self.prefix_cache_generated = bool(cache_generated)
             self.block_size = block_size
-            self._pool = init_block_pool(self._config, int(num_blocks), block_size, device=self.device)
+            self._pool = init_block_pool(self._config, int(num_blocks), block_size, device=self.device,
+                                         heads=self._kv_heads)
             return
         width = block_table_width(self.max_len, block_size)
         pool_blocks = self.pool_blocks
@@ -1015,7 +1316,7 @@ class DecodeEngine:
         logits at its last REAL token."""
         model = self._model if model is None else model
         rows, bucket = prompt_ids.shape
-        local_cache = init_cache(model.config, rows, bucket, device=self.device)
+        local_cache = init_cache(model.config, rows, bucket, device=self.device, heads=kv_heads(model))
         with torch.no_grad():  # the model's forward also trains; serving keeps no graph
             logits, local_cache = model(prompt_ids, cache=local_cache, position=0)
         idx = torch.clamp(lengths - 1, 0, bucket - 1)
@@ -1259,7 +1560,8 @@ class DecodeEngine:
         orphaned nodes; releasing or unpinning them later is harmless."""
         self.prefix_cache.clear()
         self._slot_path.clear()
-        self._pool = init_block_pool(self._config, self.prefix_cache.num_blocks, self.block_size, device=self.device)
+        self._pool = init_block_pool(self._config, self.prefix_cache.num_blocks, self.block_size, device=self.device,
+                                     heads=self._kv_heads)
 
     def _capture_generated(self, slot: int) -> None:
         """At retirement (``prefix_cache_generated``): index the slot's whole
@@ -1300,7 +1602,7 @@ class DecodeEngine:
             elif matched:
                 local_cache = self._restore(path, padded_len)
             else:
-                local_cache = init_cache(self._config, 1, padded_len, device=self.device)
+                local_cache = init_cache(self._config, 1, padded_len, device=self.device, heads=self._kv_heads)
         except Exception:
             if path:
                 self.prefix_cache.release(list(path))
@@ -1961,6 +2263,9 @@ class DecodeEngine:
         return out
 
 
+_lead_calls(DecodeEngine)
+
+
 class _FutureSink:
     """Buffers emitted tokens; resolves an asyncio future with the full list."""
 
@@ -2102,6 +2407,11 @@ class ContinuousBatcher:
         self.on_tickets_orphaned: Optional[Callable[[List[Ticket]], Sequence[Ticket]]] = None
         if supervisor is not None:
             supervisor.attach(engine)
+        if engine.keepalive_s is not None:
+            # a meshed engine's followers wait from now on: the worker's idle
+            # loop keeps them alive until the first request and between
+            with self._lock:
+                self._ensure_worker()
 
     @property
     def engine(self) -> DecodeEngine:
@@ -2412,7 +2722,7 @@ class ContinuousBatcher:
             slots = engine.admit_many([(t.prompt, t.budget, self._spec_sampling(t)) for t in batch])
         except Exception as exc:
             logger.exception("admission failed")
-            if engine.failure_count != failures:
+            if engine.failure_count != failures or isinstance(exc, MeshDivergence):
                 self._handle_engine_failure(exc, pending=batch)
                 return False
             self._dispatch(engine.take_pending_events())
@@ -2426,7 +2736,7 @@ class ContinuousBatcher:
                 try:
                     (slot,) = engine.admit_many([(ticket.prompt, ticket.budget, self._spec_sampling(ticket))])
                 except Exception as one_exc:
-                    if engine.failure_count != failures:
+                    if engine.failure_count != failures or isinstance(one_exc, MeshDivergence):
                         self._handle_engine_failure(one_exc, pending=[ticket])
                         return False
                     self._dispatch(engine.take_pending_events())
@@ -2494,6 +2804,28 @@ class ContinuousBatcher:
         self._slot_meta.clear()
         self._engine.abort_all()
 
+    def _fail_diverged(self, exc: MeshDivergence, pending: Sequence[Ticket]) -> None:  # graftlint: off-path (error path)
+        """The meshed engine's ranks diverged and it refuses every call: the
+        requests in flight, ``pending`` and the queue fail (nothing salvages
+        or resumes; the pins go with the engine), and a supervisor ends
+        ``failed``, each rebuild meeting the same refusal."""
+        failure = EngineFailure(f"{type(exc).__name__}: {exc}", reason="mesh_diverged", retryable=False)
+        for slot, sink in list(self._sinks.items()):
+            meta = self._slot_meta.pop(slot, None)
+            if meta is not None:
+                self._tel_end(meta, "error", failure.reason)
+            self._deliver(sink, "fail", failure)
+        self._sinks.clear()
+        self._slot_meta.clear()
+        with self._lock:
+            queued = self.scheduler.drain()
+        for ticket in list(pending) + queued:
+            self._tel_end(ticket, "error", failure.reason)
+            self._deliver(ticket.sink, "fail", failure)
+        if self.supervisor is not None:
+            self.supervisor.note_failure(exc)
+            self.supervisor.run_rebuild(self._engine.rebuild)
+
     # owns: kv-pin
     def _handle_engine_failure(self, exc: BaseException, pending: Sequence[Ticket] = ()) -> None:  # graftlint: off-path (error recovery)
         """Recover from an engine failure (``continuous.py:3436-3567``).
@@ -2511,8 +2843,11 @@ class ContinuousBatcher:
         popped tickets of a failed admission; they requeue untouched.
         """
         engine = self._engine
-        engine.note_external_failure()
         sup = self.supervisor
+        if isinstance(exc, MeshDivergence):
+            self._fail_diverged(exc, pending)
+            return
+        engine.note_external_failure()
         if sup is None:
             engine.discard_salvage()
             failure = _as_engine_failure(exc)
@@ -2629,8 +2964,14 @@ class ContinuousBatcher:
                 with self._lock:
                     if self.scheduler.depth or self._closed:
                         continue
-                # bounded: the wait doubles as the queued-deadline tick
+                # bounded: the wait doubles as the queued-deadline tick and
+                # a meshed engine's keep-alive (its followers wait meanwhile)
                 self._work.wait(timeout=0.5)
+                try:
+                    engine.keep_alive()
+                except Exception as exc:  # a follower is gone, or the last call diverged
+                    logger.exception("meshed engine keep-alive failed")
+                    self._handle_engine_failure(exc)
                 continue
             # full house and work queued: shorter bursts readmit a retiring
             # slot within a few steps, without giving up the lookahead
@@ -2690,3 +3031,5 @@ class ContinuousBatcher:
         self._drain_orphans()
         if self.supervisor is not None:
             self.supervisor.close()
+        # a meshed engine's followers return from follow() (a no-op unmeshed)
+        self._engine.stop_followers()

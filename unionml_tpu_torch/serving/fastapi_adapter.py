@@ -46,7 +46,8 @@ def attach_fastapi(
     from fastapi.responses import HTMLResponse
 
     if mesh is not None or param_specs is not None:
-        raise NotImplementedError("mesh / param_specs (a mesh-resident predictor) is not ported yet (ROADMAP: M12)")
+        raise NotImplementedError("mesh / param_specs (a mesh-resident predictor) is not ported yet "
+                                  "(ROADMAP: M12, the mesh-resident BERT predictor)")
     if unsupported:
         logger.warning("attach_fastapi ignoring unsupported serving options: %s", sorted(unsupported))
 

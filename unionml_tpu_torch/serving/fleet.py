@@ -393,9 +393,10 @@ class Router:
 def split_devices(devices: Sequence[Any], n: int) -> List[List[Any]]:
     """Split ``devices`` (``torch.device``\\ s, in order) into ``n`` equal
     contiguous groups, one per replica: the counterpart of JAX's
-    ``split_mesh`` (``fleet.py:393-420``) until the port has a mesh, with its
-    errors. Replicas that share one card are built with ``device="cuda"``
-    each instead."""
+    ``split_mesh`` (``fleet.py:393-420``), with its errors; replicas over
+    sub-meshes of a ``DeviceMesh`` are not ported yet (ROADMAP: M12, the
+    fleet on sub-meshes). Replicas that share one card are built with
+    ``device="cuda"`` each instead."""
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
     devices = list(devices)

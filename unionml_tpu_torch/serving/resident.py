@@ -109,7 +109,8 @@ class ResidentPredictor:
         device: Any = "cuda",
     ):
         if mesh is not None or param_specs is not None:
-            raise NotImplementedError("mesh / param_specs (a mesh-resident predictor) is not ported yet (ROADMAP: M12)")
+            raise NotImplementedError("mesh / param_specs (a mesh-resident predictor) is not ported yet "
+                                      "(ROADMAP: M12, the mesh-resident BERT predictor)")
         self._model = model
         self._device = resolve_device(device)
         self._buckets = tuple(sorted(buckets))

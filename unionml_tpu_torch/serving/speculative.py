@@ -32,8 +32,10 @@ Behind ``ContinuousBatcher`` a request's class sets its speculation default
 through the same SLO scheduler. With telemetry, each round feeds
 ``unionml_spec_proposed_total``/``unionml_spec_accepted_total``, a
 ``speculation`` span per armed slot, the per-class acceptance gauge and the
-mean γ. Not ported here (raising ``NotImplementedError`` naming its ROADMAP
-item where it is reachable): mesh sharding.
+mean γ. With ``mesh=`` (``speculative.py:144-150``, ``:367-395``) the target
+is tensor-parallel as in :class:`DecodeEngine` and the draft is whole on
+every rank, which proposes the same tokens from the same logits; a round's
+collectives are the target's verify's, captured in the round's graph.
 """
 
 import asyncio
