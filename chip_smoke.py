@@ -435,6 +435,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the split is below 1e-2; rank 0's burst meshed against unmeshed. On one
    card the phase prints that this arm did not run, and why.
 
+23. sharded training and the meshed predictor, in a world of one rank over
+   NCCL in this process, at BERT-base's full width (12 layers, d 768, 12
+   heads, vocab 30522, seeded weights, B64 S128, kv_lens 16..128 as phase
+   2's). The main path: phase 11's app whose trainer runs ``fit(mesh=
+   {"fsdp": 1}, param_spec=param_shardings)`` through ``Model.train`` (2
+   steps, FSDP2 over one rank: one shard holds every parameter); (c)
+   ``fit(checkpoint_dir=...)`` under that mesh and a fresh state resumed
+   from its checkpoint, bitwise the same 2 + 2 steps uninterrupted; (d) the
+   trained state behind ``/predict`` through what ``serving_app(mesh=
+   {"data": 1, "tensor": 1}, param_specs=param_shardings)`` builds
+   (``build_predict_route``, driven through ``predict_answer``), its logits
+   bitwise the unmeshed ``ResidentPredictor``'s, a graph per bucket with
+   the tensor axis's collectives in it, replay ms beside eager ms. K1-K3's
+   launches of these ride the kernels line as ``launches_sharded_training``
+   (with (a)'s). (a) 3 steps under ``{"data": 1}``, ``{"fsdp": 1}`` and
+   ``{"data": 1, "tensor": 1}`` against the unmeshed steps, f32 and bf16:
+   bitwise, or else the reason printed and the f32 (1e-4 of each leaf's
+   largest magnitude) and bf16 (loss 1e-2, ``grad_norm`` 2 %) gates; a bf16
+   step's wall and device ms per mesh. (b) K1 (``kv_lens``), K2 and K3 at a
+   rank's heads (H 6/4/3 at B64) and a rank's rows (B 32/16 at H12) against
+   their plain versions, with ms, bound and share. (e) The rendered
+   ``data-parallel`` template trains on the card. A world of one rank
+   exchanges nothing: its all-reduces are over one rank and FSDP2 holds the
+   whole parameter as its one shard. Worlds of 2 and 4 ranks (spawned, a
+   card each) run (a) and (d) only where the machine has that many cards.
+
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
 launches its graph recorded. A count is thus the launches that ran: eager
@@ -6041,6 +6067,531 @@ def report_tensor_parallel(tp: dict, name_limit: str) -> None:
     print(f"phase 22 launches {tp['launches']}; phase 22 took {tp['s']:.1f} s ({parts})")
 
 
+# ---------------------------------------------------------- sharded training
+
+ST_STEPS = 3  # train steps per arm of (a)
+ST_MESHES = ({"data": 1}, {"fsdp": 1}, {"data": 1, "tensor": 1})
+ST_HEADS = (6, 4, 3)  # BERT-base's heads per rank on tensor axes of 2, 3 and 4
+ST_BATCHES = (32, 16)  # a rank's rows of the B64 batch on batch axes of 2 and 4
+ST_ROWS = 2 * BERT_BATCH  # the app's reader rows: one epoch of two batches
+ST_BUCKETS, ST_SEQ_BUCKETS = (4, 8), (64, 128)
+ST_REQUESTS = 6
+ST_DIR = Path(__file__).resolve().parent / "build" / "sharded_training"
+
+
+def st_specs(state, mesh):
+    """BERT's ``param_shardings`` over ``mesh``'s axes for ``state``'s model."""
+    from unionml_tpu_torch.models import bert
+    from unionml_tpu_torch.parallel.mesh import axis_names
+
+    return bert.param_shardings(dict(state.model.named_parameters()), axis_names(mesh))
+
+
+def st_whole(state) -> dict:
+    """The whole state (params, mu, nu), gathered from its shards on the
+    device (a copy: the state may train on)."""
+    layout = state.layout
+    whole = {g: [(t if layout is None else layout.gather(i, t)).detach().clone()
+                 for i, t in enumerate(getattr(state, g))] for g in ("params", "mu", "nu")}
+    return {**whole, "names": list(state.names), "lr_sum": sum(state.learning_rate_at(t) for t in range(state.step))}
+
+
+def st_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(x, y) for g in ("params", "mu", "nu") for x, y in zip(a[g], b[g]))
+
+
+def world_step_profile(fn, steps: int, top: int = 3) -> dict:
+    """``step_profile``'s numbers for a world's rank 0: every rank times
+    ``steps`` steps and runs ``steps`` more, which rank 0 alone runs inside
+    one profiler session (profilers in several processes at once left a
+    world hanging on four cards). No pad and no retake: a retake would run
+    rank 0's collectives more often than the others'. Other ranks report
+    their wall ms only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    profiled = dist.get_rank() == 0
+    with profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext() as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    if not profiled:
+        return {"wall_ms_per_step": wall_ms}
+    by_name = {name: us / 1e3 / steps for name, us in _kernel_us(prof).items()}
+    dev_ms = sum(by_name.values())
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+            "device_idle_share": 1.0 - dev_ms / wall_ms if wall_ms else None,
+            "top_kernels_ms_per_step": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def st_steps(config, params, device, mesh, batch, profile: bool = False, profiler=None) -> tuple:
+    """``ST_STEPS`` train steps of BERT from ``params`` (meshed by
+    ``param_shardings`` when ``mesh`` is given): the metrics of each step,
+    the whole state after them, and (``profile``) the ``step_profile`` (or
+    ``profiler``) of 3 more steps."""
+    from unionml_tpu_torch.models import make_classifier_train_step
+
+    state = bert_state(config, params, device)
+    spec = st_specs(state, mesh) if mesh is not None else None
+    step = make_classifier_train_step(mesh=mesh, param_spec=spec, input_signature=BERT_SIG)
+    history = []
+    for _ in range(ST_STEPS):
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    whole = st_whole(state)
+    timing = None
+    if profile and device.type == "cuda":
+        holder = [state]
+
+        def one():
+            holder[0], _ = step(holder[0], batch)
+
+        timing = (profiler or step_profile)(one, 3, top=3)
+        del holder
+    del state, step
+    torch.cuda.empty_cache()
+    return history, whole, timing
+
+
+def st_gate(label: str, dtype, got, want) -> dict:
+    """Bitwise, or else the existing gates with the reason printed: f32 each
+    leaf within 1e-4 of its largest magnitude; bf16 the loss within 1e-2
+    relative and ``grad_norm`` within 2 % at every step."""
+    (hist, whole), (want_hist, want_whole) = got[:2], want[:2]
+    if hist == want_hist and st_equal(whole, want_whole):
+        return {"bitwise": True}
+    worst = max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                for x, y in zip(whole["params"], want_whole["params"]))
+    print(f"sharded training {label} {dtype}: not bitwise the unmeshed steps (the gathered state's worst leaf "
+          f"differs by {worst:.3e} of its largest magnitude); held to the f32/bf16 gates instead")
+    if dtype == torch.float32 and worst > 1e-4:
+        raise AssertionError(f"sharded training {label} f32: a leaf differs by {worst:.3e} of its largest magnitude")
+    if dtype == torch.bfloat16:
+        compare_first_steps(hist, want_hist)
+    return {"bitwise": False, "worst_relative": worst}
+
+
+def st_meshes(device, config, params, batch, launches) -> dict:
+    """(a): BERT-base at full width, ``ST_STEPS`` steps under each mesh of
+    ``ST_MESHES`` (one rank, over NCCL) against the unmeshed steps, f32 and
+    bf16; the bf16 arms' step wall and device ms over 3 more steps."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.parallel import make_mesh
+
+    out, timings = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(config, dtype=dtype)
+        bf16 = dtype == torch.bfloat16
+        want = st_steps(cfg, params, device, None, batch, profile=bf16)
+        timings["unmeshed"] = want[2]
+        for axes in ST_MESHES:
+            mesh = make_mesh(axes, device=device)
+            kernels.reset_launches()
+            got = st_steps(cfg, params, device, mesh, batch, profile=bf16)
+            _launch_sum(launches, kernels.launches)
+            label = json.dumps(axes)
+            timings[label] = got[2]
+            out[f"{label} {dtype}"] = {**st_gate(label, dtype, got, want), "loss": got[0][-1]["loss"],
+                                       "grad_norm": got[0][-1]["grad_norm"]}
+            del got
+        del want
+        torch.cuda.empty_cache()
+    out["step_profiles"] = {k: v for k, v in timings.items() if v is not None}
+    return out
+
+
+def st_local_kernels(device, lens, launches) -> list:
+    """(b): K1 (``kv_lens``), K2 and K3 at BERT-base's shape at a rank's heads
+    (B64, H 6/4/3) and a rank's rows (H12, B 32/16) against their plain
+    versions, timed with their bounds (``time_bert_kernels``)."""
+    records = []
+    for H in ST_HEADS:
+        records += time_bert_kernels(device, lens, launches, H=H)
+    for B in ST_BATCHES:
+        records += time_bert_kernels(device, lens[:B], launches)
+    return records
+
+
+def build_st_app(config, params, device, mesh):
+    """Phase 11's BERT app (``build_bert_app``) whose trainer runs ``fit``
+    over ``mesh`` with BERT's ``param_shardings``, and whose predictor
+    returns the f32 logits."""
+    from unionml_tpu_torch.models import fit, make_classifier_eval_step
+
+    dataset, model = build_bert_app(config, params, device, logits=True)
+
+    @model.trainer
+    def trainer(state, features: torch.Tensor, targets: torch.Tensor, *, num_steps: int = 2,
+                batch_size: int = BERT_BATCH, checkpoint_dir: str = "", checkpoint_every: int = 2):
+        data = {k: v.cpu().numpy() for k, v in {**features, **targets}.items()}
+        return fit(state, data, batch_size=batch_size, num_steps=num_steps, input_signature=BERT_SIG, mesh=mesh,
+                   param_spec=st_specs(state, mesh), checkpoint_dir=checkpoint_dir or None,
+                   checkpoint_every=checkpoint_every, log_every=1).state
+
+    @model.evaluator(jit=False)  # eager, as the bert-finetune template's: no capture to try and drop
+    def evaluator(state, features: torch.Tensor, targets: torch.Tensor) -> float:
+        metrics = make_classifier_eval_step(BERT_SIG)(state, {**features, **targets})
+        return float(metrics["accuracy"])
+
+    return dataset, model
+
+
+def st_serve(model, plain, mesh, device, requests) -> dict:
+    """(d): what ``serving_app(mesh=..., param_specs=...)`` builds for
+    ``/predict`` (``build_predict_route``), driven through the route's plain
+    function (``predict_answer``): the logits of every request against the
+    unmeshed ``ResidentPredictor``'s, and one bucket's replay ms beside the
+    same padded request run eagerly."""
+    from unionml_tpu_torch.serving import ResidentPredictor
+    from unionml_tpu_torch.serving.app import build_predict_route, predict_answer
+    from unionml_tpu_torch.serving.resident import to_host
+
+    specs = st_specs(model.artifact.model_object, mesh)
+    predictor, batcher = build_predict_route(model, mesh=mesh, param_specs=specs, buckets=ST_BUCKETS,
+                                             seq_buckets=ST_SEQ_BUCKETS, example_features=requests[0][:1],
+                                             device=device)
+    predictor.setup()
+
+    async def answers():
+        try:
+            return [await predict_answer({"features": rows}, model, predictor, batcher) for rows in requests]
+        finally:
+            batcher.close()
+
+    got = asyncio.run(answers())
+    want = [plain.predict(features=rows) for rows in requests]
+    for (status, body), ref, rows in zip(got, want, requests):
+        if status != 200:
+            raise AssertionError(f"meshed /predict answered {status}: {body}")
+        if not np.array_equal(np.asarray(body, dtype=np.float32), ref.astype(np.float32)):
+            raise AssertionError(f"meshed /predict logits differ from the unmeshed predictor's for {len(rows)} rows: "
+                                 f"max |diff| {float(np.abs(np.asarray(body) - ref).max()):.3e}")
+    if predictor.eager_fallbacks or (device.type == "cuda" and not predictor.graph_stats()):
+        raise AssertionError(f"meshed predictor: {predictor.eager_fallbacks} eager fallbacks, graphs "
+                             f"{predictor.graph_stats()}")
+    rows = requests[1]
+    padded, n, _ = predictor._pad_to_buckets(model.dataset.get_features(rows))
+    timing = {"replay": percentiles(lambda: predictor.predict(features=rows), 10),
+              "eager": percentiles(lambda: to_host(predictor._eager(predictor._device_model_object, padded)), 10)}
+    heads = predictor._device_model_object.model.bert.encoder.layers[0].attention.tp.heads
+    predictor.close()
+    return {"requests": len(requests), "rows": sum(len(r) for r in requests), "graphs": len(predictor.graph_stats()),
+            "timing": timing, "rows_timed": len(rows), "heads": heads}
+
+
+def st_app(device, config, params, launches) -> dict:
+    """The main path: the app's ``Model.train`` runs ``fit`` under
+    ``{"fsdp": 1}`` (FSDP2 over one rank); (c) ``fit(checkpoint_dir=...)``
+    under that mesh, then a fresh state resumed from its checkpoint, bitwise
+    the same steps uninterrupted; (d) the trained state served under
+    ``{"data": 1, "tensor": 1}``."""
+    import shutil
+
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import fit
+    from unionml_tpu_torch.parallel import make_mesh
+    from unionml_tpu_torch.serving import ResidentPredictor
+
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    ST_DIR.mkdir(parents=True)
+    fsdp = make_mesh({"fsdp": 1}, device=device)
+    _, model = build_st_app(config, params, device, fsdp)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trained, metrics = model.train(trainer_kwargs={"num_steps": 2})
+    train_launches = dict(kernels.launches)
+
+    t_train = time.perf_counter()
+    # (c) checkpoints under the mesh, and a resume
+    data = bert_data(config, ST_ROWS, 0)
+    ckpt = str(ST_DIR / "checkpoints")
+    kwargs = dict(batch_size=BERT_BATCH, num_steps=2, input_signature=BERT_SIG, mesh=fsdp, log_every=100)
+
+    def fresh():
+        state = model._init_model_object({})
+        return state, st_specs(state, fsdp)
+
+    state, spec = fresh()
+    straight = fit(state, data, param_spec=spec, **kwargs).state
+    straight = fit(straight, data, **kwargs).state  # laid out already: the same mesh continues it
+    want = st_whole(straight)
+    del state, straight
+    state, spec = fresh()
+    fit(state, data, param_spec=spec, checkpoint_dir=ckpt, checkpoint_every=2, **kwargs)  # one save, at step 2
+    state, spec = fresh()
+    resumed = fit(state, data, param_spec=spec, checkpoint_dir=ckpt, checkpoint_every=100, **kwargs)
+    bitwise = resumed.steps == 4 and st_equal(st_whole(resumed.state), want)
+    if not bitwise:
+        raise AssertionError(f"resume under {{'fsdp': 1}}: ended at step {resumed.steps}; bitwise equal to the "
+                             "uninterrupted steps: False")
+    del state, resumed, want
+    torch.cuda.empty_cache()
+    t_resume = time.perf_counter()
+
+    # (d) the trained state behind /predict
+    kernels.reset_launches()
+    tensor = make_mesh({"data": 1, "tensor": 1}, device=device)
+    _, plain_app = build_bert_app(config, params, device, logits=True)
+    plain_app.artifact = model.artifact
+    plain = ResidentPredictor(plain_app, buckets=ST_BUCKETS, seq_buckets=ST_SEQ_BUCKETS, warmup=False, device=device)
+    requests = app_requests(config.vocab_size)[:ST_REQUESTS]
+    serve = st_serve(model, plain, tensor, device, requests)
+    serve_launches = dict(kernels.launches)
+    _launch_sum(launches, train_launches)
+    _launch_sum(launches, serve_launches)
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    parts = {"train": t_train - t0, "resume": t_resume - t_train, "serve": time.perf_counter() - t_resume}
+    return {"metrics": metrics, "train_launches": train_launches, "serve_launches": serve_launches,
+            "resume_bitwise": bitwise, "serve": serve, "trained_step": trained.step, "parts_s": parts}
+
+
+def st_template(device) -> dict:
+    """(e): the rendered ``data-parallel`` template trains on the card (a
+    world of one rank: the phase's)."""
+    import importlib.util
+    import os
+
+    from unionml_tpu_torch.templates import render_template
+
+    target = ST_DIR / "template"
+    import shutil
+
+    shutil.rmtree(target, ignore_errors=True)
+    target.mkdir(parents=True)
+    app_dir = render_template("data-parallel", "dp_app", target)
+    os.environ["UNIONML_DEVICE"] = device.type
+    spec = importlib.util.spec_from_file_location("st_dp_app", app_dir / "app.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["st_dp_app"] = module
+    spec.loader.exec_module(module)
+    t0 = time.perf_counter()
+    _, metrics = module.model.train(trainer_kwargs={"num_epochs": 2, "batch_size": 1024})
+    if not all(0.0 <= v <= 1.0 for v in metrics.values()):
+        raise AssertionError(f"data-parallel template: metrics {metrics}")
+    shutil.rmtree(target, ignore_errors=True)
+    return {"metrics": metrics, "s": time.perf_counter() - t0}
+
+
+def _st_rank(rank: int, world: int, port: int, config, out_dir: str) -> None:
+    """One rank of a multi-card world (spawned): (a) under ``{"data": world}``,
+    ``{"fsdp": world}`` and ``{"data": world / 2, "tensor": 2}`` at f32 and
+    bf16 (rank 0 compares with the unmeshed steps on its own card), and (d)
+    the meshed predictor under ``{"data": world / 2, "tensor": 2}``."""
+    import os
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import bert_random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh, shard_batch
+    from unionml_tpu_torch.serving import ResidentPredictor
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = torch.device("cuda", rank)
+    # a collective left waiting (a rank that took another path) fails the world within 4 minutes
+    initialize_distributed(f"localhost:{port}", world, rank, strict=True, device="cuda", timeout_s=240)
+    params = bert_random_params(config, seed=0)
+    full = bert_data(config, BERT_BATCH, 0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        # dropout off: ranks with other rows draw other masks than one card's
+        cfg = dataclasses.replace(config, dtype=dtype, hidden_dropout=0.0)
+        for axes in ({"data": world}, {"fsdp": world}, {"data": world // 2, "tensor": 2}):
+            mesh = make_mesh(axes, device="cuda")
+            local = {k: torch.from_numpy(v).to(device) for k, v in shard_batch(full, mesh).items()}
+            sync(device)
+            t0 = time.perf_counter()
+            hist, whole, timing = st_steps(cfg, params, device, mesh, local, profile=True,
+                                           profiler=world_step_profile)
+            sync(device)
+            out[f"{json.dumps(axes)} {dtype}"] = {"history": hist, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                                                  "step": timing}
+            if rank == 0:
+                out[f"{json.dumps(axes)} {dtype}"]["whole"] = {
+                    n: t.cpu().numpy() for n, t in zip(whole["names"], whole["params"])}
+                out["lr_sum"] = whole["lr_sum"]
+            dist.barrier()
+        if rank == 0:
+            batch = {k: torch.from_numpy(v).to(device) for k, v in full.items()}
+            sync(device)
+            t0 = time.perf_counter()
+            hist, whole, timing = st_steps(cfg, params, device, None, batch, profile=True,
+                                           profiler=world_step_profile)
+            sync(device)
+            out[f"unmeshed {dtype}"] = {"history": hist, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                                        "step": timing,
+                                        "whole": {n: t.cpu().numpy() for n, t in zip(whole["names"], whole["params"])}}
+        dist.barrier()
+    mesh = make_mesh({"data": world // 2, "tensor": 2}, device="cuda")
+    cfg = dataclasses.replace(config, dtype=torch.float32)  # f32 logits: phase 11's 1e-4 holds them
+    _, app = build_bert_app(cfg, params, device, logits=True)
+    app.artifact = types.SimpleNamespace(model_object=bert_state(cfg, params, device))
+    specs = st_specs(app.artifact.model_object, mesh)
+    predictor = ResidentPredictor(app, buckets=ST_BUCKETS, seq_buckets=ST_SEQ_BUCKETS, warmup=False, mesh=mesh,
+                                  param_specs=specs, device=device)
+    requests = app_requests(config.vocab_size)[:ST_REQUESTS]
+    if rank == 0:
+        try:
+            out["served"] = [predictor.predict(features=rows).tolist() for rows in requests]
+        finally:
+            predictor.close()
+        plain = ResidentPredictor(app, buckets=ST_BUCKETS, seq_buckets=ST_SEQ_BUCKETS, warmup=False, device=device)
+        out["plain"] = [plain.predict(features=rows).tolist() for rows in requests]
+    else:
+        predictor.follow()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        import pickle
+
+        pickle.dump(out, f)
+
+
+def st_multi_card(config) -> dict:
+    """Worlds of 2 and 4 ranks over NCCL, one card each, where the machine has
+    them, dropout off: (a) and (d). f32: the loss and ``grad_norm`` of every
+    step within 1e-5 relative, each weight matrix within 1e-4 of its largest
+    magnitude, and each bias or norm (1-D, most at zero before the steps)
+    within 2.5 times the learning rates of the steps summed (Adam's
+    normalisation turns the rounding of a near-zero gradient into a step of
+    up to the learning rate); bf16 under the loss and ``grad_norm`` gates;
+    f32 logits within 1e-4 (row-parallel sums in another order)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in (2, 4) if w <= cards]
+    if not worlds:
+        return {"run": False, "why": f"{cards} card on this machine: NCCL needs a card per rank"}
+    out = {"run": True}
+    for world in worlds:
+        out_dir = ST_DIR / f"world{world}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        mp.spawn(_st_rank, args=(world, free_port(), config, str(out_dir)), nprocs=world, join=True)
+        got = pickle.loads((out_dir / "rank0.pkl").read_bytes())
+        rec = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            want = got[f"unmeshed {dtype}"]
+            for axes in ({"data": world}, {"fsdp": world}, {"data": world // 2, "tensor": 2}):
+                arm = got[f"{json.dumps(axes)} {dtype}"]
+                if dtype == torch.float32:
+                    for a, b in zip(arm["history"], want["history"]):
+                        if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]) or \
+                                abs(a["grad_norm"] - b["grad_norm"]) > 1e-5 * abs(b["grad_norm"]):
+                            raise AssertionError(f"world {world} {axes} f32: metrics {a} against {b}")
+                    worst = 0.0
+                    for n, v in want["whole"].items():
+                        err = float(np.abs(arm["whole"][n] - v).max())
+                        if v.ndim < 2:  # Adam moves a near-zero gradient's element up to lr a step
+                            if err > 2.5 * got["lr_sum"]:
+                                raise AssertionError(f"world {world} {axes} f32: {n} differs by {err:.3e}")
+                            continue
+                        worst = max(worst, err / max(float(np.abs(v).max()), 1e-30))
+                    if worst > 1e-4:
+                        raise AssertionError(f"world {world} {axes} f32: a weight differs by {worst:.3e}")
+                else:
+                    compare_first_steps(arm["history"], want["history"])
+                    worst = None
+                rec[f"{json.dumps(axes)} {dtype}"] = {
+                    "worst_relative": worst, "step_wall_ms": arm["step"]["wall_ms_per_step"],
+                    "step_device_ms": arm["step"]["device_ms_per_step"],
+                    "unmeshed_step_wall_ms": want["step"]["wall_ms_per_step"],
+                    "unmeshed_step_device_ms": want["step"]["device_ms_per_step"]}
+        err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in zip(got["served"], got["plain"]))
+        if err > 1e-4:
+            raise AssertionError(f"world {world}: meshed logits differ from the unmeshed by {err:.3e}")
+        rec["served_max_abs_err"] = err
+        out[world] = rec
+    return out
+
+
+def sharded_training_phase(device, config=None) -> dict:
+    """Phase 23: sharded training and the meshed predictor (see the module docstring)."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import BertConfig, bert_random_params
+    from unionml_tpu_torch.parallel import initialize_distributed
+
+    t0 = time.perf_counter()
+    config = config or BertConfig.base(num_labels=2)
+    params = bert_random_params(config, seed=0)
+    data = bert_data(config, BERT_BATCH, 0)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    out, parts, launches = {}, {}, {}
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device)
+    try:
+        for name, part in (("main_path", lambda: st_app(device, config, params, launches)),
+                           ("meshes", lambda: st_meshes(device, config, params, batch, launches)),
+                           ("template", lambda: st_template(device))):
+            t = time.perf_counter()
+            out[name] = part()
+            parts[name] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    if device.type == "cuda":
+        t = time.perf_counter()
+        lens = data["attention_mask"].sum(-1).tolist()
+        out["local_kernels"] = st_local_kernels(device, lens, dict(flash_fwd=None, flash_bwd_dq=None,
+                                                                   flash_bwd_dkv=None))
+        parts["local_kernels"] = time.perf_counter() - t
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if launches.get(name, 0) < 1:
+                raise AssertionError(f"phase 23: {name} never launched on the sharded path ({launches})")
+        t = time.perf_counter()
+        out["multi_card"] = st_multi_card(config)
+        parts["multi_card"] = time.perf_counter() - t
+    out["launches"] = launches
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
+    return out
+
+
+def report_sharded_training(st: dict, name_limit: str) -> None:
+    app = st["main_path"]
+    print(f"sharded training main path: the BERT app's Model.train ran fit over {{'fsdp': 1}} (FSDP2, one rank: one "
+          f"shard holding every parameter, no exchange) for 2 steps, metrics {app['metrics']}, launches "
+          f"{app['train_launches']}; fit(checkpoint_dir=...) under that mesh, resumed by a fresh state, is bitwise "
+          f"the same 2 + 2 steps uninterrupted; parts s { {k: round(v, 1) for k, v in app['parts_s'].items()} }")
+    sv = app["serve"]
+    print(f"[{name_limit}] meshed /predict (build_predict_route + predict_answer, mesh {{'data': 1, 'tensor': 1}}, "
+          f"param_shardings, {sv['heads']} heads on the rank): {sv['requests']} requests, {sv['rows']} rows, logits "
+          f"bitwise the unmeshed ResidentPredictor's; {sv['graphs']} graphs; {sv['rows_timed']}-row request replay "
+          f"p50/p90 {sv['timing']['replay']['p50_ms']:.3f}/{sv['timing']['replay']['p90_ms']:.3f} ms vs eager "
+          f"{sv['timing']['eager']['p50_ms']:.3f}/{sv['timing']['eager']['p90_ms']:.3f} ms; serving launches "
+          f"{app['serve_launches']}")
+    for label, r in st["meshes"].items():
+        if label == "step_profiles":
+            continue
+        how = "bitwise equal" if r["bitwise"] else f"within the gates (worst leaf {r['worst_relative']:.3e})"
+        print(f"sharded training {label}, BERT-base {ST_STEPS} steps at B{BERT_BATCH} S{BERT_SEQ}, one rank over "
+              f"NCCL: {how} to the unmeshed steps; last loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}")
+    for label, p in st["meshes"]["step_profiles"].items():
+        print(f"[{name_limit}] bf16 train step {label}: {p['wall_ms_per_step']:.3f} ms wall, "
+              f"{p['device_ms_per_step']:.3f} ms device kernels, idle share {p['device_idle_share']:.3f}; top "
+              f"{p['top_kernels_ms_per_step']}")
+    for r in st.get("local_kernels", []):
+        print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}, share {r['bound_share']:.3f}), plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, max |err| {r['max_abs_err']:.3e}")
+    tm = st["template"]
+    print(f"data-parallel template on the card (a world of one rank): trained 2 epochs, metrics {tm['metrics']}, "
+          f"{tm['s']:.1f} s")
+    mc = st.get("multi_card", {"run": False, "why": "no card"})
+    if not mc["run"]:
+        print(f"sharded training worlds of 2 and 4: not run ({mc['why']})")
+    for world in (2, 4):
+        if world in mc:
+            print(f"[{name_limit}] sharded training world of {world} over NCCL: {mc[world]}")
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in st["parts_s"].items())
+    print(f"phase 23 launches {st['launches']}; phase 23 took {st['s']:.1f} s ({parts})")
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -6707,6 +7258,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["tensor_parallel"] = tp = tensor_parallel_phase(device)
     report_tensor_parallel(tp, name_limit)
+    torch.cuda.empty_cache()
+    details["sharded_training"] = st = sharded_training_phase(device)
+    report_sharded_training(st, name_limit)
+    details["extra_timings"].extend(st.get("local_kernels", []))
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -6724,9 +7279,11 @@ def main() -> int:
             r["launches_lint"] = li["launches"][r["name"]]
         if r["name"] in tp["launches"]:
             r["launches_tensor_parallel"] = tp["launches"][r["name"]]
+        if r["name"] in st["launches"]:
+            r["launches_sharded_training"] = st["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
-                "20": ep["s"], "21": li["s"], "22": tp["s"]}
+                "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"]}
     print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
           f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
@@ -6765,6 +7322,8 @@ def main() -> int:
             entry["launches_lint"] = r["launches_lint"]
         if "launches_tensor_parallel" in r:  # phase 22's K1/K4 launches (the meshed engines at a world of 1)
             entry["launches_tensor_parallel"] = r["launches_tensor_parallel"]
+        if "launches_sharded_training" in r:  # phase 23's K1-K3 launches (sharded training, the meshed predictor)
+            entry["launches_sharded_training"] = r["launches_sharded_training"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -80,7 +80,7 @@ def test_cli_init_and_templates_cmd(port_cli, tmp_path, monkeypatch):
     assert result.exit_code == 0
     names = [line.split()[0] for line in result.output.splitlines()]
     assert "basic" in names and "serverless" in names and "bentoml-serving" in names
-    assert set(names) == set([line.split()[0] for line in runner.invoke(jax_cli, ["templates"]).output.splitlines()]) - {"data-parallel"}
+    assert set(names) == set([line.split()[0] for line in runner.invoke(jax_cli, ["templates"]).output.splitlines()])
 
     for group in (port_cli, jax_cli):
         result = runner.invoke(group, ["init", "demo_app2", "--template", "nonexistent"])

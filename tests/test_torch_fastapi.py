@@ -5,7 +5,7 @@ modules go into ``sys.modules``, both REAL adapters attach to fake apps, and
 every route handler runs (the resident predictor of the port on the CPU). The
 two apps' answers are equal for the same requests; ``serving_app`` hands a
 ``FastAPI`` instance to the adapter and refuses any other object; a mesh
-raises naming M12.
+passes through to the meshed predictor.
 """
 
 import asyncio
@@ -18,6 +18,8 @@ import unionml_tpu as J
 import unionml_tpu_torch as T
 
 from tests.test_torch_model import sklearn_app
+from tests.torch_sharded_ranks import fake_world
+from unionml_tpu_torch.parallel import make_mesh
 
 
 class _FakeHTTPException(Exception):
@@ -168,7 +170,7 @@ def test_health_without_artifact(fake_fastapi_env):
     assert excinfo.value.status_code == 500
 
 
-def test_serving_app_dispatches_a_fastapi_instance(fake_fastapi_env, monkeypatch):
+def test_serving_app_dispatches_a_fastapi_instance(fake_fastapi_env, monkeypatch, tmp_path):
     from unionml_tpu_torch._logging import logger
 
     warned = []
@@ -180,5 +182,12 @@ def test_serving_app_dispatches_a_fastapi_instance(fake_fastapi_env, monkeypatch
     assert warned == ["attach_fastapi ignoring unsupported serving options: ['coalesce']"]
     with pytest.raises(TypeError, match="Unsupported app type"):
         model.serve(app=object())
-    with pytest.raises(NotImplementedError, match="M12"):
-        model.serve(app=_FakeApp(), mesh=object())
+    # a mesh passes through to a meshed predictor (tests/test_torch_mesh_serving.py): one rank answers as none
+    payload = {"inputs": None, "features": [{"x1": 2.0, "x2": 2.0}, {"x1": -3.0, "x2": -3.0}]}
+    with fake_world(1):
+        mesh = make_mesh({"data": 1}, device="cpu")
+        meshed, _ = _attached(T, tmp_path, monkeypatch, mesh=mesh)
+        assert meshed.resident_predictor._mesh is mesh
+        got = meshed.routes[("POST", "/predict")](**payload)
+    plain, _ = _attached(T, tmp_path, monkeypatch)
+    assert got == plain.routes[("POST", "/predict")](**payload)

@@ -656,3 +656,26 @@ def test_graph_replay_matches_the_eager_program(cuda, spec):
         g.replays for g in engine._step_fns.values())
     warmups = _graphs._WARMUP_RUNS * sum(g.launches.get("paged_attention", 0) for g in engine._step_fns.values())
     assert warmups > 0 and on_graphs == kernels.launches["paged_attention"] + warmups
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("H", [6, 4, 3])
+def test_kv_lens_kernels_at_a_ranks_heads_match_plain(cuda, dtype, H):
+    """K1 in ``kv_lens`` mode, K2 and K3 at the heads one rank of BERT-base holds
+    on a tensor axis of 2, 3 or 4 (S128 D64, right padding), against their
+    plain versions: the launch grids take any head count."""
+    g = torch.Generator().manual_seed(H)
+    B, S, D = 4, 128, 64
+    q, k, v = (torch.randn((B, H, S, D), generator=g).to(cuda, dtype) for _ in range(3))
+    d_out = torch.randn((B, S, H, D), generator=g).to(cuda, dtype).transpose(1, 2)
+    kv_lens = torch.tensor([128, 16, 77, 100], device=cuda)
+    before = dict(kernels.launches)
+    out, lse = flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True)
+    got = flash_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.launches[name] == before[name] + 1, name
+    _close(out, reference_attention(q, k, v, mask=_kv_lens_to_mask(kv_lens, S)), TOL)
+    want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
+    for a, b in zip(got, want):
+        _close(a, b, BWD_TOL)

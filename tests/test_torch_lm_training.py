@@ -40,7 +40,11 @@ from unionml_tpu_torch.models import (
     make_lm_train_step,
 )
 from unionml_tpu_torch.models.training import lm_grads
+from unionml_tpu_torch.models import gpt as tgpt
 from unionml_tpu_torch.ops.packing import pack_sequences
+from unionml_tpu_torch.parallel import make_mesh
+
+from tests.torch_sharded_ranks import fake_world
 
 SEQ = 32
 
@@ -205,21 +209,32 @@ def test_fit_lm_trains_with_the_jax_step_count(pair, pack, num_steps, num_epochs
 
 
 @pytest.mark.parametrize("option", [
-    # moe_aux alone trains (tests/test_torch_moe_gpt.py); sharded sparse training is M12
-    dict(moe_aux=True, mesh=object()), dict(mesh=object()), dict(prefetch=True),
+    # moe_aux alone trains (tests/test_torch_moe_gpt.py); sparse blocks split over a tensor axis are M12
+    dict(moe_aux=True, mesh="tensor"), dict(mesh="data"), dict(prefetch=True),
 ], ids=["moe_aux", "mesh", "prefetch"])
 def test_fit_lm_rejects_unported_options(pair, option):
     _, params = pair
 
-    def run(**kwargs):
-        return fit_lm(create_train_state(_port_model(params)), _corpus(9, 8), seq_len=SEQ, batch_size=2, **kwargs)
+    def run(model=None, **kwargs):
+        return fit_lm(create_train_state(model or _port_model(params)), _corpus(9, 8), seq_len=SEQ, batch_size=2,
+                      **kwargs)
 
     if option == dict(prefetch=True):  # ported: the native prefetcher feeds the same batches
         losses = [[h["loss"] for h in run(log_every=1, num_epochs=2, **kw).metrics_history] for kw in (option, {})]
         assert losses[0] == losses[1] and len(losses[0]) >= 2
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(**option)
+    if option["mesh"] == "data":  # ported (tests/test_torch_sharded_training.py): one rank trains as no mesh
+        with fake_world(1):
+            meshed = run(log_every=1, mesh=make_mesh({"data": 1}, device="cpu")).metrics_history
+        assert [h["loss"] for h in meshed] == [h["loss"] for h in run(log_every=1).metrics_history]
+        return
+    sparse = init_gpt(GPTConfig.tiny(dtype=torch.float32, dropout=0.0, moe_every=2, num_experts=4), seed=0,
+                      device="cpu")
+    with fake_world(2):
+        mesh = make_mesh({"tensor": 2}, device="cpu")
+        spec = tgpt.param_shardings(dict(sparse.named_parameters()), ("tensor",))
+        with pytest.raises(NotImplementedError, match="M12"):
+            run(sparse, moe_aux=True, mesh=mesh, param_spec=spec)
 
 
 def test_fit_lm_checkpoints_and_resumes(pair, tmp_path):

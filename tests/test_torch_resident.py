@@ -32,6 +32,9 @@ from unionml_tpu_torch.serving import batcher as tbatcher
 from unionml_tpu_torch.serving.resident import ResidentPredictor as TResident
 from unionml_tpu_torch.serving.resident import _ladder_value as t_ladder
 
+from unionml_tpu_torch.parallel import make_mesh
+
+from tests.torch_sharded_ranks import fake_world
 from tests.test_torch_model import bert_weights, jax_bert_app, port_bert_app, request_rows  # noqa: F401 (fixture)
 
 EMB_TOL, LOGIT_TOL = 1e-6, 1e-5
@@ -240,8 +243,17 @@ def test_resident_defaults_to_cuda():
     _, tmodel = tokenized_models()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TResident(tmodel)
-    with pytest.raises(NotImplementedError, match="M12"):
-        TResident(tmodel, mesh=object(), device="cpu")
+    # the mesh-resident predictor is ported (tests/test_torch_mesh_serving.py): a
+    # mesh of one rank predicts as no mesh; param_specs lay parameters out on a mesh
+    with pytest.raises(ValueError, match="pass the mesh too"):
+        TResident(tmodel, param_specs={"emb": None}, device="cpu")
+    rows = [{"len": 3}, {"len": 5}]
+    with fake_world(1):
+        meshed = TResident(tmodel, buckets=(2, 4), warmup=False, mesh=make_mesh({"data": 1}, device="cpu"),
+                           device="cpu")
+        got = meshed.predict(features=rows)
+    want = TResident(tmodel, buckets=(2, 4), warmup=False, device="cpu").predict(features=rows)
+    assert np.array_equal(got, want)
 
 
 # ------------------------------------------------------------------ RequestBatcher (a copy; both modules)

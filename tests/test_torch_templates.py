@@ -1,10 +1,10 @@
 """The port's project templates against the JAX package's.
 
-- ``list_templates()`` is eleven of JAX's twelve names (``data-parallel``
-  waits for the mesh, ROADMAP M12);
+- ``list_templates()`` is JAX's twelve names (``data-parallel`` trains in a
+  gloo world in ``tests/test_torch_sharded_training.py``);
 - each renders, compiles, carries ``.git`` and JAX's file set, and has no
   ``{{app_name}}`` left (``tests/unit/test_cli_templates.py:31-50``); its
-  ``app.py`` imports neither JAX nor the JAX package, and the five that run
+  ``app.py`` imports neither JAX nor the JAX package, and the six that run
   on the card only the standard library, torch, numpy and the port; the
   renderer's validations are JAX's;
 - ``moe-textgen`` and ``packed-textgen`` train and generate through the
@@ -28,10 +28,10 @@ from unionml_tpu.templates import list_templates as jax_templates
 from unionml_tpu.templates import template_description as jax_description
 from unionml_tpu_torch.templates import list_templates, render_template, template_description
 
-PORTED = ["basic", "bentoml-serving", "bert-finetune", "gpt-textgen", "jax-digits", "keras-mnist", "mnist-cnn",
-          "moe-textgen", "packed-textgen", "serverless", "torch-digits"]
+PORTED = ["basic", "bentoml-serving", "bert-finetune", "data-parallel", "gpt-textgen", "jax-digits", "keras-mnist",
+          "mnist-cnn", "moe-textgen", "packed-textgen", "serverless", "torch-digits"]
 #: the templates the card runs: the card's machine has no pandas, sklearn or keras
-ON_CARD = {"bert-finetune", "gpt-textgen", "mnist-cnn", "moe-textgen", "packed-textgen"}
+ON_CARD = {"bert-finetune", "data-parallel", "gpt-textgen", "mnist-cnn", "moe-textgen", "packed-textgen"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,7 +48,7 @@ def _one_thread():
 def test_list_templates_is_nine_of_jax():
     assert list_templates() == PORTED
     assert set(PORTED) <= set(jax_templates())
-    assert set(jax_templates()) - set(PORTED) == {"data-parallel"}
+    assert set(jax_templates()) == set(PORTED)
     for name in PORTED:
         assert template_description(name) and jax_description(name)
 
@@ -84,8 +84,7 @@ def test_render_template_validations(tmp_path):
         render_template("basic", "bad-name", tmp_path)
     with pytest.raises(ValueError, match="Unknown template"):
         render_template("nope", "ok_name", tmp_path)
-    with pytest.raises(ValueError, match="Unknown template"):
-        render_template("data-parallel", "ok_name", tmp_path)
+    assert (render_template("data-parallel", "ok_name", tmp_path) / "app.py").exists()  # ported: it renders
     render_template("basic", "dup", tmp_path)
     with pytest.raises(FileExistsError):
         render_template("basic", "dup", tmp_path)

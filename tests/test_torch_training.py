@@ -44,8 +44,12 @@ from unionml_tpu_torch.models import (
     make_classifier_eval_step,
     make_classifier_train_step,
 )
+from unionml_tpu_torch.models import bert as tbert
 from unionml_tpu_torch.models.training import FitResult, classifier_grads
 from unionml_tpu_torch.ops.losses import cross_entropy_and_accuracy
+from unionml_tpu_torch.parallel import make_mesh
+
+from tests.torch_sharded_ranks import fake_world
 
 SIG = ("input_ids", "attention_mask")
 
@@ -76,6 +80,11 @@ def jax_bert():
 def _port_state(params, impl="auto", **kwargs):
     cfg = BertConfig.tiny(dtype=torch.float32, hidden_dropout=0.0, attention_impl=impl)
     return create_train_state(init_bert(cfg, params=params, device="cpu"), **kwargs)
+
+
+def _init_params():
+    cfg = jbert.BertConfig.tiny(dtype=jnp.float32, attention_impl="xla", hidden_dropout=0.0)
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(jbert.init_params(cfg, seq_len=16)))
 
 
 def _torch_batch(data):
@@ -254,15 +263,36 @@ def test_fit_rejects_unported_options(jax_bert, option):
         wide = dict(_data(8, 8), labels=_data(8, 8)["labels"].astype(np.int64))  # converted in the workers
         assert losses(wide, prefetch=True, **option) == losses(_data(8, 8))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit(_port_state(params), _data(8, 8), batch_size=4, input_signature=SIG, **option)
+    # ported (tests/test_torch_sharded_training.py): a mesh of one rank trains
+    # bit for bit as no mesh; a param_spec lays the state out on a mesh, so it
+    # needs one
+    if "param_spec" in option:
+        with pytest.raises(ValueError, match="pass the mesh too"):
+            fit(_port_state(params), _data(8, 8), batch_size=4, input_signature=SIG, **option)
+    axes = {"data": 1} if "mesh" in option else {"data": 1, "tensor": 1}
+    with fake_world(1):
+        mesh = make_mesh(axes, device="cpu")
+        spec = None if "mesh" in option else tbert.param_shardings(
+            dict(_port_state(params).model.named_parameters()), tuple(axes))
+        meshed = losses(_data(8, 8), mesh=mesh, param_spec=spec)
+    assert meshed == losses(_data(8, 8))
 
 
 def test_steps_and_batches_reject_meshes():
-    with pytest.raises(NotImplementedError, match="M12"):
-        make_classifier_train_step(mesh=object())
-    with pytest.raises(NotImplementedError, match="M12"):
-        next(iter(dict_batches(_data(9, 4), 2, device="cpu", mesh=object())))
+    """Ported (tests/test_torch_sharded_training.py): a meshed step lays the
+    state out on its first call, and each rank's batches are its rows of the
+    global batch, a ragged one wrapped onto real rows first."""
+    batch = _torch_batch(_data(9, 4))
+    with fake_world(1):
+        mesh = make_mesh({"data": 1}, device="cpu")
+        state, _ = make_classifier_train_step(mesh=mesh, input_signature=SIG)(_port_state(_init_params()), batch)
+        assert state.layout is not None and state.layout.mesh is mesh and state.step == 1
+    with fake_world(2, rank=1):
+        mesh = make_mesh({"data": 2}, device="cpu")
+        got = [b["labels"].tolist() for b in dict_batches(_data(9, 5), 3, device="cpu", drop_remainder=False,
+                                                          mesh=mesh)]
+    labels = _data(9, 5)["labels"].tolist()
+    assert got == [[labels[2], labels[0]], [labels[4]]]  # rows 0-2 wrap to 0-2, 0; rows 3-4 split
 
 
 def test_bert_flops_per_token_matches_jax():

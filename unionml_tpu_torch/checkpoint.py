@@ -18,6 +18,15 @@ Port of ``unionml_tpu/checkpoint.py``:
 A ``TrainState`` restores in place into a target built from the same
 hyperparameters (the app's ``init``): its parameters, moments and step are
 copied bitwise; its model and optimizer settings are the target's own.
+
+A ``TrainState`` laid out on a mesh (``models/training.py::shard_train_state``)
+saves whole: :func:`extract_state` gathers each leaf from every rank's shard
+(a collective every rank joins, in the same order) and only rank 0's
+:class:`Checkpointer` writes. :func:`restore_state` into a laid-out target
+cuts each whole leaf down to this rank's shard and keeps the target's
+layout, so ``fit(checkpoint_dir=..., mesh=...)`` resumes at the same world
+size. Multi-host stores (a directory each host cannot see) are not ported
+(ROADMAP: M12, the multi-host backend and store).
 """
 
 import os
@@ -33,6 +42,7 @@ from torch import nn
 from torch.utils import _pytree
 
 from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.parallel.distributed import is_primary_host
 from unionml_tpu_torch.utils import is_keras_model, is_pytorch_model, is_sklearn_model
 
 FileLike = Union[str, os.PathLike, IO]
@@ -66,12 +76,15 @@ def extract_state(obj: Any) -> Any:
     moments (by parameter name) and step; a module's state dict; or a tree
     (dicts, lists, tuples) of tensors, arrays and scalars."""
     if _is_train_state(obj):
-        return {
-            "params": {n: _to_host(p) for n, p in zip(obj.names, obj.params)},
-            "mu": {n: _to_host(m) for n, m in zip(obj.names, obj.mu)},
-            "nu": {n: _to_host(v) for n, v in zip(obj.names, obj.nu)},
-            "step": int(obj.step),
-        }
+        layout = obj.layout
+
+        def whole(group: str) -> dict:
+            leaves = getattr(obj, group)
+            if layout is None:
+                return {n: _to_host(t) for n, t in zip(obj.names, leaves)}
+            return {n: _to_host(layout.gather(i, t)) for i, (n, t) in enumerate(zip(obj.names, leaves))}
+
+        return {"params": whole("params"), "mu": whole("mu"), "nu": whole("nu"), "step": int(obj.step)}
     if isinstance(obj, nn.Module):
         return {k: _to_host(v) for k, v in obj.state_dict().items()}
     return _pytree.tree_map(_to_host, obj)
@@ -80,7 +93,8 @@ def extract_state(obj: Any) -> Any:
 @torch.no_grad()
 def restore_state(target: Any, state: Any) -> Any:
     """Inverse of :func:`extract_state`: ``TrainState`` and module targets
-    are filled in place (bitwise copies) and returned; a tree target comes
+    are filled in place (bitwise copies; a laid-out ``TrainState``'s each
+    rank with its shard) and returned; a tree target comes
     back as a new tree whose tensors take the target leaves' device and
     dtype."""
     if _is_train_state(target):
@@ -89,8 +103,9 @@ def restore_state(target: Any, state: Any) -> Any:
             missing = set(target.names) ^ set(saved)
             if missing:
                 raise ValueError(f"checkpoint {group} do not match the target's parameters: {sorted(missing)}")
-            for name, tensor in zip(target.names, getattr(target, group)):
-                tensor.copy_(saved[name])
+            for i, (name, tensor) in enumerate(zip(target.names, getattr(target, group))):
+                whole = saved[name]
+                tensor.copy_(whole if target.layout is None else target.layout.shard(i, whole.to(tensor.device)))
         target.step = int(state["step"])
         return target
     if isinstance(target, nn.Module):
@@ -220,6 +235,10 @@ class Checkpointer:
     interval == 0``, as orbax decides) and, once a write lands, removes all
     but the newest ``max_to_keep``. A failed background write is raised by
     the next ``save`` or ``flush``.
+
+    In a ``torch.distributed`` world only rank 0 writes; every rank decides
+    alike which steps to save (the steps on disk when it was made and those
+    it saved since), so a laid-out state's gather runs on all of them.
     """
 
     def __init__(self, directory: Union[str, os.PathLike], max_to_keep: int = 3, save_interval_steps: int = 1):
@@ -230,6 +249,8 @@ class Checkpointer:
         self._queue: "queue.Queue" = queue.Queue()
         self._error_lock = threading.Lock()
         self._error: Optional[BaseException] = None  # guarded-by: _error_lock
+        #: steps saved or found on disk: the same on every rank of a world
+        self._known = set(self._steps())
         self._writer = threading.Thread(target=self._write_loop, name="checkpoint-writer", daemon=True)
         self._writer.start()
 
@@ -252,9 +273,12 @@ class Checkpointer:
         """Snapshot ``state`` to host memory and queue its write; False when
         the interval skips this step (or it is already saved)."""
         self._raise_pending_error()
-        if step % self.save_interval_steps or (self.directory / str(step)).exists():
+        if step % self.save_interval_steps or step in self._known:
             return False
-        self._queue.put((int(step), extract_state(state)))
+        self._known.add(int(step))
+        host_state = extract_state(state)
+        if is_primary_host():
+            self._queue.put((int(step), host_state))
         return True
 
     def _write_loop(self) -> None:

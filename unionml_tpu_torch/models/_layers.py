@@ -13,12 +13,24 @@ gives a model whose selected ``nn.Linear`` layers are :class:`QuantizedLinear`
 original. :func:`_dense` dequantizes such a layer's weight just before its
 product, into the leaf's own dtype, then casts it as any other weight: one
 layer's full-precision weight is live at a time.
+
+Tensor parallelism (:class:`TensorParallel`): one rank's share of a
+Megatron-split model and the collectives of the tensor axis. In a forward
+that autograd records, they are the conjugate pair of differentiable
+operators: :meth:`TensorParallel.enter` (identity forward, all-reduce
+backward) before a column-parallel product, :meth:`TensorParallel.all_reduce`
+(all-reduce forward, identity backward) after a row-parallel one, and the
+vocab-parallel lookup and the all-gather of the tied head's logits built on
+them. Without a graph (inference, ``torch.no_grad``) each is the in-place
+collective it was, unchanged bit for bit.
 """
 
 import copy
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -45,6 +57,121 @@ class QuantizedLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``nn.Linear``'s product in the leaf's dtype (a layer called as a module)."""
         return F.linear(x, self.weight.dequantize(), self.bias)
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, sum over the tensor axis backward: the input of a
+    column-parallel product, whose gradient each rank holds only in part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _Reduce(torch.autograd.Function):
+    """Sum over the tensor axis forward, identity backward: the partial
+    products of a row-parallel layer (its gradient is every rank's own)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """All-gather of the last dimension forward (rank order), this rank's
+    slice of it backward: the tied head's vocab-parallel logits."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp._gather_last(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp = ctx.tp
+        part = grad.shape[-1] // tp.size
+        return grad[..., tp.rank * part:(tp.rank + 1) * part].contiguous(), None
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """How one rank of a tensor-parallel model computes: the tensor axis's
+    process group, its size and this rank's index on it, and the attention
+    heads this rank holds (``num_heads / size``, or all of them when the axis
+    does not divide the heads and q, k, v stay whole)."""
+
+    group: Any
+    size: int
+    rank: int
+    heads: int
+    split_heads: bool
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel product: itself, and in a recorded
+        forward its gradient summed over the tensor axis (over one rank the
+        graph is the unsplit model's, so its gradients sum in the same order)."""
+        return _Enter.apply(x, self.group) if self.size > 1 and _recorded(x) else x
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the tensor axis: in place without a graph, else a new
+        tensor whose gradient passes through as it is."""
+        if _recorded(x):
+            return _Reduce.apply(x, self.group)
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def lookup(self, ids: torch.Tensor, weight: torch.Tensor, embed=F.embedding) -> torch.Tensor:
+        """A vocab- (or position-) parallel embedding: this rank's rows of the
+        table answer the ids in its range, zeros the rest, and the sum over
+        the axis is every id's row (exact: one addend is not zero). Its
+        gradient reaches this rank's rows only. ``embed(ids, table)`` looks
+        the local rows up (:func:`one_hot_embedding` for a table of a few rows)."""
+        rows = weight.shape[0]
+        local = ids - self.rank * rows
+        inside = (local >= 0) & (local < rows)
+        out = embed(torch.where(inside, local, torch.zeros_like(local)), weight)
+        return self.all_reduce(torch.where(inside[..., None], out, torch.zeros_like(out)))
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' shards of the last dimension concatenated in rank order
+        (the tied head's vocab-parallel logits)."""
+        return _GatherLast.apply(x, self) if _recorded(x) else self._gather_last(x)
+
+    def _gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        out = torch.empty((self.size * flat.shape[0], flat.shape[1]), dtype=x.dtype, device=x.device)
+        # torch 2.13 deprecates all_gather_into_tensor (a FutureWarning) for
+        # all_gather_single, which torch 2.11 does not have
+        (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, flat, group=self.group)
+        out = out.reshape(self.size, flat.shape[0], flat.shape[1]).transpose(0, 1)
+        return out.reshape(*x.shape[:-1], self.size * x.shape[-1])
+
+
+def one_hot_embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, weight)`` as a one-hot product, for a table of a
+    few rows (BERT's token types): exact (each output row is one times its
+    table row, with float32 products), and its gradient is a matrix product,
+    which sums in a fixed order on the card. The embedding backward's
+    atomics do not: with every id alike (8192 token types of 0 in a B64
+    S128 batch) its gradient moved in the last bits from run to run."""
+    return torch.matmul(F.one_hot(ids.long(), weight.shape[0]).to(weight.dtype), weight)
 
 
 def _kernel(layer: nn.Module, dtype: torch.dtype) -> torch.Tensor:

@@ -6,12 +6,25 @@ The port's parameter tree is a dict keyed by parameter name
 (``dict(model.named_parameters())``, or nested dicts), and a rank keeps only
 its own shard of each leaf (SPMD), so :func:`place_by_specs` returns local
 shards where JAX's ``device_put`` returns global arrays.
+
+An ``fsdp`` entry is laid out by FSDP2 (:func:`fully_shard_model`), not by
+:func:`place_by_specs`: ``torch.distributed.fsdp.fully_shard`` shards
+dimension 0 of every parameter of the modules it wraps, which for a torch
+``(out, in)`` weight is the output dimension, where JAX's spec shards the
+flax kernel's input dimension (the same dimension in the port's flipped
+spec would be the last). The values are the same; only where the bytes live
+differs. The weights are not transposed to copy JAX's layout.
 """
 
-from typing import Any, Callable, Optional, Tuple
+import copy
+from typing import Any, Callable, Iterable, Optional, Sequence, Tuple
 
+import torch
+from torch import nn
+
+from unionml_tpu_torch.models._layers import QuantizedLinear
 from unionml_tpu_torch.ops.quant import QuantizedArray
-from unionml_tpu_torch.parallel.mesh import NamedSharding, _tree_map
+from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, NamedSharding, Spec, _tree_map, fsdp_mesh
 
 
 def shard_by_rules(
@@ -33,16 +46,103 @@ def shard_by_rules(
     return walk(params, ())
 
 
+def _without_fsdp(spec: Spec) -> Spec:
+    """``spec`` with its ``fsdp`` entries dropped (FSDP2 lays those out)."""
+
+    def keep(entry: Any) -> Any:
+        if isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a != FSDP_AXIS)
+            return kept if len(kept) > 1 else (kept[0] if kept else None)
+        return None if entry == FSDP_AXIS else entry
+
+    return Spec(*(keep(e) for e in spec), parts=spec.parts)
+
+
+def names_axis(spec_tree: Any, axis: str) -> bool:
+    """Whether any :class:`Spec` of ``spec_tree`` shards a dimension over ``axis``."""
+    found = []
+
+    def visit(spec: Any) -> Any:
+        specs = [spec.q, spec.scale] if isinstance(spec, QuantizedArray) else [spec]
+        for s in specs:
+            for entry in s:
+                if entry == axis or (isinstance(entry, tuple) and axis in entry):
+                    found.append(True)
+        return spec
+
+    _tree_map(visit, spec_tree, is_leaf=lambda x: isinstance(x, (Spec, QuantizedArray)))
+    return bool(found)
+
+
 def place_by_specs(params: Any, mesh: Any, spec_tree: Any) -> Any:
     """This rank's shard of every leaf of ``params`` under the matching spec
     tree: the serving-side layout of a full tree that every rank holds. A
     ``QuantizedArray`` node's codes and scales each take their own spec.
-    Raises ``ValueError`` where an axis does not divide a dimension."""
+    ``fsdp`` entries are left to FSDP2 (:func:`fully_shard_model`): here
+    those dimensions stay whole. Raises ``ValueError`` where an axis does not
+    divide a dimension."""
 
     def place(leaf: Any, spec: Any) -> Any:
         if isinstance(leaf, QuantizedArray):
-            return QuantizedArray(q=NamedSharding(mesh, spec.q).shard(leaf.q),
-                                  scale=NamedSharding(mesh, spec.scale).shard(leaf.scale), dtype=leaf.dtype)
-        return NamedSharding(mesh, spec).shard(leaf)
+            return QuantizedArray(q=NamedSharding(mesh, _without_fsdp(spec.q)).shard(leaf.q),
+                                  scale=NamedSharding(mesh, _without_fsdp(spec.scale)).shard(leaf.scale),
+                                  dtype=leaf.dtype)
+        return NamedSharding(mesh, _without_fsdp(spec)).shard(leaf)
 
     return _tree_map(place, params, spec_tree, is_leaf=lambda x: isinstance(x, QuantizedArray))
+
+
+def weight_tree(model: nn.Module) -> dict:
+    """``model``'s parameters by name, an int8 layer's weight as its
+    :class:`~unionml_tpu_torch.ops.quant.QuantizedArray`."""
+    tree = dict(model.named_parameters())
+    for name, module in model.named_modules():
+        if isinstance(module, QuantizedLinear):
+            tree[f"{name}.weight"] = module.weight
+    return tree
+
+
+def shard_model(model: nn.Module, mesh: Any, specs: Any, tp: Any, tp_modules: Tuple[type, ...],
+                partial: Iterable[str] = (), trainable: bool = False) -> Tuple[nn.Module, dict]:
+    """``(this rank's copy of model, its weight tree)``: the module structure
+    of ``model`` copied (no weight is), each weight replaced by its shard
+    under ``specs`` (:func:`place_by_specs`), and ``tp`` (a
+    :class:`~unionml_tpu_torch.models._layers.TensorParallel`) set on every
+    module of the ``tp_modules`` types. The copy's ``tp_specs`` are the
+    ``specs`` it was cut by, and its ``tp_partial`` the set ``partial`` of
+    parameters whose gradients are each rank's part of a sum over the
+    tensor axis. ``trainable=True`` gives parameters of their own
+    (copied, gradients on); else they share memory with ``model``'s where
+    they are whole, and take no gradients."""
+    with torch.no_grad():
+        local = place_by_specs(weight_tree(model), mesh, specs)
+    shard = copy.deepcopy(model, memo={id(t): t for t in [*model.parameters(), *model.buffers()]})
+    for name, leaf in local.items():
+        owner_name, _, attr = name.rpartition(".")
+        owner = shard.get_submodule(owner_name)
+        if isinstance(leaf, QuantizedArray):
+            owner.q, owner.scale = leaf.q, leaf.scale
+        elif trainable:
+            setattr(owner, attr, nn.Parameter(leaf.detach().clone()))
+        else:
+            setattr(owner, attr, nn.Parameter(leaf, requires_grad=False))
+    for module in shard.modules():
+        if isinstance(module, tp_modules):
+            module.tp = tp
+    shard.tp_specs, shard.tp_partial = specs, frozenset(partial)
+    return shard, local
+
+
+def fully_shard_model(model: nn.Module, mesh: Any, blocks: Sequence[nn.Module]) -> nn.Module:
+    """FSDP2 over ``mesh``'s ``fsdp`` axis (hybrid, replicated over
+    ``data``, when the mesh has both): each of ``blocks`` (the encoder or
+    decoder layers) and then the root become one unit each, so a rank holds
+    dimension 0's shard of every parameter and gathers one block's weights
+    at a time. In place; returns ``model``."""
+    from torch.distributed.fsdp import fully_shard
+
+    group_mesh = fsdp_mesh(mesh)
+    for block in blocks:
+        fully_shard(block, mesh=group_mesh)
+    fully_shard(model, mesh=group_mesh)
+    return model

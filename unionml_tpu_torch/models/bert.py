@@ -21,10 +21,26 @@ Dropout draws its masks from an explicit ``torch.Generator`` passed to
 ``forward`` (the train step seeds one per step, as the JAX step folds the
 step into its dropout key), so the kernel and plain paths drop the same
 units for the same generator.
+
+Tensor parallelism (:func:`param_shardings`, ``bert.py:224-261``): under a
+mesh with a ``tensor`` axis of N ranks, :func:`tensor_parallel` gives each
+rank a copy of the model holding its Megatron shard of every weight, as
+``models/gpt.py`` does for the decoder: ``query``, ``key``, ``value`` and
+``intermediate`` column-parallel (this rank's heads, its part of the MLP),
+the attention and MLP ``output`` row-parallel (one all-reduce each, the bias
+added by rank 0 alone inside its product), and the three embedding tables
+split over their rows (a masked lookup and an all-reduce). Each rank
+attends over ``num_heads / N`` heads, so K1 (``kv_lens``) and K2/K3 run at
+that many heads; the pooler and the classifier are whole on every rank.
+Where N does not divide the heads, q, k and v stay whole and only the
+attention output's input rows split. In a forward that autograd records
+the collectives are the differentiable pair of
+:class:`~unionml_tpu_torch.models._layers.TensorParallel`, so the copy
+trains (``fit(mesh=..., param_spec=...)``).
 """
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +48,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
-from unionml_tpu_torch.models._layers import _dense, _dropout, _layer_norm, recomputed
+from unionml_tpu_torch.models._layers import (
+    TensorParallel,
+    _dense,
+    _dropout,
+    _layer_norm,
+    one_hot_embedding,
+    recomputed,
+)
 from unionml_tpu_torch.models.convert import bert_params_from_jax, bert_random_params
 from unionml_tpu_torch.ops.attention import attention
 
@@ -46,6 +69,8 @@ __all__ = [
     "BertSelfAttention",
     "import_hf_weights",
     "init_bert",
+    "param_shardings",
+    "tensor_parallel",
 ]
 
 Device = Union[str, torch.device, None]
@@ -121,18 +146,30 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(d, d, **kw)
         self.output = nn.Linear(d, d, **kw)
         self.output_norm = nn.LayerNorm(d, eps=config.layer_norm_eps, **kw)
+        #: this rank's share of a tensor-parallel model (:func:`tensor_parallel`)
+        self.tp: Optional[TensorParallel] = None
 
     def forward(self, hidden, kv_lens, dense_mask, generator):
-        cfg = self.config
+        cfg, tp = self.config, self.tp
         batch, seq, _ = hidden.shape
+        n_heads = cfg.num_heads if tp is None else tp.heads
 
         def split(x):
-            return x.reshape(batch, seq, cfg.num_heads, cfg.head_dim).transpose(1, 2).contiguous()
+            return x.reshape(batch, seq, n_heads, cfg.head_dim).transpose(1, 2).contiguous()
 
-        q, k, v = (split(_dense(m, hidden, cfg.dtype)) for m in (self.query, self.key, self.value))
+        entered = hidden if tp is None else tp.enter(hidden)
+        q, k, v = (split(_dense(m, entered, cfg.dtype)) for m in (self.query, self.key, self.value))
         context = attention(q, k, v, mask=dense_mask, kv_lens=kv_lens, impl=cfg.attention_impl)
-        context = context.transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
-        out = _dropout(_dense(self.output, context, cfg.dtype), cfg.hidden_dropout, generator)
+        context = context.transpose(1, 2).reshape(batch, seq, n_heads * cfg.head_dim)
+        if tp is None:
+            out = _dense(self.output, context, cfg.dtype)
+        else:
+            if not tp.split_heads:
+                # whole heads on every rank: the output's input rows split all the same
+                part = cfg.hidden_size // tp.size
+                context = context[..., tp.rank * part:(tp.rank + 1) * part]
+            out = tp.all_reduce(_dense(self.output, context, cfg.dtype, bias=tp.rank == 0))
+        out = _dropout(out, cfg.hidden_dropout, generator)
         return _layer_norm(self.output_norm, out + hidden, cfg.dtype)
 
 
@@ -144,12 +181,18 @@ class BertMlp(nn.Module):
         self.intermediate = nn.Linear(d, config.intermediate_size, **kw)
         self.output = nn.Linear(config.intermediate_size, d, **kw)
         self.output_norm = nn.LayerNorm(d, eps=config.layer_norm_eps, **kw)
+        #: this rank's share of a tensor-parallel model (:func:`tensor_parallel`)
+        self.tp: Optional[TensorParallel] = None
 
     def forward(self, hidden, generator):
-        cfg = self.config
-        up = _dense(self.intermediate, hidden, cfg.dtype)
+        cfg, tp = self.config, self.tp
+        up = _dense(self.intermediate, hidden if tp is None else tp.enter(hidden), cfg.dtype)
         up = F.gelu(up, approximate="tanh" if cfg.gelu_approximate else "none")
-        down = _dropout(_dense(self.output, up, cfg.dtype), cfg.hidden_dropout, generator)
+        if tp is None:
+            down = _dense(self.output, up, cfg.dtype)
+        else:
+            down = tp.all_reduce(_dense(self.output, up, cfg.dtype, bias=tp.rank == 0))
+        down = _dropout(down, cfg.hidden_dropout, generator)
         return _layer_norm(self.output_norm, down + hidden, cfg.dtype)
 
 
@@ -191,6 +234,11 @@ class BertModel(nn.Module):
         self.embeddings_norm = nn.LayerNorm(d, eps=config.layer_norm_eps, **kw)
         self.encoder = BertEncoder(config, device)
         self.pooler = nn.Linear(d, d, **kw)
+        #: this rank's share of a tensor-parallel model (:func:`tensor_parallel`)
+        self.tp: Optional[TensorParallel] = None
+
+    def _lookup(self, ids: torch.Tensor, table: nn.Embedding, embed=F.embedding) -> torch.Tensor:
+        return embed(ids, table.weight) if self.tp is None else self.tp.lookup(ids, table.weight, embed)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, generator=None):
         cfg = self.config
@@ -209,9 +257,10 @@ class BertModel(nn.Module):
                 kv_lens = attention_mask.sum(dim=-1, dtype=torch.int32)
 
         positions = torch.arange(seq, device=input_ids.device)
-        word = F.embedding(input_ids, self.word_embeddings.weight).to(cfg.dtype)
-        position = F.embedding(positions, self.position_embeddings.weight).to(cfg.dtype)[None]
-        token_type = F.embedding(token_type_ids, self.token_type_embeddings.weight).to(cfg.dtype)
+        word = self._lookup(input_ids, self.word_embeddings).to(cfg.dtype)
+        position = self._lookup(positions, self.position_embeddings).to(cfg.dtype)[None]
+        # the two-row table as a one-hot product: its gradient sums in a fixed order on the card
+        token_type = self._lookup(token_type_ids, self.token_type_embeddings, one_hot_embedding).to(cfg.dtype)
         hidden = _layer_norm(self.embeddings_norm, word + position + token_type, cfg.dtype)
         hidden = _dropout(hidden, cfg.hidden_dropout, generator)
         hidden = self.encoder(hidden, kv_lens, dense_mask, generator)
@@ -268,6 +317,85 @@ def init_bert(config: BertConfig, seed: int = 0, device: Device = "cuda", std: f
     tree = params if params is not None else bert_random_params(config, seed, std)
     model.load_state_dict(bert_params_from_jax(tree))
     return model
+
+
+def param_shardings(params: Any, mesh_axis_names: Tuple[str, ...] = ("data", "tensor")) -> Any:
+    """:class:`~unionml_tpu_torch.parallel.mesh.Spec` tree for the port's BERT
+    parameter tree (``dict(model.named_parameters())``), the Megatron-style
+    split of ``bert.py:224-261``:
+
+    - ``query``/``key``/``value`` and ``intermediate``: the OUTPUT dim (heads) over ``tensor``
+    - attention and MLP ``output``: the INPUT dim over ``tensor``
+    - the embedding tables: their rows (vocabulary, positions, types) over ``tensor``
+    - other matrices (pooler, classifier) over ``fsdp`` when present;
+      everything else (norms, biases) replicated
+
+    The entries are JAX's with each ``nn.Linear`` weight's two dimensions
+    flipped (``(out, in)`` against flax's ``(in, out)``). FSDP2 lays out the
+    ``fsdp`` entries (``models/_sharding.py``)."""
+    from unionml_tpu_torch.models._sharding import shard_by_rules
+    from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS, Spec
+
+    tensor = TENSOR_AXIS if TENSOR_AXIS in mesh_axis_names else None
+    fsdp = FSDP_AXIS if FSDP_AXIS in mesh_axis_names else None
+
+    def spec_for(path: Tuple[str, ...], leaf) -> Spec:
+        path_str = "/".join(path)
+        if len(leaf.shape) < 2:
+            return Spec()
+        if "embeddings" in path_str:
+            return Spec(tensor, None)
+        if any(n in path_str for n in ("query", "key", "value", "intermediate")):
+            return Spec(tensor, fsdp)
+        if "attention/output" in path_str or "mlp/output" in path_str:
+            return Spec(fsdp, tensor)
+        return Spec(None, fsdp)
+
+    return shard_by_rules(params, spec_for)
+
+
+def tensor_parallel(model: BertForSequenceClassification, mesh: Any, trainable: bool = False
+                    ) -> Tuple[BertForSequenceClassification, Dict[str, Any]]:
+    """``(this rank's model, its weight tree)``: a copy of ``model`` (which
+    every rank holds whole, from the same seed or checkpoint, and which is
+    left untouched) whose weights are this rank's shards under
+    :func:`param_shardings`, and whose forward runs the tensor axis's
+    collectives (see the module docstring). A mesh without a ``tensor`` axis
+    gives ``model`` itself. Where the axis does not divide the heads,
+    ``query``, ``key`` and ``value`` stay whole on every rank. Raises JAX's
+    ``ValueError`` where the axis does not divide a sharded dimension (an
+    embedding table's rows, the hidden or intermediate width).
+    ``trainable=True`` gives shards that take gradients (the train step's
+    layout).
+
+    The copy's ``tp_partial`` names the parameters whose gradients are each
+    rank's part of a sum over the tensor axis: the row-parallel biases, which
+    rank 0 alone adds, and the whole ``query``/``key``/``value`` under an axis
+    that does not divide the heads."""
+    from unionml_tpu_torch.models._sharding import shard_model, weight_tree
+    from unionml_tpu_torch.parallel.mesh import TENSOR_AXIS, Spec, axis_index, axis_names, axis_size
+
+    cfg = model.config
+    names = axis_names(mesh)
+    tree = weight_tree(model)
+    if TENSOR_AXIS not in names:
+        return model, tree
+    n = axis_size(mesh, TENSOR_AXIS)
+    split_heads = cfg.num_heads % n == 0
+    specs = param_shardings(tree, names)
+    for name in specs:
+        qkv = any(f".attention.{p}." in name for p in ("query", "key", "value"))
+        if qkv and not split_heads:
+            specs[name] = Spec()
+        elif (qkv or ".mlp.intermediate." in name) and name.endswith("bias"):
+            # a rank computes its columns' product whole: the column-parallel
+            # biases split with their outputs (JAX replicates them and XLA slices)
+            specs[name] = Spec(TENSOR_AXIS)
+    tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, rank=axis_index(mesh, TENSOR_AXIS),
+                        heads=cfg.num_heads // n if split_heads else cfg.num_heads, split_heads=split_heads)
+    partial = {name for name in tree if name.endswith((".attention.output.bias", ".mlp.output.bias"))
+               or (not split_heads and any(f".attention.{p}." in name for p in ("query", "key", "value")))}
+    return shard_model(model, mesh, specs, tp, (BertModel, BertSelfAttention, BertMlp), partial, trainable)
 
 
 def import_hf_weights(hf_state_dict: Mapping[str, Any], config: BertConfig) -> Dict[str, torch.Tensor]:

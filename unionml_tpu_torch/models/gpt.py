@@ -70,10 +70,23 @@ all-reduce), and the tied head's f32 logits are all-gathered, so every rank
 holds the same logits bit for bit. Each rank attends over ``num_heads / N``
 heads, and its KV cache or pool holds only those (:func:`kv_cache_spec`).
 Where N does not divide the heads, q, k, v and the cache stay whole on
-every rank and only the projections after attention split. Not ported yet
-(each raises ``NotImplementedError`` naming its ROADMAP item): the
-ring/ulysses layers, the expert-parallel ``a2a`` dispatch and ``ep_mesh``,
-sparse blocks and training under a tensor mesh.
+every rank and only the projections after attention split.
+
+A tensor-parallel model trains (``fit_lm(mesh=..., param_spec=...)``,
+:mod:`~unionml_tpu_torch.models.training`): in a forward that autograd
+records, the inputs of the column-parallel products (``qkv``, ``mlp_up`` and
+the tied head) pass through
+:meth:`~unionml_tpu_torch.models._layers.TensorParallel.enter` (identity
+forward, gradient summed over the axis backward), the row-parallel sums and
+the lookups' all-reduces pass the gradient through as it is, and the
+gathered logits hand each rank its slice of theirs. K1, K2 and K3 then run
+at a rank's heads. The gradients of what rank 0 alone adds (the row-parallel
+biases) and, where the axis does not divide the heads, of the whole ``qkv``
+are each rank's part of a sum, which the train step completes
+(:func:`tensor_parallel`'s ``partial`` names). Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): the ring/ulysses layers,
+the expert-parallel ``a2a`` dispatch and ``ep_mesh``, sparse blocks under a
+tensor mesh, and decode over an ``fsdp`` axis.
 """
 
 import copy
@@ -82,11 +95,17 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-import torch.distributed as dist
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
-from unionml_tpu_torch.models._layers import QuantizedLinear, _dense, _dropout, _kernel, _layer_norm, recomputed
+from unionml_tpu_torch.models._layers import (
+    TensorParallel,
+    _dense,
+    _dropout,
+    _kernel,
+    _layer_norm,
+    recomputed,
+)
 from unionml_tpu_torch.models.moe import MoEMlp
 from unionml_tpu_torch.ops.attention import attention, reference_attention
 from unionml_tpu_torch.ops.losses import cross_entropy_with_integer_labels
@@ -336,46 +355,6 @@ def paged_commit_chunk(layer_cache, block_table, position, counts, ck, cv):
     return layer_cache
 
 
-@dataclasses.dataclass(frozen=True)
-class TensorParallel:
-    """How one rank of a tensor-parallel model computes: the tensor axis's
-    process group, its size and this rank's index on it, and the attention
-    heads this rank holds (``num_heads / size``, or all of them when the axis
-    does not divide the heads and q, k, v stay whole)."""
-
-    group: Any
-    size: int
-    rank: int
-    heads: int
-    split_heads: bool
-
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the tensor axis, in place."""
-        dist.all_reduce(x, group=self.group)
-        return x
-
-    def lookup(self, ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        """A vocab- (or position-) parallel embedding: this rank's rows of the
-        table answer the ids in its range, zeros the rest, and the sum over
-        the axis is every id's row (exact: one addend is not zero)."""
-        rows = weight.shape[0]
-        local = ids - self.rank * rows
-        inside = (local >= 0) & (local < rows)
-        out = F.embedding(torch.where(inside, local, torch.zeros_like(local)), weight)
-        return self.all_reduce(torch.where(inside[..., None], out, torch.zeros_like(out)))
-
-    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' shards of the last dimension concatenated in rank order
-        (the tied head's vocab-parallel logits)."""
-        flat = x.reshape(-1, x.shape[-1]).contiguous()
-        out = torch.empty((self.size * flat.shape[0], flat.shape[1]), dtype=x.dtype, device=x.device)
-        # torch 2.13 deprecates all_gather_into_tensor (a FutureWarning) for
-        # all_gather_single, which torch 2.11 does not have
-        (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, flat, group=self.group)
-        out = out.reshape(self.size, flat.shape[0], flat.shape[1]).transpose(0, 1)
-        return out.reshape(*x.shape[:-1], self.size * x.shape[-1])
-
-
 def kv_heads(model: nn.Module) -> int:
     """Attention heads of ``model``'s KV cache on this rank: this rank's share
     under tensor parallelism, else the config's."""
@@ -441,7 +420,8 @@ class DecoderBlock(nn.Module):
         # a speculative verify chunk takes each position's products at the
         # decode step's shape, so its tokens score as plain decoding scores them
         dense = _dense_by_position if verify else _dense
-        qkv = dense(self.qkv, _layer_norm(self.attn_norm, hidden, cfg.dtype), cfg.dtype)
+        normed = _layer_norm(self.attn_norm, hidden, cfg.dtype)
+        qkv = dense(self.qkv, normed if tp is None else tp.enter(normed), cfg.dtype)
         n_heads = cfg.num_heads if tp is None else tp.heads
         width = n_heads * cfg.head_dim
 
@@ -497,7 +477,8 @@ class DecoderBlock(nn.Module):
         normed = _layer_norm(self.mlp_norm, hidden, cfg.dtype)
         aux = None
         if not self.use_moe:
-            down = row_parallel(self.mlp_down, F.gelu(dense(self.mlp_up, normed, cfg.dtype), approximate="tanh"))
+            up = dense(self.mlp_up, normed if tp is None else tp.enter(normed), cfg.dtype)
+            down = row_parallel(self.mlp_down, F.gelu(up, approximate="tanh"))
         elif verify:
             # position by position, as _dense_by_position: each expert
             # product has the decode step's rows (the layer is dropless here)
@@ -644,9 +625,6 @@ class GPTLMHeadModel(nn.Module):
             generator = None
         elif generator is None:
             raise ValueError("deterministic=False draws dropout masks from `generator`; pass one")
-        elif self.tp is not None:
-            raise NotImplementedError("training a tensor-parallel model is not ported yet "
-                                      "(ROADMAP: M12, sharded training: DDP and FSDP2)")
         if segment_ids is not None and cache is not None:
             raise ValueError("segment_ids is a packed-TRAINING feature; decode caches are unpacked")
         batch, seq = input_ids.shape
@@ -697,6 +675,8 @@ class GPTLMHeadModel(nn.Module):
         if block_table is not None:
             new_cache["table"] = block_table
         hidden = _layer_norm(self.final_norm, hidden, cfg.dtype).float()
+        if self.tp is not None:  # the tied head is column-parallel over the vocabulary
+            hidden = self.tp.enter(hidden)
         # tied head with genuinely-f32 logits: f32 hidden states times the f32
         # embedding (a verify chunk's position by position, as its blocks)
         if verify:
@@ -997,17 +977,8 @@ def kv_block_spec(config: GPTConfig, mesh_axis_names: Tuple[str, ...]) -> Any:
     return kv_cache_spec(config, mesh_axis_names)
 
 
-def _weight_tree(model: nn.Module) -> Dict[str, Any]:
-    """``model``'s parameters by name, an int8 layer's weight as its
-    :class:`~unionml_tpu_torch.ops.quant.QuantizedArray`."""
-    tree: Dict[str, Any] = dict(model.named_parameters())
-    for name, module in model.named_modules():
-        if isinstance(module, QuantizedLinear):
-            tree[f"{name}.weight"] = module.weight
-    return tree
-
-
-def tensor_parallel(model: GPTLMHeadModel, mesh: Any) -> Tuple[GPTLMHeadModel, Dict[str, Any]]:
+def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
+                    ) -> Tuple[GPTLMHeadModel, Dict[str, Any]]:
     """``(this rank's model, its weight tree)``: a copy of ``model`` (which
     every rank holds whole, from the same seed or checkpoint, and which is
     left untouched) whose weights are this rank's shards under
@@ -1016,19 +987,27 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any) -> Tuple[GPTLMHeadModel, D
     (every rank computes the same). Where the axis does not divide the heads,
     ``qkv`` stays whole on every rank. Raises JAX's ``ValueError`` where the
     axis does not divide a sharded dimension (the vocabulary, the positions,
-    the MLP), and ``NotImplementedError`` for sparse blocks and for a mesh
-    axis other than ``data``/``tensor`` of more than one rank."""
-    from unionml_tpu_torch.models._sharding import place_by_specs
+    the MLP), and ``NotImplementedError`` for sparse blocks and, unless
+    ``trainable``, for a mesh axis other than ``data``/``tensor`` of more
+    than one rank (decode over an ``fsdp`` axis). ``trainable=True`` (the
+    train step's layout) gives shards that take gradients and leaves the
+    data and fsdp axes to the train step.
+
+    The copy's ``tp_partial`` names the parameters whose gradients are each
+    rank's part of a sum over the tensor axis: the row-parallel biases, which
+    rank 0 alone adds, and a whole ``qkv`` under an axis that does not divide
+    the heads (each rank's attention output feeds only its slice)."""
+    from unionml_tpu_torch.models._sharding import shard_model, weight_tree
     from unionml_tpu_torch.ops.quant import QuantizedArray
     from unionml_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, Spec, axis_index, axis_names, axis_size
 
     cfg = model.config
     names = axis_names(mesh)
     others = [a for a in names if a not in (DATA_AXIS, TENSOR_AXIS) and axis_size(mesh, a) > 1]
-    if others:
+    if others and not trainable:
         raise NotImplementedError(f"serving over the mesh axes {others} is not ported yet "
-                                  "(ROADMAP: M12, sharded training: DDP and FSDP2)")
-    tree = _weight_tree(model)
+                                  "(ROADMAP: M12, decode over an fsdp axis)")
+    tree = weight_tree(model)
     if TENSOR_AXIS not in names:
         return model, tree
     if cfg.moe_every > 0:
@@ -1049,24 +1028,11 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any) -> Tuple[GPTLMHeadModel, D
             continue
         specs[name] = QuantizedArray(q=spec, scale=spec, dtype=tree[name].dtype) \
             if isinstance(tree[name], QuantizedArray) else spec
-    with torch.no_grad():
-        local = place_by_specs(tree, mesh, specs)
-    # the module structure is copied, no weight is: the memo maps each to
-    # itself, and each shard then replaces its leaf in the copy
-    shard = copy.deepcopy(model, memo={id(t): t for t in [*model.parameters(), *model.buffers()]})
-    for name, leaf in local.items():
-        owner_name, _, attr = name.rpartition(".")
-        owner = shard.get_submodule(owner_name)
-        if isinstance(leaf, QuantizedArray):
-            owner.q, owner.scale = leaf.q, leaf.scale
-        else:
-            setattr(owner, attr, nn.Parameter(leaf, requires_grad=False))
     tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, rank=axis_index(mesh, TENSOR_AXIS),
                         heads=cfg.num_heads // n if split_heads else cfg.num_heads, split_heads=split_heads)
-    for module in shard.modules():
-        if isinstance(module, (GPTLMHeadModel, DecoderBlock)):
-            module.tp = tp
-    return shard, local
+    partial = {name for name in tree if name.endswith((".attn_out.bias", ".mlp_down.bias"))
+               or (not split_heads and ".qkv." in name)}
+    return shard_model(model, mesh, specs, tp, (GPTLMHeadModel, DecoderBlock), partial, trainable)
 
 
 def lm_loss(

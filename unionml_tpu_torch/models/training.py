@@ -30,16 +30,46 @@ A sparse GPT's expert weights are parameters in the compute dtype (bf16 in
 a bf16 config, as flax makes them): their AdamW moments follow each leaf's
 dtype, as optax's do, and ``moe_aux=True`` adds the router losses
 (:func:`~unionml_tpu_torch.models.moe.collect_aux_losses`) to the LM loss.
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-meshes and parameter specs (M12).
+
+Sharded training (``mesh=``/``param_spec=``, ``training.py:113-214``) is SPMD
+over ``torch.distributed``: every rank runs the same step on its rows of the
+batch (``dict_batches(mesh=...)`` gives them, ragged tails wrapped onto
+real rows) and on its shard of the state, and the collectives XLA inserts in
+the JAX package are explicit (NCCL on the card, gloo on the CPU). The first
+meshed step lays the state out (:func:`shard_train_state`) by the three axes:
+
+- ``data`` (and ``param_spec=None``): parameters replicated; the gradients go
+  through one bucketed all-reduce (a mean over the batch's ranks) before
+  :meth:`TrainState.apply_gradients`. torch's ``DistributedDataParallel``
+  does not fit: it reduces in ``.backward()`` hooks, and the step takes its
+  gradients with ``torch.autograd.grad``;
+- ``fsdp`` (a ``param_spec`` that names it): FSDP2, ``fully_shard`` on each
+  encoder or decoder block and on the root, hybrid (replicated over
+  ``data``) when the mesh has both. Each rank holds dimension 0's shard of
+  every parameter and of ``mu`` and ``nu``; the step takes its gradients by
+  ``loss.backward()`` (FSDP2 reduce-scatters them into each shard's
+  ``.grad``; ``torch.autograd.grad`` cannot see through its parameters) and
+  the AdamW update runs on each rank's local shard;
+- ``tensor`` (the BERT or GPT ``param_shardings``): the Megatron split of
+  the family's ``tensor_parallel``, differentiable; the gradients that are
+  each rank's part of a sum (``tp_partial``) are summed over the axis.
+
+Metrics are global-batch values, the same on every rank: the loss and
+accuracy are means over the batch's ranks, and ``grad_norm`` is the norm of
+the whole gradient (each shard's squares summed over the axes that split
+it), which is also the norm clipping uses. A mesh whose axes each span one
+rank exchanges nothing and computes bit for bit what the unmeshed step
+does.
 """
 
+import copy
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
@@ -51,6 +81,7 @@ from unionml_tpu_torch.ops.packing import pack_sequences, packing_efficiency
 
 __all__ = [
     "FitResult",
+    "Layout",
     "TrainState",
     "bert_flops_per_token",
     "classifier_grads",
@@ -65,6 +96,7 @@ __all__ = [
     "make_lm_eval_step",
     "make_lm_train_step",
     "prefetched_batches",
+    "shard_train_state",
 ]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -74,10 +106,6 @@ def _bias_correction(decay: float, count: int) -> float:
     """``1 - decay**count`` in float32, as optax computes it: the float32
     0.999 is 1.3e-5 away from 0.999 in relative terms after ``1 - b2``."""
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP: {item})")
 
 
 @dataclass(eq=False)
@@ -102,6 +130,8 @@ class TrainState:
     seed: int
     mu_dtype: Optional[torch.dtype] = None
     step: int = 0
+    #: where the leaves lie on a mesh (:func:`shard_train_state`); None unmeshed
+    layout: Optional["Layout"] = field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -131,7 +161,9 @@ class TrainState:
         in bf16 (``optax.global_norm``), so with bf16 leaves (a sparse
         model's experts in a bf16 config) the two norms differ by the
         rounding of those leaves' sums (about 2^-8 of their share); f32
-        leaves agree to rounding.
+        leaves agree to rounding. On a mesh that splits the parameters the
+        norm is the whole gradient's (:meth:`Layout.global_norm`), and the
+        update runs on this rank's shards.
 
         optax's arithmetic: ``g if norm < max else g / norm * max`` (here
         ``g / denom * max`` with ``denom = max`` below the threshold: exact for
@@ -140,7 +172,11 @@ class TrainState:
         ``mu_hat / (sqrt(nu_hat) + eps)``, plus ``weight_decay * p``, times
         ``-lr`` at the pre-increment count, added to the parameters.
         """
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)))
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        if self.layout is not None and self.layout.exchanges_norm:
+            norm = self.layout.global_norm(norms)
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(norms))
         denom = torch.where(norm < self.max_grad_norm, torch.full_like(norm, self.max_grad_norm), norm)
         clipped = torch._foreach_div(grads, denom)
         torch._foreach_mul_(clipped, self.max_grad_norm)
@@ -206,18 +242,274 @@ def create_train_state(
     )
 
 
-def dropout_generator(seed: int, step: int, device: torch.device, index: Optional[int] = None) -> torch.Generator:
+def _family(model: nn.Module):
+    """``(tensor_parallel, param_shardings, blocks)`` of a model family the
+    port splits over a tensor axis (BERT, GPT), else None."""
+    from unionml_tpu_torch.models import bert, gpt
+
+    if isinstance(model, bert.BertForSequenceClassification):
+        return bert.tensor_parallel, bert.param_shardings, list(model.bert.encoder.layers)
+    if isinstance(model, gpt.GPTLMHeadModel):
+        return gpt.tensor_parallel, gpt.param_shardings, list(model.layers)
+    return None
+
+
+def _gather_over(local: torch.Tensor, dim: int, parts: int, group: Any, size: int) -> torch.Tensor:
+    """The inverse of ``NamedSharding.shard`` along ``dim`` over one axis:
+    the ranks' shards gathered in rank order, part by part."""
+    pieces = [torch.empty_like(local) for _ in range(size)]
+    dist.all_gather(pieces, local.contiguous(), group=group)
+    chunks = [piece.chunk(parts, dim) for piece in pieces]
+    return torch.cat([c[j] for j in range(parts) for c in chunks], dim)
+
+
+@dataclass(eq=False)
+class Layout:
+    """Where a :class:`TrainState`'s leaves lie on a mesh (:func:`shard_train_state`).
+
+    Per parameter, in ``names`` order: its spec over the ``tensor`` axis (the
+    Megatron split; ``fsdp`` entries dropped), the module's parameter
+    (a ``DTensor`` under FSDP2), and whether its gradient is each rank's
+    part of a sum over the tensor axis. ``fsdp``: FSDP2 holds dimension 0's
+    shard of every parameter (of its tensor shard) on this rank."""
+
+    mesh: Any
+    specs: List[Any]
+    module_params: List[nn.Parameter]
+    partial: List[bool]
+    fsdp: bool
+    #: the unsplit module the layout was cut from (:meth:`whole_model`)
+    source: nn.Module = field(repr=False)
+    names: List[str] = field(repr=False)
+
+    def __post_init__(self) -> None:
+        from unionml_tpu_torch.parallel.mesh import (
+            FSDP_AXIS, TENSOR_AXIS, axis_group, axis_size, batch_axis_size, batch_group, batch_index,
+        )
+
+        self.tensor_group = axis_group(self.mesh, TENSOR_AXIS)
+        self.tensor_size = axis_size(self.mesh, TENSOR_AXIS)
+        self.fsdp_group = axis_group(self.mesh, FSDP_AXIS) if self.fsdp else None
+        self.batch_group = batch_group(self.mesh)
+        self.batch_size = batch_axis_size(self.mesh)
+        #: the dropout generator's shard word (None where the batch spans one rank)
+        self.dropout_shard = batch_index(self.mesh) if self.batch_size > 1 else None
+        self.tensor_split = [self.tensor_group is not None and TENSOR_AXIS in tuple(spec) for spec in self.specs]
+        #: whether the global norm needs an exchange (else the unmeshed formula)
+        self.exchanges_norm = self.fsdp_group is not None or any(self.tensor_split)
+
+    def take_shard_grads(self) -> List[torch.Tensor]:
+        """This rank's gradient shards after FSDP2's backward (zeros for a
+        parameter that took none); the parameters' ``.grad`` are cleared."""
+        grads = []
+        for param in self.module_params:
+            grad = param.grad
+            local = param.to_local() if hasattr(param, "to_local") else param
+            grads.append(torch.zeros_like(local) if grad is None else
+                         (grad.to_local() if hasattr(grad, "to_local") else grad))
+            param.grad = None
+        return grads
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: List[torch.Tensor]) -> None:
+        """In place: the partial gradients summed over the tensor axis, then
+        (without FSDP2, which reduces its own) every gradient's mean over the
+        batch's ranks, one all-reduce per dtype."""
+        if self.tensor_group is not None:
+            partial = [g for g, p in zip(grads, self.partial) if p]
+            if partial:
+                _all_reduce_flat(partial, self.tensor_group, 1)
+        if not self.fsdp and self.batch_group is not None:
+            _all_reduce_flat(grads, self.batch_group, self.batch_size)
+
+    def weight_share(self, weight: torch.Tensor) -> torch.Tensor:
+        """The batch's ranks times this rank's share of their summed ``weight``."""
+        weight = weight.detach().float()
+        total = weight.clone()
+        dist.all_reduce(total, group=self.batch_group)
+        return self.batch_size * weight / torch.clamp(total, min=1e-8)
+
+    def batch_mean(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each metric's mean over the batch's ranks (as they are on one rank)."""
+        if self.batch_group is None:
+            return values
+        stacked = torch.stack([v.float() for v in values])
+        dist.all_reduce(stacked, group=self.batch_group)
+        stacked = stacked / self.batch_size
+        return [stacked[i].to(v.dtype) for i, v in enumerate(values)]
+
+    def global_norm(self, norms: List[torch.Tensor]) -> torch.Tensor:
+        """The whole gradient's norm from each local leaf's: the squares of
+        FSDP2 shards summed over ``fsdp``, those of tensor shards over
+        ``tensor``, each replicated leaf counted once."""
+        squares = torch.stack(norms) ** 2
+        split = torch.tensor(self.tensor_split, device=squares.device)
+        sums = torch.stack([squares[split].sum(), squares[~split].sum()])
+        if self.fsdp_group is not None:
+            dist.all_reduce(sums, group=self.fsdp_group)
+        if self.tensor_group is not None:
+            tensor_part = sums[:1].clone()
+            dist.all_reduce(tensor_part, group=self.tensor_group)
+            sums = torch.cat([tensor_part, sums[1:]])
+        return torch.sqrt(sums.sum())
+
+    @torch.no_grad()
+    def gather(self, index: int, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of parameter ``index`` (its value, or a moment)
+        from this rank's shard: a collective every rank joins."""
+        full = local
+        if self.fsdp:
+            from torch.distributed.tensor import DTensor
+
+            param = self.module_params[index]
+            full = DTensor.from_local(local, param.device_mesh, param.placements, run_check=False,
+                                      shape=param.shape, stride=param.stride()).full_tensor()
+        spec = self.specs[index]
+        if self.tensor_split[index]:
+            dim = tuple(spec).index("tensor")
+            full = _gather_over(full, dim, spec.parts, self.tensor_group, self.tensor_size)
+        return full
+
+    @torch.no_grad()
+    def whole_model(self, params: List[torch.Tensor]) -> nn.Module:
+        """The unsplit module with every parameter set to its whole value
+        gathered from ``params`` (this rank's shards): a collective."""
+        whole = dict(self.source.named_parameters())
+        for i, (name, local) in enumerate(zip(self.names, params)):
+            value = self.gather(i, local)
+            if whole[name] is not local:
+                whole[name].copy_(value)
+        return self.source
+
+    @torch.no_grad()
+    def shard(self, index: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole leaf of parameter ``index`` (no collective)."""
+        from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, NamedSharding, axis_index, axis_size
+
+        local = NamedSharding(self.mesh, self.specs[index]).shard(full)
+        if self.fsdp:
+            ways, at = axis_size(self.mesh, FSDP_AXIS), axis_index(self.mesh, FSDP_AXIS)
+            chunks = torch.chunk(local, ways, dim=0)
+            local = chunks[at] if at < len(chunks) else local[:0]
+        return local
+
+
+def _all_reduce_flat(tensors: List[torch.Tensor], group: Any, divide: int) -> None:
+    """Sum ``tensors`` over ``group`` in place through one flat buffer per
+    dtype (a bucketed all-reduce), then divide by ``divide``."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for bucket in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        if divide > 1:
+            flat.div_(divide)
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> TrainState:
+    """A :class:`TrainState` laid out on ``mesh`` from ``state`` (which every
+    rank holds whole, as built from the same seed or checkpoint; it is left
+    as it is), per ``param_spec``: a :class:`~unionml_tpu_torch.parallel.mesh.Spec`
+    per parameter name, as the family's ``param_shardings`` gives it, or
+    None to replicate every parameter (the data-parallel default,
+    ``training.py:195-214``).
+
+    A spec that names ``tensor`` is the Megatron split of a BERT or GPT
+    model (the family's ``tensor_parallel``, the only layout its forward
+    computes); any other spec over a tensor axis of more than one rank, or
+    a tensor spec for another model, raises ``ValueError``. A spec that
+    names ``fsdp`` (with the mesh's ``fsdp`` axis) puts the model under
+    FSDP2 (``models/_sharding.py``). ``mu`` and ``nu`` are cut like their
+    parameters; the step count and hyperparameters carry over.
+
+    The laid-out state's model is a copy under a tensor or fsdp split, and
+    ``state.model`` itself when every parameter is replicated (its
+    parameters then train in place, as an unmeshed step's do)."""
+    from unionml_tpu_torch.models._sharding import _without_fsdp, fully_shard_model, names_axis
+    from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS, Spec, axis_names, axis_size
+
+    if state.layout is not None:
+        raise ValueError("this state is laid out on a mesh already")
+    names = axis_names(mesh)
+    model = state.model
+    family = _family(model)
+    if param_spec is not None:
+        missing = set(state.names) ^ set(param_spec)
+        if missing:
+            raise ValueError(f"param_spec does not match the state's parameters: {sorted(missing)}")
+    tensor = param_spec is not None and TENSOR_AXIS in names and names_axis(param_spec, TENSOR_AXIS)
+    fsdp = param_spec is not None and FSDP_AXIS in names and names_axis(param_spec, FSDP_AXIS)
+    partial = frozenset()
+    if tensor:
+        if family is None:
+            raise ValueError(f"a tensor-parallel param_spec needs a model the port splits over the tensor axis "
+                             f"(BERT or GPT); {type(model).__name__} computes only whole")
+        tensor_parallel, param_shardings, _ = family
+        wanted = param_shardings(dict(model.named_parameters()), names)
+        off = [n for n in state.names if tuple(wanted[n]) != tuple(param_spec[n])]
+        if off:
+            raise ValueError(f"the port's tensor-parallel forward computes the Megatron split of "
+                             f"param_shardings only; param_spec differs at {off[:4]}")
+        model, _ = tensor_parallel(model, mesh, trainable=True)
+        # the split the copy was cut by (column-parallel biases with their outputs)
+        partial, specs = model.tp_partial, [model.tp_specs[n] for n in state.names]
+    else:
+        specs = [Spec() for _ in state.names]
+    if fsdp:
+        if not tensor:
+            model = copy.deepcopy(model)
+        fully_shard_model(model, mesh, _family(model)[2] if family is not None else [])
+    module_params = [dict(model.named_parameters())[n] for n in state.names]
+    layout = Layout(mesh=mesh, specs=[_without_fsdp(s) for s in specs], module_params=module_params,
+                    partial=[n in partial for n in state.names], fsdp=fsdp, source=state.model,
+                    names=list(state.names))
+    with torch.no_grad():
+        params = [p.to_local() if hasattr(p, "to_local") else p for p in module_params]
+        mu = [layout.shard(i, m).clone() for i, m in enumerate(state.mu)]
+        nu = [layout.shard(i, v).clone() for i, v in enumerate(state.nu)]
+    for p, m in zip(params, mu):
+        if p.shape != m.shape:
+            raise AssertionError(f"a moment's shard {tuple(m.shape)} does not match its parameter's {tuple(p.shape)}")
+    return TrainState(
+        model=model, names=list(state.names), params=params, mu=mu, nu=nu, learning_rate=state.learning_rate,
+        weight_decay=state.weight_decay, warmup_steps=state.warmup_steps, total_steps=state.total_steps,
+        max_grad_norm=state.max_grad_norm, seed=state.seed, mu_dtype=state.mu_dtype, step=state.step,
+        layout=layout,
+    )
+
+
+#: the word that marks a batch shard's index in a dropout seed
+_SHARD_WORD = 0x5EED
+
+
+def dropout_generator(seed: int, step: int, device: torch.device, index: Optional[int] = None,
+                      shard: Optional[int] = None) -> torch.Generator:
     """The dropout generator of one step (and microbatch ``index``): seeded
     from ``(seed, step[, index])``, the counterpart of the JAX step's
-    ``fold_in(dropout_rng, step)`` (``training.py:136``)."""
+    ``fold_in(dropout_rng, step)`` (``training.py:136``).
+
+    ``shard`` is this rank's index over the batch's ranks (data×fsdp) on a
+    mesh where they are more than one: ranks with different rows draw
+    distinct masks, and the ranks of one tensor group, which share an index
+    and hold the same replicated activations at every dropout site, draw
+    identical ones. Where the batch spans one rank ``shard`` is None and the
+    generator is the unmeshed step's."""
     words = [seed, step] if index is None else [seed, step, index]
+    if shard is not None:
+        words += [_SHARD_WORD, shard]
     generator = torch.Generator(device=device)
     generator.manual_seed(int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0] >> np.uint64(1)))
     return generator
 
 
 def _microbatch_grads(
-    state: TrainState, batch: Dict[str, torch.Tensor], grad_accum: int, loss_fn: Callable
+    state: TrainState, batch: Dict[str, torch.Tensor], grad_accum: int, loss_fn: Callable,
+    weight_fn: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """``(grads, values)`` of one step, dropout on: ``loss_fn(microbatch,
     generator)`` returns the loss to differentiate first, then any metrics.
@@ -226,26 +518,54 @@ def _microbatch_grads(
     microbatches (each with its own dropout generator), whose gradients and
     values are summed and divided by ``grad_accum``: the mean of means of
     ``_accumulated_value_and_grad`` (``training.py:78-109``).
+
+    On a mesh whose batch spans several ranks, ``weight_fn(microbatch)`` is
+    the weight a rank's loss is a mean over (an LM batch's real
+    transitions): each rank's loss is scaled by its share of the ranks'
+    total weight (times their number), so the mean over the ranks that
+    follows is the global batch's weighted mean, as XLA computes it over the
+    whole batch. Without one, every rank's rows weigh alike.
     """
     rows = len(next(iter(batch.values())))
     if rows % grad_accum:
         raise ValueError(f"grad_accum={grad_accum} must divide the batch size ({rows})")
+    layout = state.layout
+    shard = layout.dropout_shard if layout is not None else None
+    backward = layout is not None and layout.fsdp
     size = rows // grad_accum
     total = sums = None
     for index in range(grad_accum):
         micro = batch if grad_accum == 1 else {k: v[index * size:(index + 1) * size] for k, v in batch.items()}
-        generator = dropout_generator(state.seed, state.step, state.device, None if grad_accum == 1 else index)
+        generator = dropout_generator(state.seed, state.step, state.device, None if grad_accum == 1 else index,
+                                      shard=shard)
         loss, *extras = loss_fn(micro, generator)
-        grads = list(torch.autograd.grad(loss, state.params))
+        if weight_fn is not None and layout is not None and layout.batch_group is not None:
+            loss = loss * layout.weight_share(weight_fn(micro))
         values = [loss.detach(), *extras]
-        if total is None:
+        if backward:
+            # FSDP2 reduce-scatters each backward into (and adds to) the shards' .grad
+            loss.backward()
+            grads = None
+        elif layout is None:
+            grads = list(torch.autograd.grad(loss, state.params))
+        else:
+            # a row-parallel bias takes no gradient on the tensor ranks that do not add it
+            grads = [torch.zeros_like(p) if g is None else g for p, g in
+                     zip(state.params, torch.autograd.grad(loss, state.params, allow_unused=True))]
+        if sums is None:
             total, sums = grads, values
         else:
-            torch._foreach_add_(total, grads)
+            if grads is not None:
+                torch._foreach_add_(total, grads)
             sums = [a + b for a, b in zip(sums, values)]
+    if backward:
+        total = layout.take_shard_grads()
     if grad_accum > 1:
         torch._foreach_div_(total, grad_accum)
         sums = [v / grad_accum for v in sums]
+    if layout is not None:
+        layout.reduce_grads(total)
+        sums = layout.batch_mean(sums)
     return total, sums
 
 
@@ -290,8 +610,21 @@ def lm_grads(
     def loss_fn(micro, generator):
         return (_lm_loss(state.model, micro, packed, moe_aux, deterministic=False, generator=generator),)
 
-    grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn)
+    grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn, lambda micro: _lm_weight(micro, packed))
     return grads, loss
+
+
+def _lm_weight(batch: Dict[str, torch.Tensor], packed: bool) -> torch.Tensor:
+    """The weight :func:`lm_loss` averages over: the batch's real next-token
+    transitions (within one segment when packed, under the mask if any)."""
+    ids = batch["input_ids"]
+    weights = torch.ones_like(ids[:, 1:], dtype=torch.float32)
+    if batch.get("mask") is not None:
+        weights = weights * batch["mask"][:, 1:].float()
+    if packed:
+        segments = batch["segment_ids"]
+        weights = weights * ((segments[:, 1:] == segments[:, :-1]) & (segments[:, 1:] > 0)).float()
+    return weights.sum()
 
 
 def make_classifier_train_step(
@@ -308,13 +641,18 @@ def make_classifier_train_step(
     ``light_metrics``, ``grad_norm`` (before clipping), all device tensors.
     ``grad_accum=N`` splits each batch into N sequential microbatches whose
     gradients average before the one optimizer step.
+
+    With a ``mesh`` the step is sharded (see the module docstring): ``batch``
+    holds this rank's rows (``dict_batches(mesh=...)`` or
+    :func:`~unionml_tpu_torch.parallel.mesh.shard_batch`), the first call
+    lays the state out by ``param_spec`` (:func:`shard_train_state`;
+    replicated when None) and returns the laid-out state, and ``grad_accum``
+    splits this rank's rows.
     """
-    if mesh is not None or param_spec is not None:
-        raise _not_ported("mesh / param_spec (sharded training)", "M12, sharded training: DDP and FSDP2")
-    if grad_accum < 1:
-        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    _check_options(mesh, param_spec, grad_accum)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state = _on_mesh(state, mesh, param_spec)
         grads, loss, acc = classifier_grads(state, batch, input_signature, grad_accum)
         norm = state.apply_gradients(grads)
         metrics = {"loss": loss, "accuracy": acc}
@@ -337,11 +675,25 @@ def make_classifier_eval_step(input_signature: Tuple[str, ...] = ("inputs",)) ->
     return eval_step
 
 
-def _check_lm_options(mesh, param_spec, grad_accum: int) -> None:
-    if mesh is not None or param_spec is not None:
-        raise _not_ported("mesh / param_spec (sharded training)", "M12, sharded training: DDP and FSDP2")
+def _check_options(mesh, param_spec, grad_accum: int) -> None:
+    if param_spec is not None and mesh is None:
+        raise ValueError("param_spec lays the state out on a mesh: pass the mesh too")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+
+def _on_mesh(state: TrainState, mesh: Any, param_spec: Any) -> TrainState:
+    """``state`` laid out on ``mesh`` (on the first meshed step); an unmeshed
+    step takes it as it is."""
+    if mesh is None:
+        if state.layout is not None:
+            raise ValueError("this state is laid out on a mesh: step it with a meshed step")
+        return state
+    if state.layout is None:
+        return shard_train_state(state, mesh, param_spec)
+    if state.layout.mesh is not mesh:
+        raise ValueError("this state is laid out on another mesh")
+    return state
 
 
 def make_lm_train_step(
@@ -363,10 +715,13 @@ def make_lm_train_step(
     ``moe_aux=True`` (sparse decoders) adds the router z-loss and
     load-balancing loss to the objective; the router jitter draws from the
     step's dropout generator. The reported ``loss`` includes them, as JAX's.
+    ``mesh``/``param_spec`` shard the step as
+    :func:`make_classifier_train_step` does.
     """
-    _check_lm_options(mesh, param_spec, grad_accum)
+    _check_options(mesh, param_spec, grad_accum)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state = _on_mesh(state, mesh, param_spec)
         grads, loss = lm_grads(state, batch, packed, grad_accum, moe_aux)
         norm = state.apply_gradients(grads)
         metrics = {"loss": loss}
@@ -408,9 +763,12 @@ def dict_batches(
     drop_remainder: bool = True,
     mesh: Any = None,
 ) -> Iterable[Dict[str, torch.Tensor]]:
-    """Static-shape dict batches of host ``data``, each copied to ``device``."""
-    if mesh is not None:
-        raise _not_ported("mesh (sharded batches)", "M12, sharded training: DDP and FSDP2")
+    """Static-shape dict batches of host ``data``, each copied to ``device``.
+
+    With a ``mesh``, each batch is this rank's rows of the global batch
+    (``training.py:339-360``): a ragged batch first wraps real rows up to a
+    multiple of the batch's ranks (:func:`~unionml_tpu_torch.parallel.mesh.wrapped_row_indices`),
+    then each rank gathers and copies only its own share."""
     device = resolve_device(device)
     host = {k: np.asarray(v) for k, v in data.items()}
     n_rows = len(next(iter(host.values())))
@@ -418,9 +776,28 @@ def dict_batches(
     end = (n_rows // batch_size) * batch_size if drop_remainder else n_rows
     if end == 0:
         end = n_rows
+    rows = rank_rows(mesh) if mesh is not None else None
     for start in range(0, end, batch_size):
         idx = indices[start:start + batch_size]
+        if rows is not None:
+            idx = rows(idx)
         yield {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(device) for k, v in host.items()}
+
+
+def rank_rows(mesh: Any) -> Callable[[np.ndarray], np.ndarray]:
+    """A map from a global batch's row indices to this rank's: wrapped up to
+    a multiple of the batch's ranks with real rows, then this rank's
+    contiguous share (what ``jax.device_put`` with the batch sharding lays
+    on this rank's device)."""
+    from unionml_tpu_torch.parallel.mesh import batch_axis_size, batch_sharding, wrapped_row_indices
+
+    ways, sharding = batch_axis_size(mesh), batch_sharding(mesh)
+
+    def rows(idx: np.ndarray) -> np.ndarray:
+        wrap = wrapped_row_indices(len(idx), ways)
+        return sharding.shard(idx if wrap is None else idx[wrap])
+
+    return rows
 
 
 def prefetched_batches(loader: Any, rng: Optional[np.random.Generator], device: torch.device
@@ -513,21 +890,32 @@ def fit(
     ``{"inputs": "float32", "labels": "int32"}`` for float64/int64 data, or
     ``{"inputs": "bfloat16"}``) converts in the gather workers and requires
     ``prefetch=True``.
+
+    ``mesh``/``param_spec`` train sharded (see the module docstring): each
+    rank's batches are its rows (:func:`dict_batches`; with ``prefetch`` the
+    native gather reads only those), the built-in step is
+    ``make_classifier_train_step(mesh=..., param_spec=...)``, and a
+    ``step_fn`` of your own must be built for the same mesh.
+    ``FitResult.state`` is the laid-out state; ``examples_per_s`` counts the
+    global batch. With ``checkpoint_dir`` every rank takes part in each
+    save's gather, rank 0 writes, and a resume (at the same world size)
+    restores into each rank's shards.
     """
-    if mesh is not None or param_spec is not None:
-        raise _not_ported("mesh / param_spec (sharded training)", "M12, sharded training: DDP and FSDP2")
     if step_fn is not None and grad_accum != 1:
         raise ValueError("grad_accum applies to the built-in step; pass it to your step builder")
     if prefetch_convert and not prefetch:
         raise ValueError("prefetch_convert requires prefetch=True (conversion runs in the native gather workers)")
     if step_fn is None:
-        step_fn = make_classifier_train_step(input_signature=input_signature, grad_accum=grad_accum)
+        step_fn = make_classifier_train_step(mesh=mesh, param_spec=param_spec, input_signature=input_signature,
+                                             grad_accum=grad_accum)
+    elif param_spec is not None:
+        raise ValueError("param_spec applies to the built-in step; pass it to your step builder")
     device = state.device
 
     def batches(epoch_rng):
         if loader is not None:
             return prefetched_batches(loader, epoch_rng, device)
-        return dict_batches(data, batch_size, rng=epoch_rng, device=device)
+        return dict_batches(data, batch_size, rng=epoch_rng, device=device, mesh=mesh)
 
     checkpointer = None
     if checkpoint_dir is not None:
@@ -545,7 +933,8 @@ def fit(
         if prefetch:
             from unionml_tpu_torch.native import PrefetchLoader
 
-            loader = PrefetchLoader(data, batch_size, convert=prefetch_convert, pin_memory=device.type == "cuda")
+            loader = PrefetchLoader(data, batch_size, convert=prefetch_convert, pin_memory=device.type == "cuda",
+                                    rows=rank_rows(mesh) if mesh is not None else None)
         rng = np.random.default_rng(seed)
         history = []
         step = start_step = state.step
@@ -579,6 +968,9 @@ def fit(
             checkpointer.close()  # flushes the pending writes
         if loader is not None:
             loader.close()
+    if checkpointer is not None and mesh is not None and dist.get_world_size() > 1:
+        # rank 0 wrote the last checkpoint: no rank reads the directory before it landed
+        dist.barrier()
 
     executed = step - start_step - 1  # the first step is excluded from the timing
     return FitResult(
@@ -619,7 +1011,8 @@ def fit_lm(
     sequences share each ``seq_len`` row, segment ids confine attention and
     restart positions per segment, and cross-segment transitions are masked
     out of the loss. ``pack=False`` right-pads one sequence per row with a
-    loss mask. ``FitResult.examples_per_s`` counts rows.
+    loss mask. ``FitResult.examples_per_s`` counts rows. ``mesh``/``param_spec``
+    shard the training as :func:`fit` does.
     """
     if pack:
         packed = pack_sequences(sequences, seq_len, max_segments_per_row=max_segments_per_row)
@@ -645,7 +1038,7 @@ def fit_lm(
     step_fn = make_lm_train_step(packed=pack, grad_accum=grad_accum, moe_aux=moe_aux, mesh=mesh,
                                  param_spec=param_spec)
     return fit(
-        state, data, batch_size=batch_size, num_epochs=num_epochs, num_steps=num_steps,
+        state, data, batch_size=batch_size, num_epochs=num_epochs, num_steps=num_steps, mesh=mesh,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, log_every=log_every, seed=seed,
         prefetch=prefetch, prefetch_convert=prefetch_convert, step_fn=step_fn,
     )

@@ -29,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -292,6 +292,10 @@ class PrefetchLoader:
       conversion inside the workers (f64->f32, i64->i32, f32->bf16 with
       round-to-nearest-even into a ``torch.bfloat16`` slot).
 
+    - ``rows`` maps each batch's row indices (in epoch order) to the rows
+      this process gathers: a mesh rank's share of the global batch
+      (``models/training.py::rank_rows``), so the workers read only those.
+
     Falls back to gathering in Python when the native library cannot build
     (``uses_native`` is then False).
     """
@@ -306,6 +310,7 @@ class PrefetchLoader:
         drop_remainder: bool = True,
         convert: Optional[Dict[str, str]] = None,
         pin_memory: bool = False,
+        rows: Optional[Callable[[np.ndarray], np.ndarray]] = None,
     ):
         self._keys = list(data)
         self._arrays = [np.ascontiguousarray(np.asarray(data[k])) for k in self._keys]
@@ -314,6 +319,9 @@ class PrefetchLoader:
             raise ValueError(f"All arrays must share the leading dimension; got {n_rows}")
         self.n_rows = n_rows.pop()
         self.batch_size = batch_size
+        self._rows = rows
+        #: rows one slot holds: a batch's, or this process's share of one (``rows``)
+        self.slot_rows = batch_size if rows is None else len(rows(np.arange(batch_size)))
         self.n_slots = n_slots
         self.n_threads = n_threads
         self.drop_remainder = drop_remainder
@@ -357,7 +365,7 @@ class PrefetchLoader:
         for _ in range(self.n_slots):
             slot = []
             for array, dst in zip(self._arrays, self._dst_dtypes):
-                buf = torch.empty((self.batch_size,) + array.shape[1:], dtype=dst, pin_memory=self.pin_memory)
+                buf = torch.empty((self.slot_rows,) + array.shape[1:], dtype=dst, pin_memory=self.pin_memory)
                 slot.append(buf)
                 pointers.append(buf.data_ptr())
             self._slots.append(slot)
@@ -368,6 +376,8 @@ class PrefetchLoader:
         return self._handle is not None
 
     def _python_batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
+        if self._rows is not None:
+            idx = self._rows(idx)
         return {key: torch.from_numpy(array[idx]).to(dst)
                 for key, array, dst in zip(self._keys, self._arrays, self._dst_dtypes)}
 
@@ -415,9 +425,14 @@ class PrefetchLoader:
             yield from tail_batches()
             return
 
-        indices_c = np.ascontiguousarray(indices[: n_full * self.batch_size])
+        full = indices[: n_full * self.batch_size]
+        if self._rows is not None:
+            # each batch's share of this process, gathered natively in slots of that size
+            full = np.concatenate([self._rows(full[b * self.batch_size:(b + 1) * self.batch_size])
+                                   for b in range(n_full)]).astype(np.int64)
+        indices_c = np.ascontiguousarray(full)
         self._lib.upf_start(self._handle, indices_c.ctypes.data_as(ctypes.POINTER(ctypes.c_long)), n_full,
-                            self.batch_size, self.n_slots, self.n_threads, self._slot_ptr_table)
+                            self.slot_rows, self.n_slots, self.n_threads, self._slot_ptr_table)
         try:
             while True:
                 batch = self._lib.upf_next(self._handle)

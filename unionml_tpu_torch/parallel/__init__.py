@@ -1,13 +1,16 @@
-"""Parallelism of the port: device meshes and sharding specs over
-``torch.distributed`` (:mod:`~unionml_tpu_torch.parallel.mesh`), process
-init (:mod:`~unionml_tpu_torch.parallel.distributed`), and the
-single-device half of expert parallelism
-(:mod:`~unionml_tpu_torch.parallel.ep`). Tensor-parallel generation runs on
-these (``DecodeEngine(mesh=...)``). Not ported yet (ROADMAP: M12): data
-parallelism (``dp.py``, DDP/FSDP2 training), ring/ulysses sequence
-parallelism, pipelines (``pp.py``) and the expert-parallel all-to-all."""
+"""Parallelism of the port: device meshes, their process groups and sharding
+specs over ``torch.distributed`` (:mod:`~unionml_tpu_torch.parallel.mesh`),
+process init (:mod:`~unionml_tpu_torch.parallel.distributed`), data-parallel
+steps and batches (:mod:`~unionml_tpu_torch.parallel.dp`), and the
+single-device half of expert parallelism (:mod:`~unionml_tpu_torch.parallel.ep`).
+Tensor-parallel generation (``DecodeEngine(mesh=...)``), sharded training
+over the data, fsdp and tensor axes (``fit(mesh=..., param_spec=...)``) and
+the meshed predictor (``ResidentPredictor(mesh=...)``) run on these. Not
+ported yet (ROADMAP: M12): ring/ulysses sequence parallelism, pipelines
+(``pp.py``) and the expert-parallel all-to-all."""
 
 from unionml_tpu_torch.parallel.distributed import collective_timeout_s, initialize_distributed, is_primary_host
+from unionml_tpu_torch.parallel.dp import batches, data_parallel_eval, data_parallel_step, pad_to_multiple
 from unionml_tpu_torch.parallel.ep import (
     EXPERT_AXIS,
     Routing,
@@ -28,8 +31,12 @@ from unionml_tpu_torch.parallel.mesh import (
     MeshSpec,
     NamedSharding,
     Spec,
+    axis_group,
     batch_axis_size,
+    batch_group,
+    batch_index,
     batch_sharding,
+    fsdp_mesh,
     logical_to_sharding,
     make_hybrid_mesh,
     make_mesh,
@@ -49,10 +56,17 @@ __all__ = [
     "NamedSharding",
     "Routing",
     "Spec",
+    "axis_group",
     "batch_axis_size",
+    "batch_group",
+    "batch_index",
     "batch_sharding",
+    "batches",
     "collective_timeout_s",
+    "data_parallel_eval",
+    "data_parallel_step",
     "expert_sharding",
+    "fsdp_mesh",
     "initialize_distributed",
     "is_primary_host",
     "logical_to_sharding",
@@ -63,6 +77,7 @@ __all__ = [
     "moe_apply_capacity",
     "moe_apply_topk",
     "named_sharding_tree",
+    "pad_to_multiple",
     "reference_moe_apply_topk",
     "reference_topk_dispatch_combine",
     "replicated",

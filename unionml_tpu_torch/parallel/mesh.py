@@ -36,11 +36,15 @@ __all__ = [
     "MeshSpec",
     "NamedSharding",
     "Spec",
+    "axis_group",
     "axis_index",
     "axis_names",
     "axis_size",
     "batch_axis_size",
+    "batch_group",
+    "batch_index",
     "batch_sharding",
+    "fsdp_mesh",
     "logical_to_sharding",
     "make_hybrid_mesh",
     "make_mesh",
@@ -245,6 +249,69 @@ def batch_axis_size(mesh: Any, axis: str = DATA_AXIS) -> int:
     for a in _batch_axes(mesh, axis):
         size *= axis_size(mesh, a)
     return size
+
+
+def axis_group(mesh: Any, name: str) -> Any:
+    """The process group of ``name`` through this rank (``None`` when the
+    mesh lacks the axis or it spans one rank: nothing to exchange)."""
+    return mesh.get_group(name) if axis_size(mesh, name) > 1 else None
+
+
+#: (id(mesh), axes) -> (mesh, this rank's group over those axes); the mesh is
+#: kept so that its id is not reused while the entry stands
+_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, Any]] = {}
+
+
+def batch_group(mesh: Any, axis: str = DATA_AXIS) -> Any:
+    """The process group the batch is sharded over under :func:`batch_sharding`:
+    ``data`` (or ``axis``) alone, or data×fsdp when the mesh has both, this
+    rank's group rank being its :func:`batch_index`. ``None`` when it spans
+    one rank. The data×fsdp groups are made once per mesh, by every rank of
+    the world in the same order (``torch.distributed.new_group`` is
+    collective)."""
+    axes = _batch_axes(mesh, axis)
+    if batch_axis_size(mesh, axis) == 1:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        names = axis_names(mesh)
+        dims = [names.index(a) for a in axes]
+        others = [i for i in range(len(names)) if i not in dims]
+        grid = mesh.mesh.permute(others + dims).reshape(-1, batch_axis_size(mesh, axis))
+        me, mine = dist.get_rank(), None
+        for row in grid.tolist():
+            group = dist.new_group([int(r) for r in row])
+            if me in row:
+                mine = group
+        _GROUPS[key] = (mesh, mine)
+    return _GROUPS[key][1]
+
+
+def batch_index(mesh: Any, axis: str = DATA_AXIS) -> int:
+    """This rank's shard of the batch under :func:`batch_sharding` (row-major
+    over data×fsdp, as ``NamedSharding.shard`` cuts it)."""
+    index = 0
+    for a in _batch_axes(mesh, axis):
+        index = index * axis_size(mesh, a) + axis_index(mesh, a)
+    return index
+
+
+def fsdp_mesh(mesh: Any) -> Any:
+    """The ``DeviceMesh`` FSDP2 shards parameters over: the ``fsdp`` axis, or
+    (data, fsdp) when the mesh has both, which FSDP2 takes as hybrid
+    sharding (replicated over ``data``, sharded over ``fsdp``). ``data`` must
+    come before ``fsdp`` in the mesh (FSDP2 reads a 2-D mesh as (replicate,
+    shard))."""
+    names = axis_names(mesh)
+    if FSDP_AXIS not in names:
+        raise ValueError(f"mesh axes {names} have no {FSDP_AXIS!r} axis")
+    if DATA_AXIS not in names:
+        return mesh[FSDP_AXIS]
+    if names.index(DATA_AXIS) > names.index(FSDP_AXIS):
+        raise ValueError(f"mesh axes {names}: {DATA_AXIS!r} must come before {FSDP_AXIS!r} for hybrid sharding")
+    return mesh[DATA_AXIS, FSDP_AXIS]
 
 
 def wrapped_row_indices(n_rows: int, multiple: int):

@@ -416,6 +416,107 @@ def build_generator(generator: Any, *, lookahead: int = 1, prefix_cache_blocks: 
     return built
 
 
+def build_predict_route(
+    model: Any,
+    *,
+    resident: bool = True,
+    coalesce: bool = True,
+    max_batch: int = 64,
+    max_wait_ms: float = 2.0,
+    buckets: Optional[Any] = None,
+    seq_buckets: Optional[Any] = None,
+    example_features: Optional[Any] = None,
+    mesh: Optional[Any] = None,
+    param_specs: Optional[Any] = None,
+    device: Any = "cuda",
+) -> Tuple[Optional[ResidentPredictor], Optional[Any]]:
+    """What ``/predict`` serves through: ``(predictor, batcher)``, the
+    :class:`ResidentPredictor` (None unless ``resident``) and the coalescing
+    :class:`~unionml_tpu_torch.serving.batcher.RequestBatcher` over it (None
+    unless ``coalesce``). Under a ``mesh`` the predictor is meshed (rank 0
+    serves, the other ranks :meth:`ResidentPredictor.follow`;
+    ``param_specs`` lays the parameters out, else they replicate) and
+    coalesced flushes prefer multiples of the batch's ranks, so merged
+    batches split evenly over them instead of running whole
+    (``app.py:213-228``)."""
+    predictor = (
+        ResidentPredictor(
+            model,
+            buckets=buckets or DEFAULT_BUCKETS,
+            seq_buckets=seq_buckets,
+            example_features=example_features,
+            mesh=mesh,
+            param_specs=param_specs,
+            device=device,
+        )
+        if resident
+        else None
+    )
+    batcher = None
+    if coalesce and predictor is not None:
+        from unionml_tpu_torch.serving.batcher import RequestBatcher
+
+        preferred_multiple = None
+        if mesh is not None:
+            from unionml_tpu_torch.parallel.mesh import batch_axis_size
+
+            n_shards = batch_axis_size(mesh)
+            preferred_multiple = n_shards if n_shards > 1 else None
+        batcher = RequestBatcher(
+            lambda rows: predictor.predict(features=rows),
+            max_batch=max_batch,
+            max_wait_ms=max_wait_ms,
+            preferred_multiple=preferred_multiple,
+        )
+    return predictor, batcher
+
+
+async def predict_answer(payload: Any, model: Any, predictor: Optional[ResidentPredictor],
+                         batcher: Optional[Any]) -> Tuple[int, Any]:
+    """``/predict``'s ``(status, body)`` for a parsed JSON ``payload``: reader
+    kwargs (``inputs``) or raw ``features``; row-list features coalesce
+    through ``batcher`` when there is one. The predictor's calls block, so
+    they run on the loop's executor."""
+    import asyncio
+
+    if not isinstance(payload, dict):
+        return 500, {"detail": "inputs or features must be supplied."}
+    inputs = payload.get("inputs")
+    features = payload.get("features")
+    if inputs is None and features is None:
+        return 500, {"detail": "inputs or features must be supplied."}
+    loop = asyncio.get_running_loop()
+    try:
+        # empty {} means reader-defaults ONLY when no features came along —
+        # a boilerplate empty inputs key must not shadow a real features payload
+        if inputs is not None and (inputs or features is None):
+            # off the event loop: predictor calls block for milliseconds+
+            result = await loop.run_in_executor(
+                None,
+                lambda: predictor.predict(**inputs) if predictor is not None else model.predict(**inputs),
+            )
+        else:
+            result = None
+            if batcher is not None and isinstance(features, list):
+                try:
+                    result = await batcher.submit(features)
+                except Exception as exc:
+                    logger.info("Coalesced path failed (%s); serving this request directly.", exc)
+            if result is None:
+                # model.predict runs the feature pipeline itself; don't pre-process here
+                result = await loop.run_in_executor(
+                    None,
+                    lambda: predictor.predict(features=features)
+                    if predictor is not None
+                    else model.predict(features=features),
+                )
+        # jsonable() may fetch device tensors: off the event loop, like the predictor calls above
+        return 200, await loop.run_in_executor(None, jsonable, result)
+    except Exception as exc:
+        logger.exception("Prediction failed")
+        return 500, {"detail": f"Prediction failed: {exc}"}
+
+
 def build_aiohttp_app(
     model: Any,
     remote: bool = False,
@@ -479,6 +580,13 @@ def build_aiohttp_app(
     to. Every ``/generate`` answer carries a ``request_id``; for one prompt it
     keys the trace.
 
+    ``mesh`` serves the resident predictor across a ``torch.distributed``
+    mesh (:func:`build_predict_route`): every rank builds the app's
+    predictor, rank 0 serves and the other ranks follow
+    (``app["resident_predictor"].follow()``) until the app shuts down;
+    ``param_specs`` lays the parameters out (a BERT or GPT
+    ``param_shardings``), else they replicate.
+
     ``generate_replicas > 1`` serves the factory's engines behind an
     :class:`~unionml_tpu_torch.serving.fleet.EngineFleet` routed by
     ``generate_fleet_config`` (a
@@ -489,28 +597,10 @@ def build_aiohttp_app(
     from aiohttp import web
 
     app = web.Application()
-    predictor = (
-        ResidentPredictor(
-            model,
-            buckets=buckets or DEFAULT_BUCKETS,
-            seq_buckets=seq_buckets,
-            example_features=example_features,
-            mesh=mesh,
-            param_specs=param_specs,
-            device=device,
-        )
-        if resident
-        else None
-    )
-    batcher = None
-    if coalesce and predictor is not None:
-        from unionml_tpu_torch.serving.batcher import RequestBatcher
-
-        batcher = RequestBatcher(
-            lambda rows: predictor.predict(features=rows),
-            max_batch=max_batch,
-            max_wait_ms=max_wait_ms,
-        )
+    predictor, batcher = build_predict_route(
+        model, resident=resident, coalesce=coalesce, max_batch=max_batch, max_wait_ms=max_wait_ms,
+        buckets=buckets, seq_buckets=seq_buckets, example_features=example_features, mesh=mesh,
+        param_specs=param_specs, device=device)
 
     async def on_startup(app):
         load_model_artifact(model, remote=remote, app_version=app_version, model_version=model_version)
@@ -534,6 +624,9 @@ def build_aiohttp_app(
     async def on_cleanup(app):
         if batcher is not None:
             batcher.close()
+        if predictor is not None:
+            # a meshed predictor's followers return from follow()
+            predictor.close()
         gen = app.get("continuous_batcher")
         if gen is not None:
             # stop admitting, let in-flight work finish for the bounded window, close
@@ -663,43 +756,8 @@ def build_aiohttp_app(
             payload = await request.json()
         except Exception as exc:
             return web.json_response({"detail": f"Request body must be JSON: {exc}"}, status=422)
-        inputs = payload.get("inputs")
-        features = payload.get("features")
-        if inputs is None and features is None:
-            return web.json_response({"detail": "inputs or features must be supplied."}, status=500)
-        import asyncio
-
-        loop = asyncio.get_running_loop()
-        try:
-            # empty {} means reader-defaults ONLY when no features came along —
-            # a boilerplate empty inputs key must not shadow a real features payload
-            if inputs is not None and (inputs or features is None):
-                # off the event loop: predictor calls block for milliseconds+
-                result = await loop.run_in_executor(
-                    None,
-                    lambda: predictor.predict(**inputs) if predictor is not None else model.predict(**inputs),
-                )
-            else:
-                result = None
-                if batcher is not None and isinstance(features, list):
-                    try:
-                        result = await batcher.submit(features)
-                    except Exception as exc:
-                        logger.info("Coalesced path failed (%s); serving this request directly.", exc)
-                if result is None:
-                    # model.predict runs the feature pipeline itself; don't pre-process here
-                    result = await loop.run_in_executor(
-                        None,
-                        lambda: predictor.predict(features=features)
-                        if predictor is not None
-                        else model.predict(features=features),
-                    )
-            # jsonable() may fetch device tensors: off the event loop, like the predictor calls above
-            payload = await loop.run_in_executor(None, jsonable, result)
-            return web.json_response(payload)
-        except Exception as exc:
-            logger.exception("Prediction failed")
-            return web.json_response({"detail": f"Prediction failed: {exc}"}, status=500)
+        status, body = await predict_answer(payload, model, predictor, batcher)
+        return web.json_response(body, status=status)
 
     async def stats(request):
         payload = {"model": model.name, "resident": predictor is not None}

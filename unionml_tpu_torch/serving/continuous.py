@@ -114,12 +114,9 @@ slots between steps and evicted when they finish.
 import asyncio
 import contextlib
 import dataclasses
-import datetime
 import functools
-import pickle
 import threading
 import time
-import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -147,6 +144,7 @@ from unionml_tpu_torch.ops.quant import quantize_blockwise
 from unionml_tpu_torch.ops.sampling import sample_logits, validate_sampling
 from unionml_tpu_torch.parallel.distributed import collective_timeout_s
 from unionml_tpu_torch.serving.faults import EngineFailure, FaultPlan
+from unionml_tpu_torch.serving.lead import MeshDivergence, MeshLead, lead_calls
 from unionml_tpu_torch.serving.prefix_cache import PrefixCache
 from unionml_tpu_torch.serving.scheduler import (
     DeadlineExceededError,
@@ -182,52 +180,12 @@ def on_engine_stream(method):
     return guarded
 
 
-class MeshDivergence(RuntimeError):
-    """The ranks of a meshed engine no longer hold the same state: a led call
-    raised on some ranks and not on others. Every rank raises it, and the
-    engine refuses every later call."""
-
-
 #: the public calls of :class:`DecodeEngine` that change slot, device or
 #: radix-index state: rank 0 of a meshed engine sends each before it runs
 #: (op code: index + 2)
 _LED_CALLS = ("enable_prefix_cache", "add_request", "admit_many", "step", "cancel", "abort_all", "preempt",
               "release_preempted", "take_salvage", "discard_salvage", "note_external_failure", "rebuild", "reset",
               "generate")
-#: the leader's other messages: release the followers, or keep them waiting
-_STOP, _PING = 0, 1
-#: int arguments a message carries in its header (more, or others, are pickled)
-_PACKED = 4
-#: header: op, packed-argument count (-1: pickled), payload bytes, the
-#: packed arguments, then the sender's outcome of its last call and its negation
-_HEADER = 3 + _PACKED + 2
-#: a follower's share of the leader's fields: the MAX reduce keeps the leader's
-_NONE = -(2 ** 63)
-
-
-def leads(method):
-    """Make ``method`` a led call of a meshed engine (:class:`_MeshLead`); on
-    an unmeshed engine, or inside another led call, it runs as it is."""
-    name = method.__name__
-
-    @functools.wraps(method)
-    def led(self, *args, **kwargs):
-        lead = self._lead
-        if lead is None or lead.depth:
-            return method(self, *args, **kwargs)
-        return lead.run(self, name, method, args, kwargs)
-
-    led.leads = True
-    return led
-
-
-def _lead_calls(cls) -> None:
-    """Make the led calls ``cls`` defines (``_LED_CALLS``) lead; an override
-    in a subclass leads too, and its nested base call is not sent again."""
-    for name in _LED_CALLS:
-        method = cls.__dict__.get(name)
-        if method is not None and not getattr(method, "leads", False):
-            setattr(cls, name, leads(method))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,146 +198,26 @@ class _Handed:
     handle: int
 
 
-def _outcome(error: Optional[BaseException]) -> int:
-    """A call's outcome as a number every rank computes alike: 0 for a
-    return, else a code of the exception's class."""
-    return 0 if error is None else (zlib.crc32(type(error).__name__.encode()) & 0x3FFFFFFF) + 1
-
-
-class _MeshLead:
-    """Rank 0 of a meshed engine leads and the other ranks follow.
-
-    ``group`` is a gloo group over the mesh's ranks, for host messages
-    whatever the card's backend, with the world's collective timeout. Each
-    led call costs one all-reduce (MAX) of a small int64 header before it
-    runs: the leader's op code and up to ``_PACKED`` int arguments (the
-    followers contribute ``_NONE``, so the leader's fields win), and every
-    rank's outcome of its previous call with that outcome negated; the
-    ranks agree iff the two maxima cancel, so a call that raised on some
-    ranks only ends every rank's run with :class:`MeshDivergence` at the
-    next message. The leader waits for each message before it runs its
-    call, so a follower that left on a divergence never leaves it inside a
-    collective the follower will not join. Other arguments follow as one
-    pickled broadcast. A leader idle for ``keepalive_s`` sends a no-op
-    (:meth:`keep_alive`), so a follower's wait never reaches the group's
-    timeout."""
+class _EngineLead(MeshLead):
+    """The lead protocol (:class:`~unionml_tpu_torch.serving.lead.MeshLead`)
+    over an engine's led calls. A checkpoint a led call hands out
+    (:class:`PreemptedSlot`, :class:`SalvagedSlot`) holds a path of radix
+    nodes that is each rank's own: every rank registers it under the same
+    handle when the call returns, and a checkpoint passed back to a led call
+    travels as that handle."""
 
     def __init__(self, mesh: Any, timeout_s: float) -> None:
-        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
-        self.group = dist.new_group(ranks, backend="gloo", timeout=datetime.timedelta(seconds=timeout_s))
-        self.keepalive_s = timeout_s / 4
-        self.leader = ranks[0]
-        self.rank = dist.get_rank()
-        #: led calls in progress on this rank (a nested one is not sent)
-        self.depth = 0
-        self.broken: Optional[str] = None
-        #: the leader released the followers (:meth:`stop`) and made no led
-        #: call since: another stop is a no-op, and nothing keeps them alive
-        self.stopped = False
-        #: this rank's last led call and its outcome, sent with the next message
-        self._last, self._outcome = "", 0
-        self._sent = time.monotonic()
+        super().__init__(mesh, timeout_s, _LED_CALLS)
         #: the leader's id(path) -> (handle, path); a follower's handle -> path
         self._paths: Dict[int, Any] = {}
         self._handed = 0
 
-    @property
-    def is_leader(self) -> bool:
-        return self.rank == self.leader
-
-    def _check(self) -> None:
-        if self.broken is not None:
-            raise MeshDivergence(self.broken)
-
-    def _exchange(self, op: int = _NONE, packed: Optional[Tuple[int, ...]] = None,
-                  payload: bytes = b"") -> Tuple[int, tuple, dict]:
-        """One message: the leader's op and arguments to every rank, every
-        rank's last outcome to all. A follower gets ``(op, args, kwargs)``."""
-        fields = [_NONE] * _HEADER
-        if self.is_leader:
-            fields[:3] = [op, -1 if packed is None else len(packed), len(payload)]
-            fields[3:3 + len(packed or ())] = packed or ()
-        outcome, self._outcome = self._outcome, 0
-        fields[-2:] = [outcome, -outcome]
-        header = torch.tensor(fields, dtype=torch.int64)
-        dist.all_reduce(header, op=dist.ReduceOp.MAX, group=self.group)
-        self._sent = time.monotonic()
-        values = header.tolist()
-        if values[-2] != -values[-1]:
-            self.broken = (f"rank {self.rank}'s {self._last}() {'raised' if outcome else 'returned'} where "
-                           "another rank's did not: the mesh's ranks no longer hold the same state")
-            raise MeshDivergence(self.broken)
-        op, count, size = values[:3]
-        if count >= 0:
-            return op, tuple(values[3:3 + count]), {}
-        if self.is_leader:
-            dist.broadcast(torch.frombuffer(bytearray(payload), dtype=torch.uint8), src=self.leader,
-                           group=self.group)
-            return op, (), {}
-        data = torch.empty(size, dtype=torch.uint8)
-        dist.broadcast(data, src=self.leader, group=self.group)
-        args, kwargs = self._decode(pickle.loads(data.numpy().tobytes()))
-        return op, args, kwargs
-
-    def run(self, engine: "DecodeEngine", name: str, method, args: tuple, kwargs: dict) -> Any:
-        """The leader's led call: send, then run."""
-        if not self.is_leader:
-            raise RuntimeError(f"rank {self.rank} follows rank {self.leader} of this meshed engine: "
-                               f"call follow(), not {name}()")
-        self._check()
-        packed = None
-        if not kwargs and len(args) <= _PACKED and all(type(a) is int and abs(a) < 2 ** 62 for a in args):
-            packed = tuple(args)
-        payload = b"" if packed is not None else pickle.dumps((self._encode(args), self._encode(kwargs)))
-        # after a stop the followers are to follow() again
-        self.stopped = False
-        self._exchange(2 + _LED_CALLS.index(name), packed, payload)
-        result, error = self._settle(name, lambda: method(engine, *args, **kwargs))
-        if error is not None:
-            raise error
-        return result
-
-    def follow(self, engine: "DecodeEngine") -> int:
-        """Replay the leader's calls until it stops; returns how many ran."""
-        calls = 0
-        while True:
-            self._check()
-            op, args, kwargs = self._exchange()
-            if op == _STOP:
-                self.stopped = True
-                return calls
-            if op == _PING:
-                continue
-            name = _LED_CALLS[op - 2]
-            # an error here the leader's outcome meets at the next message
-            self._settle(name, lambda: getattr(engine, name)(*args, **kwargs))
-            calls += 1
-
-    def stop(self) -> None:
-        if self.is_leader and self.broken is None and not self.stopped:
-            self.stopped = True
-            self._exchange(_STOP, ())
-
-    def keep_alive(self) -> None:
-        if (self.is_leader and self.broken is None and not self.stopped and not self.depth
-                and time.monotonic() - self._sent >= self.keepalive_s):
-            self._exchange(_PING, ())
-
-    def _settle(self, name: str, call) -> Tuple[Any, Optional[Exception]]:
-        self.depth += 1
-        try:
-            result, error = call(), None
-        except Exception as exc:
-            result, error = None, exc
-        finally:
-            self.depth -= 1
-        self._last, self._outcome = name, _outcome(error)
+    def _settled(self, result: Any) -> None:
         for item in result if isinstance(result, list) else [result]:
             if isinstance(item, (PreemptedSlot, SalvagedSlot)):
                 key = id(item.path) if self.is_leader else self._handed
                 self._paths[key] = (self._handed, item.path) if self.is_leader else item.path
                 self._handed += 1
-        return result, error
 
     def _encode(self, value: Any) -> Any:
         if isinstance(value, (tuple, list)):
@@ -553,7 +391,7 @@ class DecodeEngine:
     ) -> None:
         #: rank 0's lead over a meshed engine's ranks (set last: the
         #: constructor's own calls run on every rank alike)
-        self._lead: Optional[_MeshLead] = None
+        self._lead: Optional[_EngineLead] = None
         self.device = resolve_device(device)
         #: the engine's own CUDA stream (None on the CPU): every entry point
         #: issues its device work there, so a fetch waits for this engine's
@@ -751,11 +589,11 @@ class DecodeEngine:
             self.enable_prefix_cache(prefix_cache_blocks, cache_generated=prefix_cache_generated)
         if mesh is not None and mesh.mesh.numel() > 1:
             # a mesh of one rank has no follower to tell or agree with
-            self._lead = _MeshLead(mesh, collective_timeout_s())
+            self._lead = _EngineLead(mesh, collective_timeout_s())
 
     def __init_subclass__(cls, **kwargs: Any) -> None:
         super().__init_subclass__(**kwargs)
-        _lead_calls(cls)
+        lead_calls(cls, _LED_CALLS)
 
     def follow(self) -> int:
         """On a rank other than rank 0 of a meshed engine: replay rank 0's led
@@ -2263,7 +2101,7 @@ class DecodeEngine:
         return out
 
 
-_lead_calls(DecodeEngine)
+lead_calls(DecodeEngine, _LED_CALLS)
 
 
 class _FutureSink:

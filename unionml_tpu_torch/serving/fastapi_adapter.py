@@ -39,15 +39,14 @@ def attach_fastapi(
     ``device`` (``"cuda"`` by default; it raises without a CUDA device unless
     ``"cpu"`` is asked for) captures its graphs. Options the aiohttp app has
     and this path lacks (request coalescing, ``/generate``) are logged and
-    dropped. ``mesh``/``param_specs`` (a mesh-resident predictor) raise
-    ``NotImplementedError`` naming ROADMAP's M12.
+    dropped. ``mesh``/``param_specs`` make the predictor meshed (see
+    :class:`~unionml_tpu_torch.serving.resident.ResidentPredictor`): every
+    rank attaches the app, rank 0 serves it and the other ranks follow
+    (``app.resident_predictor.follow()``) until its shutdown.
     """
     from fastapi import Body, HTTPException
     from fastapi.responses import HTMLResponse
 
-    if mesh is not None or param_specs is not None:
-        raise NotImplementedError("mesh / param_specs (a mesh-resident predictor) is not ported yet "
-                                  "(ROADMAP: M12, the mesh-resident BERT predictor)")
     if unsupported:
         logger.warning("attach_fastapi ignoring unsupported serving options: %s", sorted(unsupported))
 
@@ -57,11 +56,15 @@ def attach_fastapi(
             buckets=buckets or DEFAULT_BUCKETS,
             seq_buckets=seq_buckets,
             example_features=example_features,
+            mesh=mesh,
+            param_specs=param_specs,
             device=device,
         )
         if resident
         else None
     )
+    # the followers' handle on the predictor (every rank attaches the app)
+    app.resident_predictor = predictor
 
     @app.on_event("startup")
     async def setup_model():
@@ -69,6 +72,12 @@ def attach_fastapi(
         if predictor is not None:
             # graftlint: disable=async-blocking -- startup hook: the warmup capture runs before the server accepts any traffic, so blocking the (idle) loop here is the point
             predictor.setup()
+
+    @app.on_event("shutdown")
+    async def release_followers():
+        if predictor is not None:
+            # graftlint: disable=async-blocking -- shutdown hook: a meshed predictor's release is one small message to the followers
+            predictor.close()
 
     @app.get("/", response_class=HTMLResponse)
     def root():

@@ -26,8 +26,27 @@ Execution modes, decided once at setup:
 
 Replays of one graph are serialized (they share its static buffers); the
 output is cloned before the next replay may start.
+
+On a mesh (``mesh=``, ``resident.py:61-140``) the predictor is SPMD over
+``torch.distributed``: every rank builds it, rank 0 takes the requests and
+the other ranks :meth:`ResidentPredictor.follow`, replaying each
+``predict`` rank 0 sends them over the lead protocol
+(:mod:`~unionml_tpu_torch.serving.lead`) until :meth:`ResidentPredictor.close`
+releases them; an idle leader keeps them alive from a thread of its own.
+A padded bucket that the batch's ranks (data×fsdp) divide is split over
+them and each rank's rows are gathered back; any other bucket runs whole on
+every rank (``resident.py:249-262``). Each rank keeps one CUDA graph per
+bucket, with the tensor axis's collectives captured in it. The parameters
+are replicated, or laid out by ``param_specs``: for the port's BERT and GPT
+(a module, or a ``TrainState`` holding one) a spec that names ``tensor`` is
+the family's ``param_shardings`` and the model runs its tensor-parallel
+forward (``tensor_parallel``); ``fsdp`` entries are served whole (FSDP2 is a
+training layout). Unlike XLA, eager PyTorch cannot split an arbitrary
+callable, so a spec that names ``tensor`` for any other model object raises
+``ValueError``; replicated data-parallel serving works for every predictor.
 """
 
+import dataclasses
 import threading
 import time
 from collections import deque
@@ -35,6 +54,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import _pytree
@@ -42,6 +62,7 @@ from torch.utils import _pytree
 from unionml_tpu_torch import _graphs
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch._logging import logger
+from unionml_tpu_torch.serving.lead import MeshLead, lead_calls
 from unionml_tpu_torch.stage import is_tensor_compatible
 from unionml_tpu_torch.utils import hard_sync
 
@@ -90,9 +111,64 @@ def _place(model_object: Any, device: torch.device) -> Any:
     return _pytree.tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, model_object)
 
 
+def _serving_module(model_object: Any) -> Any:
+    """The module a model object computes with (itself, or a ``TrainState``'s
+    model), or None."""
+    if isinstance(model_object, nn.Module):
+        return model_object
+    module = getattr(model_object, "model", None)
+    return module if isinstance(module, nn.Module) else None
+
+
+def _whole(model_object: Any) -> Any:
+    """A ``TrainState`` laid out on a mesh as one whose model holds every
+    parameter whole (its leaves gathered from every rank: a collective);
+    anything else as it is."""
+    layout = getattr(model_object, "layout", None)
+    if layout is None:
+        return model_object
+    return dataclasses.replace(model_object, model=layout.whole_model(model_object.params), layout=None)
+
+
+def _mesh_layout(model_object: Any, mesh: Any, param_specs: Any) -> Any:
+    """``model_object`` as this rank serves it under ``param_specs``: its
+    module's tensor-parallel copy where a spec names ``tensor`` (the BERT or
+    GPT family's ``param_shardings`` only), else itself (replicated; ``fsdp``
+    entries are served whole)."""
+    from unionml_tpu_torch.models._sharding import names_axis
+    from unionml_tpu_torch.parallel.mesh import TENSOR_AXIS, axis_names
+
+    names = axis_names(mesh)
+    if param_specs is None or TENSOR_AXIS not in names or not names_axis(param_specs, TENSOR_AXIS):
+        return model_object
+    from unionml_tpu_torch.models.training import _family
+
+    module = _serving_module(model_object)
+    family = _family(module) if module is not None else None
+    if family is None:
+        raise ValueError(
+            f"param_specs name the {TENSOR_AXIS!r} axis, but the model object ({type(model_object).__name__}) is "
+            "not a model the port splits over it (BERT or GPT, or a TrainState holding one): XLA partitions any "
+            "jitted predictor by its specs, eager PyTorch cannot split an arbitrary callable. Serve it replicated "
+            "(param_specs=None), which is data-parallel for every predictor.")
+    tensor_parallel, param_shardings, _ = family
+    wanted = param_shardings(dict(module.named_parameters()), names)
+    off = [n for n in wanted if n not in param_specs or tuple(param_specs[n]) != tuple(wanted[n])]
+    if off:
+        raise ValueError(f"the port's tensor-parallel forward computes the Megatron split of param_shardings "
+                         f"only; param_specs differ at {off[:4]}")
+    shard, _ = tensor_parallel(module, mesh)
+    return shard if isinstance(model_object, nn.Module) else dataclasses.replace(model_object, model=shard)
+
+
 class ResidentPredictor:
     """Holds a model artifact on the device with a CUDA graph per request shape.
 
+    :param mesh: a ``DeviceMesh`` over the ``torch.distributed`` world (see
+        the module docstring): every rank builds the predictor, rank 0
+        predicts and the others :meth:`follow`.
+    :param param_specs: the parameters' layout on ``mesh`` (a family's
+        ``param_shardings``), or None to replicate them.
     :param device: where the model object lives and requests run; ``"cuda"``
         (default) raises without a CUDA device unless ``"cpu"`` is asked for.
     """
@@ -108,10 +184,27 @@ class ResidentPredictor:
         param_specs: Optional[Any] = None,
         device: Any = "cuda",
     ):
-        if mesh is not None or param_specs is not None:
-            raise NotImplementedError("mesh / param_specs (a mesh-resident predictor) is not ported yet "
-                                      "(ROADMAP: M12, the mesh-resident BERT predictor)")
+        if param_specs is not None and mesh is None:
+            raise ValueError("param_specs lay the parameters out on a mesh: pass the mesh too")
         self._model = model
+        self._mesh = mesh
+        self._param_specs = param_specs
+        #: the lead protocol of a mesh of several ranks (rank 0 predicts, the others follow)
+        self._lead: Optional[MeshLead] = None
+        #: the batch's ranks and this rank's group over them (None: one rank)
+        self._shards, self._batch_group = 1, None
+        if mesh is not None:
+            from unionml_tpu_torch.parallel.distributed import collective_timeout_s
+            from unionml_tpu_torch.parallel.mesh import batch_axis_size, batch_group
+
+            self._shards, self._batch_group = batch_axis_size(mesh), batch_group(mesh)
+            if mesh.mesh.numel() > 1:
+                self._lead = MeshLead(mesh, collective_timeout_s(), ("_serve",))
+        # the leader's led calls one at a time (predict() runs on executor
+        # threads), and its keep-alive thread between them
+        self._serial = threading.Lock()
+        self._keepalive: Optional[threading.Thread] = None
+        self._closing = threading.Event()
         self._device = resolve_device(device)
         self._buckets = tuple(sorted(buckets))
         self._seq_buckets = tuple(sorted(seq_buckets)) if seq_buckets else None
@@ -178,13 +271,85 @@ class ResidentPredictor:
             predictor = self._model._predictor
             model_object = artifact.model_object
             if is_tensor_compatible(model_object):
-                self._device_model_object = _place(model_object, self._device)  # graftlint: disable=data-race -- published once under _setup_lock; readers run only after the _ready check, which happens-after this write
+                placed = _place(_whole(model_object), self._device)
+                if self._mesh is not None:
+                    placed = _mesh_layout(placed, self._mesh, self._param_specs)
+                self._device_model_object = placed  # graftlint: disable=data-race -- published once under _setup_lock; readers run only after the _ready check, which happens-after this write
                 self._predictor_fn = getattr(predictor, "fn", predictor)  # graftlint: disable=data-race -- published once under _setup_lock, as above
                 if self._warmup:
                     self._warm()  # graftlint: disable=lock-order -- one-time init: racing first requests MUST wait for capture+warm before serving, so blocking under _setup_lock is the contract
             else:
                 logger.info("Model object is not tensor-compatible; serving will run the predictor eagerly.")
+            if self._lead is not None and self._lead.is_leader:
+                self._keepalive = threading.Thread(target=self._keep_alive, name="resident-keepalive", daemon=True)
+                self._keepalive.start()
             self._ready = True
+
+    # ------------------------------------------------------------------ mesh
+
+    def follow(self) -> int:
+        """On a rank other than rank 0 of a meshed predictor: replay rank 0's
+        predictions until it releases this rank (:meth:`close`); returns how
+        many ran. Raises :class:`~unionml_tpu_torch.serving.lead.MeshDivergence`
+        when a prediction raised on some ranks only, and the process group's
+        error when rank 0 is gone (within the collective timeout)."""
+        if self._lead is None or self._lead.is_leader:
+            raise RuntimeError("follow() runs on the ranks that follow rank 0 of a meshed predictor")
+        if not self._ready:
+            self.setup()
+        with self._serial:  # the lead's state is only ever touched under it
+            return self._lead.follow(self)
+
+    def close(self) -> None:
+        """On rank 0 of a meshed predictor: stop the keep-alive and release
+        the followers (their :meth:`follow` returns). A no-op otherwise."""
+        self._closing.set()
+        if self._keepalive is not None:
+            self._keepalive.join(timeout=60)
+        if self._lead is not None and self._lead.is_leader:
+            with self._serial:
+                self._lead.stop()
+
+    def _keep_alive(self) -> None:
+        """Rank 0's idle followers wait inside a collective: a no-op message
+        every so often keeps that wait below the side group's timeout."""
+        period = self._lead.keepalive_s / 2
+        while not self._closing.wait(period):
+            with self._serial:
+                try:
+                    self._lead.keep_alive()
+                except Exception:  # a follower is gone, or the last call diverged: the next predict raises
+                    logger.exception("meshed predictor keep-alive failed")
+                    return
+
+    def _split(self, padded: Any, bucket: int) -> Tuple[Any, bool]:
+        """This rank's rows of a padded batch whose bucket the batch's ranks
+        divide (``True``), else the whole batch (``False``)."""
+        if self._batch_group is None or bucket % self._shards:
+            return padded, False
+        from unionml_tpu_torch.parallel.mesh import batch_index
+
+        part, index = bucket // self._shards, batch_index(self._mesh)
+        return _pytree.tree_map(lambda a: a[index * part:(index + 1) * part].contiguous(), padded), True
+
+    def _gather(self, predictions: Any) -> Any:
+        """The batch's ranks' rows of every tensor output, in rank order."""
+
+        def gather(leaf: Any) -> Any:
+            if not isinstance(leaf, torch.Tensor) or leaf.ndim < 1:
+                return leaf
+            pieces = [torch.empty_like(leaf) for _ in range(self._shards)]
+            dist.all_gather(pieces, leaf.contiguous(), group=self._batch_group)
+            return torch.cat(pieces)
+
+        return _pytree.tree_map(gather, predictions)
+
+    def _forward(self, padded: Any, bucket: int) -> Any:
+        """The predictor on a padded bucket: this rank's rows of it (gathered
+        back) where the batch's ranks divide it, else all of it."""
+        local, split = self._split(padded, bucket)
+        out = self._run(local)
+        return self._gather(out) if split else out
 
     def _warm(self) -> None:
         """Capture (or, on the CPU, run) the smallest bucket ahead of the first request."""
@@ -193,7 +358,7 @@ class ResidentPredictor:
             if example is None:
                 logger.info("No warmup template (pass example_features to serve()); first request will capture.")
                 return
-            hard_sync(self._run(example))
+            hard_sync(self._forward(example, self._buckets[0]))
             logger.info("Resident predictor warmed (bucket=%d).", self._buckets[0])
         except Exception as exc:
             # the synthetic example may simply have the wrong dtype/shape for
@@ -297,9 +462,18 @@ class ResidentPredictor:
     # ------------------------------------------------------------------ request path
 
     def predict(self, features: Any = None, **reader_kwargs) -> Any:
-        """Request-path prediction: host numpy predictions of the request's rows."""
+        """Request-path prediction: host numpy predictions of the request's rows.
+        On rank 0 of a meshed predictor every rank computes it (a led call)."""
         if not self._ready:  # graftlint: disable=data-race -- benign double-checked fast path; setup() re-checks under _setup_lock before doing any work
             self.setup()
+        if self._lead is None:
+            return self._serve(features, **reader_kwargs)
+        with self._serial:
+            return self._serve(features, **reader_kwargs)
+
+    def _serve(self, features: Any = None, **reader_kwargs) -> Any:
+        """One prediction on this rank (rank 0's led call on a mesh; set up
+        first, by :meth:`predict` or :meth:`follow`)."""
         if self._predictor_fn is None or features is None:
             return self._model.predict(features=features, **reader_kwargs)
 
@@ -318,10 +492,12 @@ class ResidentPredictor:
             was_warm = shape_sig in self._timed_shapes
         t0 = time.perf_counter()
         try:
-            predictions = self._run(padded)
+            predictions = self._forward(padded, bucket)
         except _graphs.CaptureError as exc:
             logger.info("Resident capture failed (%s); this shape is served eagerly.", exc)
-            predictions = self._eager(self._device_model_object, padded)
+            local, split = self._split(padded, bucket)
+            predictions = self._eager(self._device_model_object, local)
+            predictions = self._gather(predictions) if split else predictions
         predictions = to_host(predictions)  # the fetch is the device barrier
         elapsed_ms = (time.perf_counter() - t0) * 1e3
         with self._device_times_lock:
@@ -338,3 +514,6 @@ class ResidentPredictor:
         )
         self._model._run_predict_callbacks(self._device_model_object, processed, result)
         return result
+
+
+lead_calls(ResidentPredictor, ("_serve",))

@@ -15,6 +15,7 @@ TEMPLATES_ROOT = Path(__file__).parent
 _DESCRIPTIONS = {
     "basic": "digits quickstart: from-scratch softmax regression in torch ops + HTTP serving",
     "jax-digits": "digits MLP (the port's MLPClassifier) trained through fit()",
+    "data-parallel": "data-parallel MLP training over every rank of a torch.distributed world (torchrun)",
     "mnist-cnn": "CNN image classifier trained through fit()",
     "bert-finetune": "BERT-base text classification fine-tune with step checkpoints (attention kernels on the card)",
     "torch-digits": "pytorch MLP digits classifier (opaque-trainer path)",
