@@ -460,6 +460,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    exchanges nothing: its all-reduces are over one rank and FSDP2 holds the
    whole parameter as its one shard. Worlds of 2 and 4 ranks (spawned, a
    card each) run (a) and (d) only where the machine has that many cards.
+24. sequence parallelism (``parallel/ring.py``, ``parallel/ulysses.py``,
+   ``GPTConfig``/``BertConfig(attention_impl="ring" or "ulysses",
+   sp_mesh=...)``). (a) The ring of N = 4 chunks held in one process on the
+   one card (the exchange a rotation of a list; schedule, merge and
+   backward the code the ranks run), forward and backward through K1-K3,
+   f32 and bf16: GPT-2 small's heads causal (B1 H12 S4096 D64, chunks of
+   1024: 10 K1, 10 K2 and 10 K3 launches, the later blocks skipped) and
+   BERT-base's non-causal with ragged ``kv_lens`` (B8 H12 S2048 D64, one row
+   ending inside the first chunk: 16 of each), against the plain f32 fold at
+   N = 4 and against ``flash_attention`` over the whole sequence (``TOL``;
+   gradients ``BWD_TOL`` relative to their largest magnitude where that
+   exceeds 1, f32 included: ``sp_grad_close``). (b) The main path, a
+   world of one rank over NCCL on ``{"data": 1, "sequence": 1}``: 3
+   ``fit_lm`` steps of GPT-2 small
+   (4096 positions, B1 S4096, right-padded rows) with ring and with
+   ulysses against ``attention_impl="auto"``, and 3 ``fit`` steps of
+   BERT-base with ring (B16 S512, ragged) against ``"auto"``: bitwise (one
+   block: the ring folds nothing), or else the reason printed and phase
+   23's gates; each step's wall and device ms beside the dense step's. K1-K3's
+   launches of the ring and ulysses arms ride the kernels line as
+   ``launches_sequence_parallel``. (c) K1, K2 and K3 at the ring's block
+   shape (B1 H12 1024 x 1024 D64), diagonal (causal) and full, and the
+   whole N = 4 fold against one ``flash_attention`` over S4096, each with
+   its bound, share and SDPA's time. (d) Worlds of 2 and 4 ranks (spawned, a
+   card each), where the machine has them: ring and ulysses ``fit_lm`` on
+   ``{"sequence": world}`` against rank 0's unmeshed dense steps.
 
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
@@ -6592,6 +6618,394 @@ def report_sharded_training(st: dict, name_limit: str) -> None:
     print(f"phase 23 launches {st['launches']}; phase 23 took {st['s']:.1f} s ({parts})")
 
 
+# ------------------------------------------------- sequence parallelism
+
+SP_CHUNKS = 4  # the in-process ring's ranks
+SP_GPT = dict(B=1, H=12, S=4096, D=64, causal=True)  # GPT-2 small's heads at 4096 positions
+SP_BERT = dict(B=8, H=12, S=2048, D=64, causal=False)  # BERT-base's heads, ragged rows
+SP_BERT_LENS = (2048, 300, 1024, 1500, 777, 2000, 1, 1800)  # 300 ends inside the first chunk of 512
+SP_STEPS = 3
+SP_LM_SEQ, SP_LM_ROWS = 4096, 4  # fit_lm: B1 rows of 4096 positions
+SP_BERT_SEQ, SP_BERT_BATCH = 512, 16
+SP_DIR = Path(__file__).resolve().parent / "build" / "sequence_parallel"
+SP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def sp_schedule(n: int, causal: bool) -> int:
+    """Blocks the ring folds over ``n`` ranks: every (rank, source) pair, or
+    under causal those whose source is not ahead of the rank."""
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def sp_grad_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A ring gradient against another version's: ``BWD_TOL`` taken relative
+    to the gradient's largest magnitude where that exceeds 1, in f32 too (the
+    dV of a row whose 2048 queries all see one key sums 2048 terms of size
+    ~1, so its rounding grows with it: ``BWD_TOL``'s f32 1e-4 was set for sums
+    of up to 256); bf16 as ``check_close(scaled=True)``."""
+    if got.dtype == torch.float32:
+        scale = max(1.0, float(want.detach().float().abs().max()))
+        return check_close(name, got, want, {torch.float32: BWD_TOL[torch.float32] * scale})
+    return check_close(name, got, want, BWD_TOL, scaled=True)
+
+
+def sp_in_process(device, case: dict, dtype, lens=None) -> dict:
+    """(a) One case of the in-process ring: forward and backward through
+    K1-K3 over ``SP_CHUNKS`` chunks against the plain f32 fold at the same N
+    (on f32 copies of the same inputs) and against ``flash_attention`` over
+    the whole sequence; the launches against the schedule."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.ops.attention import flash_attention
+    from unionml_tpu_torch.parallel import reference_ring_attention
+    from unionml_tpu_torch.parallel.ring import _in_process_ring_attention
+
+    B, H, S, D, causal = (case[k] for k in ("B", "H", "S", "D", "causal"))
+    q, k, v, d_out, kv_lens = bwd_inputs(B, H, S, D, dtype, device, lens, seed=24)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def chunks(xs):
+        return [[c.contiguous() for c in x.chunk(SP_CHUNKS, dim=2)] for x in xs]
+
+    kernels.reset_launches()
+    out = torch.cat(_in_process_ring_attention(*chunks(leaves), kv_lens=kv_lens, causal=causal), dim=2)
+    fwd_launches = dict(kernels.launches)
+    grads = torch.autograd.grad(out, leaves, d_out)
+    torch.cuda.synchronize()
+    launches = {name: kernels.launches[name] for name in SP_KERNELS}
+    blocks = sp_schedule(SP_CHUNKS, causal)
+    if fwd_launches["flash_fwd"] != blocks or any(launches[n] != blocks for n in SP_KERNELS):
+        raise AssertionError(f"in-process ring {case}: launches {launches} (forward {fwd_launches['flash_fwd']}), "
+                             f"expected {blocks} of each")
+    label = f"in-process ring N={SP_CHUNKS} {dtype} B{B} H{H} S{S} D{D} {'causal' if causal else 'kv_lens'}"
+    f32 = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    plain = torch.cat(reference_ring_attention(*chunks(f32), kv_lens=kv_lens, causal=causal), dim=2)
+    plain_grads = torch.autograd.grad(plain, f32, d_out.float())
+    errs = {"vs_plain_fold": check_close(f"{label} vs the plain fold", out, plain),
+            "grads_vs_plain_fold": max(sp_grad_close(f"{label} d{n} vs the plain fold", a, b)
+                                       for n, a, b in zip("qkv", grads, plain_grads))}
+    del plain, plain_grads, f32
+    whole_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    whole = flash_attention(*whole_leaves, kv_lens=kv_lens, causal=causal)
+    whole_grads = torch.autograd.grad(whole, whole_leaves, d_out)
+    errs["vs_whole_flash"] = check_close(f"{label} vs flash_attention over S{S}", out, whole)
+    errs["grads_vs_whole_flash"] = max(sp_grad_close(f"{label} d{n} vs flash_attention", a, b)
+                                       for n, a, b in zip("qkv", grads, whole_grads))
+    if lens is not None:  # keys past a row's length (whole blocks of the short rows) take exactly no gradient
+        for b, n in enumerate(lens):
+            if any(bool(g[b, :, n:].any()) for g in grads[1:]):
+                raise AssertionError(f"{label}: row {b} (kv_len {n}) has nonzero dK/dV past its length")
+    return {"label": label, "launches": launches, "blocks": blocks, **errs}
+
+
+def sp_ops(device) -> list:
+    """(a): the GPT and BERT cases, f32 and bf16."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        out.append(sp_in_process(device, SP_GPT, dtype))
+        out.append(sp_in_process(device, SP_BERT, dtype, list(SP_BERT_LENS)))
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_lm_corpus(seed: int = 24) -> list:
+    """Rows for ``fit_lm(pack=False, seq_len=4096)``: one whole row, the
+    others right-padded."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 50_000, size=n).astype(np.int32) for n in (SP_LM_SEQ, 3000, 4000, 2500)]
+
+
+def sp_bert_data(config, rows: int, seed: int = 24) -> dict:
+    """BERT rows of ``SP_BERT_SEQ`` tokens, right-padded to lengths 32..512."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(32, SP_BERT_SEQ + 1, rows)
+    lens[0] = SP_BERT_SEQ
+    mask = (np.arange(SP_BERT_SEQ)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.integers(1, config.vocab_size, (rows, SP_BERT_SEQ)).astype(np.int32) * mask
+    return {"input_ids": ids, "attention_mask": mask, "labels": rng.integers(0, config.num_labels, rows).astype(np.int32)}
+
+
+def sp_arm(make_state, run, step_fn, batch) -> tuple:
+    """One arm of (b): ``run(state)`` (a ``fit`` call) from a fresh state,
+    with the launch counts set to 0 just before and read just after; its
+    logged metrics, whole state, launches, and the ``step_profile`` of 2
+    more steps of ``step_fn`` on ``batch``."""
+    from unionml_tpu_torch import kernels
+
+    state = make_state()
+    kernels.reset_launches()
+    result = run(state)
+    torch.cuda.synchronize()
+    launches = {n: kernels.launches[n] for n in SP_KERNELS}
+    history = [{k: v for k, v in h.items() if k != "step"} for h in result.metrics_history]
+    whole = st_whole(result.state)
+    holder = [result.state]
+
+    def one():
+        holder[0], _ = step_fn(holder[0], batch)
+
+    timing = step_profile(one, 2, top=3)
+    del holder, result, state
+    torch.cuda.empty_cache()
+    return history, whole, timing, launches
+
+
+def sp_main_path(device, launches: dict) -> dict:
+    """(b): GPT-2 small ``fit_lm`` with ring and ulysses, BERT-base ``fit``
+    with ring, each against ``"auto"`` on ``{"data": 1, "sequence": 1}``."""
+    from unionml_tpu_torch.models import BertConfig, GPTConfig, bert_random_params, dict_batches, fit, fit_lm, \
+        make_classifier_train_step, make_lm_train_step, random_params
+    from unionml_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"data": 1, "sequence": 1}, device=device.type)
+    out = {}
+    gpt = GPTConfig(max_position_embeddings=SP_LM_SEQ, sp_mesh=mesh)
+    gpt_params = random_params(gpt, seed=0)
+    corpus = sp_lm_corpus()
+    lm_batch = {"input_ids": torch.from_numpy(corpus[0][None]).to(device),
+                "mask": torch.ones((1, SP_LM_SEQ), device=device)}
+
+    def lm_run(state):
+        return fit_lm(state, corpus, seq_len=SP_LM_SEQ, batch_size=1, pack=False, num_steps=SP_STEPS, mesh=mesh,
+                      log_every=1, seed=0)
+
+    arms = {}
+    for impl in ("auto", "ring", "ulysses"):
+        arms[impl] = sp_arm(lambda: lm_state(gpt, gpt_params, device, impl), lm_run, make_lm_train_step(mesh=mesh),
+                            lm_batch)
+        if impl != "auto":
+            _launch_sum(launches, arms[impl][3])
+    for impl in ("ring", "ulysses"):
+        out[f"gpt {impl}"] = {**st_gate(f"GPT-2 small fit_lm {impl}", gpt.dtype, arms[impl], arms["auto"]),
+                              "history": arms[impl][0], "step": arms[impl][2]}
+    out["gpt auto step"] = arms["auto"][2]
+    del arms
+    torch.cuda.empty_cache()
+
+    bert = BertConfig.base(num_labels=2, sp_mesh=mesh)
+    bert_params = bert_random_params(bert, seed=0)
+    data = sp_bert_data(bert, 3 * SP_BERT_BATCH)
+    bert_batch = next(iter(dict_batches(data, SP_BERT_BATCH, device=device)))
+
+    def bert_run(state):
+        return fit(state, data, batch_size=SP_BERT_BATCH, num_steps=SP_STEPS, mesh=mesh, input_signature=BERT_SIG,
+                   log_every=1)
+
+    arms = {}
+    for impl in ("auto", "ring"):
+        arms[impl] = sp_arm(lambda: bert_state(bert, bert_params, device, impl), bert_run,
+                            make_classifier_train_step(mesh=mesh, input_signature=BERT_SIG), bert_batch)
+        if impl != "auto":
+            _launch_sum(launches, arms[impl][3])
+    out["bert ring"] = {**st_gate("BERT-base fit ring", bert.dtype, arms["ring"], arms["auto"]),
+                        "history": arms["ring"][0], "step": arms["ring"][2]}
+    out["bert auto step"] = arms["auto"][2]
+    # one block per layer at one rank: each kernel once per layer and step
+    expected = {n: (2 * gpt.num_layers + bert.num_layers) * SP_STEPS for n in SP_KERNELS}
+    if {n: launches.get(n, 0) for n in SP_KERNELS} != expected:
+        raise AssertionError(f"phase 24 main path launches {launches}, expected {expected}")
+    return out
+
+
+def sp_block_records(device, causal: bool) -> list:
+    """(c): K1, K2 and K3 at one ring block (bf16 B1 H12 1024 x 1024 D64),
+    the diagonal (causal) or a full block, with their bounds (as
+    ``time_bert_kernels`` counts them), plain versions and SDPA."""
+    from unionml_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_backward, reference_attention, reference_attention_backward,
+    )
+
+    B, H, L, D = 1, 12, SP_LM_SEQ // SP_CHUNKS, 64
+    q, k, v, d_out, _ = bwd_inputs(B, H, L, D, torch.bfloat16, device, None, seed=25)
+    d_out = d_out.contiguous()
+    visible = H * (L * (L + 1) // 2 if causal else L * L)
+    numel, size = q.numel(), q.element_size()
+    shape = f"bf16 B{B} H{H} {L}x{L} D{D} ring {'diagonal block (causal)' if causal else 'full block'}"
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    k1_err = check_close(f"K1 {shape}", out, reference_attention(q, k, v, causal=causal))
+    bound, by = _bound(4 * numel * size + lse.numel() * 4, 4 * D * visible)
+    k1 = k1_rates({
+        "name": "flash_fwd", "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "unionml_tpu/ops/attention.py:83", "launches": None, "max_abs_err": k1_err,
+        "bound_ms": bound, "bound_by": by, "shape": shape, "flops": 4 * D * visible,
+        **_times(lambda: flash_attention(q, k, v, causal=causal, return_lse=True),
+                 lambda: reference_attention(q, k, v, causal=causal),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)),
+    })
+    got = flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    want = reference_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    errs = [check_close(f"K2/K3 {shape} d{n}", a, b, BWD_TOL) for n, a, b in zip("qkv", got, want)]
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    return [k1, *bwd_records(
+        dict.fromkeys(SP_KERNELS), shape, errs, D, visible, numel, size,
+        lambda: flash_attention_backward(q, k, v, out, lse, d_out, causal=causal),
+        lambda: reference_attention_backward(q, k, v, out, lse, d_out, causal=causal),
+        lambda *x: torch.nn.functional.scaled_dot_product_attention(*x, is_causal=causal), leaves, d_out, out,
+    )]
+
+
+def sp_fold_record(device) -> dict:
+    """(c): the whole N = 4 ring forward (10 K1 launches, the merges) at
+    GPT-2 small's heads against one ``flash_attention`` over S4096 (and the
+    plain fold, and SDPA); the bound is causal attention over S4096."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.ops.attention import flash_attention
+    from unionml_tpu_torch.parallel import reference_ring_attention
+    from unionml_tpu_torch.parallel.ring import _in_process_ring_attention
+
+    B, H, S, D = 1, 12, SP_LM_SEQ, 64
+    q, k, v = k1_inputs(B, H, S, D, torch.bfloat16, device, seed=26)
+    qs, ks, vs = ([c.contiguous() for c in x.chunk(SP_CHUNKS, dim=2)] for x in (q, k, v))
+    with torch.no_grad():
+        kernels.reset_launches()
+        fold = torch.cat(_in_process_ring_attention(qs, ks, vs, causal=True), dim=2)
+        launches = kernels.launches["flash_fwd"]  # counted in this one call of the fold
+        if launches != sp_schedule(SP_CHUNKS, True):
+            raise AssertionError(f"ring fold: {launches} K1 launches, expected {sp_schedule(SP_CHUNKS, True)}")
+        err = check_close("ring fold vs flash_attention over S4096", fold, flash_attention(q, k, v, causal=True))
+        flops = 4 * B * H * D * S * (S + 1) / 2
+        bound, by = _bound(4 * q.numel() * q.element_size() + B * H * S * 4, flops)
+        record = {
+            "name": "ring fold (K1 per block, f32 merge)", "route": "cuda", "source": "unionml_tpu_torch/parallel/ring.py",
+            "replaces": "unionml_tpu/parallel/ring.py:65", "launches": launches,
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by, "flops": flops,
+            "shape": f"bf16 B{B} H{H} S{S} D{D} causal, N={SP_CHUNKS} chunks of {S // SP_CHUNKS}",
+            **_times(lambda: _in_process_ring_attention(qs, ks, vs, causal=True),
+                     lambda: reference_ring_attention(qs, ks, vs, causal=True),
+                     lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        }
+        record["whole_flash_ms"] = timed(lambda: flash_attention(q, k, v, causal=True))["ms"]
+    record["bound_share"] = record["bound_ms"] / record["ms"]
+    return record
+
+
+def _sp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of a multi-card world (spawned): ring and ulysses ``fit_lm``
+    of GPT-2 small on ``{"sequence": world}``, dropout off (the chunks of a
+    row draw other masks than one card's); rank 0 also runs the dense
+    unmeshed steps on its own card."""
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import GPTConfig, fit_lm, random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = torch.device("cuda", rank)
+    initialize_distributed(f"localhost:{port}", world, rank, strict=True, device="cuda", timeout_s=240)
+    mesh = make_mesh({"sequence": world}, device="cuda")
+    config = GPTConfig(max_position_embeddings=SP_LM_SEQ, dropout=0.0, sp_mesh=mesh)
+    params = random_params(config, seed=0)
+    out = {}
+    for impl in ("ring", "ulysses"):
+        sync(device)
+        t0 = time.perf_counter()
+        result = fit_lm(lm_state(config, params, device, impl), sp_lm_corpus(), seq_len=SP_LM_SEQ, batch_size=1,
+                        pack=False, num_steps=SP_STEPS, mesh=mesh, log_every=1, seed=0)
+        sync(device)
+        out[impl] = {"history": result.metrics_history, "wall_ms": (time.perf_counter() - t0) * 1e3}
+        del result
+        dist.barrier()
+    if rank == 0:
+        result = fit_lm(lm_state(dataclasses.replace(config, sp_mesh=None), params, device, "auto"), sp_lm_corpus(),
+                        seq_len=SP_LM_SEQ, batch_size=1, pack=False, num_steps=SP_STEPS, log_every=1, seed=0)
+        out["dense"] = {"history": result.metrics_history}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def sp_multi_card() -> dict:
+    """(d): worlds of 2 and 4 ranks over NCCL where the machine has the
+    cards; each arm's losses and ``grad_norm`` under phase 23's bf16 gates
+    against the dense unmeshed steps."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in (2, 4) if w <= cards]
+    if not worlds:
+        return {"run": False, "why": f"{cards} card on this machine: NCCL needs a card per rank"}
+    out = {"run": True}
+    for world in worlds:
+        out_dir = SP_DIR / f"world{world}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        mp.spawn(_sp_rank, args=(world, free_port(), str(out_dir)), nprocs=world, join=True)
+        got = pickle.loads((out_dir / "rank0.pkl").read_bytes())
+        out[world] = {impl: {"first_steps": compare_first_steps(got[impl]["history"], got["dense"]["history"]),
+                             "wall_ms": got[impl]["wall_ms"]} for impl in ("ring", "ulysses")}
+    return out
+
+
+def sequence_parallel_phase(device) -> dict:
+    """Phase 24: sequence parallelism (see the module docstring)."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.parallel import initialize_distributed
+
+    t0 = time.perf_counter()
+    out, parts, launches = {}, {}, {}
+    t = time.perf_counter()
+    out["in_process"] = sp_ops(device)
+    parts["in_process"] = time.perf_counter() - t
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device.type)
+    try:
+        t = time.perf_counter()
+        out["main_path"] = sp_main_path(device, launches)
+        parts["main_path"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    for name in SP_KERNELS:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 24: {name} never launched on the sequence-parallel path ({launches})")
+    t = time.perf_counter()
+    out["blocks"] = sp_block_records(device, True) + sp_block_records(device, False)
+    out["fold"] = sp_fold_record(device)
+    parts["timings"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["multi_card"] = sp_multi_card()
+    parts["multi_card"] = time.perf_counter() - t
+    out["launches"] = launches
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
+    return out
+
+
+def report_sequence_parallel(sp: dict, name_limit: str) -> None:
+    for r in sp["in_process"]:
+        print(f"{r['label']}: launches {r['launches']} ({r['blocks']} blocks of each: the schedule); max |err| "
+              f"vs the plain f32 fold {r['vs_plain_fold']:.3e}, gradients {r['grads_vs_plain_fold']:.3e}; vs "
+              f"flash_attention over the whole sequence {r['vs_whole_flash']:.3e}, gradients "
+              f"{r['grads_vs_whole_flash']:.3e} (TOL; BWD_TOL scaled by the gradient's largest magnitude above 1)")
+    mp = sp["main_path"]
+    for label in ("gpt ring", "gpt ulysses", "bert ring"):
+        r = mp[label]
+        how = "bitwise equal" if r["bitwise"] else f"within the gates (worst leaf {r['worst_relative']:.3e})"
+        shape = f"B1 S{SP_LM_SEQ}" if label.startswith("gpt") else f"B{SP_BERT_BATCH} S{SP_BERT_SEQ}"
+        dense = mp["gpt auto step" if label.startswith("gpt") else "bert auto step"]
+        st = r["step"]
+        print(f"[{name_limit}] {label} ({shape}, {{'data': 1, 'sequence': 1}} over NCCL, {SP_STEPS} steps): {how} to "
+              f"attention_impl='auto'; losses {[round(h['loss'], 6) for h in r['history']]}; step "
+              f"{st['wall_ms_per_step']:.2f} ms wall, {st['device_ms_per_step']:.2f} ms device (dense "
+              f"{dense['wall_ms_per_step']:.2f} / {dense['device_ms_per_step']:.2f}); top {st['top_kernels_ms_per_step']}")
+    for r in sp["blocks"] + [sp["fold"]]:
+        print(f"[{name_limit}] {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, share {r['bound_share']:.3f}), plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, max |err| {r['max_abs_err']:.3e}"
+              + (f"; one flash_attention over S{SP_LM_SEQ} {r['whole_flash_ms']:.4f} ms" if "whole_flash_ms" in r
+                 else ""))
+    mc = sp["multi_card"]
+    if not mc["run"]:
+        print(f"sequence parallelism worlds of 2 and 4: not run ({mc['why']})")
+    for world in (2, 4):
+        if world in mc:
+            print(f"[{name_limit}] sequence parallelism world of {world} over NCCL: {mc[world]}")
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in sp["parts_s"].items())
+    print(f"phase 24 launches {sp['launches']}; phase 24 took {sp['s']:.1f} s ({parts})")
+
+
 # -------------------------------------------------------------- timings
 
 
@@ -7262,6 +7676,10 @@ def main() -> int:
     details["sharded_training"] = st = sharded_training_phase(device)
     report_sharded_training(st, name_limit)
     details["extra_timings"].extend(st.get("local_kernels", []))
+    torch.cuda.empty_cache()
+    details["sequence_parallel"] = sp = sequence_parallel_phase(device)
+    report_sequence_parallel(sp, name_limit)
+    details["extra_timings"].extend(sp["blocks"] + [sp["fold"]])
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -7281,9 +7699,11 @@ def main() -> int:
             r["launches_tensor_parallel"] = tp["launches"][r["name"]]
         if r["name"] in st["launches"]:
             r["launches_sharded_training"] = st["launches"][r["name"]]
+        if r["name"] in sp["launches"]:
+            r["launches_sequence_parallel"] = sp["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
-                "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"]}
+                "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"], "24": sp["s"]}
     print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
           f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
@@ -7324,6 +7744,8 @@ def main() -> int:
             entry["launches_tensor_parallel"] = r["launches_tensor_parallel"]
         if "launches_sharded_training" in r:  # phase 23's K1-K3 launches (sharded training, the meshed predictor)
             entry["launches_sharded_training"] = r["launches_sharded_training"]
+        if "launches_sequence_parallel" in r:  # phase 24's K1-K3 launches (ring and ulysses training)
+            entry["launches_sequence_parallel"] = r["launches_sequence_parallel"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -202,13 +202,16 @@ def test_config_matches_jax_and_rejects_unported_modes():
         if field.name not in ("dtype", "sp_mesh"):
             assert getattr(port, field.name) == getattr(ref, field.name), field.name
     assert BertConfig.tiny().head_dim == 32 and port.head_dim == 64
+    # ring/ulysses are ported (tests/test_torch_sequence_parallel.py): the configs build, and JAX's
+    # ValueErrors stay: an impl the port does not name, and an sp config's forward without its mesh
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="M12"):
-            BertConfig(attention_impl=impl)
-    with pytest.raises(NotImplementedError, match="M12"):
-        BertConfig(sp_mesh=object())
+        assert BertConfig(attention_impl=impl).attention_impl == impl
+    assert BertConfig(sp_mesh=object()).sp_mesh is not None
     with pytest.raises(ValueError):
         BertConfig(attention_impl="xla")
+    model = init_bert(BertConfig.tiny(dtype=torch.float32, attention_impl="ring"), device="cpu")
+    with pytest.raises(ValueError, match="requires a sequence-parallel mesh"):
+        model(torch.ones((1, 8), dtype=torch.long))
 
 
 def test_model_defaults_to_cuda_and_raises_without_it():

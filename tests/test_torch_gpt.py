@@ -139,8 +139,15 @@ def test_config_defaults_and_unported_paths():
                   "layer_norm_eps", "dropout", "remat"):
         assert getattr(cfg, field) == getattr(jcfg, field), field
     assert cfg.head_dim == 64 and cfg.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="M12"):
-        dataclasses.replace(cfg, attention_impl="ring")
+    # ring/ulysses are ported (tests/test_torch_sequence_parallel.py): the configs build, and JAX's
+    # ValueErrors stay: a forward without sp_mesh, and either impl as paged_attn_impl
+    for impl in ("ring", "ulysses"):
+        assert dataclasses.replace(cfg, attention_impl=impl, sp_mesh=object()).attention_impl == impl
+        with pytest.raises(ValueError):
+            dataclasses.replace(cfg, paged_attn_impl=impl)
+    with pytest.raises(ValueError, match="requires a sequence-parallel mesh"):
+        GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, attention_impl="ring"), device="cpu")(
+            torch.zeros((1, 4), dtype=torch.long))
     # remat is ported (tests/test_torch_remat.py): the config builds and a tiny model's forward is unchanged
     assert dataclasses.replace(cfg, remat=True).remat
     ids = torch.from_numpy(_ids(0, 2, 6)).long()

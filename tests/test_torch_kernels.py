@@ -679,3 +679,38 @@ def test_kv_lens_kernels_at_a_ranks_heads_match_plain(cuda, dtype, H):
     want = reference_attention_backward(q, k, v, out, lse, d_out, kv_lens=kv_lens)
     for a, b in zip(got, want):
         _close(a, b, BWD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "kv_lens"])
+def test_ring_of_four_chunks_runs_the_kernels_per_block(cuda, dtype, causal):
+    """The ring's kernel arm over 4 chunks held in this process
+    (``parallel/ring.py``): K1 per folded block forward (10 causal, 16 with
+    ``kv_lens``), K2 and K3 per block backward, against ``flash_attention``
+    over the whole sequence (gradients through autograd of both, their
+    atol taken relative to the gradient's largest magnitude where that
+    exceeds 1: a dV here sums up to 512 terms), including a row whose length
+    ends inside the first chunk."""
+    from unionml_tpu_torch.parallel.ring import _in_process_ring_attention
+
+    g = torch.Generator().manual_seed(20)
+    B, H, S, D = 3, 4, 512, 64
+    q, k, v = (torch.randn((B, H, S, D), generator=g).to(cuda, dtype) for _ in range(3))
+    d_out = torch.randn((B, H, S, D), generator=g).to(cuda, dtype)
+    kv_lens = None if causal else torch.tensor([512, 77, 300], device=cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    chunks = [[c.contiguous() for c in x.chunk(4, dim=2)] for x in leaves]
+    before = dict(kernels.launches)
+    out = torch.cat(_in_process_ring_attention(*chunks, kv_lens=kv_lens, causal=causal), dim=2)
+    grads = torch.autograd.grad(out, leaves, d_out)
+    torch.cuda.synchronize()
+    blocks = 10 if causal else 16
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.launches[name] == before[name] + blocks, name
+    whole = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = flash_attention(*whole, kv_lens=kv_lens, causal=causal)
+    _close(out, want, TOL)
+    for a, b in zip(grads, torch.autograd.grad(want, whole, d_out)):
+        atol, rtol = BWD_TOL[dtype]
+        torch.testing.assert_close(a.float(), b.float(), atol=atol * max(1.0, float(b.float().abs().max())),
+                                   rtol=rtol)

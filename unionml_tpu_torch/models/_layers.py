@@ -23,6 +23,17 @@ backward) before a column-parallel product, :meth:`TensorParallel.all_reduce`
 vocab-parallel lookup and the all-gather of the tied head's logits built on
 them. Without a graph (inference, ``torch.no_grad``) each is the in-place
 collective it was, unchanged bit for bit.
+
+Sequence parallelism (:class:`SequenceParallel`): the collectives of the
+mesh's ``sequence`` axis, where each rank holds one contiguous chunk of every
+row. :meth:`SequenceParallel.to_heads` and :meth:`SequenceParallel.to_sequence`
+are Ulysses's two all-to-alls (each the other's backward),
+:meth:`SequenceParallel.broadcast_first` gives every rank the first chunk's
+value (BERT's ``[CLS]``; its gradient is summed onto the first rank) and
+:meth:`SequenceParallel.shift` moves blocks one hop around the ring (the
+point-to-point exchange inside ring attention's forward and backward, not
+differentiable on its own). Over one rank each is the identity and runs no
+operation.
 """
 
 import copy
@@ -162,6 +173,143 @@ class TensorParallel:
         (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, flat, group=self.group)
         out = out.reshape(self.size, flat.shape[0], flat.shape[1]).transpose(0, 1)
         return out.reshape(*x.shape[:-1], self.size * x.shape[-1])
+
+
+def _all_to_all(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``all_to_all_single`` of ``x``'s leading dimension (one part per rank)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _seq_to_heads(x: torch.Tensor, group: Any, size: int) -> torch.Tensor:
+    """``(P, heads, L, d)`` (this rank's chunk of every head) to ``(P,
+    heads / size, size * L, d)`` (the whole sequence of this rank's heads):
+    head part j goes to rank j, chunk j comes back from it, in rank order."""
+    p, h, seq, d = x.shape
+    parts = x.reshape(p, size, h // size, seq, d).transpose(0, 1)
+    return _all_to_all(parts, group).permute(1, 2, 0, 3, 4).reshape(p, h // size, size * seq, d)
+
+
+def _heads_to_seq(x: torch.Tensor, group: Any, size: int) -> torch.Tensor:
+    """The inverse of :func:`_seq_to_heads`: ``(P, heads / size, size * L, d)``
+    to ``(P, heads, L, d)``."""
+    p, h, seq, d = x.shape
+    parts = x.reshape(p, h, size, seq // size, d).permute(2, 0, 1, 3, 4)
+    return _all_to_all(parts, group).transpose(0, 1).reshape(p, size * h, seq // size, d)
+
+
+class _ToHeads(torch.autograd.Function):
+    """Sequence chunks to head shards forward, the inverse exchange backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        return _seq_to_heads(x, group, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _heads_to_seq(grad, ctx.group, ctx.size), None, None
+
+
+class _ToSequence(torch.autograd.Function):
+    """Head shards to sequence chunks forward, the inverse exchange backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        return _heads_to_seq(x, group, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_to_heads(grad, ctx.group, ctx.size), None, None
+
+
+class _BroadcastFirst(torch.autograd.Function):
+    """The first rank's value on every rank forward; backward, the ranks'
+    gradients summed onto the first rank (the others' inputs reached no
+    output: zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, group, first):
+        ctx.group, ctx.first = group, first
+        out = x.contiguous().clone()
+        dist.broadcast(out, src=first, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.reduce(grad, dst=ctx.first, group=ctx.group)
+        if dist.get_rank() != ctx.first:
+            grad = torch.zeros_like(grad)
+        return grad, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceParallel:
+    """The ``sequence`` axis through this rank: its process group (None over
+    one rank), its size and this rank's index, which is the chunk of every
+    row the rank holds."""
+
+    group: Any
+    size: int
+    index: int
+
+    @classmethod
+    def of(cls, mesh: Any, axis: str = "sequence") -> "SequenceParallel":
+        from unionml_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
+        if mesh is None:
+            return cls(None, 1, 0)
+        return cls(axis_group(mesh, axis), axis_size(mesh, axis), axis_index(mesh, axis))
+
+    def _peer(self, index: int) -> int:
+        """The global rank of the axis's rank ``index``."""
+        return dist.get_global_rank(self.group, index % self.size)
+
+    def to_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """Ulysses's first all-to-all (see :func:`_seq_to_heads`), differentiable."""
+        return x if self.size == 1 else _ToHeads.apply(x, self.group, self.size)
+
+    def to_sequence(self, x: torch.Tensor) -> torch.Tensor:
+        """Ulysses's second all-to-all (see :func:`_heads_to_seq`), differentiable."""
+        return x if self.size == 1 else _ToSequence.apply(x, self.group, self.size)
+
+    def broadcast_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The first chunk's ``x`` on every rank, its gradient summed there."""
+        return x if self.size == 1 else _BroadcastFirst.apply(x, self.group, self._peer(0))
+
+    def shift(self, tensors: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+        """One hop around the ring: ``tensors`` go to the next rank, the
+        previous rank's come back (one batch of point-to-point operations)."""
+        if self.size == 1:
+            return tensors
+        nxt, prev = self._peer(self.index + 1), self._peer(self.index - 1)
+        received = [torch.empty_like(t) for t in tensors]
+        ops = [dist.P2POp(dist.isend, t.contiguous(), nxt, self.group, tag) for tag, t in enumerate(tensors)]
+        ops += [dist.P2POp(dist.irecv, r, prev, self.group, tag) for tag, r in enumerate(received)]
+        for request in dist.batch_isend_irecv(ops):
+            request.wait()
+        return tuple(received)
+
+
+#: the attention impls that split the sequence over the mesh's ``sequence`` axis
+SEQUENCE_IMPLS = ("ring", "ulysses")
+
+
+def dense_attention_copy(model: nn.Module) -> nn.Module:
+    """A copy of ``model`` whose sequence-parallel configs (``attention_impl``
+    ring or ulysses) attend densely instead (``"auto"``, no ``sp_mesh``): what
+    serving runs, since a request's rows arrive whole on one rank. The copy
+    shares every parameter and buffer with ``model``, which is left as it is."""
+    memo: Dict[int, Any] = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    for module in model.modules():
+        cfg = getattr(module, "config", None)
+        if getattr(cfg, "attention_impl", None) in SEQUENCE_IMPLS:
+            memo[id(cfg)] = dataclasses.replace(cfg, attention_impl="auto", sp_mesh=None)
+    return copy.deepcopy(model, memo=memo)
 
 
 def one_hot_embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

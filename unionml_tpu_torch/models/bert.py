@@ -37,6 +37,18 @@ attention output's input rows split. In a forward that autograd records
 the collectives are the differentiable pair of
 :class:`~unionml_tpu_torch.models._layers.TensorParallel`, so the copy
 trains (``fit(mesh=..., param_spec=...)``).
+
+Sequence parallelism (``attention_impl="ring"`` or ``"ulysses"`` with
+``sp_mesh``, ``bert.py:92-99``): the model takes THIS rank's chunk of every
+row (ids, mask and token types; positions ``[r * L, (r + 1) * L)`` for
+sequence rank r), offsets its position embeddings by ``r * L``, and
+attends through :func:`~unionml_tpu_torch.parallel.sp_attention` with
+per-row ``kv_lens``: the whole row's mask summed (each chunk's sum, summed
+over the ``sequence`` axis), exact for right padding. ``[CLS]`` lies on the
+first sequence rank; the pooler reads it on every rank through
+:meth:`~unionml_tpu_torch.models._layers.SequenceParallel.broadcast_first`,
+whose backward sums the ranks' gradients onto the first, so each rank's
+classifier logits are the whole row's.
 """
 
 import dataclasses
@@ -44,11 +56,14 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch.models._layers import (
+    SEQUENCE_IMPLS,
+    SequenceParallel,
     TensorParallel,
     _dense,
     _dropout,
@@ -95,21 +110,17 @@ class BertConfig:
     attention_dropout: float = 0.1
     num_labels: int = 2
     dtype: torch.dtype = torch.bfloat16
-    #: "auto" (the kernels on CUDA), "kernel" or "reference"
+    #: "auto" (the kernels on CUDA), "kernel" or "reference"; "ring" or
+    #: "ulysses" split every row's sequence over ``sp_mesh``
     attention_impl: str = "auto"
-    #: the JAX package's sequence-parallel mesh; not ported yet
+    #: the mesh whose "sequence" axis ring/ulysses attention splits rows over
     sp_mesh: Any = None
     remat: bool = False
     gelu_approximate: bool = False
 
     def __post_init__(self) -> None:
-        if self.attention_impl in ("ring", "ulysses") or self.sp_mesh is not None:
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r} / sp_mesh: sequence-parallel attention is not "
-                "ported yet (ROADMAP: M12, ring/ulysses)"
-            )
-        if self.attention_impl not in _IMPLS:
-            raise ValueError(f"attention_impl must be one of {_IMPLS}, got {self.attention_impl!r}")
+        if self.attention_impl not in _IMPLS + SEQUENCE_IMPLS:
+            raise ValueError(f"attention_impl must be one of {_IMPLS + SEQUENCE_IMPLS}, got {self.attention_impl!r}")
         if self.hidden_size % self.num_heads:
             raise ValueError("hidden_size must be divisible by num_heads")
 
@@ -159,7 +170,12 @@ class BertSelfAttention(nn.Module):
 
         entered = hidden if tp is None else tp.enter(hidden)
         q, k, v = (split(_dense(m, entered, cfg.dtype)) for m in (self.query, self.key, self.value))
-        context = attention(q, k, v, mask=dense_mask, kv_lens=kv_lens, impl=cfg.attention_impl)
+        if cfg.attention_impl in SEQUENCE_IMPLS:
+            from unionml_tpu_torch.parallel import sp_attention
+
+            context = sp_attention(q, k, v, cfg.sp_mesh, cfg.attention_impl, kv_lens=kv_lens)
+        else:
+            context = attention(q, k, v, mask=dense_mask, kv_lens=kv_lens, impl=cfg.attention_impl)
         context = context.transpose(1, 2).reshape(batch, seq, n_heads * cfg.head_dim)
         if tp is None:
             out = _dense(self.output, context, cfg.dtype)
@@ -245,6 +261,7 @@ class BertModel(nn.Module):
         seq = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
+        sp = SequenceParallel.of(cfg.sp_mesh) if cfg.attention_impl in SEQUENCE_IMPLS else None
         kv_lens = dense_mask = None
         if attention_mask is not None:
             impl = cfg.attention_impl
@@ -255,8 +272,13 @@ class BertModel(nn.Module):
             else:
                 # the kernels take per-row valid lengths: exact for right padding
                 kv_lens = attention_mask.sum(dim=-1, dtype=torch.int32)
+                if sp is not None and sp.group is not None:
+                    # this rank holds a chunk of each row: the whole row's length is the chunks' sum
+                    dist.all_reduce(kv_lens, group=sp.group)
 
         positions = torch.arange(seq, device=input_ids.device)
+        if sp is not None:
+            positions = positions + sp.index * seq
         word = self._lookup(input_ids, self.word_embeddings).to(cfg.dtype)
         position = self._lookup(positions, self.position_embeddings).to(cfg.dtype)[None]
         # the two-row table as a one-hot product: its gradient sums in a fixed order on the card
@@ -264,7 +286,8 @@ class BertModel(nn.Module):
         hidden = _layer_norm(self.embeddings_norm, word + position + token_type, cfg.dtype)
         hidden = _dropout(hidden, cfg.hidden_dropout, generator)
         hidden = self.encoder(hidden, kv_lens, dense_mask, generator)
-        pooled = torch.tanh(_dense(self.pooler, hidden[:, 0], cfg.dtype))
+        first = hidden[:, 0] if sp is None else sp.broadcast_first(hidden[:, 0])  # [CLS] lies on the first chunk
+        pooled = torch.tanh(_dense(self.pooler, first, cfg.dtype))
         return hidden, pooled
 
 

@@ -83,10 +83,22 @@ gathered logits hand each rank its slice of theirs. K1, K2 and K3 then run
 at a rank's heads. The gradients of what rank 0 alone adds (the row-parallel
 biases) and, where the axis does not divide the heads, of the whole ``qkv``
 are each rank's part of a sum, which the train step completes
-(:func:`tensor_parallel`'s ``partial`` names). Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): the ring/ulysses layers,
-the expert-parallel ``a2a`` dispatch and ``ep_mesh``, sparse blocks under a
-tensor mesh, and decode over an ``fsdp`` axis.
+(:func:`tensor_parallel`'s ``partial`` names).
+
+Sequence parallelism (``attention_impl="ring"`` or ``"ulysses"`` with
+``sp_mesh``, ``gpt.py:357-379``): a training forward (no cache) takes THIS
+rank's chunk of every row, positions ``[r * L, (r + 1) * L)`` for sequence
+rank r, and offsets its position embeddings by ``r * L``; each block's
+causal attention goes through
+:func:`~unionml_tpu_torch.parallel.sp_attention` (K1 per ring block, K2/K3
+in the ring's backward; or Ulysses's all-to-alls around K1-K3). Everything
+else in a block is per position, so it needs no exchange.
+``segment_ids`` and ``pad_offsets`` raise JAX's ``ValueError``s. The cache
+paths (``generate``, the engines) attend densely, K1 and K4 as in any other
+config (``gpt.py:491``). Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): the expert-parallel
+``a2a`` dispatch and ``ep_mesh``, sparse blocks under a tensor mesh, and
+decode over an ``fsdp`` axis.
 """
 
 import copy
@@ -99,6 +111,7 @@ from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch.models._layers import (
+    SEQUENCE_IMPLS,
     TensorParallel,
     _dense,
     _dropout,
@@ -118,8 +131,7 @@ _IMPLS = ("auto", "kernel", "reference")
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """GPT-2 small by default (``gpt.py:28-78``, minus the sequence-parallel
-    ``sp_mesh``, which the port has no counterpart for yet)."""
+    """GPT-2 small by default (``gpt.py:28-78``)."""
 
     vocab_size: int = 50257
     hidden_size: int = 768
@@ -130,10 +142,14 @@ class GPTConfig:
     #: dropout rate at the embeddings and after each block's two residual branches
     dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
-    #: dense attention: "auto" (K1 kernel on CUDA), "kernel", or "reference"
+    #: dense attention: "auto" (K1 kernel on CUDA), "kernel", or "reference";
+    #: "ring" or "ulysses" train sequence-parallel over ``sp_mesh`` (the
+    #: cache paths attend densely)
     attention_impl: str = "auto"
     #: paged attention: "auto" (K4 kernel on CUDA), "kernel", or "reference"
     paged_attn_impl: str = "auto"
+    #: the mesh whose "sequence" axis ring/ulysses attention splits rows over
+    sp_mesh: Any = None
     #: recompute the decoder blocks of training forwards in the backward pass
     #: instead of keeping their activations (decode and prefill never do)
     remat: bool = False
@@ -156,15 +172,10 @@ class GPTConfig:
                 "moe_dispatch='a2a' / ep_mesh: expert parallelism is not ported yet "
                 "(ROADMAP: M12, expert-parallel a2a)"
             )
-        for name in ("attention_impl", "paged_attn_impl"):
-            value = getattr(self, name)
-            if value in ("ring", "ulysses"):
-                raise NotImplementedError(
-                    f"{name}={value!r}: sequence-parallel attention is not ported yet "
-                    "(ROADMAP: M12, ring/ulysses)"
-                )
-            if value not in _IMPLS:
-                raise ValueError(f"{name} must be one of {_IMPLS}, got {value!r}")
+        if self.attention_impl not in _IMPLS + SEQUENCE_IMPLS:
+            raise ValueError(f"attention_impl must be one of {_IMPLS + SEQUENCE_IMPLS}, got {self.attention_impl!r}")
+        if self.paged_attn_impl not in _IMPLS:
+            raise ValueError(f"paged_attn_impl must be one of {_IMPLS}, got {self.paged_attn_impl!r}")
         if self.hidden_size % self.num_heads:
             raise ValueError("hidden_size must be divisible by num_heads")
 
@@ -443,7 +454,23 @@ class DecoderBlock(nn.Module):
 
         new_cache = cache
         if cache is None:
-            if segment_ids is not None:
+            if cfg.attention_impl in SEQUENCE_IMPLS:
+                # sequence-parallel training: this rank's chunk; causal masking happens inside
+                if segment_ids is not None:
+                    raise ValueError(
+                        "segment_ids (packed training) composes with neither pad_offsets "
+                        "(left-padded ragged batches) nor sequence-parallel attention"
+                    )
+                if pad_offsets is not None:
+                    raise ValueError(
+                        "ring/ulysses attention does not support pad_offsets (left-padded "
+                        "ragged batches); train sequence-parallel configs on uniform-length "
+                        "batches or use a dense attention_impl."
+                    )
+                from unionml_tpu_torch.parallel import sp_attention
+
+                context = sp_attention(q, k, v, cfg.sp_mesh, cfg.attention_impl, causal=True)
+            elif segment_ids is not None:
                 if pad_offsets is not None:
                     raise ValueError("segment_ids (packed training) does not compose with pad_offsets "
                                      "(left-padded ragged batches)")
@@ -513,9 +540,11 @@ class DecoderBlock(nn.Module):
         cache["v"][:, :, position:position + seq] = v.to(cache["v"].dtype)
         if seq > 1 and position == 0:
             # start-of-sequence prefill: plain causal attention over the chunk
-            # is exact (the K1 kernel on the card); ragged rows add the pad mask
+            # is exact (the K1 kernel on the card); ragged rows add the pad
+            # mask. A sequence-parallel config attends densely here (gpt.py:491)
             if pad_offsets is None:
-                return attention(q, k, v, causal=True, impl=cfg.attention_impl)
+                impl = "auto" if cfg.attention_impl in SEQUENCE_IMPLS else cfg.attention_impl
+                return attention(q, k, v, causal=True, impl=impl)
             return reference_attention(
                 q, k, v, causal=True, mask=pad_mask(torch.arange(seq, device=q.device))
             )
@@ -639,6 +668,11 @@ class GPTLMHeadModel(nn.Module):
             positions = steps[None, :] - torch.cummax(starts, dim=1).values
         elif cache is None:
             positions = steps[None, :]
+            if cfg.attention_impl in SEQUENCE_IMPLS:
+                # this rank's chunk of the rows: positions [r * L, (r + 1) * L)
+                from unionml_tpu_torch.parallel.mesh import sequence_index
+
+                positions = positions + sequence_index(cfg.sp_mesh) * seq
         elif _per_row(position):
             positions = torch.clamp(position.long()[:, None] + steps[None, :], 0, cfg.max_position_embeddings - 1)
         else:
@@ -1035,24 +1069,48 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
     return shard_model(model, mesh, specs, tp, (GPTLMHeadModel, DecoderBlock), partial, trainable)
 
 
+def lm_targets(
+    input_ids: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    span: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(targets, weights)`` of the next-token transitions of whole rows
+    whose first token lies at ``[start, start + length)`` (``span``; every
+    position when None): ``targets`` are the tokens at t+1, ``weights`` None
+    when each transition counts alike, else the ``mask`` (1 = real token) at
+    t+1 and, with ``segment_ids``, whether t and t+1 share a segment. The
+    row's last position has no transition."""
+    start, length = span if span is not None else (0, input_ids.shape[1])
+    stop = min(start + length, input_ids.shape[1] - 1)
+    targets = input_ids[:, start + 1:stop + 1]
+    weights = None if mask is None else mask[:, start + 1:stop + 1].float()
+    if segment_ids is not None:
+        following = segment_ids[:, start + 1:stop + 1]
+        same = (following == segment_ids[:, start:stop]) & (following > 0)
+        weights = same.float() if weights is None else weights * same.float()
+    return targets, weights
+
+
 def lm_loss(
     logits: torch.Tensor,
     input_ids: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    span: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Next-token cross-entropy (``gpt.py:957-978``): logits at t predict
     ``input_ids`` at t+1, weighted by ``mask`` (1 = real token) at t+1. With
     ``segment_ids`` (packed rows) a transition counts only inside one
     segment: the last token of a packed sequence is not trained to predict
-    the first token of the next, and padding is weighted 0."""
-    shifted = logits[:, :-1, :]
-    targets = input_ids[:, 1:]
-    weights = None if mask is None else mask[:, 1:].float()
-    if segment_ids is not None:
-        same = (segment_ids[:, 1:] == segment_ids[:, :-1]) & (segment_ids[:, 1:] > 0)
-        weights = same.float() if weights is None else weights * same.float()
-    return cross_entropy_with_integer_labels(shifted, targets, weights)
+    the first token of the next, and padding is weighted 0.
+
+    With ``span`` ``(start, length)`` (a sequence-parallel rank), ``logits``
+    are those of the chunk at ``[start, start + length)`` and the ids, mask
+    and segment ids the whole rows': the loss is the chunk's mean over the
+    transitions from its own positions (:func:`lm_targets`)."""
+    targets, weights = lm_targets(input_ids, mask, segment_ids, span)
+    return cross_entropy_with_integer_labels(logits[:, :targets.shape[1]], targets, weights)
 
 
 def import_hf_weights(hf_state_dict: Dict[str, Any], config: GPTConfig) -> Dict[str, Any]:

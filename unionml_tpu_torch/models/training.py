@@ -54,6 +54,29 @@ meshed step lays the state out (:func:`shard_train_state`) by the three axes:
   the family's ``tensor_parallel``, differentiable; the gradients that are
   each rank's part of a sum (``tp_partial``) are summed over the axis.
 
+- ``sequence`` (a BERT or GPT config with ``attention_impl="ring"`` or
+  ``"ulysses"`` and ``sp_mesh`` the step's mesh; ``{"sequence": N}`` or
+  ``{"data": M, "sequence": N}``): the ranks of one data index hold the
+  same rows, and the step cuts every token array to this rank's chunk of
+  the sequence. An LM batch is cut after its targets are shifted on the
+  whole row: the chunk's last position predicts the next chunk's first
+  token, and the row's last position, which has no target, lies on the last
+  chunk. The gradient group spans data×fsdp×sequence (each parameter's
+  gradient is the sum of the chunks' partials, averaged over the batch's
+  ranks, exactly once). Each rank differentiates its part of the global
+  objective: an LM rank its chunk's mean cross-entropy over its own
+  transitions, scaled by the ranks' number times its share of all their
+  transitions (``Layout.weight_share``), so the mean over the ranks is the
+  global batch's mean over its real transitions; a classifier rank its
+  data shard's mean loss, which every sequence rank of that shard computes
+  from the same broadcast ``[CLS]``: the mean over the sequence ranks
+  counts it once, and the broadcast's backward sums the ranks' ``[CLS]``
+  gradients onto the first chunk. Sequence with a tensor or fsdp axis raises
+  ``NotImplementedError``. The eval steps take whole rows and cut them by
+  the model's ``sp_mesh`` as the train step does; an LM eval's loss is the
+  rows' mean over all their transitions (each chunk's mean weighted by its
+  transitions, summed over the ``sequence`` axis).
+
 Metrics are global-batch values, the same on every rank: the loss and
 accuracy are means over the batch's ranks, and ``grad_norm`` is the norm of
 the whole gradient (each shard's squares summed over the axes that split
@@ -74,7 +97,7 @@ from torch import nn
 
 from unionml_tpu_torch._device import resolve_device
 from unionml_tpu_torch._logging import logger
-from unionml_tpu_torch.models.gpt import lm_loss
+from unionml_tpu_torch.models.gpt import lm_loss, lm_targets
 from unionml_tpu_torch.models.moe import collect_aux_losses
 from unionml_tpu_torch.ops.losses import cross_entropy_and_accuracy
 from unionml_tpu_torch.ops.packing import pack_sequences, packing_efficiency
@@ -290,10 +313,13 @@ class Layout:
         self.tensor_group = axis_group(self.mesh, TENSOR_AXIS)
         self.tensor_size = axis_size(self.mesh, TENSOR_AXIS)
         self.fsdp_group = axis_group(self.mesh, FSDP_AXIS) if self.fsdp else None
-        self.batch_group = batch_group(self.mesh)
-        self.batch_size = batch_axis_size(self.mesh)
-        #: the dropout generator's shard word (None where the batch spans one rank)
-        self.dropout_shard = batch_index(self.mesh) if self.batch_size > 1 else None
+        # the ranks whose gradients and loss weights are summed: data×fsdp
+        # (the rows) × sequence (the chunks of each row)
+        self.batch_group = batch_group(self.mesh, sequence=True)
+        self.batch_size = batch_axis_size(self.mesh, sequence=True)
+        #: the dropout generator's shard word (None where the batch spans one
+        #: rank); chunks of one row draw distinct masks
+        self.dropout_shard = batch_index(self.mesh, sequence=True) if self.batch_size > 1 else None
         self.tensor_split = [self.tensor_group is not None and TENSOR_AXIS in tuple(spec) for spec in self.specs]
         #: whether the global norm needs an exchange (else the unmeshed formula)
         self.exchanges_norm = self.fsdp_group is not None or any(self.tensor_split)
@@ -314,7 +340,7 @@ class Layout:
     def reduce_grads(self, grads: List[torch.Tensor]) -> None:
         """In place: the partial gradients summed over the tensor axis, then
         (without FSDP2, which reduces its own) every gradient's mean over the
-        batch's ranks, one all-reduce per dtype."""
+        batch's ranks (data×fsdp×sequence), one all-reduce per dtype."""
         if self.tensor_group is not None:
             partial = [g for g, p in zip(grads, self.partial) if p]
             if partial:
@@ -507,6 +533,61 @@ def dropout_generator(seed: int, step: int, device: torch.device, index: Optiona
     return generator
 
 
+def _sequence_config(model: nn.Module) -> Any:
+    """The config of a BERT or GPT model that splits rows over a ``sequence``
+    axis (``attention_impl`` ring or ulysses), else None."""
+    from unionml_tpu_torch.models._layers import SEQUENCE_IMPLS
+
+    if _family(model) is None:
+        return None
+    return model.config if model.config.attention_impl in SEQUENCE_IMPLS else None
+
+
+def _check_sequence(model: nn.Module, mesh: Any) -> None:
+    """A sequence-parallel config trains on a mesh whose ``sequence`` axis is
+    its ``sp_mesh``'s (the step cuts the rows by it, the attention exchanges
+    over it); a mesh that splits the sequence needs such a config."""
+    from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, SEQUENCE_AXIS, TENSOR_AXIS, axis_names, sequence_size
+
+    cfg = _sequence_config(model)
+    names = axis_names(mesh) if mesh is not None else ()
+    if cfg is None:
+        if sequence_size(mesh) > 1:
+            raise ValueError(f"a mesh whose {SEQUENCE_AXIS!r} axis spans {sequence_size(mesh)} ranks splits every "
+                             "row: train a BERT or GPT config with attention_impl='ring' or 'ulysses' on it")
+        return
+    if SEQUENCE_AXIS not in names or sequence_size(cfg.sp_mesh) != sequence_size(mesh):
+        raise ValueError(f"attention_impl={cfg.attention_impl!r} trains on a mesh with a {SEQUENCE_AXIS!r} axis the "
+                         f"size of sp_mesh's ({sequence_size(cfg.sp_mesh)}): pass mesh=config.sp_mesh to the step")
+    if TENSOR_AXIS in names or FSDP_AXIS in names:
+        raise NotImplementedError(
+            f"sequence parallelism on a mesh with a tensor or fsdp axis ({names}) is not ported yet "
+            "(ROADMAP: M12, sequence with tensor/fsdp)")
+
+
+def _sequence_span(model: nn.Module, seq: int) -> Optional[Tuple[int, int]]:
+    """``(start, length)`` of this rank's chunk of a row of ``seq`` tokens,
+    cut by the model's ``sp_mesh``; None for a model that takes whole rows."""
+    from unionml_tpu_torch.parallel.mesh import sequence_index, sequence_size
+
+    cfg = _sequence_config(model)
+    if cfg is None:
+        return None
+    n = sequence_size(cfg.sp_mesh)
+    if seq % n:
+        raise ValueError(f"the sequence axis ({n} ranks) must divide the rows' length ({seq})")
+    return sequence_index(cfg.sp_mesh) * (seq // n), seq // n
+
+
+def _sequence_inputs(model: nn.Module, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """This rank's chunk of each token array for a sequence-parallel model
+    (cut by its ``sp_mesh``); the arrays as they are for any other."""
+    from unionml_tpu_torch.parallel.mesh import shard_sequence
+
+    cfg = _sequence_config(model)
+    return inputs if cfg is None or cfg.sp_mesh is None else shard_sequence(inputs, cfg.sp_mesh)
+
+
 def _microbatch_grads(
     state: TrainState, batch: Dict[str, torch.Tensor], grad_accum: int, loss_fn: Callable,
     weight_fn: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None,
@@ -576,7 +657,8 @@ def classifier_grads(
     over ``grad_accum`` microbatches (see :func:`_microbatch_grads`)."""
 
     def loss_fn(micro, generator):
-        logits = state.model(*[micro[k] for k in input_signature], deterministic=False, generator=generator)
+        inputs = _sequence_inputs(state.model, [micro[k] for k in input_signature])
+        logits = state.model(*inputs, deterministic=False, generator=generator)
         return cross_entropy_and_accuracy(logits, micro["labels"])
 
     grads, (loss, acc) = _microbatch_grads(state, batch, grad_accum, loss_fn)
@@ -587,16 +669,25 @@ def _lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool, moe
              **kwargs) -> torch.Tensor:
     """``lm_loss`` of ``model`` on an LM batch: ``input_ids``, ``segment_ids``
     (looked up strictly) when packed, and an optional ``mask``; with
-    ``moe_aux`` plus the sparse blocks' router losses (``training.py:239-260``)."""
+    ``moe_aux`` plus the sparse blocks' router losses (``training.py:239-260``).
+    A sequence-parallel model sees this rank's chunk of the rows and the loss
+    is its chunk's mean over its own transitions (:func:`_sequence_span`)."""
     # strict lookup: a packed step fed a batch without segment ids must fail,
     # not silently train across packed-sequence boundaries (training.py:250-252)
     segment_ids = batch["segment_ids"] if packed else None
-    if not moe_aux:
-        logits = model(batch["input_ids"], segment_ids=segment_ids, **kwargs)
-        return lm_loss(logits, batch["input_ids"], mask=batch.get("mask"), segment_ids=segment_ids)
-    logits, aux = model(batch["input_ids"], segment_ids=segment_ids, return_aux=True, **kwargs)
-    loss = lm_loss(logits, batch["input_ids"], mask=batch.get("mask"), segment_ids=segment_ids)
-    return collect_aux_losses(aux).to(loss.device) + loss
+    ids = batch["input_ids"]
+    span = _sequence_span(model, ids.shape[1])
+    chunk_ids, chunk_segments = ids, segment_ids
+    if span is not None:  # this rank's chunk of the rows
+        cut = slice(span[0], span[0] + span[1])
+        chunk_ids = ids[:, cut]
+        chunk_segments = None if segment_ids is None else segment_ids[:, cut]
+    if moe_aux:
+        logits, aux = model(chunk_ids, segment_ids=chunk_segments, return_aux=True, **kwargs)
+    else:
+        logits, aux = model(chunk_ids, segment_ids=chunk_segments, **kwargs), None
+    loss = lm_loss(logits, ids, mask=batch.get("mask"), segment_ids=segment_ids, span=span)
+    return loss if aux is None else collect_aux_losses(aux).to(loss.device) + loss
 
 
 def lm_grads(
@@ -610,21 +701,18 @@ def lm_grads(
     def loss_fn(micro, generator):
         return (_lm_loss(state.model, micro, packed, moe_aux, deterministic=False, generator=generator),)
 
-    grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn, lambda micro: _lm_weight(micro, packed))
+    grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn,
+                                       lambda micro: _lm_weight(state.model, micro, packed))
     return grads, loss
 
 
-def _lm_weight(batch: Dict[str, torch.Tensor], packed: bool) -> torch.Tensor:
+def _lm_weight(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool) -> torch.Tensor:
     """The weight :func:`lm_loss` averages over: the batch's real next-token
-    transitions (within one segment when packed, under the mask if any)."""
-    ids = batch["input_ids"]
-    weights = torch.ones_like(ids[:, 1:], dtype=torch.float32)
-    if batch.get("mask") is not None:
-        weights = weights * batch["mask"][:, 1:].float()
-    if packed:
-        segments = batch["segment_ids"]
-        weights = weights * ((segments[:, 1:] == segments[:, :-1]) & (segments[:, 1:] > 0)).float()
-    return weights.sum()
+    transitions (within one segment when packed, under the mask if any),
+    those from this rank's chunk for a sequence-parallel model."""
+    targets, weights = lm_targets(batch["input_ids"], batch.get("mask"), batch["segment_ids"] if packed else None,
+                                  _sequence_span(model, batch["input_ids"].shape[1]))
+    return torch.ones_like(targets, dtype=torch.float32).sum() if weights is None else weights.sum()
 
 
 def make_classifier_train_step(
@@ -664,11 +752,14 @@ def make_classifier_train_step(
 
 
 def make_classifier_eval_step(input_signature: Tuple[str, ...] = ("inputs",)) -> Callable:
-    """The eval step ``(state, batch) -> {"loss", "accuracy"}``, dropout off."""
+    """The eval step ``(state, batch) -> {"loss", "accuracy"}``, dropout off.
+    A sequence-parallel model takes this rank's chunk of each token array
+    (cut by its ``sp_mesh``); every rank of the axis calls the step together
+    and gets the whole rows' metrics (``[CLS]`` is broadcast)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        logits = state.model(*[batch[k] for k in input_signature], deterministic=True)
+        logits = state.model(*_sequence_inputs(state.model, [batch[k] for k in input_signature]), deterministic=True)
         loss, acc = cross_entropy_and_accuracy(logits, batch["labels"])
         return {"loss": loss, "accuracy": acc}
 
@@ -688,8 +779,10 @@ def _on_mesh(state: TrainState, mesh: Any, param_spec: Any) -> TrainState:
     if mesh is None:
         if state.layout is not None:
             raise ValueError("this state is laid out on a mesh: step it with a meshed step")
+        _check_sequence(state.model, None)
         return state
     if state.layout is None:
+        _check_sequence(state.model, mesh)
         return shard_train_state(state, mesh, param_spec)
     if state.layout.mesh is not mesh:
         raise ValueError("this state is laid out on another mesh")
@@ -735,11 +828,24 @@ def make_lm_train_step(
 def make_lm_eval_step(packed: bool = False) -> Callable:
     """The causal-LM eval step ``(state, batch) -> {"loss", "perplexity"}``,
     dropout off (``training.py:291-311``): the masked mean next-token
-    cross-entropy over the batch's real transitions and its exp."""
+    cross-entropy over the batch's real transitions and its exp. A
+    sequence-parallel model takes this rank's chunk of the rows (cut by its
+    ``sp_mesh``); every rank of the axis calls the step together and gets
+    the whole rows' loss: each chunk's mean weighted by its transitions,
+    summed over the axis."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, axis_group
+
         loss = _lm_loss(state.model, batch, packed, deterministic=True)
+        cfg = _sequence_config(state.model)
+        group = None if cfg is None or cfg.sp_mesh is None else axis_group(cfg.sp_mesh, SEQUENCE_AXIS)
+        if group is not None:
+            weight = _lm_weight(state.model, batch, packed)
+            sums = torch.stack([loss * weight, weight])
+            dist.all_reduce(sums, group=group)
+            loss = sums[0] / torch.clamp(sums[1], min=1e-8)
         return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return eval_step

@@ -2,12 +2,17 @@
 specs over ``torch.distributed`` (:mod:`~unionml_tpu_torch.parallel.mesh`),
 process init (:mod:`~unionml_tpu_torch.parallel.distributed`), data-parallel
 steps and batches (:mod:`~unionml_tpu_torch.parallel.dp`), and the
-single-device half of expert parallelism (:mod:`~unionml_tpu_torch.parallel.ep`).
+single-device half of expert parallelism (:mod:`~unionml_tpu_torch.parallel.ep`),
+and sequence parallelism over the ``sequence`` axis: ring attention
+(:mod:`~unionml_tpu_torch.parallel.ring`) and Ulysses
+(:mod:`~unionml_tpu_torch.parallel.ulysses`), both behind
+:func:`sp_attention`, the one dispatch the model families route through.
 Tensor-parallel generation (``DecodeEngine(mesh=...)``), sharded training
-over the data, fsdp and tensor axes (``fit(mesh=..., param_spec=...)``) and
-the meshed predictor (``ResidentPredictor(mesh=...)``) run on these. Not
-ported yet (ROADMAP: M12): ring/ulysses sequence parallelism, pipelines
-(``pp.py``) and the expert-parallel all-to-all."""
+over the data, fsdp, tensor and sequence axes (``fit(mesh=...,
+param_spec=...)``; ``GPTConfig``/``BertConfig(attention_impl="ring" or
+"ulysses", sp_mesh=mesh)``) and the meshed predictor
+(``ResidentPredictor(mesh=...)``) run on these. Not ported yet (ROADMAP:
+M12): pipelines (``pp.py``) and the expert-parallel all-to-all."""
 
 from unionml_tpu_torch.parallel.distributed import collective_timeout_s, initialize_distributed, is_primary_host
 from unionml_tpu_torch.parallel.dp import batches, data_parallel_eval, data_parallel_step, pad_to_multiple
@@ -43,8 +48,11 @@ from unionml_tpu_torch.parallel.mesh import (
     named_sharding_tree,
     replicated,
     shard_batch,
+    shard_sequence,
     wrapped_row_indices,
 )
+from unionml_tpu_torch.parallel.ring import reference_ring_attention, ring_attention, sequence_sharding
+from unionml_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = [
     "DATA_AXIS",
@@ -79,9 +87,30 @@ __all__ = [
     "named_sharding_tree",
     "pad_to_multiple",
     "reference_moe_apply_topk",
+    "reference_ring_attention",
     "reference_topk_dispatch_combine",
     "replicated",
+    "ring_attention",
+    "sequence_sharding",
     "shard_batch",
+    "shard_sequence",
+    "sp_attention",
     "topk_route",
+    "ulysses_attention",
     "wrapped_row_indices",
 ]
+
+
+def sp_attention(q, k, v, mesh, impl: str, *, causal: bool = False, kv_lens=None):
+    """Dispatch to a sequence-parallel attention impl ("ring" | "ulysses")
+    (``parallel/__init__.py:74-90``): the one place both model families
+    route their long-context path through. ``q``, ``k``, ``v`` are this
+    rank's sequence chunk; ``kv_lens`` the whole rows' valid lengths."""
+    if mesh is None:
+        raise ValueError(f"attention_impl={impl!r} requires a sequence-parallel mesh (sp_mesh)")
+    table = {"ring": ring_attention, "ulysses": ulysses_attention}
+    try:
+        fn = table[impl]
+    except KeyError:
+        raise ValueError(f"Unknown sequence-parallel impl {impl!r}; expected one of {sorted(table)}") from None
+    return fn(q, k, v, mesh, causal=causal, kv_lens=kv_lens)

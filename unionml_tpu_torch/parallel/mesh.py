@@ -50,7 +50,10 @@ __all__ = [
     "make_mesh",
     "named_sharding_tree",
     "replicated",
+    "sequence_index",
+    "sequence_size",
     "shard_batch",
+    "shard_sequence",
     "wrapped_row_indices",
 ]
 
@@ -229,10 +232,23 @@ def replicated(mesh: Any) -> NamedSharding:
     return NamedSharding(mesh, Spec())
 
 
-def _batch_axes(mesh: Any, axis: str) -> Tuple[str, ...]:
+def _batch_axes(mesh: Any, axis: str, sequence: bool = False) -> Tuple[str, ...]:
     names = axis_names(mesh)
     axes = (axis, FSDP_AXIS) if axis == DATA_AXIS else (axis,)
+    if sequence:
+        axes += (SEQUENCE_AXIS,)
     return tuple(a for a in axes if a in names)
+
+
+def sequence_size(mesh: Any) -> int:
+    """Ranks along the ``sequence`` axis (1 for ``None`` or a mesh without it)."""
+    return axis_size(mesh, SEQUENCE_AXIS) if mesh is not None else 1
+
+
+def sequence_index(mesh: Any) -> int:
+    """This rank's chunk of the sequence: it holds positions ``[index * L,
+    (index + 1) * L)`` of every row (0 for ``None`` or a mesh without the axis)."""
+    return axis_index(mesh, SEQUENCE_AXIS) if mesh is not None else 0
 
 
 def batch_sharding(mesh: Any, axis: str = DATA_AXIS) -> NamedSharding:
@@ -242,11 +258,13 @@ def batch_sharding(mesh: Any, axis: str = DATA_AXIS) -> NamedSharding:
     return NamedSharding(mesh, Spec(present if len(present) > 1 else (present[0] if present else None)))
 
 
-def batch_axis_size(mesh: Any, axis: str = DATA_AXIS) -> int:
+def batch_axis_size(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> int:
     """Ranks the leading (batch) dim is sharded over under :func:`batch_sharding`
-    — the data×fsdp product when both axes are present."""
+    — the data×fsdp product when both axes are present; with ``sequence``,
+    times the ``sequence`` axis (the ranks a train step's gradients and loss
+    weights are reduced over)."""
     size = 1
-    for a in _batch_axes(mesh, axis):
+    for a in _batch_axes(mesh, axis, sequence):
         size *= axis_size(mesh, a)
     return size
 
@@ -262,15 +280,18 @@ def axis_group(mesh: Any, name: str) -> Any:
 _GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, Any]] = {}
 
 
-def batch_group(mesh: Any, axis: str = DATA_AXIS) -> Any:
+def batch_group(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Any:
     """The process group the batch is sharded over under :func:`batch_sharding`:
     ``data`` (or ``axis``) alone, or data×fsdp when the mesh has both, this
-    rank's group rank being its :func:`batch_index`. ``None`` when it spans
-    one rank. The data×fsdp groups are made once per mesh, by every rank of
+    rank's group rank being its :func:`batch_index`; with ``sequence``, the
+    group over data×fsdp×sequence (a sequence-parallel step's gradients are
+    each rank's part of the sum over its chunks). ``None`` when it spans one
+    rank. A group over several axes is made once per mesh, by every rank of
     the world in the same order (``torch.distributed.new_group`` is
     collective)."""
-    axes = _batch_axes(mesh, axis)
-    if batch_axis_size(mesh, axis) == 1:
+    axes = _batch_axes(mesh, axis, sequence)
+    size = batch_axis_size(mesh, axis, sequence)
+    if size == 1:
         return None
     if len(axes) == 1:
         return mesh.get_group(axes[0])
@@ -279,7 +300,7 @@ def batch_group(mesh: Any, axis: str = DATA_AXIS) -> Any:
         names = axis_names(mesh)
         dims = [names.index(a) for a in axes]
         others = [i for i in range(len(names)) if i not in dims]
-        grid = mesh.mesh.permute(others + dims).reshape(-1, batch_axis_size(mesh, axis))
+        grid = mesh.mesh.permute(others + dims).reshape(-1, size)
         me, mine = dist.get_rank(), None
         for row in grid.tolist():
             group = dist.new_group([int(r) for r in row])
@@ -289,11 +310,12 @@ def batch_group(mesh: Any, axis: str = DATA_AXIS) -> Any:
     return _GROUPS[key][1]
 
 
-def batch_index(mesh: Any, axis: str = DATA_AXIS) -> int:
+def batch_index(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> int:
     """This rank's shard of the batch under :func:`batch_sharding` (row-major
-    over data×fsdp, as ``NamedSharding.shard`` cuts it)."""
+    over data×fsdp, as ``NamedSharding.shard`` cuts it); with ``sequence``,
+    its index over data×fsdp×sequence (the chunk varying fastest)."""
     index = 0
-    for a in _batch_axes(mesh, axis):
+    for a in _batch_axes(mesh, axis, sequence):
         index = index * axis_size(mesh, a) + axis_index(mesh, a)
     return index
 
@@ -341,6 +363,16 @@ def shard_batch(batch: Any, mesh: Any, axis: str = DATA_AXIS) -> Any:
     :func:`batch_sharding` lays on this rank's device."""
     sharding = batch_sharding(mesh, axis)
     return _tree_map(sharding.shard, batch)
+
+
+def shard_sequence(batch: Any, mesh: Any) -> Any:
+    """This rank's chunk of the sequence (dimension 1) of every array in a
+    tree of token arrays ``(rows, seq, ...)``: positions ``[r * L, (r + 1) *
+    L)`` at :func:`sequence_index` r, as ``jax.device_put`` with ``Spec(None,
+    "sequence")`` lays them. Raises ``ValueError`` when the axis does not
+    divide the sequence."""
+    sharding = NamedSharding(mesh, Spec(None, SEQUENCE_AXIS)) if SEQUENCE_AXIS in axis_names(mesh) else None
+    return batch if sharding is None else _tree_map(sharding.shard, batch)
 
 
 def logical_to_sharding(mesh: Any, *spec: Any) -> NamedSharding:

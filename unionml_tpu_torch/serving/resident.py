@@ -161,6 +161,27 @@ def _mesh_layout(model_object: Any, mesh: Any, param_specs: Any) -> Any:
     return shard if isinstance(model_object, nn.Module) else dataclasses.replace(model_object, model=shard)
 
 
+def _serving_attention(model_object: Any, mesh: Any) -> Any:
+    """``model_object`` as serving runs it: a BERT or GPT whose config splits
+    rows over a ``sequence`` axis (``attention_impl`` ring or ulysses) attends
+    densely (a request's rows arrive whole), sharing its parameters; served
+    over a mesh that has a ``sequence`` axis, it raises."""
+    from unionml_tpu_torch.models._layers import SEQUENCE_IMPLS, dense_attention_copy
+    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, axis_names
+
+    module = _serving_module(model_object)
+    cfg = getattr(module, "config", None)
+    if getattr(cfg, "attention_impl", None) not in SEQUENCE_IMPLS:
+        return model_object
+    if mesh is not None and SEQUENCE_AXIS in axis_names(mesh):
+        raise NotImplementedError(
+            f"serving a sequence-parallel model (attention_impl={cfg.attention_impl!r}) over a mesh with a "
+            f"{SEQUENCE_AXIS!r} axis is not ported yet (ROADMAP: M12, sequence-parallel serving); serve it over a "
+            "mesh without that axis, where it attends densely")
+    dense = dense_attention_copy(module)
+    return dense if isinstance(model_object, nn.Module) else dataclasses.replace(model_object, model=dense)
+
+
 class ResidentPredictor:
     """Holds a model artifact on the device with a CUDA graph per request shape.
 
@@ -271,7 +292,7 @@ class ResidentPredictor:
             predictor = self._model._predictor
             model_object = artifact.model_object
             if is_tensor_compatible(model_object):
-                placed = _place(_whole(model_object), self._device)
+                placed = _serving_attention(_place(_whole(model_object), self._device), self._mesh)
                 if self._mesh is not None:
                     placed = _mesh_layout(placed, self._mesh, self._param_specs)
                 self._device_model_object = placed  # graftlint: disable=data-race -- published once under _setup_lock; readers run only after the _ready check, which happens-after this write
