@@ -486,6 +486,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its bound, share and SDPA's time. (d) Worlds of 2 and 4 ranks (spawned, a
    card each), where the machine has them: ring and ulysses ``fit_lm`` on
    ``{"sequence": world}`` against rank 0's unmeshed dense steps.
+25. expert parallelism (``parallel/ep.py``'s ``moe_apply_a2a`` and
+   ``moe_apply_topk(mesh=)``, ``GPTConfig(moe_dispatch=, ep_mesh=)``), the
+   sparse GPT at GPT-2 small's width (``moe_config``; depth cut to 4 blocks,
+   2 of them sparse). (a) The main path, a world of one rank over NCCL on
+   ``{"data": 1, "expert": 1}``: 5 packed ``fit_lm(moe_aux=True)`` steps
+   (B8 S1024) with ``moe_dispatch="a2a"`` and with ``"gshard"`` plus
+   ``ep_mesh``, f32 and bf16, each bitwise equal to the unmeshed gshard
+   steps (losses and the whole state); K1, K2 and K3 launch once per layer
+   and step in each arm, and ride the kernels line as
+   ``launches_expert_parallel``; each step's wall and device ms beside the
+   unmeshed step's. (b) ``moe_apply_a2a``'s arithmetic over 4 token blocks
+   in one process on the one card (``_in_process_moe_a2a``: the a2a's own
+   body, its exchange a transpose in memory, each rank's 2 experts on every
+   source's buffers) at 8192 tokens, d 768, a router biased to overflow:
+   with ample capacity against the dense oracle, at capacity 1.25
+   (per-source drops) against the per-block one-hot plain version, f32
+   (``TOL``) and bf16 (atol and rtol 2e-2 against the f32 plain version on
+   the same bf16 inputs), the dropped choices counted; its ms beside the
+   one-device dispatch's. (c) The sparse
+   model served by ``DecodeEngine(mesh={"tensor": 1})`` (dropless blocks,
+   each expert's hidden width column/row split over the axis), f32 and bf16
+   streams bitwise the unmeshed engine's, K1 and K4 held against their plain
+   versions at the served shapes (B1 H12 S256 causal prefill, B8 H12 S1 and
+   B1 H12 S64 over the int8 pool).
 
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
@@ -5809,15 +5833,16 @@ def tp_prompts(vocab: int, seed: int = 0) -> list:
             rng.integers(0, vocab, 7).tolist(), rng.integers(0, vocab, 400).tolist()]
 
 
-def tp_local_heads(device) -> dict:
+def tp_local_heads(device, heads=TP_HEADS) -> dict:
     """K1 (a causal bucket prefill) and K4 (8 decode rows, a hit's 64-token
     query tile) at the heads a rank of GPT-2 small holds on tensor axes of
-    1-4, bf16 and f32 over the int8 pool, against their plain versions."""
+    1-4 (``heads``), bf16 and f32 over the int8 pool, against their plain
+    versions."""
     from unionml_tpu_torch.ops.attention import flash_attention, reference_attention
     from unionml_tpu_torch.ops.paged_attention import paged_attention, reference_paged_attention
 
     worst = 0.0
-    for H in TP_HEADS:
+    for H in heads:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = k1_inputs(1, H, 256, 64, dtype, device, seed=H)
             worst = max(worst, check_close(f"K1 {dtype} B1 H{H} S256 D64 causal", flash_attention(q, k, v, causal=True),
@@ -7009,6 +7034,192 @@ def report_sequence_parallel(sp: dict, name_limit: str) -> None:
 # -------------------------------------------------------------- timings
 
 
+# ------------------------------------------------ phase 25: expert parallelism
+
+XP_LAYERS = 4  # depth cut: GPT-2 small's width, 4 blocks, moe_every=2 makes 2 of them sparse
+XP_STEPS = 5
+XP_BLOCKS, XP_TOKENS = 4, 8192  # (b): the in-process ranks and one step's tokens
+XP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def xp_config(dtype, **overrides):
+    return dataclasses.replace(moe_config(), num_layers=XP_LAYERS, dtype=dtype, **overrides)
+
+
+def xp_arms(device, params, mesh, dtype, launches: dict) -> dict:
+    """One dtype of (a): the unmeshed gshard arm, then gshard + ``ep_mesh``
+    and a2a on ``mesh``; each ``fit_lm`` from a fresh state with the launch
+    counts set to 0 just before and read just after, then 2 profiled steps."""
+    from unionml_tpu_torch.models import fit_lm, make_lm_train_step
+
+    corpus = lm_corpus(LM_SEQS, LM_SEQ, seed=25)
+    batch = {k: torch.from_numpy(v[:LM_BATCH]).to(device)
+             for k, v in lm_packed(seed=25).items() if k in ("input_ids", "segment_ids")}
+    arms = {}
+    for name, dispatch, meshed in (("unmeshed", "gshard", False), ("gshard", "gshard", True), ("a2a", "a2a", True)):
+        config = xp_config(dtype, moe_dispatch=dispatch, ep_mesh=mesh if meshed else None)
+        arm_mesh = mesh if meshed else None
+
+        def run(state, arm_mesh=arm_mesh):
+            return fit_lm(state, corpus, seq_len=LM_SEQ, batch_size=LM_BATCH, pack=True, num_steps=XP_STEPS,
+                          mesh=arm_mesh, log_every=1, seed=0, moe_aux=True)
+
+        arms[name] = sp_arm(lambda config=config: lm_state(config, params, device), run,
+                            make_lm_train_step(packed=True, moe_aux=True, mesh=arm_mesh), batch)
+        got = arms[name][3]
+        expected = {n: XP_LAYERS * XP_STEPS for n in XP_KERNELS}
+        if got != expected:
+            raise AssertionError(f"phase 25 {name} {dtype}: launches {got}, expected {expected} (one per layer and step)")
+        if meshed:
+            _launch_sum(launches, got)
+    out = {"unmeshed_step": arms["unmeshed"][2]}
+    for name in ("gshard", "a2a"):
+        hist, whole, step, _ = arms[name]
+        if hist != arms["unmeshed"][0] or not st_equal(whole, arms["unmeshed"][1]):
+            raise AssertionError(f"phase 25 {name} {dtype} at a world of 1: not bitwise the unmeshed gshard steps "
+                                 f"(losses {[h['loss'] for h in hist]} vs {[h['loss'] for h in arms['unmeshed'][0]]})")
+        out[name] = {"bitwise": True, "losses": [h["loss"] for h in hist], "step": step}
+    del arms
+    torch.cuda.empty_cache()
+    return out
+
+
+def xp_in_process(device) -> list:
+    """(b): the in-process a2a of ``XP_BLOCKS`` ranks at ``XP_TOKENS`` tokens."""
+    from unionml_tpu_torch.models.moe import MoEMlp, _experts
+    from unionml_tpu_torch.parallel.ep import _apply_topk, _in_process_moe_a2a, reference_moe_apply_topk, topk_route
+
+    config = moe_config()
+    d, experts, k, cf = config.hidden_size, config.num_experts, config.moe_k, config.moe_capacity_factor
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(0)
+        layer = MoEMlp(d, experts, 4 * d, k=k, capacity_factor=cf, dtype=dtype, device=device)
+        with torch.no_grad():
+            layer.router.weight.normal_(0.0, 0.05)
+            layer.router.bias.copy_(torch.linspace(0.6, -0.6, experts, device=device))  # imbalanced
+            x = torch.randn(XP_TOKENS, d, generator=torch.Generator(device=device).manual_seed(25), device=device)
+            x = x.to(dtype)
+            gates, _ = layer.route(x)
+            params = (layer.w_in, layer.w_out)
+            plain_params = tuple(p.float() for p in params)
+            for mode, factor in (("ample", float(experts)), ("capacity", cf)):
+                got = _in_process_moe_a2a(_experts, params, x, gates, XP_BLOCKS, k=k, capacity_factor=factor)
+                blocks = list(zip(x.float().chunk(XP_BLOCKS), gates.float().chunk(XP_BLOCKS)))
+                if mode == "ample":
+                    want = reference_moe_apply_topk(_experts, plain_params, x.float(), gates.float(), k=k,
+                                                    capacity_factor=None)
+                else:
+                    want = torch.cat([reference_moe_apply_topk(_experts, plain_params, xb, gb, k=k, capacity_factor=cf)
+                                      for xb, gb in blocks])
+                label = f"in-process a2a {str(dtype)[6:]} {XP_BLOCKS} blocks T{XP_TOKENS} {mode}"
+                err = check_close(label, got, want)
+                dropped = sum(int((~topk_route(gb, k, factor).keep).sum()) for _, gb in
+                              zip(range(XP_BLOCKS), gates.chunk(XP_BLOCKS)))
+                if (mode == "ample") != (dropped == 0):
+                    raise AssertionError(f"{label}: {dropped} choices dropped")
+                rec = {"label": label, "max_abs_err": err, "dropped": dropped, "choices": XP_TOKENS * k,
+                       "capacity_per_source": topk_route(gates.chunk(XP_BLOCKS)[0], k, factor).capacity}
+                if dtype == torch.bfloat16 and mode == "capacity":
+                    rec["ms"] = cuda_ms(lambda: _in_process_moe_a2a(_experts, params, x, gates, XP_BLOCKS, k=k,
+                                                                    capacity_factor=cf), 5)
+                    rec["one_device_ms"] = cuda_ms(lambda: _apply_topk(
+                        _experts, params, x, gates, k=k, capacity_factor=cf, normalize_gates=True,
+                        num_experts=experts), 5)
+                out.append(rec)
+        del layer
+        torch.cuda.empty_cache()
+    return out
+
+
+def xp_serving(device, params, mesh, launches: dict) -> dict:
+    """(c): the sparse model behind ``DecodeEngine(mesh={"tensor": 1})``
+    against the unmeshed engine, f32 and bf16; K1/K4 at the served shapes."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import init_gpt
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    out = {}
+    prompt_list = tp_prompts(moe_config().vocab_size)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_gpt(xp_config(dtype), params=params, device=device)
+        plain = tp_drive(DecodeEngine(model, device=device, **TP_KW), prompt_list)
+        meshed = DecodeEngine(model, mesh=mesh, device=device, **TP_KW)
+        kernels.reset_launches()
+        streams = tp_drive(meshed, prompt_list)
+        for name in ("flash_fwd", "paged_attention"):
+            launches[name] = launches.get(name, 0) + kernels.launches[name]
+        if streams != plain:
+            raise AssertionError(f"phase 25 sparse serving {dtype} on {{'tensor': 1}}: streams differ from the "
+                                 "unmeshed engine's (identical required)")
+        out[str(dtype)] = {"streams_identical": len(streams), "graphs": meshed.graph_captures,
+                           "hits": meshed.prefix_cache.stats()["hits"]}
+        del model, meshed
+        torch.cuda.empty_cache()
+    out["kernels_vs_plain"] = tp_local_heads(device, heads=(12,))
+    return out
+
+
+def expert_parallel_phase(device) -> dict:
+    """Phase 25: expert parallelism (see the module docstring)."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    out, parts, launches = {}, {}, {}
+    params = random_params(xp_config(torch.float32), seed=0)
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device.type)
+    try:
+        mesh = make_mesh({"data": 1, "expert": 1}, device=device.type)
+        tensor_mesh = make_mesh({"tensor": 1}, device=device.type)
+        for dtype in (torch.float32, torch.bfloat16):
+            t = time.perf_counter()
+            out[f"main_path {str(dtype)[6:]}"] = xp_arms(device, params, mesh, dtype, launches)
+            parts[f"main_path {str(dtype)[6:]}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["serving"] = xp_serving(device, params, tensor_mesh, launches)
+        parts["serving"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    for name in XP_KERNELS + ("paged_attention",):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 25: {name} never launched on the expert-parallel path ({launches})")
+    t = time.perf_counter()
+    out["in_process"] = xp_in_process(device)
+    parts["in_process"] = time.perf_counter() - t
+    out["launches"] = launches
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
+    return out
+
+
+def report_expert_parallel(xp: dict, name_limit: str) -> None:
+    for dtype in ("float32", "bfloat16"):
+        mp = xp[f"main_path {dtype}"]
+        base = mp["unmeshed_step"]
+        for name in ("gshard", "a2a"):
+            r = mp[name]
+            st = r["step"]
+            print(f"[{name_limit}] sparse GPT-2 small width ({XP_LAYERS} blocks, 2 sparse, 8 experts top-2 cf 1.25) "
+                  f"{dtype} fit_lm {name}{' + ep_mesh' if name == 'gshard' else ''} on {{'data': 1, 'expert': 1}} "
+                  f"over NCCL, {XP_STEPS} packed steps B{LM_BATCH} S{LM_SEQ}: bitwise the unmeshed gshard steps; "
+                  f"losses {[round(x, 6) for x in r['losses']]}; step {st['wall_ms_per_step']:.2f} ms wall, "
+                  f"{st['device_ms_per_step']:.2f} ms device (unmeshed {base['wall_ms_per_step']:.2f} / "
+                  f"{base['device_ms_per_step']:.2f}); top {st['top_kernels_ms_per_step']}")
+    for r in xp["in_process"]:
+        extra = (f"; {r['ms']:.3f} ms, one-device index dispatch {r['one_device_ms']:.3f} ms" if "ms" in r else "")
+        print(f"[{name_limit}] {r['label']}: max |err| {r['max_abs_err']:.3e} vs the plain version (TOL); dropped "
+              f"{r['dropped']} of {r['choices']} choices at {r['capacity_per_source']} slots per source and expert"
+              + extra)
+    sv = xp["serving"]
+    print(f"sparse GPT on DecodeEngine(mesh={{'tensor': 1}}): f32 {sv[str(torch.float32)]['streams_identical']} and "
+          f"bf16 {sv[str(torch.bfloat16)]['streams_identical']} greedy streams identical to the unmeshed engine's; K1/K4 vs plain "
+          f"at 12 heads max |err| {sv['kernels_vs_plain']['max_abs_err']:.3e}")
+    print(f"phase 25 launches {xp['launches']}; phase 25 took {xp['s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in xp['parts_s'].items()} })")
+
+
 def _times(kernel, plain, library) -> dict:
     """ms / plain_ms / library_ms, each by the same method (see ``timed``)."""
     k, p, lib = timed(kernel), timed(plain), timed(library)
@@ -7680,6 +7891,9 @@ def main() -> int:
     details["sequence_parallel"] = sp = sequence_parallel_phase(device)
     report_sequence_parallel(sp, name_limit)
     details["extra_timings"].extend(sp["blocks"] + [sp["fold"]])
+    torch.cuda.empty_cache()
+    details["expert_parallel"] = xp = expert_parallel_phase(device)
+    report_expert_parallel(xp, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -7701,9 +7915,12 @@ def main() -> int:
             r["launches_sharded_training"] = st["launches"][r["name"]]
         if r["name"] in sp["launches"]:
             r["launches_sequence_parallel"] = sp["launches"][r["name"]]
+        if r["name"] in xp["launches"]:
+            r["launches_expert_parallel"] = xp["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
-                "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"], "24": sp["s"]}
+                "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"], "24": sp["s"],
+                "25": xp["s"]}
     print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
           f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
@@ -7746,6 +7963,8 @@ def main() -> int:
             entry["launches_sharded_training"] = r["launches_sharded_training"]
         if "launches_sequence_parallel" in r:  # phase 24's K1-K3 launches (ring and ulysses training)
             entry["launches_sequence_parallel"] = r["launches_sequence_parallel"]
+        if "launches_expert_parallel" in r:  # phase 25's K1-K4 launches (the sparse GPT over an expert mesh)
+            entry["launches_expert_parallel"] = r["launches_expert_parallel"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

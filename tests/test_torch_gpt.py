@@ -156,10 +156,11 @@ def test_config_defaults_and_unported_paths():
     torch.testing.assert_close(remat(ids), plain(ids), atol=0, rtol=0)
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, paged_attn_impl="pallas")
-    # param_shardings is ported (tests/test_torch_mesh.py); sparse blocks under a tensor mesh are still M12
+    # param_shardings is ported (tests/test_torch_mesh.py), and so are sparse blocks under a tensor mesh
+    # (tests/test_torch_expert_parallel.py); serving over an expert axis is still M12
     sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M12"):
-        tgpt.tensor_parallel(sparse, SimpleNamespace(mesh_dim_names=("tensor",), size=lambda dim: 2))
+    with pytest.raises(NotImplementedError, match="M12, serving over an expert axis"):
+        tgpt.tensor_parallel(sparse, SimpleNamespace(mesh_dim_names=("tensor", "expert"), size=lambda dim: 2))
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
     ids, segs = torch.zeros((1, 4), dtype=torch.long), torch.ones((1, 4), dtype=torch.long)
     # packed training runs now (and lm_loss with it); packing composes with no cache and no pad_offsets

@@ -209,7 +209,8 @@ def test_fit_lm_trains_with_the_jax_step_count(pair, pack, num_steps, num_epochs
 
 
 @pytest.mark.parametrize("option", [
-    # moe_aux alone trains (tests/test_torch_moe_gpt.py); sparse blocks split over a tensor axis are M12
+    # moe_aux alone trains (tests/test_torch_moe_gpt.py), and so do sparse blocks split over a tensor axis;
+    # experts split over an expert and a tensor axis at once are M12
     dict(moe_aux=True, mesh="tensor"), dict(mesh="data"), dict(prefetch=True),
 ], ids=["moe_aux", "mesh", "prefetch"])
 def test_fit_lm_rejects_unported_options(pair, option):
@@ -228,13 +229,22 @@ def test_fit_lm_rejects_unported_options(pair, option):
             meshed = run(log_every=1, mesh=make_mesh({"data": 1}, device="cpu")).metrics_history
         assert [h["loss"] for h in meshed] == [h["loss"] for h in run(log_every=1).metrics_history]
         return
-    sparse = init_gpt(GPTConfig.tiny(dtype=torch.float32, dropout=0.0, moe_every=2, num_experts=4), seed=0,
-                      device="cpu")
-    with fake_world(2):
-        mesh = make_mesh({"tensor": 2}, device="cpu")
-        spec = tgpt.param_shardings(dict(sparse.named_parameters()), ("tensor",))
-        with pytest.raises(NotImplementedError, match="M12"):
-            run(sparse, moe_aux=True, mesh=mesh, param_spec=spec)
+    def sparse(**kwargs):
+        return init_gpt(GPTConfig.tiny(dtype=torch.float32, dropout=0.0, moe_every=2, num_experts=4, **kwargs),
+                        seed=0, device="cpu")
+
+    # ported (tests/test_torch_expert_parallel.py): one tensor rank trains as no mesh
+    with fake_world(1):
+        mesh = make_mesh({"tensor": 1}, device="cpu")
+        spec = tgpt.param_shardings(dict(sparse().named_parameters()), ("tensor",))
+        meshed = run(sparse(), moe_aux=True, mesh=mesh, param_spec=spec, log_every=1).metrics_history
+    assert [h["loss"] for h in meshed] == [h["loss"] for h in run(sparse(), moe_aux=True, log_every=1).metrics_history]
+    with fake_world(4):
+        mesh = make_mesh({"expert": 2, "tensor": 2}, device="cpu")
+        model = sparse(ep_mesh=mesh)
+        spec = tgpt.param_shardings(dict(model.named_parameters()), ("expert", "tensor"))
+        with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
+            run(model, moe_aux=True, mesh=mesh, param_spec=spec)
 
 
 def test_fit_lm_checkpoints_and_resumes(pair, tmp_path):

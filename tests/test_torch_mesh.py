@@ -253,7 +253,7 @@ def test_vocab_the_tensor_axis_does_not_divide_raises_as_jax():
         padded = tgpt.GPTLMHeadModel(GPTConfig(vocab_size=50304, hidden_size=64, num_layers=1, num_heads=4,
                                                max_position_embeddings=128, dtype=torch.float32), device="cpu")
         shard, local = tgpt.tensor_parallel(padded, mesh)
-        assert local["wte.weight"].shape == (50304 // 4, 64) and shard.tp.heads == 1 and shard.tp.rank == 2
+        assert local["wte.weight"].shape == (50304 // 4, 64) and shard.tp.heads == 1 and shard.tp.index == 2
         assert torch.equal(local["wte.weight"], padded.wte.weight[2 * 12576:3 * 12576])
     for exc in (theirs.value, theirs_tree.value, mine.value):
         assert "50257" in str(exc)

@@ -280,26 +280,57 @@ def test_moe_decode_step_reads_nothing_to_the_host():
     assert logits.shape == (2, 1, config.vocab_size) and torch.isfinite(logits).all()
 
 
-def test_unported_and_invalid_options_raise():
-    with pytest.raises(NotImplementedError, match="M12"):
-        GPTConfig.tiny(moe_every=2, moe_dispatch="a2a")
-    with pytest.raises(NotImplementedError, match="M12"):
-        GPTConfig.tiny(moe_every=2, ep_mesh=object())
+def test_unported_and_invalid_options_raise(jx):
+    """JAX's ``ValueError``s: the a2a dispatch trained without a mesh, or
+    with a mesh that has no ``expert`` axis (``moe.py:133-134``; both build,
+    as in JAX, and raise at the first capacity-bounded forward); an unknown
+    dispatch; ``moe_apply_a2a``'s validations (``test_parallel.py:436-445``,
+    messages equal to JAX's); ``k`` out of range; ``pad_offsets`` in a
+    training forward. The one M12 raise left: an ``expert`` axis in a
+    serving mesh, and serving a model whose experts are split."""
+    from tests.torch_sharded_ranks import fake_world
+    from unionml_tpu_torch.models.gpt import tensor_parallel
+    from unionml_tpu_torch.parallel import make_mesh
+
+    jax, jnp, jmoe, jep = jx
+    x = torch.ones((2, 4, D))
+    with pytest.raises(ValueError, match="requires a mesh with an 'expert' axis"):
+        MoEMlp(D, E, H, dispatch="a2a")(x, generator=torch.Generator())
+    assert MoEMlp(D, E, H, dispatch="a2a")(x, dropless=True)[0].shape == x.shape  # the dense inference path
+    assert GPTConfig.tiny(moe_every=2, moe_dispatch="a2a").moe_dispatch == "a2a"
     with pytest.raises(ValueError, match="moe_dispatch"):
         GPTConfig.tiny(moe_every=2, moe_dispatch="nope")
-    with pytest.raises(NotImplementedError, match="M12"):
-        MoEMlp(D, E, H, dispatch="a2a")
-    with pytest.raises(ValueError, match="dispatch"):
+    with pytest.raises(ValueError, match="gshard.*a2a"):
         MoEMlp(D, E, H, dispatch="nope")
     gates, tokens = _gates(0, 8)
     params = tuple(torch.from_numpy(w) for w in _weights(0))
-    with pytest.raises(NotImplementedError, match="M12"):
-        ep.moe_apply_topk(_experts, params, torch.from_numpy(tokens), torch.from_numpy(gates), object())
     with pytest.raises(ValueError, match="k"):
         ep.moe_apply_topk(_experts, params, torch.from_numpy(tokens), torch.from_numpy(gates), k=E + 1)
-    for fn in (ep.moe_apply_a2a, ep.expert_sharding, ep.moe_apply):
-        with pytest.raises(NotImplementedError, match="M12"):
-            fn()
+
+    fn = lambda w, t: torch.bmm(t, w)  # noqa: E731
+    jfn = lambda w, t: t @ w  # noqa: E731
+    cases = [((8, 4, 4), (20, 4), (20, 8), "divisible by the token-shard count"),
+             ((6, 4, 4), (16, 4), (16, 6), "divisible by the 'expert' axis"),
+             ((4, 4, 4), (16, 4), (16, 8), "stacked_params carries")]
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "expert"))
+    with fake_world(8):
+        mesh = make_mesh({"data": 2, "expert": 4}, device="cpu")
+        for w, t, g, match in cases:
+            with pytest.raises(ValueError, match=match) as theirs:
+                jep.moe_apply_a2a(jfn, jnp.ones(w), jnp.ones(t), jax.nn.softmax(jnp.ones(g), axis=-1), jmesh)
+            # the port's tokens are this rank's share over "data": half of JAX's
+            with pytest.raises(ValueError, match=match) as mine:
+                ep.moe_apply_a2a(fn, torch.ones(w), torch.ones(t[0] // 2, t[1]), torch.ones(g[0] // 2, g[1]), mesh)
+            assert str(mine.value) == str(theirs.value)
+        with pytest.raises(ValueError, match="requires a mesh with an 'expert' axis"):
+            MoEMlp(D, E, H, dispatch="a2a", mesh=make_mesh({"data": 8}, device="cpu"))(x, generator=torch.Generator())
+        model = init_gpt(GPTConfig.tiny(moe_every=2, num_experts=4, dtype=torch.float32), device="cpu")
+        with pytest.raises(NotImplementedError, match="M12, serving over an expert axis"):
+            tensor_parallel(model, mesh)
+        split = init_gpt(GPTConfig.tiny(moe_every=2, num_experts=4, dtype=torch.float32, ep_mesh=mesh), device="cpu")
+        assert split.layers[1].moe_mlp.w_in.shape[0] == 1  # this rank's one expert of four
+        with pytest.raises(NotImplementedError, match="M12, serving over an expert axis"):
+            tensor_parallel(split, make_mesh({"data": 8}, device="cpu"))
     model = init_gpt(GPTConfig.tiny(moe_every=2, num_experts=4, dtype=torch.float32), device="cpu")
     ids = torch.zeros((2, 8), dtype=torch.long)
     with pytest.raises(ValueError, match="pad_offsets"):

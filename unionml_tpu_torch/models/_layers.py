@@ -14,26 +14,32 @@ original. :func:`_dense` dequantizes such a layer's weight just before its
 product, into the leaf's own dtype, then casts it as any other weight: one
 layer's full-precision weight is live at a time.
 
-Tensor parallelism (:class:`TensorParallel`): one rank's share of a
-Megatron-split model and the collectives of the tensor axis. In a forward
-that autograd records, they are the conjugate pair of differentiable
-operators: :meth:`TensorParallel.enter` (identity forward, all-reduce
-backward) before a column-parallel product, :meth:`TensorParallel.all_reduce`
-(all-reduce forward, identity backward) after a row-parallel one, and the
-vocab-parallel lookup and the all-gather of the tied head's logits built on
-them. Without a graph (inference, ``torch.no_grad``) each is the in-place
-collective it was, unchanged bit for bit.
+Mesh collectives (:class:`AxisGroup`): one axis (or a product of axes)
+through this rank and its differentiable collectives. In a forward that
+autograd records, they are conjugate pairs: ``enter`` (identity forward,
+all-reduce backward) before a computation each rank does in part, ``reduce``
+(all-reduce forward, identity backward) after it; ``take`` (this rank's
+block of the tokens; the blocks' gradients gathered backward) and
+``gather``; ``exchange`` (the all-to-all, its own adjoint) and ``total`` (a
+sum whose gradient is summed too). Without a graph (inference,
+``torch.no_grad``) each is the plain collective. Expert parallelism runs
+over the ``expert`` axis and the batch's ranks.
 
-Sequence parallelism (:class:`SequenceParallel`): the collectives of the
-mesh's ``sequence`` axis, where each rank holds one contiguous chunk of every
-row. :meth:`SequenceParallel.to_heads` and :meth:`SequenceParallel.to_sequence`
-are Ulysses's two all-to-alls (each the other's backward),
-:meth:`SequenceParallel.broadcast_first` gives every rank the first chunk's
-value (BERT's ``[CLS]``; its gradient is summed onto the first rank) and
-:meth:`SequenceParallel.shift` moves blocks one hop around the ring (the
-point-to-point exchange inside ring attention's forward and backward, not
-differentiable on its own). Over one rank each is the identity and runs no
-operation.
+Tensor parallelism (:class:`TensorParallel`, an ``AxisGroup``): one rank's
+share of a Megatron-split model: ``enter`` before a column-parallel product,
+``reduce`` after a row-parallel one, and the vocab-parallel lookup and the
+all-gather of the tied head's logits built on them.
+
+Sequence parallelism (:class:`SequenceParallel`, an ``AxisGroup``): the
+collectives of the mesh's ``sequence`` axis, where each rank holds one
+contiguous chunk of every row. :meth:`SequenceParallel.to_heads` and
+:meth:`SequenceParallel.to_sequence` are Ulysses's two all-to-alls (each the
+other's backward), :meth:`SequenceParallel.broadcast_first` gives every rank
+the first chunk's value (BERT's ``[CLS]``; its gradient is summed onto the
+first rank) and :meth:`SequenceParallel.shift` moves blocks one hop around
+the ring (the point-to-point exchange inside ring attention's forward and
+backward, not differentiable on its own). Over one rank each is the
+identity and runs no operation.
 """
 
 import copy
@@ -114,39 +120,181 @@ class _GatherLast(torch.autograd.Function):
     def backward(ctx, grad):
         tp = ctx.tp
         part = grad.shape[-1] // tp.size
-        return grad[..., tp.rank * part:(tp.rank + 1) * part].contiguous(), None
+        return grad[..., tp.index * part:(tp.index + 1) * part].contiguous(), None
 
 
 def _recorded(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
+def _all_to_all(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``all_to_all_single`` of ``x``'s leading dimension (one part per rank)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _gather_rows(x: torch.Tensor, group: Any, size: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along dimension 0, in rank order."""
+    x = x.contiguous()
+    out = torch.empty((size * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, x, group=group)
+    return out
+
+
+class _Take(torch.autograd.Function):
+    """This rank's block of dimension 0 forward; backward, the blocks'
+    gradients gathered from every rank (each rank's input reached only its
+    own block, and every rank holds the same input)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, index):
+        ctx.group, ctx.size = group, size
+        n = x.shape[0] // size
+        return x[index * n:(index + 1) * n].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_rows(grad, ctx.group, ctx.size), None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' blocks of dimension 0 gathered forward; backward, this
+    rank's block of the gradient (every rank computes the same after it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, index):
+        ctx.index, ctx.rows = index, x.shape[0]
+        return _gather_rows(x, group, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.index * ctx.rows:(ctx.index + 1) * ctx.rows].contiguous(), None, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_single`` of dimension 0 forward and backward: the
+    exchange is its own adjoint (part j goes to rank j, whose part i came
+    from rank i)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+class _Total(torch.autograd.Function):
+    """The sum over the group forward and backward: each rank's share of a
+    total that every rank's objective reads (the router's mean gate over
+    the global tokens); the gradient of a share is the sum of the ranks'."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 @dataclasses.dataclass(frozen=True)
-class TensorParallel:
-    """How one rank of a tensor-parallel model computes: the tensor axis's
-    process group, its size and this rank's index on it, and the attention
-    heads this rank holds (``num_heads / size``, or all of them when the axis
-    does not divide the heads and q, k, v stay whole)."""
+class AxisGroup:
+    """One mesh axis (or a product of axes) through this rank: its process
+    group (None over one rank), its size and this rank's index on it, and
+    the differentiable collectives over it. In a forward that autograd
+    records they are conjugate pairs: :meth:`enter` (identity forward, sum
+    backward) with :meth:`reduce` (sum forward, identity backward), and
+    :meth:`take` with :meth:`gather`; :meth:`exchange` is its own adjoint
+    and :meth:`total` sums both ways. Without a graph (inference) each is
+    the plain collective; over one rank each is the identity and runs no
+    operation. A copy of a module that holds one shares it (a process group
+    cannot be copied)."""
 
     group: Any
     size: int
-    rank: int
-    heads: int
-    split_heads: bool
+    index: int
+
+    @classmethod
+    def of(cls, mesh: Any, axis: str) -> "AxisGroup":
+        from unionml_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
+        if mesh is None:
+            return cls(None, 1, 0)
+        return cls(axis_group(mesh, axis), axis_size(mesh, axis), axis_index(mesh, axis))
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "AxisGroup":
+        return self
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
-        """The input of a column-parallel product: itself, and in a recorded
-        forward its gradient summed over the tensor axis (over one rank the
-        graph is the unsplit model's, so its gradients sum in the same order)."""
+        """The input of a computation each rank does only in part (a
+        column-parallel product): itself, and in a recorded forward its
+        gradient summed over the group (over one rank the graph is the
+        unsplit model's, so its gradients sum in the same order)."""
         return _Enter.apply(x, self.group) if self.size > 1 and _recorded(x) else x
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the tensor axis: in place without a graph, else a new
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group: in place without a graph, else a new
         tensor whose gradient passes through as it is."""
+        if self.size == 1:
+            return x
         if _recorded(x):
             return _Reduce.apply(x, self.group)
         dist.all_reduce(x, group=self.group)
         return x
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group, its gradient summed over the group too."""
+        if self.size == 1:
+            return x
+        if _recorded(x):
+            return _Total.apply(x, self.group)
+        return self.reduce(x)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of dimension 0 (see :class:`_Take`)."""
+        if self.size == 1:
+            return x
+        if _recorded(x):
+            return _Take.apply(x, self.group, self.size, self.index)
+        n = x.shape[0] // self.size
+        return x[self.index * n:(self.index + 1) * n]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' blocks of dimension 0 in rank order (see :class:`_Gather`)."""
+        if self.size == 1:
+            return x
+        if _recorded(x):
+            return _Gather.apply(x, self.group, self.size, self.index)
+        return _gather_rows(x, self.group, self.size)
+
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        """Part j of dimension 0 to rank j, part i of the result from rank i."""
+        if self.size == 1:
+            return x
+        return _Exchange.apply(x, self.group) if _recorded(x) else _all_to_all(x, self.group)
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel(AxisGroup):
+    """How one rank of a tensor-parallel model computes: the tensor axis
+    (``index`` is this rank's place on it, which fixes its shard of every
+    split weight) and the attention heads this rank holds (``num_heads /
+    size``, or all of them when the axis does not divide the heads and q, k,
+    v stay whole). The input of a column-parallel product goes through
+    :meth:`enter`, the partial outputs of a row-parallel one through
+    :meth:`reduce`."""
+
+    heads: int
+    split_heads: bool
 
     def lookup(self, ids: torch.Tensor, weight: torch.Tensor, embed=F.embedding) -> torch.Tensor:
         """A vocab- (or position-) parallel embedding: this rank's rows of the
@@ -155,10 +303,10 @@ class TensorParallel:
         gradient reaches this rank's rows only. ``embed(ids, table)`` looks
         the local rows up (:func:`one_hot_embedding` for a table of a few rows)."""
         rows = weight.shape[0]
-        local = ids - self.rank * rows
+        local = ids - self.index * rows
         inside = (local >= 0) & (local < rows)
         out = embed(torch.where(inside, local, torch.zeros_like(local)), weight)
-        return self.all_reduce(torch.where(inside[..., None], out, torch.zeros_like(out)))
+        return self.reduce(torch.where(inside[..., None], out, torch.zeros_like(out)))
 
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' shards of the last dimension concatenated in rank order
@@ -173,14 +321,6 @@ class TensorParallel:
         (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, flat, group=self.group)
         out = out.reshape(self.size, flat.shape[0], flat.shape[1]).transpose(0, 1)
         return out.reshape(*x.shape[:-1], self.size * x.shape[-1])
-
-
-def _all_to_all(x: torch.Tensor, group: Any) -> torch.Tensor:
-    """``all_to_all_single`` of ``x``'s leading dimension (one part per rank)."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
 
 
 def _seq_to_heads(x: torch.Tensor, group: Any, size: int) -> torch.Tensor:
@@ -248,22 +388,9 @@ class _BroadcastFirst(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
-class SequenceParallel:
-    """The ``sequence`` axis through this rank: its process group (None over
-    one rank), its size and this rank's index, which is the chunk of every
-    row the rank holds."""
-
-    group: Any
-    size: int
-    index: int
-
-    @classmethod
-    def of(cls, mesh: Any, axis: str = "sequence") -> "SequenceParallel":
-        from unionml_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
-
-        if mesh is None:
-            return cls(None, 1, 0)
-        return cls(axis_group(mesh, axis), axis_size(mesh, axis), axis_index(mesh, axis))
+class SequenceParallel(AxisGroup):
+    """The ``sequence`` axis through this rank; its ``index`` is the chunk
+    of every row the rank holds."""
 
     def _peer(self, index: int) -> int:
         """The global rank of the axis's rank ``index``."""

@@ -183,8 +183,8 @@ class BertSelfAttention(nn.Module):
             if not tp.split_heads:
                 # whole heads on every rank: the output's input rows split all the same
                 part = cfg.hidden_size // tp.size
-                context = context[..., tp.rank * part:(tp.rank + 1) * part]
-            out = tp.all_reduce(_dense(self.output, context, cfg.dtype, bias=tp.rank == 0))
+                context = context[..., tp.index * part:(tp.index + 1) * part]
+            out = tp.reduce(_dense(self.output, context, cfg.dtype, bias=tp.index == 0))
         out = _dropout(out, cfg.hidden_dropout, generator)
         return _layer_norm(self.output_norm, out + hidden, cfg.dtype)
 
@@ -207,7 +207,7 @@ class BertMlp(nn.Module):
         if tp is None:
             down = _dense(self.output, up, cfg.dtype)
         else:
-            down = tp.all_reduce(_dense(self.output, up, cfg.dtype, bias=tp.rank == 0))
+            down = tp.reduce(_dense(self.output, up, cfg.dtype, bias=tp.index == 0))
         down = _dropout(down, cfg.hidden_dropout, generator)
         return _layer_norm(self.output_norm, down + hidden, cfg.dtype)
 
@@ -261,7 +261,7 @@ class BertModel(nn.Module):
         seq = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        sp = SequenceParallel.of(cfg.sp_mesh) if cfg.attention_impl in SEQUENCE_IMPLS else None
+        sp = SequenceParallel.of(cfg.sp_mesh, "sequence") if cfg.attention_impl in SEQUENCE_IMPLS else None
         kv_lens = dense_mask = None
         if attention_mask is not None:
             impl = cfg.attention_impl
@@ -414,7 +414,7 @@ def tensor_parallel(model: BertForSequenceClassification, mesh: Any, trainable: 
             # a rank computes its columns' product whole: the column-parallel
             # biases split with their outputs (JAX replicates them and XLA slices)
             specs[name] = Spec(TENSOR_AXIS)
-    tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, rank=axis_index(mesh, TENSOR_AXIS),
+    tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, index=axis_index(mesh, TENSOR_AXIS),
                         heads=cfg.num_heads // n if split_heads else cfg.num_heads, split_heads=split_heads)
     partial = {name for name in tree if name.endswith((".attention.output.bias", ".mlp.output.bias"))
                or (not split_heads and any(f".attention.{p}." in name for p in ("query", "key", "value")))}

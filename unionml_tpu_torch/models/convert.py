@@ -10,7 +10,9 @@ LayerNorm ``scale`` becomes ``weight`` and Embed ``embedding`` becomes
 "bias"}, "w_in", "w_out"}`` in place of ``mlp_up``/``mlp_down``: the router
 kernel ``(d, E)`` transposes into its ``nn.Linear``, the stacked expert
 weights keep their layout and land in the parameters' dtype
-(``config.dtype``: a bf16 tree converts exactly). BERT's tree (``{"bert":
+(``config.dtype``: a bf16 tree converts exactly); a model whose
+``ep_mesh`` splits the experts takes this rank's slice of each stack
+(:func:`~unionml_tpu_torch.parallel.ep.expert_sharding`). BERT's tree (``{"bert":
 {"word_embeddings", ..., "encoder": {"layer_i": {"attention": {...}, "mlp":
 {...}}}, "pooler"}, "classifier"}``)
 maps the same way onto :class:`~unionml_tpu_torch.models.bert.
@@ -154,10 +156,19 @@ def init_gpt(config: GPTConfig, seed: int = 0, device="cuda", std: float = 0.02,
              params: Optional[Mapping[str, Any]] = None) -> GPTLMHeadModel:
     """A :class:`GPTLMHeadModel` on ``device`` with the weights of ``params``
     (a JAX-layout tree), or of :func:`random_params` from ``seed`` — no
-    checkpoint and no JAX needed."""
+    checkpoint and no JAX needed. Every rank of an expert-parallel config
+    passes the whole tree (or the same seed) and keeps its experts."""
     model = GPTLMHeadModel(config, device=device)
     tree = params if params is not None else random_params(config, seed, std)
-    model.load_state_dict(params_from_jax(tree))
+    state = params_from_jax(tree)
+    if config.ep_mesh is not None:  # this rank's experts of every whole stack
+        from unionml_tpu_torch.parallel.ep import expert_sharding
+
+        held = dict(model.named_parameters())
+        sharding = expert_sharding(config.ep_mesh)
+        state = {name: sharding.shard(leaf) if name.endswith(_EXPERTS) and leaf.shape != held[name].shape else leaf
+                 for name, leaf in state.items()}
+    model.load_state_dict(state)
     return model
 
 

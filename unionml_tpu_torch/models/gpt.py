@@ -95,10 +95,19 @@ in the ring's backward; or Ulysses's all-to-alls around K1-K3). Everything
 else in a block is per position, so it needs no exchange.
 ``segment_ids`` and ``pad_offsets`` raise JAX's ``ValueError``s. The cache
 paths (``generate``, the engines) attend densely, K1 and K4 as in any other
-config (``gpt.py:491``). Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): the expert-parallel
-``a2a`` dispatch and ``ep_mesh``, sparse blocks under a tensor mesh, and
-decode over an ``fsdp`` axis.
+config (``gpt.py:491``).
+
+Expert parallelism (``ep_mesh`` with an ``expert`` axis, ``gpt.py:61-66``):
+each rank's sparse blocks hold its ``1/N`` of the experts (the weight
+bridge, :func:`~unionml_tpu_torch.models.convert.init_gpt`, slices them),
+and a training forward dispatches by ``moe_dispatch`` (see
+:class:`~unionml_tpu_torch.models.moe.MoEMlp`); every rank of the axis
+holds the same rows and computes the same outside the experts. Sparse
+blocks under a tensor mesh split every expert's hidden width as the dense
+MLP's (``w_in`` column-parallel, ``w_out`` row-parallel, one all-reduce;
+the router replicated). Not ported yet (each raises ``NotImplementedError``
+naming its ROADMAP item): serving over an ``expert`` axis, and decode over
+an ``fsdp`` axis.
 """
 
 import copy
@@ -159,19 +168,18 @@ class GPTConfig:
     moe_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_router_noise: float = 0.0
-    #: "gshard" (one device, index dispatch); "a2a" is expert parallelism (M12)
+    #: "gshard" (index dispatch, routed over the global batch; over
+    #: ``ep_mesh``'s "expert" axis each rank runs its own experts) or "a2a"
+    #: (needs ``ep_mesh``: only routed tokens move, by two all-to-alls over
+    #: the "expert" axis); see :class:`~unionml_tpu_torch.models.moe.MoEMlp`
     moe_dispatch: str = "gshard"
-    #: the expert-parallel mesh (M12)
+    #: the expert-parallel mesh: an "expert" axis (each rank holds 1/N of
+    #: every sparse block's experts), optionally "data"
     ep_mesh: Any = None
 
     def __post_init__(self) -> None:
         if self.moe_dispatch not in ("gshard", "a2a"):
             raise ValueError(f"moe_dispatch must be 'gshard' or 'a2a', got {self.moe_dispatch!r}")
-        if self.moe_dispatch == "a2a" or self.ep_mesh is not None:
-            raise NotImplementedError(
-                "moe_dispatch='a2a' / ep_mesh: expert parallelism is not ported yet "
-                "(ROADMAP: M12, expert-parallel a2a)"
-            )
         if self.attention_impl not in _IMPLS + SEQUENCE_IMPLS:
             raise ValueError(f"attention_impl must be one of {_IMPLS + SEQUENCE_IMPLS}, got {self.attention_impl!r}")
         if self.paged_attn_impl not in _IMPLS:
@@ -388,7 +396,8 @@ class DecoderBlock(nn.Module):
         if use_moe:
             self.moe_mlp = MoEMlp(d, config.num_experts, 4 * d, k=config.moe_k,
                                   capacity_factor=config.moe_capacity_factor, router_noise=config.moe_router_noise,
-                                  dtype=config.dtype, device=device)
+                                  dispatch=config.moe_dispatch, mesh=config.ep_mesh, dtype=config.dtype,
+                                  device=device)
         else:
             self.mlp_up = nn.Linear(d, 4 * d, **kw)
             self.mlp_down = nn.Linear(4 * d, d, **kw)
@@ -444,7 +453,7 @@ class DecoderBlock(nn.Module):
             # adds the bias inside its product, as the unsharded layer does
             if tp is None:
                 return dense(layer, x, cfg.dtype)
-            return tp.all_reduce(dense(layer, x, cfg.dtype, bias=tp.rank == 0))
+            return tp.reduce(dense(layer, x, cfg.dtype, bias=tp.index == 0))
 
         q, k, v = (heads(x) for x in qkv.split(width, dim=-1))
 
@@ -499,7 +508,7 @@ class DecoderBlock(nn.Module):
         if tp is not None and not tp.split_heads:
             # whole heads on every rank: attn_out's input rows split all the same
             part = cfg.hidden_size // tp.size
-            context = context[..., tp.rank * part:(tp.rank + 1) * part]
+            context = context[..., tp.index * part:(tp.index + 1) * part]
         hidden = hidden + _dropout(row_parallel(self.attn_out, context), cfg.dropout, generator)
         normed = _layer_norm(self.mlp_norm, hidden, cfg.dtype)
         aux = None
@@ -1022,8 +1031,11 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
     ``qkv`` stays whole on every rank. Raises JAX's ``ValueError`` where the
     axis does not divide a sharded dimension (the vocabulary, the positions,
     the MLP), and ``NotImplementedError`` for sparse blocks and, unless
-    ``trainable``, for a mesh axis other than ``data``/``tensor`` of more
-    than one rank (decode over an ``fsdp`` axis). ``trainable=True`` (the
+    ``trainable``, for an ``expert`` axis (serving over an expert axis) or
+    another mesh axis than ``data``/``tensor`` of more than one rank
+    (decode over an ``fsdp`` axis), and for experts split over an ``expert``
+    and a ``tensor`` axis at once. Sparse blocks split every expert's hidden
+    width like the dense MLP. ``trainable=True`` (the
     train step's layout) gives shards that take gradients and leaves the
     data and fsdp axes to the train step.
 
@@ -1033,10 +1045,14 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
     the heads (each rank's attention output feeds only its slice)."""
     from unionml_tpu_torch.models._sharding import shard_model, weight_tree
     from unionml_tpu_torch.ops.quant import QuantizedArray
-    from unionml_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, Spec, axis_index, axis_names, axis_size
+    from unionml_tpu_torch.parallel.mesh import (
+        DATA_AXIS, EXPERT_AXIS, TENSOR_AXIS, Spec, axis_index, axis_names, axis_size,
+    )
 
     cfg = model.config
     names = axis_names(mesh)
+    if not trainable:
+        check_serving_experts(model, mesh)
     others = [a for a in names if a not in (DATA_AXIS, TENSOR_AXIS) and axis_size(mesh, a) > 1]
     if others and not trainable:
         raise NotImplementedError(f"serving over the mesh axes {others} is not ported yet "
@@ -1044,10 +1060,10 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
     tree = weight_tree(model)
     if TENSOR_AXIS not in names:
         return model, tree
-    if cfg.moe_every > 0:
-        raise NotImplementedError("sparse blocks under a tensor mesh are not ported yet "
-                                  "(ROADMAP: M12, expert-parallel a2a)")
     n = axis_size(mesh, TENSOR_AXIS)
+    if cfg.moe_every > 0 and n > 1 and (axis_size(mesh, EXPERT_AXIS) > 1 or axis_size(cfg.ep_mesh, EXPERT_AXIS) > 1):
+        raise NotImplementedError("experts split over both an expert and a tensor axis are not ported yet "
+                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
     split_heads = cfg.num_heads % n == 0
     specs = param_shardings(tree, names)
     for name in specs:
@@ -1062,11 +1078,24 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
             continue
         specs[name] = QuantizedArray(q=spec, scale=spec, dtype=tree[name].dtype) \
             if isinstance(tree[name], QuantizedArray) else spec
-    tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, rank=axis_index(mesh, TENSOR_AXIS),
+    tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, index=axis_index(mesh, TENSOR_AXIS),
                         heads=cfg.num_heads // n if split_heads else cfg.num_heads, split_heads=split_heads)
     partial = {name for name in tree if name.endswith((".attn_out.bias", ".mlp_down.bias"))
                or (not split_heads and ".qkv." in name)}
-    return shard_model(model, mesh, specs, tp, (GPTLMHeadModel, DecoderBlock), partial, trainable)
+    return shard_model(model, mesh, specs, tp, (GPTLMHeadModel, DecoderBlock, MoEMlp), partial, trainable)
+
+
+def check_serving_experts(model: nn.Module, mesh: Any = None) -> None:
+    """Serving runs whole experts on every rank: a serving mesh with an
+    ``expert`` axis, or a model whose sparse blocks hold a share of the
+    experts (``ep_mesh`` over more than one rank), raises naming the piece."""
+    from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_names, axis_size
+
+    cfg = getattr(model, "config", None)
+    split = getattr(cfg, "moe_every", 0) > 0 and axis_size(getattr(cfg, "ep_mesh", None), EXPERT_AXIS) > 1
+    if (mesh is not None and EXPERT_AXIS in axis_names(mesh)) or split:
+        raise NotImplementedError("serving over an expert axis is not ported yet "
+                                  "(ROADMAP: M12, serving over an expert axis)")
 
 
 def lm_targets(

@@ -15,6 +15,25 @@ Port of ``unionml_tpu/models/moe.py``:
   parameters; the AdamW moments follow each parameter's dtype);
 - :func:`collect_aux_losses`, the weighted sum to add to the task loss.
 
+Expert parallelism (``mesh=`` with an ``"expert"`` axis of ``ep`` ranks):
+the layer holds only its rank's ``E / ep`` experts. ``dispatch="gshard"``
+routes this rank's tokens globally and sums the experts' partial outputs
+over the axis (:func:`~unionml_tpu_torch.parallel.ep.moe_apply_topk` with
+the mesh); ``dispatch="a2a"`` moves only the routed tokens by two
+all-to-alls (:func:`~unionml_tpu_torch.parallel.ep.moe_apply_a2a`,
+``moe.py:132-156``); the dropless (inference) path is the dense one either
+way, over the rank's experts. A capacity-bounded (training) forward routes
+over the ranks its ``token_group`` names, the ranks the batch's tokens are
+split over: the ``ep_mesh``'s, or those that ``shard_train_state`` binds
+when it lays a model out on a mesh (a data mesh with no ``ep_mesh``
+included). Capacity, slots and the router's balance loss (``f_e`` and
+``P_e``, :func:`load_balancing_loss`) are then the global batch's, as JAX's
+one program routes it; the group is the layer's own, so the recompute of a
+``remat`` block routes as its forward did. Under tensor parallelism (``tp``, set by
+``models/gpt.py::tensor_parallel``) each rank holds a slice of every
+expert's hidden width: the products are column- then row-parallel, and the
+partial outputs are summed over the tensor axis.
+
 Flax sows the router losses into the ``intermediates`` collection. The port
 returns them instead: ``MoEMlp.forward`` gives ``(out, aux)`` with ``aux`` a
 dict of the two scalars, and ``GPTLMHeadModel(..., return_aux=True)`` hands
@@ -28,7 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unionml_tpu_torch.parallel.ep import moe_apply_topk
+from unionml_tpu_torch.parallel.ep import _apply_topk, batch_ranks, moe_apply_a2a
+from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_names, axis_size
 
 __all__ = ["MoEMlp", "collect_aux_losses", "load_balancing_loss", "router_z_loss"]
 
@@ -40,11 +60,22 @@ def router_z_loss(router_logits: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
 
 
-def load_balancing_loss(gates: torch.Tensor, expert_index: torch.Tensor, num_experts: int) -> torch.Tensor:
+def load_balancing_loss(gates: torch.Tensor, expert_index: torch.Tensor, num_experts: int,
+                        group: Any = None) -> torch.Tensor:
     """``E * sum_e f_e * P_e``: ``f_e`` the fraction of tokens whose top
-    choice is ``e``, ``P_e`` the mean gate of ``e``; 1.0 at perfect balance."""
+    choice is ``e``, ``P_e`` the mean gate of ``e``; 1.0 at perfect balance.
+
+    ``group`` (an ``AxisGroup`` over the ranks a batch's tokens are split
+    over, each holding as many) takes both means over the global tokens, by
+    sums over the group: every rank gets the global value, and the gradient
+    of its own gates' share is summed over the ranks (a product of means is
+    not linear in the shards, so a rank's own loss would not do)."""
     one_hot = (expert_index[:, None] == torch.arange(num_experts, device=gates.device)[None, :]).to(gates.dtype)
-    return num_experts * torch.sum(one_hot.mean(dim=0) * gates.mean(dim=0))
+    if group is None:
+        return num_experts * torch.sum(one_hot.mean(dim=0) * gates.mean(dim=0))
+    count = gates.shape[0] * group.size
+    fraction = group.reduce(one_hot.sum(dim=0)) / count
+    return num_experts * torch.sum(fraction * (group.total(gates.sum(dim=0)) / count))
 
 
 def _experts(params: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -69,23 +100,39 @@ class MoEMlp(nn.Module):
         super().__init__()
         if dispatch not in _DISPATCH:
             raise ValueError(f"dispatch must be 'gshard' or 'a2a', got {dispatch!r}")
-        if dispatch == "a2a" or mesh is not None:
-            raise NotImplementedError(
-                "MoEMlp with dispatch='a2a' or an expert mesh: expert parallelism is not ported yet "
-                "(ROADMAP: M12, expert-parallel a2a)"
-            )
+        ep = axis_size(mesh, EXPERT_AXIS)
+        if num_experts % ep:
+            raise ValueError(f"num_experts ({num_experts}) must be divisible by the {EXPERT_AXIS!r} axis size ({ep})")
         self.num_experts, self.k = num_experts, k
         self.capacity_factor, self.router_noise, self.dtype = capacity_factor, router_noise, dtype
+        #: the expert-parallel mesh (None: every expert on this rank)
+        self.dispatch, self.mesh = dispatch, mesh
+        local = num_experts // ep
         self.router = nn.Linear(d_model, num_experts, device=device, dtype=torch.float32)
-        self.w_in = nn.Parameter(torch.empty(num_experts, d_model, hidden_size, device=device, dtype=dtype))
-        self.w_out = nn.Parameter(torch.empty(num_experts, hidden_size, d_model, device=device, dtype=dtype))
+        self.w_in = nn.Parameter(torch.empty(local, d_model, hidden_size, device=device, dtype=dtype))
+        self.w_out = nn.Parameter(torch.empty(local, hidden_size, d_model, device=device, dtype=dtype))
+        #: this rank's share of a tensor-parallel model (``models/gpt.py::tensor_parallel``)
+        self.tp = None
+        #: the ranks a training batch's tokens are split over (an ``AxisGroup``;
+        #: None over one rank), routed together: the mesh's, or the layout's
+        #: (``models/training.py::shard_train_state``)
+        self.token_group = None if mesh is None else batch_ranks(mesh)
         nn.init.normal_(self.w_in, std=0.02)
         nn.init.normal_(self.w_out, std=0.02)
 
-    def route(self, tokens: torch.Tensor, generator: Optional[torch.Generator] = None):
+    @property
+    def experts(self):
+        """The ``expert`` axis through this rank (an ``AxisGroup`` of one
+        rank when the layer holds every expert)."""
+        from unionml_tpu_torch.models._layers import AxisGroup
+
+        return AxisGroup.of(self.mesh, EXPERT_AXIS)
+
+    def route(self, tokens: torch.Tensor, generator: Optional[torch.Generator] = None, group: Any = None):
         """``(gates in the compute dtype, aux)`` of ``tokens`` ``(T, d)``: the
         f32 router (jittered when a ``generator`` is given), its softmax and
-        the two router losses."""
+        the two router losses (the balance loss over ``group``'s global
+        tokens when one is given)."""
         router_inputs = tokens.float()
         if self.router_noise > 0.0 and generator is not None:
             jitter = torch.rand(router_inputs.shape, generator=generator, device=router_inputs.device)
@@ -94,7 +141,7 @@ class MoEMlp(nn.Module):
         gates = torch.softmax(logits, dim=-1)
         aux = {
             "router_z_loss": router_z_loss(logits),
-            "load_balancing_loss": load_balancing_loss(gates, torch.argmax(logits, dim=-1), self.num_experts),
+            "load_balancing_loss": load_balancing_loss(gates, torch.argmax(logits, dim=-1), self.num_experts, group),
         }
         return gates.to(self.dtype), aux
 
@@ -103,14 +150,31 @@ class MoEMlp(nn.Module):
         """``(out, aux)``. ``dropless`` lifts the capacity bound (inference:
         a trained, imbalanced router must not zero overflow tokens)."""
         tokens = x.reshape(-1, x.shape[-1])
-        gates, aux = self.route(tokens, generator)
-        out = moe_apply_topk(
-            _experts, (self.w_in, self.w_out), tokens.to(self.dtype), gates,
-            k=self.k, capacity_factor=None if dropless else self.capacity_factor,
-            # k=1 keeps the raw top gate: top/top == 1 would erase the
-            # router's gradient through the task loss (moe.py:127-131)
-            normalize_gates=self.k > 1,
-        )
+        group = None if dropless else self.token_group
+        gates, aux = self.route(tokens, generator, group)
+        # k=1 keeps the raw top gate: top/top == 1 would erase the router's
+        # gradient through the task loss (moe.py:127-131)
+        normalize = self.k > 1
+        params = (self.w_in, self.w_out)
+        if self.dispatch == "a2a" and not dropless:
+            if self.mesh is None or EXPERT_AXIS not in axis_names(self.mesh):
+                raise ValueError("dispatch='a2a' requires a mesh with an 'expert' axis")
+            if self.tp is not None:
+                raise NotImplementedError("the a2a dispatch under a tensor mesh is not ported yet "
+                                          "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
+            out = moe_apply_a2a(_experts, params, tokens.to(self.dtype), gates, self.mesh, k=self.k,
+                                capacity_factor=self.capacity_factor, normalize_gates=normalize)
+        else:
+            experts = self.experts
+            if experts.size > 1 and self.tp is not None:
+                raise NotImplementedError("experts split over both an expert and a tensor axis are not ported yet "
+                                          "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
+            partial = experts if self.tp is None else self.tp
+            local = self.w_in.shape[0]
+            out = _apply_topk(_experts, params, tokens.to(self.dtype), gates, k=self.k,
+                              capacity_factor=None if dropless else self.capacity_factor, normalize_gates=normalize,
+                              num_experts=self.num_experts, first=experts.index * local, local=local,
+                              partial=partial, group=group)
         return out.reshape(x.shape).to(x.dtype), aux
 
 

@@ -54,6 +54,20 @@ meshed step lays the state out (:func:`shard_train_state`) by the three axes:
   the family's ``tensor_parallel``, differentiable; the gradients that are
   each rank's part of a sum (``tp_partial``) are summed over the axis.
 
+- ``expert`` (a sparse GPT whose ``ep_mesh`` is the step's mesh,
+  ``{"expert": N}`` or ``{"data": M, "expert": N}``): the ranks of one data
+  index hold the same rows, as JAX's ``batch_sharding`` lays them, and each
+  holds its ``1/N`` of every sparse block's experts (``w_in``/``w_out``
+  split on their leading dimension). The sparse blocks exchange over the
+  axis (``moe_dispatch="a2a"`` or ``"gshard"``, ``models/moe.py``); every
+  leaf outside the experts takes the same gradient on every rank of the
+  axis, and an expert leaf's gradient, whole on its own rank, is averaged
+  over data×fsdp only. On any mesh the layout binds the batch's ranks to
+  every sparse block (``MoEMlp.token_group``), so the blocks route over the
+  global tokens: capacity, slots and the balance loss's means are the
+  whole batch's, as in JAX's one program. An expert axis beside fsdp, tensor or sequence raises
+  ``NotImplementedError``.
+
 - ``sequence`` (a BERT or GPT config with ``attention_impl="ring"`` or
   ``"ulysses"`` and ``sp_mesh`` the step's mesh; ``{"sequence": N}`` or
   ``{"data": M, "sequence": N}``): the ranks of one data index hold the
@@ -307,11 +321,13 @@ class Layout:
 
     def __post_init__(self) -> None:
         from unionml_tpu_torch.parallel.mesh import (
-            FSDP_AXIS, TENSOR_AXIS, axis_group, axis_size, batch_axis_size, batch_group, batch_index,
+            EXPERT_AXIS, FSDP_AXIS, TENSOR_AXIS, axis_group, axis_size, batch_axis_size, batch_group, batch_index,
         )
 
         self.tensor_group = axis_group(self.mesh, TENSOR_AXIS)
         self.tensor_size = axis_size(self.mesh, TENSOR_AXIS)
+        self.expert_group = axis_group(self.mesh, EXPERT_AXIS)
+        self.expert_size = axis_size(self.mesh, EXPERT_AXIS)
         self.fsdp_group = axis_group(self.mesh, FSDP_AXIS) if self.fsdp else None
         # the ranks whose gradients and loss weights are summed: data×fsdp
         # (the rows) × sequence (the chunks of each row)
@@ -321,8 +337,11 @@ class Layout:
         #: rank); chunks of one row draw distinct masks
         self.dropout_shard = batch_index(self.mesh, sequence=True) if self.batch_size > 1 else None
         self.tensor_split = [self.tensor_group is not None and TENSOR_AXIS in tuple(spec) for spec in self.specs]
+        #: the leaves whose leading dimension is split over ``expert`` (each
+        #: rank holds its experts of a sparse block)
+        self.expert_split = [self.expert_group is not None and EXPERT_AXIS in tuple(spec) for spec in self.specs]
         #: whether the global norm needs an exchange (else the unmeshed formula)
-        self.exchanges_norm = self.fsdp_group is not None or any(self.tensor_split)
+        self.exchanges_norm = self.fsdp_group is not None or any(self.tensor_split) or any(self.expert_split)
 
     def take_shard_grads(self) -> List[torch.Tensor]:
         """This rank's gradient shards after FSDP2's backward (zeros for a
@@ -367,17 +386,21 @@ class Layout:
     def global_norm(self, norms: List[torch.Tensor]) -> torch.Tensor:
         """The whole gradient's norm from each local leaf's: the squares of
         FSDP2 shards summed over ``fsdp``, those of tensor shards over
-        ``tensor``, each replicated leaf counted once."""
+        ``tensor`` and of expert shards over ``expert``, each replicated
+        leaf counted once."""
         squares = torch.stack(norms) ** 2
         split = torch.tensor(self.tensor_split, device=squares.device)
-        sums = torch.stack([squares[split].sum(), squares[~split].sum()])
+        experts = torch.tensor(self.expert_split, device=squares.device)
+        sums = torch.stack([squares[split].sum(), squares[experts].sum(), squares[~split & ~experts].sum()])
         if self.fsdp_group is not None:
             dist.all_reduce(sums, group=self.fsdp_group)
-        if self.tensor_group is not None:
-            tensor_part = sums[:1].clone()
-            dist.all_reduce(tensor_part, group=self.tensor_group)
-            sums = torch.cat([tensor_part, sums[1:]])
-        return torch.sqrt(sums.sum())
+        parts = list(sums.unbind())
+        for i, group in ((0, self.tensor_group), (1, self.expert_group)):
+            if group is not None:
+                part = parts[i].clone()
+                dist.all_reduce(part, group=group)
+                parts[i] = part
+        return torch.sqrt(torch.stack(parts).sum())
 
     @torch.no_grad()
     def gather(self, index: int, local: torch.Tensor) -> torch.Tensor:
@@ -394,12 +417,19 @@ class Layout:
         if self.tensor_split[index]:
             dim = tuple(spec).index("tensor")
             full = _gather_over(full, dim, spec.parts, self.tensor_group, self.tensor_size)
+        if self.expert_split[index]:
+            full = _gather_over(full, 0, 1, self.expert_group, self.expert_size)
         return full
 
     @torch.no_grad()
     def whole_model(self, params: List[torch.Tensor]) -> nn.Module:
         """The unsplit module with every parameter set to its whole value
-        gathered from ``params`` (this rank's shards): a collective."""
+        gathered from ``params`` (this rank's shards): a collective. A model
+        whose sparse blocks hold a share of the experts raises (serving runs
+        whole experts on every rank)."""
+        if any(self.expert_split):
+            raise NotImplementedError("serving over an expert axis is not ported yet "
+                                      "(ROADMAP: M12, serving over an expert axis)")
         whole = dict(self.source.named_parameters())
         for i, (name, local) in enumerate(zip(self.names, params)):
             value = self.gather(i, local)
@@ -450,20 +480,29 @@ def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> T
     computes); any other spec over a tensor axis of more than one rank, or
     a tensor spec for another model, raises ``ValueError``. A spec that
     names ``fsdp`` (with the mesh's ``fsdp`` axis) puts the model under
-    FSDP2 (``models/_sharding.py``). ``mu`` and ``nu`` are cut like their
-    parameters; the step count and hyperparameters carry over.
+    FSDP2 (``models/_sharding.py``). The expert stacks of a model whose
+    ``ep_mesh`` splits them are laid out over ``expert`` whatever
+    ``param_spec`` says (the model holds only its rank's experts already).
+    ``mu`` and ``nu`` are cut like their parameters; the step count and
+    hyperparameters carry over.
 
     The laid-out state's model is a copy under a tensor or fsdp split, and
     ``state.model`` itself when every parameter is replicated (its
-    parameters then train in place, as an unmeshed step's do)."""
+    parameters then train in place, as an unmeshed step's do). Its sparse
+    blocks are bound to the mesh's batch ranks (``MoEMlp.token_group``):
+    from then on their capacity-bounded forwards route over the global
+    batch, and a dropless (inference) forward exchanges nothing."""
     from unionml_tpu_torch.models._sharding import _without_fsdp, fully_shard_model, names_axis
-    from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS, Spec, axis_names, axis_size
+    from unionml_tpu_torch.models.moe import MoEMlp
+    from unionml_tpu_torch.parallel.ep import batch_ranks
+    from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, FSDP_AXIS, TENSOR_AXIS, Spec, axis_names, axis_size
 
     if state.layout is not None:
         raise ValueError("this state is laid out on a mesh already")
     names = axis_names(mesh)
     model = state.model
     family = _family(model)
+    experts = _expert_leaves(model)
     if param_spec is not None:
         missing = set(state.names) ^ set(param_spec)
         if missing:
@@ -486,18 +525,28 @@ def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> T
         partial, specs = model.tp_partial, [model.tp_specs[n] for n in state.names]
     else:
         specs = [Spec() for _ in state.names]
+    if experts:  # each rank holds its experts of every sparse block: their stacks split over "expert"
+        if fsdp:
+            raise NotImplementedError("experts split over an expert axis under FSDP2 are not ported yet "
+                                      "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
+        specs = [Spec(EXPERT_AXIS) if n in experts else spec for n, spec in zip(state.names, specs)]
     if fsdp:
         if not tensor:
             model = copy.deepcopy(model)
         fully_shard_model(model, mesh, _family(model)[2] if family is not None else [])
     module_params = [dict(model.named_parameters())[n] for n in state.names]
+    token_group = batch_ranks(mesh)
+    for module in model.modules():
+        if isinstance(module, MoEMlp):
+            module.token_group = token_group
     layout = Layout(mesh=mesh, specs=[_without_fsdp(s) for s in specs], module_params=module_params,
                     partial=[n in partial for n in state.names], fsdp=fsdp, source=state.model,
                     names=list(state.names))
     with torch.no_grad():
         params = [p.to_local() if hasattr(p, "to_local") else p for p in module_params]
-        mu = [layout.shard(i, m).clone() for i, m in enumerate(state.mu)]
-        nu = [layout.shard(i, v).clone() for i, v in enumerate(state.nu)]
+        # an expert stack's moments are this rank's already, as its parameter is
+        mu = [(m if layout.expert_split[i] else layout.shard(i, m)).clone() for i, m in enumerate(state.mu)]
+        nu = [(v if layout.expert_split[i] else layout.shard(i, v)).clone() for i, v in enumerate(state.nu)]
     for p, m in zip(params, mu):
         if p.shape != m.shape:
             raise AssertionError(f"a moment's shard {tuple(m.shape)} does not match its parameter's {tuple(p.shape)}")
@@ -507,6 +556,43 @@ def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> T
         max_grad_norm=state.max_grad_norm, seed=state.seed, mu_dtype=state.mu_dtype, step=state.step,
         layout=layout,
     )
+
+
+def _expert_leaves(model: nn.Module) -> frozenset:
+    """The names of ``model``'s expert stacks that hold a share of their
+    sparse block's experts (an ``ep_mesh`` over more than one rank)."""
+    from unionml_tpu_torch.models.moe import MoEMlp
+
+    return frozenset(f"{name}.{leaf}" for name, module in model.named_modules()
+                     if isinstance(module, MoEMlp) and module.experts.size > 1 for leaf in ("w_in", "w_out"))
+
+
+def _check_experts(model: nn.Module, mesh: Any) -> None:
+    """A model whose sparse blocks hold a share of the experts trains on a
+    mesh laid out as its ``ep_mesh`` (the step's rows and the experts'
+    exchanges must agree); sparse blocks under sequence parallelism, and
+    experts split beside an fsdp, tensor or sequence axis, raise."""
+    from unionml_tpu_torch.parallel.mesh import (
+        EXPERT_AXIS, FSDP_AXIS, SEQUENCE_AXIS, TENSOR_AXIS, axis_names, axis_size,
+    )
+
+    cfg = getattr(model, "config", None)
+    if getattr(cfg, "moe_every", 0) <= 0:
+        return
+    if axis_size(mesh, SEQUENCE_AXIS) > 1:
+        raise NotImplementedError("sparse blocks with sequence parallelism are not ported yet "
+                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
+    ep_mesh = getattr(cfg, "ep_mesh", None)
+    if axis_size(ep_mesh, EXPERT_AXIS) == 1:
+        return
+    layout = [(a, axis_size(ep_mesh, a)) for a in axis_names(ep_mesh)]
+    if mesh is None or [(a, axis_size(mesh, a)) for a in axis_names(mesh)] != layout:
+        raise ValueError(f"this model's experts are split over its ep_mesh {dict(layout)}: train it on that "
+                         "mesh (mesh=config.ep_mesh)")
+    others = [a for a in (FSDP_AXIS, TENSOR_AXIS) if axis_size(mesh, a) > 1]
+    if others:
+        raise NotImplementedError(f"experts split beside the mesh axes {others} are not ported yet "
+                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
 
 
 #: the word that marks a batch shard's index in a dropout seed
@@ -590,7 +676,6 @@ def _sequence_inputs(model: nn.Module, inputs: List[torch.Tensor]) -> List[torch
 
 def _microbatch_grads(
     state: TrainState, batch: Dict[str, torch.Tensor], grad_accum: int, loss_fn: Callable,
-    weight_fn: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """``(grads, values)`` of one step, dropout on: ``loss_fn(microbatch,
     generator)`` returns the loss to differentiate first, then any metrics.
@@ -600,12 +685,8 @@ def _microbatch_grads(
     values are summed and divided by ``grad_accum``: the mean of means of
     ``_accumulated_value_and_grad`` (``training.py:78-109``).
 
-    On a mesh whose batch spans several ranks, ``weight_fn(microbatch)`` is
-    the weight a rank's loss is a mean over (an LM batch's real
-    transitions): each rank's loss is scaled by its share of the ranks'
-    total weight (times their number), so the mean over the ranks that
-    follows is the global batch's weighted mean, as XLA computes it over the
-    whole batch. Without one, every rank's rows weigh alike.
+    On a mesh the loss is this rank's part of the mean over the batch's
+    ranks that follows (an LM loss scales itself, :func:`lm_grads`).
     """
     rows = len(next(iter(batch.values())))
     if rows % grad_accum:
@@ -620,8 +701,6 @@ def _microbatch_grads(
         generator = dropout_generator(state.seed, state.step, state.device, None if grad_accum == 1 else index,
                                       shard=shard)
         loss, *extras = loss_fn(micro, generator)
-        if weight_fn is not None and layout is not None and layout.batch_group is not None:
-            loss = loss * layout.weight_share(weight_fn(micro))
         values = [loss.detach(), *extras]
         if backward:
             # FSDP2 reduce-scatters each backward into (and adds to) the shards' .grad
@@ -672,6 +751,13 @@ def _lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool, moe
     ``moe_aux`` plus the sparse blocks' router losses (``training.py:239-260``).
     A sequence-parallel model sees this rank's chunk of the rows and the loss
     is its chunk's mean over its own transitions (:func:`_sequence_span`)."""
+    loss, aux = _lm_terms(model, batch, packed, moe_aux, **kwargs)
+    return loss if aux is None else aux + loss
+
+
+def _lm_terms(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool, moe_aux: bool = False,
+              **kwargs) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(lm_loss, router losses or None)`` of :func:`_lm_loss`."""
     # strict lookup: a packed step fed a batch without segment ids must fail,
     # not silently train across packed-sequence boundaries (training.py:250-252)
     segment_ids = batch["segment_ids"] if packed else None
@@ -687,7 +773,7 @@ def _lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], packed: bool, moe
     else:
         logits, aux = model(chunk_ids, segment_ids=chunk_segments, **kwargs), None
     loss = lm_loss(logits, ids, mask=batch.get("mask"), segment_ids=segment_ids, span=span)
-    return loss if aux is None else collect_aux_losses(aux).to(loss.device) + loss
+    return loss, None if aux is None else collect_aux_losses(aux).to(loss.device)
 
 
 def lm_grads(
@@ -696,13 +782,24 @@ def lm_grads(
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """``(grads, loss)`` of one causal-LM train step, dropout (and router
     jitter) on, over ``grad_accum`` microbatches (each weighted equally, as
-    in JAX); ``moe_aux`` folds the router losses into the loss."""
+    in JAX); ``moe_aux`` folds the router losses into the loss.
+
+    On a mesh whose batch spans several ranks the LM loss (a mean over this
+    rank's real transitions) is scaled by the rank's share of the ranks'
+    total transitions (times their number), so the mean over the ranks is
+    the global batch's weighted mean, as XLA computes it over the whole
+    batch. The router losses are not scaled: their values are the global
+    batch's on every rank already (the balance loss's means are taken over
+    the step's token group) or means over equal shares (the z-loss)."""
+    layout = state.layout
 
     def loss_fn(micro, generator):
-        return (_lm_loss(state.model, micro, packed, moe_aux, deterministic=False, generator=generator),)
+        loss, aux = _lm_terms(state.model, micro, packed, moe_aux, deterministic=False, generator=generator)
+        if layout is not None and layout.batch_group is not None:
+            loss = loss * layout.weight_share(_lm_weight(state.model, micro, packed))
+        return (loss if aux is None else aux + loss,)
 
-    grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn,
-                                       lambda micro: _lm_weight(state.model, micro, packed))
+    grads, (loss,) = _microbatch_grads(state, batch, grad_accum, loss_fn)
     return grads, loss
 
 
@@ -780,9 +877,11 @@ def _on_mesh(state: TrainState, mesh: Any, param_spec: Any) -> TrainState:
         if state.layout is not None:
             raise ValueError("this state is laid out on a mesh: step it with a meshed step")
         _check_sequence(state.model, None)
+        _check_experts(state.model, None)
         return state
     if state.layout is None:
         _check_sequence(state.model, mesh)
+        _check_experts(state.model, mesh)
         return shard_train_state(state, mesh, param_spec)
     if state.layout.mesh is not mesh:
         raise ValueError("this state is laid out on another mesh")

@@ -1,18 +1,20 @@
 """Parallelism of the port: device meshes, their process groups and sharding
 specs over ``torch.distributed`` (:mod:`~unionml_tpu_torch.parallel.mesh`),
 process init (:mod:`~unionml_tpu_torch.parallel.distributed`), data-parallel
-steps and batches (:mod:`~unionml_tpu_torch.parallel.dp`), and the
-single-device half of expert parallelism (:mod:`~unionml_tpu_torch.parallel.ep`),
-and sequence parallelism over the ``sequence`` axis: ring attention
+steps and batches (:mod:`~unionml_tpu_torch.parallel.dp`), expert
+parallelism over the ``expert`` axis (:mod:`~unionml_tpu_torch.parallel.ep`:
+``moe_apply``, ``moe_apply_topk(mesh=)`` routed over the global batch,
+``moe_apply_a2a``), and sequence parallelism over the ``sequence`` axis: ring attention
 (:mod:`~unionml_tpu_torch.parallel.ring`) and Ulysses
 (:mod:`~unionml_tpu_torch.parallel.ulysses`), both behind
 :func:`sp_attention`, the one dispatch the model families route through.
 Tensor-parallel generation (``DecodeEngine(mesh=...)``), sharded training
 over the data, fsdp, tensor and sequence axes (``fit(mesh=...,
 param_spec=...)``; ``GPTConfig``/``BertConfig(attention_impl="ring" or
-"ulysses", sp_mesh=mesh)``) and the meshed predictor
+"ulysses", sp_mesh=mesh)``; the sparse GPT over data×expert,
+``GPTConfig(moe_dispatch=, ep_mesh=mesh)``) and the meshed predictor
 (``ResidentPredictor(mesh=...)``) run on these. Not ported yet (ROADMAP:
-M12): pipelines (``pp.py``) and the expert-parallel all-to-all."""
+M12): pipelines (``pp.py``)."""
 
 from unionml_tpu_torch.parallel.distributed import collective_timeout_s, initialize_distributed, is_primary_host
 from unionml_tpu_torch.parallel.dp import batches, data_parallel_eval, data_parallel_step, pad_to_multiple

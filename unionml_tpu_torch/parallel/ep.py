@@ -1,9 +1,13 @@
-"""Mixture-of-experts dispatch on one device: top-k routing, capacity buffers, dropless.
+"""Mixture-of-experts dispatch: top-k routing, capacity buffers, dropless,
+and expert parallelism over a mesh's ``"expert"`` axis.
 
-Port of the single-device half of ``unionml_tpu/parallel/ep.py``:
-:func:`moe_apply_topk` (``ep.py:134-217``), :func:`moe_apply_capacity`
-(``:95-131``, its k=1 case) and the choice-major slot assignment of
-``_topk_dispatch_combine`` (``:220-241``), with JAX's semantics:
+Port of ``unionml_tpu/parallel/ep.py``: :func:`moe_apply_topk`
+(``ep.py:134-217``), :func:`moe_apply_capacity` (``:95-131``, its k=1
+case), the choice-major slot assignment of ``_topk_dispatch_combine``
+(``:220-241``), the dense-masked oracle :func:`moe_apply` (``:52``),
+:func:`expert_sharding` (``:90``) and the all-to-all dispatch
+:func:`moe_apply_a2a` (``:300``, its body ``_moe_a2a_local`` ``:243``),
+with JAX's semantics:
 
 - top-k ties break toward the lower expert index, as ``lax.top_k`` does
   (k rounds of ``argmax``, which returns the first maximum, with the chosen
@@ -34,15 +38,66 @@ Every step is a device op with no host read, so a dropless layer records
 into a CUDA graph (the decode burst). ``expert_fn(stacked_params, x)`` is
 batched over the leading expert axis: ``x`` is ``(E, n, d)`` and each of
 the ``stacked_params`` tensors has ``E`` rows (the counterpart of JAX's vmapped
-per-expert function). Meshes, expert sharding and the all-to-all dispatch
-raise ``NotImplementedError`` naming M12.
+per-expert function).
+
+Over a mesh (SPMD over ``torch.distributed``; every rank calls with its own
+tokens, and rank ``e`` of the ``expert`` axis holds experts ``[e * E / ep,
+(e + 1) * E / ep)``, :func:`expert_sharding`). The meshed functions take
+either the whole stack of ``E`` experts (each rank uses its slice) or the
+rank's slice:
+
+- :func:`moe_apply`: the tokens are the same on every rank; each rank runs
+  its experts over all of them, masks by the assignment and the outputs
+  are summed over ``expert``;
+- :func:`moe_apply_topk` with a ``mesh``: the tokens are the rank's share
+  of the batch (split over the batch's ranks, data×fsdp, as
+  ``batch_sharding`` lays rows; the same on every rank of ``expert``).
+  Routing is GLOBAL, as JAX's one program routes the whole batch: each rank
+  takes its tokens' top-k, an all-gather over the batch's ranks of one
+  ``(k, E)`` int32 table per rank (how many of its choices j went to each
+  expert) gives every rank the capacity of the global token count and the
+  slot offsets of the tokens before its own, so a choice is kept exactly
+  when JAX's global choice-major cumsum keeps it. A rank computes only its
+  tokens on its experts; the partial outputs are summed over ``expert`` in
+  float32. A sparse block trained on a mesh routes over the batch's
+  ranks the layout binds to it (``MoEMlp.token_group``) the same way;
+- :func:`moe_apply_a2a`: the tokens are the rank's share of the batch over
+  ``data`` (the same on every rank of ``expert``). Rank ``e`` takes block
+  ``e`` of them (JAX's block of ``P((data, expert))``), routes it with the
+  capacity of one source shard, sends each expert's buffer to the rank that
+  holds it by one all-to-all, runs its experts on every source's buffers as
+  one batched product, and a second all-to-all brings the outputs home for
+  the combine; the blocks' outputs are then gathered over ``expert``.
+
+Under a graph each collective is a differentiable operator
+(:class:`~unionml_tpu_torch.models._layers.AxisGroup`): the gradient of
+every leaf outside the experts comes out the same on every rank of
+``expert``, and an expert leaf's gradient on its own rank is its whole
+gradient over the rank's rows. Over one rank each collective is the
+identity and runs no operation, so a mesh whose axes span one rank
+computes bit for bit what the unmeshed call does.
 """
 
 import math
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from unionml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    FSDP_AXIS,
+    SEQUENCE_AXIS,
+    TENSOR_AXIS,
+    NamedSharding,
+    Spec,
+    axis_names,
+    axis_size,
+    batch_axis_size,
+    batch_group,
+    batch_index,
+)
 
 __all__ = [
     "EXPERT_AXIS",
@@ -57,27 +112,102 @@ __all__ = [
     "topk_route",
 ]
 
-#: the mesh axis expert weights shard over (``ep.py:31``)
-EXPERT_AXIS = "expert"
 
-def _no_mesh(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name}: expert-parallel dispatch over a mesh is not ported yet (ROADMAP: M12, expert-parallel a2a)")
+def _axis_group(mesh: Any, axis: str):
+    from unionml_tpu_torch.models._layers import AxisGroup
 
-
-def moe_apply(*args: Any, **kwargs: Any):
-    """Dense-masked top-1 experts sharded over a mesh (``ep.py:54-85``): M12."""
-    raise _no_mesh("moe_apply")
+    return AxisGroup.of(mesh, axis)
 
 
-def moe_apply_a2a(*args: Any, **kwargs: Any):
-    """The all-to-all token dispatch over an ``"expert"`` axis (``ep.py:310``): M12."""
-    raise _no_mesh("moe_apply_a2a")
+def batch_ranks(mesh: Any):
+    """The batch's ranks of ``mesh`` (data×fsdp, rows split as
+    ``batch_sharding`` lays them) as an ``AxisGroup``; None over one rank."""
+    from unionml_tpu_torch.models._layers import AxisGroup
+
+    size = batch_axis_size(mesh)
+    return AxisGroup(batch_group(mesh), size, batch_index(mesh)) if size > 1 else None
 
 
-def expert_sharding(*args: Any, **kwargs: Any):
-    """Sharding of stacked expert parameters (``ep.py:88-90``): M12."""
-    raise _no_mesh("expert_sharding")
+def _leaves(stacked_params: Any) -> List[torch.Tensor]:
+    if torch.is_tensor(stacked_params):
+        return [stacked_params]
+    if isinstance(stacked_params, dict):
+        return [v for leaf in stacked_params.values() for v in _leaves(leaf)]
+    return [v for leaf in stacked_params for v in _leaves(leaf)]
+
+
+def _map(fn: Callable, stacked_params: Any) -> Any:
+    if torch.is_tensor(stacked_params):
+        return fn(stacked_params)
+    if isinstance(stacked_params, dict):
+        return {k: _map(fn, v) for k, v in stacked_params.items()}
+    return type(stacked_params)(_map(fn, v) for v in stacked_params)
+
+
+def _local_params(stacked_params: Any, experts: Any, num_experts: int) -> Any:
+    """The rank's experts of ``stacked_params``: its slice of a whole stack,
+    or the stack itself when it is the rank's slice already."""
+    if experts.size == 1 or _leaves(stacked_params)[0].shape[0] != num_experts:
+        return stacked_params
+    local = num_experts // experts.size
+    return _map(lambda p: p[experts.index * local:(experts.index + 1) * local], stacked_params)
+
+
+def _check_experts(held: int, num_experts: int, ep: int, axis: str) -> None:
+    """JAX's validations (``ep.py:176-186``): the stack is the ``E`` experts
+    the gates are over (or, on a mesh, this rank's ``E / ep`` of them)."""
+    if held != num_experts and held * ep != num_experts:
+        raise ValueError(f"gates are over {num_experts} experts but stacked_params carries {held}")
+    if num_experts % ep:
+        raise ValueError(f"num_experts ({num_experts}) must be divisible by the {axis!r} axis size ({ep})")
+
+
+def _only_expert_and_data(mesh: Any, axis: str) -> None:
+    """Expert parallelism composes with the ``data`` axis; an fsdp, tensor
+    or sequence axis of more than one rank beside it is not ported."""
+    others = [a for a in (FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS) if a != axis and axis_size(mesh, a) > 1]
+    if others and axis_size(mesh, axis) > 1:
+        raise NotImplementedError(f"expert parallelism beside the mesh axes {others} is not ported yet "
+                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
+
+
+def expert_sharding(mesh: Any, axis: str = EXPERT_AXIS) -> NamedSharding:
+    """Sharding of stacked per-expert parameters (``ep.py:88-90``): the
+    leading expert dimension over ``axis``, so rank ``e`` holds experts
+    ``[e * E / ep, (e + 1) * E / ep)``."""
+    return NamedSharding(mesh, Spec(axis))
+
+
+def moe_apply(
+    expert_fn: Callable,
+    stacked_params: Any,
+    tokens: torch.Tensor,
+    assignment: torch.Tensor,
+    mesh: Any,
+    *,
+    axis: str = EXPERT_AXIS,
+) -> torch.Tensor:
+    """Top-1-routed experts sharded over ``axis`` (``ep.py:54-85``), the
+    dense-masked oracle: every rank holds the same ``tokens`` ``(T, d)`` and
+    ``assignment`` ``(T,)`` (an expert per token) and the whole stack of
+    ``E`` experts; it runs its own experts over every token, keeps each
+    token's assigned expert's output, and the outputs are summed over
+    ``axis`` (its backward the identity; the tokens' gradient is summed
+    over the axis)."""
+    num_devices = axis_size(mesh, axis)
+    num_experts = _leaves(stacked_params)[0].shape[0]
+    if num_experts % num_devices:
+        raise ValueError(
+            f"num_experts ({num_experts}) must be divisible by the {axis!r} axis size ({num_devices})")
+    experts = _axis_group(mesh, axis)
+    local = num_experts // num_devices
+    first = experts.index * local
+    params = _local_params(stacked_params, experts, num_experts)
+    x = experts.enter(tokens)
+    out = expert_fn(params, x.expand(local, *x.shape))  # (local, T, d_out)
+    mask = assignment.long()[None, :] == torch.arange(first, first + local, device=tokens.device)[:, None]
+    out = (out * mask[..., None].to(out.dtype)).sum(dim=0).to(tokens.dtype)
+    return experts.reduce(out)
 
 
 class Routing(NamedTuple):
@@ -114,22 +244,24 @@ def _capacity(num_tokens: int, k: int, num_experts: int, capacity_factor: float)
     return max(int(math.ceil(num_tokens * k / num_experts * capacity_factor)), 1)
 
 
-def _check(gates: torch.Tensor, stacked_params: Any, k: int, mesh: Any) -> None:
-    if mesh is not None:
-        raise _no_mesh("moe_apply_topk(mesh=...)")
+def _check(gates: torch.Tensor, stacked_params: Any, k: int, ep: int = 1, axis: str = EXPERT_AXIS) -> None:
     num_experts = gates.shape[1]
-    if stacked_params[0].shape[0] != num_experts:
-        raise ValueError(f"gates are over {num_experts} experts but stacked_params carries "
-                         f"{stacked_params[0].shape[0]}")
+    _check_experts(_leaves(stacked_params)[0].shape[0], num_experts, ep, axis)
     if not 1 <= k <= num_experts:
         raise ValueError(f"k ({k}) must be in [1, num_experts={num_experts}]")
 
 
 def topk_route(gates: torch.Tensor, k: int = 2, capacity_factor: Optional[float] = 1.25,
-               normalize_gates: bool = True) -> Routing:
+               normalize_gates: bool = True, group: Any = None) -> Routing:
     """Top-k selection and choice-major slot assignment of ``gates``
     ``(T, E)`` (see the module docstring). Every choice is kept when
-    ``capacity_factor`` is None."""
+    ``capacity_factor`` is None.
+
+    ``group`` (an ``AxisGroup`` over the ranks the batch's tokens are split
+    over, this rank's tokens being block ``group.index`` of them) routes
+    globally: the capacity is the global token count's and a choice is kept
+    where its global slot is below it. ``position`` stays the slot among
+    this rank's own choices (where its buffer holds the choice)."""
     num_tokens, num_experts = gates.shape
     top_gates, top_index = _stable_topk(gates, k)
     if normalize_gates:
@@ -143,14 +275,103 @@ def topk_route(gates: torch.Tensor, k: int = 2, capacity_factor: Optional[float]
     position = torch.gather(earlier, 0, flat[None, :])[0].reshape(k, num_tokens).t()
     if capacity_factor is None:
         return Routing(top_gates, top_index, position, None, torch.ones_like(position, dtype=torch.bool))
-    capacity = _capacity(num_tokens, k, num_experts, capacity_factor)
-    return Routing(top_gates, top_index, position, capacity, position < capacity)
+    if group is None or group.size == 1:
+        capacity = _capacity(num_tokens, k, num_experts, capacity_factor)
+        return Routing(top_gates, top_index, position, capacity, position < capacity)
+    # global slots: every rank's (choice, expert) counts; a choice j of this
+    # rank sits after all choices j' < j of every rank, then after the
+    # choices j of the ranks before it, then after its own earlier tokens
+    counts = hits.reshape(num_experts, k, num_tokens).sum(dim=2, dtype=torch.int32).t().contiguous()  # (k, E)
+    table = group.gather(counts[None]).reshape(group.size, k, num_experts)
+    total = table.sum(dim=0, dtype=torch.int32)
+    offset = (torch.cumsum(total, dim=0, dtype=torch.int32) - total) + table[:group.index].sum(dim=0, dtype=torch.int32)
+    offset = offset - (torch.cumsum(counts, dim=0, dtype=torch.int32) - counts)  # own earlier choices are in position
+    global_position = position + torch.gather(offset, 1, top_index.t()).t()
+    capacity = _capacity(num_tokens * group.size, k, num_experts, capacity_factor)
+    return Routing(top_gates, top_index, position, capacity, global_position < capacity)
 
 
-def _combine(top_gates: torch.Tensor, picked: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _combine(top_gates: torch.Tensor, picked: torch.Tensor, dtype: torch.dtype, partial: Any = None) -> torch.Tensor:
     # (T, k) gates times (T, k, d) outputs, summed over k in float32 and
-    # rounded once, as an einsum with a float32 accumulator does
-    return (top_gates.float()[:, :, None] * picked.float()).sum(dim=1).to(dtype)
+    # rounded once, as an einsum with a float32 accumulator does; a partial
+    # sum (each rank's experts or hidden shard) is summed over its ranks in
+    # float32 before the rounding
+    out = (top_gates.float()[:, :, None] * picked.float()).sum(dim=1)
+    if partial is not None:
+        out = partial.reduce(out)
+    return out.to(dtype)
+
+
+def _dispatch(tokens: torch.Tensor, routing: Routing, first: int, local: int, num_experts: int):
+    """``(expert inputs (local, C, d), slot (T, k))``: each kept choice of an
+    expert in ``[first, first + local)`` gathered into its buffer slot;
+    ``slot`` indexes the flattened buffer, and a dropped choice (or one on
+    another rank's expert) points at a zero row past it. ``C`` is the
+    capacity, or ``T`` where that is smaller."""
+    num_tokens, k = routing.index.shape
+    # a token's k choices are distinct experts, so no expert keeps more than
+    # T of this rank's choices: slots past T stay empty whatever the capacity
+    capacity = min(routing.capacity, num_tokens)
+    dump = local * capacity
+    mine = routing.keep
+    index = routing.index
+    if local != num_experts:
+        mine = mine & (index >= first) & (index < first + local)
+        index = index - first
+    slot = torch.where(mine, index * capacity + routing.position, torch.full_like(routing.position, dump))
+    # the token of every buffer slot (T = the zero row: an unfilled slot)
+    rows = torch.arange(num_tokens, device=tokens.device)
+    slot_token = torch.full((dump + 1,), num_tokens, dtype=torch.long, device=tokens.device)
+    slot_token.scatter_(0, slot.reshape(-1).long(), rows[:, None].expand(num_tokens, k).reshape(-1))
+    # every gather is an index_select: its backward is an index_add (atomic
+    # adds; a token sums at most k rows, 2 values add alike in any order),
+    # not advanced indexing's sorting backward, which serializes the many
+    # duplicates of the zero row
+    padded = torch.cat([tokens, tokens.new_zeros(1, tokens.shape[1])])
+    return padded.index_select(0, slot_token[:dump]).reshape(local, capacity, tokens.shape[1]), slot
+
+
+def _combine_slots(expert_out: torch.Tensor, slot: torch.Tensor, routing: Routing, dtype: torch.dtype,
+                   partial: Any = None) -> torch.Tensor:
+    num_tokens, k = slot.shape
+    flat_out = expert_out.reshape(-1, expert_out.shape[-1])
+    flat_out = torch.cat([flat_out, flat_out.new_zeros(1, flat_out.shape[-1])])
+    picked = flat_out.index_select(0, slot.reshape(-1).long()).reshape(num_tokens, k, -1)
+    return _combine(routing.gates, picked, dtype, partial)
+
+
+def _apply_topk(expert_fn: Callable, params: Any, tokens: torch.Tensor, gates: torch.Tensor, *, k: int,
+                capacity_factor: Optional[float], normalize_gates: bool, num_experts: int, first: int = 0,
+                local: Optional[int] = None, partial: Any = None, group: Any = None) -> torch.Tensor:
+    """The top-k layer over this rank's experts ``[first, first + local)``
+    (``params``). ``partial`` is the ``AxisGroup`` whose ranks each compute
+    a part of every output (the expert axis, or a tensor axis splitting the
+    experts' hidden width): the tokens and gates enter it and the combined
+    outputs are summed over it. ``group`` routes globally (:func:`topk_route`)."""
+    local = num_experts if local is None else local
+    num_tokens = tokens.shape[0]
+    if partial is not None and partial.size > 1:
+        tokens, gates = partial.enter(tokens), partial.enter(gates)
+    else:
+        partial = None
+    routing = topk_route(gates, k, capacity_factor, normalize_gates, group)
+    if capacity_factor is None:
+        # dropless: every expert computes every token (E x the routed work),
+        # the top-k gates pick each token's outputs
+        all_out = expert_fn(params, tokens.expand(local, *tokens.shape))  # (local, T, d_out)
+        rows = torch.arange(num_tokens, device=tokens.device)
+        flat = all_out.reshape(local * num_tokens, -1)
+        if local == num_experts:
+            picked = flat.index_select(0, (routing.index * num_tokens + rows[:, None]).reshape(-1))
+        else:  # another rank's expert's output is a zero row past this rank's
+            mine = (routing.index >= first) & (routing.index < first + local)
+            index = torch.where(mine, (routing.index - first) * num_tokens + rows[:, None],
+                                torch.full_like(routing.index, local * num_tokens))
+            flat = torch.cat([flat, flat.new_zeros(1, flat.shape[-1])])
+            picked = flat.index_select(0, index.reshape(-1))
+        return _combine(routing.gates, picked.reshape(num_tokens, k, -1), tokens.dtype, partial)
+    expert_in, slot = _dispatch(tokens, routing, first, local, num_experts)
+    return _combine_slots(expert_fn(params, expert_in), slot, routing, tokens.dtype, partial)
 
 
 def moe_apply_topk(
@@ -163,40 +384,30 @@ def moe_apply_topk(
     k: int = 2,
     capacity_factor: Optional[float] = 1.25,
     normalize_gates: bool = True,
+    axis: str = EXPERT_AXIS,
 ) -> torch.Tensor:
     """GShard top-k mixture of experts over ``tokens`` ``(T, d)`` routed by
     ``gates`` ``(T, E)`` (router probabilities, in the tokens' dtype);
     returns ``(T, d_out)`` in the tokens' dtype. Capacity-bounded by
-    ``capacity_factor``, or dropless when it is None; ``mesh`` is M12."""
-    _check(gates, stacked_params, k, mesh)
-    num_tokens, num_experts = gates.shape
-    routing = topk_route(gates, k, capacity_factor, normalize_gates)
-    rows = torch.arange(num_tokens, device=tokens.device)
-    # every gather is an index_select: its backward is an index_add (atomic
-    # adds; a token sums at most k rows, 2 values add alike in any order),
-    # not advanced indexing's sorting backward, which serializes the many
-    # duplicates of the zero row
-    if capacity_factor is None:
-        # dropless: every expert computes every token (E x the routed work),
-        # the top-k gates pick each token's outputs
-        all_out = expert_fn(stacked_params, tokens.expand(num_experts, *tokens.shape))  # (E, T, d_out)
-        picked = all_out.reshape(num_experts * num_tokens, -1).index_select(
-            0, (routing.index * num_tokens + rows[:, None]).reshape(-1))
-        return _combine(routing.gates, picked.reshape(num_tokens, k, -1), tokens.dtype)
+    ``capacity_factor``, or dropless when it is None.
 
-    capacity = routing.capacity
-    dump = num_experts * capacity  # dropped choices point at a zero row past the buffer
-    slot = torch.where(routing.keep, routing.index * capacity + routing.position,
-                       torch.full_like(routing.position, dump))
-    # the token of every buffer slot (T = the zero row: an unfilled slot)
-    slot_token = torch.full((dump + 1,), num_tokens, dtype=torch.long, device=tokens.device)
-    slot_token.scatter_(0, slot.reshape(-1).long(), rows[:, None].expand(num_tokens, k).reshape(-1))
-    padded = torch.cat([tokens, tokens.new_zeros(1, tokens.shape[1])])
-    expert_in = padded.index_select(0, slot_token[:dump]).reshape(num_experts, capacity, tokens.shape[1])
-    expert_out = expert_fn(stacked_params, expert_in)  # (E, C, d_out)
-    flat_out = torch.cat([expert_out.reshape(dump, -1), expert_out.new_zeros(1, expert_out.shape[-1])])
-    picked = flat_out.index_select(0, slot.reshape(-1).long()).reshape(num_tokens, k, -1)
-    return _combine(routing.gates, picked, tokens.dtype)
+    With a ``mesh`` (see the module docstring) ``tokens`` are this rank's
+    share of the batch, routed globally over the batch's ranks; this rank
+    computes them on its experts of ``axis`` and the outputs are summed over
+    ``axis``."""
+    ep = axis_size(mesh, axis) if mesh is not None else 1
+    _check(gates, stacked_params, k, ep, axis)
+    num_experts = gates.shape[1]
+    if mesh is None:
+        return _apply_topk(expert_fn, stacked_params, tokens, gates, k=k, capacity_factor=capacity_factor,
+                           normalize_gates=normalize_gates, num_experts=num_experts)
+    _only_expert_and_data(mesh, axis)
+    experts = _axis_group(mesh, axis)
+    local = num_experts // ep
+    return _apply_topk(expert_fn, _local_params(stacked_params, experts, num_experts), tokens, gates, k=k,
+                       capacity_factor=capacity_factor, normalize_gates=normalize_gates, num_experts=num_experts,
+                       first=experts.index * local, local=local, partial=experts,
+                       group=None if capacity_factor is None else batch_ranks(mesh))
 
 
 def moe_apply_capacity(
@@ -207,12 +418,134 @@ def moe_apply_capacity(
     mesh: Any = None,
     *,
     capacity_factor: float = 1.25,
+    axis: str = EXPERT_AXIS,
 ) -> torch.Tensor:
     """Top-1 capacity dispatch: :func:`moe_apply_topk` with ``k=1`` and the
     top gate unnormalised (its value scales the expert's output, the
     router's only gradient path through the task loss)."""
     return moe_apply_topk(expert_fn, stacked_params, tokens, gates, mesh, k=1,
-                          capacity_factor=capacity_factor, normalize_gates=False)
+                          capacity_factor=capacity_factor, normalize_gates=False, axis=axis)
+
+
+def moe_apply_a2a(
+    expert_fn: Callable,
+    stacked_params: Any,
+    tokens: torch.Tensor,
+    gates: torch.Tensor,
+    mesh: Any,
+    *,
+    k: int = 2,
+    capacity_factor: float = 1.25,
+    normalize_gates: bool = True,
+    axis: str = EXPERT_AXIS,
+    data_axis: Optional[str] = DATA_AXIS,
+) -> torch.Tensor:
+    """Top-k experts with the all-to-all token dispatch (``ep.py:300-368``).
+
+    ``tokens`` ``(T, d)`` and ``gates`` ``(T, E)`` are this rank's share of
+    the batch over ``data_axis`` (all of it when the mesh lacks that axis or
+    ``data_axis`` is None), the same on every rank of ``axis``. JAX's tokens
+    are sharded over ``(data_axis, axis)``: rank ``e`` of ``axis`` routes
+    block ``e`` of its share, ``t_local = T_global / (data * ep)`` tokens,
+    into per-expert buffers of the capacity of one source shard,
+    ``ceil(t_local * k / E * capacity_factor)`` slots for each expert on
+    each source (a choice drops when its own shard's demand for its expert
+    overflows). One all-to-all over ``axis`` carries each expert's buffers
+    to the rank holding it, the rank's experts run on ``(E / ep, ep * C,
+    d)`` as one batched product, a second all-to-all brings the outputs
+    back, and each token combines its kept choices at home; the blocks'
+    outputs are gathered over ``axis``, so every rank of it returns its
+    whole share's ``(T, d_out)`` in the tokens' dtype."""
+    num_tokens, num_experts = gates.shape
+    held = _leaves(stacked_params)[0].shape[0]
+    names = axis_names(mesh)
+    if axis not in names:
+        raise ValueError(f"moe_apply_a2a shards experts over the mesh axis {axis!r}, which the mesh "
+                         f"(axes {names}) does not have")
+    ep_degree = axis_size(mesh, axis)
+    _check_experts(held, num_experts, ep_degree, axis)
+    if not 1 <= k <= num_experts:
+        raise ValueError(f"k ({k}) must be in [1, num_experts={num_experts}]")
+    token_axes = (data_axis, axis) if data_axis and data_axis in names else (axis,)
+    data = axis_size(mesh, data_axis) if len(token_axes) == 2 else 1
+    shard_count = data * ep_degree
+    global_tokens = num_tokens * data
+    if global_tokens % shard_count:
+        raise ValueError(
+            f"num_tokens ({global_tokens}) must be divisible by the token-shard count "
+            f"({shard_count}: mesh axes {token_axes})"
+        )
+    _only_expert_and_data(mesh, axis)
+    experts = _axis_group(mesh, axis)
+    params = _local_params(stacked_params, experts, num_experts)
+
+    # block e of t_local = T_global / (data * ep) tokens, at one source shard's capacity
+    [out] = _a2a(expert_fn, [params], [experts.take(tokens)], [experts.take(gates)],
+                 lambda parts: experts.exchange(parts[0])[None], ep_degree, k=k, capacity_factor=capacity_factor,
+                 normalize_gates=normalize_gates)
+    return experts.gather(out)
+
+
+def _stack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return tensors[0][None] if len(tensors) == 1 else torch.stack(list(tensors))
+
+
+def _a2a(expert_fn: Callable, params: Sequence[Any], tokens: Sequence[torch.Tensor], gates: Sequence[torch.Tensor],
+         exchange: Callable[[torch.Tensor], torch.Tensor], ep_degree: int, *, k: int, capacity_factor: float,
+         normalize_gates: bool) -> List[torch.Tensor]:
+    """The body of :func:`moe_apply_a2a` over the token blocks of the
+    holders at hand (one, this rank, in a world): block ``r`` (``tokens[r]``,
+    ``gates[r]``) is routed at its own capacity into an ``(E, C, d)`` send
+    buffer in global expert order, cut into ``ep_degree`` parts of ``E / ep``
+    experts; ``exchange`` moves part j of holder i (the ``(holders, ep,
+    ...)`` stack's ``[i, j]``) to holder j's place i; holder ``r``'s experts
+    (``params[r]``) run on every source's buffers as one batched product,
+    the same exchange brings the outputs back, and each block combines its
+    kept choices. Returns each block's ``(T_r, d_out)``."""
+    num_experts = gates[0].shape[1]
+    local = num_experts // ep_degree
+    routed = [topk_route(g, k, capacity_factor, normalize_gates) for g in gates]
+    sent = [_dispatch(t, r, 0, num_experts, num_experts) for t, r in zip(tokens, routed)]
+    recv = exchange(_stack([send.reshape(ep_degree, -1, send.shape[-1]) for send, _ in sent]))
+    outs = [expert_fn(p, _source_major_to_experts(part, local)) for p, part in zip(params, recv)]
+    returned = exchange(_stack([_experts_to_source_major(out, ep_degree) for out in outs]))
+    return [_combine_slots(back, slot, routing, t.dtype)
+            for back, (_, slot), routing, t in zip(returned, sent, routed, tokens)]
+
+
+def _source_major_to_experts(recv: torch.Tensor, local: int) -> torch.Tensor:
+    """``(ep, E/ep * C, d)`` as the exchange delivers it (source j's buffers
+    for this rank's experts at part j) to ``(E/ep, ep * C, d)``: each local
+    expert's slots from every source, source by source (``ep.py:286-291``)."""
+    ep_degree, _, d = recv.shape
+    if ep_degree == 1:
+        return recv.reshape(local, -1, d)
+    return recv.reshape(ep_degree, local, -1, d).transpose(0, 1).reshape(local, -1, d)
+
+
+def _experts_to_source_major(out: torch.Tensor, ep_degree: int) -> torch.Tensor:
+    """The inverse layout for the return trip: ``(E/ep, ep * C, d)`` to
+    ``(ep, E/ep * C, d)``, part j the outputs of source j's tokens."""
+    local, _, d = out.shape
+    if ep_degree == 1:
+        return out.reshape(1, -1, d)
+    return out.reshape(local, ep_degree, -1, d).transpose(0, 1).reshape(ep_degree, -1, d)
+
+
+def _in_process_moe_a2a(expert_fn: Callable, stacked_params: Any, tokens: torch.Tensor, gates: torch.Tensor,
+                        ep_degree: int, *, k: int = 2, capacity_factor: float = 1.25,
+                        normalize_gates: bool = True) -> torch.Tensor:
+    """:func:`moe_apply_a2a` over ``ep_degree`` ranks simulated in one
+    process (the test seam, as ``ring.py``'s in-process ring): block j of
+    ``tokens`` and rank j's slice of the whole ``stacked_params`` are rank
+    j's, and the exchange is the transpose of the ranks' parts in memory.
+    Returns the whole ``(T, d_out)``."""
+    _check(gates, stacked_params, k, ep_degree)
+    local = gates.shape[1] // ep_degree
+    params = [_map(lambda p, r=r: p[r * local:(r + 1) * local], stacked_params) for r in range(ep_degree)]
+    return torch.cat(_a2a(expert_fn, params, tokens.chunk(ep_degree), gates.chunk(ep_degree),
+                          lambda parts: parts.transpose(0, 1), ep_degree, k=k, capacity_factor=capacity_factor,
+                          normalize_gates=normalize_gates))
 
 
 # ------------------------------------------------------------- plain version
@@ -250,7 +583,7 @@ def reference_moe_apply_topk(
     """The plain version of :func:`moe_apply_topk`: JAX's one-hot einsum
     formulation, top-k by a stable descending sort (ties to the lower
     index)."""
-    _check(gates, stacked_params, k, None)
+    _check(gates, stacked_params, k)
     num_tokens, num_experts = gates.shape
     order = torch.sort(gates, dim=-1, descending=True, stable=True).indices[:, :k]
     top_gates = torch.gather(gates, 1, order)

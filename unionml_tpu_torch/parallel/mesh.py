@@ -19,6 +19,9 @@ Axis convention (used across models/, parallel/ and serving/):
 - ``"fsdp"`` — parameter sharding along the data axis (ZeRO-style)
 - ``"tensor"`` — tensor parallelism within attention/MLP blocks
 - ``"sequence"`` — sequence/context parallelism (ring attention)
+- ``"expert"`` — expert parallelism (each rank holds ``1/N`` of a sparse
+  block's experts; rows are not split over it, as in JAX's
+  ``batch_sharding``)
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ import torch.distributed as dist
 
 __all__ = [
     "DATA_AXIS",
+    "EXPERT_AXIS",
     "FSDP_AXIS",
     "SEQUENCE_AXIS",
     "TENSOR_AXIS",
@@ -61,6 +65,7 @@ DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 TENSOR_AXIS = "tensor"
 SEQUENCE_AXIS = "sequence"
+EXPERT_AXIS = "expert"
 
 
 class Spec(tuple):

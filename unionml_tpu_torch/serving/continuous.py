@@ -130,6 +130,7 @@ from unionml_tpu_torch.models._layers import quantize_model
 from unionml_tpu_torch.models.gpt import (
     advance_slot_state,
     block_table_width,
+    check_serving_experts,
     gather_block_prefix,
     init_block_pool,
     init_block_tables,
@@ -424,6 +425,7 @@ class DecodeEngine:
         #: the mesh the engine is tensor-parallel over (None: one device); the
         #: weights it serves are then this rank's shards
         self.mesh = mesh
+        check_serving_experts(model, mesh)
         if mesh is not None:
             # quantize first, then shard: the int8 codes and scales split as
             # their kernel does (continuous.py:300-303)
