@@ -510,6 +510,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    streams bitwise the unmeshed engine's, K1 and K4 held against their plain
    versions at the served shapes (B1 H12 S256 causal prefill, B8 H12 S1 and
    B1 H12 S64 over the int8 pool).
+26. serving the layouts the meshes train (``models/gpt.py::tensor_parallel``
+   over fsdp, sequence and expert axes, ``serving/resident.py`` over a
+   sequence axis), each meshed arm a world of one rank over NCCL in this
+   process. (a) GPT-2 small's width (depth cut to 4 blocks), f32 and bf16,
+   behind ``DecodeEngine(mesh=...)`` on ``{"fsdp": 1}`` (each block's
+   matrices kept as a piece at rest and all-gathered into shared whole
+   buffers inside the captured graphs), ``{"fsdp": 1, "tensor": 1}`` and
+   ``{"sequence": 1}`` (the ring config, decoding through its dense
+   fallback), and ``SpeculativeEngine(mesh={"fsdp": 1})``: streams
+   bit-identical to the unmeshed engines'; the bf16 burst (4 slots) wall and
+   device ms on ``{"fsdp": 1}`` against unmeshed, in turns. (b) Phase 25's
+   sparse GPT with ``ep_mesh={"expert": 1}`` behind
+   ``DecodeEngine(mesh={"expert": 1})``, f32 and bf16, streams bit-identical
+   to the unmeshed engine's; and the expert split in one process
+   (``parallel/ep.py::_in_process_dropless``: 4 shares of 2 of the 8
+   experts, each share's dropless partial over every token, summed in f32)
+   against the whole dropless ``MoEMlp`` at 4 and 256 tokens, f32 and bf16
+   (``TOL``), with both ms. (c) BERT-base behind
+   ``ResidentPredictor(mesh={"sequence": 1})`` with ring and with Ulysses
+   attention (B4, a 512-token bucket, ragged rows) against the dense
+   predictor, f32 and bf16 (``TOL``), each replaying a graph (the mode a
+   ring over several ranks would not take: it runs eagerly); and the ring of
+   4 chunks in one process over that inference shape with ``kv_lens``
+   against ``flash_attention`` over the whole rows, and that K1 call
+   against its plain version. K1 and K4 are held against their plain
+   versions at the served shapes; their launches around
+   the meshed drives ride the kernels line as ``launches_mesh_serving``.
 
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
@@ -7220,6 +7247,470 @@ def report_expert_parallel(xp: dict, name_limit: str) -> None:
           f"({ {k: round(v, 1) for k, v in xp['parts_s'].items()} })")
 
 
+MS_LAYERS = 4  # (a): depth cut, GPT-2 small's width with 4 blocks
+#: (a): the serving meshes of one rank; the ring config is served on the sequence one
+MS_MESHES = ({"fsdp": 1}, {"fsdp": 1, "tensor": 1}, {"sequence": 1})
+MS_SHARES, MS_TOKENS = 4, (4, 256)  # (b): the expert split's ranks; a decode burst's rows and a prefill's tokens
+MS_SEQ = 512  # (c): BERT-base's bucket
+MS_LENS = (512, 300, 77, 451)  # (c): a request's rows, right-padded to the bucket
+
+
+def _serving_launches(total: dict) -> None:
+    from unionml_tpu_torch import kernels
+
+    for name in ("flash_fwd", "paged_attention"):
+        total[name] = total.get(name, 0) + kernels.launches[name]
+
+
+def ms_decode(device, params, meshes: dict, launches: dict) -> dict:
+    """(a): GPT-2 small's width (``MS_LAYERS`` blocks) behind the engines on
+    each one-rank mesh of ``meshes``, f32 and bf16, against the unmeshed
+    engines; K1/K4 counted around the meshed drives only."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import DecodeEngine, SpeculativeEngine
+
+    prompt_list = tp_prompts(GPTConfig().vocab_size)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        config = dataclasses.replace(GPTConfig(), num_layers=MS_LAYERS, dtype=dtype)
+        model = init_gpt(config, params=params, device=device)
+        draft = init_gpt(GPTConfig(num_layers=2, dtype=dtype), seed=1, device=device)
+        plain = tp_drive(DecodeEngine(model, device=device, **TP_KW), prompt_list)
+        plain_spec = tp_drive(SpeculativeEngine(model, draft, gamma_max=4, device=device, **TP_KW), prompt_list[:1],
+                              {"speculative": True})
+        arms = {}
+        for axes, mesh in meshes.items():
+            served = model
+            if "sequence" in axes:  # the ring config, decoding through its dense fallback
+                served = init_gpt(dataclasses.replace(config, attention_impl="ring", sp_mesh=mesh), params=params,
+                                  device=device)
+            engine = DecodeEngine(served, mesh=mesh, device=device, **TP_KW)
+            kernels.reset_launches()
+            streams = tp_drive(engine, prompt_list)
+            _serving_launches(launches)
+            if streams != plain:
+                raise AssertionError(f"phase 26 {dtype} on {axes}: streams {streams} differ from the unmeshed "
+                                     f"engine's {plain} (identical required)")
+            if (device.type == "cuda" and engine.graph_captures < 1) or engine.capture_failures:
+                raise AssertionError(f"phase 26 {dtype} on {axes}: {engine.graph_captures} graphs, "
+                                     f"{engine.capture_failures} failed captures")
+            gathers = [len(b.fsdp.pairs) for b in engine._model.layers if getattr(b, "fsdp", None) is not None]
+            arms[axes] = {"streams_identical": len(streams), "graphs": engine.graph_captures,
+                          "fsdp_gathers_per_block": gathers[0] if gathers else 0}
+            del engine, served
+        spec = SpeculativeEngine(model, draft, mesh=meshes[str(MS_MESHES[0])], gamma_max=4, device=device, **TP_KW)
+        kernels.reset_launches()
+        spec_streams = tp_drive(spec, prompt_list[:1], {"speculative": True})
+        _serving_launches(launches)
+        if spec_streams != plain_spec or spec.spec_round_dispatches < 1 or spec.capture_failures:
+            raise AssertionError(f"phase 26 {dtype} speculative on {MS_MESHES[0]}: streams {spec_streams} vs "
+                                 f"{plain_spec}, {spec.spec_round_dispatches} rounds, {spec.capture_failures} failed "
+                                 "captures")
+        arms["speculative"] = {"streams_identical": len(spec_streams), "rounds": spec.spec_round_dispatches}
+        out[str(dtype)] = arms
+        del model, draft, spec
+        torch.cuda.empty_cache()
+    return out
+
+
+def ms_bursts(device, params, mesh) -> dict:
+    """(a)'s burst A/B, bf16: the unmeshed engine and the one on ``{"fsdp":
+    1}`` (each block's weights gathered into the shared buffers inside the
+    burst graph), in turns unmeshed, meshed, meshed, unmeshed."""
+    from unionml_tpu_torch.models import GPTConfig, init_gpt
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    model = init_gpt(dataclasses.replace(GPTConfig(), num_layers=MS_LAYERS), params=params, device=device)
+    short = tp_prompts(GPTConfig().vocab_size, seed=1)[:3]
+    engines = {"unmeshed": DecodeEngine(model, device=device, **TP_KW),
+               "fsdp": DecodeEngine(model, mesh=mesh, device=device, **TP_KW)}
+    bursts = {name: [] for name in engines}
+    for name in ("unmeshed", "fsdp", "fsdp", "unmeshed"):
+        bursts[name].append(tp_burst(engines[name], short + short[:1]))
+    del engines, model
+    torch.cuda.empty_cache()
+    return bursts
+
+
+def ms_experts(device, mesh, launches: dict) -> dict:
+    """(b): the sparse GPT of phase 25 with ``ep_mesh=mesh`` behind
+    ``DecodeEngine(mesh=mesh)``, f32 and bf16, against the unmeshed engine;
+    then the expert split in one process (``_in_process_dropless``:
+    ``MS_SHARES`` shares of 2 experts, each share's dropless partial over
+    every token, summed in f32) against the whole dropless ``MoEMlp`` on a
+    decode burst's and a prefill's rows."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import init_gpt, random_params
+    from unionml_tpu_torch.models.moe import MoEMlp, _experts
+    from unionml_tpu_torch.parallel.ep import _in_process_dropless
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    params = random_params(xp_config(torch.float32), seed=0)
+    prompt_list = tp_prompts(moe_config().vocab_size)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        whole = init_gpt(xp_config(dtype), params=params, device=device)
+        plain = tp_drive(DecodeEngine(whole, device=device, **TP_KW), prompt_list)
+        served = init_gpt(xp_config(dtype, ep_mesh=mesh), params=params, device=device)
+        engine = DecodeEngine(served, mesh=mesh, device=device, **TP_KW)
+        kernels.reset_launches()
+        streams = tp_drive(engine, prompt_list)
+        _serving_launches(launches)
+        if streams != plain or engine.capture_failures:
+            raise AssertionError(f"phase 26 sparse {dtype} on {{'expert': 1}} with ep_mesh: streams {streams} differ "
+                                 f"from the unmeshed engine's {plain}, or a capture failed")
+        out[str(dtype)] = {"streams_identical": len(streams), "graphs": engine.graph_captures}
+        del engine, served, whole
+    config = moe_config()
+    d, experts, k = config.hidden_size, config.num_experts, config.moe_k
+    split = []
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(0)
+        layer = MoEMlp(d, experts, 4 * d, k=k, dtype=dtype, device=device)
+        params_ = (layer.w_in, layer.w_out)
+        for tokens in MS_TOKENS:
+            with torch.no_grad():
+                x = torch.randn(tokens, d, generator=torch.Generator(device=device).manual_seed(tokens),
+                                device=device).to(dtype)
+                want, _ = layer(x, dropless=True)
+                gates, _ = layer.route(x)
+                got = _in_process_dropless(_experts, params_, x, gates, MS_SHARES, k=k)
+                label = f"expert split {str(dtype)[6:]} {MS_SHARES} shares of {experts // MS_SHARES} experts T{tokens}"
+                err = check_close(label, got, want)
+                split.append({"label": label, "max_abs_err": err, "bitwise": bool(torch.equal(got, want)),
+                              "ms": cuda_ms(lambda: _in_process_dropless(_experts, params_, x, gates, MS_SHARES, k=k),
+                                            10),
+                              "whole_ms": cuda_ms(lambda: layer(x, dropless=True), 10)})
+        del layer
+    out["split"] = split
+    torch.cuda.empty_cache()
+    return out
+
+
+def ms_app(config, params, device):
+    """A BERT app whose predictor returns the f32 logits, its artifact the
+    state built from ``params`` (``build_bert_app``)."""
+    from unionml_tpu_torch.model import ModelArtifact
+    from unionml_tpu_torch.models import create_train_state, init_bert
+
+    _, model = build_bert_app(config, params, device, logits=True)
+    model.artifact = ModelArtifact(create_train_state(init_bert(config, params=params, device=device)))
+    return model
+
+
+def ms_resident(device, mesh, launches: dict) -> dict:
+    """(c): BERT-base behind ``ResidentPredictor(mesh={"sequence": 1})`` with
+    ring and Ulysses attention at a ``MS_SEQ``-token bucket against the
+    dense predictor, f32 and bf16 (K1 counted around the meshed requests);
+    then the ring of ``SP_CHUNKS`` chunks in one process over the
+    inference forward's shape with ``kv_lens`` against dense attention."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import BertConfig, bert_random_params
+    from unionml_tpu_torch.ops.attention import flash_attention, reference_attention
+    from unionml_tpu_torch.parallel.ring import _in_process_ring_attention
+    from unionml_tpu_torch.serving import ResidentPredictor
+
+    base = BertConfig.base(num_labels=2)
+    params = bert_random_params(base, seed=0)
+    rng = np.random.default_rng(26)
+    rows = [{"input_ids": rng.integers(1, base.vocab_size, n).tolist()} for n in MS_LENS]
+    kw = dict(buckets=(len(MS_LENS),), seq_buckets=(MS_SEQ,), warmup=False, device=device)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        config = dataclasses.replace(base, dtype=dtype)
+        dense = ResidentPredictor(ms_app(config, params, device), **kw)
+        want = dense.predict(features=rows)
+        for impl in ("ring", "ulysses"):
+            sp = dataclasses.replace(config, attention_impl=impl, sp_mesh=mesh)
+            predictor = ResidentPredictor(ms_app(sp, params, device), mesh=mesh, **kw)
+            kernels.reset_launches()
+            got = predictor.predict(features=rows)
+            got = predictor.predict(features=rows)  # the capture's warm-ups, then a replay
+            _serving_launches(launches)
+            err = check_close(f"BERT-base {impl} predictor {str(dtype)[6:]} on {{'sequence': 1}} B{len(MS_LENS)} "
+                              f"S{MS_SEQ}", torch.from_numpy(got), torch.from_numpy(want),
+                              tols={torch.float32: TOL[dtype]})  # f32 logits of a model computing in dtype
+            graphs = device.type == "cuda"
+            if predictor.eager_fallbacks or predictor.mode != ("graphs" if graphs else "cpu") or (
+                    graphs and not predictor.graph_stats()):
+                raise AssertionError(f"phase 26 {impl} predictor: mode {predictor.mode}, eager fallbacks "
+                                     f"{predictor.eager_fallbacks}, graphs {predictor.graph_stats()}")
+            out[f"{impl} {str(dtype)[6:]}"] = {"max_abs_err": err, "bitwise": bool(np.array_equal(got, want)),
+                                               "mode": predictor.mode, "graphs": predictor.graph_stats()}
+            del predictor
+        del dense
+        torch.cuda.empty_cache()
+    ring = []
+    lens = torch.tensor(MS_LENS, dtype=torch.int32, device=device)
+    keep = (torch.arange(MS_SEQ, device=device)[None, :] < lens[:, None])[:, None, None, :]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = k1_inputs(len(MS_LENS), 12, MS_SEQ, 64, dtype, device, seed=26)
+        with torch.no_grad():
+            qs, ks, vs = ([c.contiguous() for c in t.chunk(SP_CHUNKS, dim=2)] for t in (q, k, v))
+            chunks = _in_process_ring_attention(qs, ks, vs, kv_lens=lens)
+            want = flash_attention(q, k, v, kv_lens=lens)
+            plain = reference_attention(q, k, v, mask=keep)
+        shape = f"{str(dtype)[6:]} B{len(MS_LENS)} H12 S{MS_SEQ} D64 kv_lens"
+        label = f"in-process ring {SP_CHUNKS} chunks {shape}"
+        ring.append({"label": label, "max_abs_err": check_close(label, torch.cat(chunks, dim=2), want),
+                     "k1_vs_plain": check_close(f"K1 {shape} (the predictor's shape)", want, plain)})
+    out["ring"] = ring
+    return out
+
+
+MS_DIR = Path(__file__).resolve().parent / "build" / "mesh_serving"
+
+
+def _ms_bytes(leaf) -> int:
+    return leaf.numel() * leaf.element_size()
+
+
+def _ms_rank(rank: int, world: int, port: int, out_dir: str, device_type: str = "cuda") -> None:
+    """One rank of a multi-card world (spawned), rank 0 leading: (a) on
+    ``{"fsdp": world}`` at f32 and bf16, with each rank's bytes at rest and
+    the bf16 burst; (b) phase 25's sparse model with ``ep_mesh`` on
+    ``{"expert": world}``; (c) BERT-base ring and Ulysses predictors on
+    ``{"sequence": world}``. Rank 0 also runs the unmeshed engines and the
+    dense predictor on its own card."""
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import BertConfig, GPTConfig, bert_random_params, init_gpt, random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+    from unionml_tpu_torch.serving import DecodeEngine, ResidentPredictor
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device(device_type)
+    # a collective left waiting (a rank that took another path) fails the world within 4 minutes
+    initialize_distributed(f"localhost:{port}", world, rank, strict=True, device=device_type, timeout_s=240)
+    out = {}
+    config = dataclasses.replace(GPTConfig(), num_layers=MS_LAYERS)
+    params = random_params(config, seed=0)
+    prompt_list, short = tp_prompts(config.vocab_size), tp_prompts(config.vocab_size, seed=1)[:3]
+    mesh = make_mesh({"fsdp": world}, device=device_type)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_gpt(dataclasses.replace(config, dtype=dtype), params=params, device=device)
+        engine = DecodeEngine(model, mesh=mesh, device=device, **TP_KW)
+        out[f"fsdp {dtype}"] = tp_drive(engine, prompt_list)
+        whole = dict(model.named_parameters())
+        split = [n for n, leaf in engine._variables.items() if leaf.numel() != whole[n].numel()]
+        out[f"at_rest {dtype}"] = (sum(_ms_bytes(engine._variables[n]) for n in split),
+                                   sum(_ms_bytes(whole[n]) for n in split))
+        if dtype == torch.bfloat16:
+            if rank == 0:
+                out["burst_fsdp"] = tp_burst(engine, short + short[:1])
+                engine.stop_followers()
+            else:
+                engine.follow()
+        if rank == 0:
+            out[f"unmeshed {dtype}"] = tp_drive(DecodeEngine(model, device=device, **TP_KW), prompt_list)
+            if dtype == torch.bfloat16:
+                out["burst_unmeshed"] = tp_burst(DecodeEngine(model, device=device, **TP_KW), short + short[:1])
+        del engine, model
+        dist.barrier()
+    emesh = make_mesh({"expert": world}, device=device_type)
+    sparse = random_params(xp_config(torch.float32), seed=0)
+    sparse_prompts = tp_prompts(moe_config().vocab_size)
+    for dtype in (torch.float32, torch.bfloat16):
+        served = init_gpt(xp_config(dtype, ep_mesh=emesh), params=sparse, device=device)
+        engine = DecodeEngine(served, mesh=emesh, device=device, **TP_KW)
+        out["experts_held"] = int(engine._model.layers[1].moe_mlp.w_in.shape[0])
+        out[f"expert {dtype}"] = tp_drive(engine, sparse_prompts)
+        if rank == 0:
+            whole = init_gpt(xp_config(dtype), params=sparse, device=device)
+            out[f"expert_unmeshed {dtype}"] = tp_drive(DecodeEngine(whole, device=device, **TP_KW), sparse_prompts)
+        del engine, served
+        dist.barrier()
+    smesh = make_mesh({"sequence": world}, device=device_type)
+    base = BertConfig.base(num_labels=2)
+    bert = bert_random_params(base, seed=0)
+    rng = np.random.default_rng(26)
+    rows = [{"input_ids": rng.integers(1, base.vocab_size, n).tolist()} for n in MS_LENS]
+    kw = dict(buckets=(len(MS_LENS),), seq_buckets=(MS_SEQ,), warmup=False, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        for impl in ("ring", "ulysses"):
+            config_sp = dataclasses.replace(base, dtype=dtype, attention_impl=impl, sp_mesh=smesh)
+            predictor = ResidentPredictor(ms_app(config_sp, bert, device), mesh=smesh, **kw)
+            if rank == 0:
+                try:
+                    logits = [predictor.predict(features=rows) for _ in range(3)][-1]
+                    ms = percentiles(lambda: predictor.predict(features=rows), 10)
+                finally:
+                    predictor.close()
+                out[f"{impl} {dtype}"] = {"logits": logits, "mode": predictor.mode, "p50_ms": ms["p50_ms"],
+                                          "graphs": len(predictor.graph_stats()),
+                                          "eager_requests": predictor.eager_requests}
+            else:
+                predictor.follow()
+            del predictor
+            dist.barrier()
+        if rank == 0:
+            dense = ResidentPredictor(ms_app(dataclasses.replace(base, dtype=dtype), bert, device), **kw)
+            out[f"dense {dtype}"] = {"logits": [dense.predict(features=rows) for _ in range(3)][-1],
+                                     "p50_ms": percentiles(lambda: dense.predict(features=rows), 10)["p50_ms"]}
+        dist.barrier()
+    dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def ms_multi_card() -> dict:
+    """Worlds of 2 and 4 ranks over NCCL, one card each, where the machine
+    has them (``_ms_rank``): the fsdp and expert streams identical to the
+    unmeshed engines' at f32 and bf16 (a gather is exact, and a token's at
+    most two nonzero expert partials add exactly in f32), each fsdp rank
+    holding ``1/world`` of the split leaves; the predictors' f32 logits
+    within 1e-4 of the dense predictor's (the ring merges blocks in another
+    order), bf16 under ``TOL``; the ring runs eagerly, Ulysses replays a
+    graph."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in (2, 4) if w <= cards]
+    if not worlds:
+        return {"run": False, "why": f"{cards} card on this machine: NCCL needs a card per rank"}
+    out = {"run": True}
+    for world in worlds:
+        out_dir = MS_DIR / f"world{world}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        mp.spawn(_ms_rank, args=(world, free_port(), str(out_dir)), nprocs=world, join=True)
+        ranks = [pickle.loads((out_dir / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+        got, rec = ranks[0], {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for arm, want in ((f"fsdp {dtype}", f"unmeshed {dtype}"), (f"expert {dtype}", f"expert_unmeshed {dtype}")):
+                if got[arm] != got[want]:
+                    raise AssertionError(f"world {world} {arm}: streams {got[arm]} differ from the unmeshed "
+                                         f"engine's {got[want]}")
+            for r, res in enumerate(ranks):
+                held, whole = res[f"at_rest {dtype}"]
+                if held * world != whole:
+                    raise AssertionError(f"world {world} rank {r} {dtype}: {held} bytes at rest of {whole}")
+            dense = torch.from_numpy(got[f"dense {dtype}"]["logits"])
+            for impl in ("ring", "ulysses"):
+                r = got[f"{impl} {dtype}"]
+                tols = {torch.float32: 1e-4 if dtype == torch.float32 else TOL[dtype]}
+                err = check_close(f"world {world} {impl} {dtype} predictor", torch.from_numpy(r["logits"]), dense,
+                                  tols=tols)
+                mode = "eager" if impl == "ring" else "graphs"
+                if r["mode"] != mode:
+                    raise AssertionError(f"world {world} {impl} predictor: mode {r['mode']}, expected {mode}")
+                rec[f"{impl} {dtype}"] = {k: v for k, v in r.items() if k != "logits"} | {"max_abs_err": err}
+            rec[f"dense {dtype}"] = {"p50_ms": got[f"dense {dtype}"]["p50_ms"]}
+        if any(res["experts_held"] * world != moe_config().num_experts for res in ranks):
+            raise AssertionError(f"world {world}: experts held {[res['experts_held'] for res in ranks]}")
+        rec.update({"streams_identical": len(got[f"fsdp {torch.float32}"]), "experts_held": got["experts_held"],
+                    "at_rest": got[f"at_rest {torch.bfloat16}"], "burst_fsdp": got["burst_fsdp"],
+                    "burst_unmeshed": got["burst_unmeshed"]})
+        out[world] = rec
+    return out
+
+
+def report_ms_multi_card(mc: dict, name_limit: str) -> None:
+    if not mc["run"]:
+        print(f"phase 26 worlds of 2 and 4: not run ({mc['why']})")
+        return
+    for world in (2, 4):
+        if world not in mc:
+            continue
+        r = mc[world]
+        held, whole = r["at_rest"]
+        print(f"phase 26 world of {world} over NCCL: fsdp and expert streams ({r['streams_identical']} each, f32 and "
+              f"bf16) identical to the unmeshed engines'; an fsdp rank holds {held} of {whole} bytes of the split "
+              f"leaves, an expert rank {r['experts_held']} experts of {moe_config().num_experts}")
+        for name in ("burst_unmeshed", "burst_fsdp"):
+            b = r[name]
+            print(f"[{name_limit}] world of {world}, rank 0's burst (4 slots, bf16, {MS_LAYERS} blocks) {name[6:]}: "
+                  f"{b['wall_ms_per_step']:.4f} ms wall, {b['device_ms_per_step']:.4f} ms device kernels, idle share "
+                  f"{b['device_idle_share']:.3f}; NCCL kernels and device copies {b['collective_ms']}")
+        for key in ("ring", "ulysses", "dense"):
+            for dtype in (torch.float32, torch.bfloat16):
+                v = r[f"{key} {dtype}"]
+                extra = (f"; max |err| {v['max_abs_err']:.3e} vs dense; mode {v['mode']}, graphs {v['graphs']}, "
+                         f"eager requests {v['eager_requests']}" if key != "dense" else "")
+                print(f"[{name_limit}] world of {world} BERT-base {key} predictor {dtype} B{len(MS_LENS)} S{MS_SEQ}: "
+                      f"p50 {v['p50_ms']:.3f} ms per request{extra}")
+
+
+def mesh_serving_phase(device) -> dict:
+    """Phase 26: serving the layouts the meshes train (see the module docstring)."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import GPTConfig, random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    out, parts, launches = {}, {}, {}
+    t = time.perf_counter()
+    out["kernels_vs_plain"] = tp_local_heads(device, heads=(12,))
+    parts["kernels_vs_plain"] = time.perf_counter() - t
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device.type)
+    try:
+        meshes = {str(axes): make_mesh(axes, device=device.type) for axes in MS_MESHES}
+        params = random_params(dataclasses.replace(GPTConfig(), num_layers=MS_LAYERS), seed=0)
+        for name, part in (("decode", lambda: ms_decode(device, params, meshes, launches)),
+                           ("bursts", lambda: ms_bursts(device, params, meshes[str(MS_MESHES[0])])),
+                           ("experts", lambda: ms_experts(device, make_mesh({"expert": 1}, device=device.type),
+                                                          launches)),
+                           ("resident", lambda: ms_resident(device, meshes[str(MS_MESHES[2])], launches))):
+            t = time.perf_counter()
+            out[name] = part()
+            parts[name] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    for name in ("flash_fwd", "paged_attention"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 26: {name} never launched on the meshed serving path ({launches})")
+    t = time.perf_counter()
+    out["multi_card"] = ms_multi_card()
+    parts["multi_card"] = time.perf_counter() - t
+    out["launches"] = launches
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
+    return out
+
+
+def report_mesh_serving(ms: dict, name_limit: str) -> None:
+    print(f"phase 26 K1/K4 vs plain at the served shapes (B1 H12 S256 causal; B8 S1 and B1 S64 over the int8 pool): "
+          f"ok, max |err| {ms['kernels_vs_plain']['max_abs_err']:.3e}")
+    for dtype, arms in ms["decode"].items():
+        for axes, r in arms.items():
+            if axes == "speculative":
+                print(f"GPT-2 small width ({MS_LAYERS} blocks) {dtype} SpeculativeEngine(mesh={MS_MESHES[0]}): "
+                      f"{r['streams_identical']} stream ({r['rounds']} rounds) bit-identical to the unmeshed one")
+                continue
+            print(f"GPT-2 small width ({MS_LAYERS} blocks) {dtype} DecodeEngine(mesh={axes}), a world of 1 over NCCL: "
+                  f"{r['streams_identical']} streams bit-identical to the unmeshed engine's; {r['graphs']} graphs; "
+                  f"fsdp leaves gathered per block {r['fsdp_gathers_per_block']}")
+    for name, runs in ms["bursts"].items():
+        for b in runs:
+            print(f"[{name_limit}] burst (4 slots, bf16, {MS_LAYERS} blocks) {name}: {b['wall_ms_per_step']:.4f} ms "
+                  f"wall, {b['device_ms_per_step']:.4f} ms device kernels, idle share {b['device_idle_share']:.3f}; "
+                  f"NCCL kernels and device copies {b['collective_ms']}; top kernels {b['top_kernels_ms_per_step']}")
+    xp = ms["experts"]
+    print(f"sparse GPT (phase 25's) with ep_mesh on DecodeEngine(mesh={{'expert': 1}}): f32 "
+          f"{xp[str(torch.float32)]['streams_identical']} and bf16 {xp[str(torch.bfloat16)]['streams_identical']} "
+          "streams bit-identical to the unmeshed engine's")
+    for r in xp["split"]:
+        print(f"[{name_limit}] {r['label']}: max |err| {r['max_abs_err']:.3e} vs the whole dropless MoEMlp (TOL), "
+              f"bitwise {r['bitwise']}; {r['ms']:.4f} ms, whole layer {r['whole_ms']:.4f} ms")
+    rs = ms["resident"]
+    for key, r in rs.items():
+        if key == "ring":
+            continue
+        print(f"BERT-base {key} ResidentPredictor(mesh={{'sequence': 1}}) B{len(MS_LENS)} S{MS_SEQ}: max |err| "
+              f"{r['max_abs_err']:.3e} vs the dense predictor (TOL), bitwise {r['bitwise']}; mode {r['mode']} "
+              f"(a ring over more than one rank runs eagerly by construction), graphs {r['graphs']}")
+    for r in rs["ring"]:
+        print(f"{r['label']}: max |err| {r['max_abs_err']:.3e} vs flash_attention over the whole rows (TOL); "
+              f"that K1 call vs the plain version {r['k1_vs_plain']:.3e} (TOL)")
+    report_ms_multi_card(ms["multi_card"], name_limit)
+    print(f"phase 26 launches {ms['launches']}; phase 26 took {ms['s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in ms['parts_s'].items()} })")
+
+
 def _times(kernel, plain, library) -> dict:
     """ms / plain_ms / library_ms, each by the same method (see ``timed``)."""
     k, p, lib = timed(kernel), timed(plain), timed(library)
@@ -7894,6 +8385,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["expert_parallel"] = xp = expert_parallel_phase(device)
     report_expert_parallel(xp, name_limit)
+    torch.cuda.empty_cache()
+    details["mesh_serving"] = ms = mesh_serving_phase(device)
+    report_mesh_serving(ms, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -7917,10 +8411,12 @@ def main() -> int:
             r["launches_sequence_parallel"] = sp["launches"][r["name"]]
         if r["name"] in xp["launches"]:
             r["launches_expert_parallel"] = xp["launches"][r["name"]]
+        if r["name"] in ms["launches"]:
+            r["launches_mesh_serving"] = ms["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
                 "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"], "24": sp["s"],
-                "25": xp["s"]}
+                "25": xp["s"], "26": ms["s"]}
     print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
           f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
@@ -7965,6 +8461,8 @@ def main() -> int:
             entry["launches_sequence_parallel"] = r["launches_sequence_parallel"]
         if "launches_expert_parallel" in r:  # phase 25's K1-K4 launches (the sparse GPT over an expert mesh)
             entry["launches_expert_parallel"] = r["launches_expert_parallel"]
+        if "launches_mesh_serving" in r:  # phase 26's K1/K4 launches (engines and predictors on the meshes)
+            entry["launches_mesh_serving"] = r["launches_mesh_serving"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

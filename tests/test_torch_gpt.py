@@ -157,9 +157,10 @@ def test_config_defaults_and_unported_paths():
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, paged_attn_impl="pallas")
     # param_shardings is ported (tests/test_torch_mesh.py), and so are sparse blocks under a tensor mesh
-    # (tests/test_torch_expert_parallel.py); serving over an expert axis is still M12
+    # (tests/test_torch_expert_parallel.py) and serving over an expert axis (tests/test_torch_moe.py,
+    # tests/test_torch_mesh_serving_axes.py); experts over an expert and a tensor axis at once are still M12
     sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M12, serving over an expert axis"):
+    with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
         tgpt.tensor_parallel(sparse, SimpleNamespace(mesh_dim_names=("tensor", "expert"), size=lambda dim: 2))
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
     ids, segs = torch.zeros((1, 4), dtype=torch.long), torch.ones((1, 4), dtype=torch.long)

@@ -324,13 +324,17 @@ def test_unported_and_invalid_options_raise(jx):
             assert str(mine.value) == str(theirs.value)
         with pytest.raises(ValueError, match="requires a mesh with an 'expert' axis"):
             MoEMlp(D, E, H, dispatch="a2a", mesh=make_mesh({"data": 8}, device="cpu"))(x, generator=torch.Generator())
+        # serving over the expert axis: the serving shard holds this rank's one expert of four
         model = init_gpt(GPTConfig.tiny(moe_every=2, num_experts=4, dtype=torch.float32), device="cpu")
-        with pytest.raises(NotImplementedError, match="M12, serving over an expert axis"):
-            tensor_parallel(model, mesh)
+        shard, _ = tensor_parallel(model, mesh)
+        held = shard.layers[1].moe_mlp
+        assert held.w_in.shape[0] == held.w_out.shape[0] == 1 and held.experts.size == 4
+        assert torch.equal(held.w_in, model.layers[1].moe_mlp.w_in[:1]) and model.layers[1].moe_mlp.w_in.shape[0] == 4
         split = init_gpt(GPTConfig.tiny(moe_every=2, num_experts=4, dtype=torch.float32, ep_mesh=mesh), device="cpu")
         assert split.layers[1].moe_mlp.w_in.shape[0] == 1  # this rank's one expert of four
-        with pytest.raises(NotImplementedError, match="M12, serving over an expert axis"):
-            tensor_parallel(split, make_mesh({"data": 8}, device="cpu"))
+        # a model whose ep_mesh splits its experts keeps its share on a serving mesh that splits nothing
+        kept, _ = tensor_parallel(split, make_mesh({"data": 8}, device="cpu"))
+        assert kept is split and kept.layers[1].moe_mlp.experts.size == 4
     model = init_gpt(GPTConfig.tiny(moe_every=2, num_experts=4, dtype=torch.float32), device="cpu")
     ids = torch.zeros((2, 8), dtype=torch.long)
     with pytest.raises(ValueError, match="pad_offsets"):

@@ -41,6 +41,7 @@ from tests.test_torch_prefix_cache import Pair, leaks
 from unionml_tpu.serving.continuous import ContinuousBatcher as JaxBatcher
 from unionml_tpu.serving.supervisor import EngineSupervisor as JaxSupervisor
 from unionml_tpu.serving.telemetry import Telemetry as JaxTelemetry
+from unionml_tpu_torch.models import GPTConfig, GPTLMHeadModel
 from unionml_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeEngine,
@@ -54,8 +55,8 @@ from unionml_tpu_torch.serving import (
     Telemetry,
 )
 
-#: a mesh whose fsdp axis spans two ranks: serving over it is not ported (M12)
-FSDP_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("fsdp",), size=lambda dim: 2)
+#: a mesh whose expert and tensor axes span two ranks each: experts split over both are not ported (M12)
+EXPERT_TENSOR_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("expert", "tensor"), size=lambda dim: 2)
 
 PROMPT_A, BUDGET_A = [3, 1, 4, 1, 5], 12
 PROMPT_B, BUDGET_B = [2, 7, 1], 10
@@ -507,9 +508,11 @@ def test_speculative_round_failure_is_structured_and_isolated(gpt):
 
 
 def test_unported_modes_raise_naming_their_items(gpt):
-    # a tensor-parallel mesh serves (tests/test_torch_tensor_parallel.py); an fsdp axis is still M12
-    with pytest.raises(NotImplementedError, match="M12"):
-        DecodeEngine(gpt.tmodel, max_len=64, device="cpu", mesh=FSDP_MESH)
+    # tensor, fsdp, sequence and expert axes serve (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_mesh_serving_axes.py); experts over an expert and a tensor axis at once are still M12
+    sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
+        DecodeEngine(sparse, max_len=64, device="cpu", mesh=EXPERT_TENSOR_MESH)
     # telemetry is wired: the engine names its paged attention path and feeds the pool gauges
     tel = Telemetry()
     eng = DecodeEngine(gpt.tmodel, max_len=64, device="cpu", telemetry=tel, kv_quantize="int8")

@@ -31,8 +31,8 @@ from unionml_tpu_torch.models import gpt as tgpt
 from unionml_tpu_torch.serving import ResidentPredictor, serving_app
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
 
-#: a mesh whose fsdp axis spans two ranks: serving over it is not ported (M12)
-FSDP_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("fsdp",), size=lambda dim: 2)
+#: a mesh whose expert and tensor axes span two ranks each: experts split over both are not ported (M12)
+EXPERT_TENSOR_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("expert", "tensor"), size=lambda dim: 2)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "unionml_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
@@ -133,9 +133,11 @@ def test_engine_and_batcher_default_to_cuda_and_raise_without_it(no_cuda):
 
 def test_engine_rejects_unported_modes():
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
-    # a tensor-parallel mesh serves (tests/test_torch_tensor_parallel.py); an fsdp axis is still M12
-    with pytest.raises(NotImplementedError, match="M12"):
-        DecodeEngine(model, mesh=FSDP_MESH, device="cpu")
+    # tensor, fsdp, sequence and expert axes serve (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_mesh_serving_axes.py); experts over an expert and a tensor axis at once are still M12
+    sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
+        DecodeEngine(sparse, mesh=EXPERT_TENSOR_MESH, device="cpu")
     with pytest.raises(ValueError):
         DecodeEngine(model, kv_quantize="int4", device="cpu")
     with pytest.raises(ValueError):

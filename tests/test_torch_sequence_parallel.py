@@ -434,9 +434,12 @@ def test_ring_config_generates_through_the_dense_fallback():
 
 def test_sequence_with_tensor_or_fsdp_and_serving_raise():
     """Sequence parallelism with a tensor or fsdp axis raises naming its
-    ROADMAP item, as does serving a sequence-parallel model over a mesh with
-    a sequence axis; without that axis, serving attends densely and shares
-    the parameters; a mesh that splits rows needs a sequence-parallel config."""
+    ROADMAP item in training, and in serving beside a tensor axis; served
+    over a mesh with a sequence axis (and fsdp, which serving keeps whole)
+    the model keeps its sequence-parallel attention
+    (``tests/test_torch_mesh_serving_axes.py``); without that axis, serving
+    attends densely and shares the parameters; a mesh that splits rows needs
+    a sequence-parallel config."""
     from unionml_tpu_torch.models import make_classifier_train_step
     from unionml_tpu_torch.serving.resident import _serving_attention
 
@@ -450,8 +453,11 @@ def test_sequence_with_tensor_or_fsdp_and_serving_raise():
             step = make_classifier_train_step(mesh=mesh, input_signature=ranks.SIG)
             with pytest.raises(NotImplementedError, match="M12, sequence with tensor/fsdp"):
                 step(create_train_state(model), batch)
-            with pytest.raises(NotImplementedError, match="M12, sequence-parallel serving"):
-                _serving_attention(model, mesh)
+            if "tensor" in axes:
+                with pytest.raises(NotImplementedError, match="M12, sequence with tensor/fsdp"):
+                    _serving_attention(model, mesh)
+            else:
+                assert _serving_attention(model, mesh) is model
         dense_model = init_bert(ranks.bert_config(), device="cpu")
         with pytest.raises(ValueError, match="splits every row"):
             make_classifier_train_step(mesh=mesh, input_signature=ranks.SIG)(create_train_state(dense_model), batch)

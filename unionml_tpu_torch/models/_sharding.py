@@ -14,6 +14,12 @@ dimension 0 of every parameter of the modules it wraps, which for a torch
 flax kernel's input dimension (the same dimension in the port's flipped
 spec would be the last). The values are the same; only where the bytes live
 differs. The weights are not transposed to copy JAX's layout.
+
+Serving lays an ``fsdp`` entry out without FSDP2 (:func:`split_fsdp_weights`,
+for the engines' GPT): each rank keeps a contiguous ``1/N`` of the leaf's
+storage at rest (dimension 0's shard, as FSDP2's), and each decoder block
+all-gathers its pieces into whole buffers shared by the blocks just before
+it computes (:class:`FsdpGather`), inside the engines' captured graphs.
 """
 
 import copy
@@ -131,6 +137,86 @@ def shard_model(model: nn.Module, mesh: Any, specs: Any, tp: Any, tp_modules: Tu
             module.tp = tp
     shard.tp_specs, shard.tp_partial = specs, frozenset(partial)
     return shard, local
+
+
+class FsdpGather:
+    """One decoder block's weights split over the ``fsdp`` axis for serving:
+    this rank keeps, at rest, its ``1/N`` of each split leaf (``pairs``:
+    ``(piece, whole)``, the piece a contiguous ``1/N`` of the leaf's storage,
+    as FSDP2 keeps dimension 0's), and :meth:`gather` all-gathers every
+    piece into its whole buffer just before the block computes. The whole
+    buffers are shared by every block of one shape (:func:`split_fsdp_weights`),
+    so a rank holds one block's weights whole at a time. Over NCCL the
+    gathers are recorded into the engine's captured graphs like the tensor
+    axis's all-reduces. A copy of a module that holds one shares it (a
+    process group cannot be copied)."""
+
+    def __init__(self, group: Any) -> None:
+        self.group = group
+        self.pairs: list = []
+
+    def __deepcopy__(self, memo: dict) -> "FsdpGather":
+        return self
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        gather_into = getattr(torch.distributed, "all_gather_single", None) or torch.distributed.all_gather_into_tensor
+        for piece, whole in self.pairs:
+            gather_into(whole.view(-1), piece, group=self.group)
+
+
+def _fsdp_only(spec: Spec) -> Spec:
+    """``spec`` with only its ``fsdp`` entries kept (one part per dimension)."""
+    return Spec(*(FSDP_AXIS if e == FSDP_AXIS or (isinstance(e, tuple) and FSDP_AXIS in e) else None for e in spec))
+
+
+def split_fsdp_weights(model: nn.Module, tree: dict, specs: dict, mesh: Any,
+                       blocks: Sequence[Tuple[str, nn.Module]]) -> dict:
+    """Split, in place, the weights of ``blocks`` (``(name, module)`` of
+    ``model``, each with an ``fsdp`` attribute) whose spec names ``fsdp``
+    over the mesh's ``fsdp`` axis, for serving: each such leaf's module
+    attribute becomes a whole buffer shared by the blocks (by leaf name
+    within the block, shape and dtype), each block's :class:`FsdpGather`
+    keeps this rank's piece and fills the buffer. An int8 leaf's codes and
+    scales split each by its own spec. Returns ``tree`` with the pieces in
+    place of the split leaves (what this rank holds at rest). Raises JAX's
+    ``ValueError`` where the axis does not divide the dimension the spec
+    names."""
+    from unionml_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    size, index, group = axis_size(mesh, FSDP_AXIS), axis_index(mesh, FSDP_AXIS), mesh.get_group(FSDP_AXIS)
+    shared: dict = {}
+    at_rest = dict(tree)
+
+    def split(key: Tuple[Any, ...], leaf: torch.Tensor, spec: Spec, gather: FsdpGather) -> Tuple[Any, Any]:
+        """``(whole buffer, piece)``, or ``(leaf, leaf)`` for a leaf the spec keeps whole."""
+        if not names_axis(spec, FSDP_AXIS):
+            return leaf, leaf
+        NamedSharding(mesh, _fsdp_only(spec)).shard(torch.empty(leaf.shape, device="meta"))
+        whole = shared.setdefault(key + (tuple(leaf.shape), leaf.dtype), torch.empty_like(leaf))
+        piece = leaf.reshape(-1).chunk(size)[index].clone()
+        gather.pairs.append((piece, whole))
+        return whole, piece
+
+    for prefix, block in blocks:
+        gather = FsdpGather(group)
+        for name, leaf in tree.items():
+            if not name.startswith(prefix + "."):
+                continue
+            owner_name, _, attr = name.rpartition(".")
+            owner = model.get_submodule(owner_name)
+            suffix = name[len(prefix) + 1:]
+            if isinstance(leaf, QuantizedArray):
+                (owner.q, q), (owner.scale, scale) = (split((suffix, "q"), leaf.q, specs[name].q, gather),
+                                                      split((suffix, "scale"), leaf.scale, specs[name].scale, gather))
+                at_rest[name] = QuantizedArray(q=q, scale=scale, dtype=leaf.dtype)
+                continue
+            whole, piece = split((suffix,), leaf, specs[name], gather)
+            if whole is not leaf:
+                setattr(owner, attr, nn.Parameter(whole, requires_grad=False))
+                at_rest[name] = piece
+        block.fsdp = gather if gather.pairs else None
+    return at_rest
 
 
 def fully_shard_model(model: nn.Module, mesh: Any, blocks: Sequence[nn.Module]) -> nn.Module:

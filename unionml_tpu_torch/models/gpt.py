@@ -105,9 +105,16 @@ and a training forward dispatches by ``moe_dispatch`` (see
 holds the same rows and computes the same outside the experts. Sparse
 blocks under a tensor mesh split every expert's hidden width as the dense
 MLP's (``w_in`` column-parallel, ``w_out`` row-parallel, one all-reduce;
-the router replicated). Not ported yet (each raises ``NotImplementedError``
-naming its ROADMAP item): serving over an ``expert`` axis, and decode over
-an ``fsdp`` axis.
+the router replicated). Served (:func:`tensor_parallel`), each rank keeps
+its share (``ep_mesh``'s, or the serving mesh's ``expert`` axis cuts whole
+stacks) and a dropless block sums its experts' outputs over the axis in f32.
+Experts split over an ``expert`` and a ``tensor`` axis at once raise
+``NotImplementedError`` naming its ROADMAP item.
+
+Serving over an ``fsdp`` axis (``gpt.py:981-1026``): each rank keeps its
+``1/N`` of every decoder-block matrix and expert stack at rest, and each
+block all-gathers its weights into shared whole buffers just before it
+computes (inside the engines' captured graphs on the card).
 """
 
 import copy
@@ -404,6 +411,9 @@ class DecoderBlock(nn.Module):
         self.use_moe = use_moe
         #: this rank's share of a tensor-parallel model (:func:`tensor_parallel`)
         self.tp: Optional[TensorParallel] = None
+        #: a serving copy's weights split over ``fsdp``, gathered before each
+        #: forward (:func:`~unionml_tpu_torch.models._sharding.split_fsdp_weights`)
+        self.fsdp: Any = None
 
     def forward(
         self,
@@ -436,6 +446,8 @@ class DecoderBlock(nn.Module):
         routes the chunk through the speculative verify.
         """
         cfg, tp = self.config, self.tp
+        if self.fsdp is not None:
+            self.fsdp.gather()
         batch, seq, _ = hidden.shape
         # a speculative verify chunk takes each position's products at the
         # decode step's shape, so its tokens score as plain decoding scores them
@@ -1024,78 +1036,108 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
                     ) -> Tuple[GPTLMHeadModel, Dict[str, Any]]:
     """``(this rank's model, its weight tree)``: a copy of ``model`` (which
     every rank holds whole, from the same seed or checkpoint, and which is
-    left untouched) whose weights are this rank's shards under
-    :func:`param_shardings`, and whose forward runs the tensor axis's
-    collectives. A mesh without a ``tensor`` axis gives ``model`` itself
-    (every rank computes the same). Where the axis does not divide the heads,
-    ``qkv`` stays whole on every rank. Raises JAX's ``ValueError`` where the
-    axis does not divide a sharded dimension (the vocabulary, the positions,
-    the MLP), and ``NotImplementedError`` for sparse blocks and, unless
-    ``trainable``, for an ``expert`` axis (serving over an expert axis) or
-    another mesh axis than ``data``/``tensor`` of more than one rank
-    (decode over an ``fsdp`` axis), and for experts split over an ``expert``
-    and a ``tensor`` axis at once. Sparse blocks split every expert's hidden
-    width like the dense MLP. ``trainable=True`` (the
-    train step's layout) gives shards that take gradients and leaves the
-    data and fsdp axes to the train step.
+    left untouched) whose weights are this rank's shares under
+    :func:`param_shardings`, and whose forward runs the mesh's collectives.
+    A mesh that splits nothing gives ``model`` itself (every rank computes
+    the same): ``data`` and ``sequence`` axes never split a decode.
+
+    - ``tensor``: the Megatron split (heads, MLP, vocabulary). Where the
+      axis does not divide the heads, ``qkv`` stays whole on every rank.
+      Sparse blocks split every expert's hidden width like the dense MLP.
+    - ``fsdp`` (serving): each rank keeps at rest its ``1/N`` of every leaf
+      whose spec names ``fsdp`` (the decoder blocks' matrices and expert
+      stacks, after the tensor and expert cuts), and each block all-gathers
+      its weights into one whole buffer per shape, shared by the blocks,
+      just before it computes (:func:`~unionml_tpu_torch.models._sharding.split_fsdp_weights`).
+      The tree returned holds the pieces.
+    - ``expert`` (serving): each rank holds ``E / ep`` experts of every
+      sparse block and the dropless layer sums its experts' partial outputs
+      over the axis (:class:`~unionml_tpu_torch.models.moe.MoEMlp`). A model
+      whose ``ep_mesh`` splits its experts keeps its share as it is.
+
+    Raises JAX's ``ValueError`` where an axis does not divide a sharded
+    dimension (the vocabulary, the positions, the MLP, an fsdp-split
+    matrix), and ``NotImplementedError`` for experts split over an
+    ``expert`` and a ``tensor`` axis at once. ``trainable=True`` (the train
+    step's layout) cuts the tensor axis only, into shards that take
+    gradients, and leaves the data, fsdp and expert axes to the train step.
 
     The copy's ``tp_partial`` names the parameters whose gradients are each
     rank's part of a sum over the tensor axis: the row-parallel biases, which
     rank 0 alone adds, and a whole ``qkv`` under an axis that does not divide
     the heads (each rank's attention output feeds only its slice)."""
-    from unionml_tpu_torch.models._sharding import shard_model, weight_tree
+    from unionml_tpu_torch.models._sharding import shard_model, split_fsdp_weights, weight_tree
     from unionml_tpu_torch.ops.quant import QuantizedArray
     from unionml_tpu_torch.parallel.mesh import (
-        DATA_AXIS, EXPERT_AXIS, TENSOR_AXIS, Spec, axis_index, axis_names, axis_size,
+        EXPERT_AXIS, FSDP_AXIS, TENSOR_AXIS, Spec, axis_index, axis_names, axis_size,
     )
 
     cfg = model.config
     names = axis_names(mesh)
-    if not trainable:
-        check_serving_experts(model, mesh)
-    others = [a for a in names if a not in (DATA_AXIS, TENSOR_AXIS) and axis_size(mesh, a) > 1]
-    if others and not trainable:
-        raise NotImplementedError(f"serving over the mesh axes {others} is not ported yet "
-                                  "(ROADMAP: M12, decode over an fsdp axis)")
+    check_serving_experts(model, mesh)
     tree = weight_tree(model)
-    if TENSOR_AXIS not in names:
+    # a model whose ep_mesh splits its experts holds its share already
+    held = cfg.moe_every > 0 and axis_size(cfg.ep_mesh, EXPERT_AXIS) > 1
+    cut_experts = not trainable and cfg.moe_every > 0 and not held and axis_size(mesh, EXPERT_AXIS) > 1
+    # a one-rank fsdp axis splits too (into one piece): a world of 1 runs every line
+    fsdp = not trainable and FSDP_AXIS in names
+    if TENSOR_AXIS not in names and not cut_experts and not fsdp:
         return model, tree
+    tensor = TENSOR_AXIS in names
     n = axis_size(mesh, TENSOR_AXIS)
-    if cfg.moe_every > 0 and n > 1 and (axis_size(mesh, EXPERT_AXIS) > 1 or axis_size(cfg.ep_mesh, EXPERT_AXIS) > 1):
-        raise NotImplementedError("experts split over both an expert and a tensor axis are not ported yet "
-                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
     split_heads = cfg.num_heads % n == 0
     specs = param_shardings(tree, names)
     for name in specs:
+        spec = specs[name]
         # a rank computes its columns' product whole: the column-parallel
         # biases split with their outputs (JAX replicates them and XLA slices)
         column = ".qkv." in name or ".mlp_up." in name
-        if ".qkv." in name and not split_heads:
+        if tensor and ".qkv." in name and not split_heads:
             spec = Spec()
-        elif column and name.endswith("bias"):
+        elif tensor and column and name.endswith("bias"):
             spec = Spec(TENSOR_AXIS, parts=3 if ".qkv." in name else 1)
+        elif held and name.endswith((".w_in", ".w_out")):
+            spec = Spec(None, *spec[1:])
         else:
             continue
         specs[name] = QuantizedArray(q=spec, scale=spec, dtype=tree[name].dtype) \
             if isinstance(tree[name], QuantizedArray) else spec
     tp = TensorParallel(group=mesh.get_group(TENSOR_AXIS), size=n, index=axis_index(mesh, TENSOR_AXIS),
-                        heads=cfg.num_heads // n if split_heads else cfg.num_heads, split_heads=split_heads)
-    partial = {name for name in tree if name.endswith((".attn_out.bias", ".mlp_down.bias"))
-               or (not split_heads and ".qkv." in name)}
-    return shard_model(model, mesh, specs, tp, (GPTLMHeadModel, DecoderBlock, MoEMlp), partial, trainable)
+                        heads=cfg.num_heads // n if split_heads else cfg.num_heads,
+                        split_heads=split_heads) if tensor else None
+    partial = {name for name in tree if tensor and (name.endswith((".attn_out.bias", ".mlp_down.bias"))
+                                                     or (not split_heads and ".qkv." in name))}
+    shard, local = shard_model(model, mesh, specs, tp, (GPTLMHeadModel, DecoderBlock, MoEMlp), partial, trainable)
+    if cut_experts:  # each sparse block runs its share of the experts over the mesh's expert axis
+        for module in shard.modules():
+            if isinstance(module, MoEMlp):
+                module.mesh = mesh
+    if fsdp:
+        local = split_fsdp_weights(shard, local, specs, mesh, [(f"layers.{i}", block)
+                                                               for i, block in enumerate(shard.layers)])
+    return shard, local
 
 
 def check_serving_experts(model: nn.Module, mesh: Any = None) -> None:
-    """Serving runs whole experts on every rank: a serving mesh with an
-    ``expert`` axis, or a model whose sparse blocks hold a share of the
-    experts (``ep_mesh`` over more than one rank), raises naming the piece."""
-    from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_names, axis_size
+    """Serving splits the experts over the serving mesh's ``expert`` axis,
+    or keeps the share a model's ``ep_mesh`` gives each rank: either way its
+    sparse blocks sum their experts' outputs over the ranks, so a model
+    whose experts are split serves only on a mesh (every rank builds the
+    engine and follows rank 0; ``ValueError`` without one). Experts split
+    over an ``expert`` and a ``tensor`` axis at once raise
+    ``NotImplementedError`` naming the piece."""
+    from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, TENSOR_AXIS, axis_size
 
     cfg = getattr(model, "config", None)
-    split = getattr(cfg, "moe_every", 0) > 0 and axis_size(getattr(cfg, "ep_mesh", None), EXPERT_AXIS) > 1
-    if (mesh is not None and EXPERT_AXIS in axis_names(mesh)) or split:
-        raise NotImplementedError("serving over an expert axis is not ported yet "
-                                  "(ROADMAP: M12, serving over an expert axis)")
+    if getattr(cfg, "moe_every", 0) <= 0:
+        return
+    held = axis_size(getattr(cfg, "ep_mesh", None), EXPERT_AXIS)
+    if max(held, axis_size(mesh, EXPERT_AXIS)) > 1 and axis_size(mesh, TENSOR_AXIS) > 1:
+        raise NotImplementedError("experts split over both an expert and a tensor axis are not ported yet "
+                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
+    if held > 1 and mesh is None:
+        raise ValueError(f"this model's experts are split over the {held} ranks of its ep_mesh: serve it on a mesh "
+                         "over the same world (mesh=config.ep_mesh), every rank building the engine")
 
 
 def lm_targets(

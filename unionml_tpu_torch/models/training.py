@@ -425,14 +425,11 @@ class Layout:
     def whole_model(self, params: List[torch.Tensor]) -> nn.Module:
         """The unsplit module with every parameter set to its whole value
         gathered from ``params`` (this rank's shards): a collective. A model
-        whose sparse blocks hold a share of the experts raises (serving runs
-        whole experts on every rank)."""
-        if any(self.expert_split):
-            raise NotImplementedError("serving over an expert axis is not ported yet "
-                                      "(ROADMAP: M12, serving over an expert axis)")
+        whose sparse blocks hold a share of the experts keeps this rank's
+        share (``ep_mesh``'s), which the engines serve over that mesh."""
         whole = dict(self.source.named_parameters())
         for i, (name, local) in enumerate(zip(self.names, params)):
-            value = self.gather(i, local)
+            value = local if self.expert_split[i] else self.gather(i, local)
             if whole[name] is not local:
                 whole[name].copy_(value)
         return self.source

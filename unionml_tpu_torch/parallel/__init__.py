@@ -8,13 +8,16 @@ parallelism over the ``expert`` axis (:mod:`~unionml_tpu_torch.parallel.ep`:
 (:mod:`~unionml_tpu_torch.parallel.ring`) and Ulysses
 (:mod:`~unionml_tpu_torch.parallel.ulysses`), both behind
 :func:`sp_attention`, the one dispatch the model families route through.
-Tensor-parallel generation (``DecodeEngine(mesh=...)``), sharded training
-over the data, fsdp, tensor and sequence axes (``fit(mesh=...,
-param_spec=...)``; ``GPTConfig``/``BertConfig(attention_impl="ring" or
-"ulysses", sp_mesh=mesh)``; the sparse GPT over data×expert,
+Generation over the tensor, fsdp, expert, data and sequence axes
+(``DecodeEngine``/``SpeculativeEngine(mesh=...)``, ``ep_mesh`` models
+included), sharded training over the data, fsdp, tensor and sequence axes
+(``fit(mesh=..., param_spec=...)``; ``GPTConfig``/``BertConfig(attention_impl="ring"
+or "ulysses", sp_mesh=mesh)``; the sparse GPT over data×expert,
 ``GPTConfig(moe_dispatch=, ep_mesh=mesh)``) and the meshed predictor
-(``ResidentPredictor(mesh=...)``) run on these. Not ported yet (ROADMAP:
-M12): pipelines (``pp.py``)."""
+(``ResidentPredictor(mesh=...)``, a ring or Ulysses model over the
+``sequence`` axis included) run on these. Not ported yet (ROADMAP: M12):
+pipelines (``pp.py``), training over more axis combinations (sequence with
+tensor or fsdp, experts with fsdp, tensor or sequence)."""
 
 from unionml_tpu_torch.parallel.distributed import collective_timeout_s, initialize_distributed, is_primary_host
 from unionml_tpu_torch.parallel.dp import batches, data_parallel_eval, data_parallel_step, pad_to_multiple

@@ -548,6 +548,44 @@ def _in_process_moe_a2a(expert_fn: Callable, stacked_params: Any, tokens: torch.
                           normalize_gates=normalize_gates))
 
 
+class _Share:
+    """One simulated rank of :func:`_in_process_dropless`: the ``partial``
+    of ``_apply_topk`` that keeps the rank's f32 partial output for the sum
+    over the ranks instead of reducing it."""
+
+    def __init__(self, size: int) -> None:
+        self.size, self.part = size, None
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        self.part = x
+        return x
+
+
+def _in_process_dropless(expert_fn: Callable, stacked_params: Any, tokens: torch.Tensor, gates: torch.Tensor,
+                         ep_degree: int, *, k: int = 2, normalize_gates: bool = True) -> torch.Tensor:
+    """The dropless layer (``capacity_factor=None``) served over
+    ``ep_degree`` expert ranks simulated in one process (the test seam of
+    the serving path, as :func:`_in_process_moe_a2a` is of training's): rank
+    r runs its slice of the whole ``stacked_params`` over every token, and
+    the ranks' f32 partial outputs are summed, then rounded once, as the
+    all-reduce over the ``expert`` axis does. Returns ``(T, d_out)`` in the
+    tokens' dtype."""
+    _check(gates, stacked_params, k, ep_degree)
+    num_experts = gates.shape[1]
+    local = num_experts // ep_degree
+    total = None
+    for r in range(ep_degree):
+        share = _Share(ep_degree)
+        _apply_topk(expert_fn, _map(lambda p, r=r: p[r * local:(r + 1) * local], stacked_params), tokens, gates,
+                    k=k, capacity_factor=None, normalize_gates=normalize_gates, num_experts=num_experts,
+                    first=r * local, local=local, partial=share)
+        total = share.part if total is None else total + share.part
+    return total.to(tokens.dtype)
+
+
 # ------------------------------------------------------------- plain version
 
 

@@ -87,13 +87,15 @@ slots between steps and evicted when they finish.
   tickets to the fleet (:attr:`ContinuousBatcher.on_tickets_orphaned`,
   :meth:`ContinuousBatcher.adopt_ticket`).
 
-- Tensor parallelism (``mesh=``, ``continuous.py:300-329``): SPMD, one
-  process per card. Every rank builds the engine from the same whole model;
-  each serves its Megatron shard of it
-  (:func:`~unionml_tpu_torch.models.gpt.tensor_parallel`) over a pool and
-  cache of its own heads, so K1 and K4 run at ``num_heads / N`` heads, and
-  the collectives of the tensor axis (NCCL on the card, captured in the burst
-  graphs; gloo on the CPU) give every rank the same logits bit for bit. The
+- Meshes (``mesh=``, ``continuous.py:300-329``): SPMD, one process per
+  card. Every rank builds the engine from the same whole model; each serves
+  its share of it (:func:`~unionml_tpu_torch.models.gpt.tensor_parallel`):
+  its Megatron shard over a ``tensor`` axis, with a pool and cache of its
+  own heads, so K1 and K4 run at ``num_heads / N`` heads; its ``1/N`` of
+  every decoder block's weights over ``fsdp``, all-gathered block by block;
+  its experts over ``expert``, their outputs summed over the axis. The
+  collectives (NCCL on the card, captured in the prefill and burst graphs;
+  gloo on the CPU) give every rank the same logits bit for bit. The
   block tables, the radix index, the scheduler state and the sampling
   generator are host state every rank holds identically, because every rank
   makes the same calls in the same order: rank 0 of the mesh LEADS (each of
@@ -356,10 +358,14 @@ class DecodeEngine:
         output channel, :mod:`unionml_tpu_torch.ops.quant`) from the engine's
         own copy of the model; the caller's model is not modified.
     :param mesh: a ``DeviceMesh`` (:func:`~unionml_tpu_torch.parallel.mesh.make_mesh`)
-        whose ``tensor`` axis the engine serves tensor-parallel over; every
-        rank of the mesh builds the engine with the same arguments, rank 0
-        drives it and the others call :meth:`follow`. ``None`` (default)
-        serves on one device.
+        the engine serves over (:func:`~unionml_tpu_torch.models.gpt.tensor_parallel`):
+        tensor-parallel over its ``tensor`` axis, with each rank's ``1/N`` of
+        the decoder blocks' weights at rest over ``fsdp`` and ``E / ep``
+        experts over ``expert`` (or the share a model's ``ep_mesh`` gives
+        it); ``data`` and ``sequence`` split nothing in decode. Every rank of
+        the mesh builds the engine with the same arguments, rank 0 drives it
+        and the others call :meth:`follow`. ``None`` (default) serves on one
+        device.
     :param device: ``"cuda"`` (default; raises without a CUDA device) or
         ``"cpu"`` for the plain PyTorch path.
     """
@@ -422,8 +428,9 @@ class DecodeEngine:
             model, self._variables = quantize_model(model)
         else:
             self._variables = dict(model.named_parameters())
-        #: the mesh the engine is tensor-parallel over (None: one device); the
-        #: weights it serves are then this rank's shards
+        #: the mesh the engine serves over (None: one device); the weights it
+        #: serves are then this rank's shares, and ``_variables`` holds what
+        #: the rank keeps at rest (an fsdp-split leaf's piece)
         self.mesh = mesh
         check_serving_experts(model, mesh)
         if mesh is not None:

@@ -40,10 +40,22 @@ bucket, with the tensor axis's collectives captured in it. The parameters
 are replicated, or laid out by ``param_specs``: for the port's BERT and GPT
 (a module, or a ``TrainState`` holding one) a spec that names ``tensor`` is
 the family's ``param_shardings`` and the model runs its tensor-parallel
-forward (``tensor_parallel``); ``fsdp`` entries are served whole (FSDP2 is a
-training layout). Unlike XLA, eager PyTorch cannot split an arbitrary
+forward (``tensor_parallel``); a GPT's decoder blocks split over ``fsdp``
+as the engines split them, BERT's ``fsdp`` entries are served whole (FSDP2 is
+a training layout). Unlike XLA, eager PyTorch cannot split an arbitrary
 callable, so a spec that names ``tensor`` for any other model object raises
 ``ValueError``; replicated data-parallel serving works for every predictor.
+
+A BERT or GPT whose config splits rows over a ``sequence`` axis (ring or
+Ulysses attention over its ``sp_mesh``) serves as it is over a mesh with
+that axis (``resident.py:213-260``): each request's token arrays are cut
+into the ranks' chunks (the sequence ladder's rungs must be multiples of the
+axis size, else JAX's ``ValueError``; without a ladder the rows pad up to
+one), BERT's pooler reads ``[CLS]`` on every rank and a GPT's per-chunk
+logits are gathered back into whole rows. Ulysses (all-to-alls) replays
+graphs as any model does; a ring over several ranks runs eagerly
+(:attr:`ResidentPredictor.mode`), its point-to-point hops not being
+recorded into graphs. Over any other mesh such a model attends densely.
 """
 
 import dataclasses
@@ -161,25 +173,48 @@ def _mesh_layout(model_object: Any, mesh: Any, param_specs: Any) -> Any:
     return shard if isinstance(model_object, nn.Module) else dataclasses.replace(model_object, model=shard)
 
 
-def _serving_attention(model_object: Any, mesh: Any) -> Any:
-    """``model_object`` as serving runs it: a BERT or GPT whose config splits
-    rows over a ``sequence`` axis (``attention_impl`` ring or ulysses) attends
-    densely (a request's rows arrive whole), sharing its parameters; served
-    over a mesh that has a ``sequence`` axis, it raises."""
-    from unionml_tpu_torch.models._layers import SEQUENCE_IMPLS, dense_attention_copy
-    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, axis_names
+def _sequence_config(model_object: Any) -> Any:
+    """The config of the BERT or GPT ``model_object`` computes with when it
+    splits rows over a ``sequence`` axis (``attention_impl`` ring or
+    ulysses), else None."""
+    from unionml_tpu_torch.models._layers import SEQUENCE_IMPLS
 
-    module = _serving_module(model_object)
-    cfg = getattr(module, "config", None)
-    if getattr(cfg, "attention_impl", None) not in SEQUENCE_IMPLS:
+    cfg = getattr(_serving_module(model_object), "config", None)
+    return cfg if getattr(cfg, "attention_impl", None) in SEQUENCE_IMPLS else None
+
+
+def _serving_attention(model_object: Any, mesh: Any) -> Any:
+    """``model_object`` as serving runs it. A BERT or GPT whose config splits
+    rows over a ``sequence`` axis (``attention_impl`` ring or ulysses) is
+    served as it is over a mesh with a ``sequence`` axis the size of its
+    ``sp_mesh``'s (the predictor cuts each request's tokens into the
+    ranks' chunks); over any other mesh, or none, it attends densely (a
+    request's rows arrive whole), sharing its parameters. A ``sequence``
+    axis beside a ``tensor`` axis of more than one rank raises, as in
+    training; one of another size than ``sp_mesh``'s raises ``ValueError``."""
+    from unionml_tpu_torch.models._layers import dense_attention_copy
+    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, TENSOR_AXIS, axis_names, axis_size, sequence_size
+
+    cfg = _sequence_config(model_object)
+    if cfg is None:
         return model_object
     if mesh is not None and SEQUENCE_AXIS in axis_names(mesh):
-        raise NotImplementedError(
-            f"serving a sequence-parallel model (attention_impl={cfg.attention_impl!r}) over a mesh with a "
-            f"{SEQUENCE_AXIS!r} axis is not ported yet (ROADMAP: M12, sequence-parallel serving); serve it over a "
-            "mesh without that axis, where it attends densely")
-    dense = dense_attention_copy(module)
+        if axis_size(mesh, TENSOR_AXIS) > 1:
+            raise NotImplementedError(
+                f"sequence parallelism on a mesh with a tensor axis ({axis_names(mesh)}) is not ported yet "
+                "(ROADMAP: M12, sequence with tensor/fsdp)")
+        if sequence_size(cfg.sp_mesh) != sequence_size(mesh):
+            raise ValueError(f"attention_impl={cfg.attention_impl!r} serves on a mesh with a {SEQUENCE_AXIS!r} axis "
+                             f"the size of sp_mesh's ({sequence_size(cfg.sp_mesh)}), not {sequence_size(mesh)}")
+        return model_object
+    dense = dense_attention_copy(_serving_module(model_object))
     return dense if isinstance(model_object, nn.Module) else dataclasses.replace(model_object, model=dense)
+
+
+def _is_sequence_leaf(a: Any) -> bool:
+    """Dim 1 of a feature leaf is a sequence: an integer leaf of rank >= 2
+    (token ids, masks) or a leaf of rank >= 3 (batch, seq, features)."""
+    return a.ndim >= 2 and (_is_integer(a) or a.ndim >= 3)
 
 
 class ResidentPredictor:
@@ -233,6 +268,19 @@ class ResidentPredictor:
         self._warmup = warmup
         self._predictor_fn = None
         self._device_model_object = None
+        #: the ``sequence`` axis a ring or Ulysses model is served over (a
+        #: ``SequenceParallel``; None when rows run whole): each request's
+        #: token arrays are cut into the ranks' chunks
+        self._sequence = None
+        #: the model's outputs are per position (a GPT's logits): gathered
+        #: over the sequence axis back into whole rows
+        self._per_position = False
+        #: a ring over several ranks runs eagerly on the card: its
+        #: point-to-point hops are not recorded into graphs (decided at set-up
+        #: from the model's config, never by a failed capture)
+        self._eager_mode = False
+        #: requests served eagerly by that mode
+        self.eager_requests = 0
         # serializes setup(): predict() runs on executor threads, and several
         # first requests can race into the lazy init — exactly one may place
         # the artifact on the device and warm it (the rest wait, then see _ready)
@@ -250,7 +298,18 @@ class ResidentPredictor:
 
     @property
     def uses_graphs(self) -> bool:
-        return self._predictor_fn is not None and self._device.type == "cuda"
+        return self._predictor_fn is not None and self._device.type == "cuda" and not self._eager_mode
+
+    @property
+    def mode(self) -> str:
+        """How requests run: ``"graphs"`` (one CUDA graph per padded shape),
+        ``"eager"`` (the card, without graphs: a ring over several ranks),
+        ``"cpu"``, or ``"opaque"`` (``model.predict``; also before set-up)."""
+        if self._predictor_fn is None:
+            return "opaque"
+        if self._device.type != "cuda":
+            return "cpu"
+        return "eager" if self._eager_mode else "graphs"
 
     def device_stats(self) -> dict:
         """Percentiles of the per-request wall time of warm shapes."""
@@ -295,6 +354,15 @@ class ResidentPredictor:
                 placed = _serving_attention(_place(_whole(model_object), self._device), self._mesh)
                 if self._mesh is not None:
                     placed = _mesh_layout(placed, self._mesh, self._param_specs)
+                cfg = _sequence_config(placed)
+                if cfg is not None:  # served sequence-parallel (see _serving_attention)
+                    from unionml_tpu_torch.models._layers import SequenceParallel
+                    from unionml_tpu_torch.models.gpt import GPTLMHeadModel
+                    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS
+
+                    self._sequence = SequenceParallel.of(cfg.sp_mesh, SEQUENCE_AXIS)
+                    self._per_position = isinstance(_serving_module(placed), GPTLMHeadModel)
+                    self._eager_mode = cfg.attention_impl == "ring" and self._sequence.size > 1
                 self._device_model_object = placed  # graftlint: disable=data-race -- published once under _setup_lock; readers run only after the _ready check, which happens-after this write
                 self._predictor_fn = getattr(predictor, "fn", predictor)  # graftlint: disable=data-race -- published once under _setup_lock, as above
                 if self._warmup:
@@ -365,11 +433,55 @@ class ResidentPredictor:
 
         return _pytree.tree_map(gather, predictions)
 
-    def _forward(self, padded: Any, bucket: int) -> Any:
+    def _cut(self, local: Any) -> Tuple[Any, int]:
+        """``(this rank's chunk of every sequence leaf, the chunk's length)``
+        for a model served over a ``sequence`` axis (``(local, 0)`` for any
+        other). Raises JAX's ``ValueError`` where the axis does not divide a
+        padded sequence (a ladder it cannot divide)."""
+        if self._sequence is None or not isinstance(local, dict):
+            return local, 0
+        n, index, chunk = self._sequence.size, self._sequence.index, 0
+
+        def cut(leaf: Any) -> Any:
+            nonlocal chunk
+            if not isinstance(leaf, torch.Tensor) or not _is_sequence_leaf(leaf):
+                return leaf
+            if leaf.shape[1] % n:
+                raise ValueError(
+                    f"the padded sequence of shape {tuple(leaf.shape)} (seq_buckets {self._seq_buckets}) is not evenly "
+                    f"divisible by the corresponding mesh axis sizes: the 'sequence' axis has {n} ranks, and "
+                    f"{n} does not evenly divide {leaf.shape[1]}")
+            chunk = leaf.shape[1] // n
+            return leaf[:, index * chunk:(index + 1) * chunk].contiguous()
+
+        return _pytree.tree_map(cut, local), chunk
+
+    def _join(self, out: Any, chunk: int) -> Any:
+        """A per-position model's outputs for this rank's chunk gathered over
+        the ``sequence`` axis back into whole rows (dimension 1, in rank
+        order); any other model's outputs are every rank's alike."""
+        if not self._per_position or self._sequence.size == 1:
+            return out
+
+        def gather(leaf: Any) -> Any:
+            if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2 or leaf.shape[1] != chunk:
+                return leaf
+            pieces = [torch.empty_like(leaf) for _ in range(self._sequence.size)]
+            dist.all_gather(pieces, leaf.contiguous(), group=self._sequence.group)
+            return torch.cat(pieces, dim=1)
+
+        return _pytree.tree_map(gather, out)
+
+    def _forward(self, padded: Any, bucket: int, eager: bool = False) -> Any:
         """The predictor on a padded bucket: this rank's rows of it (gathered
-        back) where the batch's ranks divide it, else all of it."""
+        back) where the batch's ranks divide it, else all of it; over a
+        ``sequence`` axis, this rank's chunk of every row (a GPT's chunks
+        gathered back). ``eager`` runs it without a graph."""
         local, split = self._split(padded, bucket)
-        out = self._run(local)
+        local, chunk = self._cut(local)
+        out = self._eager(self._device_model_object, local) if eager else self._run(local)
+        if chunk:
+            out = self._join(out, chunk)
         return self._gather(out) if split else out
 
     def _warm(self) -> None:
@@ -447,15 +559,15 @@ class ResidentPredictor:
             pad = [(0, 0)] * a.ndim
             if bucket != n:
                 pad[0] = (0, bucket - n)
-            # dim 1 is a sequence axis for integer leaves (token ids / masks) and
-            # rank>=3 leaves (batch, seq, features); a rank-2 FLOAT leaf is a flat
-            # feature matrix whose width must never be padded
-            is_seq_leaf = _is_integer(a) or a.ndim >= 3
-            if self._seq_buckets is not None and a.ndim >= 2 and is_seq_leaf and is_multi_input:
+            # a rank-2 FLOAT leaf is a flat feature matrix whose width must never be padded
+            if self._seq_buckets is not None and _is_sequence_leaf(a) and is_multi_input:
                 seq = a.shape[1]
                 seq_bucket = _ladder_value(self._seq_buckets, seq)
                 if seq_bucket != seq:
                     pad[1] = (0, seq_bucket - seq)
+            elif self._sequence is not None and _is_sequence_leaf(a) and is_multi_input:
+                # no ladder: the rows round up to a multiple of the sequence axis
+                pad[1] = (0, -a.shape[1] % self._sequence.size)
             if any(p != (0, 0) for p in pad):
                 a = F.pad(a, [side for lo_hi in reversed(pad) for side in lo_hi])
             padded.append(a.contiguous())
@@ -473,7 +585,9 @@ class ResidentPredictor:
         :class:`~unionml_tpu_torch._graphs.CaptureError` once per shape whose
         capture fails; that shape runs eagerly from then on."""
         call = (self._device_model_object, padded)
-        if self._device.type != "cuda":
+        if self._device.type != "cuda" or self._eager_mode:
+            if self._eager_mode:
+                self.eager_requests += 1
             return self._eager(*call)
         graph = self._cache.lookup(_graphs.signature(call), self._eager, call, {})
         if graph is None:
@@ -516,9 +630,7 @@ class ResidentPredictor:
             predictions = self._forward(padded, bucket)
         except _graphs.CaptureError as exc:
             logger.info("Resident capture failed (%s); this shape is served eagerly.", exc)
-            local, split = self._split(padded, bucket)
-            predictions = self._eager(self._device_model_object, local)
-            predictions = self._gather(predictions) if split else predictions
+            predictions = self._forward(padded, bucket, eager=True)
         predictions = to_host(predictions)  # the fetch is the device barrier
         elapsed_ms = (time.perf_counter() - t0) * 1e3
         with self._device_times_lock:
