@@ -230,8 +230,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launches in (1) ride the kernels line as ``launches_telemetry``.
 
 16. the engine fleet (``serving/fleet.py``) and the fleet simulator
-   (``sim/``): two replicas of phase 13's engine (GPT-2 small bf16, int8
-   pool, 8 slots each) sharing the one card, each on its own CUDA stream and
+   (``sim/``): two replicas of phase 13's engine (GPT-2 small's width cut
+   to 4 blocks, bf16, int8 pool, 8 slots each) sharing the one card, each on its own CUDA stream and
    worker thread, supervised, lookahead 8, behind the prefix-affinity router.
    Traffic is ``bench_serving.py::bench_fleet``'s mix at this width, cut to 4
    groups x 4 requests sharing a 384-token prefix, 6..24-token suffixes,
@@ -338,7 +338,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    loss within 1e-6 relative, gradients within 1e-4. (2) The host-to-device
    copy of a ``dict_batches``-fed BERT and LM step (its ``Memcpy HtoD``
    device ms and the wall), then ``fit`` (BERT-base B64 S128) and ``fit_lm``
-   (GPT-2 small B8 S1024 packed), 10 steps each, with ``prefetch`` off and
+   (GPT-2 small B8 S1024 packed), both cut to 4 blocks, 10 steps each, with ``prefetch`` off and
    on (walls in turns off, on, on, off; one profiled call each for device
    ms, idle share and copies); every loss of the first 3 f32 steps identical
    between the arms; a ``PrefetchLoader`` over seeded float32 rows with a
@@ -449,8 +449,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bitwise the unmeshed ``ResidentPredictor``'s, a graph per bucket with
    the tensor axis's collectives in it, replay ms beside eager ms. K1-K3's
    launches of these ride the kernels line as ``launches_sharded_training``
-   (with (a)'s). (a) 3 steps under ``{"data": 1}``, ``{"fsdp": 1}`` and
-   ``{"data": 1, "tensor": 1}`` against the unmeshed steps, f32 and bf16:
+   (with (a)'s). (a) At 4 of the 12 blocks, 3 steps under ``{"data": 1}``,
+   ``{"fsdp": 1}`` and ``{"data": 1, "tensor": 1}`` against the unmeshed steps, f32 and bf16:
    bitwise, or else the reason printed and the f32 (1e-4 of each leaf's
    largest magnitude) and bf16 (loss 1e-2, ``grad_norm`` 2 %) gates; a bf16
    step's wall and device ms per mesh. (b) K1 (``kv_lens``), K2 and K3 at a
@@ -537,6 +537,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against its plain version. K1 and K4 are held against their plain
    versions at the served shapes; their launches around
    the meshed drives ride the kernels line as ``launches_mesh_serving``.
+27. the sequence axis beside tensor, fsdp and sparse blocks
+   (``parallel/ulysses.py``'s heads over a tensor axis, ``parallel/mesh.py::fsdp_mesh``
+   over data×sequence, ``parallel/ep.py::_global_slots``). (a) A world of one
+   rank over NCCL: 2 ``fit_lm`` steps of GPT-2 small (B1 S4096) with ring and
+   with Ulysses, and 2 ``fit`` steps of BERT-base with ring (B16 S512), on
+   ``{"sequence": 1, "tensor": 1}`` and ``{"fsdp": 1, "sequence": 1}`` laid
+   out by ``param_shardings``, each bitwise the same impl on ``{"sequence":
+   1}`` (losses and the whole state); phase 25's sparse model with ring on
+   ``{"sequence": 1}`` bitwise its unmeshed arm (B8 S1024 right-padded
+   rows, router losses on). K1-K3 launch once per layer and step in each
+   arm; the composed and sparse arms' launches ride the kernels line as
+   ``launches_27``. (b) The ring of 4 chunks in one process at a tensor
+   rank's heads (GPT-2 small S4096 at H6 and H3, f32 and bf16, causal and
+   not) against the plain fold and one ``flash_attention``, as phase 24's
+   (a); K1-K3 at a Ulysses rank's shapes (B1 H3 and H6 S4096 causal) against
+   their plain versions, f32 and bf16; and the timings of both: K1-K3 at
+   one ring block of H6 and H3 (diagonal and full) and at the Ulysses
+   shapes, with bound, share, plain and SDPA times. (c) Where the machine
+   has 4 cards: worlds of 4 over NCCL on ``{"sequence": 2, "tensor": 2}``
+   and ``{"fsdp": 2, "sequence": 2}`` (3 ring and 3 Ulysses steps of GPT-2
+   small, vocabulary 50304) and on ``{"data": 2, "fsdp": 2}`` (3 steps,
+   dense attention, FSDP2 over the rebuilt (replicate, fsdp) mesh), each
+   against rank 0's one-card dense steps: every step's loss within 1e-4
+   and ``grad_norm`` within 3e-3, relative; phase 25's sparse model in f32
+   with ring on ``{"data": 2, "sequence": 2}`` and ``{"sequence": 2,
+   "data": 2}`` (the batch's ranks out of the mesh's order), 3 steps under
+   the same gates, and the first step's kept choices of every sparse layer
+   those of one card on the whole batch (at most 16 differ). Each world
+   runs under its own time limit with a progress line per step.
 
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
@@ -3344,6 +3373,7 @@ def telemetry_phase(device, config=None) -> dict:
 # 13's 384-token system prompt, a unique 6..24-token suffix each, groups
 # interleaved, one request in four interactive
 FLEET_GROUPS, FLEET_PER_GROUP, FLEET_NEW, FLEET_LOOKAHEAD = 4, 4, 32, 8
+FLEET_LAYERS = 4  # depth cut for the script's time: GPT-2 small's width, 4 of its 12 blocks
 # the exact-path and f32 arms' requests per group, cut for time (PERF.md section 4)
 FLEET_EXACT_PER_GROUP = FLEET_F32_PER_GROUP = 2
 FLEET_SESSIONS, FLEET_TURNS, FLEET_TURN_NEW = 4, 3, 16
@@ -3826,7 +3856,7 @@ def fleet_phase(device, config=None) -> dict:
     from unionml_tpu_torch.models import GPTConfig, init_gpt, random_params
 
     t0 = time.perf_counter()
-    config = config or GPTConfig()  # GPT-2 small
+    config = config or GPTConfig(num_layers=FLEET_LAYERS)  # GPT-2 small's width
     params = random_params(config, seed=0)
     out, parts, tally = {}, {}, {}
 
@@ -4625,6 +4655,7 @@ def report_dense_int8(di: dict, name_limit: str) -> None:
 TR_STEPS = 3  # fit_lm steps per remat arm
 PF_STEPS = 10  # steps per fit call of a prefetch arm
 PF_PROFILED = 5  # profiled dict_batches-fed steps for the host-to-device copy
+PF_LAYERS = 4  # depth cut for the script's time: BERT-base's and GPT-2 small's widths, 4 of their 12 blocks
 PACK_SEQS, PACK_LENS, PACK_WAIT_S = 65_536, (16, 1024), 900.0
 TEMPLATE_DIR = Path(__file__).resolve().parent / "build" / "templates"
 #: template: (reader kwargs, trainer kwargs), the step counts cut to fit the phase
@@ -4901,8 +4932,9 @@ def fit_arm(make_state, run, prefetch: bool, profile: bool) -> dict:
 def prefetch_part(device, total: dict) -> dict:
     """Phase 19 (3): the host-to-device copy of a ``dict_batches``-fed step,
     then ``fit`` (BERT-base B64 S128) and ``fit_lm`` (GPT-2 small B8 S1024,
-    packed) with ``prefetch`` off and on; the f32 losses of the first 3 steps
-    identical between the arms; the bf16 conversion into a pinned slot."""
+    packed), both at ``PF_LAYERS`` blocks, with ``prefetch`` off and on;
+    the f32 losses of the first 3 steps identical between the arms; the
+    bf16 conversion into a pinned slot."""
     from unionml_tpu_torch import kernels
     from unionml_tpu_torch.models import (
         BertConfig, GPTConfig, bert_random_params, dict_batches, fit, fit_lm, make_classifier_train_step,
@@ -4913,7 +4945,7 @@ def prefetch_part(device, total: dict) -> dict:
 
     if not native_available():
         raise AssertionError("the native library did not build: fit(prefetch=True) would gather in Python")
-    bert_cfg, lm_cfg = BertConfig.base(), GPTConfig()
+    bert_cfg, lm_cfg = dataclasses.replace(BertConfig.base(), num_layers=PF_LAYERS), GPTConfig(num_layers=PF_LAYERS)
     bert_params, lm_params = bert_random_params(bert_cfg, seed=0), random_params(lm_cfg, seed=0)
     bert_rows = bert_data(bert_cfg, rows=8 * BERT_BATCH)
     corpus = lm_corpus(LM_SEQS, LM_SEQ)
@@ -6148,6 +6180,7 @@ def report_tensor_parallel(tp: dict, name_limit: str) -> None:
 # ---------------------------------------------------------- sharded training
 
 ST_STEPS = 3  # train steps per arm of (a)
+ST_LAYERS = 4  # (a)'s depth cut for the script's time: BERT-base's width, 4 of its 12 blocks
 ST_MESHES = ({"data": 1}, {"fsdp": 1}, {"data": 1, "tensor": 1})
 ST_HEADS = (6, 4, 3)  # BERT-base's heads per rank on tensor axes of 2, 3 and 4
 ST_BATCHES = (32, 16)  # a rank's rows of the B64 batch on batch axes of 2 and 4
@@ -6256,13 +6289,17 @@ def st_gate(label: str, dtype, got, want) -> dict:
     return {"bitwise": False, "worst_relative": worst}
 
 
-def st_meshes(device, config, params, batch, launches) -> dict:
-    """(a): BERT-base at full width, ``ST_STEPS`` steps under each mesh of
-    ``ST_MESHES`` (one rank, over NCCL) against the unmeshed steps, f32 and
-    bf16; the bf16 arms' step wall and device ms over 3 more steps."""
+def st_meshes(device, config, batch, launches) -> dict:
+    """(a): BERT-base at full width and ``ST_LAYERS`` blocks, ``ST_STEPS``
+    steps under each mesh of ``ST_MESHES`` (one rank, over NCCL) against
+    the unmeshed steps, f32 and bf16; the bf16 arms' step wall and device
+    ms over 3 more steps."""
     from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import bert_random_params
     from unionml_tpu_torch.parallel import make_mesh
 
+    config = dataclasses.replace(config, num_layers=ST_LAYERS)
+    params = bert_random_params(config, seed=0)
     out, timings = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         cfg = dataclasses.replace(config, dtype=dtype)
@@ -6606,7 +6643,7 @@ def sharded_training_phase(device, config=None) -> dict:
     initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device)
     try:
         for name, part in (("main_path", lambda: st_app(device, config, params, launches)),
-                           ("meshes", lambda: st_meshes(device, config, params, batch, launches)),
+                           ("meshes", lambda: st_meshes(device, config, batch, launches)),
                            ("template", lambda: st_template(device))):
             t = time.perf_counter()
             out[name] = part()
@@ -6728,7 +6765,8 @@ def sp_in_process(device, case: dict, dtype, lens=None) -> dict:
     if fwd_launches["flash_fwd"] != blocks or any(launches[n] != blocks for n in SP_KERNELS):
         raise AssertionError(f"in-process ring {case}: launches {launches} (forward {fwd_launches['flash_fwd']}), "
                              f"expected {blocks} of each")
-    label = f"in-process ring N={SP_CHUNKS} {dtype} B{B} H{H} S{S} D{D} {'causal' if causal else 'kv_lens'}"
+    label = (f"in-process ring N={SP_CHUNKS} {dtype} B{B} H{H} S{S} D{D} "
+             f"{'causal' if causal else ('kv_lens' if lens is not None else 'full')}")
     f32 = [x.detach().float().requires_grad_() for x in (q, k, v)]
     plain = torch.cat(reference_ring_attention(*chunks(f32), kv_lens=kv_lens, causal=causal), dim=2)
     plain_grads = torch.autograd.grad(plain, f32, d_out.float())
@@ -6776,11 +6814,11 @@ def sp_bert_data(config, rows: int, seed: int = 24) -> dict:
     return {"input_ids": ids, "attention_mask": mask, "labels": rng.integers(0, config.num_labels, rows).astype(np.int32)}
 
 
-def sp_arm(make_state, run, step_fn, batch) -> tuple:
+def sp_arm(make_state, run, step_fn=None, batch=None) -> tuple:
     """One arm of (b): ``run(state)`` (a ``fit`` call) from a fresh state,
     with the launch counts set to 0 just before and read just after; its
-    logged metrics, whole state, launches, and the ``step_profile`` of 2
-    more steps of ``step_fn`` on ``batch``."""
+    logged metrics, whole state, launches, and (given ``step_fn``) the
+    ``step_profile`` of 2 more steps of ``step_fn`` on ``batch``."""
     from unionml_tpu_torch import kernels
 
     state = make_state()
@@ -6795,7 +6833,7 @@ def sp_arm(make_state, run, step_fn, batch) -> tuple:
     def one():
         holder[0], _ = step_fn(holder[0], batch)
 
-    timing = step_profile(one, 2, top=3)
+    timing = step_profile(one, 2, top=3) if step_fn is not None else None
     del holder, result, state
     torch.cuda.empty_cache()
     return history, whole, timing, launches
@@ -6858,20 +6896,21 @@ def sp_main_path(device, launches: dict) -> dict:
     return out
 
 
-def sp_block_records(device, causal: bool) -> list:
+def sp_block_records(device, causal: bool, H: int = 12, L: int = SP_LM_SEQ // SP_CHUNKS, what: str = "") -> list:
     """(c): K1, K2 and K3 at one ring block (bf16 B1 H12 1024 x 1024 D64),
     the diagonal (causal) or a full block, with their bounds (as
-    ``time_bert_kernels`` counts them), plain versions and SDPA."""
+    ``time_bert_kernels`` counts them), plain versions and SDPA. Phase 27
+    takes other heads and lengths (``what`` names the shape)."""
     from unionml_tpu_torch.ops.attention import (
         flash_attention, flash_attention_backward, reference_attention, reference_attention_backward,
     )
 
-    B, H, L, D = 1, 12, SP_LM_SEQ // SP_CHUNKS, 64
+    B, D = 1, 64
     q, k, v, d_out, _ = bwd_inputs(B, H, L, D, torch.bfloat16, device, None, seed=25)
     d_out = d_out.contiguous()
     visible = H * (L * (L + 1) // 2 if causal else L * L)
     numel, size = q.numel(), q.element_size()
-    shape = f"bf16 B{B} H{H} {L}x{L} D{D} ring {'diagonal block (causal)' if causal else 'full block'}"
+    shape = f"bf16 B{B} H{H} {L}x{L} D{D} " + (what or f"ring {'diagonal block (causal)' if causal else 'full block'}")
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     k1_err = check_close(f"K1 {shape}", out, reference_attention(q, k, v, causal=causal))
     bound, by = _bound(4 * numel * size + lse.numel() * 4, 4 * D * visible)
@@ -7711,6 +7750,443 @@ def report_mesh_serving(ms: dict, name_limit: str) -> None:
           f"({ {k: round(v, 1) for k, v in ms['parts_s'].items()} })")
 
 
+# ------------------------------------- phase 27: the sequence axis beside tensor, fsdp and sparse blocks
+
+SA_STEPS = 2
+SA_MESHES = ({"sequence": 1, "tensor": 1}, {"fsdp": 1, "sequence": 1})
+SA_HEADS = (6, 3)  # a tensor rank's share of GPT-2 small's 12 heads on axes of 2 and 4
+#: the heads a Ulysses rank attends over at S4096: (12 / T) / S, or 12 / S where S does not divide 12 / T
+#: (the chunk's heads gathered over the tensor axis): 3 at (T, S) = (2, 2), (2, 4), (4, 4); 6 at (4, 2)
+SA_ULYSSES_HEADS = (3, 6)
+#: (c)'s dense worlds: the composed meshes, and data×fsdp through fsdp_mesh's (replicate, fsdp) mesh
+SA_MULTI = ({"sequence": 2, "tensor": 2}, {"fsdp": 2, "sequence": 2}, {"data": 2, "fsdp": 2})
+#: (c)'s sparse worlds: the batch's ranks listed in the batch's order (data, sequence) and out of it
+SA_MULTI_SPARSE = ({"data": 2, "sequence": 2}, {"sequence": 2, "data": 2})
+SA_MULTI_ROWS, SA_MULTI_STEPS = 2, 3  # rows at least (as many as the batch's ranks), steps
+SA_SPARSE_ROWS = 4  # the sparse worlds' rows of 1024 positions
+#: (c)'s gates, relative to the one-card arm at every step: the loss and grad_norm (the first 4-card
+#: run of the composed meshes agreed within 1.6e-5 and 7.5e-4)
+SA_LOSS_RTOL, SA_NORM_RTOL = 1e-4, 3e-3
+#: the f32 sparse worlds' kept choices that may differ from one card's (a near-tie flipped by the ring's
+#: rounding); a wrong order of the count tables moves a whole block's
+SA_KEEP_SLACK = 16
+SA_MULTI_LIMIT_S = 300  # each world's own limit: its ranks exit on their own after it, the script kills them then
+SA_VOCAB = 50304  # GPT-2's vocabulary padded to a multiple of the tensor axis (50257 raises JAX's ValueError)
+SA_DIR = Path(__file__).resolve().parent / "build" / "sequence_axes"
+
+
+def sa_specs(state, mesh):
+    """The BERT or GPT family's ``param_shardings`` over ``mesh``'s axes for ``state``'s model."""
+    from unionml_tpu_torch.models.training import _family
+    from unionml_tpu_torch.parallel.mesh import axis_names
+
+    return _family(state.model)[1](dict(state.model.named_parameters()), axis_names(mesh))
+
+
+def sa_bitwise(label: str, got: tuple, want: tuple, expected: dict, launches: dict) -> dict:
+    """A composed arm (``sp_arm``'s tuple) bitwise its plain arm (losses and
+    the whole state), its launches the schedule's, summed into the phase's
+    counts."""
+    hist, whole, _, got_launches = got
+    if got_launches != expected:
+        raise AssertionError(f"phase 27 {label}: launches {got_launches}, expected {expected}")
+    if hist != want[0] or not st_equal(whole, want[1]):
+        raise AssertionError(f"phase 27 {label} at a world of 1: not bitwise its plain arm (losses "
+                             f"{[h['loss'] for h in hist]} vs {[h['loss'] for h in want[0]]})")
+    _launch_sum(launches, got_launches)
+    return {"bitwise": True, "losses": [h["loss"] for h in hist]}
+
+
+def sa_arms(device, launches: dict) -> dict:
+    """(a): GPT-2 small ring and Ulysses ``fit_lm`` (B1 S4096) and BERT-base
+    ring ``fit`` (B16 S512) on each of ``SA_MESHES``, laid out by
+    ``param_shardings``, against the same impl on ``{"sequence": 1}``; phase
+    25's sparse model (4 blocks, 2 sparse) with ring on ``{"sequence": 1}``
+    against its unmeshed dense-attention arm (B8 S1024 right-padded rows)."""
+    from unionml_tpu_torch.models import BertConfig, GPTConfig, bert_random_params, fit, fit_lm, random_params
+    from unionml_tpu_torch.parallel import make_mesh
+
+    plain = make_mesh({"sequence": 1}, device=device.type)
+    meshes = [(json.dumps(axes), make_mesh(axes, device=device.type)) for axes in SA_MESHES]
+    out = {}
+    gpt = GPTConfig(max_position_embeddings=SP_LM_SEQ)
+    gpt_params = random_params(gpt, seed=0)
+    corpus = sp_lm_corpus()
+
+    def lm_run(mesh, spec: bool):
+        def run(state):
+            return fit_lm(state, corpus, seq_len=SP_LM_SEQ, batch_size=1, pack=False, num_steps=SA_STEPS, mesh=mesh,
+                          param_spec=sa_specs(state, mesh) if spec else None, log_every=1, seed=0)
+        return run
+
+    expected = {n: gpt.num_layers * SA_STEPS for n in SP_KERNELS}
+    for impl in ("ring", "ulysses"):
+        want = sp_arm(lambda: lm_state(dataclasses.replace(gpt, sp_mesh=plain), gpt_params, device, impl),
+                      lm_run(plain, False))
+        for label, mesh in meshes:
+            got = sp_arm(lambda: lm_state(dataclasses.replace(gpt, sp_mesh=mesh), gpt_params, device, impl),
+                         lm_run(mesh, True))
+            out[f"gpt {impl} {label}"] = sa_bitwise(f"GPT-2 small {impl} {label}", got, want, expected, launches)
+            del got
+        del want
+    del gpt_params
+    bert = BertConfig.base(num_labels=2)
+    bert_params = bert_random_params(bert, seed=0)
+    data = sp_bert_data(bert, 2 * SP_BERT_BATCH)
+
+    def bert_run(mesh, spec: bool):
+        def run(state):
+            return fit(state, data, batch_size=SP_BERT_BATCH, num_steps=SA_STEPS, mesh=mesh,
+                       param_spec=sa_specs(state, mesh) if spec else None, input_signature=BERT_SIG, log_every=1)
+        return run
+
+    want = sp_arm(lambda: bert_state(dataclasses.replace(bert, sp_mesh=plain), bert_params, device, "ring"),
+                  bert_run(plain, False))
+    for label, mesh in meshes:
+        got = sp_arm(lambda: bert_state(dataclasses.replace(bert, sp_mesh=mesh), bert_params, device, "ring"),
+                     bert_run(mesh, True))
+        out[f"bert ring {label}"] = sa_bitwise(f"BERT-base ring {label}", got, want,
+                                               {n: bert.num_layers * SA_STEPS for n in SP_KERNELS}, launches)
+        del got
+    del want, bert_params
+    sparse = xp_config(torch.bfloat16)
+    sparse_params = random_params(sparse, seed=0)
+    sparse_corpus = lm_corpus(LM_SEQS, LM_SEQ, seed=25)
+
+    def sparse_run(mesh):
+        def run(state):
+            return fit_lm(state, sparse_corpus, seq_len=LM_SEQ, batch_size=LM_BATCH, pack=False, num_steps=SA_STEPS,
+                          mesh=mesh, log_every=1, seed=0, moe_aux=True)
+        return run
+
+    want = sp_arm(lambda: lm_state(sparse, sparse_params, device), sparse_run(None))
+    got = sp_arm(lambda: lm_state(dataclasses.replace(sparse, sp_mesh=plain), sparse_params, device, "ring"),
+                 sparse_run(plain))
+    out["sparse ring {\"sequence\": 1}"] = sa_bitwise("the sparse GPT ring on {'sequence': 1}", got, want,
+                                                      {n: XP_LAYERS * SA_STEPS for n in SP_KERNELS}, launches)
+    return out
+
+
+def sa_in_process(device) -> list:
+    """(b) The in-process ring of ``SP_CHUNKS`` chunks at a tensor rank's
+    heads of GPT-2 small at S4096 (``SA_HEADS``), f32 and bf16, causal and
+    not (phase 24's ``sp_in_process``: the schedule's launches, the plain
+    fold, one ``flash_attention`` over the whole sequence)."""
+    out = []
+    for heads in SA_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                out.append(sp_in_process(device, dict(B=1, H=heads, S=SP_LM_SEQ, D=64, causal=causal), dtype))
+        torch.cuda.empty_cache()
+    return out
+
+
+def sa_ulysses(device) -> list:
+    """(b) K1-K3 at the shapes a Ulysses rank runs after the all-to-all
+    (B1 S4096 causal at ``SA_ULYSSES_HEADS``), f32 and bf16, against the
+    plain forward and backward (``TOL``; gradients ``sp_grad_close``)."""
+    from unionml_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_backward, reference_attention, reference_attention_backward,
+    )
+
+    out = []
+    for heads in SA_ULYSSES_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, d_out, _ = bwd_inputs(1, heads, SP_LM_SEQ, 64, dtype, device, None, seed=27)
+            d_out = d_out.contiguous()
+            label = f"Ulysses rank {dtype} B1 H{heads} S{SP_LM_SEQ} D64 causal"
+            o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+            err = check_close(f"K1 {label}", o, reference_attention(q, k, v, causal=True))
+            got = flash_attention_backward(q, k, v, o, lse, d_out, causal=True)
+            want = reference_attention_backward(q, k, v, o, lse, d_out, causal=True)
+            grads = max(sp_grad_close(f"K2/K3 {label} d{n}", a, b) for n, a, b in zip("qkv", got, want))
+            out.append({"label": label, "k1_vs_plain": err, "k2_k3_vs_plain": grads})
+            del q, k, v, d_out, o, lse, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def sa_records(device) -> list:
+    """(b) Timings: K1-K3 at one ring block of ``SA_HEADS`` (1024 x 1024,
+    diagonal and full) and at each Ulysses rank's shape, with bound, share,
+    plain and SDPA times (``sp_block_records``)."""
+    records = []
+    for heads in SA_HEADS:
+        for causal in (True, False):
+            records += sp_block_records(device, causal, H=heads)
+    for heads in SA_ULYSSES_HEADS:
+        records += sp_block_records(device, True, H=heads, L=SP_LM_SEQ,
+                                    what="a Ulysses rank's heads after the all-to-all, causal")
+    return records
+
+
+def sa_multi_rows(config, n: int = SA_MULTI_ROWS) -> dict:
+    """``n`` right-padded rows of the config's positions (whole, then three quarters, in turns)."""
+    rng = np.random.default_rng(27)
+    seq = config.max_position_embeddings
+    ids = np.zeros((n, seq), np.int32)
+    mask = np.zeros((n, seq), np.float32)
+    for i in range(n):
+        length = seq if i % 2 == 0 else 3 * seq // 4
+        ids[i, :length], mask[i, :length] = rng.integers(1, min(50_000, config.vocab_size), length), 1.0
+    return {"input_ids": ids, "mask": mask}
+
+
+def _sa_keep_log():
+    """Wraps ``parallel.ep.topk_route`` to record each capacity-bounded
+    call's kept choices ``(T, k)``; returns (the log, a restore function)."""
+    from unionml_tpu_torch.parallel import ep
+
+    log, real = [], ep.topk_route
+
+    def recorded(gates, k, capacity_factor, *args, **kwargs):
+        routing = real(gates, k, capacity_factor, *args, **kwargs)
+        if capacity_factor is not None:
+            log.append(routing.keep.cpu().numpy().copy())
+        return routing
+
+    ep.topk_route = recorded
+    return log, lambda: setattr(ep, "topk_route", real)
+
+
+def _sa_rank(rank: int, world: int, port: int, out_dir: str, axes: dict, device_type: str = "cuda",
+             config=None, sparse: bool = False) -> None:
+    """One rank of (c) (spawned): ``SA_MULTI_STEPS`` steps on ``axes`` of
+    GPT-2 small (vocabulary ``SA_VOCAB``, dropout off; ring and Ulysses
+    over a sequence axis, else dense attention), laid out by
+    ``param_shardings``, or (``sparse``) of phase 25's sparse model in f32
+    with ring, router losses on, each rank's kept choices of the first
+    step recorded; a progress line per step from rank 0, with the step's
+    wall (the first holds NCCL's and FSDP2's set-up) and the arm's peak
+    memory. Rank 0 then runs the same steps on one card, unmeshed, with
+    dense attention. Every rank exits on its own after ``SA_MULTI_LIMIT_S``."""
+    import faulthandler
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import GPTConfig, dict_batches, make_lm_train_step, random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+    from unionml_tpu_torch.parallel.mesh import (
+        SEQUENCE_AXIS, axis_index, axis_size, batch_axis_size, batch_index,
+    )
+
+    faulthandler.dump_traceback_later(SA_MULTI_LIMIT_S, exit=True)
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    initialize_distributed(f"localhost:{port}", world, rank, strict=True, device=device_type,
+                           timeout_s=SA_MULTI_LIMIT_S)
+    mesh = make_mesh(axes, device=device_type)
+    if sparse:
+        config = config or xp_config(torch.float32, dropout=0.0)
+        impls, rows = ("ring",), sa_multi_rows(config, SA_SPARSE_ROWS)
+    else:
+        config = config or GPTConfig(vocab_size=SA_VOCAB, max_position_embeddings=SP_LM_SEQ, dropout=0.0)
+        impls = ("ring", "ulysses") if SEQUENCE_AXIS in axes else ("auto",)
+        rows = sa_multi_rows(config, max(SA_MULTI_ROWS, batch_axis_size(mesh)))
+    meshed = dataclasses.replace(config, sp_mesh=mesh if SEQUENCE_AXIS in axes else None)
+    params = random_params(config, seed=0)
+    n_rows = len(rows["input_ids"])
+
+    def steps(state, step, batch, label):
+        history, keep = [], None
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for i in range(SA_MULTI_STEPS):
+            t0 = time.perf_counter()
+            log, restore = _sa_keep_log() if sparse and i == 0 else (None, None)
+            try:
+                state, metrics = step(state, batch)
+            finally:
+                if restore is not None:
+                    restore()
+            history.append({k: float(v) for k, v in metrics.items()})
+            history[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+            keep = log if log is not None else keep
+            if rank == 0:
+                print(f"phase 27 world of {world} {json.dumps(axes)} {label} step {i}: loss {history[-1]['loss']:.6f}, "
+                      f"{history[-1]['ms']:.1f} ms", flush=True)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+        return {"history": history, "keep": keep, "peak_gib": peak}
+
+    out = {"where": {"block": batch_index(mesh), "blocks": batch_axis_size(mesh),
+                     "chunk": axis_index(mesh, SEQUENCE_AXIS), "chunks": axis_size(mesh, SEQUENCE_AXIS)}}
+    for impl in impls:
+        state = lm_state(meshed, params, device, impl)
+        step = make_lm_train_step(moe_aux=sparse, mesh=mesh, param_spec=sa_specs(state, mesh))
+        out[impl] = steps(state, step, next(iter(dict_batches(rows, n_rows, device=device, mesh=mesh))), impl)
+        del state, step
+    if rank == 0:
+        state = lm_state(config, params, device, "auto")
+        out["dense"] = steps(state, make_lm_train_step(moe_aux=sparse),
+                             next(iter(dict_batches(rows, n_rows, device=device))), "dense, one card")
+        del state
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def sa_gate(label: str, got: list, want: list) -> list:
+    """Every step's loss within ``SA_LOSS_RTOL`` and grad_norm within
+    ``SA_NORM_RTOL`` of the one-card arm's, relative."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        for key, tol in (("loss", SA_LOSS_RTOL), ("grad_norm", SA_NORM_RTOL)):
+            if abs(a[key] - b[key]) > tol * abs(b[key]):
+                raise AssertionError(f"phase 27 {label} step {i}: {key} {a[key]} vs {b[key]} on one card "
+                                     f"(limit {tol} relative)")
+    return [{"step": i, "meshed": a, "one_card": b} for i, (a, b) in enumerate(zip(got, want))]
+
+
+def sa_keep_mismatches(ranks: list, whole: list) -> int:
+    """The kept choices of the ranks' chunks (``(where, per-layer (T, k))``)
+    that differ from one card's on the whole batch, over every layer."""
+    if len(whole) == 0 or any(len(r["ring"]["keep"]) != len(whole) for r in ranks):
+        raise AssertionError(f"phase 27 sparse: kept choices of {[len(r['ring']['keep']) for r in ranks]} layers, "
+                             f"one card {len(whole)}")
+    rows, seq, k = SA_SPARSE_ROWS, whole[0].shape[0] // SA_SPARSE_ROWS, whole[0].shape[1]
+    wrong = 0
+    for layer, want in enumerate(whole):
+        got = np.zeros((rows, seq, k), bool)
+        for r in ranks:
+            w = r["where"]
+            per, length = rows // w["blocks"], seq // w["chunks"]
+            got[w["block"] * per:(w["block"] + 1) * per, w["chunk"] * length:(w["chunk"] + 1) * length] = \
+                r["ring"]["keep"][layer].reshape(per, length, k)
+        wrong += int((got != want.reshape(rows, seq, k)).sum())
+    return wrong
+
+
+def sa_multi_card(device_type: str = "cuda", config=None, sparse_config=None) -> dict:
+    """(c): GPT-2 small on ``SA_MULTI``'s meshes and phase 25's sparse model
+    (f32) on ``SA_MULTI_SPARSE``'s, a world of 4 each (a card per rank),
+    where the machine has 4 cards: every step's loss and ``grad_norm``
+    against rank 0's one-card steps (``sa_gate``), and the sparse worlds'
+    kept choices against one card's (``SA_KEEP_SLACK``). Each world has its
+    own limit; a world that does not end in it is killed and fails the
+    phase."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count() if device_type == "cuda" else 4
+    if cards < 4:
+        return {"run": False, "why": f"{cards} card on this machine: the worlds need 4"}
+    ctx = mp.get_context("spawn")
+    out = {"run": True}
+    for axes, sparse in [(a, False) for a in SA_MULTI] + [(a, True) for a in SA_MULTI_SPARSE]:
+        label = ("sparse " if sparse else "") + json.dumps(axes)
+        out_dir = SA_DIR / (("sparse-" if sparse else "") + "-".join(f"{k}{v}" for k, v in axes.items()))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for stale in out_dir.glob("rank*.pkl"):
+            stale.unlink()
+        port, t0 = free_port(), time.perf_counter()
+        procs = [ctx.Process(target=_sa_rank, args=(r, 4, port, str(out_dir), axes, device_type,
+                                                    sparse_config if sparse else config, sparse))
+                 for r in range(4)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, SA_MULTI_LIMIT_S + 30 - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        files = [out_dir / f"rank{r}.pkl" for r in range(4)]
+        if hung or not all(f.exists() for f in files):
+            raise AssertionError(f"phase 27 world of 4 on {label}: ranks {hung} did not end within "
+                                 f"{SA_MULTI_LIMIT_S} s, or a rank wrote nothing (exit codes "
+                                 f"{[p.exitcode for p in procs]})")
+        got = [pickle.loads(f.read_bytes()) for f in files]
+        dense = got[0]["dense"]
+        rec = {impl: {"losses": [h["loss"] for h in got[0][impl]["history"]],
+                      "step_ms": [h["ms"] for h in got[0][impl]["history"]],
+                      "peak_gib": got[0][impl]["peak_gib"],
+                      "steps": sa_gate(f"{label} {impl}", got[0][impl]["history"], dense["history"])}
+               for impl in ("ring", "ulysses", "auto") if impl in got[0]}
+        rec["one_card"] = {"losses": [h["loss"] for h in dense["history"]],
+                           "step_ms": [h["ms"] for h in dense["history"]], "peak_gib": dense["peak_gib"]}
+        if sparse:
+            wrong = sa_keep_mismatches(got, dense["keep"])
+            choices = int(sum(w.size for w in dense["keep"]))
+            if wrong > SA_KEEP_SLACK:
+                raise AssertionError(f"phase 27 {label}: {wrong} of {choices} kept choices differ from one card's "
+                                     f"(limit {SA_KEEP_SLACK})")
+            rec["keep"] = {"differ": wrong, "choices": choices,
+                           "dropped": int(sum((~w).sum() for w in dense["keep"]))}
+        rec["wall_s"] = time.perf_counter() - t0
+        out[label] = rec
+    return out
+
+
+def sequence_axes_phase(device) -> dict:
+    """Phase 27: the sequence axis beside tensor, fsdp and sparse blocks (see the module docstring)."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.parallel import initialize_distributed
+
+    t0 = time.perf_counter()
+    out, parts, launches = {}, {}, {}
+    t = time.perf_counter()
+    out["in_process"] = sa_in_process(device)
+    out["ulysses"] = sa_ulysses(device)
+    parts["kernels_vs_plain"] = time.perf_counter() - t
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device.type)
+    try:
+        t = time.perf_counter()
+        out["main_path"] = sa_arms(device, launches)
+        parts["main_path"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    for name in SP_KERNELS:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 27: {name} never launched on the composed meshes' path ({launches})")
+    t = time.perf_counter()
+    out["records"] = sa_records(device)
+    parts["timings"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["multi_card"] = sa_multi_card()
+    parts["multi_card"] = time.perf_counter() - t
+    out["launches"] = launches
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
+    return out
+
+
+def sa_gib(peak) -> str:
+    return "not measured" if peak is None else f"{peak:.2f} GiB"
+
+
+def report_sequence_axes(sa: dict, name_limit: str) -> None:
+    for r in sa["in_process"]:
+        print(f"phase 27 {r['label']}: launches {r['launches']} ({r['blocks']} blocks of each); max |err| vs the plain "
+              f"f32 fold {r['vs_plain_fold']:.3e}, gradients {r['grads_vs_plain_fold']:.3e}; vs flash_attention "
+              f"over the whole sequence {r['vs_whole_flash']:.3e}, gradients {r['grads_vs_whole_flash']:.3e}")
+    for r in sa["ulysses"]:
+        print(f"phase 27 {r['label']}: K1 vs plain {r['k1_vs_plain']:.3e}, K2/K3 vs plain {r['k2_k3_vs_plain']:.3e}")
+    for label, r in sa["main_path"].items():
+        print(f"phase 27 {label} ({SA_STEPS} steps, a world of 1 over NCCL): bitwise its plain arm, losses "
+              f"{[round(x, 6) for x in r['losses']]}")
+    for r in sa["records"]:
+        print(f"[{name_limit}] phase 27 {r['name']} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, share {r['bound_share']:.3f}), plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, max |err| {r['max_abs_err']:.3e}")
+    mc = sa["multi_card"]
+    if not mc["run"]:
+        print(f"phase 27 worlds of 4: not run ({mc['why']})")
+    for label, rec in mc.items():
+        if not isinstance(rec, dict):
+            continue
+        arms = "; ".join(f"{impl} losses {rec[impl]['losses']}, step ms {[round(x, 1) for x in rec[impl]['step_ms']]}, "
+                         f"peak {sa_gib(rec[impl]['peak_gib'])}" for impl in ("ring", "ulysses", "auto") if impl in rec)
+        keep = (f"; kept choices: {rec['keep']['differ']} of {rec['keep']['choices']} differ from one card's "
+                f"({rec['keep']['dropped']} dropped there)" if "keep" in rec else "")
+        print(f"[{name_limit}] phase 27 world of 4 on {label} over NCCL: {arms}; one card {rec['one_card']['losses']} "
+              f"(loss within {SA_LOSS_RTOL}, grad_norm within {SA_NORM_RTOL} relative){keep}; {rec['wall_s']:.1f} s")
+    print(f"phase 27 launches {sa['launches']}; phase 27 took {sa['s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in sa['parts_s'].items()} })")
+
+
 def _times(kernel, plain, library) -> dict:
     """ms / plain_ms / library_ms, each by the same method (see ``timed``)."""
     k, p, lib = timed(kernel), timed(plain), timed(library)
@@ -8388,6 +8864,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     details["mesh_serving"] = ms = mesh_serving_phase(device)
     report_mesh_serving(ms, name_limit)
+    torch.cuda.empty_cache()
+    details["sequence_axes"] = sa = sequence_axes_phase(device)
+    report_sequence_axes(sa, name_limit)
+    details["extra_timings"].extend(sa["records"])
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -8413,10 +8893,12 @@ def main() -> int:
             r["launches_expert_parallel"] = xp["launches"][r["name"]]
         if r["name"] in ms["launches"]:
             r["launches_mesh_serving"] = ms["launches"][r["name"]]
+        if r["name"] in sa["launches"]:
+            r["launches_27"] = sa["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
                 "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"], "24": sp["s"],
-                "25": xp["s"], "26": ms["s"]}
+                "25": xp["s"], "26": ms["s"], "27": sa["s"]}
     print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
           f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
@@ -8463,6 +8945,8 @@ def main() -> int:
             entry["launches_expert_parallel"] = r["launches_expert_parallel"]
         if "launches_mesh_serving" in r:  # phase 26's K1/K4 launches (engines and predictors on the meshes)
             entry["launches_mesh_serving"] = r["launches_mesh_serving"]
+        if "launches_27" in r:  # phase 27's K1-K3 launches (the sequence axis beside tensor, fsdp, sparse blocks)
+            entry["launches_27"] = r["launches_27"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -433,14 +433,19 @@ def test_ring_config_generates_through_the_dense_fallback():
 
 
 def test_sequence_with_tensor_or_fsdp_and_serving_raise():
-    """Sequence parallelism with a tensor or fsdp axis raises naming its
-    ROADMAP item in training, and in serving beside a tensor axis; served
-    over a mesh with a sequence axis (and fsdp, which serving keeps whole)
-    the model keeps its sequence-parallel attention
-    (``tests/test_torch_mesh_serving_axes.py``); without that axis, serving
-    attends densely and shares the parameters; a mesh that splits rows needs
-    a sequence-parallel config."""
+    """Sequence parallelism beside a tensor or fsdp axis no longer raises:
+    on ``{"tensor": 2, "sequence": 2}`` and ``{"fsdp": 2, "sequence": 2}``
+    the meshed step's first call lays the state out by ``param_shardings``
+    (the Megatron copy keeping the ring config and its ``sp_mesh``, or FSDP2
+    over the (data×sequence, fsdp) mesh), and serving keeps the model's
+    sequence-parallel attention on both (``tests/test_torch_sequence_axes.py``
+    trains and serves them against JAX); without a sequence axis, serving
+    attends densely and shares the parameters; a mesh that splits rows
+    needs a sequence-parallel config."""
+    from unionml_tpu_torch.models import bert as tbert
     from unionml_tpu_torch.models import make_classifier_train_step
+    from unionml_tpu_torch.models.training import _on_mesh
+    from unionml_tpu_torch.parallel.mesh import axis_names
     from unionml_tpu_torch.serving.resident import _serving_attention
 
     params = bert_params_from_jax(_host(jbert.init_params(jbert.BertConfig.tiny(dtype=jnp.float32), seq_len=16)))
@@ -450,14 +455,16 @@ def test_sequence_with_tensor_or_fsdp_and_serving_raise():
             mesh = make_mesh(axes, device="cpu")
             model = init_bert(ranks.bert_config("ring", mesh), device="cpu")
             model.load_state_dict(params)
-            step = make_classifier_train_step(mesh=mesh, input_signature=ranks.SIG)
-            with pytest.raises(NotImplementedError, match="M12, sequence with tensor/fsdp"):
-                step(create_train_state(model), batch)
+            spec = tbert.param_shardings(dict(model.named_parameters()), axis_names(mesh))
+            state = _on_mesh(create_train_state(model), mesh, spec)
+            layout = state.layout
+            assert layout is not None and layout.mesh is mesh and layout.batch_size == (4 if "fsdp" in axes else 2)
+            assert state.model.config.attention_impl == "ring" and state.model.config.sp_mesh is mesh
             if "tensor" in axes:
-                with pytest.raises(NotImplementedError, match="M12, sequence with tensor/fsdp"):
-                    _serving_attention(model, mesh)
+                assert any(layout.tensor_split) and not layout.fsdp and state.model.bert.tp.heads == 2
             else:
-                assert _serving_attention(model, mesh) is model
+                assert layout.fsdp and not any(layout.tensor_split) and state.model is not model
+            assert _serving_attention(model, mesh) is model
         dense_model = init_bert(ranks.bert_config(), device="cpu")
         with pytest.raises(ValueError, match="splits every row"):
             make_classifier_train_step(mesh=mesh, input_signature=ranks.SIG)(create_train_state(dense_model), batch)

@@ -283,6 +283,21 @@ class AxisGroup:
             return x
         return _Exchange.apply(x, self.group) if _recorded(x) else _all_to_all(x, self.group)
 
+
+@dataclasses.dataclass(frozen=True)
+class TokenGroup(AxisGroup):
+    """The ranks a training batch's tokens are split over, as a sparse
+    block routes them together: data×fsdp, each rank holding a block of
+    whole rows, times ``chunks`` sequence ranks, each holding one chunk of
+    every row of its block. ``index`` is the rank's block times ``chunks``
+    plus its chunk (``batch_index(mesh, sequence=True)``); ``order`` puts a
+    :meth:`gather` over the group in that order where the group numbers its
+    ranks otherwise (``batch_order``; None: it does not)."""
+
+    chunks: int = 1
+    order: Optional[Tuple[int, ...]] = None
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorParallel(AxisGroup):
     """How one rank of a tensor-parallel model computes: the tensor axis
@@ -424,6 +439,15 @@ class SequenceParallel(AxisGroup):
 
 #: the attention impls that split the sequence over the mesh's ``sequence`` axis
 SEQUENCE_IMPLS = ("ring", "ulysses")
+
+
+def shared_configs(model: nn.Module) -> Dict[int, Any]:
+    """A ``copy.deepcopy`` memo under which a copy of ``model`` shares its
+    modules' configs (frozen dataclasses, which may hold the meshes whose
+    process groups ``sp_mesh``/``ep_mesh`` name: a copy keeps those very
+    meshes)."""
+    configs = (getattr(module, "config", None) for module in model.modules())
+    return {id(cfg): cfg for cfg in configs if cfg is not None}
 
 
 def dense_attention_copy(model: nn.Module) -> nn.Module:

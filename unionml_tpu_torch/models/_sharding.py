@@ -28,7 +28,7 @@ from typing import Any, Callable, Iterable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from unionml_tpu_torch.models._layers import QuantizedLinear
+from unionml_tpu_torch.models._layers import QuantizedLinear, shared_configs
 from unionml_tpu_torch.ops.quant import QuantizedArray
 from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, NamedSharding, Spec, _tree_map, fsdp_mesh
 
@@ -119,10 +119,12 @@ def shard_model(model: nn.Module, mesh: Any, specs: Any, tp: Any, tp_modules: Tu
     parameters whose gradients are each rank's part of a sum over the
     tensor axis. ``trainable=True`` gives parameters of their own
     (copied, gradients on); else they share memory with ``model``'s where
-    they are whole, and take no gradients."""
+    they are whole, and take no gradients. The copy shares ``model``'s
+    configs (a ring or Ulysses config keeps its ``sp_mesh``)."""
     with torch.no_grad():
         local = place_by_specs(weight_tree(model), mesh, specs)
-    shard = copy.deepcopy(model, memo={id(t): t for t in [*model.parameters(), *model.buffers()]})
+    shard = copy.deepcopy(model, memo={**shared_configs(model),
+                                       **{id(t): t for t in [*model.parameters(), *model.buffers()]}})
     for name, leaf in local.items():
         owner_name, _, attr = name.rpartition(".")
         owner = shard.get_submodule(owner_name)
@@ -221,7 +223,9 @@ def split_fsdp_weights(model: nn.Module, tree: dict, specs: dict, mesh: Any,
 
 def fully_shard_model(model: nn.Module, mesh: Any, blocks: Sequence[nn.Module]) -> nn.Module:
     """FSDP2 over ``mesh``'s ``fsdp`` axis (hybrid, replicated over
-    ``data``, when the mesh has both): each of ``blocks`` (the encoder or
+    data×sequence, when the mesh has either, :func:`~unionml_tpu_torch.parallel.mesh.fsdp_mesh`:
+    a sequence rank's gradients are its chunks' part of the sum, which the
+    all-reduce over the replicate dimension completes): each of ``blocks`` (the encoder or
     decoder layers) and then the root become one unit each, so a rank holds
     dimension 0's shard of every parameter and gathers one block's weights
     at a time. In place; returns ``model``."""

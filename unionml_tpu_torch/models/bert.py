@@ -48,7 +48,10 @@ over the ``sequence`` axis), exact for right padding. ``[CLS]`` lies on the
 first sequence rank; the pooler reads it on every rank through
 :meth:`~unionml_tpu_torch.models._layers.SequenceParallel.broadcast_first`,
 whose backward sums the ranks' gradients onto the first, so each rank's
-classifier logits are the whole row's.
+classifier logits are the whole row's. On a mesh with a ``tensor`` axis
+beside ``sequence`` the tensor-parallel copy keeps the config: each rank
+computes its chunk at its ``num_heads / N`` heads (the ring as it is,
+Ulysses exchanging by the model's heads, :func:`~unionml_tpu_torch.parallel.ulysses_attention`).
 """
 
 import dataclasses
@@ -173,7 +176,8 @@ class BertSelfAttention(nn.Module):
         if cfg.attention_impl in SEQUENCE_IMPLS:
             from unionml_tpu_torch.parallel import sp_attention
 
-            context = sp_attention(q, k, v, cfg.sp_mesh, cfg.attention_impl, kv_lens=kv_lens)
+            context = sp_attention(q, k, v, cfg.sp_mesh, cfg.attention_impl, kv_lens=kv_lens,
+                                   tensor_axis="tensor" if tp is not None and tp.split_heads else None)
         else:
             context = attention(q, k, v, mask=dense_mask, kv_lens=kv_lens, impl=cfg.attention_impl)
         context = context.transpose(1, 2).reshape(batch, seq, n_heads * cfg.head_dim)

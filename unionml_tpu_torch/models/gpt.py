@@ -95,7 +95,13 @@ in the ring's backward; or Ulysses's all-to-alls around K1-K3). Everything
 else in a block is per position, so it needs no exchange.
 ``segment_ids`` and ``pad_offsets`` raise JAX's ``ValueError``s. The cache
 paths (``generate``, the engines) attend densely, K1 and K4 as in any other
-config (``gpt.py:491``).
+config (``gpt.py:491``). On a mesh with a ``tensor`` axis beside
+``sequence``, :func:`tensor_parallel`'s copy keeps the config: each rank
+computes its chunk at its heads (the ring as it is, Ulysses exchanging by
+the model's heads), its position-parallel ``wpe`` lookup takes the chunk's
+offset positions and the tied head's gathered f32 logits are the chunk's.
+Sparse blocks under sequence parallelism route the chunks of the batch's
+rows together, in JAX's token order (see :class:`~unionml_tpu_torch.models.moe.MoEMlp`).
 
 Expert parallelism (``ep_mesh`` with an ``expert`` axis, ``gpt.py:61-66``):
 each rank's sparse blocks hold its ``1/N`` of the experts (the weight
@@ -490,7 +496,9 @@ class DecoderBlock(nn.Module):
                     )
                 from unionml_tpu_torch.parallel import sp_attention
 
-                context = sp_attention(q, k, v, cfg.sp_mesh, cfg.attention_impl, causal=True)
+                # under a tensor split q, k, v hold this rank's heads (Ulysses exchanges by the model's)
+                context = sp_attention(q, k, v, cfg.sp_mesh, cfg.attention_impl, causal=True,
+                                       tensor_axis="tensor" if tp is not None and tp.split_heads else None)
             elif segment_ids is not None:
                 if pad_offsets is not None:
                     raise ValueError("segment_ids (packed training) does not compose with pad_offsets "

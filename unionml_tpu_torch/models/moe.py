@@ -26,7 +26,9 @@ way, over the rank's experts. A capacity-bounded (training) forward routes
 over the ranks its ``token_group`` names, the ranks the batch's tokens are
 split over: the ``ep_mesh``'s, or those that ``shard_train_state`` binds
 when it lays a model out on a mesh (a data mesh with no ``ep_mesh``
-included). Capacity, slots and the router's balance loss (``f_e`` and
+included; under sequence parallelism the data×fsdp×sequence ranks, each
+holding a chunk of its rows, routed in JAX's flattened ``(B, S)`` order).
+Capacity, slots and the router's balance loss (``f_e`` and
 ``P_e``, :func:`load_balancing_loss`) are then the global batch's, as JAX's
 one program routes it; the group is the layer's own, so the recompute of a
 ``remat`` block routes as its forward did. Under tensor parallelism (``tp``, set by
@@ -174,7 +176,7 @@ class MoEMlp(nn.Module):
             out = _apply_topk(_experts, params, tokens.to(self.dtype), gates, k=self.k,
                               capacity_factor=None if dropless else self.capacity_factor, normalize_gates=normalize,
                               num_experts=self.num_experts, first=experts.index * local, local=local,
-                              partial=partial, group=group)
+                              partial=partial, group=group, rows=x.shape[0] if x.dim() > 2 else 1)
         return out.reshape(x.shape).to(x.dtype), aux
 
 

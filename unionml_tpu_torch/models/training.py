@@ -69,10 +69,10 @@ meshed step lays the state out (:func:`shard_train_state`) by the three axes:
   ``NotImplementedError``.
 
 - ``sequence`` (a BERT or GPT config with ``attention_impl="ring"`` or
-  ``"ulysses"`` and ``sp_mesh`` the step's mesh; ``{"sequence": N}`` or
-  ``{"data": M, "sequence": N}``): the ranks of one data index hold the
-  same rows, and the step cuts every token array to this rank's chunk of
-  the sequence. An LM batch is cut after its targets are shifted on the
+  ``"ulysses"`` and ``sp_mesh`` the step's mesh; ``{"sequence": N}``, with
+  ``data``, ``fsdp`` or ``tensor`` axes beside it or not): the ranks of one
+  data×fsdp index hold the same rows, and the step cuts every token array
+  to this rank's chunk of the sequence. An LM batch is cut after its targets are shifted on the
   whole row: the chunk's last position predicts the next chunk's first
   token, and the row's last position, which has no target, lies on the last
   chunk. The gradient group spans data×fsdp×sequence (each parameter's
@@ -85,8 +85,12 @@ meshed step lays the state out (:func:`shard_train_state`) by the three axes:
   data shard's mean loss, which every sequence rank of that shard computes
   from the same broadcast ``[CLS]``: the mean over the sequence ranks
   counts it once, and the broadcast's backward sums the ranks' ``[CLS]``
-  gradients onto the first chunk. Sequence with a tensor or fsdp axis raises
-  ``NotImplementedError``. The eval steps take whole rows and cut them by
+  gradients onto the first chunk. Beside ``tensor`` the model is the
+  Megatron copy and each chunk attends at the rank's heads; the ranks of
+  one tensor group hold the same chunk and draw the same dropout masks.
+  Beside ``fsdp`` FSDP2 runs hybrid, replicated over data×sequence
+  (``parallel/mesh.py::fsdp_mesh``). Sparse blocks route the batch's chunks
+  together in JAX's token order (``parallel/ep.py::_global_slots``). The eval steps take whole rows and cut them by
   the model's ``sp_mesh`` as the train step does; an LM eval's loss is the
   rows' mean over all their transitions (each chunk's mean weighted by its
   transitions, summed over the ``sequence`` axis).
@@ -486,9 +490,12 @@ def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> T
     The laid-out state's model is a copy under a tensor or fsdp split, and
     ``state.model`` itself when every parameter is replicated (its
     parameters then train in place, as an unmeshed step's do). Its sparse
-    blocks are bound to the mesh's batch ranks (``MoEMlp.token_group``):
-    from then on their capacity-bounded forwards route over the global
-    batch, and a dropless (inference) forward exchanges nothing."""
+    blocks are bound to the mesh's batch ranks (``MoEMlp.token_group``,
+    data×fsdp×sequence): from then on their capacity-bounded forwards route
+    over the global batch, and a dropless (inference) forward exchanges
+    nothing. A sequence-parallel model is laid out over ``tensor`` and
+    ``fsdp`` as any other; its copy keeps the config and ``sp_mesh``."""
+    from unionml_tpu_torch.models._layers import shared_configs
     from unionml_tpu_torch.models._sharding import _without_fsdp, fully_shard_model, names_axis
     from unionml_tpu_torch.models.moe import MoEMlp
     from unionml_tpu_torch.parallel.ep import batch_ranks
@@ -528,11 +535,11 @@ def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> T
                                       "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
         specs = [Spec(EXPERT_AXIS) if n in experts else spec for n, spec in zip(state.names, specs)]
     if fsdp:
-        if not tensor:
-            model = copy.deepcopy(model)
+        if not tensor:  # parameters of its own for FSDP2 to shard; the configs (and their meshes) shared
+            model = copy.deepcopy(model, memo=shared_configs(model))
         fully_shard_model(model, mesh, _family(model)[2] if family is not None else [])
     module_params = [dict(model.named_parameters())[n] for n in state.names]
-    token_group = batch_ranks(mesh)
+    token_group = batch_ranks(mesh, sequence=True)
     for module in model.modules():
         if isinstance(module, MoEMlp):
             module.token_group = token_group
@@ -567,8 +574,9 @@ def _expert_leaves(model: nn.Module) -> frozenset:
 def _check_experts(model: nn.Module, mesh: Any) -> None:
     """A model whose sparse blocks hold a share of the experts trains on a
     mesh laid out as its ``ep_mesh`` (the step's rows and the experts'
-    exchanges must agree); sparse blocks under sequence parallelism, and
-    experts split beside an fsdp, tensor or sequence axis, raise."""
+    exchanges must agree); experts split beside an fsdp, tensor or
+    sequence axis raise. Sparse blocks with whole experts train on any mesh
+    (under sequence parallelism they route the chunks together)."""
     from unionml_tpu_torch.parallel.mesh import (
         EXPERT_AXIS, FSDP_AXIS, SEQUENCE_AXIS, TENSOR_AXIS, axis_names, axis_size,
     )
@@ -576,9 +584,6 @@ def _check_experts(model: nn.Module, mesh: Any) -> None:
     cfg = getattr(model, "config", None)
     if getattr(cfg, "moe_every", 0) <= 0:
         return
-    if axis_size(mesh, SEQUENCE_AXIS) > 1:
-        raise NotImplementedError("sparse blocks with sequence parallelism are not ported yet "
-                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
     ep_mesh = getattr(cfg, "ep_mesh", None)
     if axis_size(ep_mesh, EXPERT_AXIS) == 1:
         return
@@ -586,7 +591,7 @@ def _check_experts(model: nn.Module, mesh: Any) -> None:
     if mesh is None or [(a, axis_size(mesh, a)) for a in axis_names(mesh)] != layout:
         raise ValueError(f"this model's experts are split over its ep_mesh {dict(layout)}: train it on that "
                          "mesh (mesh=config.ep_mesh)")
-    others = [a for a in (FSDP_AXIS, TENSOR_AXIS) if axis_size(mesh, a) > 1]
+    others = [a for a in (FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS) if axis_size(mesh, a) > 1]
     if others:
         raise NotImplementedError(f"experts split beside the mesh axes {others} are not ported yet "
                                   "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
@@ -602,11 +607,11 @@ def dropout_generator(seed: int, step: int, device: torch.device, index: Optiona
     from ``(seed, step[, index])``, the counterpart of the JAX step's
     ``fold_in(dropout_rng, step)`` (``training.py:136``).
 
-    ``shard`` is this rank's index over the batch's ranks (data×fsdp) on a
-    mesh where they are more than one: ranks with different rows draw
-    distinct masks, and the ranks of one tensor group, which share an index
-    and hold the same replicated activations at every dropout site, draw
-    identical ones. Where the batch spans one rank ``shard`` is None and the
+    ``shard`` is this rank's index over the batch's ranks (data×fsdp×sequence)
+    on a mesh where they are more than one: ranks with different rows, or
+    different chunks of one row, draw distinct masks, and the ranks of one
+    tensor group, which share an index and hold the same replicated
+    activations at every dropout site, draw identical ones. Where the batch spans one rank ``shard`` is None and the
     generator is the unmeshed step's."""
     words = [seed, step] if index is None else [seed, step, index]
     if shard is not None:
@@ -629,8 +634,9 @@ def _sequence_config(model: nn.Module) -> Any:
 def _check_sequence(model: nn.Module, mesh: Any) -> None:
     """A sequence-parallel config trains on a mesh whose ``sequence`` axis is
     its ``sp_mesh``'s (the step cuts the rows by it, the attention exchanges
-    over it); a mesh that splits the sequence needs such a config."""
-    from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, SEQUENCE_AXIS, TENSOR_AXIS, axis_names, sequence_size
+    over it; ``data``, ``fsdp`` and ``tensor`` axes may lie beside it); a
+    mesh that splits the sequence needs such a config."""
+    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, axis_names, sequence_size
 
     cfg = _sequence_config(model)
     names = axis_names(mesh) if mesh is not None else ()
@@ -642,10 +648,6 @@ def _check_sequence(model: nn.Module, mesh: Any) -> None:
     if SEQUENCE_AXIS not in names or sequence_size(cfg.sp_mesh) != sequence_size(mesh):
         raise ValueError(f"attention_impl={cfg.attention_impl!r} trains on a mesh with a {SEQUENCE_AXIS!r} axis the "
                          f"size of sp_mesh's ({sequence_size(cfg.sp_mesh)}): pass mesh=config.sp_mesh to the step")
-    if TENSOR_AXIS in names or FSDP_AXIS in names:
-        raise NotImplementedError(
-            f"sequence parallelism on a mesh with a tensor or fsdp axis ({names}) is not ported yet "
-            "(ROADMAP: M12, sequence with tensor/fsdp)")
 
 
 def _sequence_span(model: nn.Module, seq: int) -> Optional[Tuple[int, int]]:

@@ -15,9 +15,11 @@ included), sharded training over the data, fsdp, tensor and sequence axes
 or "ulysses", sp_mesh=mesh)``; the sparse GPT over data×expert,
 ``GPTConfig(moe_dispatch=, ep_mesh=mesh)``) and the meshed predictor
 (``ResidentPredictor(mesh=...)``, a ring or Ulysses model over the
-``sequence`` axis included) run on these. Not ported yet (ROADMAP: M12):
-pipelines (``pp.py``), training over more axis combinations (sequence with
-tensor or fsdp, experts with fsdp, tensor or sequence)."""
+``sequence`` axis included) run on these; the ``sequence`` axis composes
+with ``data``, ``fsdp`` and ``tensor`` in training and serving, and with
+sparse blocks (routed over the sequence chunks). Not ported yet (ROADMAP:
+M12): pipelines (``pp.py``), experts split over an ``expert`` axis beside
+fsdp, tensor or sequence."""
 
 from unionml_tpu_torch.parallel.distributed import collective_timeout_s, initialize_distributed, is_primary_host
 from unionml_tpu_torch.parallel.dp import batches, data_parallel_eval, data_parallel_step, pad_to_multiple
@@ -45,6 +47,7 @@ from unionml_tpu_torch.parallel.mesh import (
     batch_axis_size,
     batch_group,
     batch_index,
+    batch_order,
     batch_sharding,
     fsdp_mesh,
     logical_to_sharding,
@@ -73,6 +76,7 @@ __all__ = [
     "batch_axis_size",
     "batch_group",
     "batch_index",
+    "batch_order",
     "batch_sharding",
     "batches",
     "collective_timeout_s",
@@ -106,11 +110,15 @@ __all__ = [
 ]
 
 
-def sp_attention(q, k, v, mesh, impl: str, *, causal: bool = False, kv_lens=None):
+def sp_attention(q, k, v, mesh, impl: str, *, causal: bool = False, kv_lens=None, tensor_axis=None):
     """Dispatch to a sequence-parallel attention impl ("ring" | "ulysses")
     (``parallel/__init__.py:74-90``): the one place both model families
     route their long-context path through. ``q``, ``k``, ``v`` are this
-    rank's sequence chunk; ``kv_lens`` the whole rows' valid lengths."""
+    rank's sequence chunk (of its heads, under a tensor split); ``kv_lens``
+    the whole rows' valid lengths. ``tensor_axis`` names the mesh axis a
+    tensor-parallel model splits the heads over: the ring attends over the
+    rank's heads as they are, Ulysses checks and exchanges by the model's
+    heads (:func:`ulysses_attention`)."""
     if mesh is None:
         raise ValueError(f"attention_impl={impl!r} requires a sequence-parallel mesh (sp_mesh)")
     table = {"ring": ring_attention, "ulysses": ulysses_attention}
@@ -118,4 +126,6 @@ def sp_attention(q, k, v, mesh, impl: str, *, causal: bool = False, kv_lens=None
         fn = table[impl]
     except KeyError:
         raise ValueError(f"Unknown sequence-parallel impl {impl!r}; expected one of {sorted(table)}") from None
+    if impl == "ulysses":
+        return fn(q, k, v, mesh, causal=causal, kv_lens=kv_lens, tensor_axis=tensor_axis)
     return fn(q, k, v, mesh, causal=causal, kv_lens=kv_lens)

@@ -61,6 +61,10 @@ rank's slice:
   tokens on its experts; the partial outputs are summed over ``expert`` in
   float32. A sparse block trained on a mesh routes over the batch's
   ranks the layout binds to it (``MoEMlp.token_group``) the same way;
+  under sequence parallelism those ranks are data×fsdp×sequence, each
+  holding one chunk of its rows, and the all-gathered table holds one
+  ``(k, E)`` entry per row chunk, so the slots follow JAX's flattened
+  ``(B, S)`` order (:func:`_global_slots`);
 - :func:`moe_apply_a2a`: the tokens are the rank's share of the batch over
   ``data`` (the same on every rank of ``expert``). Rank ``e`` takes block
   ``e`` of them (JAX's block of ``P((data, expert))``), routes it with the
@@ -97,6 +101,7 @@ from unionml_tpu_torch.parallel.mesh import (
     batch_axis_size,
     batch_group,
     batch_index,
+    batch_order,
 )
 
 __all__ = [
@@ -119,13 +124,19 @@ def _axis_group(mesh: Any, axis: str):
     return AxisGroup.of(mesh, axis)
 
 
-def batch_ranks(mesh: Any):
+def batch_ranks(mesh: Any, sequence: bool = False):
     """The batch's ranks of ``mesh`` (data×fsdp, rows split as
-    ``batch_sharding`` lays them) as an ``AxisGroup``; None over one rank."""
-    from unionml_tpu_torch.models._layers import AxisGroup
+    ``batch_sharding`` lays them; with ``sequence``, times the ``sequence``
+    axis, each rank holding one chunk of its rows) as a ``TokenGroup``;
+    None over one rank."""
+    from unionml_tpu_torch.models._layers import TokenGroup
 
-    size = batch_axis_size(mesh)
-    return AxisGroup(batch_group(mesh), size, batch_index(mesh)) if size > 1 else None
+    size = batch_axis_size(mesh, sequence=sequence)
+    if size == 1:
+        return None
+    return TokenGroup(batch_group(mesh, sequence=sequence), size, batch_index(mesh, sequence=sequence),
+                      chunks=axis_size(mesh, SEQUENCE_AXIS) if sequence else 1,
+                      order=batch_order(mesh, sequence=sequence))
 
 
 def _leaves(stacked_params: Any) -> List[torch.Tensor]:
@@ -252,7 +263,7 @@ def _check(gates: torch.Tensor, stacked_params: Any, k: int, ep: int = 1, axis: 
 
 
 def topk_route(gates: torch.Tensor, k: int = 2, capacity_factor: Optional[float] = 1.25,
-               normalize_gates: bool = True, group: Any = None) -> Routing:
+               normalize_gates: bool = True, group: Any = None, rows: int = 1) -> Routing:
     """Top-k selection and choice-major slot assignment of ``gates``
     ``(T, E)`` (see the module docstring). Every choice is kept when
     ``capacity_factor`` is None.
@@ -261,7 +272,10 @@ def topk_route(gates: torch.Tensor, k: int = 2, capacity_factor: Optional[float]
     over, this rank's tokens being block ``group.index`` of them) routes
     globally: the capacity is the global token count's and a choice is kept
     where its global slot is below it. ``position`` stays the slot among
-    this rank's own choices (where its buffer holds the choice)."""
+    this rank's own choices (where its buffer holds the choice). A
+    ``TokenGroup`` whose ranks hold chunks of their rows (``chunks`` > 1)
+    routes this rank's ``rows`` rows, each a chunk of ``T / rows`` tokens,
+    in JAX's global order (:func:`_global_slots`)."""
     num_tokens, num_experts = gates.shape
     top_gates, top_index = _stable_topk(gates, k)
     if normalize_gates:
@@ -278,17 +292,48 @@ def topk_route(gates: torch.Tensor, k: int = 2, capacity_factor: Optional[float]
     if group is None or group.size == 1:
         capacity = _capacity(num_tokens, k, num_experts, capacity_factor)
         return Routing(top_gates, top_index, position, capacity, position < capacity)
-    # global slots: every rank's (choice, expert) counts; a choice j of this
-    # rank sits after all choices j' < j of every rank, then after the
-    # choices j of the ranks before it, then after its own earlier tokens
-    counts = hits.reshape(num_experts, k, num_tokens).sum(dim=2, dtype=torch.int32).t().contiguous()  # (k, E)
-    table = group.gather(counts[None]).reshape(group.size, k, num_experts)
-    total = table.sum(dim=0, dtype=torch.int32)
-    offset = (torch.cumsum(total, dim=0, dtype=torch.int32) - total) + table[:group.index].sum(dim=0, dtype=torch.int32)
-    offset = offset - (torch.cumsum(counts, dim=0, dtype=torch.int32) - counts)  # own earlier choices are in position
-    global_position = position + torch.gather(offset, 1, top_index.t()).t()
     capacity = _capacity(num_tokens * group.size, k, num_experts, capacity_factor)
-    return Routing(top_gates, top_index, position, capacity, global_position < capacity)
+    return Routing(top_gates, top_index, position, capacity,
+                   _global_slots(position, hits, top_index, group, rows) < capacity)
+
+
+def _global_slots(position: torch.Tensor, hits: torch.Tensor, top_index: torch.Tensor, group: Any,
+                  rows: int) -> torch.Tensor:
+    """The global choice-major slot ``(T, k)`` of each of this rank's
+    choices, JAX's one program routing the flattened ``(B, S)`` batch. A
+    rank's tokens are one run of that order when it holds whole rows, and
+    ``rows`` runs (one chunk of each of its rows) when ``group`` is a
+    ``TokenGroup`` with ``chunks`` > 1. Every rank's ``(runs, k, E)`` table of
+    its runs' choices is all-gathered (int32); a choice j of a token sits
+    after every choice j' < j, then after the choices j of the runs before
+    its own, then after its own run's earlier tokens'. ``position`` (this
+    rank's own choice-major slots) already counts its choices j' < j and its
+    earlier runs' choices j, which the offset takes back. ``hits`` ``(E, k *
+    T)`` is the choice-major one-hot of ``top_index``. The gathered tables
+    are put in batch-index order first (``TokenGroup.order``)."""
+    num_tokens, k = top_index.shape
+    num_experts, chunks = hits.shape[0], getattr(group, "chunks", 1)
+    runs = rows if chunks > 1 else 1
+    counts = hits.reshape(num_experts, k, runs, num_tokens // runs).sum(dim=3, dtype=torch.int32)
+    counts = counts.permute(2, 1, 0).contiguous()  # (runs, k, E)
+    table = group.gather(counts)  # (size * runs, k, E), in the group's rank order
+    order = getattr(group, "order", None)
+    if order is not None:  # the group numbers its ranks otherwise than their batch index
+        table = table.reshape(group.size, runs, k, num_experts)[list(order)]
+    # JAX's order: the global batch's rows in turn, each row's chunks in sequence order
+    table = table.reshape(group.size // chunks, chunks, runs, k, num_experts).transpose(1, 2)
+    table = table.reshape(-1, k, num_experts)
+    total = table.sum(dim=0, dtype=torch.int32)
+    before = (torch.cumsum(total, dim=0, dtype=torch.int32) - total)[None] + (
+        torch.cumsum(table, dim=0, dtype=torch.int32) - table)
+    block, chunk = divmod(group.index, chunks)
+    mine = (block * runs + torch.arange(runs, device=hits.device)) * chunks + chunk
+    own_total = counts.sum(dim=0, dtype=torch.int32)
+    own = (torch.cumsum(own_total, dim=0, dtype=torch.int32) - own_total)[None] + (
+        torch.cumsum(counts, dim=0, dtype=torch.int32) - counts)
+    offset = (before[mine] - own).transpose(0, 1)  # (k, runs, E)
+    chosen = top_index.t().reshape(k, runs, num_tokens // runs)
+    return position + torch.gather(offset, 2, chosen).reshape(k, num_tokens).t()
 
 
 def _combine(top_gates: torch.Tensor, picked: torch.Tensor, dtype: torch.dtype, partial: Any = None) -> torch.Tensor:
@@ -342,19 +387,20 @@ def _combine_slots(expert_out: torch.Tensor, slot: torch.Tensor, routing: Routin
 
 def _apply_topk(expert_fn: Callable, params: Any, tokens: torch.Tensor, gates: torch.Tensor, *, k: int,
                 capacity_factor: Optional[float], normalize_gates: bool, num_experts: int, first: int = 0,
-                local: Optional[int] = None, partial: Any = None, group: Any = None) -> torch.Tensor:
+                local: Optional[int] = None, partial: Any = None, group: Any = None, rows: int = 1) -> torch.Tensor:
     """The top-k layer over this rank's experts ``[first, first + local)``
     (``params``). ``partial`` is the ``AxisGroup`` whose ranks each compute
     a part of every output (the expert axis, or a tensor axis splitting the
     experts' hidden width): the tokens and gates enter it and the combined
-    outputs are summed over it. ``group`` routes globally (:func:`topk_route`)."""
+    outputs are summed over it. ``group`` routes globally over ``rows``
+    rows of this rank's tokens (:func:`topk_route`)."""
     local = num_experts if local is None else local
     num_tokens = tokens.shape[0]
     if partial is not None and partial.size > 1:
         tokens, gates = partial.enter(tokens), partial.enter(gates)
     else:
         partial = None
-    routing = topk_route(gates, k, capacity_factor, normalize_gates, group)
+    routing = topk_route(gates, k, capacity_factor, normalize_gates, group, rows)
     if capacity_factor is None:
         # dropless: every expert computes every token (E x the routed work),
         # the top-k gates pick each token's outputs

@@ -47,6 +47,7 @@ __all__ = [
     "batch_axis_size",
     "batch_group",
     "batch_index",
+    "batch_order",
     "batch_sharding",
     "fsdp_mesh",
     "logical_to_sharding",
@@ -280,20 +281,22 @@ def axis_group(mesh: Any, name: str) -> Any:
     return mesh.get_group(name) if axis_size(mesh, name) > 1 else None
 
 
-#: (id(mesh), axes) -> (mesh, this rank's group over those axes); the mesh is
-#: kept so that its id is not reused while the entry stands
+#: (id(mesh), axes) -> (mesh, this rank's group over those axes, or for the
+#: key ``("fsdp_mesh",)`` the mesh's :func:`fsdp_mesh`); the mesh is kept so
+#: that its id is not reused while the entry stands
 _GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, Any]] = {}
 
 
 def batch_group(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Any:
     """The process group the batch is sharded over under :func:`batch_sharding`:
-    ``data`` (or ``axis``) alone, or data×fsdp when the mesh has both, this
-    rank's group rank being its :func:`batch_index`; with ``sequence``, the
-    group over data×fsdp×sequence (a sequence-parallel step's gradients are
-    each rank's part of the sum over its chunks). ``None`` when it spans one
-    rank. A group over several axes is made once per mesh, by every rank of
-    the world in the same order (``torch.distributed.new_group`` is
-    collective)."""
+    ``data`` (or ``axis``) alone, or data×fsdp when the mesh has both; with
+    ``sequence``, the group over data×fsdp×sequence (a sequence-parallel
+    step's gradients are each rank's part of the sum over its chunks).
+    ``None`` when it spans one rank. A group over several axes is made once
+    per mesh, by every rank of the world in the same order
+    (``torch.distributed.new_group`` is collective). Its ranks are numbered
+    in global-rank order, which is not :func:`batch_index`'s order on every
+    mesh: a gather over it is put in batch order by :func:`batch_order`."""
     axes = _batch_axes(mesh, axis, sequence)
     size = batch_axis_size(mesh, axis, sequence)
     if size == 1:
@@ -325,20 +328,55 @@ def batch_index(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> int
     return index
 
 
+def batch_order(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Optional[Tuple[int, ...]]:
+    """Where each shard of the batch lands in a gather over
+    :func:`batch_group`: entry ``b`` is the group rank of the rank whose
+    :func:`batch_index` is ``b``, so ``gathered[order]`` is in batch order.
+    ``torch.distributed`` numbers a group's ranks by their global ranks,
+    which follow the mesh's axis order; the batch's order is data, fsdp,
+    sequence whatever the mesh lists first (on ``{"sequence": 2, "data":
+    2}`` global rank 1 holds batch index 2). ``None`` where the two orders
+    agree, or the group spans one rank."""
+    group = batch_group(mesh, axis, sequence)
+    if group is None:
+        return None
+    names, axes = axis_names(mesh), _batch_axes(mesh, axis, sequence)
+    order = [0] * batch_axis_size(mesh, axis, sequence)
+    for position, rank in enumerate(dist.get_process_group_ranks(group)):
+        coords = (mesh.mesh == rank).nonzero()[0].tolist()
+        index = 0
+        for a in axes:
+            index = index * axis_size(mesh, a) + coords[names.index(a)]
+        order[index] = position
+    return None if order == list(range(len(order))) else tuple(order)
+
+
 def fsdp_mesh(mesh: Any) -> Any:
-    """The ``DeviceMesh`` FSDP2 shards parameters over: the ``fsdp`` axis, or
-    (data, fsdp) when the mesh has both, which FSDP2 takes as hybrid
-    sharding (replicated over ``data``, sharded over ``fsdp``). ``data`` must
-    come before ``fsdp`` in the mesh (FSDP2 reads a 2-D mesh as (replicate,
-    shard))."""
+    """The ``DeviceMesh`` FSDP2 shards parameters over: the ``fsdp`` axis
+    alone, or, when the mesh has a ``data`` or ``sequence`` axis too, a 2-D
+    (replicate, fsdp) mesh, which FSDP2 takes as hybrid sharding: the
+    gradients reduce-scattered over ``fsdp`` and all-reduced over the
+    replicate dimension, data×sequence (the ranks that hold other rows, or
+    other chunks of the same rows), whatever the axes' order. The 2-D mesh
+    is a new ``DeviceMesh`` over the same ranks, made once per mesh by every
+    rank of the world in the same order (its groups are made collectively)."""
     names = axis_names(mesh)
     if FSDP_AXIS not in names:
         raise ValueError(f"mesh axes {names} have no {FSDP_AXIS!r} axis")
-    if DATA_AXIS not in names:
+    replicate = [a for a in (DATA_AXIS, SEQUENCE_AXIS) if a in names]
+    if not replicate:
         return mesh[FSDP_AXIS]
-    if names.index(DATA_AXIS) > names.index(FSDP_AXIS):
-        raise ValueError(f"mesh axes {names}: {DATA_AXIS!r} must come before {FSDP_AXIS!r} for hybrid sharding")
-    return mesh[DATA_AXIS, FSDP_AXIS]
+    key = (id(mesh), ("fsdp_mesh",))
+    if key not in _GROUPS:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        dims = [names.index(a) for a in replicate] + [names.index(FSDP_AXIS)]
+        others = [i for i in range(len(names)) if i not in dims]
+        rest = int(np.prod([mesh.size(i) for i in others])) if others else 1
+        ranks = mesh.mesh.permute(others + dims).reshape(rest, -1, axis_size(mesh, FSDP_AXIS))
+        whole = DeviceMesh(mesh.device_type, ranks, mesh_dim_names=("rest", "replicate", FSDP_AXIS))
+        _GROUPS[key] = (mesh, whole["replicate", FSDP_AXIS])
+    return _GROUPS[key][1]
 
 
 def wrapped_row_indices(n_rows: int, multiple: int):

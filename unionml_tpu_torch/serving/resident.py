@@ -52,10 +52,12 @@ that axis (``resident.py:213-260``): each request's token arrays are cut
 into the ranks' chunks (the sequence ladder's rungs must be multiples of the
 axis size, else JAX's ``ValueError``; without a ladder the rows pad up to
 one), BERT's pooler reads ``[CLS]`` on every rank and a GPT's per-chunk
-logits are gathered back into whole rows. Ulysses (all-to-alls) replays
-graphs as any model does; a ring over several ranks runs eagerly
-(:attr:`ResidentPredictor.mode`), its point-to-point hops not being
-recorded into graphs. Over any other mesh such a model attends densely.
+logits are gathered back into whole rows. Beside a ``tensor`` axis
+(``{"sequence": S, "tensor": T}`` with the family's ``param_specs``) the
+tensor-parallel copy serves each chunk at the rank's heads. Ulysses
+(all-to-alls) replays graphs as any model does; a ring over several ranks
+runs eagerly (:attr:`ResidentPredictor.mode`), its point-to-point hops not
+being recorded into graphs. Over any other mesh such a model attends densely.
 """
 
 import dataclasses
@@ -188,21 +190,18 @@ def _serving_attention(model_object: Any, mesh: Any) -> Any:
     rows over a ``sequence`` axis (``attention_impl`` ring or ulysses) is
     served as it is over a mesh with a ``sequence`` axis the size of its
     ``sp_mesh``'s (the predictor cuts each request's tokens into the
-    ranks' chunks); over any other mesh, or none, it attends densely (a
-    request's rows arrive whole), sharing its parameters. A ``sequence``
-    axis beside a ``tensor`` axis of more than one rank raises, as in
-    training; one of another size than ``sp_mesh``'s raises ``ValueError``."""
+    ranks' chunks; beside a ``tensor`` axis the tensor-parallel copy keeps
+    the config and each rank attends at its heads); over any other mesh, or
+    none, it attends densely (a request's rows arrive whole), sharing its
+    parameters. A ``sequence`` axis of another size than ``sp_mesh``'s
+    raises ``ValueError``."""
     from unionml_tpu_torch.models._layers import dense_attention_copy
-    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, TENSOR_AXIS, axis_names, axis_size, sequence_size
+    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, axis_names, sequence_size
 
     cfg = _sequence_config(model_object)
     if cfg is None:
         return model_object
     if mesh is not None and SEQUENCE_AXIS in axis_names(mesh):
-        if axis_size(mesh, TENSOR_AXIS) > 1:
-            raise NotImplementedError(
-                f"sequence parallelism on a mesh with a tensor axis ({axis_names(mesh)}) is not ported yet "
-                "(ROADMAP: M12, sequence with tensor/fsdp)")
         if sequence_size(cfg.sp_mesh) != sequence_size(mesh):
             raise ValueError(f"attention_impl={cfg.attention_impl!r} serves on a mesh with a {SEQUENCE_AXIS!r} axis "
                              f"the size of sp_mesh's ({sequence_size(cfg.sp_mesh)}), not {sequence_size(mesh)}")
@@ -247,13 +246,15 @@ class ResidentPredictor:
         self._param_specs = param_specs
         #: the lead protocol of a mesh of several ranks (rank 0 predicts, the others follow)
         self._lead: Optional[MeshLead] = None
-        #: the batch's ranks and this rank's group over them (None: one rank)
-        self._shards, self._batch_group = 1, None
+        #: the batch's ranks, this rank's group over them (None: one rank) and
+        #: the group rank at each batch index (``batch_order``; None: the same)
+        self._shards, self._batch_group, self._batch_order = 1, None, None
         if mesh is not None:
             from unionml_tpu_torch.parallel.distributed import collective_timeout_s
-            from unionml_tpu_torch.parallel.mesh import batch_axis_size, batch_group
+            from unionml_tpu_torch.parallel.mesh import batch_axis_size, batch_group, batch_order
 
             self._shards, self._batch_group = batch_axis_size(mesh), batch_group(mesh)
+            self._batch_order = batch_order(mesh)
             if mesh.mesh.numel() > 1:
                 self._lead = MeshLead(mesh, collective_timeout_s(), ("_serve",))
         # the leader's led calls one at a time (predict() runs on executor
@@ -422,14 +423,14 @@ class ResidentPredictor:
         return _pytree.tree_map(lambda a: a[index * part:(index + 1) * part].contiguous(), padded), True
 
     def _gather(self, predictions: Any) -> Any:
-        """The batch's ranks' rows of every tensor output, in rank order."""
+        """The batch's ranks' rows of every tensor output, in batch order."""
 
         def gather(leaf: Any) -> Any:
             if not isinstance(leaf, torch.Tensor) or leaf.ndim < 1:
                 return leaf
             pieces = [torch.empty_like(leaf) for _ in range(self._shards)]
             dist.all_gather(pieces, leaf.contiguous(), group=self._batch_group)
-            return torch.cat(pieces)
+            return torch.cat(pieces if self._batch_order is None else [pieces[p] for p in self._batch_order])
 
         return _pytree.tree_map(gather, predictions)
 
