@@ -566,6 +566,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the same gates, and the first step's kept choices of every sparse layer
    those of one card on the whole batch (at most 16 differ). Each world
    runs under its own time limit with a progress line per step.
+28. experts split over an ``expert`` axis beside fsdp, tensor and sequence
+   (``parallel/ep.py``'s a2a over the data shard's gathered tokens and the
+   expert×tensor partial sums, ``MoEMlp.partial``, FSDP2 units of a rank's
+   experts). (a) A world of one rank over NCCL: 2 ``fit_lm`` steps of phase
+   25's sparse model (B8 S1024, router losses on), gshard with ``ep_mesh``
+   and a2a, f32 and bf16, on ``{"expert": 1, "fsdp": 1}`` and ``{"expert":
+   1, "tensor": 1}`` (packed rows) and ``{"expert": 1, "sequence": 1}``
+   (ring, right-padded rows), laid out by ``param_shardings``, each bitwise
+   the unmeshed gshard steps on the same rows (losses and the whole state);
+   K1-K3 launch once per layer and step (``launches_28``). (b) One sparse
+   block at full width on 8192 tokens, its experts cut into 2 expert × 2
+   tensor pieces in one process (``_in_process_split``: each piece's f32
+   partial summed), gshard and a2a at capacity 1.25, forward and backward,
+   against the whole block (the a2a's over 2 source blocks of whole
+   experts): the kept choices equal, f32 outputs and gradients within 1e-5
+   of each one's largest magnitude, bf16 under ``TOL`` scaled; the split's
+   and the whole block's ms. (c) The sparse model on ``DecodeEngine(mesh=
+   {"expert": 1, "tensor": 1})`` with ``ep_mesh``, f32 and bf16: greedy
+   streams identical to the unmeshed engine's, K1/K4 launched; the dropless
+   expert×tensor split in one process at a decode burst's rows and a
+   prefill's tokens against the whole dropless block. (d) Where the machine
+   has 4 cards: worlds of 4 over NCCL on ``{"expert": 2, "fsdp": 2}``,
+   ``{"expert": 2, "tensor": 2}`` and ``{"expert": 2, "sequence": 2}``
+   (3 gshard steps of the f32 sparse model, ring on the sequence world),
+   each against rank 0's one-card steps under phase 27's gates, the first
+   step's kept choices those of one card; step ms and peak memory per world.
 
 Decode bursts, speculative rounds and resident requests replay CUDA graphs. A
 graph's recording launches nothing and counts nothing; each replay adds the
@@ -7783,15 +7809,15 @@ def sa_specs(state, mesh):
     return _family(state.model)[1](dict(state.model.named_parameters()), axis_names(mesh))
 
 
-def sa_bitwise(label: str, got: tuple, want: tuple, expected: dict, launches: dict) -> dict:
+def sa_bitwise(label: str, got: tuple, want: tuple, expected: dict, launches: dict, phase: int = 27) -> dict:
     """A composed arm (``sp_arm``'s tuple) bitwise its plain arm (losses and
     the whole state), its launches the schedule's, summed into the phase's
     counts."""
     hist, whole, _, got_launches = got
     if got_launches != expected:
-        raise AssertionError(f"phase 27 {label}: launches {got_launches}, expected {expected}")
+        raise AssertionError(f"phase {phase} {label}: launches {got_launches}, expected {expected}")
     if hist != want[0] or not st_equal(whole, want[1]):
-        raise AssertionError(f"phase 27 {label} at a world of 1: not bitwise its plain arm (losses "
+        raise AssertionError(f"phase {phase} {label} at a world of 1: not bitwise its plain arm (losses "
                              f"{[h['loss'] for h in hist]} vs {[h['loss'] for h in want[0]]})")
     _launch_sum(launches, got_launches)
     return {"bitwise": True, "losses": [h["loss"] for h in hist]}
@@ -8039,11 +8065,12 @@ def sa_gate(label: str, got: list, want: list) -> list:
     return [{"step": i, "meshed": a, "one_card": b} for i, (a, b) in enumerate(zip(got, want))]
 
 
-def sa_keep_mismatches(ranks: list, whole: list) -> int:
-    """The kept choices of the ranks' chunks (``(where, per-layer (T, k))``)
-    that differ from one card's on the whole batch, over every layer."""
-    if len(whole) == 0 or any(len(r["ring"]["keep"]) != len(whole) for r in ranks):
-        raise AssertionError(f"phase 27 sparse: kept choices of {[len(r['ring']['keep']) for r in ranks]} layers, "
+def sa_keep_mismatches(ranks: list, whole: list, arm: str = "ring") -> int:
+    """The kept choices of the ranks' chunks (``(where, per-layer (T, k))``
+    of ``arm``) that differ from one card's on the whole batch, over every
+    layer."""
+    if len(whole) == 0 or any(len(r[arm]["keep"]) != len(whole) for r in ranks):
+        raise AssertionError(f"sparse {arm}: kept choices of {[len(r[arm]['keep']) for r in ranks]} layers, "
                              f"one card {len(whole)}")
     rows, seq, k = SA_SPARSE_ROWS, whole[0].shape[0] // SA_SPARSE_ROWS, whole[0].shape[1]
     wrong = 0
@@ -8053,7 +8080,7 @@ def sa_keep_mismatches(ranks: list, whole: list) -> int:
             w = r["where"]
             per, length = rows // w["blocks"], seq // w["chunks"]
             got[w["block"] * per:(w["block"] + 1) * per, w["chunk"] * length:(w["chunk"] + 1) * length] = \
-                r["ring"]["keep"][layer].reshape(per, length, k)
+                r[arm]["keep"][layer].reshape(per, length, k)
         wrong += int((got != want.reshape(rows, seq, k)).sum())
     return wrong
 
@@ -8185,6 +8212,372 @@ def report_sequence_axes(sa: dict, name_limit: str) -> None:
               f"(loss within {SA_LOSS_RTOL}, grad_norm within {SA_NORM_RTOL} relative){keep}; {rec['wall_s']:.1f} s")
     print(f"phase 27 launches {sa['launches']}; phase 27 took {sa['s']:.1f} s "
           f"({ {k: round(v, 1) for k, v in sa['parts_s'].items()} })")
+
+
+# ----------------------- phase 28: experts split over an expert axis beside fsdp, tensor and sequence
+
+XA_STEPS = 2
+#: (a): the composed meshes at one rank; the sequence one trains ring on right-padded rows
+XA_MESHES = ({"expert": 1, "fsdp": 1}, {"expert": 1, "tensor": 1}, {"expert": 1, "sequence": 1})
+XA_PIECES = (2, 2)  # (b), (c): the simulated (expert, tensor) pieces of a sparse block
+#: (d): the 4-card worlds, gshard on the sparse f32 model
+XA_MULTI = ({"expert": 2, "fsdp": 2}, {"expert": 2, "tensor": 2}, {"expert": 2, "sequence": 2})
+XA_DIR = Path(__file__).resolve().parent / "build" / "expert_axes"
+
+
+def xa_arms(device, launches: dict) -> dict:
+    """(a): phase 25's sparse model (4 blocks, 2 sparse) through ``fit_lm``
+    on each of ``XA_MESHES`` with ``ep_mesh`` the mesh, gshard and a2a, laid
+    out by ``param_shardings``, f32 and bf16, each against the unmeshed
+    gshard arm on the same rows (packed; right-padded under ring)."""
+    from unionml_tpu_torch.models import fit_lm, random_params
+    from unionml_tpu_torch.parallel import make_mesh
+
+    params = random_params(xp_config(torch.float32), seed=0)
+    corpus = lm_corpus(LM_SEQS, LM_SEQ, seed=25)
+    meshes = [(json.dumps(axes), make_mesh(axes, device=device.type)) for axes in XA_MESHES]
+    expected = {n: XP_LAYERS * XA_STEPS for n in XP_KERNELS}
+
+    def run(mesh, pack: bool):
+        def fit(state):
+            return fit_lm(state, corpus, seq_len=LM_SEQ, batch_size=LM_BATCH, pack=pack, num_steps=XA_STEPS,
+                          mesh=mesh, param_spec=None if mesh is None else sa_specs(state, mesh), log_every=1,
+                          seed=0, moe_aux=True)
+        return fit
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        plain = {pack: sp_arm(lambda: lm_state(xp_config(dtype), params, device), run(None, pack))
+                 for pack in (True, False)}
+        for label, mesh in meshes:
+            ring = "sequence" in label
+            for dispatch in ("gshard", "a2a"):
+                config = xp_config(dtype, moe_dispatch=dispatch, ep_mesh=mesh, sp_mesh=mesh if ring else None)
+                got = sp_arm(lambda: lm_state(config, params, device, "ring" if ring else "auto"), run(mesh, not ring))
+                name = f"sparse {dispatch} {str(dtype)[6:]} {label}"
+                out[name] = sa_bitwise(name, got, plain[not ring], expected, launches, phase=28)
+                del got
+        del plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def xa_in_process(device) -> list:
+    """(b): one sparse block of phase 25's model (d 768, 8 experts of 3072,
+    top-2, capacity 1.25) on ``XP_TOKENS`` tokens, its experts cut into
+    ``XA_PIECES`` (expert, tensor) pieces in one process
+    (``_in_process_split``), gshard and a2a, forward and backward, against
+    the whole block (gshard: the index dispatch over every expert; a2a:
+    ``_in_process_moe_a2a`` over the pieces' expert ranks, whole experts)."""
+    from unionml_tpu_torch.models.moe import MoEMlp, _experts
+    from unionml_tpu_torch.parallel.ep import _apply_topk, _in_process_moe_a2a, _in_process_split, topk_route
+
+    config = moe_config()
+    d, experts, k, cf = config.hidden_size, config.num_experts, config.moe_k, config.moe_capacity_factor
+    ep, tp = XA_PIECES
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(0)
+        layer = MoEMlp(d, experts, 4 * d, k=k, capacity_factor=cf, dtype=dtype, device=device)
+        with torch.no_grad():
+            layer.router.weight.normal_(0.0, 0.05)
+            layer.router.bias.copy_(torch.linspace(0.6, -0.6, experts, device=device))  # imbalanced: drops
+            x = torch.randn(XP_TOKENS, d, generator=torch.Generator(device=device).manual_seed(28), device=device)
+            x = x.to(dtype)
+            gates, _ = layer.route(x)
+            cotangent = torch.randn(XP_TOKENS, d, generator=torch.Generator(device=device).manual_seed(29),
+                                    device=device).to(dtype)
+        for dispatch in ("gshard", "a2a"):
+            def split(w_in, w_out, tokens, g):
+                return _in_process_split(_experts, (w_in, w_out), tokens, g, ep, tp, k=k, capacity_factor=cf,
+                                         dispatch=dispatch)
+
+            def whole(w_in, w_out, tokens, g):
+                if dispatch == "a2a":
+                    return _in_process_moe_a2a(_experts, (w_in, w_out), tokens, g, ep, k=k, capacity_factor=cf)
+                return _apply_topk(_experts, (w_in, w_out), tokens, g, k=k, capacity_factor=cf,
+                                   normalize_gates=True, num_experts=experts)
+
+            results = []
+            for fn in (split, whole):
+                leaves = [t.detach().clone().requires_grad_() for t in (layer.w_in, layer.w_out, x, gates)]
+                value = fn(*leaves)
+                results.append((value.detach(), torch.autograd.grad((value * cotangent).sum(), leaves)))
+            (got, got_grads), (want, want_grads) = results
+            routes = ([topk_route(g, k, cf) for g in gates.chunk(ep)] if dispatch == "a2a"
+                      else [topk_route(gates, k, cf)])
+            dropped = sum(int((~r.keep).sum()) for r in routes)
+            label = f"expert x tensor split {str(dtype)[6:]} {ep}x{tp} pieces {dispatch} T{XP_TOKENS} cf {cf}"
+            errs = {}
+            for name, a, b in [("out", got, want)] + [(f"d{n}", ga, gb) for n, ga, gb in zip(
+                    ("w_in", "w_out", "x", "gates"), got_grads, want_grads)]:
+                err, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+                if dtype == torch.float32 and not err <= 1e-5 * max(scale, 1e-30):
+                    raise AssertionError(f"phase 28 {label} {name}: max |err| {err:.3e} beyond 1e-5 of its "
+                                         f"largest magnitude {scale:.3e}")
+                if dtype == torch.bfloat16:
+                    check_close(f"phase 28 {label} {name}", a, b, scaled=True)
+                errs[name] = err / max(scale, 1e-30)
+            if dropped == 0:
+                raise AssertionError(f"phase 28 {label}: no choice dropped (the capacity is not exercised)")
+            rec = {"label": label, "max_abs_err": float((got.float() - want.float()).abs().max()),
+                   "rel_err": errs, "dropped": dropped, "choices": XP_TOKENS * k}
+            if dtype == torch.bfloat16:
+                with torch.no_grad():
+                    rec["ms"] = cuda_ms(lambda: split(layer.w_in, layer.w_out, x, gates), 5)
+                    rec["whole_ms"] = cuda_ms(lambda: whole(layer.w_in, layer.w_out, x, gates), 5)
+            out.append(rec)
+            del results, got_grads, want_grads
+        del layer
+        torch.cuda.empty_cache()
+    return out
+
+
+def xa_serving(device, mesh, launches: dict) -> dict:
+    """(c): the sparse model with ``ep_mesh=mesh`` behind ``DecodeEngine(mesh=
+    mesh)`` on ``{"expert": 1, "tensor": 1}``, f32 and bf16, against the
+    unmeshed engine; then the dropless expert×tensor split in one process
+    (``XA_PIECES``) against the whole dropless block at ``MS_TOKENS``."""
+    from unionml_tpu_torch import kernels
+    from unionml_tpu_torch.models import init_gpt, random_params
+    from unionml_tpu_torch.models.moe import MoEMlp, _experts
+    from unionml_tpu_torch.parallel.ep import _in_process_split
+    from unionml_tpu_torch.serving import DecodeEngine
+
+    params = random_params(xp_config(torch.float32), seed=0)
+    prompt_list = tp_prompts(moe_config().vocab_size)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        plain = tp_drive(DecodeEngine(init_gpt(xp_config(dtype), params=params, device=device), device=device,
+                                      **TP_KW), prompt_list)
+        served = init_gpt(xp_config(dtype, ep_mesh=mesh), params=params, device=device)
+        engine = DecodeEngine(served, mesh=mesh, device=device, **TP_KW)
+        kernels.reset_launches()
+        streams = tp_drive(engine, prompt_list)
+        _serving_launches(launches)
+        if streams != plain or engine.capture_failures:
+            raise AssertionError(f"phase 28 sparse {dtype} on {json.dumps(XA_MESHES[1])} with ep_mesh: streams "
+                                 f"{streams} differ from the unmeshed engine's {plain}, or a capture failed")
+        out[str(dtype)] = {"streams_identical": len(streams), "graphs": engine.graph_captures}
+        del engine, served
+        torch.cuda.empty_cache()
+    config = moe_config()
+    d, experts, k = config.hidden_size, config.num_experts, config.moe_k
+    ep, tp = XA_PIECES
+    split = []
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(0)
+        layer = MoEMlp(d, experts, 4 * d, k=k, dtype=dtype, device=device)
+        params_ = (layer.w_in, layer.w_out)
+        for tokens in MS_TOKENS:
+            with torch.no_grad():
+                x = torch.randn(tokens, d, generator=torch.Generator(device=device).manual_seed(tokens),
+                                device=device).to(dtype)
+                want, _ = layer(x, dropless=True)
+                gates, _ = layer.route(x)
+
+                def run():
+                    return _in_process_split(_experts, params_, x, gates, ep, tp, k=k, capacity_factor=None)
+
+                got = run()
+                label = f"dropless expert x tensor split {str(dtype)[6:]} {ep}x{tp} pieces T{tokens}"
+                split.append({"label": label, "max_abs_err": check_close(f"phase 28 {label}", got, want),
+                              "ms": cuda_ms(run, 10), "whole_ms": cuda_ms(lambda: layer(x, dropless=True), 10)})
+        del layer
+    out["split"] = split
+    torch.cuda.empty_cache()
+    return out
+
+
+def _xa_rank(rank: int, world: int, port: int, out_dir: str, axes: dict, device_type: str = "cuda",
+             config=None) -> None:
+    """One rank of (d) (spawned): ``SA_MULTI_STEPS`` gshard steps of phase
+    25's sparse model in f32 (dropout off, ring on a sequence axis) with
+    ``ep_mesh`` the world's ``axes``, laid out by ``param_shardings``, on
+    ``SA_SPARSE_ROWS`` right-padded rows, the first step's kept choices
+    recorded; a progress line per step from rank 0, with the step's wall and
+    the arm's peak memory. Rank 0 then runs the same steps on one card,
+    unmeshed. Every rank exits on its own after ``SA_MULTI_LIMIT_S``."""
+    import faulthandler
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.models import dict_batches, make_lm_train_step, random_params
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+    from unionml_tpu_torch.parallel.mesh import SEQUENCE_AXIS, axis_index, axis_size, batch_axis_size, batch_index
+
+    faulthandler.dump_traceback_later(SA_MULTI_LIMIT_S, exit=True)
+    os.environ["LOCAL_RANK"] = str(rank)
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    initialize_distributed(f"localhost:{port}", world, rank, strict=True, device=device_type,
+                           timeout_s=SA_MULTI_LIMIT_S)
+    mesh = make_mesh(axes, device=device_type)
+    config = config or xp_config(torch.float32, dropout=0.0)
+    ring = SEQUENCE_AXIS in axes
+    rows = sa_multi_rows(config, SA_SPARSE_ROWS)
+    params = random_params(config, seed=0)
+
+    def steps(state, step, batch, label):
+        history, keep = [], None
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for i in range(SA_MULTI_STEPS):
+            t0 = time.perf_counter()
+            log, restore = _sa_keep_log() if i == 0 else (None, None)
+            try:
+                state, metrics = step(state, batch)
+            finally:
+                if restore is not None:
+                    restore()
+            history.append({k: float(v) for k, v in metrics.items()})
+            history[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+            keep = log if log is not None else keep
+            if rank == 0:
+                print(f"phase 28 world of {world} {json.dumps(axes)} {label} step {i}: loss {history[-1]['loss']:.6f}, "
+                      f"{history[-1]['ms']:.1f} ms", flush=True)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+        return {"history": history, "keep": keep, "peak_gib": peak}
+
+    out = {"where": {"block": batch_index(mesh), "blocks": batch_axis_size(mesh),
+                     "chunk": axis_index(mesh, SEQUENCE_AXIS), "chunks": axis_size(mesh, SEQUENCE_AXIS)}}
+    meshed = dataclasses.replace(config, ep_mesh=mesh, sp_mesh=mesh if ring else None)
+    state = lm_state(meshed, params, device, "ring" if ring else "auto")
+    step = make_lm_train_step(moe_aux=True, mesh=mesh, param_spec=sa_specs(state, mesh))
+    out["gshard"] = steps(state, step, next(iter(dict_batches(rows, SA_SPARSE_ROWS, device=device, mesh=mesh))),
+                          "gshard")
+    del state, step
+    if rank == 0:
+        state = lm_state(config, params, device, "auto")
+        out["dense"] = steps(state, make_lm_train_step(moe_aux=True),
+                             next(iter(dict_batches(rows, SA_SPARSE_ROWS, device=device))), "one card")
+        del state
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def xa_multi_card(device_type: str = "cuda", config=None) -> dict:
+    """(d): worlds of 4 (a card per rank) on ``XA_MULTI``, where the machine
+    has 4 cards: every step's loss and ``grad_norm`` against rank 0's
+    one-card steps (``sa_gate``) and the first step's kept choices against
+    one card's (``SA_KEEP_SLACK``). Each world has its own limit; a world
+    that does not end in it is killed and fails the phase."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count() if device_type == "cuda" else 4
+    if cards < 4:
+        return {"run": False, "why": f"{cards} card on this machine: the worlds need 4"}
+    ctx = mp.get_context("spawn")
+    out = {"run": True}
+    for axes in XA_MULTI:
+        label = json.dumps(axes)
+        out_dir = XA_DIR / "-".join(f"{k}{v}" for k, v in axes.items())
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for stale in out_dir.glob("rank*.pkl"):
+            stale.unlink()
+        port, t0 = free_port(), time.perf_counter()
+        procs = [ctx.Process(target=_xa_rank, args=(r, 4, port, str(out_dir), axes, device_type, config))
+                 for r in range(4)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, SA_MULTI_LIMIT_S + 30 - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        files = [out_dir / f"rank{r}.pkl" for r in range(4)]
+        if hung or not all(f.exists() for f in files):
+            raise AssertionError(f"phase 28 world of 4 on {label}: ranks {hung} did not end within "
+                                 f"{SA_MULTI_LIMIT_S} s, or a rank wrote nothing (exit codes "
+                                 f"{[p.exitcode for p in procs]})")
+        got = [pickle.loads(f.read_bytes()) for f in files]
+        dense = got[0]["dense"]
+        wrong = sa_keep_mismatches(got, dense["keep"], "gshard")
+        choices = int(sum(w.size for w in dense["keep"]))
+        if wrong > SA_KEEP_SLACK:
+            raise AssertionError(f"phase 28 {label}: {wrong} of {choices} kept choices differ from one card's "
+                                 f"(limit {SA_KEEP_SLACK})")
+        out[label] = {"losses": [h["loss"] for h in got[0]["gshard"]["history"]],
+                      "step_ms": [h["ms"] for h in got[0]["gshard"]["history"]],
+                      "peak_gib": got[0]["gshard"]["peak_gib"],
+                      "steps": sa_gate(f"phase 28 {label}", got[0]["gshard"]["history"], dense["history"]),
+                      "one_card": {"losses": [h["loss"] for h in dense["history"]],
+                                   "step_ms": [h["ms"] for h in dense["history"]], "peak_gib": dense["peak_gib"]},
+                      "keep": {"differ": wrong, "choices": choices,
+                               "dropped": int(sum((~w).sum() for w in dense["keep"]))},
+                      "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def expert_axes_phase(device) -> dict:
+    """Phase 28: experts split over an expert axis beside fsdp, tensor and sequence (see the module docstring)."""
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    out, parts, launches = {}, {}, {}
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, strict=True, device=device.type)
+    try:
+        t = time.perf_counter()
+        out["main_path"] = xa_arms(device, launches)
+        parts["main_path"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["serving"] = xa_serving(device, make_mesh(XA_MESHES[1], device=device.type), launches)
+        parts["serving"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    for name in XP_KERNELS + ("paged_attention",):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 28: {name} never launched on the composed expert meshes' path ({launches})")
+    t = time.perf_counter()
+    out["in_process"] = xa_in_process(device)
+    parts["in_process"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["multi_card"] = xa_multi_card()
+    parts["multi_card"] = time.perf_counter() - t
+    out["launches"] = launches
+    out["parts_s"], out["s"] = parts, time.perf_counter() - t0
+    return out
+
+
+def report_expert_axes(xa: dict, name_limit: str) -> None:
+    for label, r in xa["main_path"].items():
+        print(f"phase 28 {label} ({XA_STEPS} steps, a world of 1 over NCCL): bitwise the unmeshed gshard steps, "
+              f"losses {[round(x, 6) for x in r['losses']]}")
+    for r in xa["in_process"]:
+        extra = f"; {r['ms']:.3f} ms, the whole block {r['whole_ms']:.3f} ms" if "ms" in r else ""
+        rel = ", ".join(f"{k} {v:.1e}" for k, v in r["rel_err"].items())
+        print(f"[{name_limit}] phase 28 {r['label']}: outputs max |err| {r['max_abs_err']:.3e} vs the whole block; "
+              f"max |err| over the largest magnitude: {rel}; dropped {r['dropped']} of {r['choices']} choices, "
+              f"alike{extra}")
+    sv = xa["serving"]
+    print(f"phase 28 sparse GPT with ep_mesh on DecodeEngine(mesh={json.dumps(XA_MESHES[1])}): f32 "
+          f"{sv[str(torch.float32)]['streams_identical']} and bf16 {sv[str(torch.bfloat16)]['streams_identical']} "
+          "greedy streams identical to the unmeshed engine's")
+    for r in sv["split"]:
+        print(f"[{name_limit}] phase 28 {r['label']}: max |err| {r['max_abs_err']:.3e} vs the whole dropless block; "
+              f"{r['ms']:.3f} ms, whole {r['whole_ms']:.3f} ms")
+    mc = xa["multi_card"]
+    if not mc["run"]:
+        print(f"phase 28 worlds of 4: not run ({mc['why']})")
+    for label, rec in mc.items():
+        if not isinstance(rec, dict):
+            continue
+        print(f"[{name_limit}] phase 28 world of 4 on {label} over NCCL, gshard: losses {rec['losses']}, step ms "
+              f"{[round(x, 1) for x in rec['step_ms']]}, peak {sa_gib(rec['peak_gib'])}; one card "
+              f"{rec['one_card']['losses']}, step ms {[round(x, 1) for x in rec['one_card']['step_ms']]}, peak "
+              f"{sa_gib(rec['one_card']['peak_gib'])} (loss within {SA_LOSS_RTOL}, grad_norm within {SA_NORM_RTOL} "
+              f"relative); kept choices: {rec['keep']['differ']} of {rec['keep']['choices']} differ from one card's "
+              f"({rec['keep']['dropped']} dropped there); {rec['wall_s']:.1f} s")
+    print(f"phase 28 launches {xa['launches']}; phase 28 took {xa['s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in xa['parts_s'].items()} })")
 
 
 def _times(kernel, plain, library) -> dict:
@@ -8868,6 +9261,9 @@ def main() -> int:
     details["sequence_axes"] = sa = sequence_axes_phase(device)
     report_sequence_axes(sa, name_limit)
     details["extra_timings"].extend(sa["records"])
+    torch.cuda.empty_cache()
+    details["expert_axes"] = xa = expert_axes_phase(device)
+    report_expert_axes(xa, name_limit)
     for r in records:
         if r["name"] in tm["launches"]:
             r["launches_telemetry"] = tm["launches"][r["name"]]
@@ -8895,10 +9291,12 @@ def main() -> int:
             r["launches_mesh_serving"] = ms["launches"][r["name"]]
         if r["name"] in sa["launches"]:
             r["launches_27"] = sa["launches"][r["name"]]
+        if r["name"] in xa["launches"]:
+            r["launches_28"] = xa["launches"][r["name"]]
     details["total_s"] = time.perf_counter() - t0
     phases_s = {"14": slo["s"], "15": tm["s"], "16": fl["s"], "17": moe["s"], "18": di["s"], "19": tr["s"],
                 "20": ep["s"], "21": li["s"], "22": tp["s"], "23": st["s"], "24": sp["s"],
-                "25": xp["s"], "26": ms["s"], "27": sa["s"]}
+                "25": xp["s"], "26": ms["s"], "27": sa["s"], "28": xa["s"]}
     print(f"[{name_limit}] wall s by phase {({k: round(v, 1) for k, v in phases_s.items()})}; "
           f"{details['total_s']:.1f} s since the build started, {time.perf_counter() - _STARTED:.1f} s in all")
     lost = [n for _, n, _ in PROFILE_LOST if n < PROFILE_PAD]
@@ -8947,6 +9345,8 @@ def main() -> int:
             entry["launches_mesh_serving"] = r["launches_mesh_serving"]
         if "launches_27" in r:  # phase 27's K1-K3 launches (the sequence axis beside tensor, fsdp, sparse blocks)
             entry["launches_27"] = r["launches_27"]
+        if "launches_28" in r:  # phase 28's K1-K4 launches (experts split beside fsdp, tensor, sequence)
+            entry["launches_28"] = r["launches_28"]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -24,7 +24,6 @@ Tolerance: none; every comparison is exact. The card's replay of a dense
 burst is ``test_torch_graphs.py::test_burst_replay_equals_the_eager_burst``.
 """
 
-from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
@@ -32,14 +31,12 @@ import torch
 from tests.test_torch_prefix_cache import SCHEDULES, Pair, counters, leaks, run_schedule
 from tests.test_torch_recovery import PAIR, Sink, run_batcher, supervisor
 from tests.test_torch_slo_batcher import _Worker, run
+from tests.torch_xp_axes_ranks import expert_tensor_layout
 from unionml_tpu.serving.continuous import ContinuousBatcher as JaxBatcher
 from unionml_tpu.serving.supervisor import EngineSupervisor as JaxSupervisor
 from unionml_tpu.serving.telemetry import Telemetry as JaxTelemetry
 from unionml_tpu_torch.models import GPTConfig, GPTLMHeadModel
 from unionml_tpu_torch.serving import ContinuousBatcher, DecodeEngine, SpeculativeEngine, Telemetry
-
-#: a mesh whose expert and tensor axes span two ranks each: experts split over both are not ported (M12)
-EXPERT_TENSOR_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("expert", "tensor"), size=lambda dim: 2)
 
 MIXED_KW = dict(num_slots=4, max_len=64, prefill_buckets=(4, 8, 16), prefill_chunk=4, blocks=24)
 
@@ -182,10 +179,11 @@ def test_constructor_errors(gpt):
         with pytest.raises(ValueError, match="kv_quantize requires paged=True"):
             gpt.engine(kind, pool="int8", paged=False)
     # tensor, fsdp, sequence and expert axes serve (tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_mesh_serving_axes.py); experts over an expert and a tensor axis at once are still M12
+    # tests/test_torch_mesh_serving_axes.py), and so do experts over an expert and a tensor axis at once
+    # (tests/test_torch_expert_axes.py): each rank holds 2 of the 4 experts at half their hidden width,
+    # its partial outputs summed over the 4 ranks of expert×tensor
     sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
-        DecodeEngine(sparse, mesh=EXPERT_TENSOR_MESH, device="cpu")
+    assert expert_tensor_layout(sparse) == [((2, 64, 128), (2, 128, 64), 4)]
     with pytest.raises(ValueError, match="paged"):
         SpeculativeEngine(gpt.tmodel, gpt.tmodel, paged=False, device="cpu")
     eng = dense(gpt, "torch", blocks=0)

@@ -10,7 +10,6 @@ left-padded batches (``prompt_mask``).
 """
 
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_xp_axes_ranks import expert_tensor_layout
 from unionml_tpu.models import gpt as jgpt
 from unionml_tpu_torch.models import GPTConfig, GPTLMHeadModel, convert, generate, init_gpt
 from unionml_tpu_torch.models import gpt as tgpt
@@ -157,11 +157,12 @@ def test_config_defaults_and_unported_paths():
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, paged_attn_impl="pallas")
     # param_shardings is ported (tests/test_torch_mesh.py), and so are sparse blocks under a tensor mesh
-    # (tests/test_torch_expert_parallel.py) and serving over an expert axis (tests/test_torch_moe.py,
-    # tests/test_torch_mesh_serving_axes.py); experts over an expert and a tensor axis at once are still M12
+    # (tests/test_torch_expert_parallel.py), serving over an expert axis (tests/test_torch_moe.py,
+    # tests/test_torch_mesh_serving_axes.py) and over an expert and a tensor axis at once
+    # (tests/test_torch_expert_axes.py): tensor_parallel cuts a rank's 2 of the 4 experts at half their
+    # hidden width, summed over the 4 ranks of expert×tensor
     sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
-        tgpt.tensor_parallel(sparse, SimpleNamespace(mesh_dim_names=("tensor", "expert"), size=lambda dim: 2))
+    assert expert_tensor_layout(sparse) == [((2, 64, 128), (2, 128, 64), 4)]
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
     ids, segs = torch.zeros((1, 4), dtype=torch.long), torch.ones((1, 4), dtype=torch.long)
     # packed training runs now (and lm_loss with it); packing composes with no cache and no pad_offsets

@@ -239,12 +239,29 @@ def test_fit_lm_rejects_unported_options(pair, option):
         spec = tgpt.param_shardings(dict(sparse().named_parameters()), ("tensor",))
         meshed = run(sparse(), moe_aux=True, mesh=mesh, param_spec=spec, log_every=1).metrics_history
     assert [h["loss"] for h in meshed] == [h["loss"] for h in run(sparse(), moe_aux=True, log_every=1).metrics_history]
+    # ported (tests/test_torch_expert_axes.py): experts split over an expert axis beside fsdp, tensor or
+    # sequence; the meshed step's first call lays each rank's 2 of the 4 experts out as JAX's specs do
+    from unionml_tpu_torch.models.training import _on_mesh
+    from unionml_tpu_torch.parallel.mesh import axis_names
+
     with fake_world(4):
-        mesh = make_mesh({"expert": 2, "tensor": 2}, device="cpu")
-        model = sparse(ep_mesh=mesh)
-        spec = tgpt.param_shardings(dict(model.named_parameters()), ("expert", "tensor"))
-        with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
-            run(model, moe_aux=True, mesh=mesh, param_spec=spec)
+        for axes, local in (({"expert": 2, "fsdp": 2}, (1, 64, 256)), ({"expert": 2, "tensor": 2}, (2, 64, 128)),
+                            ({"expert": 2, "sequence": 2}, (2, 64, 256))):
+            mesh = make_mesh(axes, device="cpu")
+            ring = {"attention_impl": "ring", "sp_mesh": mesh} if "sequence" in axes else {}
+            model = sparse(ep_mesh=mesh, **ring)
+            spec = tgpt.param_shardings(dict(model.named_parameters()), axis_names(mesh))
+            state = _on_mesh(create_train_state(model), mesh, spec)
+            layout, moe = state.layout, state.model.layers[1].moe_mlp
+            split = [n for n, e in zip(state.names, layout.expert_split) if e]
+            assert split == ["layers.1.moe_mlp.w_in", "layers.1.moe_mlp.w_out"], axes
+            assert tuple(state.params[state.names.index(split[0])].shape) == local, axes
+            assert layout.fsdp == ("fsdp" in axes) and any(layout.tensor_split) == ("tensor" in axes)
+            # the batch's ranks route together: none beside tensor (every rank holds the whole batch)
+            group = moe.token_group
+            assert (group is None) == ("tensor" in axes)
+            assert group is None or (group.size, group.chunks) == (2, 2 if "sequence" in axes else 1)
+            assert moe.partial.size == (4 if "tensor" in axes else 2)
 
 
 def test_fit_lm_checkpoints_and_resumes(pair, tmp_path):

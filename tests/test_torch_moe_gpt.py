@@ -57,6 +57,17 @@ def _configs(**overrides):
             GPTConfig.tiny(dtype=torch.float32, **kw))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tiny models: under the suite's
+    parallel workers torch's default (a thread per core in every worker)
+    oversubscribes the cores, and each small op waits on its threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def params():
     """A JAX-layout tree of the sparse tiny GPT (numpy f32)."""
@@ -138,7 +149,7 @@ def test_first_packed_moe_aux_step_matches_jax(params):
         aux = jmoe.collect_aux_losses(sown["intermediates"])
         return aux + jgpt.lm_loss(logits, jbatch["input_ids"], segment_ids=jbatch["segment_ids"]), aux
 
-    (j_loss, j_aux), j_grads = jax.value_and_grad(loss_fn, has_aux=True)(params["params"])
+    (j_loss, j_aux), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params["params"])
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     state = create_train_state(model)
     with torch.no_grad():

@@ -31,13 +31,13 @@ test_engine_rebuild_recaptures_its_graphs``.
 """
 
 import asyncio
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from tests.test_torch_prefix_cache import Pair, leaks
+from tests.torch_xp_axes_ranks import expert_tensor_layout
 from unionml_tpu.serving.continuous import ContinuousBatcher as JaxBatcher
 from unionml_tpu.serving.supervisor import EngineSupervisor as JaxSupervisor
 from unionml_tpu.serving.telemetry import Telemetry as JaxTelemetry
@@ -54,9 +54,6 @@ from unionml_tpu_torch.serving import (
     SpeculativeEngine,
     Telemetry,
 )
-
-#: a mesh whose expert and tensor axes span two ranks each: experts split over both are not ported (M12)
-EXPERT_TENSOR_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("expert", "tensor"), size=lambda dim: 2)
 
 PROMPT_A, BUDGET_A = [3, 1, 4, 1, 5], 12
 PROMPT_B, BUDGET_B = [2, 7, 1], 10
@@ -509,10 +506,11 @@ def test_speculative_round_failure_is_structured_and_isolated(gpt):
 
 def test_unported_modes_raise_naming_their_items(gpt):
     # tensor, fsdp, sequence and expert axes serve (tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_mesh_serving_axes.py); experts over an expert and a tensor axis at once are still M12
+    # tests/test_torch_mesh_serving_axes.py), and so do experts over an expert and a tensor axis at once
+    # (tests/test_torch_expert_axes.py): each rank holds 2 of the 4 experts at half their hidden width,
+    # its partial outputs summed over the 4 ranks of expert×tensor
     sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
-        DecodeEngine(sparse, max_len=64, device="cpu", mesh=EXPERT_TENSOR_MESH)
+    assert expert_tensor_layout(sparse) == [((2, 64, 128), (2, 128, 64), 4)]
     # telemetry is wired: the engine names its paged attention path and feeds the pool gauges
     tel = Telemetry()
     eng = DecodeEngine(gpt.tmodel, max_len=64, device="cpu", telemetry=tel, kv_quantize="int8")

@@ -19,20 +19,17 @@ import ast
 import subprocess
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 import pytest
 import torch
 
+from tests.torch_xp_axes_ranks import expert_tensor_layout
 from unionml_tpu_torch import Dataset, kernels
 from unionml_tpu_torch.kernels import _build
 from unionml_tpu_torch.models import GPTConfig, GPTLMHeadModel, init_gpt
 from unionml_tpu_torch.models import gpt as tgpt
 from unionml_tpu_torch.serving import ResidentPredictor, serving_app
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher, DecodeEngine
-
-#: a mesh whose expert and tensor axes span two ranks each: experts split over both are not ported (M12)
-EXPERT_TENSOR_MESH = SimpleNamespace(device_type="cpu", mesh_dim_names=("expert", "tensor"), size=lambda dim: 2)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "unionml_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
@@ -134,10 +131,11 @@ def test_engine_and_batcher_default_to_cuda_and_raise_without_it(no_cuda):
 def test_engine_rejects_unported_modes():
     model = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32), device="cpu")
     # tensor, fsdp, sequence and expert axes serve (tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_mesh_serving_axes.py); experts over an expert and a tensor axis at once are still M12
+    # tests/test_torch_mesh_serving_axes.py), and so do experts over an expert and a tensor axis at once
+    # (tests/test_torch_expert_axes.py): each rank holds 2 of the 4 experts at half their hidden width,
+    # its partial outputs summed over the 4 ranks of expert×tensor
     sparse = GPTLMHeadModel(GPTConfig.tiny(dtype=torch.float32, moe_every=2, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M12, experts with fsdp, tensor or sequence"):
-        DecodeEngine(sparse, mesh=EXPERT_TENSOR_MESH, device="cpu")
+    assert expert_tensor_layout(sparse) == [((2, 64, 128), (2, 128, 64), 4)]
     with pytest.raises(ValueError):
         DecodeEngine(model, kv_quantize="int4", device="cpu")
     with pytest.raises(ValueError):

@@ -60,6 +60,17 @@ def _pair(**overrides):
     return jgpt.GPTLMHeadModel(jcfg), variables, tmodel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tiny models: under the suite's
+    parallel workers torch's default (a thread per core in every worker)
+    oversubscribes the cores, and each small op waits on its threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def gpt():
     return _pair()

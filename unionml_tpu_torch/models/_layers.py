@@ -23,7 +23,7 @@ block of the tokens; the blocks' gradients gathered backward) and
 ``gather``; ``exchange`` (the all-to-all, its own adjoint) and ``total`` (a
 sum whose gradient is summed too). Without a graph (inference,
 ``torch.no_grad``) each is the plain collective. Expert parallelism runs
-over the ``expert`` axis and the batch's ranks.
+over the ``expert`` axis (beside ``tensor``, over expert×tensor) and the batch's ranks.
 
 Tensor parallelism (:class:`TensorParallel`, an ``AxisGroup``): one rank's
 share of a Megatron-split model: ``enter`` before a column-parallel product,
@@ -231,6 +231,19 @@ class AxisGroup:
         if mesh is None:
             return cls(None, 1, 0)
         return cls(axis_group(mesh, axis), axis_size(mesh, axis), axis_index(mesh, axis))
+
+    @classmethod
+    def over(cls, mesh: Any, axes: Tuple[str, ...]) -> "AxisGroup":
+        """The product of ``axes`` through this rank (one rank for ``None`` or
+        where the mesh lacks them); ``index`` is the rank's place in the
+        group's rank order, the order :meth:`gather` returns
+        (``parallel/mesh.py::axes_order`` maps it to the axes')."""
+        from unionml_tpu_torch.parallel.mesh import axes_group, axes_size
+
+        group = None if mesh is None else axes_group(mesh, axes)
+        if group is None:
+            return cls(None, 1, 0)
+        return cls(group, axes_size(mesh, axes), dist.get_group_rank(group, dist.get_rank()))
 
     def __deepcopy__(self, memo: Dict[int, Any]) -> "AxisGroup":
         return self

@@ -228,11 +228,21 @@ def fully_shard_model(model: nn.Module, mesh: Any, blocks: Sequence[nn.Module]) 
     all-reduce over the replicate dimension completes): each of ``blocks`` (the encoder or
     decoder layers) and then the root become one unit each, so a rank holds
     dimension 0's shard of every parameter and gathers one block's weights
-    at a time. In place; returns ``model``."""
+    at a time. A sparse block's router and expert stacks are units of their
+    own inside it (FSDP2 gathers one dtype per unit, and the stacks are in
+    the compute dtype): a rank holds dimension 0's shard of its experts,
+    and its ranks over ``fsdp`` hold the same experts of the ``expert``
+    axis. In place; returns ``model``."""
     from torch.distributed.fsdp import fully_shard
+
+    from unionml_tpu_torch.models.moe import MoEMlp
 
     group_mesh = fsdp_mesh(mesh)
     for block in blocks:
+        for module in block.modules():
+            if isinstance(module, MoEMlp):
+                fully_shard(module.router, mesh=group_mesh)
+                fully_shard(module, mesh=group_mesh)
         fully_shard(block, mesh=group_mesh)
     fully_shard(model, mesh=group_mesh)
     return model

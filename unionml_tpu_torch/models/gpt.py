@@ -113,9 +113,12 @@ blocks under a tensor mesh split every expert's hidden width as the dense
 MLP's (``w_in`` column-parallel, ``w_out`` row-parallel, one all-reduce;
 the router replicated). Served (:func:`tensor_parallel`), each rank keeps
 its share (``ep_mesh``'s, or the serving mesh's ``expert`` axis cuts whole
-stacks) and a dropless block sums its experts' outputs over the axis in f32.
-Experts split over an ``expert`` and a ``tensor`` axis at once raise
-``NotImplementedError`` naming its ROADMAP item.
+stacks) and a dropless block sums its experts' outputs over the axis in f32;
+beside a ``tensor`` axis each rank holds its experts' column/row share and
+the outputs are summed over expert×tensor. Trained (``fit_lm(mesh=)`` on
+the ``ep_mesh``), the experts split over ``expert`` beside ``fsdp``,
+``tensor`` or ``sequence``, by JAX's specs ``P(expert, fsdp, tensor)`` /
+``P(expert, tensor, fsdp)`` (:func:`param_shardings`).
 
 Serving over an ``fsdp`` axis (``gpt.py:981-1026``): each rank keeps its
 ``1/N`` of every decoder-block matrix and expert stack at rest, and each
@@ -1061,12 +1064,13 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
     - ``expert`` (serving): each rank holds ``E / ep`` experts of every
       sparse block and the dropless layer sums its experts' partial outputs
       over the axis (:class:`~unionml_tpu_torch.models.moe.MoEMlp`). A model
-      whose ``ep_mesh`` splits its experts keeps its share as it is.
+      whose ``ep_mesh`` splits its experts keeps its share as it is. Beside
+      ``tensor`` each rank holds its experts' column/row share and the
+      partial outputs are summed over expert×tensor in f32.
 
     Raises JAX's ``ValueError`` where an axis does not divide a sharded
     dimension (the vocabulary, the positions, the MLP, an fsdp-split
-    matrix), and ``NotImplementedError`` for experts split over an
-    ``expert`` and a ``tensor`` axis at once. ``trainable=True`` (the train
+    matrix). ``trainable=True`` (the train
     step's layout) cuts the tensor axis only, into shards that take
     gradients, and leaves the data, fsdp and expert axes to the train step.
 
@@ -1116,10 +1120,12 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
     partial = {name for name in tree if tensor and (name.endswith((".attn_out.bias", ".mlp_down.bias"))
                                                      or (not split_heads and ".qkv." in name))}
     shard, local = shard_model(model, mesh, specs, tp, (GPTLMHeadModel, DecoderBlock, MoEMlp), partial, trainable)
-    if cut_experts:  # each sparse block runs its share of the experts over the mesh's expert axis
-        for module in shard.modules():
-            if isinstance(module, MoEMlp):
+    for module in shard.modules():
+        if isinstance(module, MoEMlp):
+            if cut_experts:  # each sparse block runs its share of the experts over the mesh's expert axis
                 module.mesh = mesh
+            # read now, its expert×tensor group is made by every rank in the same order, not in a captured graph
+            module.partial
     if fsdp:
         local = split_fsdp_weights(shard, local, specs, mesh, [(f"layers.{i}", block)
                                                                for i, block in enumerate(shard.layers)])
@@ -1129,20 +1135,16 @@ def tensor_parallel(model: GPTLMHeadModel, mesh: Any, trainable: bool = False
 def check_serving_experts(model: nn.Module, mesh: Any = None) -> None:
     """Serving splits the experts over the serving mesh's ``expert`` axis,
     or keeps the share a model's ``ep_mesh`` gives each rank: either way its
-    sparse blocks sum their experts' outputs over the ranks, so a model
-    whose experts are split serves only on a mesh (every rank builds the
-    engine and follows rank 0; ``ValueError`` without one). Experts split
-    over an ``expert`` and a ``tensor`` axis at once raise
-    ``NotImplementedError`` naming the piece."""
-    from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, TENSOR_AXIS, axis_size
+    sparse blocks sum their experts' outputs over the ranks (over
+    expert×tensor beside a ``tensor`` axis), so a model whose experts are
+    split serves only on a mesh (every rank builds the engine and follows
+    rank 0; ``ValueError`` without one)."""
+    from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_size
 
     cfg = getattr(model, "config", None)
     if getattr(cfg, "moe_every", 0) <= 0:
         return
     held = axis_size(getattr(cfg, "ep_mesh", None), EXPERT_AXIS)
-    if max(held, axis_size(mesh, EXPERT_AXIS)) > 1 and axis_size(mesh, TENSOR_AXIS) > 1:
-        raise NotImplementedError("experts split over both an expert and a tensor axis are not ported yet "
-                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
     if held > 1 and mesh is None:
         raise ValueError(f"this model's experts are split over the {held} ranks of its ep_mesh: serve it on a mesh "
                          "over the same world (mesh=config.ep_mesh), every rank building the engine")

@@ -34,7 +34,11 @@ one program routes it; the group is the layer's own, so the recompute of a
 ``remat`` block routes as its forward did. Under tensor parallelism (``tp``, set by
 ``models/gpt.py::tensor_parallel``) each rank holds a slice of every
 expert's hidden width: the products are column- then row-parallel, and the
-partial outputs are summed over the tensor axis.
+partial outputs are summed over the tensor axis, or over expert×tensor when
+the experts are split over an ``expert`` axis too (:attr:`MoEMlp.partial`;
+the dropless path included). The a2a dispatch beside ``fsdp`` or
+``sequence`` first gathers its data shard's tokens (JAX's a2a shards tokens
+over data×expert only).
 
 Flax sows the router losses into the ``intermediates`` collection. The port
 returns them instead: ``MoEMlp.forward`` gives ``(out, aux)`` with ``aux`` a
@@ -50,7 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch.parallel.ep import _apply_topk, batch_ranks, moe_apply_a2a
-from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_names, axis_size
+from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, TENSOR_AXIS, axis_names, axis_size
 
 __all__ = ["MoEMlp", "collect_aux_losses", "load_balancing_loss", "router_z_loss"]
 
@@ -130,6 +134,25 @@ class MoEMlp(nn.Module):
 
         return AxisGroup.of(self.mesh, EXPERT_AXIS)
 
+    @property
+    def partial(self):
+        """The ranks whose outputs are each a part of the layer's (an
+        ``AxisGroup``, summed in float32): the ``expert`` axis, the tensor
+        axis (each rank a share of every expert's hidden width), or both
+        (``expert`` × ``tensor``, over the mesh that splits the experts)."""
+        from unionml_tpu_torch.models._layers import AxisGroup
+
+        experts = self.experts
+        if self.tp is None:
+            return experts
+        if experts.size == 1:
+            return self.tp
+        group = AxisGroup.over(self.mesh, (EXPERT_AXIS, TENSOR_AXIS))
+        if group.size != experts.size * self.tp.size:
+            raise ValueError(f"the experts are split over the {EXPERT_AXIS!r} axis of a mesh whose {TENSOR_AXIS!r} "
+                             f"axis is not the model's ({self.tp.size} ranks): split both over one mesh")
+        return group
+
     def route(self, tokens: torch.Tensor, generator: Optional[torch.Generator] = None, group: Any = None):
         """``(gates in the compute dtype, aux)`` of ``tokens`` ``(T, d)``: the
         f32 router (jittered when a ``generator`` is given), its softmax and
@@ -158,25 +181,23 @@ class MoEMlp(nn.Module):
         # gradient through the task loss (moe.py:127-131)
         normalize = self.k > 1
         params = (self.w_in, self.w_out)
+        rows = x.shape[0] if x.dim() > 2 else 1
         if self.dispatch == "a2a" and not dropless:
             if self.mesh is None or EXPERT_AXIS not in axis_names(self.mesh):
                 raise ValueError("dispatch='a2a' requires a mesh with an 'expert' axis")
-            if self.tp is not None:
-                raise NotImplementedError("the a2a dispatch under a tensor mesh is not ported yet "
-                                          "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
+            if axis_size(self.mesh, TENSOR_AXIS) != (1 if self.tp is None else self.tp.size):
+                raise ValueError(f"dispatch='a2a' sums the experts' hidden shares over its mesh's {TENSOR_AXIS!r} "
+                                 "axis: split the model over that mesh's tensor axis")
             out = moe_apply_a2a(_experts, params, tokens.to(self.dtype), gates, self.mesh, k=self.k,
-                                capacity_factor=self.capacity_factor, normalize_gates=normalize)
+                                capacity_factor=self.capacity_factor, normalize_gates=normalize,
+                                tensor_axis=None if self.tp is None else TENSOR_AXIS, rows=rows)
         else:
             experts = self.experts
-            if experts.size > 1 and self.tp is not None:
-                raise NotImplementedError("experts split over both an expert and a tensor axis are not ported yet "
-                                          "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
-            partial = experts if self.tp is None else self.tp
             local = self.w_in.shape[0]
             out = _apply_topk(_experts, params, tokens.to(self.dtype), gates, k=self.k,
                               capacity_factor=None if dropless else self.capacity_factor, normalize_gates=normalize,
                               num_experts=self.num_experts, first=experts.index * local, local=local,
-                              partial=partial, group=group, rows=x.shape[0] if x.dim() > 2 else 1)
+                              partial=self.partial, group=group, rows=rows)
         return out.reshape(x.shape).to(x.dtype), aux
 
 

@@ -65,8 +65,14 @@ meshed step lays the state out (:func:`shard_train_state`) by the three axes:
   over data×fsdp only. On any mesh the layout binds the batch's ranks to
   every sparse block (``MoEMlp.token_group``), so the blocks route over the
   global tokens: capacity, slots and the balance loss's means are the
-  whole batch's, as in JAX's one program. An expert axis beside fsdp, tensor or sequence raises
-  ``NotImplementedError``.
+  whole batch's, as in JAX's one program. Beside ``fsdp``, ``tensor`` or
+  ``sequence`` (the ``ep_mesh`` laid out so too, ``param_spec`` the family's
+  ``param_shardings``) the stacks take JAX's ``P(expert, fsdp, tensor)`` /
+  ``P(expert, tensor, fsdp)``: under FSDP2 a rank's experts are sharded over
+  ``fsdp`` (units of their own, gathered before use), under ``tensor`` each
+  expert's hidden width is column/row split and the partial outputs are
+  summed over expert×tensor; the expert leaves' gradients are averaged
+  over data×fsdp×sequence like every other's.
 
 - ``sequence`` (a BERT or GPT config with ``attention_impl="ring"`` or
   ``"ulysses"`` and ``sp_mesh`` the step's mesh; ``{"sequence": N}``, with
@@ -390,26 +396,31 @@ class Layout:
     def global_norm(self, norms: List[torch.Tensor]) -> torch.Tensor:
         """The whole gradient's norm from each local leaf's: the squares of
         FSDP2 shards summed over ``fsdp``, those of tensor shards over
-        ``tensor`` and of expert shards over ``expert``, each replicated
-        leaf counted once."""
+        ``tensor`` and of expert shards over ``expert`` (an expert stack
+        split over both, over both), each replicated leaf counted once."""
         squares = torch.stack(norms) ** 2
         split = torch.tensor(self.tensor_split, device=squares.device)
         experts = torch.tensor(self.expert_split, device=squares.device)
-        sums = torch.stack([squares[split].sum(), squares[experts].sum(), squares[~split & ~experts].sum()])
+        sums = torch.stack([squares[split & ~experts].sum(), squares[experts & ~split].sum(),
+                            squares[split & experts].sum(), squares[~split & ~experts].sum()])
         if self.fsdp_group is not None:
             dist.all_reduce(sums, group=self.fsdp_group)
         parts = list(sums.unbind())
-        for i, group in ((0, self.tensor_group), (1, self.expert_group)):
-            if group is not None:
-                part = parts[i].clone()
-                dist.all_reduce(part, group=group)
-                parts[i] = part
+        for i, groups in ((0, (self.tensor_group,)), (1, (self.expert_group,)),
+                          (2, (self.tensor_group, self.expert_group))):
+            for group in groups:
+                if group is not None:
+                    part = parts[i].clone()
+                    dist.all_reduce(part, group=group)
+                    parts[i] = part
         return torch.sqrt(torch.stack(parts).sum())
 
     @torch.no_grad()
-    def gather(self, index: int, local: torch.Tensor) -> torch.Tensor:
+    def gather(self, index: int, local: torch.Tensor, experts: bool = True) -> torch.Tensor:
         """The whole leaf of parameter ``index`` (its value, or a moment)
-        from this rank's shard: a collective every rank joins."""
+        from this rank's shard: a collective every rank joins. ``experts=False``
+        leaves an expert stack with this rank's experts (gathered over the
+        other axes only)."""
         full = local
         if self.fsdp:
             from torch.distributed.tensor import DTensor
@@ -421,7 +432,7 @@ class Layout:
         if self.tensor_split[index]:
             dim = tuple(spec).index("tensor")
             full = _gather_over(full, dim, spec.parts, self.tensor_group, self.tensor_size)
-        if self.expert_split[index]:
+        if self.expert_split[index] and experts:
             full = _gather_over(full, 0, 1, self.expert_group, self.expert_size)
         return full
 
@@ -430,20 +441,26 @@ class Layout:
         """The unsplit module with every parameter set to its whole value
         gathered from ``params`` (this rank's shards): a collective. A model
         whose sparse blocks hold a share of the experts keeps this rank's
-        share (``ep_mesh``'s), which the engines serve over that mesh."""
+        share (``ep_mesh``'s, its stacks gathered over fsdp and tensor),
+        which the engines serve over that mesh."""
         whole = dict(self.source.named_parameters())
         for i, (name, local) in enumerate(zip(self.names, params)):
-            value = local if self.expert_split[i] else self.gather(i, local)
+            value = self.gather(i, local, experts=False)
             if whole[name] is not local:
                 whole[name].copy_(value)
         return self.source
 
     @torch.no_grad()
-    def shard(self, index: int, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a whole leaf of parameter ``index`` (no collective)."""
-        from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, NamedSharding, axis_index, axis_size
+    def shard(self, index: int, full: torch.Tensor, held: bool = False) -> torch.Tensor:
+        """This rank's shard of a whole leaf of parameter ``index`` (no
+        collective); ``held``: of an expert stack that holds this rank's
+        experts already (cut over the other axes only)."""
+        from unionml_tpu_torch.parallel.mesh import FSDP_AXIS, NamedSharding, Spec, axis_index, axis_size
 
-        local = NamedSharding(self.mesh, self.specs[index]).shard(full)
+        spec = self.specs[index]
+        if held:
+            spec = Spec(None, *tuple(spec)[1:], parts=spec.parts)
+        local = NamedSharding(self.mesh, spec).shard(full)
         if self.fsdp:
             ways, at = axis_size(self.mesh, FSDP_AXIS), axis_index(self.mesh, FSDP_AXIS)
             chunks = torch.chunk(local, ways, dim=0)
@@ -530,10 +547,7 @@ def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> T
     else:
         specs = [Spec() for _ in state.names]
     if experts:  # each rank holds its experts of every sparse block: their stacks split over "expert"
-        if fsdp:
-            raise NotImplementedError("experts split over an expert axis under FSDP2 are not ported yet "
-                                      "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
-        specs = [Spec(EXPERT_AXIS) if n in experts else spec for n, spec in zip(state.names, specs)]
+        specs = [Spec(EXPERT_AXIS, *tuple(spec)[1:]) if n in experts else spec for n, spec in zip(state.names, specs)]
     if fsdp:
         if not tensor:  # parameters of its own for FSDP2 to shard; the configs (and their meshes) shared
             model = copy.deepcopy(model, memo=shared_configs(model))
@@ -548,9 +562,9 @@ def shard_train_state(state: TrainState, mesh: Any, param_spec: Any = None) -> T
                     names=list(state.names))
     with torch.no_grad():
         params = [p.to_local() if hasattr(p, "to_local") else p for p in module_params]
-        # an expert stack's moments are this rank's already, as its parameter is
-        mu = [(m if layout.expert_split[i] else layout.shard(i, m)).clone() for i, m in enumerate(state.mu)]
-        nu = [(v if layout.expert_split[i] else layout.shard(i, v)).clone() for i, v in enumerate(state.nu)]
+        # an expert stack's moments hold this rank's experts already, as its parameter does
+        mu = [layout.shard(i, m, held=layout.expert_split[i]).clone() for i, m in enumerate(state.mu)]
+        nu = [layout.shard(i, v, held=layout.expert_split[i]).clone() for i, v in enumerate(state.nu)]
     for p, m in zip(params, mu):
         if p.shape != m.shape:
             raise AssertionError(f"a moment's shard {tuple(m.shape)} does not match its parameter's {tuple(p.shape)}")
@@ -574,12 +588,10 @@ def _expert_leaves(model: nn.Module) -> frozenset:
 def _check_experts(model: nn.Module, mesh: Any) -> None:
     """A model whose sparse blocks hold a share of the experts trains on a
     mesh laid out as its ``ep_mesh`` (the step's rows and the experts'
-    exchanges must agree); experts split beside an fsdp, tensor or
-    sequence axis raise. Sparse blocks with whole experts train on any mesh
-    (under sequence parallelism they route the chunks together)."""
-    from unionml_tpu_torch.parallel.mesh import (
-        EXPERT_AXIS, FSDP_AXIS, SEQUENCE_AXIS, TENSOR_AXIS, axis_names, axis_size,
-    )
+    exchanges must agree), fsdp, tensor or sequence axes beside ``expert``
+    included. Sparse blocks with whole experts train on any mesh (under
+    sequence parallelism they route the chunks together)."""
+    from unionml_tpu_torch.parallel.mesh import EXPERT_AXIS, axis_names, axis_size
 
     cfg = getattr(model, "config", None)
     if getattr(cfg, "moe_every", 0) <= 0:
@@ -591,10 +603,6 @@ def _check_experts(model: nn.Module, mesh: Any) -> None:
     if mesh is None or [(a, axis_size(mesh, a)) for a in axis_names(mesh)] != layout:
         raise ValueError(f"this model's experts are split over its ep_mesh {dict(layout)}: train it on that "
                          "mesh (mesh=config.ep_mesh)")
-    others = [a for a in (FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS) if axis_size(mesh, a) > 1]
-    if others:
-        raise NotImplementedError(f"experts split beside the mesh axes {others} are not ported yet "
-                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
 
 
 #: the word that marks a batch shard's index in a dropout seed

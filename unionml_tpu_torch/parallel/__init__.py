@@ -13,13 +13,14 @@ Generation over the tensor, fsdp, expert, data and sequence axes
 included), sharded training over the data, fsdp, tensor and sequence axes
 (``fit(mesh=..., param_spec=...)``; ``GPTConfig``/``BertConfig(attention_impl="ring"
 or "ulysses", sp_mesh=mesh)``; the sparse GPT over data×expert,
-``GPTConfig(moe_dispatch=, ep_mesh=mesh)``) and the meshed predictor
-(``ResidentPredictor(mesh=...)``, a ring or Ulysses model over the
-``sequence`` axis included) run on these; the ``sequence`` axis composes
-with ``data``, ``fsdp`` and ``tensor`` in training and serving, and with
-sparse blocks (routed over the sequence chunks). Not ported yet (ROADMAP:
-M12): pipelines (``pp.py``), experts split over an ``expert`` axis beside
-fsdp, tensor or sequence."""
+``GPTConfig(moe_dispatch=, ep_mesh=mesh)``, beside fsdp, tensor or
+sequence too) and the meshed predictor (``ResidentPredictor(mesh=...)``, a
+ring or Ulysses model over the ``sequence`` axis included) run on these; the
+``sequence`` axis composes with ``data``, ``fsdp`` and ``tensor`` in
+training and serving, and with sparse blocks (routed over the sequence
+chunks); experts split over ``expert`` serve beside ``tensor`` (summed over
+expert×tensor). Not ported yet (ROADMAP: M12): pipelines (``pp.py``), the
+fleet on sub-meshes, the multi-host backend."""
 
 from unionml_tpu_torch.parallel.distributed import collective_timeout_s, initialize_distributed, is_primary_host
 from unionml_tpu_torch.parallel.dp import batches, data_parallel_eval, data_parallel_step, pad_to_multiple

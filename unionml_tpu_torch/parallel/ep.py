@@ -64,14 +64,18 @@ rank's slice:
   under sequence parallelism those ranks are data×fsdp×sequence, each
   holding one chunk of its rows, and the all-gathered table holds one
   ``(k, E)`` entry per row chunk, so the slots follow JAX's flattened
-  ``(B, S)`` order (:func:`_global_slots`);
-- :func:`moe_apply_a2a`: the tokens are the rank's share of the batch over
-  ``data`` (the same on every rank of ``expert``). Rank ``e`` takes block
-  ``e`` of them (JAX's block of ``P((data, expert))``), routes it with the
-  capacity of one source shard, sends each expert's buffer to the rank that
-  holds it by one all-to-all, runs its experts on every source's buffers as
-  one batched product, and a second all-to-all brings the outputs home for
-  the combine; the blocks' outputs are then gathered over ``expert``.
+  ``(B, S)`` order (:func:`_global_slots`). Beside a ``tensor`` axis a
+  sparse block's rank holds its share of every expert's hidden width and
+  the partials are summed over expert×tensor (``MoEMlp.partial``);
+- :func:`moe_apply_a2a`: the tokens are the rank's share of the batch (the
+  same on every rank of ``expert``). Its data shard's tokens (gathered over
+  fsdp and sequence where the mesh has them, in JAX's flattened order) are
+  cut into ``ep`` blocks: rank ``e`` takes block ``e`` (JAX's block of
+  ``P((data, expert))``), routes it with the capacity of one source shard,
+  sends each expert's buffer to the rank that holds it by one all-to-all,
+  runs its experts on every source's buffers as one batched product, and a
+  second all-to-all brings the outputs home for the combine; the blocks'
+  outputs are then gathered over ``expert`` and each rank keeps its own.
 
 Under a graph each collective is a differentiable operator
 (:class:`~unionml_tpu_torch.models._layers.AxisGroup`): the gradient of
@@ -93,9 +97,9 @@ from unionml_tpu_torch.parallel.mesh import (
     EXPERT_AXIS,
     FSDP_AXIS,
     SEQUENCE_AXIS,
-    TENSOR_AXIS,
     NamedSharding,
     Spec,
+    axes_order,
     axis_names,
     axis_size,
     batch_axis_size,
@@ -122,6 +126,12 @@ def _axis_group(mesh: Any, axis: str):
     from unionml_tpu_torch.models._layers import AxisGroup
 
     return AxisGroup.of(mesh, axis)
+
+
+def _product_group(mesh: Any, axes: Sequence[str]):
+    from unionml_tpu_torch.models._layers import AxisGroup
+
+    return AxisGroup.over(mesh, tuple(axes))
 
 
 def batch_ranks(mesh: Any, sequence: bool = False):
@@ -171,15 +181,6 @@ def _check_experts(held: int, num_experts: int, ep: int, axis: str) -> None:
         raise ValueError(f"gates are over {num_experts} experts but stacked_params carries {held}")
     if num_experts % ep:
         raise ValueError(f"num_experts ({num_experts}) must be divisible by the {axis!r} axis size ({ep})")
-
-
-def _only_expert_and_data(mesh: Any, axis: str) -> None:
-    """Expert parallelism composes with the ``data`` axis; an fsdp, tensor
-    or sequence axis of more than one rank beside it is not ported."""
-    others = [a for a in (FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS) if a != axis and axis_size(mesh, a) > 1]
-    if others and axis_size(mesh, axis) > 1:
-        raise NotImplementedError(f"expert parallelism beside the mesh axes {others} is not ported yet "
-                                  "(ROADMAP: M12, experts with fsdp, tensor or sequence)")
 
 
 def expert_sharding(mesh: Any, axis: str = EXPERT_AXIS) -> NamedSharding:
@@ -438,16 +439,18 @@ def moe_apply_topk(
     ``capacity_factor``, or dropless when it is None.
 
     With a ``mesh`` (see the module docstring) ``tokens`` are this rank's
-    share of the batch, routed globally over the batch's ranks; this rank
-    computes them on its experts of ``axis`` and the outputs are summed over
-    ``axis``."""
+    share of the batch (the same on every rank of the axes beside
+    data×fsdp), routed globally over the batch's ranks; this rank computes
+    them on its experts of ``axis`` and the outputs are summed over
+    ``axis``. ``MoEMlp`` runs the same layer over a rank's sequence chunks
+    and its hidden shares of a tensor axis (``_apply_topk``'s ``group`` and
+    ``partial``)."""
     ep = axis_size(mesh, axis) if mesh is not None else 1
     _check(gates, stacked_params, k, ep, axis)
     num_experts = gates.shape[1]
     if mesh is None:
         return _apply_topk(expert_fn, stacked_params, tokens, gates, k=k, capacity_factor=capacity_factor,
                            normalize_gates=normalize_gates, num_experts=num_experts)
-    _only_expert_and_data(mesh, axis)
     experts = _axis_group(mesh, axis)
     local = num_experts // ep
     return _apply_topk(expert_fn, _local_params(stacked_params, experts, num_experts), tokens, gates, k=k,
@@ -485,23 +488,33 @@ def moe_apply_a2a(
     normalize_gates: bool = True,
     axis: str = EXPERT_AXIS,
     data_axis: Optional[str] = DATA_AXIS,
+    tensor_axis: Optional[str] = None,
+    rows: int = 1,
 ) -> torch.Tensor:
     """Top-k experts with the all-to-all token dispatch (``ep.py:300-368``).
 
     ``tokens`` ``(T, d)`` and ``gates`` ``(T, E)`` are this rank's share of
-    the batch over ``data_axis`` (all of it when the mesh lacks that axis or
-    ``data_axis`` is None), the same on every rank of ``axis``. JAX's tokens
-    are sharded over ``(data_axis, axis)``: rank ``e`` of ``axis`` routes
-    block ``e`` of its share, ``t_local = T_global / (data * ep)`` tokens,
-    into per-expert buffers of the capacity of one source shard,
+    the batch (its rows over data×fsdp; under a ``sequence`` axis its chunk
+    of ``rows`` rows), the same on every rank of ``axis`` and
+    ``tensor_axis``. JAX's tokens are the global ``(B, S)`` batch flattened
+    and sharded over ``(data_axis, axis)``, the same on every rank of the
+    other axes: rank ``e`` of ``axis`` routes block ``e`` of its data
+    shard's tokens, ``t_local = T_global / (data * ep)`` of them, into
+    per-expert buffers of the capacity of one source shard,
     ``ceil(t_local * k / E * capacity_factor)`` slots for each expert on
     each source (a choice drops when its own shard's demand for its expert
-    overflows). One all-to-all over ``axis`` carries each expert's buffers
-    to the rank holding it, the rank's experts run on ``(E / ep, ep * C,
-    d)`` as one batched product, a second all-to-all brings the outputs
-    back, and each token combines its kept choices at home; the blocks'
-    outputs are gathered over ``axis``, so every rank of it returns its
-    whole share's ``(T, d_out)`` in the tokens' dtype."""
+    overflows). So the data shard's tokens are first gathered over the
+    batch's other ranks (fsdp, sequence: :func:`_holders`) and put in that
+    order. One all-to-all over ``axis`` carries each expert's buffers to the
+    rank holding it, the rank's experts run on ``(E / ep, ep * C, d)`` as
+    one batched product, a second all-to-all brings the outputs back, and
+    each token combines its kept choices at home; the blocks' outputs are
+    gathered over ``axis`` and each rank keeps its own tokens', ``(T,
+    d_out)`` in the tokens' dtype. JAX's experts are whole on every rank of
+    the other axes; ``tensor_axis`` names the axis whose ranks each hold a
+    share of every expert's hidden width instead (``stacked_params`` are
+    those shares): the combined partial outputs are summed over it in
+    float32, the split sum of the same products."""
     num_tokens, num_experts = gates.shape
     held = _leaves(stacked_params)[0].shape[0]
     names = axis_names(mesh)
@@ -515,21 +528,58 @@ def moe_apply_a2a(
     token_axes = (data_axis, axis) if data_axis and data_axis in names else (axis,)
     data = axis_size(mesh, data_axis) if len(token_axes) == 2 else 1
     shard_count = data * ep_degree
-    global_tokens = num_tokens * data
+    global_tokens = num_tokens * batch_axis_size(mesh, sequence=True)
     if global_tokens % shard_count:
         raise ValueError(
             f"num_tokens ({global_tokens}) must be divisible by the token-shard count "
             f"({shard_count}: mesh axes {token_axes})"
         )
-    _only_expert_and_data(mesh, axis)
     experts = _axis_group(mesh, axis)
     params = _local_params(stacked_params, experts, num_experts)
-
+    holders, into, back = _holders(mesh, token_axes, num_tokens, rows, tokens.device)
+    if into is not None:
+        # the data shard's tokens, in JAX's order. Each holder keeps only its
+        # own tokens' outputs, and the layer is token-wise (a token's output
+        # depends on its own input and gates; the slots on the others', but
+        # not differentiably), so the gradient of a rank's tokens is its own
+        # outputs' alone: the gather's backward, this rank's block, is whole
+        tokens, gates = holders.gather(tokens).index_select(0, into), holders.gather(gates).index_select(0, into)
+    tensor = None if tensor_axis is None else _axis_group(mesh, tensor_axis)
+    if tensor is not None and tensor.size > 1:
+        tokens, gates = tensor.enter(tokens), tensor.enter(gates)
+    else:
+        tensor = None
     # block e of t_local = T_global / (data * ep) tokens, at one source shard's capacity
     [out] = _a2a(expert_fn, [params], [experts.take(tokens)], [experts.take(gates)],
                  lambda parts: experts.exchange(parts[0])[None], ep_degree, k=k, capacity_factor=capacity_factor,
-                 normalize_gates=normalize_gates)
-    return experts.gather(out)
+                 normalize_gates=normalize_gates, partial=tensor)
+    out = experts.gather(out)
+    return out if back is None else out.index_select(0, back)
+
+
+def _holders(mesh: Any, token_axes: Sequence[str], num_tokens: int, rows: int, device: Any):
+    """``(group, into, back)`` of :func:`moe_apply_a2a`: the batch's ranks
+    (data×fsdp×sequence) off JAX's token axes, which hold the other tokens
+    of this rank's token shard, as an ``AxisGroup``; ``into`` the index
+    that puts their tokens, gathered in the group's rank order, in JAX's
+    flattened ``(B, S)`` order (their row blocks in turn, each row's chunks
+    in sequence order); ``back`` the places of this rank's own ``rows``
+    rows (of ``num_tokens / rows`` tokens each) in that order. ``into`` and
+    ``back`` are None over one rank."""
+    axes = tuple(a for a in (DATA_AXIS, FSDP_AXIS, SEQUENCE_AXIS) if a not in token_axes)
+    group = _product_group(mesh, axes)
+    if group.size == 1:
+        return group, None, None
+    chunks = axis_size(mesh, SEQUENCE_AXIS) if SEQUENCE_AXIS in axes else 1
+    order = axes_order(mesh, axes)
+    # the group rank of each holder, by its index over the axes (row block, then chunk)
+    position = torch.tensor(list(order) if order is not None else list(range(group.size)), device=device)
+    length = num_tokens // rows
+    block, row, chunk, at = torch.meshgrid(*(torch.arange(n, device=device) for n in (
+        group.size // chunks, rows, chunks, length)), indexing="ij")
+    into = (position[block * chunks + chunk] * num_tokens + row * length + at).reshape(-1)
+    back = torch.argsort(into)[group.index * num_tokens:(group.index + 1) * num_tokens]
+    return group, into, back
 
 
 def _stack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -538,7 +588,7 @@ def _stack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def _a2a(expert_fn: Callable, params: Sequence[Any], tokens: Sequence[torch.Tensor], gates: Sequence[torch.Tensor],
          exchange: Callable[[torch.Tensor], torch.Tensor], ep_degree: int, *, k: int, capacity_factor: float,
-         normalize_gates: bool) -> List[torch.Tensor]:
+         normalize_gates: bool, partial: Any = None) -> List[torch.Tensor]:
     """The body of :func:`moe_apply_a2a` over the token blocks of the
     holders at hand (one, this rank, in a world): block ``r`` (``tokens[r]``,
     ``gates[r]``) is routed at its own capacity into an ``(E, C, d)`` send
@@ -547,7 +597,9 @@ def _a2a(expert_fn: Callable, params: Sequence[Any], tokens: Sequence[torch.Tens
     ...)`` stack's ``[i, j]``) to holder j's place i; holder ``r``'s experts
     (``params[r]``) run on every source's buffers as one batched product,
     the same exchange brings the outputs back, and each block combines its
-    kept choices. Returns each block's ``(T_r, d_out)``."""
+    kept choices (its partial outputs summed over ``partial``, an
+    ``AxisGroup`` whose ranks each hold a share of every expert's hidden
+    width, in float32). Returns each block's ``(T_r, d_out)``."""
     num_experts = gates[0].shape[1]
     local = num_experts // ep_degree
     routed = [topk_route(g, k, capacity_factor, normalize_gates) for g in gates]
@@ -555,7 +607,7 @@ def _a2a(expert_fn: Callable, params: Sequence[Any], tokens: Sequence[torch.Tens
     recv = exchange(_stack([send.reshape(ep_degree, -1, send.shape[-1]) for send, _ in sent]))
     outs = [expert_fn(p, _source_major_to_experts(part, local)) for p, part in zip(params, recv)]
     returned = exchange(_stack([_experts_to_source_major(out, ep_degree) for out in outs]))
-    return [_combine_slots(back, slot, routing, t.dtype)
+    return [_combine_slots(back, slot, routing, t.dtype, partial)
             for back, (_, slot), routing, t in zip(returned, sent, routed, tokens)]
 
 
@@ -595,18 +647,19 @@ def _in_process_moe_a2a(expert_fn: Callable, stacked_params: Any, tokens: torch.
 
 
 class _Share:
-    """One simulated rank of :func:`_in_process_dropless`: the ``partial``
-    of ``_apply_topk`` that keeps the rank's f32 partial output for the sum
-    over the ranks instead of reducing it."""
+    """One simulated rank of :func:`_in_process_dropless` and
+    :func:`_in_process_split`: the ``partial`` of ``_apply_topk`` or
+    ``_a2a`` that keeps the rank's f32 partial outputs (one per call or
+    block) for the sum over the ranks instead of reducing them."""
 
     def __init__(self, size: int) -> None:
-        self.size, self.part = size, None
+        self.size, self.parts = size, []
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        self.part = x
+        self.parts.append(x)
         return x
 
 
@@ -628,7 +681,56 @@ def _in_process_dropless(expert_fn: Callable, stacked_params: Any, tokens: torch
         _apply_topk(expert_fn, _map(lambda p, r=r: p[r * local:(r + 1) * local], stacked_params), tokens, gates,
                     k=k, capacity_factor=None, normalize_gates=normalize_gates, num_experts=num_experts,
                     first=r * local, local=local, partial=share)
-        total = share.part if total is None else total + share.part
+        total = share.parts[0] if total is None else total + share.parts[0]
+    return total.to(tokens.dtype)
+
+
+def _in_process_split(expert_fn: Callable, stacked_params: Any, tokens: torch.Tensor, gates: torch.Tensor,
+                      ep_degree: int, tensor_degree: int, *, k: int = 2, capacity_factor: Optional[float] = 1.25,
+                      normalize_gates: bool = True, dispatch: str = "gshard") -> torch.Tensor:
+    """A sparse block's experts split over ``ep_degree`` expert ranks times
+    ``tensor_degree`` tensor ranks, simulated in one process (the seam of
+    the composed meshes, beside :func:`_in_process_dropless`).
+    ``stacked_params`` is the whole ``(w_in (E, d, h), w_out (E, h, d))``
+    pair of ``models/moe.py``'s experts; piece (e, t) holds experts ``[e *
+    E / ep, (e + 1) * E / ep)`` at hidden columns ``[t * h / tp, (t + 1) *
+    h / tp)``, as ``param_shardings``' ``P(expert, fsdp, tensor)`` /
+    ``P(expert, tensor, fsdp)`` cut them. ``dispatch="gshard"`` (or
+    ``capacity_factor=None``, dropless): every piece routes all the tokens
+    (the global routing) through its experts; ``"a2a"``: the tokens are
+    ``ep_degree`` source blocks, each routed at its own capacity, exchanged
+    as :func:`_in_process_moe_a2a` does, each tensor rank running its
+    hidden share. The pieces' f32 partial outputs are summed, then rounded
+    once, as the all-reduce over expert×tensor does. Differentiable.
+    Returns ``(T, d_out)`` in the tokens' dtype."""
+    w_in, w_out = stacked_params
+    _check(gates, w_in, k, ep_degree)
+    num_experts, hidden = w_in.shape[0], w_in.shape[2]
+    local, width = num_experts // ep_degree, hidden // tensor_degree
+
+    def piece(e: int, t: int):
+        experts, columns = slice(e * local, (e + 1) * local), slice(t * width, (t + 1) * width)
+        return w_in[experts, :, columns], w_out[experts, columns, :]
+
+    total = None
+    for t in range(tensor_degree):
+        if dispatch == "a2a" and capacity_factor is not None:
+            share = _Share(tensor_degree)
+            outs = _a2a(expert_fn, [piece(e, t) for e in range(ep_degree)], tokens.chunk(ep_degree),
+                        gates.chunk(ep_degree), lambda parts: parts.transpose(0, 1), ep_degree, k=k,
+                        capacity_factor=capacity_factor, normalize_gates=normalize_gates,
+                        partial=share if tensor_degree > 1 else None)
+            parts = [torch.cat(share.parts or outs)]
+        else:
+            parts = []
+            for e in range(ep_degree):
+                share = _Share(ep_degree * tensor_degree)
+                out = _apply_topk(expert_fn, piece(e, t), tokens, gates, k=k, capacity_factor=capacity_factor,
+                                  normalize_gates=normalize_gates, num_experts=num_experts, first=e * local,
+                                  local=local, partial=share)
+                parts += share.parts or [out]  # one piece: the layer's own rounded output
+        for part in parts:
+            total = part if total is None else total + part
     return total.to(tokens.dtype)
 
 

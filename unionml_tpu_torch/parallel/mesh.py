@@ -44,6 +44,10 @@ __all__ = [
     "axis_index",
     "axis_names",
     "axis_size",
+    "axes_group",
+    "axes_index",
+    "axes_order",
+    "axes_size",
     "batch_axis_size",
     "batch_group",
     "batch_index",
@@ -269,10 +273,7 @@ def batch_axis_size(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) ->
     — the data×fsdp product when both axes are present; with ``sequence``,
     times the ``sequence`` axis (the ranks a train step's gradients and loss
     weights are reduced over)."""
-    size = 1
-    for a in _batch_axes(mesh, axis, sequence):
-        size *= axis_size(mesh, a)
-    return size
+    return axes_size(mesh, _batch_axes(mesh, axis, sequence))
 
 
 def axis_group(mesh: Any, name: str) -> Any:
@@ -287,18 +288,29 @@ def axis_group(mesh: Any, name: str) -> Any:
 _GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, Any]] = {}
 
 
-def batch_group(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Any:
-    """The process group the batch is sharded over under :func:`batch_sharding`:
-    ``data`` (or ``axis``) alone, or data×fsdp when the mesh has both; with
-    ``sequence``, the group over data×fsdp×sequence (a sequence-parallel
-    step's gradients are each rank's part of the sum over its chunks).
-    ``None`` when it spans one rank. A group over several axes is made once
-    per mesh, by every rank of the world in the same order
-    (``torch.distributed.new_group`` is collective). Its ranks are numbered
-    in global-rank order, which is not :func:`batch_index`'s order on every
-    mesh: a gather over it is put in batch order by :func:`batch_order`."""
-    axes = _batch_axes(mesh, axis, sequence)
-    size = batch_axis_size(mesh, axis, sequence)
+def _present(mesh: Any, axes: Tuple[str, ...]) -> Tuple[str, ...]:
+    names = axis_names(mesh)
+    return tuple(a for a in axes if a in names)
+
+
+def axes_size(mesh: Any, axes: Tuple[str, ...]) -> int:
+    """Ranks over the product of ``axes`` (those the mesh lacks count 1)."""
+    size = 1
+    for a in _present(mesh, axes):
+        size *= axis_size(mesh, a)
+    return size
+
+
+def axes_group(mesh: Any, axes: Tuple[str, ...]) -> Any:
+    """The process group over the product of ``axes`` through this rank
+    (``None`` when it spans one rank). A group over several axes is made
+    once per mesh, by every rank of the world in the same order
+    (``torch.distributed.new_group`` is collective), and kept in
+    ``_GROUPS``. Its ranks are numbered in global-rank order, which is not
+    :func:`axes_index`'s order on every mesh: a gather over it is put in
+    that order by :func:`axes_order`."""
+    axes = _present(mesh, axes)
+    size = axes_size(mesh, axes)
     if size == 1:
         return None
     if len(axes) == 1:
@@ -311,37 +323,35 @@ def batch_group(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Any
         grid = mesh.mesh.permute(others + dims).reshape(-1, size)
         me, mine = dist.get_rank(), None
         for row in grid.tolist():
-            group = dist.new_group([int(r) for r in row])
+            group = dist.new_group([int(r) for r in row], backend=dist.get_backend())
             if me in row:
                 mine = group
         _GROUPS[key] = (mesh, mine)
     return _GROUPS[key][1]
 
 
-def batch_index(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> int:
-    """This rank's shard of the batch under :func:`batch_sharding` (row-major
-    over data×fsdp, as ``NamedSharding.shard`` cuts it); with ``sequence``,
-    its index over data×fsdp×sequence (the chunk varying fastest)."""
+def axes_index(mesh: Any, axes: Tuple[str, ...]) -> int:
+    """This rank's index over the product of ``axes``, row-major in the
+    order ``axes`` lists them."""
     index = 0
-    for a in _batch_axes(mesh, axis, sequence):
+    for a in _present(mesh, axes):
         index = index * axis_size(mesh, a) + axis_index(mesh, a)
     return index
 
 
-def batch_order(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Optional[Tuple[int, ...]]:
-    """Where each shard of the batch lands in a gather over
-    :func:`batch_group`: entry ``b`` is the group rank of the rank whose
-    :func:`batch_index` is ``b``, so ``gathered[order]`` is in batch order.
-    ``torch.distributed`` numbers a group's ranks by their global ranks,
-    which follow the mesh's axis order; the batch's order is data, fsdp,
-    sequence whatever the mesh lists first (on ``{"sequence": 2, "data":
-    2}`` global rank 1 holds batch index 2). ``None`` where the two orders
-    agree, or the group spans one rank."""
-    group = batch_group(mesh, axis, sequence)
+def axes_order(mesh: Any, axes: Tuple[str, ...]) -> Optional[Tuple[int, ...]]:
+    """Where each rank lands in a gather over :func:`axes_group`: entry
+    ``b`` is the group rank of the rank whose :func:`axes_index` is ``b``,
+    so ``gathered[order]`` is in that order. ``torch.distributed`` numbers a
+    group's ranks by their global ranks, which follow the mesh's axis order
+    (on ``{"sequence": 2, "data": 2}`` global rank 1 holds data×sequence
+    index 2). ``None`` where the two orders agree, or the group spans one
+    rank."""
+    group = axes_group(mesh, axes)
     if group is None:
         return None
-    names, axes = axis_names(mesh), _batch_axes(mesh, axis, sequence)
-    order = [0] * batch_axis_size(mesh, axis, sequence)
+    names, axes = axis_names(mesh), _present(mesh, axes)
+    order = [0] * axes_size(mesh, axes)
     for position, rank in enumerate(dist.get_process_group_ranks(group)):
         coords = (mesh.mesh == rank).nonzero()[0].tolist()
         index = 0
@@ -349,6 +359,30 @@ def batch_order(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Opt
             index = index * axis_size(mesh, a) + coords[names.index(a)]
         order[index] = position
     return None if order == list(range(len(order))) else tuple(order)
+
+
+def batch_group(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Any:
+    """The process group the batch is sharded over under :func:`batch_sharding`:
+    ``data`` (or ``axis``) alone, or data×fsdp when the mesh has both; with
+    ``sequence``, the group over data×fsdp×sequence (a sequence-parallel
+    step's gradients are each rank's part of the sum over its chunks).
+    ``None`` when it spans one rank (:func:`axes_group`; a gather over it is
+    put in batch order by :func:`batch_order`)."""
+    return axes_group(mesh, _batch_axes(mesh, axis, sequence))
+
+
+def batch_index(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> int:
+    """This rank's shard of the batch under :func:`batch_sharding` (row-major
+    over data×fsdp, as ``NamedSharding.shard`` cuts it); with ``sequence``,
+    its index over data×fsdp×sequence (the chunk varying fastest)."""
+    return axes_index(mesh, _batch_axes(mesh, axis, sequence))
+
+
+def batch_order(mesh: Any, axis: str = DATA_AXIS, sequence: bool = False) -> Optional[Tuple[int, ...]]:
+    """Where each shard of the batch lands in a gather over
+    :func:`batch_group` (:func:`axes_order`): the batch's order is data,
+    fsdp, sequence whatever the mesh lists first."""
+    return axes_order(mesh, _batch_axes(mesh, axis, sequence))
 
 
 def fsdp_mesh(mesh: Any) -> Any:
